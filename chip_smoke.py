@@ -12,20 +12,28 @@ Phases (any failure exits non-zero and prints no result line):
      started together), with the build seconds and ptxas's register /
      spill report.
   3. kernels vs plain versions on the card, at the flagship shapes:
-     fused_grad_core (sg and cbow, f32 tables, bf16 and f32 compute) within
-     the stated tolerance; the slab scatter (f32 and bf16 tables, whole
-     rows and the plane-1 negative tail) bitwise.
-  4. the slice: one fused step on a small input, kernels on the card vs the
-     plain versions on the CPU with the same draws; then the flagship
-     Trainer (sg, ns, K=5, d=300, window 5, B=256 x L=192, KP=64, unified
-     slab, band_backend='pallas_fused') for 30 steps on a synthetic 71k-word
-     Zipf corpus: finite, falling loss; launch counts of exactly one
-     fused_grad_core and two fused_slab_scatter per step; export and a
-     save/load round trip of the vectors.
+     fused_grad_core and band_core (sg and cbow, f32 tables, bf16 and f32
+     compute; band_core in row and batch negative scope) within the stated
+     tolerance, n_ctx / ctx_w exact; the slab scatter (f32 and bf16
+     tables, whole rows and the plane-1 negative tail), the overlap-add
+     and the ordered row sum bitwise, the row sum also across two runs.
+  4. the slice: one step on a small input per route (pallas_fused,
+     xla, pallas_oa and pallas on split tables, xla on the unified slab),
+     kernels on the card vs the plain versions on the CPU with the same
+     draws; then the flagship Trainer (sg, ns, K=5, d=300, window 5,
+     B=256 x L=192, KP=64, f32 tables, bf16 compute) for 30 steps on one
+     synthetic 71k-word Zipf corpus on each of band_backend 'xla' (the JAX
+     default, split tables), 'pallas_oa' and 'pallas' (split) and
+     'pallas_fused' (unified slab): finite, falling loss; exact launch
+     counts per step (expected_launches), each route's run with every
+     count set to 0 just before it; export and a save/load round trip of
+     the default route's vectors; two runs of one flagship step on the
+     default route, bitwise equal.
   5. times: CUDA-event medians per kernel and for its plain version, the
      library call that computes the same function where there is one
-     (index_add_ for the scatter), each kernel's bound, and the trainer's
-     words/sec.
+     (index_add_ for the scatter and the row sum, F.fold for the
+     overlap-add), each kernel's bound, and the trainer's words/sec per
+     route.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -53,6 +61,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # flagship geometry
 V, D, B, L, W, K, KP = 71000, 300, 256, 192, 5, 5, 64
 STEPS = 30
+# the flagship trainer runs: (band_backend, table_layout); the first is the
+# JAX package's default and the one whose vectors are exported
+ROUTES = [("xla", "split"), ("pallas_oa", "split"), ("pallas", "split"),
+          ("pallas_fused", "unified")]
 
 
 def log(msg: str) -> None:
@@ -97,13 +109,41 @@ def bound_ms(nbytes: float, flops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def expected_launches(backend: str, layout: str, steps: int) -> dict:
+    """Kernel launches of `steps` flagship trainer steps on one route. The
+    flagship config keeps the defaults clip_row_update=1.0 (the row trust
+    region: one ordered row sum for the in table, two for the out table's
+    positive and negative contributions) and scatter_mean=False (which
+    would add three more); the tables take one ordered scatter each on
+    split tables plus the negative tail, or one doubled-width scatter plus
+    the tail on the unified slab."""
+    from word2vec_tpu_torch.ops.launch import LAUNCHES
+
+    per = {k: 0 for k in LAUNCHES}
+    per["ordered_row_sum"] = 3
+    per["fused_slab_scatter"] = 2 if layout == "unified" else 3
+    kernel = {"pallas_fused": "fused_grad_core", "pallas_oa": "overlap_add_slabs",
+              "pallas": "band_core"}.get(backend)
+    if kernel:
+        per[kernel] = 1
+    return {k: v * steps for k, v in per.items()}
+
+
 # ------------------------------------------------------------ inputs
+def zipf_p():
+    ranks = np.arange(1, V + 1, dtype=np.float64)
+    return (1.0 / ranks) / np.sum(1.0 / ranks)
+
+
 def grad_inputs(dev, table_dtype, seed=0):
     from word2vec_tpu_torch.ops import banded
 
     rng = np.random.default_rng(seed)
-    ranks = np.arange(1, V + 1, dtype=np.float64)
-    p = (1.0 / ranks) / np.sum(1.0 / ranks)
+    p = zipf_p()
     toks = rng.choice(V, size=(B, L), p=p).astype(np.int32)
     lens = rng.integers(L // 2, L + 1, size=B)
     for r in range(B):  # ragged rows: -1 padding past each row's end
@@ -127,6 +167,7 @@ def grad_inputs(dev, table_dtype, seed=0):
     pad = C * S - L
     pad2 = torch.nn.functional.pad
     return dict(
+        tokens=tokens,
         emb=torch.from_numpy(emb).to(dev).to(table_dtype).contiguous(),
         tok_c=pad2(tok, (0, pad)).reshape(B, C, S).contiguous(),
         tok_k=banded.slab_token_ids(tokens, W, S).contiguous(),
@@ -139,11 +180,54 @@ def grad_inputs(dev, table_dtype, seed=0):
     )
 
 
+def core_inputs(inp, model, scope):
+    """band_core's inputs as the pallas route builds them
+    (ops/band_step.py _apply_pallas) from grad_inputs' slab: center rows
+    and context slabs gathered from the two planes, raw -1-padded ids."""
+    from word2vec_tpu_torch.ops import banded
+
+    emb, tokens = inp["emb"], inp["tokens"]
+    S = banded.resolve_chunk(L, W, 0)
+    C, P = banded._geom(L, W, S)
+    tok = torch.where(tokens >= 0, tokens, 0).long()
+    ctr, ctx = (1, 0) if model == "cbow" else (0, 1)
+    negs = inp["negs"] if scope == "row" else inp["negs"][:1]
+    return (
+        banded._pad_rows(emb[tok, ctr], C * S).reshape(B, C, S, D).contiguous(),
+        banded._slabs(banded._pad_ctx(emb[tok, ctx], W, P), C, S, 2 * W).contiguous(),
+        emb[negs.long(), 1].contiguous(),
+        torch.nn.functional.pad(tokens, (0, C * S - L), value=-1)
+        .reshape(B, C, S).contiguous(),
+        inp["tok_k"], inp["keep_c"], inp["w_c"], negs.contiguous(),
+        inp["alpha"],
+    )
+
+
+def band_flops(tok_k, keep_c, w_c, centers, is_cbow, dneg_rows):
+    """The contractions this data needs: the negative logits and d_hid at
+    KP columns per center, d_neg over `dneg_rows` positions, and the band
+    logits, the center-side and the context-side band products over the
+    masked pairs only (2 operations a multiply-add)."""
+    from word2vec_tpu_torch.ops import banded
+
+    S = keep_c.shape[2]
+    dist = torch.as_tensor(banded.band_dist(L, W, S), device=tok_k.device)
+    mask = (
+        (keep_c > 0)[..., None] & (tok_k >= 0)[:, :, None, :]
+        & (dist <= w_c[..., None]) & (dist > 0)
+    )
+    pairs = int(mask.sum())
+    return 2 * D * (
+        2 * centers * KP + dneg_rows * KP + 3 * pairs
+        + (centers if is_cbow else 0)
+    )
+
+
 def grad_bound(inp, cdt, is_cbow):
     """(bound ms, bound_by) of one fused_grad_core call on these inputs:
     each distinct table row the data needs read once, the index and weight
     inputs read once, every output written once; the contractions this
-    data needs (masked band pairs only) at the compute type's peak."""
+    data needs at the compute type's peak."""
     emb, tok_c, tok_k, negs = inp["emb"], inp["tok_c"], inp["tok_k"], inp["negs"]
     es = emb.element_size()
     Bc, C, S = tok_c.shape
@@ -155,29 +239,29 @@ def grad_bound(inp, cdt, is_cbow):
         + 4 * (tok_c.numel() * 3 + tok_k.numel() + negs.numel())
         + 4 * (2 * Bc * C * S * D + 2 * Bc * C * S + Bc * KP * D + Bc * KP + 2)
     )
-    from word2vec_tpu_torch.ops import banded
-
-    dist = torch.as_tensor(banded.band_dist(W, S), device=emb.device)
-    valid_k = (tok_k >= 0)[:, :, None, :]
-    mask = (
-        (inp["keep_c"] > 0)[..., None] & valid_k
-        & (dist <= inp["w_c"][..., None]) & (dist > 0)
-    )
-    pairs = int(mask.sum())
-    centers = Bc * C * S
-    flops = 2 * D * (
-        2 * centers * KP      # negative logits and d_hid
-        + Bc * L * KP         # d_neg over the row's L positions
-        + 3 * pairs           # band logits, d_ctr and the context grads
-        + (centers if is_cbow else 0)
-    )
+    flops = band_flops(tok_k, inp["keep_c"], inp["w_c"], Bc * C * S, is_cbow, Bc * L)
     return bound_ms(nbytes, flops, PEAK_FLOPS[cdt])
+
+
+def core_bound(args, cdt, is_cbow):
+    """(bound ms, bound_by) of one band_core call: its gathered inputs
+    (a, bk, en in the table dtype, the ids and weights) read once, every
+    output written once; the contractions as band_flops counts them."""
+    a, bk, en, tok_c, tok_k, keep_c, w_c, negs, _ = args
+    Bc, C, S, d = a.shape
+    SK = bk.shape[2]
+    NB = negs.shape[0]
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (a, bk, en, tok_c, tok_k, keep_c, w_c, negs))
+    out_bytes = 4 * (Bc * C * S * d + Bc * C * SK * d + NB * KP * d
+                     + Bc * C * S + Bc * C * SK + NB * KP + 2)
+    flops = band_flops(tok_k, keep_c, w_c, Bc * C * S, is_cbow, Bc * C * S)
+    return bound_ms(in_bytes + out_bytes, flops, PEAK_FLOPS[cdt])
 
 
 def scatter_inputs(dev, table_dtype, seed=1):
     rng = np.random.default_rng(seed)
-    ranks = np.arange(1, V + 1, dtype=np.float64)
-    p = (1.0 / ranks) / np.sum(1.0 / ranks)
+    p = zipf_p()
     n = B * L
     idx = np.sort(rng.choice(V, size=n, p=p)).astype(np.int32)
     idx[:7] = -1  # padding ids are skipped
@@ -204,24 +288,62 @@ def scatter_bound(idx, vals):
     return bound_ms(nbytes, live.numel() * width, PEAK_FLOPS[torch.float32])
 
 
+def row_sum_inputs(dev, seed=3):
+    """A flagship batch's sorted token ids (the clip budget's in-table
+    call) with per-update norms spanning eight decades, and an unsorted
+    negative-draw contribution."""
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(V, size=B * L, p=zipf_p())).astype(np.int32)
+    vals = (rng.random(B * L) * 10.0 ** rng.uniform(-4, 4, size=B * L)).astype(np.float32)
+    i2 = rng.choice(V, size=B * KP, p=zipf_p()).astype(np.int32)
+    v2 = rng.random(B * KP).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(idx), t(vals), t(i2), t(v2)
+
+
 # ------------------------------------------------------------ phases
+def rel_err(k, p):
+    k, p = k.double(), p.double()
+    return float((k - p).abs().max()), float(
+        (k - p).abs().max() / p.abs().max().clamp_min(1e-30)
+    )
+
+
+# tolerance on max|kernel - plain| / max|plain| per gradient output: f32
+# compute differs only in summation order and FMA contraction; with bf16
+# compute an intermediate (a gradient weight) that lands on a bf16
+# rounding boundary in one version can round one bf16 ulp (2^-8) away in
+# the other, so the bound is bf16-ulp class; losses 1e-4; masks exact
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def check_outputs(what, names, got, ref, cdt):
+    """Log and hold each output; return the worst abs error over the
+    gradient outputs."""
+    worst = 0.0
+    for name, g, r in zip(names, got, ref):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            fail(f"{what}: {name} shape {tuple(g.shape)} or non-finite values")
+        ab, rel = rel_err(g, r)
+        exact = name in ("n_ctx", "ctx_w")
+        limit = 0.0 if exact else (1e-4 if name == "losses" else TOL[cdt])
+        log(f"  {what} {name}: max_abs_err={ab:.3e} max_rel_err={rel:.3e} "
+            f"(limit {limit:g})")
+        if rel > limit:
+            fail(f"{what} {name}: rel err {rel:.3e} > {limit:g}")
+        if not exact and name != "losses":
+            worst = max(worst, ab)
+    return worst
+
+
 def phase_kernels(dev):
+    from word2vec_tpu_torch.ops import band_core as bc
     from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import overlap as ov
+    from word2vec_tpu_torch.ops import train_step as ts
 
-    def rel_err(k, p):
-        k, p = k.double(), p.double()
-        return float((k - p).abs().max()), float(
-            (k - p).abs().max() / p.abs().max().clamp_min(1e-30)
-        )
-
-    names = ("d_ctr", "d_ctx", "n_ctx", "ctx_w", "d_neg", "w_neg_sum", "losses")
-    # tolerance on max|kernel - plain| / max|plain| per gradient output:
-    # f32 compute differs only in summation order and FMA contraction;
-    # with bf16 compute an intermediate (a gradient weight) that lands on
-    # a bf16 rounding boundary in one version can round one bf16 ulp
-    # (2^-8) away in the other, so the bound is bf16-ulp class
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     errs = {}
+    grad_names = ("d_ctr", "d_ctx", "n_ctx", "ctx_w", "d_neg", "w_neg_sum", "losses")
     for model in ("sg", "cbow"):
         for cdt in (torch.bfloat16, torch.float32):
             inp = grad_inputs(dev, torch.float32)
@@ -232,43 +354,70 @@ def phase_kernels(dev):
             got = fs.fused_grad_core(*args, **kw)
             ref = fs.fused_grad_core_plain(*args, **kw)
             torch.cuda.synchronize()
-            worst = 0.0
-            for name, g, r in zip(names, got, ref):
-                if not torch.isfinite(g).all():
-                    fail(f"fused_grad_core {model} {cdt}: non-finite {name}")
-                ab, rel = rel_err(g, r)
-                exact = name in ("n_ctx", "ctx_w")
-                limit = 0.0 if exact else (1e-4 if name == "losses" else tol[cdt])
-                log(f"  fused_grad_core {model} cdt={str(cdt)[6:]} {name}: "
-                    f"max_abs_err={ab:.3e} max_rel_err={rel:.3e} "
-                    f"(limit {limit:g})")
-                if rel > limit:
-                    fail(f"fused_grad_core {model} {cdt} {name}: rel err "
-                         f"{rel:.3e} > {limit:g}")
-                if name not in ("n_ctx", "ctx_w", "losses"):
-                    worst = max(worst, ab)
-            errs[(model, cdt)] = worst
+            errs[("fused_grad_core", model, cdt)] = check_outputs(
+                f"fused_grad_core {model} cdt={str(cdt)[6:]}", grad_names,
+                got, ref, cdt)
+    core_names = ("d_h", "d_ctx", "d_neg", "n_ctx", "ctx_w", "w_neg_sum", "losses")
+    inp = grad_inputs(dev, torch.float32)
+    for model in ("sg", "cbow"):
+        for scope in ("row", "batch"):
+            args = core_inputs(inp, model, scope)
+            for cdt in (torch.bfloat16, torch.float32):
+                kw = dict(W=W, K=K, cdt=cdt, is_cbow=model == "cbow", cbow_mean=True)
+                got = bc.band_core(*args, **kw)
+                ref = bc.band_core_plain(*args, **kw)
+                torch.cuda.synchronize()
+                errs[("band_core", model, scope, cdt)] = check_outputs(
+                    f"band_core {model} {scope} cdt={str(cdt)[6:]}", core_names,
+                    got, ref, cdt)
+                if bool((got[1][args[4] < 0] != 0).any()):
+                    fail("band_core: context gradient at an invalid slab slot")
     for dt in (torch.float32, torch.bfloat16):
-        inp = scatter_inputs(dev, dt)
-        got = fs.fused_slab_scatter(inp["emb"].clone(), inp["idx"], inp["vals"])
-        ref = fs.fused_slab_scatter_plain(
-            inp["emb"].clone(), inp["idx"], inp["vals"]
-        )
-        got = fs.fused_slab_scatter(got, inp["negs"], inp["vneg"], plane=1)
-        ref = fs.fused_slab_scatter_plain(ref, inp["negs"], inp["vneg"], plane=1)
+        sc = scatter_inputs(dev, dt)
+        got = fs.fused_slab_scatter(sc["emb"].clone(), sc["idx"], sc["vals"])
+        ref = fs.fused_slab_scatter_plain(sc["emb"].clone(), sc["idx"], sc["vals"])
+        got = fs.fused_slab_scatter(got, sc["negs"], sc["vneg"], plane=1)
+        ref = fs.fused_slab_scatter_plain(ref, sc["negs"], sc["vneg"], plane=1)
         torch.cuda.synchronize()
-        same = torch.equal(got.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
-                           ref.view(torch.int16 if dt == torch.bfloat16 else torch.int32))
-        moved = not torch.equal(got, inp["emb"])
+        same = torch.equal(bits(got), bits(ref))
+        moved = not torch.equal(got, sc["emb"])
         log(f"  fused_slab_scatter {str(dt)[6:]}: bitwise_equal={same} "
             f"table_changed={moved}")
         if not (same and moved):
             fail(f"fused_slab_scatter {dt}: kernel != plain (bitwise)")
+    # the overlap-add on a flagship slab-space gradient [256, 2, 128, 300]
+    S = 118
+    y = torch.randn((B, 2, S + 2 * W, D), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    got = ov.overlap_add_slabs(y, W, S)
+    ref = ov.overlap_add_slabs_plain(y, W, S)
+    torch.cuda.synchronize()
+    same = got.shape == ref.shape and torch.equal(bits(got), bits(ref))
+    log(f"  overlap_add_slabs [{B}, 2, {S + 2 * W}, {D}] f32: bitwise_equal={same}")
+    if not same:
+        fail("overlap_add_slabs: kernel != plain (bitwise)")
+    # the ordered row sum: a sorted and an unsorted contribution, bitwise
+    # against the plain version and across two runs
+    idx, vals, i2, v2 = row_sum_inputs(dev)
+    runs = []
+    for _ in range(2):
+        out = ts.ordered_row_sum(V, idx, vals, presorted=True)
+        runs.append(ts.ordered_row_sum(V, i2, v2, out))
+    o2 = torch.argsort(i2, stable=True)
+    ref = ts.ordered_row_sum_plain(V, i2[o2], v2[o2],
+                                   ts.ordered_row_sum_plain(V, idx, vals))
+    torch.cuda.synchronize()
+    same = torch.equal(bits(runs[0]), bits(ref))
+    again = torch.equal(bits(runs[0]), bits(runs[1]))
+    log(f"  ordered_row_sum [N={idx.numel()}+{i2.numel()}]: bitwise_equal={same} "
+        f"repeatable={again}")
+    if not (same and again):
+        fail("ordered_row_sum: kernel != plain or not repeatable (bitwise)")
     return errs
 
 
 def phase_small_step(dev):
-    """One fused step, kernels on the card vs plain versions on the CPU,
+    """One step per route, kernels on the card vs plain versions on the CPU,
     same params and draws (small shape, f32 compute)."""
     from word2vec_tpu_torch.config import Word2VecConfig
     from word2vec_tpu_torch.data.negative import build_alias_table
@@ -279,12 +428,23 @@ def phase_small_step(dev):
 
     v, d = 500, 64
     rng = np.random.default_rng(5)
-    for model in ("sg", "cbow"):
+    cases = [
+        ("pallas_fused", "unified", "sg", "row"),
+        ("pallas_fused", "unified", "cbow", "row"),
+        ("xla", "split", "sg", "row"),
+        ("xla", "split", "cbow", "batch"),
+        ("pallas_oa", "split", "sg", "batch"),
+        ("pallas_oa", "split", "cbow", "row"),
+        ("pallas", "split", "sg", "row"),
+        ("pallas", "split", "cbow", "batch"),
+        ("xla", "unified", "sg", "row"),
+    ]
+    for backend, layout, model, scope in cases:
         cfg = Word2VecConfig(
             model=model, negative=3, word_dim=d, window=3, min_count=1,
             compute_dtype="float32", shared_negatives=8, max_sentence_len=40,
-            band_chunk=10, table_layout="unified", band_backend="pallas_fused",
-            scatter_mean=True,
+            band_chunk=10, table_layout=layout, band_backend=backend,
+            negative_scope=scope, scatter_mean=True,
         )
         counts = np.arange(2 * v, v, -1).astype(np.float64)
         at = build_alias_table(counts ** 0.75 / np.sum(counts ** 0.75))
@@ -301,47 +461,43 @@ def phase_small_step(dev):
         toks[3, 25:] = -1
         emb = np.stack([rng.uniform(-0.5, 0.5, (v, d)) / d,
                         rng.normal(0, 0.05, (v, d))], axis=1).astype(np.float32)
+
+        def params(dv):
+            t = torch.from_numpy(emb.copy()).to(dv)
+            if layout == "unified":
+                return {FUSED_KEY: t}
+            return {"emb_in": t[:, 0].contiguous(),
+                    "emb_out_ns": t[:, 1].contiguous()}
+
         cpu = torch.device("cpu")
         step_cpu = BandStep(cfg, tables(cpu))
         step_gpu = BandStep(cfg, tables(dev))
         tok_cpu = torch.from_numpy(toks)
         dr = step_cpu.draw(generator(cpu, 3), tok_cpu)
-        p_cpu = {FUSED_KEY: torch.from_numpy(emb.copy())}
-        p_gpu = {FUSED_KEY: torch.from_numpy(emb.copy()).to(dev)}
+        p_cpu, p_gpu, start = params(cpu), params(dev), params(cpu)
         m_cpu = step_cpu.apply(p_cpu, tok_cpu, dr, 0.03)
         m_gpu = step_gpu.apply(
             p_gpu, tok_cpu.to(dev),
             Draws(dr.u_sub.to(dev), dr.w_eff.to(dev), dr.negs.to(dev)), 0.03,
         )
         torch.cuda.synchronize()
-        err = float((p_gpu[FUSED_KEY].cpu() - p_cpu[FUSED_KEY]).abs().max())
-        moved = float((p_cpu[FUSED_KEY] - torch.from_numpy(emb)).abs().max())
+        err = max(float((p_gpu[k].cpu() - p_cpu[k]).abs().max()) for k in p_cpu)
+        moved = max(float((p_cpu[k] - start[k]).abs().max()) for k in p_cpu)
         lerr = abs(float(m_gpu["loss_sum"]) - float(m_cpu["loss_sum"]))
-        log(f"  small step {model}: params max_abs_err={err:.3e} "
-            f"(update max {moved:.3e}), loss_sum err={lerr:.3e}")
+        log(f"  small step {backend}/{layout} {model} {scope}: params "
+            f"max_abs_err={err:.3e} (update max {moved:.3e}), loss_sum "
+            f"err={lerr:.3e}")
         # f32 compute: the two versions differ only in summation order
         if not (err <= 1e-6 and moved > 1e-4):
-            fail(f"small step {model}: GPU step disagrees with the CPU step")
+            fail(f"small step {backend} {model}: GPU step disagrees with the CPU step")
         if lerr > 1e-4 * abs(float(m_cpu["loss_sum"])):
-            fail(f"small step {model}: loss_sum disagrees")
+            fail(f"small step {backend} {model}: loss_sum disagrees")
 
 
-def phase_trainer(dev, out_dir):
-    from word2vec_tpu_torch import (
-        PackedCorpus, Trainer, Word2VecConfig, export_matrix,
-    )
-    from word2vec_tpu_torch.io.embeddings import (
-        load_embeddings_binary, save_embeddings_binary,
-    )
-    from word2vec_tpu_torch.ops import fused_step as fs
+def flagship_corpus():
+    from word2vec_tpu_torch import PackedCorpus
     from word2vec_tpu_torch.utils.synthetic import zipf_corpus_ids, zipf_vocab
 
-    cfg = Word2VecConfig(
-        model="sg", train_method="ns", negative=K, word_dim=D, window=W,
-        batch_rows=B, max_sentence_len=L, shared_negatives=KP,
-        negative_scope="row", table_layout="unified",
-        band_backend="pallas_fused", min_count=5,
-    )
     t0 = time.perf_counter()
     vocab = zipf_vocab(V)
     n_tok = (STEPS + 1) * B * L
@@ -350,40 +506,111 @@ def phase_trainer(dev, out_dir):
     )
     log(f"  corpus: V={len(vocab)} tokens={corpus.num_tokens} rows="
         f"{corpus.num_rows} ({time.perf_counter() - t0:.1f} s to make)")
+    return vocab, corpus
+
+
+def phase_trainer(dev, vocab, corpus, backend, layout, out_dir=None):
+    from word2vec_tpu_torch import Trainer, Word2VecConfig, export_matrix
+    from word2vec_tpu_torch.io.embeddings import (
+        load_embeddings_binary, save_embeddings_binary,
+    )
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+
+    cfg = Word2VecConfig(
+        model="sg", train_method="ns", negative=K, word_dim=D, window=W,
+        batch_rows=B, max_sentence_len=L, shared_negatives=KP,
+        negative_scope="row", table_layout=layout, band_backend=backend,
+        min_count=5,
+    )
     tr = Trainer(cfg, vocab, corpus)  # device defaults to cuda
     tr.train(log_every=0, max_steps=3)  # warm-up (allocator, libraries)
-    fs.reset_launch_counts()
+    reset_launch_counts()
     state, rep = tr.train(log_every=5, max_steps=STEPS)
-    counts = dict(fs.LAUNCHES)
+    counts = dict(LAUNCHES)
     hist = rep.loss_history
-    log(f"  trainer: steps={rep.steps} words={rep.total_words} "
+    log(f"  trainer {backend}/{layout}: steps={rep.steps} words={rep.total_words} "
         f"wall={rep.wall_time:.3f} s words/sec={rep.words_per_sec:.1f} "
         f"loss_history={hist}")
-    log(f"  launches: {counts}")
+    log(f"  launches {backend}/{layout}: {counts}")
     if rep.steps != STEPS:
-        fail(f"trainer ran {rep.steps} steps, expected {STEPS}")
+        fail(f"trainer {backend} ran {rep.steps} steps, expected {STEPS}")
     if not (hist and all(np.isfinite(hist))):
-        fail(f"non-finite loss history {hist}")
+        fail(f"trainer {backend}: non-finite loss history {hist}")
     if not hist[-1] < hist[0]:
-        fail(f"loss did not fall: {hist}")
-    if counts != {"fused_grad_core": STEPS, "fused_slab_scatter": 2 * STEPS}:
-        fail(f"launch counts {counts} != 1 grad core + 2 scatters per step")
-    mat = export_matrix(state.params, cfg).float().cpu().numpy()
-    if mat.shape != (len(vocab), D) or not np.isfinite(mat).all():
-        fail(f"export: shape {mat.shape} or non-finite values")
-    path = os.path.join(out_dir, "vectors.bin")
-    save_embeddings_binary(path, vocab.words, mat)
-    words, back = load_embeddings_binary(path)
-    if words != vocab.words or not np.array_equal(back, mat):
-        fail("saved vectors do not load back")
-    log(f"  export: {mat.shape} saved and reloaded")
+        fail(f"trainer {backend}: loss did not fall: {hist}")
+    want = expected_launches(backend, layout, STEPS)
+    if counts != want:
+        fail(f"trainer {backend}/{layout}: launch counts {counts} != {want}")
+    if out_dir is not None:
+        mat = export_matrix(state.params, cfg).float().cpu().numpy()
+        if mat.shape != (len(vocab), D) or not np.isfinite(mat).all():
+            fail(f"export: shape {mat.shape} or non-finite values")
+        path = os.path.join(out_dir, "vectors.bin")
+        save_embeddings_binary(path, vocab.words, mat)
+        words, back = load_embeddings_binary(path)
+        if words != vocab.words or not np.array_equal(back, mat):
+            fail("saved vectors do not load back")
+        log(f"  export: {mat.shape} saved and reloaded")
     return counts, rep
 
 
+def phase_repeat(dev, vocab, corpus):
+    """Two runs of one flagship step on the default route (xla, split
+    tables) from the same params, tokens and draws: bitwise-equal tables
+    and metrics (every per-row sum and table update adds in a fixed
+    order)."""
+    from word2vec_tpu_torch import Word2VecConfig
+    from word2vec_tpu_torch.data.batcher import BatchIterator
+    from word2vec_tpu_torch.ops.band_step import BandStep
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+
+    cfg = Word2VecConfig(
+        model="sg", train_method="ns", negative=K, word_dim=D, window=W,
+        batch_rows=B, max_sentence_len=L, shared_negatives=KP, min_count=5,
+    )
+    step = BandStep(cfg, DeviceTables.build(vocab, cfg, dev))
+    batch, _ = next(iter(BatchIterator(corpus, B, L, seed=0).epoch(0)))
+    tokens = torch.from_numpy(batch).to(dev)
+    draws = step.draw(torch.Generator(device=dev).manual_seed(9), tokens)
+    emb = grad_inputs(dev, torch.float32)["emb"]
+    outs = []
+    for _ in range(2):
+        params = {"emb_in": emb[:, 0].contiguous(),
+                  "emb_out_ns": emb[:, 1].contiguous()}
+        metrics = step.apply(params, tokens, draws, 0.025)
+        torch.cuda.synchronize()
+        outs.append((params, metrics))
+    (p0, m0), (p1, m1) = outs
+    same = all(torch.equal(bits(p0[k]), bits(p1[k])) for k in p0) and all(
+        torch.equal(bits(m0[k]), bits(m1[k])) for k in m0)
+    moved = not torch.equal(p0["emb_out_ns"], emb[:, 1])
+    log(f"  repeat flagship xla/split step: bitwise_equal={same} "
+        f"table_changed={moved} clip_engaged={float(m0['clip_engaged']):.0f}")
+    if not (same and moved):
+        fail("two runs of one flagship step differ (bitwise)")
+
+
 def phase_times(dev, errs, counts):
+    from word2vec_tpu_torch.ops import band_core as bc
     from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import overlap as ov
+    from word2vec_tpu_torch.ops import train_step as ts
 
     kernels = []
+
+    def entry(name, source, replaces, route, err, ms, plain, bms, by, lib):
+        n = counts[route][name]
+        log(f"  {name}: {ms:.4f} ms, plain {plain:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms "
+            f"({by}); {n} launches in the {route[0]}/{route[1]} trainer run")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"word2vec_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        })
+
     inp = grad_inputs(dev, torch.float32)
     kw = dict(W=W, K=K, L=L, cdt=torch.bfloat16, is_cbow=False, cbow_mean=True)
     args = (inp["emb"], inp["tok_c"], inp["tok_k"], inp["keep_c"],
@@ -391,17 +618,11 @@ def phase_times(dev, errs, counts):
     ms = cuda_ms(lambda: fs.fused_grad_core(*args, **kw), reps=20)
     plain = cuda_ms(lambda: fs.fused_grad_core_plain(*args, **kw), reps=5)
     bms, by = grad_bound(inp, torch.bfloat16, False)
-    log(f"  fused_grad_core sg f32-table bf16-compute: {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
-    kernels.append({
-        "name": "fused_grad_core", "route": "cuda",
-        "source": "word2vec_tpu_torch/csrc/fused_step.cu",
-        "replaces": "word2vec_tpu/ops/pallas_step.py:401",
-        "launches": counts["fused_grad_core"],
-        "max_abs_err": errs[("sg", torch.bfloat16)],
-        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
-    })
+    log("  (fused_grad_core sg, f32 tables, bf16 compute)")
+    entry("fused_grad_core", "fused_step.cu", "word2vec_tpu/ops/pallas_step.py:401",
+          ("pallas_fused", "unified"),
+          errs[("fused_grad_core", "sg", torch.bfloat16)], ms, plain, bms, by, None)
+
     sc = scatter_inputs(dev, torch.float32)
     emb, idx, vals = sc["emb"], sc["idx"], sc["vals"]
     ms = cuda_ms(lambda: fs.fused_slab_scatter(emb, idx, vals), reps=20)
@@ -412,18 +633,57 @@ def phase_times(dev, errs, counts):
     rows, li, lv = emb.view(V, -1), idx[live].long(), vals[live].view(-1, 2 * D)
     lib = cuda_ms(lambda: rows.index_add_(0, li, lv), reps=20)
     bms, by = scatter_bound(idx, vals)
-    log(f"  fused_slab_scatter f32 [N={idx.numel()}, 2x{D}]: {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, index_add_ {lib:.4f} ms, bound {bms:.4f} ms "
-        f"({by})")
-    kernels.append({
-        "name": "fused_slab_scatter", "route": "cuda",
-        "source": "word2vec_tpu_torch/csrc/fused_step.cu",
-        "replaces": "word2vec_tpu/ops/pallas_step.py:490",
-        "launches": counts["fused_slab_scatter"],
-        "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib,
-    })
+    log(f"  (fused_slab_scatter f32 [N={idx.numel()}, 2x{D}], the unified "
+        "doubled-width call)")
+    entry("fused_slab_scatter", "fused_step.cu", "word2vec_tpu/ops/pallas_step.py:490",
+          ("xla", "split"), 0.0, ms, plain, bms, by, lib)
+
+    # the overlap-add on a flagship slab-space gradient; F.fold computes the
+    # same sums (col2im) from the pre-permuted input
+    S = 118
+    C, SK = 2, S + 2 * W
+    y = torch.randn((B, C, SK, D), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    yp = y.permute(0, 3, 2, 1).reshape(B, D * SK, C).contiguous()
+
+    def lib_fold():
+        return torch.nn.functional.fold(
+            yp, output_size=(C * S + 2 * W, 1), kernel_size=(SK, 1), stride=(S, 1))
+
+    ms = cuda_ms(lambda: ov.overlap_add_slabs(y, W, S), reps=20)
+    plain = cuda_ms(lambda: ov.overlap_add_slabs_plain(y, W, S), reps=20)
+    lib = cuda_ms(lib_fold, reps=20)
+    folded = lib_fold()[:, :, W:W + C * S, 0].permute(0, 2, 1)
+    fold_err = float((folded - ov.overlap_add_slabs(y, W, S)).abs().max())
+    log(f"  (overlap_add_slabs f32 [{B}, {C}, {SK}, {D}]; F.fold vs the kernel: "
+        f"max_abs_err={fold_err:.3e})")
+    out_elems = B * C * S * D
+    bms, by = bound_ms(4 * (y.numel() + out_elems), out_elems,
+                       PEAK_FLOPS[torch.float32])
+    entry("overlap_add_slabs", "overlap.cu", "word2vec_tpu/ops/pallas_overlap.py:108",
+          ("pallas_oa", "split"), 0.0, ms, plain, bms, by, lib)
+
+    cargs = core_inputs(inp, "sg", "row")
+    ckw = dict(W=W, K=K, cdt=torch.bfloat16, is_cbow=False, cbow_mean=True)
+    ms = cuda_ms(lambda: bc.band_core(*cargs, **ckw), reps=20)
+    plain = cuda_ms(lambda: bc.band_core_plain(*cargs, **ckw), reps=3, warmup=1)
+    bms, by = core_bound(cargs, torch.bfloat16, False)
+    log("  (band_core sg, row scope, f32 tables, bf16 compute)")
+    entry("band_core", "band_core.cu", "word2vec_tpu/ops/pallas_band.py:292",
+          ("pallas", "split"),
+          errs[("band_core", "sg", "row", torch.bfloat16)], ms, plain, bms, by, None)
+
+    idx, vals, _, _ = row_sum_inputs(dev)
+    ms = cuda_ms(lambda: ts.ordered_row_sum(V, idx, vals, presorted=True), reps=20)
+    plain = cuda_ms(lambda: ts.ordered_row_sum_plain(V, idx, vals), reps=3, warmup=1)
+    li = idx.long()
+    lib = cuda_ms(lambda: torch.zeros(V, device=dev).index_add_(0, li, vals), reps=20)
+    rows = torch.unique(idx).numel()
+    bms, by = bound_ms(8 * idx.numel() + 8 * rows, idx.numel(),
+                       PEAK_FLOPS[torch.float32])
+    log(f"  (ordered_row_sum on a flagship batch's {idx.numel()} sorted ids)")
+    entry("ordered_row_sum", "row_sum.cu", "word2vec_tpu/ops/train_step.py:88",
+          ("xla", "split"), 0.0, ms, plain, bms, by, lib)
     return kernels
 
 
@@ -460,15 +720,25 @@ def main() -> int:
 
     log("[4 slice]")
     phase_small_step(dev)
+    vocab, corpus = flagship_corpus()
+    counts, reps = {}, {}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
         prefix="smoke_", dir=os.path.join(HERE, "build")
     ) as out_dir:
-        counts, rep = phase_trainer(dev, out_dir)
+        for route in ROUTES:
+            counts[route], reps[route] = phase_trainer(
+                dev, vocab, corpus, *route,
+                out_dir=out_dir if route == ROUTES[0] else None,
+            )
+
+    phase_repeat(dev, vocab, corpus)
 
     log(f"[5 times] card: {card}")
     kernels = phase_times(dev, errs, counts)
-    log(f"  trainer words/sec: {rep.words_per_sec:.1f} ({card})")
+    for (backend, layout), rep in reps.items():
+        log(f"  trainer words/sec {backend}/{layout}: {rep.words_per_sec:.1f} "
+            f"({card})")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

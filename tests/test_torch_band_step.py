@@ -39,7 +39,8 @@ from word2vec_tpu_torch import (  # noqa: E402
 from word2vec_tpu_torch.models.params import (  # noqa: E402
     FUSED_KEY, params_from_numpy,
 )
-from word2vec_tpu_torch.ops import band_step, fused_step as fs  # noqa: E402
+from word2vec_tpu_torch.ops import band_step  # noqa: E402
+from word2vec_tpu_torch.ops.launch import LAUNCHES  # noqa: E402
 from word2vec_tpu_torch.ops.band_step import BandStep, Draws  # noqa: E402
 from word2vec_tpu_torch.ops.tables import DeviceTables as TTables  # noqa: E402
 
@@ -206,8 +207,10 @@ def test_three_steps_match_jax_fused_step(model, case, monkeypatch):
 @pytest.mark.parametrize(
     "over,lever",
     [
-        (dict(band_backend="xla", table_layout="split"), "band_backend='xla'"),
-        (dict(band_backend="pallas_oa"), "band_backend='pallas_oa'"),
+        (dict(band_backend="xla", fused_tables=True, table_layout="split"),
+         "fused_tables"),
+        (dict(train_method="hs", negative=0, band_backend="xla",
+              table_layout="split"), "hierarchical softmax"),
         (dict(kernel="pair", band_backend="xla", table_layout="split"),
          "kernel='pair'"),
     ],
@@ -261,4 +264,4 @@ def test_planted_corpus_trainer_recovers_structure():
 
     assert cos("a", "b") > 0.9
     assert cos("a", "c") < 0.3
-    assert fs.LAUNCHES == {"fused_grad_core": 0, "fused_slab_scatter": 0}
+    assert all(v == 0 for v in LAUNCHES.values())  # the CPU never launches

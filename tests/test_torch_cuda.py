@@ -1,18 +1,20 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
-The kernels of word2vec_tpu_torch/csrc/fused_step.cu have no interpret
-mode, so these tests run only where torch.cuda.is_available() (and nvcc)
-are; elsewhere they skip with that reason. On the H100 run them with
+The kernels of word2vec_tpu_torch/csrc/*.cu have no interpret mode, so
+these tests run only where torch.cuda.is_available() (and nvcc) are;
+elsewhere they skip with that reason. On the H100 run them with
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 chip_smoke.py holds the same kernels against the same plain versions at
 the flagship shapes.
 
-Tolerances: the slab scatter is BITWISE (both apply a row's duplicates in
-sorted order with table-dtype rounding after each add); fused_grad_core
-with f32 compute within max|err| <= 1e-5 * max|plain| per output (sums in
-another order, FMA contraction), n_ctx / ctx_w exact.
+Tolerances: the slab scatter, the overlap-add and the ordered row sum are
+BITWISE (each adds the same terms in the same order as its plain
+version), and the row sum and a whole step repeat bitwise from run to
+run; fused_grad_core and band_core with f32 compute within
+max|err| <= 1e-5 * max|plain| per output (sums in another order, FMA
+contraction), n_ctx / ctx_w exact.
 """
 
 import numpy as np
@@ -21,6 +23,10 @@ import torch
 
 from word2vec_tpu_torch.ops import banded
 from word2vec_tpu_torch.ops import fused_step as fs
+from word2vec_tpu_torch.ops import launch
+from word2vec_tpu_torch.ops import band_core as bc
+from word2vec_tpu_torch.ops import overlap as ov
+from word2vec_tpu_torch.ops import train_step as ts
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -64,11 +70,11 @@ def test_grad_core_kernel_matches_plain(cuda, model, table_dtype):
     inp = _grad_inputs(cuda, table_dtype)
     args = [inp[k] for k in ("emb", "tok_c", "tok_k", "keep_c", "w_c", "negs")]
     kw = dict(W=W, K=K, L=L, cdt=torch.float32, is_cbow=model == "cbow")
-    before = fs.LAUNCHES["fused_grad_core"]
+    before = launch.LAUNCHES["fused_grad_core"]
     got = fs.fused_grad_core(*args, 0.03, **kw)
     ref = fs.fused_grad_core_plain(*args, 0.03, **kw)
     torch.cuda.synchronize()
-    assert fs.LAUNCHES["fused_grad_core"] == before + 1
+    assert launch.LAUNCHES["fused_grad_core"] == before + 1
     for name, g, r in zip(("d_ctr", "d_ctx", "n_ctx", "ctx_w", "d_neg",
                            "w_neg_sum", "losses"), got, ref):
         err = float((g - r).abs().max())
@@ -95,19 +101,154 @@ def test_slab_scatter_kernel_bitwise_matches_plain(cuda, dtype):
     assert torch.equal(got.cpu(), ref)
 
 
-def test_trainer_launches_each_kernel_per_step(cuda):
-    from word2vec_tpu_torch import PackedCorpus, Trainer, Vocab, Word2VecConfig
+def test_overlap_kernel_bitwise_matches_plain(cuda):
+    rng = np.random.default_rng(2)
+    for (b, c, w, s, d) in [(5, 3, 3, 10, 64), (2, 2, 5, 118, 30)]:
+        y = torch.from_numpy(
+            rng.normal(size=(b, c, s + 2 * w, d)).astype(np.float32)).to(cuda)
+        before = launch.LAUNCHES["overlap_add_slabs"]
+        got = ov.overlap_add_slabs(y, w, s)
+        ref = ov.overlap_add_slabs_plain(y, w, s)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["overlap_add_slabs"] == before + 1
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _core_inputs(dev, scope, table_dtype):
+    rng = np.random.default_rng(12)
+    C, P = banded._geom(L, W, S)
+    tokens = torch.from_numpy(rng.integers(0, V, size=(B, L)).astype(np.int32))
+    tokens[2, 30:] = -1
+    tok = torch.where(tokens >= 0, tokens, 0).long()
+    pad = C * S - L
+    keep = torch.from_numpy(rng.random((B, L)) < 0.8) & (tokens >= 0)
+    w_eff = torch.from_numpy(rng.integers(1, W + 1, size=(B, L)))
+    tab = torch.from_numpy(rng.normal(0, 0.5, size=(2, V, D)).astype(np.float32))
+    tab = tab.to(table_dtype)
+    nb = B if scope == "row" else 1
+    negs = torch.from_numpy(rng.integers(0, V, size=(nb, KP)).astype(np.int32))
+    P2 = torch.nn.functional.pad
+    cpu = dict(
+        a=banded._pad_rows(tab[0][tok], C * S).reshape(B, C, S, D),
+        bk=banded._slabs(banded._pad_ctx(tab[1][tok], W, P), C, S, 2 * W),
+        en=tab[1][negs.long()],
+        tok_c=P2(tokens, (0, pad), value=-1).reshape(B, C, S),
+        tok_k=banded.slab_token_ids(tokens, W, S),
+        keep_c=P2(keep.float(), (0, pad)).reshape(B, C, S),
+        w_c=P2(w_eff.float(), (0, pad)).reshape(B, C, S),
+        negs=negs,
+    )
+    return [cpu[k].contiguous().to(dev) for k in
+            ("a", "bk", "en", "tok_c", "tok_k", "keep_c", "w_c", "negs")]
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scope", ["row", "batch"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_band_core_kernel_matches_plain(cuda, model, scope, table_dtype):
+    args = _core_inputs(cuda, scope, table_dtype)
+    kw = dict(W=W, K=K, cdt=torch.float32, is_cbow=model == "cbow")
+    before = launch.LAUNCHES["band_core"]
+    got = bc.band_core(*args, 0.03, **kw)
+    ref = bc.band_core_plain(*args, 0.03, **kw)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["band_core"] == before + 1
+    for name, g, r in zip(("d_h", "d_ctx", "d_neg", "n_ctx", "ctx_w",
+                           "w_neg_sum", "losses"), got, ref):
+        assert g.shape == r.shape, name
+        err = float((g - r).abs().max())
+        if name in ("n_ctx", "ctx_w"):
+            assert err == 0.0, name
+        else:
+            assert err <= 1e-5 * float(r.abs().max()), (name, err)
+
+
+def test_ordered_row_sum_kernel_bitwise_and_repeatable(cuda):
+    rng = np.random.default_rng(4)
+    n, nv = 20000, 300
+    p = 1.0 / np.arange(1, nv + 1)
+    idx = torch.from_numpy(np.sort(rng.choice(nv, size=n, p=p / p.sum()))
+                           .astype(np.int32))
+    vals = torch.from_numpy(
+        (rng.normal(size=n) * 10.0 ** rng.uniform(-4, 4, size=n)).astype(np.float32))
+    i2 = torch.from_numpy(rng.integers(0, nv, size=3000).astype(np.int32))
+    v2 = torch.from_numpy(rng.normal(size=3000).astype(np.float32))
+    ref = ts.ordered_row_sum(nv, i2, v2, ts.ordered_row_sum(nv, idx, vals,
+                                                            presorted=True))
+    runs = []
+    for _ in range(2):
+        before = launch.LAUNCHES["ordered_row_sum"]
+        got = ts.ordered_row_sum(nv, idx.to(cuda), vals.to(cuda), presorted=True)
+        got = ts.ordered_row_sum(nv, i2.to(cuda), v2.to(cuda), got)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["ordered_row_sum"] == before + 2
+        runs.append(got.cpu())
+    for got in runs:
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _small_corpus():
+    from word2vec_tpu_torch import PackedCorpus, Vocab
 
     rng = np.random.default_rng(1)
     sents = [[f"w{j}" for j in rng.integers(0, 50, size=30)] for _ in range(64)]
+    vocab = Vocab.build(sents, min_count=1)
+    return vocab, PackedCorpus.pack(vocab.encode_corpus(sents), 30)
+
+
+# launches per step of each route's kernels, at clip_row_update=1.0 (on)
+# and scatter_mean=False (the defaults): the clip budget adds three ordered
+# row sums (one for the in table, two for the out table's positive and
+# negative contributions)
+ROUTE_LAUNCHES = {
+    ("pallas_fused", "unified"): dict(fused_grad_core=1, fused_slab_scatter=2),
+    ("xla", "split"): dict(fused_slab_scatter=3),
+    ("xla", "unified"): dict(fused_slab_scatter=2),
+    ("pallas_oa", "split"): dict(overlap_add_slabs=1, fused_slab_scatter=3),
+    ("pallas", "split"): dict(band_core=1, fused_slab_scatter=3),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES), ids="-".join)
+def test_trainer_launches_each_kernel_per_step(cuda, route):
+    from word2vec_tpu_torch import Trainer, Word2VecConfig
+
+    backend, layout = route
+    vocab, corpus = _small_corpus()
     cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=8,
                          max_sentence_len=30, band_chunk=10, shared_negatives=8,
-                         table_layout="unified", band_backend="pallas_fused")
-    vocab = Vocab.build(sents, min_count=1)
-    corpus = PackedCorpus.pack(vocab.encode_corpus(sents), 30)
+                         table_layout=layout, band_backend=backend)
     tr = Trainer(cfg, vocab, corpus)
-    fs.reset_launch_counts()
+    launch.reset_launch_counts()
     state, report = tr.train(log_every=2)
-    assert fs.LAUNCHES == {"fused_grad_core": report.steps,
-                           "fused_slab_scatter": 2 * report.steps}
+    want = {k: 0 for k in launch.LAUNCHES}
+    want["ordered_row_sum"] = 3
+    want.update(ROUTE_LAUNCHES[route])
+    assert launch.LAUNCHES == {k: v * report.steps for k, v in want.items()}
     assert np.all(np.isfinite(report.loss_history))
+
+
+def test_step_repeats_bitwise_on_the_card(cuda):
+    """Two runs of one default-route step from the same params and draws:
+    bitwise-equal tables (no atomics anywhere in the update)."""
+    from word2vec_tpu_torch import Word2VecConfig
+    from word2vec_tpu_torch.models.params import init_params
+    from word2vec_tpu_torch.ops.band_step import BandStep
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+
+    vocab, corpus = _small_corpus()
+    cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=8,
+                         max_sentence_len=30, band_chunk=10, shared_negatives=8,
+                         clip_row_update=1e-4, scatter_mean=True)
+    step = BandStep(cfg, DeviceTables.build(vocab, cfg, cuda))
+    tokens = torch.from_numpy(corpus.flat[:8 * 30].reshape(8, 30)).to(cuda)
+    draws = step.draw(torch.Generator(device=cuda).manual_seed(3), tokens)
+    out = []
+    for _ in range(2):
+        params = init_params(cfg, len(vocab), torch.Generator(device=cuda).manual_seed(1))
+        m = step.apply(params, tokens, draws, 0.05)
+        torch.cuda.synchronize()
+        out.append((params, m))
+    assert float(out[0][1]["clip_engaged"]) > 0
+    for k in out[0][0]:
+        assert torch.equal(out[0][0][k].view(torch.int32), out[1][0][k].view(torch.int32))

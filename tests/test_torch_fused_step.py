@@ -33,6 +33,7 @@ from word2vec_tpu.ops.pallas_step import (  # noqa: E402
 
 from word2vec_tpu_torch.ops import banded as tbanded  # noqa: E402
 from word2vec_tpu_torch.ops import fused_step as fs  # noqa: E402
+from word2vec_tpu_torch.ops.launch import LAUNCHES  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -90,7 +91,7 @@ def test_grad_core_plain_matches_jax_kernel(model, cdt, table_dtype):
     got = fs.fused_grad_core(*(_to_torch(a) for a in args), 0.03, W=W, K=K,
                              L=L, cdt=TDT[cdt], is_cbow=model == "cbow",
                              cbow_mean=True)
-    assert fs.LAUNCHES == {"fused_grad_core": 0, "fused_slab_scatter": 0}
+    assert all(v == 0 for v in LAUNCHES.values())  # the CPU never launches
     for name, r, g in zip(NAMES, ref, got):
         r = np.asarray(r)
         g = g.numpy()

@@ -46,6 +46,24 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "w2v_grad_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
+    "overlap": {
+        "w2v_overlap_add": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+        "w2v_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "band_core": {
+        "w2v_band_core": (
+            _I,
+            [_P, _P, _P, _I, _P, _P, _P, _P, _P, _F,
+             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        ),
+        "w2v_band_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+        "w2v_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "row_sum": {
+        "w2v_ordered_row_sum": (_I, [_P, _P, _P, _I, _P]),
+        "w2v_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -16,49 +16,21 @@ bounds them on the H100 and how the design answers it):
 
 Each wrapper takes the plain PyTorch version (below, same module) for
 tensors on the CPU and launches its kernel for tensors on a CUDA device,
-or raises; there is no fallback. LAUNCHES counts kernel launches per
-wrapper; only a launch adds to it.
+or raises; there is no fallback (ops/launch.py: the rule and LAUNCHES,
+the per-wrapper launch counts shared by every kernel of the port).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
 from .banded import _overlap_add, band_dist
-
-#: kernel launches per wrapper since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {"fused_grad_core": 0, "fused_slab_scatter": 0}
+from .launch import LAUNCHES, check, on_cuda, stream
 
 GradOutputs = Tuple[torch.Tensor, ...]
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
-    """True for all-CUDA inputs, False for all-CPU ones; raises otherwise."""
-    types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
-        return False
-    if types == {"cuda"}:
-        if len({t.device for t in tensors}) != 1:
-            raise ValueError(f"{name}: inputs lie on different CUDA devices")
-        return True
-    raise ValueError(f"{name}: inputs lie on {sorted(types)}; need one device")
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 # --------------------------------------------------------------- grad core
@@ -104,7 +76,7 @@ def fused_grad_core_plain(
     bk_rows = torch.where(valid_k[..., None], bk, torch.zeros((), dtype=f32))
     en = emb[negs.long(), 1].to(f32)                          # [B, KP, d]
 
-    dist = torch.as_tensor(band_dist(W, S), device=emb.device).to(f32)
+    dist = torch.as_tensor(band_dist(L, W, S), device=emb.device).to(f32)
     mask = (
         keep_c.to(f32)[..., None]
         * valid_k.to(f32)[:, :, None, :]
@@ -198,7 +170,7 @@ def fused_grad_core(
     Rows past L are the caller's to slice off.
     """
     kw = dict(W=W, K=K, L=L, cdt=cdt, is_cbow=is_cbow, cbow_mean=cbow_mean)
-    if not _on_cuda("fused_grad_core", emb, tok_c, tok_k, keep_c, w_c, negs):
+    if not on_cuda("fused_grad_core", emb, tok_c, tok_k, keep_c, w_c, negs):
         return fused_grad_core_plain(
             emb, tok_c, tok_k, keep_c, w_c, negs, float(alpha), **kw
         )
@@ -218,12 +190,12 @@ def fused_grad_core(
             f"fused_grad_core: geometry S={S} SK={SK} C={C} W={W} L={L} "
             "is not a chunked band (SK = S + 2W, S >= 2W, C = ceil(L/S))"
         )
-    _check("emb", emb, (V, 2, d), emb.dtype)
-    _check("tok_c", tok_c, (B, C, S), torch.int32)
-    _check("tok_k", tok_k, (B, C, SK), torch.int32)
-    _check("keep_c", keep_c, (B, C, S), torch.float32)
-    _check("w_c", w_c, (B, C, S), torch.float32)
-    _check("negs", negs, (B, KP), torch.int32)
+    check("emb", emb, (V, 2, d), emb.dtype)
+    check("tok_c", tok_c, (B, C, S), torch.int32)
+    check("tok_k", tok_k, (B, C, SK), torch.int32)
+    check("keep_c", keep_c, (B, C, S), torch.float32)
+    check("w_c", w_c, (B, C, S), torch.float32)
+    check("negs", negs, (B, KP), torch.int32)
 
     dev = emb.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -241,7 +213,6 @@ def fused_grad_core(
 
     lib = _build.library("fused_step")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.w2v_fused_grad_core(
             emb.data_ptr(), int(emb.dtype == torch.bfloat16),
             tok_c.data_ptr(), tok_k.data_ptr(), keep_c.data_ptr(),
@@ -251,7 +222,7 @@ def fused_grad_core(
             loss_part.data_ptr(), losses.data_ptr(),
             h_ws.data_ptr(), dh_ws.data_ptr(),
             B, C, S, SK, KP, d, W, K, L,
-            int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean), stream,
+            int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean), stream(dev),
         )
     if err != 0:
         smem = lib.w2v_grad_core_smem_bytes(S, SK, KP, d, W)
@@ -326,7 +297,7 @@ def fused_slab_scatter(
     """emb.at[sorted_idx].add(vals) (or .at[sorted_idx, plane].add(vals))
     in place, duplicates in sorted order with table-dtype rounding after
     each add. Returns emb."""
-    if not _on_cuda("fused_slab_scatter", emb, sorted_idx, vals):
+    if not on_cuda("fused_slab_scatter", emb, sorted_idx, vals):
         return fused_slab_scatter_plain(emb, sorted_idx, vals, plane)
     if emb.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_slab_scatter: table dtype {emb.dtype}")
@@ -334,16 +305,15 @@ def fused_slab_scatter(
         raise ValueError("fused_slab_scatter: emb must be contiguous")
     rows, v, col0 = _scatter_view(emb, vals, plane)
     N = sorted_idx.shape[0]
-    _check("sorted_idx", sorted_idx, (N,), torch.int32)
-    _check("vals", v, (N, v.shape[1]), emb.dtype)
+    check("sorted_idx", sorted_idx, (N,), torch.int32)
+    check("vals", v, (N, v.shape[1]), emb.dtype)
     lib = _build.library("fused_step")
     dev = emb.device
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.w2v_slab_scatter(
             emb.data_ptr(), int(emb.dtype == torch.bfloat16),
             sorted_idx.data_ptr(), v.data_ptr(), N, rows.shape[1], col0,
-            v.shape[1], stream,
+            v.shape[1], stream(dev),
         )
     _build.check(lib, err, "fused_slab_scatter launch")
     LAUNCHES["fused_slab_scatter"] += 1

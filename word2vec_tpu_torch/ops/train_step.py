@@ -7,6 +7,13 @@ uniforms, and the stochastic-rounding cast takes its uniforms. The caller
 (ops/band_step.draw) makes them with a torch.Generator; the parity tests
 make them with the JAX package's own jax.random calls and hand the same
 numbers to both packages.
+
+Every per-row sum of the step (the scatter_mean counts, the clip norms)
+goes through `ordered_row_sum`: each row's terms are added in the order
+they appear, which is XLA's sequential `.at[idx].add` order, so the
+result is bitwise the JAX helper's and the same on every run. On a CUDA
+tensor it is the kernel of csrc/row_sum.cu (an unordered `index_add_`
+adds in atomic order there, which changes from run to run).
 """
 
 from __future__ import annotations
@@ -14,6 +21,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .. import _build
+from .launch import LAUNCHES, check, on_cuda, stream
 
 
 def _draw_negatives(
@@ -28,26 +38,94 @@ def _draw_negatives(
     return torch.where(coin < accept[j], bucket, alias[j].to(bucket.dtype))
 
 
-def _scatter_sum(
-    num_rows: int, idx: torch.Tensor, vals: torch.Tensor
+def ordered_row_sum_plain(
+    num_rows: int,
+    idx: torch.Tensor,
+    vals: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """zeros(num_rows).at[idx].add(vals) for [N] values."""
-    out = torch.zeros(num_rows, dtype=torch.float32, device=vals.device)
-    return out.index_add_(0, idx.long(), vals.float())
+    """ordered_row_sum in plain torch ops, for ids sorted ascending: one
+    pass per duplicate rank (the r-th term of every row in pass r), so
+    each row adds its terms one by one in order, on any device."""
+    if out is None:
+        out = torch.zeros(num_rows, dtype=torch.float32, device=vals.device)
+    n = idx.numel()
+    if n == 0:
+        return out
+    idx = idx.long()
+    v = vals.float()
+    if bool((idx[1:] < idx[:-1]).any()):
+        raise ValueError("ordered_row_sum: ids must be sorted ascending")
+    pos = torch.arange(n, device=idx.device)
+    start = torch.ones(n, dtype=torch.bool, device=idx.device)
+    start[1:] = idx[1:] != idx[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        ids = idx[sel]
+        out[ids] = out[ids] + v[sel]
+    return out
+
+
+def ordered_row_sum(
+    num_rows: int,
+    idx: torch.Tensor,
+    vals: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
+    *,
+    presorted: bool = False,
+) -> torch.Tensor:
+    """`out.at[idx].add(vals)` for [N] values in float32, out =
+    zeros(num_rows) when None (updated in place otherwise), each row's
+    terms added in the order they appear in `idx`.
+
+    presorted=True promises ids sorted ascending (with the values in that
+    order); otherwise ids and values pass through a STABLE argsort first,
+    which keeps each row's terms in their original order. A chain
+    `.at[i1].add(v1).at[i2].add(v2)` is two calls, the second with
+    out= the first's result."""
+    if not presorted:
+        order = torch.argsort(idx, stable=True)
+        idx, vals = idx[order], vals[order]
+    if out is None:
+        out = torch.zeros(num_rows, dtype=torch.float32, device=vals.device)
+    if not on_cuda("ordered_row_sum", idx, vals, out):
+        return ordered_row_sum_plain(num_rows, idx, vals, out)
+    n = idx.numel()
+    if n == 0:
+        return out
+    idx = idx.to(torch.int32).contiguous()
+    vals = vals.to(torch.float32).contiguous()
+    check("ordered_row_sum out", out, (num_rows,), torch.float32)
+    check("ordered_row_sum vals", vals, (n,), torch.float32)
+    lib = _build.library("row_sum")
+    dev = out.device
+    with torch.cuda.device(dev):
+        err = lib.w2v_ordered_row_sum(
+            out.data_ptr(), idx.data_ptr(), vals.data_ptr(), n, stream(dev)
+        )
+    _build.check(lib, err, "ordered_row_sum launch")
+    LAUNCHES["ordered_row_sum"] += 1
+    return out
 
 
 def _row_clip_scale(
     num_rows: int,
     tau: float,
     *contribs: Tuple[torch.Tensor, torch.Tensor],
+    presorted: bool = False,
 ) -> torch.Tensor:
     """Per-row trust-region scale for batched duplicate-summed updates:
     scale_r = tau / max(S_r, tau), S_r = sum_j ||vals_j|| over the row's
-    contributions (train_step.py:52-89; single device, no tp psum)."""
-    s = torch.zeros(num_rows, dtype=torch.float32, device=contribs[0][1].device)
+    contributions, each contribution one ordered_row_sum in turn
+    (train_step.py:52-89; single device, no tp psum)."""
+    s = None
     for idx, vals in contribs:
         v = vals.float()
-        s = s.index_add_(0, idx.long(), torch.sqrt(torch.sum(v * v, dim=-1)))
+        s = ordered_row_sum(
+            num_rows, idx, torch.sqrt(torch.sum(v * v, dim=-1)), s,
+            presorted=presorted,
+        )
     return tau / torch.clamp_min(s, tau)
 
 
@@ -77,8 +155,11 @@ def _cast_update(
 
 
 def _dup_mean_scale(
-    num_rows: int, flat_idx: torch.Tensor, flat_weight: torch.Tensor
+    num_rows: int,
+    flat_idx: torch.Tensor,
+    flat_weight: torch.Tensor,
+    presorted: bool = False,
 ) -> torch.Tensor:
     """1/duplicate-count scale per flattened index (config.scatter_mean)."""
-    cnt = _scatter_sum(num_rows, flat_idx, flat_weight)
+    cnt = ordered_row_sum(num_rows, flat_idx, flat_weight, presorted=presorted)
     return (1.0 / torch.clamp_min(cnt, 1.0))[flat_idx.long()]

@@ -1,14 +1,16 @@
 """Where the flagship step's time goes on the GPU.
 
-    python -m word2vec_tpu_torch.profile_step [--steps 10] [--out DIR]
+    python -m word2vec_tpu_torch.profile_step [--backend xla] [--steps 10] [--out DIR]
 
 Builds the flagship trainer (sg, ns, K=5, d=300, window 5, B=256 x L=192,
-KP=64, unified slab, band_backend='pallas_fused') on a synthetic 71k-word
-Zipf corpus, warms up, then runs `--steps` steps under torch.profiler and
+KP=64) on the route `--backend` names (xla, pallas_oa or pallas on split
+tables, the JAX package's default layout; pallas_fused on the unified
+slab) on a synthetic 71k-word Zipf corpus, warms up, then runs `--steps`
+steps under torch.profiler and
 prints: the card's name and power limit, the mean step time (host clock
 around synchronized steps), the device time per kernel name summed over
 the window, and the device's busy and idle shares of the window. The
-Chrome trace goes to DIR/profile_step_trace.json.
+Chrome trace goes to DIR/profile_step_<backend>_trace.json.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ def _busy_us(events) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", default="xla",
+                    choices=["xla", "pallas_oa", "pallas", "pallas_fused"])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
@@ -61,8 +65,8 @@ def main() -> int:
     cfg = Word2VecConfig(
         model="sg", train_method="ns", negative=5, word_dim=300, window=5,
         batch_rows=256, max_sentence_len=192, shared_negatives=64,
-        negative_scope="row", table_layout="unified",
-        band_backend="pallas_fused",
+        negative_scope="row", band_backend=args.backend,
+        table_layout="unified" if args.backend == "pallas_fused" else "split",
     )
     vocab = zipf_vocab(71000)
     n_tok = (args.steps + 6) * cfg.batch_rows * cfg.max_sentence_len
@@ -108,10 +112,12 @@ def main() -> int:
     busy = _busy_us(dev_events)
     card = _card()
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "profile_step_trace.json"))
+    prof.export_chrome_trace(
+        os.path.join(args.out, f"profile_step_{args.backend}_trace.json"))
     total = sum(by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
     print(f"card: {card}")
+    print(f"route: band_backend={cfg.band_backend!r} table_layout={cfg.table_layout!r}")
     print(f"step ms (host clock, synchronized, {args.steps} steps): "
           f"median {sorted(step_ms)[len(step_ms) // 2]:.4f}")
     print(f"profiled window: {window_us / 1e3:.4f} ms for {args.steps} steps; "
@@ -123,6 +129,8 @@ def main() -> int:
               f"{name[:110]}")
     print(json.dumps({
         "card": card,
+        "band_backend": cfg.band_backend,
+        "table_layout": cfg.table_layout,
         "step_ms_median": sorted(step_ms)[len(step_ms) // 2],
         "window_ms": window_us / 1e3,
         "device_busy_ms": busy / 1e3,

@@ -8,8 +8,9 @@ shuffled corpus with the linear alpha decay of Word2Vec.cpp:379-380,
 
 refreshed every step. The host fills [B, L] batches in a prefetch thread;
 each step draws its randomness from a torch.Generator on the device and
-runs the fused band step (ops/band_step.py), which updates the slab in
-place. The loop reads the device only at log points and at the end.
+runs the band step of the config's route (ops/band_step.py: 'xla',
+'pallas_oa' and 'pallas' on split tables, 'xla', 'pallas_oa' and
+'pallas_fused' on the unified slab), which updates the tables in place. The loop reads the device only at log points and at the end.
 
 Not in this slice: the chunked / device-resident dispatch (the step runs
 one launch sequence per batch whatever `chunk_steps` says; the trajectory
