@@ -16,7 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
      compute; band_core in row and batch negative scope) within the stated
      tolerance, n_ctx / ctx_w exact; the slab scatter (f32 and bf16
      tables, whole rows and the plane-1 negative tail), the overlap-add
-     and the ordered row sum bitwise, the row sum also across two runs.
+     and the ordered row sum bitwise, the row sum also across two runs;
+     then the run list (exact), the scatter and the row sum on adversarial
+     id sets at flagship width (one run, all distinct, a -1 prefix, runs
+     around every threshold and stage size, a batch padded to row 0),
+     bitwise and across two runs.
   4. the slice: one step on a small input per route (pallas_fused,
      xla, pallas_oa and pallas on split tables, xla on the unified slab),
      kernels on the card vs the plain versions on the CPU with the same
@@ -29,11 +33,17 @@ Phases (any failure exits non-zero and prints no result line):
      count set to 0 just before it; export and a save/load round trip of
      the default route's vectors; two runs of one flagship step on the
      default route, bitwise equal.
-  5. times: CUDA-event medians per kernel and for its plain version, the
+  5. times: device-time medians (CUDA events queued behind a spin kernel,
+     cuda_ms) per kernel and for its plain version, the
      library call that computes the same function where there is one
      (index_add_ for the scatter and the row sum, F.fold for the
-     overlap-add), each kernel's bound, and the trainer's words/sec per
-     route.
+     overlap-add, unique_consecutive for the run list), each kernel's
+     bound, and the trainer's words/sec per route. The scatter and the row
+     sum are also timed at every call shape the step makes (unified,
+     split in/out and neg, a real batch's ids, grad_inputs' ragged rows,
+     the pallas slab side), each
+     beside index_add_, its bytes bound, its chain bound (longest run x
+     dependent-add cycles / SM clock) and its longest run.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -87,7 +97,13 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median ms of fn() over reps runs, each timed with CUDA events."""
+    """Median device ms of fn() over reps runs, each timed with CUDA events.
+    Before each run a spin kernel (torch.cuda._sleep, ~0.5 ms) keeps the
+    device busy while the host enqueues the events and fn's launches, so
+    a call whose host side is slower than its kernels is timed by its
+    kernels, not by the Python that launches them (a call that enqueues
+    more than the spin covers, like the plain versions' loops, still
+    counts its host time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -95,6 +111,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -120,12 +137,17 @@ def expected_launches(backend: str, layout: str, steps: int) -> dict:
     positive and negative contributions) and scatter_mean=False (which
     would add three more); the tables take one ordered scatter each on
     split tables plus the negative tail, or one doubled-width scatter plus
-    the tail on the unified slab."""
+    the tail on the unified slab; each sorted id array gets its run list
+    once."""
     from word2vec_tpu_torch.ops.launch import LAUNCHES
 
     per = {k: 0 for k in LAUNCHES}
     per["ordered_row_sum"] = 3
     per["fused_slab_scatter"] = 2 if layout == "unified" else 3
+    # one run list per distinct sorted id array: the token ids (both
+    # token-order sides) and the negative ids; pallas scatters its context
+    # side from slab space, a third array
+    per["find_runs"] = 3 if backend == "pallas" else 2
     kernel = {"pallas_fused": "fused_grad_core", "pallas_oa": "overlap_add_slabs",
               "pallas": "band_core"}.get(backend)
     if kernel:
@@ -301,6 +323,77 @@ def row_sum_inputs(dev, seed=3):
     return t(idx), t(vals), t(i2), t(v2)
 
 
+def trainer_ids(tokens):
+    """The sorted token ids a step's tail scatters: -1 padding mapped to
+    row 0 as the step's gate does, stably sorted."""
+    flat = torch.where(tokens >= 0, tokens, 0).reshape(-1)
+    return torch.sort(flat, stable=True).values.to(torch.int32).contiguous()
+
+
+def slab_ids(tokens):
+    """The pallas route's slab-space ids: invalid slots mapped to row 0."""
+    from word2vec_tpu_torch.ops import banded
+
+    S = banded.resolve_chunk(L, W, 0)
+    k = banded.slab_token_ids(tokens, W, S).reshape(-1)
+    return torch.sort(torch.where(k >= 0, k, 0), stable=True).values.to(
+        torch.int32).contiguous()
+
+
+def adversarial_ids(dev, seed=8):
+    """Named sorted id sets over the flagship vocabulary, one per edge of
+    the ordered sums' work split: one run, all distinct, a -1 prefix,
+    runs one below, at and one above the long-run threshold and each
+    stage size (read from the built kernels), and a flagship batch's ids
+    with ragged rows padded to row 0 (grad_inputs' tokens)."""
+    from word2vec_tpu_torch import _build
+
+    rng = np.random.default_rng(seed)
+    lr = _build.library("runs").w2v_long_run()
+    st = _build.library("fused_step").w2v_scatter_stage_terms()
+    rs = _build.library("row_sum").w2v_row_sum_stage()
+    edges, row = [], 1
+    for n in (lr - 1, lr, lr + 1, st - 1, st, st + 1, 2 * st + 1,
+              rs - 1, rs, rs + 1, 2 * rs + 1):
+        edges += [row] * n + [row + 1]
+        row += 2 + int(rng.integers(0, 3))
+    sets = {
+        "one_run": np.full(8192, 11),
+        "distinct": rng.choice(V, size=20000, replace=False),
+        "neg_prefix": np.concatenate(
+            [np.full(64, -1), rng.choice(V, size=20000, p=zipf_p())]),
+        "edges": np.asarray(edges),
+    }
+    out = {k: torch.from_numpy(np.sort(v).astype(np.int32)).to(dev)
+           for k, v in sets.items()}
+    out["trainer"] = trainer_ids(grad_inputs(dev, torch.float32)["tokens"])
+    return out
+
+
+def longest_run(idx) -> int:
+    live = idx[idx >= 0]
+    if live.numel() == 0:
+        return 0
+    return int(torch.unique_consecutive(live, return_counts=True)[1].max())
+
+
+# dependent-add latency of one ordered term, in cycles: the FADD (4); in
+# bf16 also the widening shift and the round back (counted as 4 more, a
+# floor: the round alone is not faster)
+CHAIN_CYCLES = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi clocks failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 # ------------------------------------------------------------ phases
 def rel_err(k, p):
     k, p = k.double(), p.double()
@@ -413,7 +506,63 @@ def phase_kernels(dev):
         f"repeatable={again}")
     if not (same and again):
         fail("ordered_row_sum: kernel != plain or not repeatable (bitwise)")
+    phase_ordered_sets(dev)
     return errs
+
+
+def phase_ordered_sets(dev):
+    """The run list, the slab scatter (whole doubled-width rows and the
+    plane-1 tail, f32 and bf16 tables) and the ordered row sum on every
+    adversarial id set at flagship width: bitwise vs the plain versions
+    and across two runs; zero terms and -0.0 cells included."""
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import runs as rl
+    from word2vec_tpu_torch.ops import train_step as ts
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    emb32 = torch.randn((V, 2, D), device=dev, generator=gen) * 0.1
+    emb32[::3] = -0.0
+    for name, idx in adversarial_ids(dev).items():
+        n = idx.numel()
+        runs = rl.find_runs(idx)
+        got = rl.unpack_runs(runs, n)
+        want = rl.unpack_runs(rl.find_runs_plain(idx), n)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"find_runs {name}: kernel != plain")
+        v32 = torch.randn((n, 2, D), device=dev, generator=gen) * 1e-3
+        v32[::5] = 0.0
+        res = []
+        for dt in (torch.float32, torch.bfloat16):
+            emb, vals = emb32.to(dt), v32.to(dt)
+            pv = vals[:, 1].contiguous()
+            ref = fs.fused_slab_scatter_plain(emb.clone(), idx, vals)
+            ref = fs.fused_slab_scatter_plain(ref, idx, pv, plane=1)
+            outs = []
+            for _ in range(2):
+                g = fs.fused_slab_scatter(emb.clone(), idx, vals, runs=runs)
+                outs.append(fs.fused_slab_scatter(g, idx, pv, plane=1))
+            torch.cuda.synchronize()
+            ok = all(torch.equal(bits(o), bits(ref)) for o in outs)
+            res.append(f"{str(dt)[6:]}={ok}")
+            if not ok or torch.equal(ref, emb):
+                fail(f"fused_slab_scatter {name} {dt}: kernel != plain or "
+                     "not repeatable (bitwise)")
+        live = idx[idx >= 0].contiguous()
+        rv = (torch.rand(live.numel(), device=dev, generator=gen)
+              * 10.0 ** (8 * torch.rand(live.numel(), device=dev, generator=gen) - 4))
+        rv[::7] = 0.0
+        start = torch.randn(V, device=dev, generator=gen)
+        start[::3] = -0.0
+        ref = ts.ordered_row_sum_plain(V, live, rv, start.clone())
+        outs = [ts.ordered_row_sum(V, live, rv, start.clone(), presorted=True)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        ok = all(torch.equal(bits(o), bits(ref)) for o in outs)
+        log(f"  ordered sums, {name} [N={n}, longest run {longest_run(idx)}]: "
+            f"run list exact; scatter (2x{D} + plane 1) bitwise and repeatable "
+            f"{' '.join(res)}; row sum bitwise and repeatable={ok}")
+        if not ok:
+            fail(f"ordered_row_sum {name}: kernel != plain or not repeatable")
 
 
 def phase_small_step(dev):
@@ -554,13 +703,20 @@ def phase_trainer(dev, vocab, corpus, backend, layout, out_dir=None):
     return counts, rep
 
 
+def corpus_batch(dev, corpus):
+    """The flagship corpus's first batch [B, L] (int32, -1 padding)."""
+    from word2vec_tpu_torch.data.batcher import BatchIterator
+
+    batch, _ = next(iter(BatchIterator(corpus, B, L, seed=0).epoch(0)))
+    return torch.from_numpy(batch).to(dev)
+
+
 def phase_repeat(dev, vocab, corpus):
     """Two runs of one flagship step on the default route (xla, split
     tables) from the same params, tokens and draws: bitwise-equal tables
     and metrics (every per-row sum and table update adds in a fixed
     order)."""
     from word2vec_tpu_torch import Word2VecConfig
-    from word2vec_tpu_torch.data.batcher import BatchIterator
     from word2vec_tpu_torch.ops.band_step import BandStep
     from word2vec_tpu_torch.ops.tables import DeviceTables
 
@@ -569,8 +725,7 @@ def phase_repeat(dev, vocab, corpus):
         batch_rows=B, max_sentence_len=L, shared_negatives=KP, min_count=5,
     )
     step = BandStep(cfg, DeviceTables.build(vocab, cfg, dev))
-    batch, _ = next(iter(BatchIterator(corpus, B, L, seed=0).epoch(0)))
-    tokens = torch.from_numpy(batch).to(dev)
+    tokens = corpus_batch(dev, corpus)
     draws = step.draw(torch.Generator(device=dev).manual_seed(9), tokens)
     emb = grad_inputs(dev, torch.float32)["emb"]
     outs = []
@@ -590,10 +745,13 @@ def phase_repeat(dev, vocab, corpus):
         fail("two runs of one flagship step differ (bitwise)")
 
 
-def phase_times(dev, errs, counts):
+def phase_times(dev, errs, counts, tokens):
+    """Times at the flagship shapes; `tokens` is one batch of the flagship
+    corpus (the real step's ids for the ordered sums)."""
     from word2vec_tpu_torch.ops import band_core as bc
     from word2vec_tpu_torch.ops import fused_step as fs
     from word2vec_tpu_torch.ops import overlap as ov
+    from word2vec_tpu_torch.ops import runs as rl
     from word2vec_tpu_torch.ops import train_step as ts
 
     kernels = []
@@ -623,19 +781,80 @@ def phase_times(dev, errs, counts):
           ("pallas_fused", "unified"),
           errs[("fused_grad_core", "sg", torch.bfloat16)], ms, plain, bms, by, None)
 
+    # the slab scatter at every call shape the step makes, each beside
+    # index_add_ and both bounds; the run lists are built before timing
+    # (find_runs is timed on its own below)
+    card, clock = card_line(), sm_clock_hz()
     sc = scatter_inputs(dev, torch.float32)
     emb, idx, vals = sc["emb"], sc["idx"], sc["vals"]
-    ms = cuda_ms(lambda: fs.fused_slab_scatter(emb, idx, vals), reps=20)
+    emb_in = emb[:, 0].contiguous()
+    ids_batch = trainer_ids(tokens)
+    ids_slab = slab_ids(tokens)
+    ids_ragged = trainer_ids(grad_inputs(dev, torch.float32)["tokens"])
+    g = torch.Generator(device=dev).manual_seed(11)
+    calls = [
+        ("unified [N, 2x300] (xla/pallas_fused, unified slab)", emb, idx, vals, None),
+        ("unified bf16 [N, 2x300]", emb.to(torch.bfloat16), idx,
+         vals.to(torch.bfloat16), None),
+        ("split in/out [N, 300] (xla, pallas_oa)", emb_in, idx,
+         vals[:, 0].contiguous(), None),
+        ("split neg [B*KP, 300] (every split route)", emb_in, sc["negs"], sc["vneg"], None),
+        ("trainer batch in/out [N, 300] (real step ids, padding on row 0)",
+         emb_in, ids_batch, torch.randn((ids_batch.numel(), D), device=dev,
+                                        generator=g) * 1e-3, None),
+        ("ragged batch in/out [N, 300] (grad_inputs' rows, padding on row 0)",
+         emb_in, ids_ragged, torch.randn((ids_ragged.numel(), D), device=dev,
+                                         generator=g) * 1e-3, None),
+        ("pallas slab side [B*C*(S+2W), 300] (invalid slots on row 0)",
+         emb_in, ids_slab, torch.randn((ids_slab.numel(), D), device=dev,
+                                       generator=g) * 1e-3, None),
+    ]
+    call_rows = []
+    for label, e, ix, vv, plane in calls:
+        runs = rl.find_runs(ix)
+        k_ms = cuda_ms(lambda: fs.fused_slab_scatter(e, ix, vv, plane, runs=runs),
+                       reps=20)
+        live = ix >= 0
+        rows = e.view(e.shape[0], -1)
+        li, lv = ix[live].long(), vv[live].reshape(int(live.sum()), -1)
+        lib = cuda_ms(lambda: rows.index_add_(0, li, lv), reps=20)
+        b_bytes, _ = scatter_bound(ix, vv)
+        longest = longest_run(ix)
+        b_chain = longest * CHAIN_CYCLES[e.dtype] / clock * 1e3
+        call_rows.append({
+            "call": label, "n": ix.numel(), "width": vv[0].numel(),
+            "dtype": str(e.dtype)[6:], "ms": k_ms, "index_add_ms": lib,
+            "bytes_bound_ms": b_bytes, "chain_bound_ms": b_chain,
+            "longest_run": longest,
+        })
+        log(f"  fused_slab_scatter {label}: {k_ms:.4f} ms, index_add_ {lib:.4f} ms, "
+            f"bytes bound {b_bytes:.4f} ms, chain bound {b_chain:.4f} ms "
+            f"(longest run {longest}) ({card})")
+    u = call_rows[0]
     plain = cuda_ms(
         lambda: fs.fused_slab_scatter_plain(emb, idx, vals), reps=3, warmup=1
     )
-    live = idx >= 0
-    rows, li, lv = emb.view(V, -1), idx[live].long(), vals[live].view(-1, 2 * D)
-    lib = cuda_ms(lambda: rows.index_add_(0, li, lv), reps=20)
-    bms, by = scatter_bound(idx, vals)
-    log(f"  (fused_slab_scatter f32 [N={idx.numel()}, 2x{D}], the unified "
-        "doubled-width call)")
+    bms, by = ((u["bytes_bound_ms"], "bytes") if u["bytes_bound_ms"] >= u["chain_bound_ms"]
+               else (u["chain_bound_ms"], "operations"))
+    log(f"  (fused_slab_scatter entry: the unified doubled-width f32 call; "
+        f"bound_by {by} = {'bytes' if by == 'bytes' else 'the longest run chain'})")
     entry("fused_slab_scatter", "fused_step.cu", "word2vec_tpu/ops/pallas_step.py:490",
+          ("xla", "split"), 0.0, u["ms"], plain, bms, by, u["index_add_ms"])
+
+    # the run list of the unified call's ids; torch.unique_consecutive
+    # computes the same runs (with a host sync)
+    ms = cuda_ms(lambda: rl.find_runs(idx), reps=20)
+    plain = cuda_ms(lambda: rl.find_runs_plain(idx), reps=5)
+    lib = cuda_ms(lambda: torch.unique_consecutive(idx, return_counts=True), reps=20)
+    n_runs = int(torch.unique_consecutive(idx[idx >= 0]).numel())
+    bms, by = bound_ms(4 * idx.numel() + 8 * n_runs + 16, idx.numel(),
+                       PEAK_FLOPS[torch.float32])
+    for label, ix in (("trainer batch", ids_batch), ("pallas slab side", ids_slab),
+                      ("neg", sc["negs"])):
+        log(f"  find_runs {label} [N={ix.numel()}]: "
+            f"{cuda_ms(lambda: rl.find_runs(ix), reps=20):.4f} ms")
+    log(f"  (find_runs on the unified call's {idx.numel()} ids, {n_runs} runs)")
+    entry("find_runs", "runs.cu", "word2vec_tpu/ops/pallas_step.py:490",
           ("xla", "split"), 0.0, ms, plain, bms, by, lib)
 
     # the overlap-add on a flagship slab-space gradient; F.fold computes the
@@ -673,17 +892,42 @@ def phase_times(dev, errs, counts):
           ("pallas", "split"),
           errs[("band_core", "sg", "row", torch.bfloat16)], ms, plain, bms, by, None)
 
+    # the ordered row sum: synthetic flagship ids and the real step's ids
+    out = torch.zeros(V, device=dev)
     idx, vals, _, _ = row_sum_inputs(dev)
-    ms = cuda_ms(lambda: ts.ordered_row_sum(V, idx, vals, presorted=True), reps=20)
+    for label, ix in (("synthetic Zipf ids", idx), ("trainer batch", ids_batch),
+                      ("ragged batch", ids_ragged), ("pallas slab side", ids_slab)):
+        rv = vals[: ix.numel()] if ix.numel() <= vals.numel() else torch.rand(
+            ix.numel(), device=dev, generator=g)
+        runs = rl.find_runs(ix)
+        k_ms = cuda_ms(lambda: ts.ordered_row_sum(V, ix, rv, out, presorted=True,
+                                                  runs=runs), reps=20)
+        li = ix.long()
+        lib = cuda_ms(lambda: torch.zeros(V, device=dev).index_add_(0, li, rv), reps=20)
+        rows = torch.unique(ix).numel()
+        b_bytes, _ = bound_ms(8 * ix.numel() + 8 * rows, ix.numel(),
+                              PEAK_FLOPS[torch.float32])
+        longest = longest_run(ix)
+        b_chain = longest * CHAIN_CYCLES[torch.float32] / clock * 1e3
+        call_rows.append({
+            "call": f"ordered_row_sum {label}", "n": ix.numel(), "width": 1,
+            "dtype": "float32", "ms": k_ms, "index_add_ms": lib,
+            "bytes_bound_ms": b_bytes, "chain_bound_ms": b_chain,
+            "longest_run": longest,
+        })
+        log(f"  ordered_row_sum {label} [N={ix.numel()}]: {k_ms:.4f} ms, "
+            f"index_add_ {lib:.4f} ms, bytes bound {b_bytes:.4f} ms, chain bound "
+            f"{b_chain:.4f} ms (longest run {longest}) ({card})")
+    r = call_rows[-4]
     plain = cuda_ms(lambda: ts.ordered_row_sum_plain(V, idx, vals), reps=3, warmup=1)
-    li = idx.long()
-    lib = cuda_ms(lambda: torch.zeros(V, device=dev).index_add_(0, li, vals), reps=20)
-    rows = torch.unique(idx).numel()
-    bms, by = bound_ms(8 * idx.numel() + 8 * rows, idx.numel(),
-                       PEAK_FLOPS[torch.float32])
-    log(f"  (ordered_row_sum on a flagship batch's {idx.numel()} sorted ids)")
+    bms, by = ((r["bytes_bound_ms"], "bytes") if r["bytes_bound_ms"] >= r["chain_bound_ms"]
+               else (r["chain_bound_ms"], "operations"))
+    log(f"  (ordered_row_sum entry: a flagship batch's {idx.numel()} sorted Zipf "
+        f"ids; bound_by {by} = {'bytes' if by == 'bytes' else 'the longest run chain'})")
     entry("ordered_row_sum", "row_sum.cu", "word2vec_tpu/ops/train_step.py:88",
-          ("xla", "split"), 0.0, ms, plain, bms, by, lib)
+          ("xla", "split"), 0.0, r["ms"], plain, bms, by, r["index_add_ms"])
+    log(json.dumps({"ordered_sum_calls": call_rows, "card": card,
+                    "sm_clock_mhz": clock / 1e6}))
     return kernels
 
 
@@ -735,7 +979,7 @@ def main() -> int:
     phase_repeat(dev, vocab, corpus)
 
     log(f"[5 times] card: {card}")
-    kernels = phase_times(dev, errs, counts)
+    kernels = phase_times(dev, errs, counts, corpus_batch(dev, corpus))
     for (backend, layout), rep in reps.items():
         log(f"  trainer words/sec {backend}/{layout}: {rep.words_per_sec:.1f} "
             f"({card})")

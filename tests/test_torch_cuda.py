@@ -11,8 +11,9 @@ the flagship shapes.
 
 Tolerances: the slab scatter, the overlap-add and the ordered row sum are
 BITWISE (each adds the same terms in the same order as its plain
-version), and the row sum and a whole step repeat bitwise from run to
-run; fused_grad_core and band_core with f32 compute within
+version), also on the adversarial id sets of tests/run_sets.py; the run
+list is exact; the scatter, the row sum and a whole step repeat bitwise
+from run to run; fused_grad_core and band_core with f32 compute within
 max|err| <= 1e-5 * max|plain| per output (sums in another order, FMA
 contraction), n_ctx / ctx_w exact.
 """
@@ -26,12 +27,16 @@ from word2vec_tpu_torch.ops import fused_step as fs
 from word2vec_tpu_torch.ops import launch
 from word2vec_tpu_torch.ops import band_core as bc
 from word2vec_tpu_torch.ops import overlap as ov
+from word2vec_tpu_torch.ops import runs as rl
 from word2vec_tpu_torch.ops import train_step as ts
+
+from run_sets import ROW_SUM_SETS, SCATTER_SETS, id_set
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 V, D, B, L, W, S, KP, K = 300, 64, 6, 40, 3, 10, 8, 3
+NVR = 2000  # table rows of the adversarial id sets
 
 
 @pytest.fixture
@@ -99,6 +104,90 @@ def test_slab_scatter_kernel_bitwise_matches_plain(cuda, dtype):
     ref = fs.fused_slab_scatter_plain(emb.clone(), idx, vals)
     ref = fs.fused_slab_scatter_plain(ref, pidx, pvals, plane=1)
     assert torch.equal(got.cpu(), ref)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("name", sorted(set(SCATTER_SETS) | set(ROW_SUM_SETS)))
+def test_find_runs_kernel_matches_plain(cuda, name):
+    idx = torch.from_numpy(id_set(name, np.random.default_rng(5), nv=NVR, scale=4))
+    before = launch.LAUNCHES["find_runs"]
+    got = rl.find_runs(idx.to(cuda))
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["find_runs"] == before + 1
+    n = idx.numel()
+    want = rl.find_runs_plain(idx)
+    for g, w in zip(rl.unpack_runs(got.cpu(), n), rl.unpack_runs(want, n)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("plane", [None, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", SCATTER_SETS)
+def test_slab_scatter_kernel_adversarial_sets(cuda, name, dtype, plane):
+    """Flagship width (d = 300: the doubled-width unified call and the
+    plane-1 tail), every edge of the work split; bitwise vs plain and
+    across two runs."""
+    rng = np.random.default_rng(6)
+    idx = id_set(name, rng, nv=NVR, scale=4)
+    n, d = idx.size, 300
+    emb = torch.from_numpy(rng.normal(size=(NVR, 2, d)).astype(np.float32)).to(dtype)
+    emb[::3] = -0.0
+    shape = (n, 2, d) if plane is None else (n, d)
+    v = rng.normal(size=shape).astype(np.float32)
+    v.reshape(n, -1)[::5] = 0.0
+    vals = torch.from_numpy(v).to(dtype)
+    ref = fs.fused_slab_scatter_plain(emb.clone(), torch.from_numpy(idx), vals, plane)
+    outs = []
+    for _ in range(2):
+        got = fs.fused_slab_scatter(emb.clone().to(cuda), torch.from_numpy(idx).to(cuda),
+                                    vals.to(cuda), plane)
+        torch.cuda.synchronize()
+        outs.append(got.cpu())
+    assert not torch.equal(ref, emb)
+    for got in outs:
+        assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 7), (torch.float32, 6),
+                                     (torch.bfloat16, 6), (torch.bfloat16, 7)])
+@pytest.mark.parametrize("name", ["long_edges", "trainer"])
+def test_slab_scatter_kernel_narrow_vectors(cuda, name, dtype, d):
+    """Widths that allow 2- and 1-value vectors only (fs.scatter_vector),
+    whole rows and the plane-1 tail; bitwise vs plain."""
+    rng = np.random.default_rng(8)
+    idx = torch.from_numpy(id_set(name, rng, nv=NVR))
+    n = idx.numel()
+    emb = torch.from_numpy(rng.normal(size=(NVR, 2, d)).astype(np.float32)).to(dtype)
+    vals = torch.from_numpy(rng.normal(size=(n, 2, d)).astype(np.float32)).to(dtype)
+    pv = vals[:, 1].contiguous()
+    ref = fs.fused_slab_scatter_plain(emb.clone(), idx, vals)
+    ref = fs.fused_slab_scatter_plain(ref, idx, pv, plane=1)
+    got = fs.fused_slab_scatter(emb.clone().to(cuda), idx.to(cuda), vals.to(cuda))
+    got = fs.fused_slab_scatter(got, idx.to(cuda), pv.to(cuda), plane=1)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got.cpu()), _bits(ref))
+
+
+@pytest.mark.parametrize("name", ROW_SUM_SETS)
+def test_ordered_row_sum_kernel_adversarial_sets(cuda, name):
+    rng = np.random.default_rng(7)
+    idx = id_set(name, rng, nv=NVR, scale=4)
+    idx = idx[idx >= 0]  # the plain version indexes every id
+    vals = (rng.random(idx.size) * 10.0 ** rng.uniform(-4, 4, size=idx.size))
+    vals = vals.astype(np.float32)
+    vals[::7] = 0.0
+    start = torch.from_numpy(rng.normal(size=NVR).astype(np.float32))
+    start[::3] = -0.0
+    t_idx, t_vals = torch.from_numpy(idx), torch.from_numpy(vals)
+    ref = ts.ordered_row_sum_plain(NVR, t_idx, t_vals, start.clone())
+    for _ in range(2):
+        got = ts.ordered_row_sum(NVR, t_idx.to(cuda), t_vals.to(cuda),
+                                 start.clone().to(cuda), presorted=True)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got.cpu()), _bits(ref))
 
 
 def test_overlap_kernel_bitwise_matches_plain(cuda):
@@ -199,13 +288,17 @@ def _small_corpus():
 # launches per step of each route's kernels, at clip_row_update=1.0 (on)
 # and scatter_mean=False (the defaults): the clip budget adds three ordered
 # row sums (one for the in table, two for the out table's positive and
-# negative contributions)
+# negative contributions); one run list per distinct sorted id array (the
+# token-order sides share one; pallas scatters its context side from slab
+# space, a third array)
 ROUTE_LAUNCHES = {
-    ("pallas_fused", "unified"): dict(fused_grad_core=1, fused_slab_scatter=2),
-    ("xla", "split"): dict(fused_slab_scatter=3),
-    ("xla", "unified"): dict(fused_slab_scatter=2),
-    ("pallas_oa", "split"): dict(overlap_add_slabs=1, fused_slab_scatter=3),
-    ("pallas", "split"): dict(band_core=1, fused_slab_scatter=3),
+    ("pallas_fused", "unified"): dict(fused_grad_core=1, fused_slab_scatter=2,
+                                      find_runs=2),
+    ("xla", "split"): dict(fused_slab_scatter=3, find_runs=2),
+    ("xla", "unified"): dict(fused_slab_scatter=2, find_runs=2),
+    ("pallas_oa", "split"): dict(overlap_add_slabs=1, fused_slab_scatter=3,
+                                 find_runs=2),
+    ("pallas", "split"): dict(band_core=1, fused_slab_scatter=3, find_runs=3),
 }
 
 

@@ -42,7 +42,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         ),
-        "w2v_slab_scatter": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
+        "w2v_slab_scatter": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "w2v_scatter_stage_terms": (_I, []),
         "w2v_grad_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -61,7 +62,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
     "row_sum": {
-        "w2v_ordered_row_sum": (_I, [_P, _P, _P, _I, _P]),
+        "w2v_ordered_row_sum": (_I, [_P, _P, _P, _P, _I, _P]),
+        "w2v_row_sum_stage": (_I, []),
+        "w2v_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "runs": {
+        "w2v_find_runs": (_I, [_P, _I, _P, _P, _P]),
+        "w2v_long_run": (_I, []),
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
 }

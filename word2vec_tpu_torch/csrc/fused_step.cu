@@ -45,19 +45,43 @@
 // The positive side only visits the band (k in [s, s+2W]) and skips masked
 // pairs: the masked terms are exact zeros in the Pallas kernel too.
 //
-// The slab scatter is a segmented, ordered pass: the warp that owns a run
-// of equal sorted ids (the first position of the run) walks the run in
-// sorted order and rounds to the table type after every add, exactly as
-// the Pallas kernel's per-row read-modify-write does. Columns of a row are
-// independent, so a run is split over column blocks of 32 (one warp each)
-// to spread hot rows over many warps. No atomics: the result is bitwise
-// deterministic and equal to the sorted sequential scatter.
+// The slab scatter is a segmented, ordered pass: each cell receives its
+// run's terms in sorted order and rounds to the table type after every
+// add, exactly as the Pallas kernel's per-row read-modify-write does.
+// What bounds it: the bytes (each update row read once, each touched table
+// row read and written once: ~0.055 ms for the flagship's unified
+// [49,152 x 600] f32 call) and, for a hot row, the chain of ordered adds
+// per cell (~4,000 terms x 4 cycles in f32, more in bf16 with the round).
+// The runs come from the prepass of csrc/runs.cu (built once per sorted id
+// array and shared with the ordered row sum); a persistent grid walks
+// them per run, not per position (short runs from the top block down,
+// long-run tiles from block 0 up, so the two kinds mostly land on
+// different blocks):
+//   * short runs: one warp each, lanes across the row in 16-byte (f32) or
+//     8-byte (bf16) vectors, the loads of a term issued together;
+//   * long runs: cut into 32-column tiles, one block each, so a hot row is
+//     spread over many SMs and stays bitwise the same (columns are
+//     independent chains). The block stages vals through a ring of six
+//     [128 terms x 32 columns] blocks in shared
+//     memory: the block keeps five in flight with cp.async while warp 0
+//     adds the oldest, one lane per column, in order. bf16 rows of 300 are
+//     600 B, not 16-byte multiples (no TMA), so the copies are 8-byte
+//     cp.async vectors there (plain loads for a lone bf16 value of an odd
+//     width), and ragged tiles are masked.
+// Every term is added, zeros too (-0.0 + 0.0 = +0.0). No float atomics:
+// each cell belongs to one thread, so the result is bitwise deterministic
+// and equal to the sorted sequential scatter. Work items are assigned to
+// blocks statically; an atomic counter handing them out would keep the
+// bits too (which block takes an item does not change who owns a cell or
+// the order of its adds), but measured slower (PERF.md, Findings).
 //
 // Plain C interface (bound with ctypes); every entry point returns the
 // cudaError_t of its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "runs.cuh"
 
 namespace {
 
@@ -435,37 +459,193 @@ __device__ __forceinline__ __nv_bfloat16 add_round(__nv_bfloat16 row,
   return __float2bfloat16_rn(__bfloat162float(row) + __bfloat162float(v));
 }
 
-// emb rows [V, row_len]; columns [col0, col0 + width) of row idx[j] get
-// vals[j, :width] added, duplicates in sorted order. Block = 8 warps =
-// 8 positions j; blockIdx.y = a block of 32 columns.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    slab_scatter_kernel(T* emb, const int* idx, const T* vals, int n,
-                        int row_len, int col0, int width) {
-  const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (j >= n) return;
-  const int r = idx[j];
-  // the first position of a run of equal ids owns the run; -1 is padding
-  if (r < 0 || (j > 0 && idx[j - 1] == r)) return;
-  int end = j + 1;
-  while (true) {
-    const int q = end + lane;
-    const bool same = q < n && idx[q] == r;
-    const unsigned stop = __ballot_sync(kFull, !same);
-    if (stop) {
-      end += __ffs(stop) - 1;
-      break;
+// NV consecutive table-dtype values, loaded and stored as one vector
+// (16 bytes for f32 x4, 8 for bf16 x4)
+template <typename T, int NV>
+struct alignas(sizeof(T) * NV) Vec {
+  T v[NV];
+};
+
+template <typename T, int NV>
+__device__ __forceinline__ void add_round(Vec<T, NV>& acc, const Vec<T, NV>& x) {
+#pragma unroll
+  for (int e = 0; e < NV; ++e) acc.v[e] = add_round(acc.v[e], x.v[e]);
+}
+
+constexpr int kScThreads = 256;  // 8 warps
+// Columns per long-run work item: one adder lane each. A hot run is cut
+// into width / 32 items (10 at d = 300, 19 on the doubled-width unified
+// call) that run on as many SMs; order binds only terms within one cell.
+constexpr int kTileCols = 32;
+// Terms per staged block of a long-run item ([128 x 32] values, 16 KB in
+// f32) and blocks in the shared-memory ring (96 KB in f32, 2 blocks a SM;
+// 48 KB in bf16). The whole block keeps kRing - 1 staged blocks of
+// cp.async copies in flight (80 KB in f32), which covers the memory
+// latency (Little's law: ~1 us x the ~64 GB/s the adder warp consumes in
+// f32, 128 B per 4-cycle add) while warp 0 adds the oldest block in order.
+constexpr int kStageTerms = 128;
+constexpr int kRing = 6;
+
+// asynchronous global -> shared copy of BYTES (4, 8 or 16)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(BYTES));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// emb rows [V, row_len]; columns [col0, col0 + width) of row idx[q] get
+// vals[q, :width] added, each cell's terms in sorted order, rounded to T
+// after every add. runs: the run list of idx (csrc/runs.cuh). NV values a
+// vector; width, col0 and row_len are multiples of NV.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kScThreads, 2)
+    slab_scatter_kernel(T* __restrict__ emb, const int* __restrict__ idx,
+                        const T* __restrict__ vals, const int* __restrict__ runs,
+                        int n, int row_len, int col0, int width) {
+  using V = Vec<T, NV>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [kRing][kStageTerms][kTileCols]
+  const int n_short = runs[0], n_long = runs[1];
+  const int2* shorts = w2v_runs::short_runs(runs);
+  const int2* longs = w2v_runs::long_runs(runs, n);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nvec = width / NV;
+  constexpr int kWarps = kScThreads / 32;
+
+  // ---- short runs: one warp each, from the top block down; each lane
+  // holds up to 4 vectors of the row, so the loads of a term (and, with
+  // the unroll, of the next) are in flight together
+  for (int i = (gridDim.x - 1 - blockIdx.x) * kWarps + warp; i < n_short;
+       i += gridDim.x * kWarps) {
+    const int2 se = shorts[i];
+    const int r = idx[se.x];
+    V* cell = reinterpret_cast<V*>(emb + (size_t)r * row_len + col0);
+    const V* src = reinterpret_cast<const V*>(vals);
+    for (int v0 = lane; v0 < nvec; v0 += 4 * 32) {
+      V acc[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (v0 + 32 * u < nvec) acc[u] = cell[v0 + 32 * u];
+#pragma unroll 2
+      for (int q = se.x; q < se.y; ++q) {
+        const V* row = src + (size_t)q * nvec;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (v0 + 32 * u < nvec) add_round(acc[u], row[v0 + 32 * u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (v0 + 32 * u < nvec) cell[v0 + 32 * u] = acc[u];
     }
-    end += 32;
   }
-  const int e = blockIdx.y * 32 + lane;
-  if (e >= width) return;
-  T* cell = emb + (size_t)r * row_len + col0 + e;
-  T acc = *cell;
-#pragma unroll 8
-  for (int q = j; q < end; ++q) acc = add_round(acc, vals[(size_t)q * width + e]);
-  *cell = acc;
+
+  // ---- long runs: one block per (run, 32-column tile), staged blocks of
+  // kStageTerms terms through a ring of kRing: every thread issues the
+  // copies of the block kRing - 1 ahead, warp 0 adds the oldest, in order
+  constexpr int kTileVecs = kTileCols / NV;
+  const int tiles = (width + kTileCols - 1) / kTileCols;
+  const int items = n_long * tiles;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int run = it / tiles;
+    const int c0 = (it - run * tiles) * kTileCols;
+    const int tv = min(kTileCols, width - c0) / NV;  // ragged last tile
+    const int2 se = longs[run];
+    const int blocks = (se.y - se.x + kStageTerms - 1) / kStageTerms;
+    // issue the copies of staged block b into ring slot b % kRing
+    auto stage = [&](int b) {
+      const int q0 = se.x + b * kStageTerms;
+      const int cnt = min(kStageTerms, se.y - q0);
+      V* s = reinterpret_cast<V*>(buf + (size_t)(b % kRing) * kStageTerms * kTileCols);
+      const V* src = reinterpret_cast<const V*>(vals + c0) + (size_t)q0 * nvec;
+      for (int x = tid; x < cnt * kTileVecs; x += kScThreads) {
+        const int k = x / kTileVecs, j = x - k * kTileVecs;
+        if (j < tv) {
+          if constexpr (sizeof(V) >= 4) {
+            cp_async<sizeof(V)>(s + x, src + (size_t)k * nvec + j);
+          } else {  // a lone bf16 value: cp.async copies 4 bytes at least
+            s[x] = src[(size_t)k * nvec + j];
+          }
+        }
+      }
+    };
+#pragma unroll
+    for (int b = 0; b < kRing - 1; ++b) {
+      if (b < blocks) stage(b);
+      cp_async_commit();
+    }
+    T* cell = emb + (size_t)idx[se.x] * row_len + col0 + c0 + lane;
+    const bool adder = warp == 0 && lane < tv * NV;
+    T acc{};
+    if (adder) acc = *cell;
+    for (int b = 0; b < blocks; ++b) {
+      // slot (b - 1) % kRing was emptied before the last barrier
+      if (b + kRing - 1 < blocks) stage(b + kRing - 1);
+      cp_async_commit();
+      cp_async_wait<kRing - 1>();  // this thread's copies of block b landed
+      __syncthreads();             // everyone's did
+      if (adder) {
+        const T* s = buf + (size_t)(b % kRing) * kStageTerms * kTileCols + lane;
+        const int cnt = min(kStageTerms, se.y - se.x - b * kStageTerms);
+        // unrolled by 16: the shared-memory reads issue ahead of the chain
+#pragma unroll 16
+        for (int k = 0; k < cnt; ++k) acc = add_round(acc, s[k * kTileCols]);
+      }
+      __syncthreads();  // block b's slot may be refilled
+    }
+    if (adder) *cell = acc;
+  }
+}
+
+int g_sms = 0;
+
+template <typename T, int NV>
+cudaError_t launch_scatter(T* emb, const int* idx, const T* vals,
+                           const int* runs, int n, int row_len, int col0,
+                           int width, cudaStream_t st) {
+  auto kern = slab_scatter_kernel<T, NV>;
+  const int smem = kRing * kStageTerms * kTileCols * (int)sizeof(T);
+  static int per_sm = 0;  // resident blocks a SM, one per instantiation
+  if (per_sm == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                          kScThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  }
+  // persistent grid: as many blocks as fit at once (2 a SM in f32, by the
+  // ring's shared memory), fewer for small calls (8 short runs a block)
+  const int blocks = max(1, min((n + 7) / 8, per_sm * g_sms));
+  kern<<<blocks, kScThreads, smem, st>>>(emb, idx, vals, runs, n, row_len,
+                                         col0, width);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_scatter_vec(void* emb, const int* idx, const void* vals,
+                               const int* runs, int n, int row_len, int col0,
+                               int width, int vec, cudaStream_t st) {
+  T* e = static_cast<T*>(emb);
+  const T* v = static_cast<const T*>(vals);
+  switch (vec) {
+    case 4:
+      return launch_scatter<T, 4>(e, idx, v, runs, n, row_len, col0, width, st);
+    case 2:
+      return launch_scatter<T, 2>(e, idx, v, runs, n, row_len, col0, width, st);
+    case 1:
+      return launch_scatter<T, 1>(e, idx, v, runs, n, row_len, col0, width, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool CB, bool CBOW>
@@ -528,22 +708,28 @@ int w2v_fused_grad_core(const void* emb, int table_bf16, const int* tok_c,
   return (int)cudaGetLastError();
 }
 
+int w2v_scatter_stage_terms() { return kStageTerms; }
+
+// runs: the run list of idx (csrc/runs.cu); vec: values per vector (4, 2
+// or 1), dividing width, col0 and row_len, with emb and vals aligned to it
 int w2v_slab_scatter(void* emb, int table_bf16, const int* idx,
-                     const void* vals, int n, int row_len, int col0,
-                     int width, void* stream) {
+                     const void* vals, const int* runs, int n, int row_len,
+                     int col0, int width, int vec, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((n + 7) / 8, (width + 31) / 32);
-  if (table_bf16) {
-    slab_scatter_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        static_cast<__nv_bfloat16*>(emb), idx,
-        static_cast<const __nv_bfloat16*>(vals), n, row_len, col0, width);
-  } else {
-    slab_scatter_kernel<float><<<grid, 256, 0, st>>>(
-        static_cast<float*>(emb), idx, static_cast<const float*>(vals), n,
-        row_len, col0, width);
+  if (g_sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      table_bf16 ? launch_scatter_vec<__nv_bfloat16>(emb, idx, vals, runs, n,
+                                                     row_len, col0, width, vec, st)
+                 : launch_scatter_vec<float>(emb, idx, vals, runs, n, row_len,
+                                             col0, width, vec, st);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -52,6 +52,7 @@ from . import banded
 from .band_core import band_core
 from .fused_step import fused_grad_core, fused_slab_scatter
 from .overlap import overlap_add_tokens
+from .runs import find_runs
 from .tables import DeviceTables
 from .train_step import (
     _cast_update, _draw_negatives, _dup_mean_scale, _row_clip_scale,
@@ -506,15 +507,27 @@ class BandStep:
         neg_idx = flat_negs[order_n].to(torch.int32).contiguous()
         neg_vals, neg_w = neg_vals[order_n], neg_w[order_n]
         in_l, out_l, neg_l = in_idx.long(), out_idx.long(), neg_idx.long()
+        # the run list of each sorted id array, built once on the card and
+        # shared by its row sums and its scatter (the token-order sides
+        # share one array); the CPU's plain versions need none
+        in_runs = out_runs = neg_runs = None
+        if in_idx.is_cuda:
+            in_runs = find_runs(in_idx)
+            out_runs = in_runs if out_idx is in_idx else find_runs(out_idx)
+            neg_runs = find_runs(neg_idx)
 
         if cfg.scatter_mean:
             # per-contribution counts; the out table's count is joint over
             # its positive targets and the negative draws
             in_vals = in_vals * _dup_mean_scale(
-                V_in, in_idx, in_w, presorted=True
+                V_in, in_idx, in_w, presorted=True, runs=in_runs
             )[:, None]
-            cnt = ordered_row_sum(V_out, out_idx, out_w, presorted=True)
-            cnt = ordered_row_sum(V_out, neg_idx, neg_w, cnt, presorted=True)
+            cnt = ordered_row_sum(
+                V_out, out_idx, out_w, presorted=True, runs=out_runs
+            )
+            cnt = ordered_row_sum(
+                V_out, neg_idx, neg_w, cnt, presorted=True, runs=neg_runs
+            )
             inv = 1.0 / torch.clamp_min(cnt, 1.0)
             out_vals = out_vals * inv[out_l][:, None]
             neg_vals = neg_vals * inv[neg_l][:, None]
@@ -524,10 +537,12 @@ class BandStep:
             # the out table's positive and negative contributions share rows,
             # so they share one budget
             tau = cfg.clip_row_update
-            in_scale = _row_clip_scale(V_in, tau, (in_idx, in_vals), presorted=True)
+            in_scale = _row_clip_scale(
+                V_in, tau, (in_idx, in_vals), presorted=True, runs=(in_runs,)
+            )
             out_scale = _row_clip_scale(
                 V_out, tau, (out_idx, out_vals), (neg_idx, neg_vals),
-                presorted=True,
+                presorted=True, runs=(out_runs, neg_runs),
             )
             clip_count = torch.sum((in_scale < 1.0).float()) + torch.sum(
                 (out_scale < 1.0).float()
@@ -553,16 +568,16 @@ class BandStep:
                 dim=1,
             ).contiguous()
             # one doubled-width scatter: both planes share the sorted ids
-            fused_slab_scatter(emb, in_idx, vals2)
+            fused_slab_scatter(emb, in_idx, vals2, runs=in_runs)
             vneg = _cast_update(neg_vals, T, u_neg, emb[neg_l, 1] if sr else None)
-            fused_slab_scatter(emb, neg_idx, vneg.contiguous(), plane=1)
+            fused_slab_scatter(emb, neg_idx, vneg.contiguous(), plane=1, runs=neg_runs)
         else:
             emb_in, emb_out = params["emb_in"], params["emb_out_ns"]
             T = emb_in.dtype
             vin = _cast_update(in_vals, T, u_in, emb_in[in_l] if sr else None)
             vout = _cast_update(out_vals, T, u_out, emb_out[out_l] if sr else None)
-            fused_slab_scatter(emb_in, in_idx, vin.contiguous())
-            fused_slab_scatter(emb_out, out_idx, vout.contiguous())
+            fused_slab_scatter(emb_in, in_idx, vin.contiguous(), runs=in_runs)
+            fused_slab_scatter(emb_out, out_idx, vout.contiguous(), runs=out_runs)
             vneg = _cast_update(neg_vals, T, u_neg, emb_out[neg_l] if sr else None)
-            fused_slab_scatter(emb_out, neg_idx, vneg.contiguous())
+            fused_slab_scatter(emb_out, neg_idx, vneg.contiguous(), runs=neg_runs)
         return clip_count

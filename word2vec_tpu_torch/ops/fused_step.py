@@ -12,7 +12,8 @@ bounds them on the H100 and how the design answers it):
   * `fused_slab_scatter` — the sorted in-place scatter into the slab:
     duplicates add one by one in sorted order, rounding to the table dtype
     after each add; ids of -1 are skipped. With `plane=` it updates one
-    [d] plane (the negative-row tail scatter).
+    [d] plane (the negative-row tail scatter). Its work is handed out per
+    run of equal ids, from the run list of ops/runs.py.
 
 Each wrapper takes the plain PyTorch version (below, same module) for
 tensors on the CPU and launches its kernel for tensors on a CUDA device,
@@ -29,6 +30,7 @@ import torch
 from .. import _build
 from .banded import _overlap_add, band_dist
 from .launch import LAUNCHES, check, on_cuda, stream
+from .runs import check_runs, find_runs
 
 GradOutputs = Tuple[torch.Tensor, ...]
 
@@ -255,6 +257,21 @@ def _scatter_view(emb, vals, plane):
     return rows, vals, plane * d
 
 
+def scatter_vector(emb, vals, row_len: int, col0: int) -> int:
+    """Values per vector load of the scatter kernel: 4, 2 or 1, the most
+    that divides the row width, the column offset and the row length, with
+    both base pointers aligned to the vector (16 bytes for f32 x4, 8 for
+    bf16 x4)."""
+    es = emb.element_size()
+    width = vals.shape[1]
+    for nv in (4, 2):
+        if (width % nv == 0 and col0 % nv == 0 and row_len % nv == 0
+                and emb.data_ptr() % (nv * es) == 0
+                and vals.data_ptr() % (nv * es) == 0):
+            return nv
+    return 1
+
+
 def fused_slab_scatter_plain(
     emb: torch.Tensor,
     sorted_idx: torch.Tensor,
@@ -293,10 +310,12 @@ def fused_slab_scatter(
     sorted_idx: torch.Tensor,  # [N] int32, ascending; -1 = skip
     vals: torch.Tensor,        # [N, 2, d] (plane=None) or [N, d], emb dtype
     plane: Optional[int] = None,
+    runs: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """emb.at[sorted_idx].add(vals) (or .at[sorted_idx, plane].add(vals))
     in place, duplicates in sorted order with table-dtype rounding after
-    each add. Returns emb."""
+    each add. `runs` is the run list of sorted_idx (ops/runs.find_runs),
+    built here when None; the CPU path does not need it. Returns emb."""
     if not on_cuda("fused_slab_scatter", emb, sorted_idx, vals):
         return fused_slab_scatter_plain(emb, sorted_idx, vals, plane)
     if emb.dtype not in (torch.float32, torch.bfloat16):
@@ -307,13 +326,17 @@ def fused_slab_scatter(
     N = sorted_idx.shape[0]
     check("sorted_idx", sorted_idx, (N,), torch.int32)
     check("vals", v, (N, v.shape[1]), emb.dtype)
+    if runs is None:
+        runs = find_runs(sorted_idx)
+    check_runs(runs, N, sorted_idx.device)
+    vec = scatter_vector(emb, v, rows.shape[1], col0)
     lib = _build.library("fused_step")
     dev = emb.device
     with torch.cuda.device(dev):
         err = lib.w2v_slab_scatter(
             emb.data_ptr(), int(emb.dtype == torch.bfloat16),
-            sorted_idx.data_ptr(), v.data_ptr(), N, rows.shape[1], col0,
-            v.shape[1], stream(dev),
+            sorted_idx.data_ptr(), v.data_ptr(), runs.data_ptr(), N,
+            rows.shape[1], col0, v.shape[1], vec, stream(dev),
         )
     _build.check(lib, err, "fused_slab_scatter launch")
     LAUNCHES["fused_slab_scatter"] += 1

@@ -21,6 +21,7 @@ LAUNCHES: Dict[str, int] = {
     "overlap_add_slabs": 0,
     "band_core": 0,
     "ordered_row_sum": 0,
+    "find_runs": 0,
 }
 
 

@@ -13,7 +13,8 @@ goes through `ordered_row_sum`: each row's terms are added in the order
 they appear, which is XLA's sequential `.at[idx].add` order, so the
 result is bitwise the JAX helper's and the same on every run. On a CUDA
 tensor it is the kernel of csrc/row_sum.cu (an unordered `index_add_`
-adds in atomic order there, which changes from run to run).
+adds in atomic order there, which changes from run to run), which hands
+out its work per run of equal ids from the run list of ops/runs.py.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from .. import _build
 from .launch import LAUNCHES, check, on_cuda, stream
+from .runs import check_runs, find_runs
 
 
 def _draw_negatives(
@@ -74,6 +76,7 @@ def ordered_row_sum(
     out: Optional[torch.Tensor] = None,
     *,
     presorted: bool = False,
+    runs: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`out.at[idx].add(vals)` for [N] values in float32, out =
     zeros(num_rows) when None (updated in place otherwise), each row's
@@ -83,8 +86,12 @@ def ordered_row_sum(
     order); otherwise ids and values pass through a STABLE argsort first,
     which keeps each row's terms in their original order. A chain
     `.at[i1].add(v1).at[i2].add(v2)` is two calls, the second with
-    out= the first's result."""
+    out= the first's result. `runs` is the run list of the sorted ids
+    (ops/runs.find_runs; presorted ids only), built here when None; the
+    CPU path does not need it. Ids < 0 are skipped on the card."""
     if not presorted:
+        if runs is not None:
+            raise ValueError("ordered_row_sum: runs= needs presorted ids")
         order = torch.argsort(idx, stable=True)
         idx, vals = idx[order], vals[order]
     if out is None:
@@ -98,11 +105,15 @@ def ordered_row_sum(
     vals = vals.to(torch.float32).contiguous()
     check("ordered_row_sum out", out, (num_rows,), torch.float32)
     check("ordered_row_sum vals", vals, (n,), torch.float32)
+    if runs is None:
+        runs = find_runs(idx)
+    check_runs(runs, n, idx.device)
     lib = _build.library("row_sum")
     dev = out.device
     with torch.cuda.device(dev):
         err = lib.w2v_ordered_row_sum(
-            out.data_ptr(), idx.data_ptr(), vals.data_ptr(), n, stream(dev)
+            out.data_ptr(), idx.data_ptr(), vals.data_ptr(), runs.data_ptr(),
+            n, stream(dev),
         )
     _build.check(lib, err, "ordered_row_sum launch")
     LAUNCHES["ordered_row_sum"] += 1
@@ -114,17 +125,19 @@ def _row_clip_scale(
     tau: float,
     *contribs: Tuple[torch.Tensor, torch.Tensor],
     presorted: bool = False,
+    runs: Tuple[Optional[torch.Tensor], ...] = (),
 ) -> torch.Tensor:
     """Per-row trust-region scale for batched duplicate-summed updates:
     scale_r = tau / max(S_r, tau), S_r = sum_j ||vals_j|| over the row's
     contributions, each contribution one ordered_row_sum in turn
-    (train_step.py:52-89; single device, no tp psum)."""
+    (train_step.py:52-89; single device, no tp psum). `runs` gives each
+    contribution's run list (presorted ids), built per call when absent."""
     s = None
-    for idx, vals in contribs:
+    for j, (idx, vals) in enumerate(contribs):
         v = vals.float()
         s = ordered_row_sum(
             num_rows, idx, torch.sqrt(torch.sum(v * v, dim=-1)), s,
-            presorted=presorted,
+            presorted=presorted, runs=runs[j] if j < len(runs) else None,
         )
     return tau / torch.clamp_min(s, tau)
 
@@ -159,7 +172,10 @@ def _dup_mean_scale(
     flat_idx: torch.Tensor,
     flat_weight: torch.Tensor,
     presorted: bool = False,
+    runs: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """1/duplicate-count scale per flattened index (config.scatter_mean)."""
-    cnt = ordered_row_sum(num_rows, flat_idx, flat_weight, presorted=presorted)
+    cnt = ordered_row_sum(
+        num_rows, flat_idx, flat_weight, presorted=presorted, runs=runs
+    )
     return (1.0 / torch.clamp_min(cnt, 1.0))[flat_idx.long()]
