@@ -9,12 +9,14 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
      versions; a CUDA device is required.
   2. build: every csrc/*.cu source compiled by nvcc (one process each, all
-     started together), with the build seconds and ptxas's register /
-     spill report.
+     started together), with the build seconds, ptxas's register / spill /
+     smem report and the band cores' dynamic shared memory.
   3. kernels vs plain versions on the card, at the flagship shapes:
      fused_grad_core and band_core (sg and cbow, f32 tables, bf16 and f32
      compute; band_core in row and batch negative scope) within the stated
-     tolerance, n_ctx / ctx_w exact; the slab scatter (f32 and bf16
+     tolerance, n_ctx / ctx_w exact, two calls bitwise equal; both cores
+     with bf16 compute (their tensor-core bodies) at the odd shapes of
+     ODD_SHAPES (f32 and bf16 tables), likewise; the slab scatter (f32 and bf16
      tables, whole rows and the plane-1 negative tail), the overlap-add
      and the ordered row sum bitwise, the row sum also across two runs;
      then the run list (exact), the scatter and the row sum on adversarial
@@ -35,6 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
      default route, bitwise equal.
   5. times: device-time medians (CUDA events queued behind a spin kernel,
      cuda_ms) per kernel and for its plain version, the
+     per-phase cycle split of both band cores (sg and cbow, bf16 and f32
+     compute; a core_phases line), the
      library call that computes the same function where there is one
      (index_add_ for the scatter and the row sum, F.fold for the
      overlap-add, unique_consecutive for the run list), each kernel's
@@ -200,6 +204,89 @@ def grad_inputs(dev, table_dtype, seed=0):
         ).to(dev),
         alpha=0.025,
     )
+
+
+# odd shapes of the band cores' tiling (d, KP, W, S, L, B): S never a
+# multiple of the 16-row mma tile, L never a multiple of S, d and KP off
+# the tile too; tests/test_torch_band_tiles.py emulates the kernels' tiling
+# at the same shapes on the CPU
+ODD_SHAPES = {
+    "d7-kp8-w1": (7, 8, 1, 13, 30, 3),
+    "d64-kp64-w5": (64, 64, 5, 21, 50, 3),
+    "d300-kp100-w5": (300, 100, 5, 19, 45, 2),
+    "d300-kp64-w5-flagship-chunk": (300, 64, 5, 118, 192, 2),
+    "d64-kp100-w1": (64, 100, 1, 10, 27, 4),
+}
+
+
+def _small_tokens(rng, V_, B_, L_):
+    tokens = rng.integers(0, V_, size=(B_, L_)).astype(np.int32)
+    tokens[B_ - 1, L_ // 2 + 1:] = -1  # a ragged row
+    if B_ > 2:
+        tokens[1, 3:] = -1
+    return torch.from_numpy(tokens)
+
+
+def small_grad_inputs(*, V, d, B, L, W, S, KP, table, seed=0):
+    """fused_grad_core's inputs at a small shape, on the CPU: a [V, 2, d]
+    slab, ragged rows, a negative that collides with row 0's tokens."""
+    from word2vec_tpu_torch.ops import banded
+
+    rng = np.random.default_rng(seed)
+    C, _ = banded._geom(L, W, S)
+    tokens = _small_tokens(rng, V, B, L)
+    tok = torch.where(tokens >= 0, tokens, 0)
+    pad = C * S - L
+    keep = torch.from_numpy(rng.random((B, L)) < 0.8) & (tokens >= 0)
+    w_eff = torch.from_numpy(rng.integers(1, W + 1, size=(B, L)).astype(np.float32))
+    negs = torch.from_numpy(rng.integers(0, V, size=(B, KP)).astype(np.int32))
+    negs[0, :3] = tokens[0, 2:5]
+    P = torch.nn.functional.pad
+    emb = np.stack([rng.uniform(-0.5, 0.5, size=(V, d)),
+                    rng.normal(0, 0.5, size=(V, d))], axis=1).astype(np.float32)
+    return dict(
+        emb=torch.from_numpy(emb).to(table),
+        tok_c=P(tok, (0, pad)).reshape(B, C, S).contiguous(),
+        tok_k=banded.slab_token_ids(tokens, W, S).contiguous(),
+        keep_c=P(keep.float(), (0, pad)).reshape(B, C, S).contiguous(),
+        w_c=P(w_eff, (0, pad)).reshape(B, C, S).contiguous(),
+        negs=negs,
+    )
+
+
+def small_core_inputs(*, V, d, B, L, W, S, KP, table, scope, model, seed=1):
+    """band_core's inputs at a small shape, on the CPU, as the pallas route
+    gathers them (raw -1-padded center ids)."""
+    from word2vec_tpu_torch.ops import banded
+
+    rng = np.random.default_rng(seed)
+    C, P = banded._geom(L, W, S)
+    tokens = _small_tokens(rng, V, B, L)
+    tok = torch.where(tokens >= 0, tokens, 0).long()
+    pad = C * S - L
+    keep = torch.from_numpy(rng.random((B, L)) < 0.8) & (tokens >= 0)
+    w_eff = torch.from_numpy(rng.integers(1, W + 1, size=(B, L)).astype(np.float32))
+    tab = torch.from_numpy(rng.normal(0, 0.5, size=(2, V, d)).astype(np.float32))
+    tab = tab.to(table)
+    ctr, ctx = (tab[1], tab[0]) if model == "cbow" else (tab[0], tab[1])
+    nb = B if scope == "row" else 1
+    negs = torch.from_numpy(rng.integers(0, V, size=(nb, KP)).astype(np.int32))
+    negs[0, :3] = tokens[0, 2:5]
+    P2 = torch.nn.functional.pad
+    return dict(
+        a=banded._pad_rows(ctr[tok], C * S).reshape(B, C, S, d).contiguous(),
+        bk=banded._slabs(banded._pad_ctx(ctx[tok], W, P), C, S, 2 * W).contiguous(),
+        en=tab[1][negs.long()].contiguous(),
+        tok_c=P2(tokens, (0, pad), value=-1).reshape(B, C, S).contiguous(),
+        tok_k=banded.slab_token_ids(tokens, W, S).contiguous(),
+        keep_c=P2(keep.float(), (0, pad)).reshape(B, C, S).contiguous(),
+        w_c=P2(w_eff, (0, pad)).reshape(B, C, S).contiguous(),
+        negs=negs,
+    )
+
+
+GRAD_ORDER = ("emb", "tok_c", "tok_k", "keep_c", "w_c", "negs")
+CORE_ORDER = ("a", "bk", "en", "tok_c", "tok_k", "keep_c", "w_c", "negs")
 
 
 def core_inputs(inp, model, scope):
@@ -410,9 +497,13 @@ def rel_err(k, p):
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def check_outputs(what, names, got, ref, cdt):
-    """Log and hold each output; return the worst abs error over the
-    gradient outputs."""
+GRAD_NAMES = ("d_ctr", "d_ctx", "n_ctx", "ctx_w", "d_neg", "w_neg_sum", "losses")
+CORE_NAMES = ("d_h", "d_ctx", "d_neg", "n_ctx", "ctx_w", "w_neg_sum", "losses")
+
+
+def check_outputs(what, names, got, ref, cdt, quiet=False):
+    """Log (unless quiet) and hold each output; return the worst abs error
+    over the gradient outputs."""
     worst = 0.0
     for name, g, r in zip(names, got, ref):
         if g.shape != r.shape or not torch.isfinite(g).all():
@@ -420,8 +511,9 @@ def check_outputs(what, names, got, ref, cdt):
         ab, rel = rel_err(g, r)
         exact = name in ("n_ctx", "ctx_w")
         limit = 0.0 if exact else (1e-4 if name == "losses" else TOL[cdt])
-        log(f"  {what} {name}: max_abs_err={ab:.3e} max_rel_err={rel:.3e} "
-            f"(limit {limit:g})")
+        if not quiet:
+            log(f"  {what} {name}: max_abs_err={ab:.3e} max_rel_err={rel:.3e} "
+                f"(limit {limit:g})")
         if rel > limit:
             fail(f"{what} {name}: rel err {rel:.3e} > {limit:g}")
         if not exact and name != "losses":
@@ -436,7 +528,6 @@ def phase_kernels(dev):
     from word2vec_tpu_torch.ops import train_step as ts
 
     errs = {}
-    grad_names = ("d_ctr", "d_ctx", "n_ctx", "ctx_w", "d_neg", "w_neg_sum", "losses")
     for model in ("sg", "cbow"):
         for cdt in (torch.bfloat16, torch.float32):
             inp = grad_inputs(dev, torch.float32)
@@ -445,12 +536,17 @@ def phase_kernels(dev):
             args = (inp["emb"], inp["tok_c"], inp["tok_k"], inp["keep_c"],
                     inp["w_c"], inp["negs"], inp["alpha"])
             got = fs.fused_grad_core(*args, **kw)
+            again = fs.fused_grad_core(*args, **kw)
             ref = fs.fused_grad_core_plain(*args, **kw)
             torch.cuda.synchronize()
             errs[("fused_grad_core", model, cdt)] = check_outputs(
-                f"fused_grad_core {model} cdt={str(cdt)[6:]}", grad_names,
+                f"fused_grad_core {model} cdt={str(cdt)[6:]}", GRAD_NAMES,
                 got, ref, cdt)
-    core_names = ("d_h", "d_ctx", "d_neg", "n_ctx", "ctx_w", "w_neg_sum", "losses")
+            same = same_bits(got, again)
+            log(f"  fused_grad_core {model} cdt={str(cdt)[6:]}: two calls "
+                f"bitwise_equal={same}")
+            if not same:
+                fail(f"fused_grad_core {model} {cdt}: two calls differ (bitwise)")
     inp = grad_inputs(dev, torch.float32)
     for model in ("sg", "cbow"):
         for scope in ("row", "batch"):
@@ -458,13 +554,20 @@ def phase_kernels(dev):
             for cdt in (torch.bfloat16, torch.float32):
                 kw = dict(W=W, K=K, cdt=cdt, is_cbow=model == "cbow", cbow_mean=True)
                 got = bc.band_core(*args, **kw)
+                again = bc.band_core(*args, **kw)
                 ref = bc.band_core_plain(*args, **kw)
                 torch.cuda.synchronize()
                 errs[("band_core", model, scope, cdt)] = check_outputs(
-                    f"band_core {model} {scope} cdt={str(cdt)[6:]}", core_names,
+                    f"band_core {model} {scope} cdt={str(cdt)[6:]}", CORE_NAMES,
                     got, ref, cdt)
+                same = same_bits(got, again)
+                log(f"  band_core {model} {scope} cdt={str(cdt)[6:]}: two calls "
+                    f"bitwise_equal={same}")
+                if not same:
+                    fail(f"band_core {model} {scope} {cdt}: two calls differ (bitwise)")
                 if bool((got[1][args[4] < 0] != 0).any()):
                     fail("band_core: context gradient at an invalid slab slot")
+    phase_odd_shapes(dev)
     for dt in (torch.float32, torch.bfloat16):
         sc = scatter_inputs(dev, dt)
         got = fs.fused_slab_scatter(sc["emb"].clone(), sc["idx"], sc["vals"])
@@ -508,6 +611,53 @@ def phase_kernels(dev):
         fail("ordered_row_sum: kernel != plain or not repeatable (bitwise)")
     phase_ordered_sets(dev)
     return errs
+
+
+def same_bits(xs, ys) -> bool:
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(xs, ys))
+
+
+def phase_odd_shapes(dev):
+    """Both band cores with bf16 compute (the tensor-core bodies) at the
+    odd shapes of ODD_SHAPES, sg and cbow, f32 and bf16 tables, band_core
+    in row and batch scope: within TOL of the plain version, n_ctx / ctx_w
+    exact, and two calls bitwise equal."""
+    from word2vec_tpu_torch.ops import band_core as bc
+    from word2vec_tpu_torch.ops import fused_step as fs
+
+    cdt = torch.bfloat16
+    for shape, (d, kp, w, s, l, b) in ODD_SHAPES.items():
+        geo = dict(V=80, d=d, B=b, L=l, W=w, S=s, KP=kp)
+        for model in ("sg", "cbow"):
+            for table in (torch.float32, torch.bfloat16):
+                tag = f"{shape} {model} {str(table)[6:]} tables"
+                inp = small_grad_inputs(table=table, **geo)
+                args = [inp[k].to(dev) for k in GRAD_ORDER]
+                kw = dict(W=w, K=K, L=l, cdt=cdt, is_cbow=model == "cbow")
+                got = fs.fused_grad_core(*args, 0.03, **kw)
+                again = fs.fused_grad_core(*args, 0.03, **kw)
+                ref = fs.fused_grad_core_plain(*args, 0.03, **kw)
+                torch.cuda.synchronize()
+                check_outputs(f"fused_grad_core {tag}", GRAD_NAMES, got, ref, cdt,
+                              quiet=True)
+                if not same_bits(got, again):
+                    fail(f"fused_grad_core {tag}: two calls differ (bitwise)")
+                for scope in ("row", "batch"):
+                    inp = small_core_inputs(table=table, scope=scope, model=model,
+                                            **geo)
+                    args = [inp[k].to(dev) for k in CORE_ORDER]
+                    kw = dict(W=w, K=K, cdt=cdt, is_cbow=model == "cbow")
+                    got = bc.band_core(*args, 0.03, **kw)
+                    again = bc.band_core(*args, 0.03, **kw)
+                    ref = bc.band_core_plain(*args, 0.03, **kw)
+                    torch.cuda.synchronize()
+                    check_outputs(f"band_core {tag} {scope}", CORE_NAMES, got, ref,
+                                  cdt, quiet=True)
+                    if not same_bits(got, again):
+                        fail(f"band_core {tag} {scope}: two calls differ (bitwise)")
+        log(f"  odd shape {shape} (d={d} KP={kp} W={w} S={s} L={l} B={b}): both "
+            "cores, sg/cbow, f32/bf16 tables, row/batch: within tolerance, "
+            "repeatable bitwise")
 
 
 def phase_ordered_sets(dev):
@@ -745,6 +895,53 @@ def phase_repeat(dev, vocab, corpus):
         fail("two runs of one flagship step differ (bitwise)")
 
 
+def phase_cores(dev, card, clock):
+    """Device time and per-phase cycle split of both band cores at the
+    flagship (f32 tables; band_core in row scope), sg and cbow, bf16 and
+    f32 compute: the split is the mean over the B blocks of each phase's
+    clock64() cycles (csrc/band_tiles.cuh PhaseClock), as a share of the
+    block's cycles and in microseconds at the max SM clock."""
+    from word2vec_tpu_torch.ops import band_core as bc
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops.launch import CORE_PHASES
+
+    inp = grad_inputs(dev, torch.float32)
+    rows = []
+    for model in ("sg", "cbow"):
+        gargs = (inp["emb"], inp["tok_c"], inp["tok_k"], inp["keep_c"],
+                 inp["w_c"], inp["negs"], inp["alpha"])
+        cargs = core_inputs(inp, model, "row")
+        for cdt in (torch.bfloat16, torch.float32):
+            calls = {
+                "fused_grad_core": lambda rec=None: fs.fused_grad_core(
+                    *gargs, W=W, K=K, L=L, cdt=cdt, is_cbow=model == "cbow",
+                    phase_cycles=rec),
+                "band_core": lambda rec=None: bc.band_core(
+                    *cargs, W=W, K=K, cdt=cdt, is_cbow=model == "cbow",
+                    phase_cycles=rec),
+            }
+            for name, call in calls.items():
+                ms = cuda_ms(call, reps=10)
+                rec = torch.zeros((B, len(CORE_PHASES)), dtype=torch.int64,
+                                  device=dev)
+                call(rec)
+                torch.cuda.synchronize()
+                per = rec.double().mean(0)
+                total = float(per.sum())
+                split = {p: float(v) / total for p, v in zip(CORE_PHASES, per)}
+                rows.append({
+                    "kernel": name, "model": model, "cdt": str(cdt)[6:], "ms": ms,
+                    "block_cycles": total, "block_us": total / clock * 1e6,
+                    "split": split,
+                })
+                log(f"  {name} {model} cdt={str(cdt)[6:]}: {ms:.4f} ms; one block "
+                    f"{total:.0f} cycles ({total / clock * 1e6:.1f} us at max clock): "
+                    + " ".join(f"{p} {100 * v:.1f}%" for p, v in split.items())
+                    + f" ({card})")
+    log(json.dumps({"core_phases": rows, "card": card}))
+    return rows
+
+
 def phase_times(dev, errs, counts, tokens):
     """Times at the flagship shapes; `tokens` is one batch of the flagship
     corpus (the real step's ids for the ordered sums)."""
@@ -891,6 +1088,7 @@ def phase_times(dev, errs, counts, tokens):
     entry("band_core", "band_core.cu", "word2vec_tpu/ops/pallas_band.py:292",
           ("pallas", "split"),
           errs[("band_core", "sg", "row", torch.bfloat16)], ms, plain, bms, by, None)
+    phase_cores(dev, card, clock)
 
     # the ordered row sum: synthetic flagship ids and the real step's ids
     out = torch.zeros(V, device=dev)
@@ -956,8 +1154,15 @@ def main() -> int:
     log(f"[2 build] {time.perf_counter() - t0:.1f} s")
     for name, rep in _build.PTXAS_REPORTS.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the band cores' dynamic shared memory at the flagship chunk
+    S, SK = 118, 118 + 2 * W
+    for lib, fn in (("fused_step", "w2v_grad_core_smem_bytes"),
+                    ("band_core", "w2v_band_core_smem_bytes")):
+        get = getattr(_build.library(lib), fn)
+        log(f"  {lib} dynamic shared memory (S={S}, KP={KP}, d={D}): bf16 compute "
+            f"{get(S, SK, KP, D, W, 1)} B, f32 compute {get(S, SK, KP, D, W, 0)} B")
 
     log("[3 kernels vs plain, flagship shapes]")
     errs = phase_kernels(dev)

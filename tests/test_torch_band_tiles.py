@@ -1,0 +1,424 @@
+"""The tensor-core tiling of the two band cores, emulated on the CPU.
+
+With bf16 compute, `fused_grad_core` (csrc/fused_step.cu) and `band_core`
+(csrc/band_core.cu) stage each chunk's dense operands in shared memory and
+run their three dense products on the tensor cores, through the tile code
+of csrc/band_tiles.cuh. The kernels cannot run here, so this file emulates
+them in torch, chunk by chunk as one CTA walks its batch row:
+
+  * the zero-padded bf16 tiles: the center rows or cbow projection A
+    [SP x DP], the negative rows E [KPP x DP] and the negative gradient
+    weights G [SP x KPP], SP / KPP / DP rounded up to the mma tile (the
+    tile sizes are read from the .cuh);
+  * every tile product as the mma.sync loop forms it: f32 sums of exact
+    products of bf16-rounded operands, added k-slice (kMmaK) by k-slice;
+  * G's columns past the row's first L positions cut from the d_neg
+    product of the fused kernel (its d_neg sums exactly L positions);
+  * the band side as tile products too: the band matrix of gp (sg) or
+    the mask (cbow), built in the registers, against the context rows
+    (the band product, added into d_hid's accumulator; the cbow
+    projection) or against A (the slab-space context sums), and the sg
+    band logits A bk^T; the context rows bk padded like the tiles;
+  * cbow's d_ctr from the unrounded f32 projection and its d_hid2 staged
+    back into A;
+  * the overlap hand-off between chunks of the fused kernel (slots
+    [0, W) into the previous chunk's last W rows, slots [S+W, S+2W)
+    carried to the next chunk) and band_core's batch-scope row partials
+    reduced in row order.
+
+Each emulation is held against the plain version (fused_grad_core_plain,
+band_core_plain) at chip_smoke.TOL for bf16 compute (gradients 2e-2 of
+max|plain|, losses 1e-4, n_ctx / ctx_w exact) over odd shapes: d in
+{7, 64, 300}, KP in {8, 64, 100}, W in {1, 5}, S not a multiple of 16,
+L not a multiple of S, ragged rows, sg / cbow, row / batch scope; and at
+one small shape each against the JAX package's Pallas kernel run by the
+Pallas interpreter.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from word2vec_tpu.ops.pallas_band import band_core as j_band_core  # noqa: E402
+from word2vec_tpu.ops.pallas_step import fused_grad_core as j_grad_core  # noqa: E402
+
+from chip_smoke import (  # noqa: E402
+    CORE_NAMES, CORE_ORDER, GRAD_NAMES, GRAD_ORDER, ODD_SHAPES, TOL,
+    small_core_inputs as core_inputs, small_grad_inputs as grad_inputs,
+)
+from word2vec_tpu_torch.ops import band_core as bc  # noqa: E402
+from word2vec_tpu_torch.ops import fused_step as fs  # noqa: E402
+from word2vec_tpu_torch.ops.launch import CORE_PHASES  # noqa: E402
+
+torch.set_num_threads(1)
+
+CSRC = Path(__file__).resolve().parent.parent / "word2vec_tpu_torch" / "csrc"
+HEADER = (CSRC / "band_tiles.cuh").read_text()
+
+
+def const(name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);", HEADER)
+    assert m, f"{name} not found in csrc/band_tiles.cuh"
+    return int(m.group(1))
+
+
+MMA_M, MMA_N, MMA_K = const("kMmaM"), const("kMmaN"), const("kMmaK")
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bf(x):
+    """An operand rounded to bf16, held in f32 (the staged tiles)."""
+    return x.to(BF16).to(F32)
+
+
+def mma(a, b, kvalid=None, acc=None):
+    """a [M, K] @ b [K, N] as the mma.sync loop forms it: k-slice by
+    k-slice, each slice's exact bf16 products summed into the f32
+    accumulator (`acc`, zero by default); depth >= kvalid contributes
+    nothing."""
+    if acc is None:
+        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=F32)
+    for k0 in range(0, a.shape[1], MMA_K):
+        sl = a[:, k0:k0 + MMA_K].clone()
+        if kvalid is not None and k0 + MMA_K > kvalid:
+            sl[:, max(0, kvalid - k0):] = 0.0
+        acc = acc + sl @ b[k0:k0 + MMA_K]
+    return acc
+
+
+def chunk(ctr, bk, E, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
+          cbow_mean, kvalid):
+    """One chunk of one row: ctr [S, d] center rows (cbow: out plane), bk
+    [SK, d] context rows (zero at invalid slots), E the staged negative
+    tile. Returns the chunk's outputs before the cross-chunk sums."""
+    S, d = ctr.shape
+    SK = bk.shape[0]
+    KP = negs.numel()
+    SP, DP = up(S, MMA_M), up(d, MMA_K)
+    s = torch.arange(S)[:, None]
+    k = torch.arange(SK)[None, :]
+    dist = (s + W - k).abs()
+    on = (tokk[None, :] >= 0) & (dist.float() <= w[:, None]) & (dist > 0)
+    mask = torch.where(on, keep[:, None], torch.zeros(()))        # [S, SK]
+    nctx, cwy = mask.sum(1), mask.sum(0)
+    hit = (tokk[:, None] == negs[None, :]).float()                # [SK, KP]
+    ctx_hit = bf(mask) @ hit
+    center_hit = (tokc[:, None] == negs[None, :]).float()
+    k_i = torch.where(nctx > 0, float(K), 0.0) if is_cbow else nctx * K
+    wn = (k_i / KP)[:, None] * (1.0 - torch.clamp(center_hit + ctx_hit, 0.0, 1.0))
+
+    # the band side's tiles: the band matrix of slot weights [SP x SKP]
+    # and the context rows [SKP x DP], zero-padded like the staged tiles
+    SKP = up(SK, MMA_K)
+    BK = torch.zeros((SKP, DP))
+    BK[:SK, :d] = bf(bk)
+
+    def band(w):
+        t = torch.zeros((SP, SKP))
+        t[:S, :SK] = bf(w)
+        return t
+
+    A = torch.zeros((SP, DP))
+    if is_cbow:
+        h = mma(band(mask), BK)[:S, :d]
+        if cbow_mean:
+            h = h / torch.clamp_min(nctx, 1.0)[:, None]
+        A[:S, :d] = bf(h)
+    else:
+        A[:S, :d] = bf(ctr)
+    nlog = mma(A, E.T)[:S, :KP]
+    gn = (0.0 - torch.sigmoid(nlog)) * wn * alpha
+    neg = torch.sum(wn * (F.logsigmoid(nlog) - nlog))
+    G = torch.zeros((SP, E.shape[0]))
+    G[:S, :KP] = bf(gn)
+
+    # band side: gp in the [S, SK] band (sg) or per center (cbow)
+    if not is_cbow:
+        plog = mma(A, BK.T)[:S, :SK]
+        gp = torch.where(mask != 0, (1.0 - torch.sigmoid(plog)) * mask * alpha,
+                         torch.zeros(()))
+        pos = torch.sum(torch.where(mask != 0, mask * F.logsigmoid(plog),
+                                    torch.zeros(())))
+    else:
+        plog_c = torch.sum(A[:S, :d] * bf(ctr), dim=1)
+        active = (nctx > 0).float()
+        gpc = (1.0 - torch.sigmoid(plog_c)) * active * alpha
+        pos = torch.sum(active * F.logsigmoid(plog_c))
+
+    dneg = mma(G.T, A, kvalid)[:KP, :d]
+    d_hid = mma(G, E)                                              # [SP, DP]
+    # the context sums on the tensor cores: the band matrix [SK x SP]
+    # (slot k, center s) against A, k-slice by k-slice over s
+    band_t = torch.zeros((SK, SP))
+    if not is_cbow:
+        # the band product continues d_hid's accumulator
+        d_ctr = mma(band(gp), BK, acc=d_hid)[:S, :d]
+        band_t[:, :S] = bf(gp).T
+    else:
+        d_ctr = gpc[:, None] * h
+        dh2 = d_hid[:S, :d] + gpc[:, None] * ctr
+        if cbow_mean:
+            dh2 = dh2 / torch.clamp_min(nctx, 1.0)[:, None]
+        A[:S, :d] = bf(dh2)
+        band_t[:, :S] = bf(mask).T
+    y = mma(band_t, A)[:, :d]                                      # [SK, d]
+    wsum = wn[:kvalid].sum(0)
+    return dict(nctx=nctx, cwy=cwy, d_ctr=d_ctr, y=y, dneg=dneg, wsum=wsum,
+                pos=pos, neg=neg)
+
+
+def stage_negs(en):
+    KP, d = en.shape
+    E = torch.zeros((up(KP, 2 * MMA_N), up(d, MMA_K)))
+    E[:KP, :d] = bf(en.float())
+    return E
+
+
+def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
+                      is_cbow, cbow_mean=True):
+    """csrc/fused_step.cu grad_core_tc_kernel, one row at a time."""
+    B, C, S = tok_c.shape
+    SK = tok_k.shape[2]
+    d = emb.shape[-1]
+    KP = negs.shape[1]
+    ctr_p, ctx_p = (1, 0) if is_cbow else (0, 1)
+    e32 = emb.float()
+    d_ctr = torch.zeros((B, C, S, d))
+    d_ctx = torch.zeros((B, C, S, d))
+    n_ctx = torch.zeros((B, C, S))
+    ctx_w = torch.zeros((B, C, S))
+    d_neg = torch.zeros((B, KP, d))
+    w_neg_sum = torch.zeros((B, KP))
+    pos = neg = torch.zeros(())
+    for b in range(B):
+        E = stage_negs(e32[negs[b].long(), 1])
+        tail = cw_tail = None
+        for c in range(C):
+            tokk = tok_k[b, c]
+            bk = torch.where((tokk >= 0)[:, None],
+                             e32[tokk.clamp_min(0).long(), ctx_p], torch.zeros(()))
+            s_end = min(S, L - c * S)
+            o = chunk(e32[tok_c[b, c].long(), ctr_p], bk, E, tok_c[b, c], tokk,
+                      keep_c[b, c], w_c[b, c], negs[b], alpha, W=W, K=K,
+                      is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=s_end)
+            n_ctx[b, c] = o["nctx"]
+            d_ctr[b, c] = o["d_ctr"]
+            d_neg[b] = o["dneg"] if c == 0 else d_neg[b] + o["dneg"]
+            w_neg_sum[b] = w_neg_sum[b] + o["wsum"]
+            pos, neg = pos + o["pos"], neg + o["neg"]
+            # the overlap hand-off in token order
+            y, cw = o["y"], o["cwy"]
+            if c > 0:
+                d_ctx[b, c - 1, S - W:] += y[:W]
+                ctx_w[b, c - 1, S - W:] += cw[:W]
+            d_ctx[b, c] = y[W:S + W]
+            ctx_w[b, c] = cw[W:S + W]
+            if c > 0:
+                d_ctx[b, c, :W] = y[W:2 * W] + tail
+                ctx_w[b, c, :W] = cw[W:2 * W] + cw_tail
+            tail, cw_tail = y[S + W:], cw[S + W:]
+    losses = torch.stack([-pos, -neg]).reshape(1, 2)
+    return d_ctr, d_ctx, n_ctx, ctx_w, d_neg, w_neg_sum, losses
+
+
+def emulate_band_core(a, bk, en, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W,
+                      K, is_cbow, cbow_mean=True):
+    """csrc/band_core.cu band_core_tc_kernel, one row at a time; under
+    batch scope the per-row partials reduced in row order."""
+    B, C, S, d = a.shape
+    SK = bk.shape[2]
+    NB, KP = negs.shape
+    d_h = torch.zeros((B, C, S, d))
+    d_ctx = torch.zeros((B, C, SK, d))
+    n_ctx = torch.zeros((B, C, S))
+    ctx_w = torch.zeros((B, C, SK))
+    dneg_row = torch.zeros((B, KP, d))
+    wsum_row = torch.zeros((B, KP))
+    loss_row = torch.zeros((B, 2))
+    for b in range(B):
+        nb = b if NB == B else 0
+        E = stage_negs(en[nb])
+        for c in range(C):
+            o = chunk(a[b, c].float(), bk[b, c].float(), E, tok_c[b, c],
+                      tok_k[b, c], keep_c[b, c], w_c[b, c], negs[nb], alpha,
+                      W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=None)
+            n_ctx[b, c], ctx_w[b, c] = o["nctx"], o["cwy"]
+            d_h[b, c], d_ctx[b, c] = o["d_ctr"], o["y"]
+            dneg_row[b] = o["dneg"] if c == 0 else dneg_row[b] + o["dneg"]
+            wsum_row[b] = wsum_row[b] + o["wsum"]
+            loss_row[b] = loss_row[b] - torch.stack([o["pos"], o["neg"]])
+    if NB == 1:
+        d_neg, w_neg_sum, = torch.zeros((1, KP, d)), torch.zeros((1, KP))
+        for b in range(B):  # rows_reduce_kernel: rows in order
+            d_neg, w_neg_sum = d_neg + dneg_row[b], w_neg_sum + wsum_row[b]
+    else:
+        d_neg, w_neg_sum = dneg_row, wsum_row
+    losses = torch.zeros(2)
+    for b in range(B):
+        losses = losses + loss_row[b]
+    return d_h, d_ctx, d_neg, n_ctx, ctx_w, w_neg_sum, losses.reshape(1, 2)
+
+
+def assert_close(names, got, ref, tol):
+    """chip_smoke.check_outputs' rule: max|got - ref| <= tol * max|ref|
+    per gradient output, losses 1e-4, the mask sums exact."""
+    for name, g, r in zip(names, got, ref):
+        g = torch.from_numpy(np.array(g, np.float32))
+        r = torch.from_numpy(np.array(r, np.float32))
+        assert g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        err = float((g.double() - r.double()).abs().max())
+        if name in ("n_ctx", "ctx_w"):
+            assert err == 0.0, name
+        else:
+            limit = 1e-4 if name == "losses" else tol
+            assert err <= limit * max(float(r.abs().max()), 1e-30), (name, err)
+
+
+# ------------------------------------------------------------------ cases
+# chip_smoke.ODD_SHAPES (d, KP, W, S, L, B): the shapes phase 3 runs the
+# kernels at on the card
+@pytest.mark.parametrize("table", [F32, BF16], ids=["f32tab", "bf16tab"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(ODD_SHAPES))
+def test_grad_core_tiling_matches_plain(shape, model, table):
+    d, KP, W, S, L, B = ODD_SHAPES[shape]
+    inp = grad_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=table)
+    args = [inp[k] for k in GRAD_ORDER]
+    kw = dict(W=W, K=5, L=L, is_cbow=model == "cbow")
+    got = emulate_grad_core(*args, 0.03, **kw)
+    ref = fs.fused_grad_core_plain(*args, 0.03, cdt=BF16, **kw)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+    assert float(ref[4].abs().max()) > 1e-4  # d_neg is not trivially zero
+
+
+@pytest.mark.parametrize("scope", ["row", "batch"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(ODD_SHAPES))
+def test_band_core_tiling_matches_plain(shape, model, scope):
+    d, KP, W, S, L, B = ODD_SHAPES[shape]
+    table = BF16 if shape.startswith("d64") else F32
+    inp = core_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=table,
+                      scope=scope, model=model)
+    args = [inp[k] for k in CORE_ORDER]
+    kw = dict(W=W, K=5, is_cbow=model == "cbow")
+    got = emulate_band_core(*args, 0.03, **kw)
+    ref = bc.band_core_plain(*args, 0.03, cdt=BF16, **kw)
+    assert_close(CORE_NAMES, got, ref, TOL[BF16])
+    assert bool((got[1][inp["tok_k"] < 0] == 0).all())  # slab zeros
+
+
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_grad_core_cuts_gn_past_L(model):
+    """Valid slab ids and keep = 1 everywhere, so centers past L get
+    non-zero negative weights: d_neg and w_neg_sum still sum exactly the
+    first L positions only because the tile product cuts G there."""
+    d, KP, W, S, L, B = 16, 8, 2, 13, 30, 2
+    inp = grad_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32)
+    rng = np.random.default_rng(4)
+    inp["tok_k"] = torch.from_numpy(
+        rng.integers(0, 80, size=inp["tok_k"].shape).astype(np.int32))
+    inp["keep_c"] = torch.ones_like(inp["keep_c"])
+    inp["w_c"] = torch.full_like(inp["w_c"], float(W))
+    args = [inp[k] for k in GRAD_ORDER]
+    kw = dict(W=W, K=5, L=L, is_cbow=model == "cbow")
+    got = emulate_grad_core(*args, 0.03, **kw)
+    ref = fs.fused_grad_core_plain(*args, 0.03, cdt=BF16, **kw)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+    C = inp["tok_c"].shape[1]
+    uncut = emulate_grad_core(*args, 0.03, W=W, K=5, L=C * S, is_cbow=model == "cbow")
+    assert float((uncut[4] - ref[4]).abs().max()) > 10 * TOL[BF16] * float(
+        ref[4].abs().max())
+
+
+def _jax(x, dt):
+    return jnp.asarray(x.float().numpy()).astype(dt)
+
+
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_grad_core_tiling_matches_jax_kernel(model):
+    d, KP, W, S, L, B = 7, 8, 3, 10, 37, 3
+    inp = grad_inputs(V=60, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32, seed=5)
+    got = emulate_grad_core(*[inp[k] for k in GRAD_ORDER], 0.03, W=W, K=3, L=L,
+                            is_cbow=model == "cbow")
+    jargs = [_jax(inp["emb"], jnp.float32)] + [
+        jnp.asarray(inp[k].numpy()) for k in GRAD_ORDER[1:]]
+    ref = j_grad_core(*jargs, jnp.float32(0.03), W=W, K=3, L=L, cdt=jnp.bfloat16,
+                      is_cbow=model == "cbow", cbow_mean=True, interpret=True)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+
+
+@pytest.mark.parametrize("scope", ["row", "batch"])
+def test_band_core_tiling_matches_jax_kernel(scope):
+    d, KP, W, S, L, B = 7, 8, 3, 10, 37, 3
+    inp = core_inputs(V=60, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope=scope, model="sg", seed=6)
+    got = emulate_band_core(*[inp[k] for k in CORE_ORDER], 0.03, W=W, K=3,
+                            is_cbow=False)
+    jargs = [_jax(inp[k], jnp.float32) for k in ("a", "bk", "en")] + [
+        jnp.asarray(inp[k].numpy()) for k in CORE_ORDER[3:]]
+    ref = j_band_core(*jargs, jnp.float32(0.03), W=W, K=3, cdt=jnp.bfloat16,
+                      is_cbow=False, cbow_mean=True, interpret=True)
+    assert_close(CORE_NAMES, got, ref, TOL[BF16])
+
+
+def test_phase_record_needs_the_card():
+    """The cycle record is a measurement of the CUDA kernels: the CPU path
+    (the plain versions) refuses it instead of leaving it unwritten."""
+    d, KP, W, S, L, B = ODD_SHAPES["d7-kp8-w1"]
+    rec = torch.zeros((B, len(CORE_PHASES)), dtype=torch.int64)
+    inp = grad_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32)
+    with pytest.raises(ValueError, match="phase_cycles"):
+        fs.fused_grad_core(*[inp[k] for k in GRAD_ORDER], 0.03, W=W, K=5, L=L,
+                           phase_cycles=rec)
+    inp = core_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope="row", model="sg")
+    with pytest.raises(ValueError, match="phase_cycles"):
+        bc.band_core(*[inp[k] for k in CORE_ORDER], 0.03, W=W, K=5,
+                     phase_cycles=rec)
+
+
+# ------------------------------------------------------- source structure
+def test_tile_constants_fit_mma_m16n8k16():
+    assert (MMA_M, MMA_N, MMA_K) == (16, 8, 16)
+    pad = const("kRowPad")
+    # a staged row stride of an odd number of 16-byte units: the 8 row
+    # addresses of an ldmatrix on 8 distinct 16-byte bank groups, every
+    # row start 16-byte aligned
+    for d in (7, 64, 300):
+        stride = (up(d, MMA_K) + pad) * 2
+        assert stride % 16 == 0 and (stride // 16) % 2 == 1
+        assert len({r * stride % 128 for r in range(8)}) == 8
+
+
+def test_phase_names_match_the_header_enum():
+    body = HEADER[HEADER.index("enum Phase {"):]
+    body = body[:body.index("};")]
+    names = re.findall(r"kPhase(\w+)", body)
+    assert [n.lower() for n in names if n != "s"] == list(CORE_PHASES)
+    assert "kPhases" in body
+
+
+@pytest.mark.parametrize("src", ["fused_step.cu", "band_core.cu"])
+def test_kernels_share_the_tile_header(src):
+    """Both kernels include band_tiles.cuh, run their dense products
+    through its mma tile pass, and no longer carry their own copies of
+    the helpers."""
+    text = (CSRC / src).read_text()
+    assert '#include "band_tiles.cuh"' in text
+    assert "tile_pass<" in text and "neg_logits(" in text and "context_tiles<" in text
+    for helper in ("float sigmoid_stable(", "float log_sigmoid(", "float warp_sum(",
+                   "float rc(", "float to_f("):
+        assert helper not in text, helper
+    assert "mma.sync.aligned.m16n8k16" in HEADER and "ldmatrix" in HEADER

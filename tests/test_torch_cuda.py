@@ -15,7 +15,10 @@ version), also on the adversarial id sets of tests/run_sets.py; the run
 list is exact; the scatter, the row sum and a whole step repeat bitwise
 from run to run; fused_grad_core and band_core with f32 compute within
 max|err| <= 1e-5 * max|plain| per output (sums in another order, FMA
-contraction), n_ctx / ctx_w exact.
+contraction), n_ctx / ctx_w exact; with bf16 compute (their tensor-core
+bodies) at chip_smoke.ODD_SHAPES within chip_smoke.TOL (2e-2: a gradient
+weight on a bf16 rounding boundary may round one ulp apart), masks exact,
+and two calls bitwise equal.
 """
 
 import numpy as np
@@ -30,6 +33,10 @@ from word2vec_tpu_torch.ops import overlap as ov
 from word2vec_tpu_torch.ops import runs as rl
 from word2vec_tpu_torch.ops import train_step as ts
 
+from chip_smoke import (
+    CORE_NAMES, CORE_ORDER, GRAD_NAMES, GRAD_ORDER, ODD_SHAPES, TOL,
+    small_core_inputs, small_grad_inputs,
+)
 from run_sets import ROW_SUM_SETS, SCATTER_SETS, id_set
 
 pytestmark = pytest.mark.cuda
@@ -345,3 +352,55 @@ def test_step_repeats_bitwise_on_the_card(cuda):
     assert float(out[0][1]["clip_engaged"]) > 0
     for k in out[0][0]:
         assert torch.equal(out[0][0][k].view(torch.int32), out[1][0][k].view(torch.int32))
+
+
+def _hold(names, got, ref, tol):
+    for name, g, r in zip(names, got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        err = float((g.double() - r.double()).abs().max())
+        if name in ("n_ctx", "ctx_w"):
+            assert err == 0.0, name
+        else:
+            limit = 1e-4 if name == "losses" else tol
+            assert err <= limit * float(r.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("table", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(ODD_SHAPES))
+def test_grad_core_tensor_cores_match_plain(cuda, shape, model, table):
+    d, kp, w, s, l, b = ODD_SHAPES[shape]
+    inp = small_grad_inputs(V=80, d=d, B=b, L=l, W=w, S=s, KP=kp, table=table)
+    args = [inp[k].to(cuda) for k in GRAD_ORDER]
+    kw = dict(W=w, K=K, L=l, cdt=torch.bfloat16, is_cbow=model == "cbow")
+    rec = torch.zeros((b, len(launch.CORE_PHASES)), dtype=torch.int64, device=cuda)
+    got = fs.fused_grad_core(*args, 0.03, phase_cycles=rec, **kw)
+    again = fs.fused_grad_core(*args, 0.03, **kw)
+    ref = fs.fused_grad_core_plain(*args, 0.03, **kw)
+    torch.cuda.synchronize()
+    _hold(GRAD_NAMES, got, ref, TOL[torch.bfloat16])
+    for g, a in zip(got, again):
+        assert torch.equal(_bits(g), _bits(a))
+    assert bool((rec >= 0).all()) and bool((rec.sum(1) > 0).all())
+
+
+@pytest.mark.parametrize("scope", ["row", "batch"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(ODD_SHAPES))
+def test_band_core_tensor_cores_match_plain(cuda, shape, model, scope):
+    d, kp, w, s, l, b = ODD_SHAPES[shape]
+    table = torch.bfloat16 if shape.startswith("d64") else torch.float32
+    inp = small_core_inputs(V=80, d=d, B=b, L=l, W=w, S=s, KP=kp, table=table,
+                            scope=scope, model=model)
+    args = [inp[k].to(cuda) for k in CORE_ORDER]
+    kw = dict(W=w, K=K, cdt=torch.bfloat16, is_cbow=model == "cbow")
+    rec = torch.zeros((b, len(launch.CORE_PHASES)), dtype=torch.int64, device=cuda)
+    got = bc.band_core(*args, 0.03, phase_cycles=rec, **kw)
+    again = bc.band_core(*args, 0.03, **kw)
+    ref = bc.band_core_plain(*args, 0.03, **kw)
+    torch.cuda.synchronize()
+    _hold(CORE_NAMES, got, ref, TOL[torch.bfloat16])
+    for g, a in zip(got, again):
+        assert torch.equal(_bits(g), _bits(a))
+    assert bool((got[1][args[4] < 0] == 0).all())
+    assert bool((rec >= 0).all()) and bool((rec.sum(1) > 0).all())

@@ -40,11 +40,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _I,
             [_P, _I, _P, _P, _P, _P, _P, _F,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),
         "w2v_slab_scatter": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "w2v_scatter_stage_terms": (_I, []),
-        "w2v_grad_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+        "w2v_grad_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
     "overlap": {
@@ -56,9 +56,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _I,
             [_P, _P, _P, _I, _P, _P, _P, _P, _P, _F,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),
-        "w2v_band_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+        "w2v_band_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
     "row_sum": {

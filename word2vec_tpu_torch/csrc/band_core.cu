@@ -12,35 +12,48 @@
 // What bounds it on the H100. At the flagship (B=256, C=2, S=118,
 // S+2W=128, d=300, KP=64, f32 tables) it reads a + bk + en (about 171 MB)
 // and writes d_h + d_ctx + d_neg (about 171 MB): about 0.10 ms at
-// 3.35 TB/s. Its contractions (about 8 GFLOP a step that the band and the
-// negatives need) are far under the bf16 tensor-core peak, but would take
-// about as long as the bytes on the f32 CUDA cores.
+// 3.35 TB/s. Its dense products (about 8 GFLOP a call) are far under the
+// bf16 tensor cores' rate but would take about as long as the bytes on the
+// f32 CUDA cores; the first port also re-read the a and bk rows from L2
+// inside scalar warp-reduced dot products.
 //
-// What the design does about it. The TPU kernel walks a sequential
-// (B, C) grid and accumulates d_neg, w_neg_sum and the losses across grid
-// steps in its output blocks, which GPU blocks (no order, no carry) cannot
-// do; one (b, c) tile's a, bk and en in f32 (141 + 154 + 77 KB) is above
-// the 227 KB of shared memory a block has. So, as in the slice-1 grad core
-// (csrc/fused_step.cu):
-//   * one CTA per batch row loops over its C chunks; the sequential grid
-//     dimension becomes that loop;
-//   * shared memory keeps the chunk's band-compressed [S, 2W+1] positive
-//     gradient, the [S, KP] negative tiles (gradient weights and w_neg)
-//     and the KP negative rows rounded to the compute type (~146 KB at
-//     the flagship); a and bk rows are read through L2;
-//   * d_neg is the TPU kernel's shape of reduction: a contraction over
-//     the chunk's S positions, then added over c in order by the thread
-//     that owns the output (pallas_band.py:158, 198); w_neg_sum likewise;
-//   * under batch scope every row writes its own partial [KP, d] and
-//     [KP]; a second kernel adds the rows in order (0..B-1). The losses
-//     leave as per-row partials reduced the same way. Deterministic, and
-//     within f32 rounding of the TPU kernel's single running sum.
-// Every contraction rounds both operands to the compute type (bf16 by
-// default) and accumulates in f32, as the Pallas `dot` does; the products
-// are scalar f32 multiply-adds (tensor cores are later work). The positive
-// side only visits the band and skips masked pairs, whose terms are exact
-// zeros in the Pallas kernel too. The cbow center logit is an f32 multiply
-// and row sum of cdt-rounded operands (pallas_band.py:175-179).
+// The design, shared with grad_core (csrc/fused_step.cu) through
+// csrc/band_tiles.cuh. One CTA of 512 threads per batch row loops over its
+// C chunks: the TPU kernel accumulates d_neg, w_neg_sum and the losses
+// across its sequential (B, C) grid, which GPU blocks (no order, no carry)
+// cannot do. With bf16 compute (the default) each chunk's dense operands
+// are staged in shared memory once, rounded once to bf16:
+//   A [SP x lda]   the center rows a (sg) or the cbow projection h,
+//                  zero-padded to SP = 128 x 304 (+8 columns: ldmatrix
+//                  rows on distinct banks)   128 x 312 x 2 B = 79,872 B
+//   E [KPP x lda]  the KP negative rows, once per row  64 x 312 x 2 B = 39,936 B
+//   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
+//   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KP]
+//   (30,208 B), ...                         total at the flagship 177,664 B
+// The slabs bk (another 80 KB, over the 227 KB a block has) stay in L1/L2.
+// Every product runs on the tensor cores (mma.sync.m16n8k16, f32
+// accumulate): nlog = A E^T, d_neg = G^T A and d_hid = G E from the tiles;
+// the sg band logits A bk^T and the band product gp bk (added into d_hid's
+// accumulator), the cbow projection mask bk, with bk read straight into
+// mma operands; the slab-space context sums band^T A, the band matrix (gp
+// or the cbow mask) built in the registers. Every output is owned by one
+// thread (no float atomics: two runs are bitwise equal):
+//   * d_neg is the TPU kernel's shape of reduction: a tile product over the
+//     chunk's S positions, then added over c in order by the thread that
+//     owns the output (pallas_band.py:158, 198); w_neg_sum likewise;
+//   * under batch scope every row writes its own partial [KP, d] and [KP];
+//     a second kernel adds the rows in order (0..B-1). The losses leave as
+//     per-row partials reduced the same way;
+//   * the negative weights compare the raw, -1-padded center ids; cbow's
+//     d_h = gp h uses the unrounded f32 projection, its d_hid2 goes back
+//     into A, rounded once, for the context sums; the cbow center logit is
+//     an f32 multiply and row sum of cdt-rounded operands
+//     (pallas_band.py:175-179).
+// With f32 compute the products stay exact f32 multiply-adds on the CUDA
+// cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
+// fit): band_core_f32_kernel keeps the first port's body. Both bodies take
+// an optional per-phase clock64() record (PhaseClock). A shape whose tiles
+// exceed the block's shared memory fails its launch (the wrapper raises).
 //
 // Plain C interface (bound with ctypes); every entry point returns the
 // cudaError_t of its launches.
@@ -48,43 +61,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "band_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// round an operand to the compute type (the Pallas `dot`'s astype(cdt))
-template <bool CB>
-__device__ __forceinline__ float rc(float x) {
-  if constexpr (CB) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ float sigmoid_stable(float x) {
-  if (x >= 0.f) return 1.f / (1.f + expf(-x));
-  const float e = expf(x);
-  return e / (1.f + e);
-}
-
-// jax.nn.log_sigmoid(x) = -softplus(-x) = -(max(-x, 0) + log1p(exp(-|x|)))
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return -(fmaxf(-x, 0.f) + log1pf(expf(-fabsf(x))));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
+using namespace w2v_band;
 
 struct BandArgs {
   const void* a;         // [B, C, S, d] T   center rows (zero past L)
@@ -106,9 +87,11 @@ struct BandArgs {
   float* h_ws;           // [B, S, d] cbow only: this chunk's projection
   float* dh_ws;          // [B, S, d] cbow only: this chunk's hidden grad
   int C, S, SK, KP, d, W, K, neg_shared, cbow_mean;
+  long long* phase_rec;  // null, or [B, kPhases] cycles (PhaseClock)
 };
 
-// shared memory of one block, in 4-byte words, in band_core_kernel's order
+// shared memory of the f32-compute body, in 4-byte words, in
+// band_core_f32_kernel's order
 inline size_t band_smem_words(int S, int SK, int KP, int d, int W) {
   const int NB = 2 * W + 1;
   return (size_t)S * 4          // tok_c, keep, w, n_ctx
@@ -117,13 +100,15 @@ inline size_t band_smem_words(int S, int SK, int KP, int d, int W) {
          + (size_t)S * NB       // band-compressed gp (sg)
          + (size_t)S            // gp per center (cbow)
          + (size_t)S * KP * 2   // gn, w_neg
-         + (size_t)KP * d       // negative rows, rounded to cdt
+         + (size_t)KP * d       // negative rows
          + (size_t)2 * kWarps;  // loss block reduction
 }
 
-template <typename T, bool CB, bool CBOW>
+// f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
+// would not fit), the design of the first port
+template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
-    band_core_kernel(const BandArgs p) {
+    band_core_f32_kernel(const BandArgs p) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -152,23 +137,21 @@ __global__ void __launch_bounds__(kThreads)
   float* s_red = s_en + (size_t)KP * d;
 
   // the band mask (pallas_band.py:113-122): keep_s & valid_k & 0 < dist <= w_s
-  auto mask = [&](int s, int k) -> float {
-    const int dist = abs(s + W - k);
-    const bool on = s_tokk[k] >= 0 && (float)dist <= s_w[s] && dist > 0;
-    return on ? s_keep[s] : 0.f;
-  };
+  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, p.K, KP};
+  auto mask = [&](int s, int k) -> float { return band.mask(s, k); };
+  PhaseClock clk(p.phase_rec);
   float* h_ws = p.h_ws + (size_t)b * S * d;
   float* dh_ws = p.dh_ws + (size_t)b * S * d;
 
   float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
   float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
 
-  // once per row: the KP negative rows, rounded to cdt
+  // once per row: the KP negative rows
   for (int j = tid; j < KP; j += kThreads) {
     s_negs[j] = p.negs[(size_t)nb * KP + j];
     s_wsum[j] = 0.f;
   }
-  for (int i = tid; i < KP * d; i += kThreads) s_en[i] = rc<CB>(to_f(EN[i]));
+  for (int i = tid; i < KP * d; i += kThreads) s_en[i] = to_f(EN[i]);
 
   for (int c = 0; c < C; ++c) {
     __syncthreads();  // the previous chunk is done with the tiles
@@ -189,19 +172,17 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int k = tid; k < SK; k += kThreads) s_tokk[k] = p.tok_k[bc * SK + k];
     __syncthreads();
+    clk.mark(kPhaseRows);
 
     // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
     // exact in any order
     for (int s = tid; s < S; s += kThreads) {
-      float n = 0.f;
-      for (int k = s; k <= s + 2 * W; ++k) n += mask(s, k);
+      const float n = band.row_sum(s);
       s_nctx[s] = n;
       p.n_ctx[bc * S + s] = n;
     }
     for (int k = tid; k < SK; k += kThreads) {
-      float cw = 0.f;
-      const int lo = max(0, k - 2 * W), hi = min(S - 1, k);
-      for (int s = lo; s <= hi; ++s) cw += mask(s, k);
+      const float cw = band.col_sum(k);
       s_cwy[k] = cw;
       p.ctx_w[bc * SK + k] = cw;
     }
@@ -211,19 +192,7 @@ __global__ void __launch_bounds__(kThreads)
     // center_hit compares the raw, -1-padded center ids
     for (int i = tid; i < S * KP; i += kThreads) {
       const int s = i / KP, j = i - s * KP;
-      const int neg = s_negs[j];
-      const float center_hit = s_tokc[s] == neg ? 1.f : 0.f;
-      float ctx_hit = 0.f;
-      for (int k = s; k <= s + 2 * W; ++k) {
-        const float m = mask(s, k);
-        if (m != 0.f && s_tokk[k] == neg) ctx_hit += rc<CB>(m);
-      }
-      const float neg_ok =
-          1.f - fminf(fmaxf(center_hit + ctx_hit, 0.f), 1.f);
-      const float n = s_nctx[s];
-      const float k_i =
-          CBOW ? (n > 0.f ? (float)p.K : 0.f) : n * (float)p.K;
-      s_wn[i] = (k_i / (float)KP) * neg_ok;
+      s_wn[i] = band.neg_weight<false, CBOW>(s, j);
     }
     if constexpr (CBOW) {
       // projection h = mask @ bk (divided by n_ctx under cbow_mean)
@@ -232,20 +201,21 @@ __global__ void __launch_bounds__(kThreads)
         float acc = 0.f;
         for (int k = s; k <= s + 2 * W; ++k) {
           const float m = mask(s, k);
-          if (m != 0.f) acc += rc<CB>(m) * rc<CB>(to_f(bk[(size_t)k * d + e]));
+          if (m != 0.f) acc += m * to_f(bk[(size_t)k * d + e]);
         }
         if (p.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
         h_ws[i] = acc;
       }
     }
     __syncthreads();
+    clk.mark(kPhaseMasks);
 
     // ---- negative logits and gradient weights, one warp per (s, j)
     for (int q = warp; q < S * KP; q += kWarps) {
       const int s = q / KP, j = q - s * KP;
       float part = 0.f;
       for (int e = lane; e < d; e += 32)
-        part += rc<CB>(h_val(s, e)) * s_en[(size_t)j * d + e];
+        part += h_val(s, e) * s_en[(size_t)j * d + e];
       const float nlog = warp_sum(part);
       if (lane == 0) {
         const float wn = s_wn[q];
@@ -265,8 +235,8 @@ __global__ void __launch_bounds__(kThreads)
         }
         float part = 0.f;
         for (int e = lane; e < d; e += 32)
-          part += rc<CB>(to_f(a[(size_t)s * d + e])) *
-                  rc<CB>(to_f(bk[(size_t)k * d + e]));
+          part += to_f(a[(size_t)s * d + e]) *
+                  to_f(bk[(size_t)k * d + e]);
         const float plog = warp_sum(part);
         if (lane == 0) {
           s_gpb[q] = (1.f - sigmoid_stable(plog)) * m * p.alpha;
@@ -278,7 +248,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = warp; s < S; s += kWarps) {
         float part = 0.f;
         for (int e = lane; e < d; e += 32)
-          part += rc<CB>(h_val(s, e)) * rc<CB>(to_f(a[(size_t)s * d + e]));
+          part += h_val(s, e) * to_f(a[(size_t)s * d + e]);
         const float plog = warp_sum(part);
         if (lane == 0) {
           const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
@@ -288,6 +258,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    clk.mark(kPhaseLogits);
 
     // ---- center-side rows: d_hid = gn @ en, plus the band product (sg);
     // the center's out-row update and the hidden grad (cbow)
@@ -295,12 +266,12 @@ __global__ void __launch_bounds__(kThreads)
       const int s = i / d, e = i - s * d;
       float dh = 0.f;
       for (int j = 0; j < KP; ++j)
-        dh += rc<CB>(s_gn[s * KP + j]) * s_en[(size_t)j * d + e];
+        dh += s_gn[s * KP + j] * s_en[(size_t)j * d + e];
       if constexpr (!CBOW) {
         float dp = 0.f;
         for (int t = 0; t < NB; ++t) {
           const float g = s_gpb[s * NB + t];
-          if (g != 0.f) dp += rc<CB>(g) * rc<CB>(to_f(bk[(size_t)(s + t) * d + e]));
+          if (g != 0.f) dp += g * to_f(bk[(size_t)(s + t) * d + e]);
         }
         p.d_h[bc * S * d + i] = dh + dp;
       } else {
@@ -313,6 +284,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    clk.mark(kPhaseCenter);
 
     // ---- slab-space context grads: slot k sums the centers s in
     // [k-2W, k] that see it (zero at invalid slots: their mask column is 0)
@@ -323,14 +295,16 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = lo; s <= hi; ++s) {
         if constexpr (!CBOW) {
           const float g = s_gpb[s * NB + (k - s)];
-          if (g != 0.f) y += rc<CB>(g) * rc<CB>(to_f(a[(size_t)s * d + e]));
+          if (g != 0.f) y += g * to_f(a[(size_t)s * d + e]);
         } else {
           const float m = mask(s, k);
-          if (m != 0.f) y += rc<CB>(m) * rc<CB>(dh_ws[(size_t)s * d + e]);
+          if (m != 0.f) y += m * dh_ws[(size_t)s * d + e];
         }
       }
       p.d_ctx[bc * SK * d + i] = y;
     }
+    // (no barrier: the d_neg loop below overlaps this one; the record
+    // counts both as kPhaseNeg)
 
     // ---- d_neg: this chunk's contraction over its S positions, then
     // added to the sum over the earlier chunks by the same thread
@@ -339,7 +313,7 @@ __global__ void __launch_bounds__(kThreads)
       const int j = i / d, e = i - j * d;
       float part = 0.f;
       for (int s = 0; s < S; ++s)
-        part += rc<CB>(s_gn[s * KP + j]) * rc<CB>(h_val(s, e));
+        part += s_gn[s * KP + j] * h_val(s, e);
       dneg[i] = c == 0 ? part : dneg[i] + part;
     }
     for (int j = tid; j < KP; j += kThreads) {
@@ -347,28 +321,193 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = 0; s < S; ++s) part += s_wn[s * KP + j];
       s_wsum[j] += part;
     }
+    __syncthreads();
+    clk.mark(kPhaseNeg);
   }
-  __syncthreads();
   for (int j = tid; j < KP; j += kThreads)
     p.wsum_row[(size_t)b * KP + j] = s_wsum[j];
 
-  // per-row loss partials, reduced in a fixed order
-  pos_acc = warp_sum(pos_acc);
-  neg_acc = warp_sum(neg_acc);
-  if (lane == 0) {
-    s_red[warp] = pos_acc;
-    s_red[kWarps + warp] = neg_acc;
+  block_losses(pos_acc, neg_acc, s_red, p.loss_part + (size_t)b * 2);
+  clk.mark(kPhaseTail);
+}
+
+// shared memory of the tensor-core body, in bytes: the bf16 tiles
+// (TileLayout) and then, in 4-byte words, in band_core_tc_kernel's order
+inline size_t band_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
+  const int NB = 2 * W + 1;
+  const size_t words = (size_t)S * 4          // tok_c, keep, w, n_ctx
+                       + (size_t)SK * 2       // tok_k, cwy
+                       + (size_t)KP * 2       // negs, wsum
+                       + (size_t)S * NB       // band-compressed gp (sg)
+                       + (size_t)S            // gp per center (cbow)
+                       + (size_t)S * KP       // w_neg
+                       + (size_t)2 * kWarps;  // loss block reduction
+  return TileLayout(S, KP, d).bf16_bytes() + words * sizeof(float);
+}
+
+// bf16 compute: the three dense products on the tensor cores
+template <typename T, bool CBOW>
+__global__ void __launch_bounds__(kThreads, 1)
+    band_core_tc_kernel(const BandArgs p) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int C = p.C, S = p.S, SK = p.SK, KP = p.KP, d = p.d, W = p.W;
+  const int NB = 2 * W + 1;
+  const int nb = p.neg_shared ? 0 : b;
+  const T* A = static_cast<const T*>(p.a);
+  const T* BK = static_cast<const T*>(p.bk);
+  const T* EN = static_cast<const T*>(p.en) + (size_t)nb * KP * d;
+  const TileLayout tl(S, KP, d);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sE = sA + tl.a_elems();
+  __nv_bfloat16* sG = sE + tl.e_elems();
+  float* f = reinterpret_cast<float*>(sG + tl.g_elems());
+  int* s_tokc = reinterpret_cast<int*>(f);
+  float* s_keep = f + S;
+  float* s_w = s_keep + S;
+  float* s_nctx = s_w + S;
+  int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
+  int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
+  float* s_wsum = reinterpret_cast<float*>(s_negs + KP);
+  float* s_gpb = s_wsum + KP;
+  float* s_gpc = s_gpb + (size_t)S * NB;
+  float* s_wn = s_gpc + S;
+  float* s_red = s_wn + (size_t)S * KP;
+
+  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, p.K, KP};
+  PhaseClock clk(p.phase_rec);
+  float* h_ws = p.h_ws + (size_t)b * S * d;
+
+  float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
+  float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
+
+  // once per row: the KP negative rows, bf16 in E
+  for (int j = tid; j < KP; j += kThreads) {
+    s_negs[j] = p.negs[(size_t)nb * KP + j];
+    s_wsum[j] = 0.f;
   }
-  __syncthreads();
-  if (tid == 0) {
-    float ps = 0.f, ns = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      ps += s_red[w];
-      ns += s_red[kWarps + w];
+  stage_rows(sE, tl.lda, tl.KPP, tl.DP, KP, d,
+             [&](int j) { return EN + (size_t)j * d; });
+
+  for (int c = 0; c < C; ++c) {
+    __syncthreads();  // the previous chunk is done with the tiles
+    const size_t bc = (size_t)b * C + c;
+    const T* a = A + bc * S * d;
+    const T* bk = BK + bc * SK * d;
+    auto a_row = [&](int s) { return a + (size_t)s * d; };
+    auto bk_row = [&](int k) { return bk + (size_t)k * d; };
+    for (int s = tid; s < S; s += kThreads) {
+      s_tokc[s] = p.tok_c[bc * S + s];
+      s_keep[s] = p.keep_c[bc * S + s];
+      s_w[s] = p.w_c[bc * S + s];
     }
-    p.loss_part[(size_t)b * 2] = -ps;
-    p.loss_part[(size_t)b * 2 + 1] = -ns;
+    for (int k = tid; k < SK; k += kThreads) s_tokk[k] = p.tok_k[bc * SK + k];
+    // sg: A holds the center rows; cbow: the projection fills its [S x d]
+    stage_rows(sA, tl.lda, tl.SP, tl.DP, CBOW ? 0 : S, d, a_row);
+    __syncthreads();
+    clk.mark(kPhaseRows);
+
+    // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
+    // exact in any order
+    for (int s = tid; s < S; s += kThreads) {
+      const float n = band.row_sum(s);
+      s_nctx[s] = n;
+      p.n_ctx[bc * S + s] = n;
+    }
+    for (int k = tid; k < SK; k += kThreads) {
+      const float cw = band.col_sum(k);
+      s_cwy[k] = cw;
+      p.ctx_w[bc * SK + k] = cw;
+    }
+    __syncthreads();
+    // ---- negative weights (collision masks, pallas_band.py:144-154):
+    // center_hit compares the raw, -1-padded center ids
+    for (int i = tid; i < S * KP; i += kThreads) {
+      const int s = i / KP, j = i - s * KP;
+      s_wn[i] = band.neg_weight<true, CBOW>(s, j);
+    }
+    if constexpr (CBOW) projection(band, tl, d, p.cbow_mean != 0, h_ws, sA, bk_row);
+    __syncthreads();
+    clk.mark(kPhaseMasks);
+
+    // ---- negative logits and weights (tensor cores), positive logits
+    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, p.alpha);
+    if constexpr (!CBOW) {
+      pos_acc += band_logits(band, tl, sA, d, p.alpha, s_gpb, bk_row);
+    } else {
+      pos_acc += center_logits(band, sA, tl.lda, d, p.alpha, s_gpc, a_row);
+    }
+    __syncthreads();
+    clk.mark(kPhaseLogits);
+
+    // ---- d_neg: this chunk's contraction over its S positions (tensor
+    // cores), then added to the sum over the earlier chunks by the thread
+    // that owns the output; w_neg_sum likewise
+    float* dneg = p.dneg_row + (size_t)b * KP * d;
+    tile_pass<true, true>(tl.KPP, tl.DP, tl.SP, tl.SP, sG, tl.ldg, sA, tl.lda,
+                          [&](int j, const int (&col)[4], const float (&v)[4]) {
+                            add_row(dneg, d, j, KP, col, v, c > 0);
+                          });
+    for (int j = tid; j < KP; j += kThreads) {
+      float part = 0.f;
+      for (int s = 0; s < S; ++s) part += s_wn[s * KP + j];
+      s_wsum[j] += part;
+    }
+    __syncthreads();
+    clk.mark(kPhaseNeg);
+
+    // ---- center-side rows: d_hid = gn @ en (tensor cores), plus the band
+    // product (sg); the center's out-row update and d_hid2 (cbow, into A)
+    float* dh_out = p.d_h + bc * S * d;
+    if constexpr (!CBOW) {
+      // d_ctr = d_hid + gp bk: both products into one accumulator block
+      auto w = [&](int s, int k) -> float {
+        return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+      };
+      block_pass(
+          tl.SP, tl.DP,
+          [&](float (&acc)[2][4], int m0, int n0) {
+            warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
+                                        tl.KPP, tl.KPP);
+            band_rows_mma(acc, m0, n0, 2 * W, SK, d, w, bk_row);
+          },
+          [&](int s, const int (&col)[4], const float (&v)[4]) {
+            if (s >= S) return;
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (col[u] < d) dh_out[(size_t)s * d + col[u]] = v[u];
+          });
+    } else {
+      tile_pass<false, true>(
+          tl.SP, tl.DP, tl.KPP, tl.KPP, sG, tl.ldg, sE, tl.lda,
+          [&](int s, const int (&col)[4], const float (&dh)[4]) {
+            if (s >= S) return;
+            cbow_center_row(s, col, dh, s_gpc[s], p.cbow_mean != 0, s_nctx[s],
+                            a_row(s), h_ws, dh_out, d, sA, tl.lda);
+          });
+    }
+    __syncthreads();
+    clk.mark(kPhaseCenter);
+
+    // ---- slab-space context grads: slot k sums the centers s in
+    // [k-2W, k] that see it (zero at invalid slots: their mask column is 0)
+    float* dctx = p.d_ctx + bc * SK * d;
+    context_tiles<CBOW>(band, s_gpb, sA, tl.lda, SK, tl.DP,
+                        [&](int k, const int (&col)[4], const float (&y)[4]) {
+#pragma unroll
+                          for (int v = 0; v < 4; ++v)
+                            if (k < SK && col[v] < d) dctx[(size_t)k * d + col[v]] = y[v];
+                        });
+    __syncthreads();
+    clk.mark(kPhaseContext);
   }
+  for (int j = tid; j < KP; j += kThreads)
+    p.wsum_row[(size_t)b * KP + j] = s_wsum[j];
+  block_losses(pos_acc, neg_acc, s_red, p.loss_part + (size_t)b * 2);
+  clk.mark(kPhaseTail);
 }
 
 // out[i] = sum over rows b = 0..B-1 of part[b, i], in row order
@@ -381,10 +520,10 @@ __global__ void rows_reduce_kernel(const float* part, float* out, int B,
   out[i] = acc;
 }
 
-template <typename T, bool CB, bool CBOW>
-cudaError_t launch_band(const BandArgs& p, int B, size_t smem,
+template <typename T, bool CBOW>
+cudaError_t launch_band(const BandArgs& p, int B, size_t smem, bool tc,
                         cudaStream_t st) {
-  auto kern = band_core_kernel<T, CB, CBOW>;
+  auto kern = tc ? &band_core_tc_kernel<T, CBOW> : &band_core_f32_kernel<T, CBOW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -392,11 +531,11 @@ cudaError_t launch_band(const BandArgs& p, int B, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T, bool CB>
-cudaError_t launch_band_model(const BandArgs& p, int B, size_t smem,
+template <typename T>
+cudaError_t launch_band_model(const BandArgs& p, int B, size_t smem, bool tc,
                               cudaStream_t st, int is_cbow) {
-  return is_cbow ? launch_band<T, CB, true>(p, B, smem, st)
-                 : launch_band<T, CB, false>(p, B, smem, st);
+  return is_cbow ? launch_band<T, true>(p, B, smem, tc, st)
+                 : launch_band<T, false>(p, B, smem, tc, st);
 }
 
 cudaError_t reduce_rows(const float* part, float* out, int B, int n,
@@ -409,8 +548,11 @@ cudaError_t reduce_rows(const float* part, float* out, int B, int n,
 
 extern "C" {
 
-size_t w2v_band_core_smem_bytes(int S, int SK, int KP, int d, int W) {
-  return band_smem_words(S, SK, KP, d, W) * sizeof(float);
+// bf16 compute runs the tensor-core body, f32 compute the f32 one
+size_t w2v_band_core_smem_bytes(int S, int SK, int KP, int d, int W,
+                                int cdt_bf16) {
+  return cdt_bf16 ? band_tc_smem_bytes(S, SK, KP, d, W)
+                  : band_smem_words(S, SK, KP, d, W) * sizeof(float);
 }
 
 const char* w2v_error_string(int err) {
@@ -428,24 +570,19 @@ int w2v_band_core(const void* a, const void* bk, const void* en,
                   float* d_neg, float* w_neg_sum, float* loss_part,
                   float* losses, float* h_ws, float* dh_ws, int B, int C,
                   int S, int SK, int KP, int d, int W, int K, int neg_shared,
-                  int cdt_bf16, int is_cbow, int cbow_mean, void* stream) {
+                  int cdt_bf16, int is_cbow, int cbow_mean,
+                  long long* phase_rec, void* stream) {
   BandArgs p{a,        bk,        en,     tok_c,    tok_k,     keep_c,
              w_c,      negs,      alpha,  d_h,      d_ctx,     n_ctx,
              ctx_w,    dneg_row,  wsum_row, loss_part, h_ws,    dh_ws,
              C,        S,         SK,     KP,       d,         W,
-             K,        neg_shared, cbow_mean};
+             K,        neg_shared, cbow_mean, phase_rec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = w2v_band_core_smem_bytes(S, SK, KP, d, W);
-  cudaError_t err;
-  if (table_bf16) {
-    err = cdt_bf16
-              ? launch_band_model<__nv_bfloat16, true>(p, B, smem, st, is_cbow)
-              : launch_band_model<__nv_bfloat16, false>(p, B, smem, st,
-                                                        is_cbow);
-  } else {
-    err = cdt_bf16 ? launch_band_model<float, true>(p, B, smem, st, is_cbow)
-                   : launch_band_model<float, false>(p, B, smem, st, is_cbow);
-  }
+  const size_t smem = w2v_band_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
+  const bool tc = cdt_bf16 != 0;
+  cudaError_t err =
+      table_bf16 ? launch_band_model<__nv_bfloat16>(p, B, smem, tc, st, is_cbow)
+                 : launch_band_model<float>(p, B, smem, tc, st, is_cbow);
   if (err != cudaSuccess) return (int)err;
   if (neg_shared) {
     err = reduce_rows(dneg_row, d_neg, B, KP * d, st);

@@ -1,0 +1,632 @@
+// Tile code shared by the two band-core kernels: grad_core (csrc/fused_step.cu,
+// the port of word2vec_tpu/ops/pallas_step.py fused_grad_core) and band_core
+// (csrc/band_core.cu, the port of word2vec_tpu/ops/pallas_band.py band_core).
+//
+// Both kernels run one CTA of kThreads per batch row and walk its C chunks
+// of S centers and SK = S + 2W slab slots. What they share lives here:
+//   * the band mask and the negative gradient weights (collision masks);
+//   * the operand rounding to the compute type (the Pallas `dot`'s
+//     astype(cdt)) and the stable sigmoid / log-sigmoid;
+//   * the bf16 shared-memory layout of a chunk's dense operands
+//     (TileLayout): the center rows or cbow projection A [SP x lda], the
+//     KP negative rows E [KPP x lda] and the negative gradient weights
+//     G [SP x ldg], zero-padded to the mma tile (S, KP and d rounded up
+//     to 16) plus kRowPad columns, so the eight row addresses of one
+//     ldmatrix fall on eight distinct bank groups;
+//   * the tensor-core tile products (ldmatrix + mma.sync.m16n8k16, bf16
+//     operands, f32 accumulate, one [16 x 16] output block per warp task,
+//     every output value owned by one thread):
+//       - tile_pass: both operands from the staged tiles, either one
+//         stored transposed, the depth cut at `kvalid` in the registers
+//         (d_neg's sum over exactly the row's first L positions): the
+//         negative logits A E^T, d_hid = G E, d_neg = G^T A;
+//       - the band side, whose context rows bk do not fit in shared memory
+//         beside the tiles and are read from L1/L2 straight into mma
+//         operands: the sg band logits A bk^T (rows_bk_mma), the band
+//         matrix of slot weights (gp, or the cbow mask) built in the
+//         A registers against bk (band_rows_mma: the sg band product, the
+//         cbow projection) or against A (context_tiles: the slab-space
+//         context gradients);
+//   * the per-phase cycle record (PhaseClock).
+// Plain device code, no PyTorch headers (the library builds in seconds).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace w2v_band {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// the tensor-core tile of mma.sync.m16n8k16: rows, columns, depth; a warp
+// task is a [kMmaM x 2 kMmaN] output block
+constexpr int kMmaM = 16;
+constexpr int kMmaN = 8;
+constexpr int kMmaK = 16;
+// bf16 columns added to every staged row (16 bytes): a row stride of
+// 16 (mod 128) bytes puts the 8 rows of an ldmatrix on distinct banks
+constexpr int kRowPad = 8;
+
+// phases of the cycle record, in the order a chunk runs them in the
+// tensor-core kernels; the f32-compute bodies record the same names
+enum Phase {
+  kPhaseRows,     // ids and rows staged (the negative rows once per row)
+  kPhaseMasks,    // n_ctx, ctx_w, negative weights (cbow: the projection)
+  kPhaseLogits,   // negative logits and weights; band or center logits
+  kPhaseNeg,      // d_neg and w_neg_sum
+  kPhaseCenter,   // d_hid and the center-side gradient
+  kPhaseContext,  // the context-side gradient (overlap-add in grad_core)
+  kPhaseTail,     // w_neg_sum out, the loss partials
+  kPhases
+};
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// round an operand to the compute type (the Pallas `dot`'s astype(cdt))
+template <bool CB>
+__device__ __forceinline__ float rc(float x) {
+  if constexpr (CB) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+__device__ __forceinline__ float sigmoid_stable(float x) {
+  if (x >= 0.f) return 1.f / (1.f + expf(-x));
+  const float e = expf(x);
+  return e / (1.f + e);
+}
+
+// jax.nn.log_sigmoid(x) = -softplus(-x) = -(max(-x, 0) + log1p(exp(-|x|)))
+__device__ __forceinline__ float log_sigmoid(float x) {
+  return -(fmaxf(-x, 0.f) + log1pf(expf(-fabsf(x))));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// A chunk's ids and gates in shared memory, and what the two kernels
+// compute from them alone (pallas_step.py:185-223, pallas_band.py:113-154).
+struct Band {
+  const int* tokc;     // [S] center ids (clamped in grad_core, raw in band_core)
+  const float* keep;   // [S]
+  const float* w;      // [S] shrunk window
+  const float* nctx;   // [S] mask row sums, once computed
+  const int* tokk;     // [SK] slab ids, -1 outside the row
+  const int* negs;     // [KP]
+  int S, W, K, KP;
+
+  // keep_s & valid_k & 0 < |s + W - k| <= w_s
+  __device__ __forceinline__ float mask(int s, int k) const {
+    const int dist = abs(s + W - k);
+    const bool on = tokk[k] >= 0 && (float)dist <= w[s] && dist > 0;
+    return on ? keep[s] : 0.f;
+  }
+  // n_ctx: the mask row sum (0/1 terms: exact in any order)
+  __device__ __forceinline__ float row_sum(int s) const {
+    float n = 0.f;
+    for (int k = s; k <= s + 2 * W; ++k) n += mask(s, k);
+    return n;
+  }
+  // ctx_w of slab slot k: the mask column sum
+  __device__ __forceinline__ float col_sum(int k) const {
+    float cw = 0.f;
+    const int lo = max(0, k - 2 * W), hi = min(S - 1, k);
+    for (int s = lo; s <= hi; ++s) cw += mask(s, k);
+    return cw;
+  }
+  // w_neg of (center s, negative j): K (or K per context under sg) / KP,
+  // zero where the draw collides with the center or a context it sees
+  template <bool CB, bool CBOW>
+  __device__ __forceinline__ float neg_weight(int s, int j) const {
+    const int neg = negs[j];
+    const float center_hit = tokc[s] == neg ? 1.f : 0.f;
+    float ctx_hit = 0.f;
+    for (int k = s; k <= s + 2 * W; ++k) {
+      const float m = mask(s, k);
+      if (m != 0.f && tokk[k] == neg) ctx_hit += rc<CB>(m);
+    }
+    const float neg_ok = 1.f - fminf(fmaxf(center_hit + ctx_hit, 0.f), 1.f);
+    const float n = nctx[s];
+    const float k_i = CBOW ? (n > 0.f ? (float)K : 0.f) : n * (float)K;
+    return (k_i / (float)KP) * neg_ok;
+  }
+};
+
+// The bf16 tiles of the tensor-core bodies, at the head of dynamic shared
+// memory: A [SP][lda], E [KPP][lda], G [SP][ldg]; f32 words follow.
+struct TileLayout {
+  int SP, DP, KPP, lda, ldg;
+  __host__ __device__ TileLayout(int S, int KP, int d)
+      : SP(round_up(S, kMmaM)),
+        DP(round_up(d, kMmaK)),
+        KPP(round_up(KP, 2 * kMmaN)),
+        lda(round_up(d, kMmaK) + kRowPad),
+        ldg(round_up(KP, 2 * kMmaN) + kRowPad) {}
+  __host__ __device__ size_t a_elems() const { return (size_t)SP * lda; }
+  __host__ __device__ size_t e_elems() const { return (size_t)KPP * lda; }
+  __host__ __device__ size_t g_elems() const { return (size_t)SP * ldg; }
+  __host__ __device__ size_t bf16_bytes() const {
+    return (a_elems() + e_elems() + g_elems()) * sizeof(__nv_bfloat16);
+  }
+};
+
+// ---------------------------------------------------------------- mma
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// zero the bf16 halves of a packed pair (columns k, k + 1) at k >= kvalid
+__device__ __forceinline__ uint32_t cut_pair(uint32_t v, int k, int kvalid) {
+  return k >= kvalid ? 0u : (k + 1 >= kvalid ? (v & 0xffffu) : v);
+}
+
+// acc += A[m0 : m0+16, 0 : K] x B[0 : K, n0 : n0+16] for one warp, both
+// operands bf16 in shared memory, K a multiple of kMmaK:
+//   AT = false: A[m][k] at A + m * lda + k;  AT = true: A[k][m] at A + k * lda + m
+//   BT = false: B[k][n] at B + n * ldb + k;  BT = true: B[k][n] at B + k * ldb + n
+// acc[t] is the m16n8 fragment of columns n0 + 8t: acc[t][0..1] at row
+// m0 + lane/4, columns 2 (lane%4) + {0, 1}; acc[t][2..3] 8 rows below.
+// Depth k >= kvalid contributes nothing (A's columns there are zeroed).
+template <bool AT, bool BT>
+__device__ __forceinline__ void warp_mma_16x16(
+    float (&acc)[2][4], const __nv_bfloat16* A, int lda, int m0,
+    const __nv_bfloat16* B, int ldb, int n0, int K, int kvalid) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+  // this lane's ldmatrix row address at depth 0 (matrix i, row r)
+  const __nv_bfloat16* pa =
+      AT ? A + (size_t)(r + ((i >> 1) << 3)) * lda + m0 + ((i & 1) << 3)
+         : A + (size_t)(m0 + (lane & 15)) * lda + ((lane >> 4) << 3);
+  const __nv_bfloat16* pb =
+      BT ? B + (size_t)(r + ((i & 1) << 3)) * ldb + n0 + ((i >> 1) << 3)
+         : B + (size_t)(n0 + r + ((i >> 1) << 3)) * ldb + ((i & 1) << 3);
+  const int kl = 2 * (lane & 3);
+  for (int k = 0; k < K; k += kMmaK) {
+    uint32_t a[4], b[4];
+    if constexpr (AT) {
+      ldsm_x4_t(a, pa + (size_t)k * lda);
+    } else {
+      ldsm_x4(a, pa + k);
+    }
+    if constexpr (BT) {
+      ldsm_x4_t(b, pb + (size_t)k * ldb);
+    } else {
+      ldsm_x4(b, pb + k);
+    }
+    if (k + kMmaK > kvalid) {
+      a[0] = cut_pair(a[0], k + kl, kvalid);
+      a[1] = cut_pair(a[1], k + kl, kvalid);
+      a[2] = cut_pair(a[2], k + kl + 8, kvalid);
+      a[3] = cut_pair(a[3], k + kl + 8, kvalid);
+    }
+    mma_bf16(acc[0], a, b[0], b[1]);
+    mma_bf16(acc[1], a, b[2], b[3]);
+  }
+}
+
+// call f(row, col, val) for each of this lane's two rows of the [16 x 16]
+// accumulator block at (m0, n0): col[4] its four columns, val[4] the values
+template <typename F>
+__device__ __forceinline__ void for_each_row(const float (&acc)[2][4], int m0,
+                                             int n0, F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int r = m0 + (lane >> 2), c = n0 + 2 * (lane & 3);
+  const int col[4] = {c, c + 1, c + 8, c + 9};
+  const float top[4] = {acc[0][0], acc[0][1], acc[1][0], acc[1][1]};
+  const float bottom[4] = {acc[0][2], acc[0][3], acc[1][2], acc[1][3]};
+  f(r, col, top);
+  f(r + 8, col, bottom);
+}
+
+// one warp per [16 x 16] block of an [M x N] output (M, N multiples of
+// 16): fill(acc, m0, n0) forms the block's accumulators, then f(row, col,
+// val) as in for_each_row; every output value owned by one thread
+template <typename Fill, typename F>
+__device__ __forceinline__ void block_pass(int M, int N, Fill&& fill, F&& f) {
+  const int nn = N / (2 * kMmaN);
+  const int tasks = (M / kMmaM) * nn;
+  for (int t = threadIdx.x >> 5; t < tasks; t += kWarps) {
+    const int m0 = t / nn * kMmaM, n0 = t % nn * (2 * kMmaN);
+    float acc[2][4] = {};
+    fill(acc, m0, n0);
+    for_each_row(acc, m0, n0, f);
+  }
+}
+
+// the block's [M x N] = A[M x K] x B[K x N] (K a multiple of kMmaK), both
+// operands in shared memory (warp_mma_16x16), f as in block_pass
+template <bool AT, bool BT, typename F>
+__device__ __forceinline__ void tile_pass(int M, int N, int K, int kvalid,
+                                          const __nv_bfloat16* A, int lda,
+                                          const __nv_bfloat16* B, int ldb,
+                                          F&& f) {
+  block_pass(
+      M, N,
+      [&](float (&acc)[2][4], int m0, int n0) {
+        warp_mma_16x16<AT, BT>(acc, A, lda, m0, B, ldb, n0, K, kvalid);
+      },
+      f);
+}
+
+// ------------------------------------------------ a chunk's band side
+// The context rows bk do not fit in shared memory beside the tiles: the
+// band products read them from L1/L2 straight into mma B operands (k, e),
+// bk_row(k) null for an invalid slot (a zero row). The band matrix, the
+// weight w(s, k) of slot k seen from center s (zero outside the band), is
+// built in the A-operand registers.
+constexpr int kCols = 8;  // 32-column strides of a row a lane loads at once
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+template <typename P>
+__device__ __forceinline__ float row_val(P p, int e, int d) {
+  return (p != nullptr && e < d) ? to_f(p[e]) : 0.f;
+}
+
+// dst[r][e] = row(r)[e] as bf16 for r < n_valid and e < d, zero over the
+// rest of [rows x cols]; one warp per row, kCols loads a lane in flight
+template <typename RowFn>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, int rows,
+                                           int cols, int n_valid, int d,
+                                           RowFn row) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += kWarps) {
+    const auto* p = r < n_valid ? row(r) : nullptr;
+    __nv_bfloat16* out = dst + (size_t)r * ld;
+    for (int e0 = lane; e0 < cols; e0 += 32 * kCols) {
+      float v[kCols];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) v[u] = row_val(p, e0 + 32 * u, d);
+#pragma unroll
+      for (int u = 0; u < kCols; ++u)
+        if (e0 + 32 * u < cols) out[e0 + 32 * u] = __float2bfloat16_rn(v[u]);
+    }
+  }
+}
+
+// acc += Wb[m0 : m0+16, k] x bk[k, n0 : n0+16] over the depth blocks
+// k in [m0, m0 + 16 + 2W) that the band of rows m0 .. m0+15 reaches
+template <typename WFn, typename RowFn>
+__device__ __forceinline__ void band_rows_mma(float (&acc)[2][4], int m0,
+                                              int n0, int W2, int SK, int d,
+                                              WFn w, RowFn bk_row) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, kl = 2 * (lane & 3);
+  const int s0 = m0 + g, s1 = s0 + 8;
+  for (int k0 = m0; k0 < m0 + kMmaM + W2; k0 += kMmaK) {
+    const int k = k0 + kl;
+    const uint32_t a[4] = {pack_bf16(w(s0, k), w(s0, k + 1)),
+                           pack_bf16(w(s1, k), w(s1, k + 1)),
+                           pack_bf16(w(s0, k + 8), w(s0, k + 9)),
+                           pack_bf16(w(s1, k + 8), w(s1, k + 9))};
+    const auto* p0 = k < SK ? bk_row(k) : nullptr;
+    const auto* p1 = k + 1 < SK ? bk_row(k + 1) : nullptr;
+    const auto* p8 = k + 8 < SK ? bk_row(k + 8) : nullptr;
+    const auto* p9 = k + 9 < SK ? bk_row(k + 9) : nullptr;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int e = n0 + 8 * t + g;
+      mma_bf16(acc[t], a, pack_bf16(row_val(p0, e, d), row_val(p1, e, d)),
+               pack_bf16(row_val(p8, e, d), row_val(p9, e, d)));
+    }
+  }
+}
+
+// acc += A[m0 : m0+16, :] x bk[n0 : n0+16, :]^T: the staged rows (ldmatrix)
+// against the context rows of slots n0 .. n0+15 over the depth DP
+template <typename RowFn>
+__device__ __forceinline__ void rows_bk_mma(float (&acc)[2][4],
+                                            const __nv_bfloat16* sA, int lda,
+                                            int m0, int n0, int DP, int SK,
+                                            int d, RowFn bk_row) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, kl = 2 * (lane & 3);
+  const __nv_bfloat16* pa = sA + (size_t)(m0 + (lane & 15)) * lda + ((lane >> 4) << 3);
+  const auto* q0 = n0 + g < SK ? bk_row(n0 + g) : nullptr;
+  const auto* q1 = n0 + 8 + g < SK ? bk_row(n0 + 8 + g) : nullptr;
+#pragma unroll 2
+  for (int kk = 0; kk < DP; kk += kMmaK) {
+    uint32_t a[4];
+    ldsm_x4(a, pa + kk);
+    const int e = kk + kl;
+    mma_bf16(acc[0], a, pack_bf16(row_val(q0, e, d), row_val(q0, e + 1, d)),
+             pack_bf16(row_val(q0, e + 8, d), row_val(q0, e + 9, d)));
+    mma_bf16(acc[1], a, pack_bf16(row_val(q1, e, d), row_val(q1, e + 1, d)),
+             pack_bf16(row_val(q1, e + 8, d), row_val(q1, e + 9, d)));
+  }
+}
+
+// G[s][j] = rc(-sigmoid(nlog) * w_neg * alpha) for the [SP x KPP] tile of
+// nlog = A E^T (zero in the padding); returns this thread's part of
+// sum w_neg * (log_sigmoid(nlog) - nlog)
+__device__ __forceinline__ float neg_logits(const TileLayout& tl,
+                                            const __nv_bfloat16* sA,
+                                            const __nv_bfloat16* sE,
+                                            __nv_bfloat16* sG,
+                                            const float* s_wn, int S, int KP,
+                                            float alpha) {
+  float neg_acc = 0.f;
+  tile_pass<false, false>(
+      tl.SP, tl.KPP, tl.DP, tl.DP, sA, tl.lda, sE, tl.lda,
+      [&](int s, const int (&col)[4], const float (&nlog)[4]) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int j = col[v];
+          float g = 0.f;
+          if (s < S && j < KP) {
+            const float wn = s_wn[s * KP + j];
+            g = (0.f - sigmoid_stable(nlog[v])) * wn * alpha;
+            neg_acc += wn * (log_sigmoid(nlog[v]) - nlog[v]);
+          }
+          sG[(size_t)s * tl.ldg + j] = __float2bfloat16_rn(g);
+        }
+      });
+  return neg_acc;
+}
+
+// sg band logits plog = A bk^T on the tensor cores, over the [16 x 16]
+// blocks that hold a row block's band; s_gpb[s][t] = (1 - sigmoid(plog)) *
+// m * alpha for the slot k = s + t, 0 where masked. Returns this thread's
+// part of sum m * log_sigmoid(plog).
+template <typename RowFn>
+__device__ __forceinline__ float band_logits(const Band& band,
+                                             const TileLayout& tl,
+                                             const __nv_bfloat16* sA, int d,
+                                             float alpha, float* s_gpb,
+                                             RowFn bk_row) {
+  const int W2 = 2 * band.W, NB = W2 + 1, SK = band.S + W2;
+  const int nb = round_up(kMmaM + W2, 2 * kMmaN) / (2 * kMmaN);
+  float pos_acc = 0.f;
+  block_pass(
+      tl.SP, nb * 2 * kMmaN,
+      [&](float (&acc)[2][4], int m0, int n0) {
+        rows_bk_mma(acc, sA, tl.lda, m0, m0 + n0, tl.DP, SK, d, bk_row);
+      },
+      [&](int s, const int (&col)[4], const float (&plog)[4]) {
+        const int m0 = s / kMmaM * kMmaM;  // slots are offset by the row block
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int t = m0 + col[v] - s;
+          if (s >= band.S || t < 0 || t > W2) continue;
+          const float m = band.mask(s, s + t);
+          float g = 0.f;
+          if (m != 0.f) {
+            g = (1.f - sigmoid_stable(plog[v])) * m * alpha;
+            pos_acc += m * log_sigmoid(plog[v]);
+          }
+          s_gpb[s * NB + t] = g;
+        }
+      });
+  return pos_acc;
+}
+
+// cbow projection h = mask @ bk on the tensor cores (divided by n_ctx
+// under cbow_mean): f32 into h_ws [S x d] (d_ctr = gp h reads it
+// unrounded), rounded once into A for the negative products
+template <typename RowFn>
+__device__ __forceinline__ void projection(const Band& band,
+                                           const TileLayout& tl, int d,
+                                           bool mean, float* h_ws,
+                                           __nv_bfloat16* sA, RowFn bk_row) {
+  const int W2 = 2 * band.W, SK = band.S + W2;
+  auto w = [&](int s, int k) -> float {
+    return (s < band.S && k - s >= 0 && k - s <= W2) ? band.mask(s, k) : 0.f;
+  };
+  block_pass(
+      tl.SP, tl.DP,
+      [&](float (&acc)[2][4], int m0, int n0) {
+        band_rows_mma(acc, m0, n0, W2, SK, d, w, bk_row);
+      },
+      [&](int s, const int (&col)[4], const float (&acc)[4]) {
+        if (s >= band.S) return;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (col[v] >= d) continue;
+          const float h = mean ? acc[v] / fmaxf(band.nctx[s], 1.f) : acc[v];
+          h_ws[(size_t)s * d + col[v]] = h;
+          sA[(size_t)s * tl.lda + col[v]] = __float2bfloat16_rn(h);
+        }
+      });
+}
+
+// cbow center logit: an f32 multiply and row sum of rc(h) (the staged A)
+// and rc(a), one warp per center (pallas_step.py:239-254); s_gpc[s] =
+// (1 - sigmoid) * active * alpha. Returns this thread's loss part.
+template <typename RowFn>
+__device__ __forceinline__ float center_logits(const Band& band,
+                                               const __nv_bfloat16* sA, int lda,
+                                               int d, float alpha, float* s_gpc,
+                                               RowFn a_row) {
+  const int lane = threadIdx.x & 31;
+  float pos_acc = 0.f;
+  for (int s = threadIdx.x >> 5; s < band.S; s += kWarps) {
+    const auto* a = a_row(s);
+    float part = 0.f;
+    for (int e0 = lane; e0 < d; e0 += 32 * kCols) {
+      float x[kCols], y[kCols];
+#pragma unroll
+      for (int v = 0; v < kCols; ++v) {
+        const int e = e0 + 32 * v;
+        x[v] = e < d ? __bfloat162float(sA[(size_t)s * lda + e]) : 0.f;
+        y[v] = e < d ? to_f(a[e]) : 0.f;
+      }
+#pragma unroll
+      for (int v = 0; v < kCols; ++v) part += x[v] * rc<true>(y[v]);
+    }
+    const float plog = warp_sum(part);
+    if (lane == 0) {
+      const float active = band.nctx[s] > 0.f ? 1.f : 0.f;
+      s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * alpha;
+      pos_acc += active * log_sigmoid(plog);
+    }
+  }
+  return pos_acc;
+}
+
+// out[j][col[v]] = val[v] (add: out += val, the old values loaded first)
+// for j < rows and the columns < d
+__device__ __forceinline__ void add_row(float* out, int d, int j, int rows,
+                                        const int (&col)[4],
+                                        const float (&val)[4], bool add) {
+  if (j >= rows) return;
+  float* o = out + (size_t)j * d;
+  float old[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) old[v] = (add && col[v] < d) ? o[col[v]] : 0.f;
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
+    if (col[v] < d) o[col[v]] = add ? old[v] + val[v] : val[v];
+}
+
+// cbow center s at the four columns col (those < d), from d_hid: the
+// center update out = gp h (the unrounded f32 projection in h_ws) and
+// d_hid2 = d_hid + gp a (divided by n_ctx under cbow_mean), rounded once
+// into A for the context sums
+template <typename T>
+__device__ __forceinline__ void cbow_center_row(
+    int s, const int (&col)[4], const float (&dh)[4], float gp, bool mean,
+    float nctx, const T* a, const float* h_ws, float* out, int d,
+    __nv_bfloat16* sA, int lda) {
+  float h[4], x[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    h[v] = col[v] < d ? h_ws[(size_t)s * d + col[v]] : 0.f;
+    x[v] = col[v] < d ? to_f(a[col[v]]) : 0.f;
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    if (col[v] >= d) continue;
+    out[(size_t)s * d + col[v]] = gp * h[v];
+    float dh2 = dh[v] + gp * x[v];
+    if (mean) dh2 = dh2 / fmaxf(nctx, 1.f);
+    sA[(size_t)s * lda + col[v]] = __float2bfloat16_rn(dh2);
+  }
+}
+
+// slab-space context gradients on the tensor cores: y[k][e] =
+// sum_s rc(w(s, k)) A[s][e] over the [SKP x DP] block, w the band weight of
+// slot k seen from center s (sg: gp, cbow: the mask), zero outside the
+// band; A (sg: the center rows, cbow: rc(d_hid2)) is the B operand, the
+// band matrix is built in the A-operand registers from the band weights,
+// and only the depth blocks of s that reach the row block are visited.
+// f(k, col, val) as in for_each_row.
+template <bool CBOW, typename F>
+__device__ __forceinline__ void context_tiles(const Band& band,
+                                              const float* s_gpb,
+                                              const __nv_bfloat16* sA, int lda,
+                                              int SK, int DP, F&& f) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+  const int S = band.S, W2 = 2 * band.W, NB = W2 + 1;
+  const int kl = 2 * (lane & 3);
+  auto w = [&](int k, int s) -> float {
+    if (s >= S || k - s < 0 || k - s > W2) return 0.f;
+    return CBOW ? band.mask(s, k) : s_gpb[s * NB + (k - s)];
+  };
+  const int nn = DP / (2 * kMmaN);
+  const int tasks = round_up(SK, kMmaM) / kMmaM * nn;
+  for (int t = threadIdx.x >> 5; t < tasks; t += kWarps) {
+    const int m0 = t / nn * kMmaM, n0 = t % nn * (2 * kMmaN);
+    const int k0 = m0 + (lane >> 2), k1 = k0 + 8;
+    float acc[2][4] = {};
+    const int s_hi = min(S - 1, m0 + kMmaM - 1);
+    for (int s0 = max(0, m0 - W2) / kMmaK * kMmaK; s0 <= s_hi; s0 += kMmaK) {
+      const int s = s0 + kl;
+      const uint32_t a[4] = {pack_bf16(w(k0, s), w(k0, s + 1)),
+                             pack_bf16(w(k1, s), w(k1, s + 1)),
+                             pack_bf16(w(k0, s + 8), w(k0, s + 9)),
+                             pack_bf16(w(k1, s + 8), w(k1, s + 9))};
+      uint32_t b[4];
+      ldsm_x4_t(b, sA + (size_t)(s0 + r + ((i & 1) << 3)) * lda + n0 + ((i >> 1) << 3));
+      mma_bf16(acc[0], a, b[0], b[1]);
+      mma_bf16(acc[1], a, b[2], b[3]);
+    }
+    for_each_row(acc, m0, n0, f);
+  }
+}
+
+// the block's loss partials into out[0..1] = (-pos, -neg): warp sums,
+// then thread 0 adds the warps in order (deterministic)
+__device__ __forceinline__ void block_losses(float pos, float neg, float* s_red,
+                                             float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  pos = warp_sum(pos);
+  neg = warp_sum(neg);
+  if (lane == 0) {
+    s_red[warp] = pos;
+    s_red[kWarps + warp] = neg;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float p = 0.f, n = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      p += s_red[w];
+      n += s_red[kWarps + w];
+    }
+    out[0] = -p;
+    out[1] = -n;
+  }
+}
+
+// ------------------------------------------------------- cycle record
+// rec: null, or [gridDim.x][kPhases] int64 cycle counts; thread 0 of each
+// block adds the clock64() time since the previous mark to the phase named
+// (marks follow a __syncthreads, so a phase ends when its last thread does)
+struct PhaseClock {
+  long long* rec;
+  long long t;
+  __device__ __forceinline__ explicit PhaseClock(long long* base)
+      : rec(base != nullptr && threadIdx.x == 0
+                ? base + (size_t)blockIdx.x * kPhases
+                : nullptr),
+        t(0) {
+    if (rec != nullptr) {
+      for (int p = 0; p < kPhases; ++p) rec[p] = 0;
+      t = clock64();
+    }
+  }
+  __device__ __forceinline__ void mark(Phase p) {
+    if (rec != nullptr) {
+      const long long now = clock64();
+      rec[p] += now - t;
+      t = now;
+    }
+  }
+};
+
+}  // namespace w2v_band

@@ -2,48 +2,60 @@
 //
 // Replaces word2vec_tpu/ops/pallas_step.py, both Pallas kernels:
 //   * fused_grad_core / _grad_kernel / _gather_rows (pallas_step.py:84-438)
-//     -> grad_core_kernel + loss_reduce_kernel below;
+//     -> grad_core_tc_kernel (bf16 compute) or grad_core_f32_kernel (f32
+//     compute), + loss_reduce_kernel below;
 //   * fused_slab_scatter / _scatter_kernel (pallas_step.py:441-506)
 //     -> slab_scatter_kernel below.
 //
-// What bounds them on the H100. grad_core reads the gathered table rows
-// (center rows both planes, context slab rows, KP negative rows) and writes
-// the per-token f32 center/context gradients; at the flagship shape the
-// writes (2 x [256, 236, 300] f32, 145 MB) dominate, so the bound is the
-// bytes over 3.35 TB/s, as long as the contractions (about 7 GFLOP a step,
-// most of them the [S x d].[d x KP] negative logits, d_hid and d_neg) run
-// on the bf16 tensor cores; on the f32 CUDA cores (67 TFLOP/s) they alone
-// would take longer than the bytes. The slab scatter reads each update row
-// once and reads and writes each touched table row once: bytes too.
+// What bounds grad_core on the H100. It reads the gathered table rows
+// (center rows, context slab rows, KP negative rows) and writes the
+// per-token f32 center/context gradients; at the flagship shape (B=256,
+// C=2, S=118, S+2W=128, d=300, KP=64) the writes (2 x [256, 236, 300] f32,
+// 145 MB) dominate: a bytes bound of ~0.064 ms at 3.35 TB/s. Its dense
+// products (~8 GFLOP a call) are far under the bf16 tensor cores' rate
+// but would take longer than the bytes on the f32 CUDA cores; the first
+// port also re-read every center row from L2 once per negative and per
+// band slot (~12 GB of L1/L2 traffic a call) in warp-reduced scalar dots.
 //
-// What the design does about it. The TPU kernel walks a sequential
-// (B, C+1) grid and carries scratch (lag stashes, full-row h/gn/w_neg,
-// the loss) from one grid step to the next - about 1.47 MB at the
-// flagship, far above the 227 KB of shared memory a Hopper block has, and
-// GPU blocks run in no order. Here:
-//   * one CTA per batch row loops over its C chunks itself (the sequential
-//     grid dimension becomes a loop), so nothing carries between blocks;
-//   * shared memory keeps only the chunk's band-compressed positive
-//     gradient [S, 2W+1], the [S, KP] negative tiles, the KP negative rows
-//     (rounded to the compute type) and the W-row right overhang of the
-//     previous chunk, ~158 KB at the flagship; table rows are read from
-//     global memory (they stay in the 50 MB L2 while the block works);
-//   * the token-order overlap-add replaces the one-chunk lag: chunk c
-//     writes its own rows of d_ctx and adds its left overhang into the
-//     last W rows of chunk c-1, which the same block wrote before a
-//     __syncthreads; each output still sums exactly the <= 2 slab slots
-//     banded._overlap_add sums;
-//   * d_neg and w_neg_sum are running sums over the row's first L
-//     positions, continued chunk by chunk by the same thread, so each is
-//     one sequential reduction over the row (no reassociation per chunk);
+// The design. One CTA of 512 threads per batch row loops over its C chunks
+// (the TPU's sequential grid dimension; nothing carries between blocks).
+// With bf16 compute (the default) each chunk's dense operands are staged
+// in shared memory once, rounded once to bf16 (csrc/band_tiles.cuh):
+//   A [SP x lda]   center rows (sg) or the cbow projection h, zero-padded
+//                  to SP = 128 rows x 304 columns (+8: ldmatrix rows on
+//                  distinct banks)          128 x 312 x 2 B =  79,872 B
+//   E [KPP x lda]  the KP negative rows, once per row  64 x 312 x 2 B = 39,936 B
+//   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
+//   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KP]
+//   (30,208 B), the W-row right overhang (2 buffers, 12,000 B), ...
+//                                           total at the flagship 189,704 B
+// The context rows bk (another 80 KB, over the 227 KB a block has) stay in
+// L1/L2. Every product runs on the tensor cores (mma.sync.m16n8k16, f32
+// accumulate): nlog = A E^T, d_neg = G^T A and d_hid = G E from the tiles;
+// the sg band logits A bk^T and the band product gp bk (added into d_hid's
+// accumulator), the cbow projection mask bk, with bk read straight into
+// mma operands; the slab-space context sums band^T A, the band matrix (gp
+// or the cbow mask) built in the registers. Every output is owned by one
+// thread (no float atomics: two runs are bitwise equal):
+//   * d_neg and w_neg_sum sum exactly the row's first L positions: the
+//     d_neg product cuts G's depth there in the registers; each chunk's
+//     part is added to the row's sum by the thread that owns the output;
+//   * the token-order overlap-add replaces the TPU's one-chunk lag: chunk c
+//     writes its own rows of d_ctx and adds its left overhang into the last
+//     W rows of chunk c-1, which the same block wrote before a barrier;
+//     each output sums exactly the <= 2 slab slots banded._overlap_add sums;
+//   * cbow's d_ctr = gp h uses the unrounded f32 projection (kept in a
+//     global workspace), its d_hid2 goes back into A, rounded once, for the
+//     context sums; the center logit is an f32 multiply and row sum;
 //   * the losses leave as per-row partials [B, 2] that a second kernel
-//     reduces in a fixed order (deterministic, like the rest).
-// Every contraction rounds both operands to the compute type (bf16 by
-// default) and accumulates in f32, as the Pallas kernel's `dot` does; the
-// products are scalar f32 multiply-adds (no tensor cores yet: that, and
-// staging the center rows in shared memory, is the next step for speed).
-// The positive side only visits the band (k in [s, s+2W]) and skips masked
-// pairs: the masked terms are exact zeros in the Pallas kernel too.
+//     reduces in a fixed order.
+// With f32 compute the products stay exact f32 multiply-adds on the CUDA
+// cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
+// fit): grad_core_f32_kernel keeps the first port's body (negative rows in
+// shared memory, table rows through L2, warp-reduced dot products). Both
+// bodies take an optional per-phase clock64() record (PhaseClock). A shape
+// whose tiles exceed the block's shared memory fails its launch (the
+// wrapper raises).
 //
 // The slab scatter is a segmented, ordered pass: each cell receives its
 // run's terms in sorted order and rounds to the table type after every
@@ -81,45 +93,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "band_tiles.cuh"
 #include "runs.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// round an operand to the compute type (the Pallas `dot`'s astype(cdt))
-template <bool CB>
-__device__ __forceinline__ float rc(float x) {
-  if constexpr (CB) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ float sigmoid_stable(float x) {
-  if (x >= 0.f) return 1.f / (1.f + expf(-x));
-  const float e = expf(x);
-  return e / (1.f + e);
-}
-
-// jax.nn.log_sigmoid(x) = -softplus(-x) = -(max(-x, 0) + log1p(exp(-|x|)))
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return -(fmaxf(-x, 0.f) + log1pf(expf(-fabsf(x))));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
+using namespace w2v_band;
 
 struct GradArgs {
   const void* emb;       // [V, 2, d] T
@@ -139,10 +118,11 @@ struct GradArgs {
   float* h_ws;           // [B, S, d] cbow only: this chunk's projection
   float* dh_ws;          // [B, S, d] cbow only: this chunk's d_hid2
   int C, S, SK, KP, d, W, K, L, cbow_mean;
+  long long* phase_rec;  // null, or [B, kPhases] cycles (PhaseClock)
 };
 
-// shared memory of one block, in 4-byte words (ints and floats), in the
-// order grad_core_kernel lays it out
+// shared memory of the f32-compute body, in 4-byte words (ints and
+// floats), in the order grad_core_f32_kernel lays it out
 inline size_t grad_smem_words(int S, int SK, int KP, int d, int W) {
   const int NB = 2 * W + 1;
   return (size_t)S * 4          // tok_c, keep, w, n_ctx
@@ -151,15 +131,17 @@ inline size_t grad_smem_words(int S, int SK, int KP, int d, int W) {
          + (size_t)S * NB       // band-compressed gp (sg)
          + (size_t)S            // gp per center (cbow)
          + (size_t)S * KP * 2   // gn, w_neg
-         + (size_t)KP * d       // negative rows, rounded to cdt
+         + (size_t)KP * d       // negative rows
          + (size_t)2 * W * d    // context-grad right overhang, 2 buffers
          + (size_t)2 * W        // ctx_w right overhang, 2 buffers
          + (size_t)2 * kWarps;  // loss block reduction
 }
 
-template <typename T, bool CB, bool CBOW>
+// f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
+// would not fit), the design of the first port
+template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
-    grad_core_kernel(const GradArgs a) {
+    grad_core_f32_kernel(const GradArgs a) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -192,11 +174,9 @@ __global__ void __launch_bounds__(kThreads)
   float* s_red = s_cwtail + 2 * W;
 
   // the band mask (banded.band_mask semantics, pallas_step.py:185-194)
-  auto mask = [&](int s, int k) -> float {
-    const int dist = abs(s + W - k);
-    const bool on = s_tokk[k] >= 0 && (float)dist <= s_w[s] && dist > 0;
-    return on ? s_keep[s] : 0.f;
-  };
+  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, a.K, KP};
+  auto mask = [&](int s, int k) -> float { return band.mask(s, k); };
+  PhaseClock clk(a.phase_rec);
   // center-side row (plane ctr_plane) of chunk position s
   auto a_row = [&](int s, int e) -> float {
     return to_f(emb[(size_t)s_tokc[s] * rs + (size_t)ctr_plane * d + e]);
@@ -218,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
   float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
   float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
 
-  // once per row: the KP negative rows (out plane), rounded to cdt
+  // once per row: the KP negative rows (out plane)
   for (int j = tid; j < KP; j += kThreads) {
     s_negs[j] = a.negs[(size_t)b * KP + j];
     s_wsum[j] = 0.f;
@@ -226,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int i = tid; i < KP * d; i += kThreads) {
     const int j = i / d, e = i - j * d;
-    s_en[i] = rc<CB>(to_f(emb[(size_t)s_negs[j] * rs + d + e]));
+    s_en[i] = to_f(emb[(size_t)s_negs[j] * rs + d + e]);
   }
 
   for (int c = 0; c < C; ++c) {
@@ -239,38 +219,21 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int k = tid; k < SK; k += kThreads) s_tokk[k] = a.tok_k[bc * SK + k];
     __syncthreads();
+    clk.mark(kPhaseRows);
 
     // ---- mask row sums (n_ctx) and slab column sums (cwy)
     for (int s = tid; s < S; s += kThreads) {
-      float n = 0.f;
-      for (int k = s; k <= s + 2 * W; ++k) n += mask(s, k);
+      const float n = band.row_sum(s);
       s_nctx[s] = n;
       a.n_ctx[bc * S + s] = n;
     }
-    for (int k = tid; k < SK; k += kThreads) {
-      float cw = 0.f;
-      const int lo = max(0, k - 2 * W), hi = min(S - 1, k);
-      for (int s = lo; s <= hi; ++s) cw += mask(s, k);
-      s_cwy[k] = cw;
-    }
+    for (int k = tid; k < SK; k += kThreads) s_cwy[k] = band.col_sum(k);
     __syncthreads();
 
     // ---- negative weights (collision masks, pallas_step.py:213-223)
     for (int i = tid; i < S * KP; i += kThreads) {
       const int s = i / KP, j = i - s * KP;
-      const int neg = s_negs[j];
-      const float center_hit = s_tokc[s] == neg ? 1.f : 0.f;
-      float ctx_hit = 0.f;
-      for (int k = s; k <= s + 2 * W; ++k) {
-        const float m = mask(s, k);
-        if (m != 0.f && s_tokk[k] == neg) ctx_hit += rc<CB>(m);
-      }
-      const float neg_ok =
-          1.f - fminf(fmaxf(center_hit + ctx_hit, 0.f), 1.f);
-      const float n = s_nctx[s];
-      const float k_i =
-          CBOW ? (n > 0.f ? (float)a.K : 0.f) : n * (float)a.K;
-      s_wn[i] = (k_i / (float)KP) * neg_ok;
+      s_wn[i] = band.neg_weight<false, CBOW>(s, j);
     }
     if constexpr (CBOW) {
       // projection h = mask @ bk_rows (divided by n_ctx under cbow_mean)
@@ -279,20 +242,21 @@ __global__ void __launch_bounds__(kThreads)
         float acc = 0.f;
         for (int k = s; k <= s + 2 * W; ++k) {
           const float m = mask(s, k);
-          if (m != 0.f) acc += rc<CB>(m) * rc<CB>(bk_row(k, e));
+          if (m != 0.f) acc += m * bk_row(k, e);
         }
         if (a.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
         h_ws[i] = acc;
       }
     }
     __syncthreads();
+    clk.mark(kPhaseMasks);
 
     // ---- negative logits and gradient weights, one warp per (s, j)
     for (int p = warp; p < S * KP; p += kWarps) {
       const int s = p / KP, j = p - s * KP;
       float part = 0.f;
       for (int e = lane; e < d; e += 32)
-        part += rc<CB>(h_val(s, e)) * s_en[(size_t)j * d + e];
+        part += h_val(s, e) * s_en[(size_t)j * d + e];
       const float nlog = warp_sum(part);
       if (lane == 0) {
         const float wn = s_wn[p];
@@ -312,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
         }
         float part = 0.f;
         for (int e = lane; e < d; e += 32)
-          part += rc<CB>(a_row(s, e)) * rc<CB>(bk_row(k, e));
+          part += a_row(s, e) * bk_row(k, e);
         const float plog = warp_sum(part);
         if (lane == 0) {
           s_gpb[p] = (1.f - sigmoid_stable(plog)) * m * a.alpha;
@@ -324,7 +288,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = warp; s < S; s += kWarps) {
         float part = 0.f;
         for (int e = lane; e < d; e += 32)
-          part += rc<CB>(h_val(s, e)) * rc<CB>(a_row(s, e));
+          part += h_val(s, e) * a_row(s, e);
         const float plog = warp_sum(part);
         if (lane == 0) {
           const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
@@ -334,18 +298,19 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    clk.mark(kPhaseLogits);
 
     // ---- center-side rows: d_hid = gn @ en, plus the band product
     for (int i = tid; i < S * d; i += kThreads) {
       const int s = i / d, e = i - s * d;
       float dh = 0.f;
       for (int j = 0; j < KP; ++j)
-        dh += rc<CB>(s_gn[s * KP + j]) * s_en[(size_t)j * d + e];
+        dh += s_gn[s * KP + j] * s_en[(size_t)j * d + e];
       if constexpr (!CBOW) {
         float dp = 0.f;
         for (int t = 0; t < NB; ++t) {
           const float g = s_gpb[s * NB + t];
-          if (g != 0.f) dp += rc<CB>(g) * rc<CB>(bk_row(s + t, e));
+          if (g != 0.f) dp += g * bk_row(s + t, e);
         }
         a.d_ctr[bc * S * d + i] = dh + dp;
       } else {
@@ -358,6 +323,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    clk.mark(kPhaseCenter);
 
     // ---- slab-space context grads, overlap-added straight into token
     // order: slots [W, S+W) are this chunk's rows (plus the previous
@@ -372,10 +338,10 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = lo; s <= hi; ++s) {
         if constexpr (!CBOW) {
           const float g = s_gpb[s * NB + (k - s)];
-          if (g != 0.f) y += rc<CB>(g) * rc<CB>(a_row(s, e));
+          if (g != 0.f) y += g * a_row(s, e);
         } else {
           const float m = mask(s, k);
-          if (m != 0.f) y += rc<CB>(m) * rc<CB>(dh_ws[(size_t)s * d + e]);
+          if (m != 0.f) y += m * dh_ws[(size_t)s * d + e];
         }
       }
       if (k < W) {
@@ -401,6 +367,8 @@ __global__ void __launch_bounds__(kThreads)
         s_cwtail[(c & 1) * W + (k - S - W)] = y;
       }
     }
+    // (no barrier: the d_neg loop below overlaps this one; the record
+    // counts both as kPhaseNeg)
 
     // ---- d_neg = gn^T h and w_neg_sum over the row's first L positions,
     // continued from the previous chunk by the same thread
@@ -409,7 +377,7 @@ __global__ void __launch_bounds__(kThreads)
       const int j = i / d, e = i - j * d;
       float acc = c == 0 ? 0.f : a.d_neg[(size_t)b * KP * d + i];
       for (int s = 0; s < s_end; ++s)
-        acc += rc<CB>(s_gn[s * KP + j]) * rc<CB>(h_val(s, e));
+        acc += s_gn[s * KP + j] * h_val(s, e);
       a.d_neg[(size_t)b * KP * d + i] = acc;
     }
     for (int j = tid; j < KP; j += kThreads) {
@@ -417,28 +385,229 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = 0; s < s_end; ++s) acc += s_wn[s * KP + j];
       s_wsum[j] = acc;
     }
+    __syncthreads();
+    clk.mark(kPhaseNeg);
   }
-  __syncthreads();
   for (int j = tid; j < KP; j += kThreads)
     a.w_neg_sum[(size_t)b * KP + j] = s_wsum[j];
 
-  // per-row loss partials, reduced in a fixed order
-  pos_acc = warp_sum(pos_acc);
-  neg_acc = warp_sum(neg_acc);
-  if (lane == 0) {
-    s_red[warp] = pos_acc;
-    s_red[kWarps + warp] = neg_acc;
+  block_losses(pos_acc, neg_acc, s_red, a.loss_part + (size_t)b * 2);
+  clk.mark(kPhaseTail);
+}
+
+// shared memory of the tensor-core body, in bytes: the bf16 tiles
+// (TileLayout) and then, in 4-byte words, in grad_core_tc_kernel's order
+inline size_t grad_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
+  const int NB = 2 * W + 1;
+  const size_t words = (size_t)S * 4          // tok_c, keep, w, n_ctx
+                       + (size_t)SK * 2       // tok_k, cwy
+                       + (size_t)KP * 2       // negs, wsum
+                       + (size_t)S * NB       // band-compressed gp (sg)
+                       + (size_t)S            // gp per center (cbow)
+                       + (size_t)S * KP       // w_neg
+                       + (size_t)2 * W * d    // context-grad right overhang, 2 buffers
+                       + (size_t)2 * W        // ctx_w right overhang, 2 buffers
+                       + (size_t)2 * kWarps;  // loss block reduction
+  return TileLayout(S, KP, d).bf16_bytes() + words * sizeof(float);
+}
+
+// bf16 compute: the three dense products on the tensor cores
+template <typename T, bool CBOW>
+__global__ void __launch_bounds__(kThreads, 1)
+    grad_core_tc_kernel(const GradArgs a) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int C = a.C, S = a.S, SK = a.SK, KP = a.KP, d = a.d, W = a.W;
+  const int NB = 2 * W + 1;
+  const size_t rs = (size_t)2 * d;  // slab row stride
+  // sg scores emb_in centers against emb_out contexts; cbow swaps them;
+  // negatives always live on the out plane (pallas_step.py:160-164)
+  const int ctr_plane = CBOW ? 1 : 0;
+  const int ctx_plane = CBOW ? 0 : 1;
+  const T* emb = static_cast<const T*>(a.emb);
+  const TileLayout tl(S, KP, d);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sE = sA + tl.a_elems();
+  __nv_bfloat16* sG = sE + tl.e_elems();
+  float* f = reinterpret_cast<float*>(sG + tl.g_elems());
+  int* s_tokc = reinterpret_cast<int*>(f);
+  float* s_keep = f + S;
+  float* s_w = s_keep + S;
+  float* s_nctx = s_w + S;
+  int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
+  int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
+  float* s_wsum = reinterpret_cast<float*>(s_negs + KP);
+  float* s_gpb = s_wsum + KP;
+  float* s_gpc = s_gpb + (size_t)S * NB;
+  float* s_wn = s_gpc + S;
+  float* s_tail = s_wn + (size_t)S * KP;
+  float* s_cwtail = s_tail + (size_t)2 * W * d;
+  float* s_red = s_cwtail + 2 * W;
+
+  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, a.K, KP};
+  PhaseClock clk(a.phase_rec);
+  // table rows: center side (plane ctr_plane) of chunk position s, context
+  // side of slab slot k (null outside the row)
+  auto a_row = [&](int s) { return emb + (size_t)s_tokc[s] * rs + (size_t)ctr_plane * d; };
+  auto bk_row = [&](int k) -> const T* {
+    return s_tokk[k] >= 0 ? emb + (size_t)s_tokk[k] * rs + (size_t)ctx_plane * d
+                          : nullptr;
+  };
+  float* h_ws = a.h_ws + (size_t)b * S * d;
+
+  float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
+  float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
+
+  // once per row: the KP negative rows (out plane), bf16 in E
+  for (int j = tid; j < KP; j += kThreads) {
+    s_negs[j] = a.negs[(size_t)b * KP + j];
+    s_wsum[j] = 0.f;
   }
   __syncthreads();
-  if (tid == 0) {
-    float p = 0.f, n = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      p += s_red[w];
-      n += s_red[kWarps + w];
+  stage_rows(sE, tl.lda, tl.KPP, tl.DP, KP, d,
+             [&](int j) { return emb + (size_t)s_negs[j] * rs + d; });
+
+  for (int c = 0; c < C; ++c) {
+    __syncthreads();  // the previous chunk is done with the tiles
+    const size_t bc = (size_t)b * C + c;
+    for (int s = tid; s < S; s += kThreads) {
+      s_tokc[s] = a.tok_c[bc * S + s];
+      s_keep[s] = a.keep_c[bc * S + s];
+      s_w[s] = a.w_c[bc * S + s];
     }
-    a.loss_part[(size_t)b * 2] = -p;
-    a.loss_part[(size_t)b * 2 + 1] = -n;
+    for (int k = tid; k < SK; k += kThreads) s_tokk[k] = a.tok_k[bc * SK + k];
+    // sg: A holds the center rows; cbow: the projection fills its [S x d]
+    stage_rows(sA, tl.lda, tl.SP, tl.DP, CBOW ? 0 : S, d, [&](int s) {
+      return emb + (size_t)a.tok_c[bc * S + s] * rs + (size_t)ctr_plane * d;
+    });
+    __syncthreads();
+    clk.mark(kPhaseRows);
+
+    // ---- mask row sums (n_ctx) and slab column sums (cwy)
+    for (int s = tid; s < S; s += kThreads) {
+      const float n = band.row_sum(s);
+      s_nctx[s] = n;
+      a.n_ctx[bc * S + s] = n;
+    }
+    for (int k = tid; k < SK; k += kThreads) s_cwy[k] = band.col_sum(k);
+    __syncthreads();
+    // ---- negative weights (collision masks, pallas_step.py:213-223)
+    for (int i = tid; i < S * KP; i += kThreads) {
+      const int s = i / KP, j = i - s * KP;
+      s_wn[i] = band.neg_weight<true, CBOW>(s, j);
+    }
+    if constexpr (CBOW) projection(band, tl, d, a.cbow_mean != 0, h_ws, sA, bk_row);
+    __syncthreads();
+    clk.mark(kPhaseMasks);
+
+    // ---- negative logits and weights (tensor cores), positive logits
+    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, a.alpha);
+    if constexpr (!CBOW) {
+      pos_acc += band_logits(band, tl, sA, d, a.alpha, s_gpb, bk_row);
+    } else {
+      pos_acc += center_logits(band, sA, tl.lda, d, a.alpha, s_gpc, a_row);
+    }
+    __syncthreads();
+    clk.mark(kPhaseLogits);
+
+    // ---- d_neg += gn^T h over the row's first L positions (gn past them
+    // is cut in the registers), w_neg_sum likewise, each output owned by
+    // one thread and continued chunk by chunk
+    const int s_end = min(S, a.L - c * S);
+    float* dneg = a.d_neg + (size_t)b * KP * d;
+    tile_pass<true, true>(tl.KPP, tl.DP, tl.SP, s_end, sG, tl.ldg, sA, tl.lda,
+                          [&](int j, const int (&col)[4], const float (&v)[4]) {
+                            add_row(dneg, d, j, KP, col, v, c > 0);
+                          });
+    for (int j = tid; j < KP; j += kThreads) {
+      float acc = s_wsum[j];
+      for (int s = 0; s < s_end; ++s) acc += s_wn[s * KP + j];
+      s_wsum[j] = acc;
+    }
+    __syncthreads();
+    clk.mark(kPhaseNeg);
+
+    // ---- center-side rows: d_hid = gn @ en (tensor cores), plus the band
+    // product (sg) or the center update and d_hid2 (cbow, into A)
+    float* dctr = a.d_ctr + bc * S * d;
+    if constexpr (!CBOW) {
+      // d_ctr = d_hid + gp bk: both products into one accumulator block
+      auto w = [&](int s, int k) -> float {
+        return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+      };
+      block_pass(
+          tl.SP, tl.DP,
+          [&](float (&acc)[2][4], int m0, int n0) {
+            warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
+                                        tl.KPP, tl.KPP);
+            band_rows_mma(acc, m0, n0, 2 * W, SK, d, w, bk_row);
+          },
+          [&](int s, const int (&col)[4], const float (&v)[4]) {
+            if (s >= S) return;
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (col[u] < d) dctr[(size_t)s * d + col[u]] = v[u];
+          });
+    } else {
+      tile_pass<false, true>(
+          tl.SP, tl.DP, tl.KPP, tl.KPP, sG, tl.ldg, sE, tl.lda,
+          [&](int s, const int (&col)[4], const float (&dh)[4]) {
+            if (s >= S) return;
+            cbow_center_row(s, col, dh, s_gpc[s], a.cbow_mean != 0, s_nctx[s],
+                            a_row(s), h_ws, dctr, d, sA, tl.lda);
+          });
+    }
+    __syncthreads();
+    clk.mark(kPhaseCenter);
+
+    // ---- slab-space context grads, overlap-added straight into token
+    // order: slots [W, S+W) are this chunk's rows (plus the previous
+    // chunk's right overhang in the first W), slots [0, W) add into the
+    // previous chunk's last W rows, slots [S+W, S+2W) wait for the next
+    float* tail_new = s_tail + (size_t)(c & 1) * W * d;
+    const float* tail_old = s_tail + (size_t)((c + 1) & 1) * W * d;
+    context_tiles<CBOW>(
+        band, s_gpb, sA, tl.lda, SK, tl.DP,
+        [&](int k, const int (&col)[4], const float (&y)[4]) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int e = col[v];
+            if (k >= SK || e >= d) continue;
+            if (k < W) {
+              if (c > 0) a.d_ctx[((bc - 1) * S + (S - W + k)) * d + e] += y[v];
+            } else if (k < S + W) {
+              const int s = k - W;
+              const float left =
+                  (s < W && c > 0) ? tail_old[(size_t)s * d + e] : 0.f;
+              a.d_ctx[(bc * S + s) * d + e] = y[v] + left;
+            } else {
+              tail_new[(size_t)(k - S - W) * d + e] = y[v];
+            }
+          }
+        });
+    for (int k = tid; k < SK; k += kThreads) {
+      const float y = s_cwy[k];
+      if (k < W) {
+        if (c > 0) a.ctx_w[(bc - 1) * S + (S - W + k)] += y;
+      } else if (k < S + W) {
+        const int s = k - W;
+        const float left =
+            (s < W && c > 0) ? s_cwtail[((c + 1) & 1) * W + s] : 0.f;
+        a.ctx_w[bc * S + s] = y + left;
+      } else {
+        s_cwtail[(c & 1) * W + (k - S - W)] = y;
+      }
+    }
+    __syncthreads();
+    clk.mark(kPhaseContext);
   }
+  for (int j = tid; j < KP; j += kThreads)
+    a.w_neg_sum[(size_t)b * KP + j] = s_wsum[j];
+  block_losses(pos_acc, neg_acc, s_red, a.loss_part + (size_t)b * 2);
+  clk.mark(kPhaseTail);
 }
 
 // losses[0, :] = sum over rows of loss_part, in row order
@@ -648,10 +817,10 @@ cudaError_t launch_scatter_vec(void* emb, const int* idx, const void* vals,
   }
 }
 
-template <typename T, bool CB, bool CBOW>
-cudaError_t launch_grad(const GradArgs& a, int B, size_t smem,
+template <typename T, bool CBOW>
+cudaError_t launch_grad(const GradArgs& a, int B, size_t smem, bool tc,
                         cudaStream_t st) {
-  auto kern = grad_core_kernel<T, CB, CBOW>;
+  auto kern = tc ? &grad_core_tc_kernel<T, CBOW> : &grad_core_f32_kernel<T, CBOW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -659,19 +828,22 @@ cudaError_t launch_grad(const GradArgs& a, int B, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T, bool CB>
-cudaError_t launch_grad_model(const GradArgs& a, int B, size_t smem,
+template <typename T>
+cudaError_t launch_grad_model(const GradArgs& a, int B, size_t smem, bool tc,
                               cudaStream_t st, int is_cbow) {
-  return is_cbow ? launch_grad<T, CB, true>(a, B, smem, st)
-                 : launch_grad<T, CB, false>(a, B, smem, st);
+  return is_cbow ? launch_grad<T, true>(a, B, smem, tc, st)
+                 : launch_grad<T, false>(a, B, smem, tc, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t w2v_grad_core_smem_bytes(int S, int SK, int KP, int d, int W) {
-  return grad_smem_words(S, SK, KP, d, W) * sizeof(float);
+// bf16 compute runs the tensor-core body, f32 compute the f32 one
+size_t w2v_grad_core_smem_bytes(int S, int SK, int KP, int d, int W,
+                                int cdt_bf16) {
+  return cdt_bf16 ? grad_tc_smem_bytes(S, SK, KP, d, W)
+                  : grad_smem_words(S, SK, KP, d, W) * sizeof(float);
 }
 
 const char* w2v_error_string(int err) {
@@ -686,23 +858,17 @@ int w2v_fused_grad_core(const void* emb, int table_bf16, const int* tok_c,
                         float* loss_part, float* losses, float* h_ws,
                         float* dh_ws, int B, int C, int S, int SK, int KP,
                         int d, int W, int K, int L, int cdt_bf16, int is_cbow,
-                        int cbow_mean, void* stream) {
+                        int cbow_mean, long long* phase_rec, void* stream) {
   GradArgs a{emb,   tok_c,     tok_k,     keep_c, w_c,   negs,  alpha,
              d_ctr, d_ctx,     n_ctx,     ctx_w,  d_neg, w_neg_sum,
              loss_part, h_ws,  dh_ws,     C,      S,     SK,    KP,
-             d,     W,         K,         L,      cbow_mean};
+             d,     W,         K,         L,      cbow_mean, phase_rec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = w2v_grad_core_smem_bytes(S, SK, KP, d, W);
-  cudaError_t err;
-  if (table_bf16) {
-    err = cdt_bf16
-              ? launch_grad_model<__nv_bfloat16, true>(a, B, smem, st, is_cbow)
-              : launch_grad_model<__nv_bfloat16, false>(a, B, smem, st,
-                                                        is_cbow);
-  } else {
-    err = cdt_bf16 ? launch_grad_model<float, true>(a, B, smem, st, is_cbow)
-                   : launch_grad_model<float, false>(a, B, smem, st, is_cbow);
-  }
+  const size_t smem = w2v_grad_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
+  const bool tc = cdt_bf16 != 0;
+  const cudaError_t err =
+      table_bf16 ? launch_grad_model<__nv_bfloat16>(a, B, smem, tc, st, is_cbow)
+                 : launch_grad_model<float>(a, B, smem, tc, st, is_cbow);
   if (err != cudaSuccess) return (int)err;
   loss_reduce_kernel<<<1, 32, 0, st>>>(loss_part, losses, B);
   return (int)cudaGetLastError();

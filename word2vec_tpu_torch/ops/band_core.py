@@ -31,14 +31,14 @@ launches the kernel for tensors on a CUDA device, or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 from .banded import band_dist
-from .launch import LAUNCHES, check, on_cuda, stream
+from .launch import LAUNCHES, check, on_cuda, phase_record, stream
 
 CoreOutputs = Tuple[torch.Tensor, ...]
 
@@ -167,12 +167,17 @@ def band_core(
     cdt: torch.dtype = torch.bfloat16,
     is_cbow: bool = False,
     cbow_mean: bool = True,
+    phase_cycles: Optional[torch.Tensor] = None,
 ) -> CoreOutputs:
     """One fused pass over the band (module docstring contract). Returns
-    (d_h, d_ctx, d_neg, n_ctx, ctx_w, w_neg_sum, losses)."""
+    (d_h, d_ctx, d_neg, n_ctx, ctx_w, w_neg_sum, losses). `phase_cycles`,
+    an int64 [B, len(launch.CORE_PHASES)] tensor on the card, receives the
+    kernel's per-phase cycle counts for each row (CUDA only)."""
     kw = dict(W=W, K=K, cdt=cdt, is_cbow=is_cbow, cbow_mean=cbow_mean)
     ins = (a, bk, en, tok_c, tok_k, keep_c, w_c, negs)
     if not on_cuda("band_core", *ins):
+        if phase_cycles is not None:
+            raise ValueError("band_core: phase_cycles needs the CUDA kernel")
         return band_core_plain(*ins, float(alpha), **kw)
     B, C, S, d = a.shape
     SK = bk.shape[2]
@@ -198,6 +203,7 @@ def band_core(
     check("negs", negs, (NB, KP), torch.int32)
 
     dev = a.device
+    rec = phase_record("band_core", phase_cycles, B, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h = torch.empty((B, C, S, d), **f32)
     d_ctx = torch.empty((B, C, SK, d), **f32)
@@ -211,9 +217,11 @@ def band_core(
     wsum_row = torch.empty((B, KP), **f32) if shared else w_neg_sum
     loss_part = torch.empty((B, 2), **f32)
     losses = torch.empty((1, 2), **f32)
+    # cbow workspaces: the f32 projection; d_hid2 only for the f32-compute
+    # body (the tensor-core body keeps it in shared memory)
     ws_shape = (B, S, d) if is_cbow else (0,)
     h_ws = torch.empty(ws_shape, **f32)
-    dh_ws = torch.empty(ws_shape, **f32)
+    dh_ws = torch.empty(ws_shape if cdt == torch.float32 else (0,), **f32)
 
     lib = _build.library("band_core")
     with torch.cuda.device(dev):
@@ -227,11 +235,11 @@ def band_core(
             d_neg.data_ptr(), w_neg_sum.data_ptr(), loss_part.data_ptr(),
             losses.data_ptr(), h_ws.data_ptr(), dh_ws.data_ptr(),
             B, C, S, SK, KP, d, W, K, int(shared),
-            int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean),
+            int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean), rec,
             stream(dev),
         )
     if err != 0:
-        smem = lib.w2v_band_core_smem_bytes(S, SK, KP, d, W)
+        smem = lib.w2v_band_core_smem_bytes(S, SK, KP, d, W, int(cdt == torch.bfloat16))
         _build.check(lib, err, f"band_core launch ({smem} B shared memory)")
     LAUNCHES["band_core"] += 1
     return d_h, d_ctx, d_neg, n_ctx, ctx_w, w_neg_sum, losses

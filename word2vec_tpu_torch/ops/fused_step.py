@@ -29,7 +29,7 @@ import torch
 
 from .. import _build
 from .banded import _overlap_add, band_dist
-from .launch import LAUNCHES, check, on_cuda, stream
+from .launch import LAUNCHES, check, on_cuda, phase_record, stream
 from .runs import check_runs, find_runs
 
 GradOutputs = Tuple[torch.Tensor, ...]
@@ -157,6 +157,7 @@ def fused_grad_core(
     cdt: torch.dtype = torch.bfloat16,
     is_cbow: bool = False,
     cbow_mean: bool = True,
+    phase_cycles: Optional[torch.Tensor] = None,
 ) -> GradOutputs:
     """One fused gather -> dot -> grad -> overlap-add pass.
 
@@ -169,10 +170,14 @@ def fused_grad_core(
       d_neg  [B, KP, d]    negative-row gradient (reduced over the row's L)
       w_neg_sum [B, KP]    per-draw expectation weight, summed over the row
       losses [1, 2]        (pos_loss, neg_loss)
-    Rows past L are the caller's to slice off.
+    Rows past L are the caller's to slice off. `phase_cycles`, an int64
+    [B, len(launch.CORE_PHASES)] tensor on the card, receives the kernel's
+    per-phase cycle counts for each row (a measurement; CUDA only).
     """
     kw = dict(W=W, K=K, L=L, cdt=cdt, is_cbow=is_cbow, cbow_mean=cbow_mean)
     if not on_cuda("fused_grad_core", emb, tok_c, tok_k, keep_c, w_c, negs):
+        if phase_cycles is not None:
+            raise ValueError("fused_grad_core: phase_cycles needs the CUDA kernel")
         return fused_grad_core_plain(
             emb, tok_c, tok_k, keep_c, w_c, negs, float(alpha), **kw
         )
@@ -200,6 +205,7 @@ def fused_grad_core(
     check("negs", negs, (B, KP), torch.int32)
 
     dev = emb.device
+    rec = phase_record("fused_grad_core", phase_cycles, B, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     d_ctr = torch.empty((B, C, S, d), **f32)
     d_ctx = torch.empty((B, C, S, d), **f32)
@@ -209,9 +215,11 @@ def fused_grad_core(
     w_neg_sum = torch.empty((B, KP), **f32)
     loss_part = torch.empty((B, 2), **f32)
     losses = torch.empty((1, 2), **f32)
+    # cbow workspaces: the f32 projection; d_hid2 only for the f32-compute
+    # body (the tensor-core body keeps it in shared memory)
     ws_shape = (B, S, d) if is_cbow else (0,)
     h_ws = torch.empty(ws_shape, **f32)
-    dh_ws = torch.empty(ws_shape, **f32)
+    dh_ws = torch.empty(ws_shape if cdt == torch.float32 else (0,), **f32)
 
     lib = _build.library("fused_step")
     with torch.cuda.device(dev):
@@ -224,10 +232,11 @@ def fused_grad_core(
             loss_part.data_ptr(), losses.data_ptr(),
             h_ws.data_ptr(), dh_ws.data_ptr(),
             B, C, S, SK, KP, d, W, K, L,
-            int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean), stream(dev),
+            int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean), rec,
+            stream(dev),
         )
     if err != 0:
-        smem = lib.w2v_grad_core_smem_bytes(S, SK, KP, d, W)
+        smem = lib.w2v_grad_core_smem_bytes(S, SK, KP, d, W, int(cdt == torch.bfloat16))
         _build.check(lib, err, f"fused_grad_core launch ({smem} B shared memory)")
     LAUNCHES["fused_grad_core"] += 1
     return d_ctr, d_ctx, n_ctx, ctx_w, d_neg, w_neg_sum, losses

@@ -25,6 +25,22 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+#: phases of the band cores' optional cycle record (csrc/band_tiles.cuh
+#: enum Phase, in that order): one int64 count per phase and batch row
+CORE_PHASES = ("rows", "masks", "logits", "neg", "center", "context", "tail")
+
+
+def phase_record(name: str, phase_cycles, rows: int, dev) -> int:
+    """The device pointer of a kernel's cycle record, 0 for none; the
+    record must be an int64 [rows, len(CORE_PHASES)] tensor on `dev`."""
+    if phase_cycles is None:
+        return 0
+    check(f"{name} phase_cycles", phase_cycles, (rows, len(CORE_PHASES)), torch.int64)
+    if phase_cycles.device != dev:
+        raise ValueError(f"{name}: phase_cycles must lie on {dev}")
+    return phase_cycles.data_ptr()
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
