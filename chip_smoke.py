@@ -47,7 +47,18 @@ Phases (any failure exits non-zero and prints no result line):
      split in/out and neg, a real batch's ids, grad_inputs' ragged rows,
      the pallas slab side), each
      beside index_add_, its bytes bound, its chain bound (longest run x
-     dependent-add cycles / SM clock) and its longest run.
+     dependent-add cycles / SM clock) and its longest run. Then the
+     dispatch A/B: words/sec per route of four arms, interleaved twice (A
+     B C D A B C D): A eager per-step, B each step replayed as a CUDA
+     graph, C graphed chunk_steps=0 streaming, D graphed chunk_steps=0
+     resident; each arm's capture seconds and its device busy / idle
+     shares under torch.profiler; the median host batch fill [256 x 192].
+  4b (between 4 and 5) graphs: on each route, at flagship width, the
+     graphed per-step run (whole, and resumed mid-epoch by
+     train(state=...)), chunk_steps=4 streaming and chunk_steps=4 resident
+     (a partial last chunk) against the eager per-step run of the same
+     seed, bitwise on the params, each path's launch counts exact
+     (expected_launches). A capture that fails raises.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -808,19 +819,26 @@ def flagship_corpus():
     return vocab, corpus
 
 
+def flagship_cfg(backend, layout, **over):
+    """The flagship trainer config on one route."""
+    from word2vec_tpu_torch import Word2VecConfig
+
+    return Word2VecConfig(
+        model="sg", train_method="ns", negative=K, word_dim=D, window=W,
+        batch_rows=B, max_sentence_len=L, shared_negatives=KP,
+        negative_scope="row", table_layout=layout, band_backend=backend,
+        min_count=5, **over,
+    )
+
+
 def phase_trainer(dev, vocab, corpus, backend, layout, out_dir=None):
-    from word2vec_tpu_torch import Trainer, Word2VecConfig, export_matrix
+    from word2vec_tpu_torch import Trainer, export_matrix
     from word2vec_tpu_torch.io.embeddings import (
         load_embeddings_binary, save_embeddings_binary,
     )
     from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
 
-    cfg = Word2VecConfig(
-        model="sg", train_method="ns", negative=K, word_dim=D, window=W,
-        batch_rows=B, max_sentence_len=L, shared_negatives=KP,
-        negative_scope="row", table_layout=layout, band_backend=backend,
-        min_count=5,
-    )
+    cfg = flagship_cfg(backend, layout)
     tr = Trainer(cfg, vocab, corpus)  # device defaults to cuda
     tr.train(log_every=0, max_steps=3)  # warm-up (allocator, libraries)
     reset_launch_counts()
@@ -1129,6 +1147,182 @@ def phase_times(dev, errs, counts, tokens):
     return kernels
 
 
+# the graph phase's corpus: 230 sentences of 1,000 tokens, wrapped at
+# L=192 into 1,380 rows, so an epoch is 6 flagship steps, the last batch
+# partial (100 rows) and a chunk of 4 steps padded at the epoch's end
+GRAPH_TOKENS = 230_000
+GRAPH_CHUNK = 4
+
+
+def same_params(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(
+        torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+
+def phase_graphs(dev, vocab):
+    """Every dispatch path on every route at flagship width, each run
+    against the eager per-step run of the same seed, bitwise on the
+    params: graphed per-step (a run resumed mid-epoch at step 3 by
+    train(state=...), and a whole epoch), chunk_steps=4 streaming and
+    chunk_steps=4 resident (the epoch's second chunk partial: 2 steps, 2
+    pad steps skipped). Each path's launch counts are set to 0 just before
+    it and read just after, and must equal expected_launches for the steps
+    it ran (a capture counts its launches once a replay; the warm-up of a
+    capture runs on clones in an earlier, uncounted run)."""
+    import gc
+
+    from word2vec_tpu_torch import PackedCorpus, Trainer
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+    from word2vec_tpu_torch.utils.synthetic import zipf_corpus_ids
+
+    corpus = PackedCorpus.pack(
+        zipf_corpus_ids(vocab, GRAPH_TOKENS, seed=1, sentence_len=1000), L)
+    spe = -(-corpus.num_rows // B)
+    log(f"  graph corpus: rows={corpus.num_rows} steps/epoch={spe}")
+    rows = []
+    for backend, layout in ROUTES:
+        tag = f"{backend}/{layout}"
+
+        def trainer(graphs=True, **over):
+            tr = Trainer(flagship_cfg(backend, layout, iters=1, **over), vocab, corpus)
+            tr.graphs = graphs
+            return tr
+
+        def counted(tr, n_steps, what, **kw):
+            reset_launch_counts()
+            state, rep = tr.train(log_every=0, **kw)
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            want = expected_launches(backend, layout, n_steps)
+            if counts != want:
+                fail(f"graphs {tag} {what}: launch counts {counts} != {want}")
+            if not np.isfinite(rep.final_loss):
+                fail(f"graphs {tag} {what}: non-finite loss")
+            return state
+
+        ref = counted(trainer(graphs=False), spe, "eager per-step")
+        row = {"route": tag, "steps": spe}
+        g = trainer()
+        part, _ = g.train(log_every=0, max_steps=3)  # captures the step
+        row["capture_s per-step"] = g.capture_s
+        checks = [
+            ("graphed per-step, resumed at step 3",
+             counted(g, spe - 3, "resumed", state=part)),
+            ("graphed per-step", counted(g, spe, "per-step")),
+        ]
+        for name, over in (
+            ("chunk_steps=4 streaming", dict(chunk_steps=GRAPH_CHUNK, resident="off")),
+            ("chunk_steps=4 resident", dict(chunk_steps=GRAPH_CHUNK, resident="on")),
+        ):
+            c = trainer(**over)
+            first, rep = c.train(log_every=0)  # captures the chunk's step
+            row[f"capture_s {name}"] = c.capture_s
+            if name.endswith("resident") and rep.resident["resolved"] != "resident":
+                fail(f"graphs {tag}: the resident path resolved {rep.resident}")
+            checks += [(f"{name} (capturing run)", first),
+                       (name, counted(c, spe, name))]
+        for name, state in checks:
+            ok = same_params(state.params, ref.params) and state.step == spe
+            row[name] = ok
+            if not ok:
+                fail(f"graphs {tag}: {name} != eager per-step (bitwise)")
+        log(f"  graphs {tag}: " + ", ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in row.items() if k != "route"))
+        rows.append(row)
+        del g, c, ref, checks
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(json.dumps({"graph_phase": rows}))
+
+
+# the four dispatch arms of the words/sec A/B: (replay CUDA graphs,
+# config overrides)
+ARMS = {
+    "A eager per-step": (False, dict(chunk_steps=1)),
+    "B graphed per-step": (True, dict(chunk_steps=1)),
+    "C graphed chunk_steps=0 streaming": (True, dict(chunk_steps=0, resident="off")),
+    "D graphed chunk_steps=0 resident": (True, dict(chunk_steps=0, resident="on")),
+}
+
+
+def host_fill_ms(corpus, reps=50) -> float:
+    """Median ms of one host batch fill [B x L] (data/batcher.fill_batch,
+    the numpy fill the streaming paths run in their producer thread)."""
+    from word2vec_tpu_torch.data.batcher import epoch_order, fill_batch
+
+    order = epoch_order(0, 0, corpus.num_rows)
+    out = np.empty((B, L), np.int32)
+    times = []
+    for i in range(reps):
+        pos = (i * B) % max(1, corpus.num_rows - B)
+        t0 = time.perf_counter()
+        fill_batch(corpus.flat, corpus.row_starts, corpus.row_lens, order, pos, out)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_dispatch(vocab, corpus, card):
+    """Words/sec of the four dispatch arms per route, interleaved twice on
+    this card (A B C D A B C D), each run two epochs of the flagship corpus
+    (host clock around Trainer.train, synchronized at both ends); each
+    arm's capture seconds; the device's busy and idle shares of one more
+    run of each arm under torch.profiler (busy = the union of the device
+    intervals; idle = 1 - busy / the synchronized host window)."""
+    import gc
+
+    from word2vec_tpu_torch import Trainer
+    from word2vec_tpu_torch.profile_step import _busy_us
+
+    fill = host_fill_ms(corpus)
+    log(f"  host batch fill [{B} x {L}] (numpy fill_batch): median {fill:.4f} ms "
+        f"({card})")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rows = []
+    for backend, layout in ROUTES:
+        tag = f"{backend}/{layout}"
+        trainers = {}
+        for arm, (graphs, over) in ARMS.items():
+            tr = Trainer(flagship_cfg(backend, layout, iters=2, **over), vocab, corpus)
+            tr.graphs = graphs
+            tr.train(log_every=0, max_steps=3)  # warm-up; captures the graph
+            trainers[arm] = (tr, tr.capture_s)
+        wps = {arm: [] for arm in ARMS}
+        steps = {}
+        for _ in range(2):
+            for arm, (tr, _) in trainers.items():
+                _, rep = tr.train(log_every=0)
+                wps[arm].append(rep.words_per_sec)
+                steps[arm] = rep.steps
+        for arm, (tr, cap) in trainers.items():
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train(log_every=0)
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+            busy = _busy_us([e for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA])
+            row = {
+                "route": tag, "arm": arm, "words_per_sec": wps[arm],
+                "steps": steps[arm], "capture_s": cap,
+                "profiled_ms_per_step": window_us / 1e3 / steps[arm],
+                "device_busy_ms_per_step": busy / 1e3 / steps[arm],
+                "device_idle_share": 1.0 - busy / window_us,
+            }
+            rows.append(row)
+            log(f"  dispatch {tag} {arm}: words/sec "
+                + " / ".join(f"{w:.1f}" for w in wps[arm])
+                + f" ({row['steps']} steps a run); capture {cap:.3f} s; profiled "
+                f"{row['profiled_ms_per_step']:.4f} ms/step, device busy "
+                f"{row['device_busy_ms_per_step']:.4f} ms/step, idle "
+                f"{100 * row['device_idle_share']:.1f}% ({card})")
+        del trainers, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(json.dumps({"dispatch_arms": rows, "host_fill_ms": fill, "card": card}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1164,10 +1358,10 @@ def main() -> int:
         log(f"  {lib} dynamic shared memory (S={S}, KP={KP}, d={D}): bf16 compute "
             f"{get(S, SK, KP, D, W, 1)} B, f32 compute {get(S, SK, KP, D, W, 0)} B")
 
-    log("[3 kernels vs plain, flagship shapes]")
+    log(f"[3 kernels vs plain, flagship shapes] (at {time.perf_counter() - t0:.1f} s)")
     errs = phase_kernels(dev)
 
-    log("[4 slice]")
+    log(f"[4 slice] (at {time.perf_counter() - t0:.1f} s)")
     phase_small_step(dev)
     vocab, corpus = flagship_corpus()
     counts, reps = {}, {}
@@ -1183,11 +1377,19 @@ def main() -> int:
 
     phase_repeat(dev, vocab, corpus)
 
-    log(f"[5 times] card: {card}")
+    log("[4b graphs: every dispatch path vs the eager per-step run] "
+        f"(at {time.perf_counter() - t0:.1f} s)")
+    phase_graphs(dev, vocab)
+
+    log(f"[5 times] card: {card} (at {time.perf_counter() - t0:.1f} s)")
     kernels = phase_times(dev, errs, counts, corpus_batch(dev, corpus))
     for (backend, layout), rep in reps.items():
         log(f"  trainer words/sec {backend}/{layout}: {rep.words_per_sec:.1f} "
             f"({card})")
+    t5 = time.perf_counter()
+    phase_dispatch(vocab, corpus, card)
+    log(f"  (dispatch A/B {time.perf_counter() - t5:.1f} s; the whole smoke "
+        f"{time.perf_counter() - t0:.1f} s)")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

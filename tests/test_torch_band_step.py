@@ -207,8 +207,6 @@ def test_three_steps_match_jax_fused_step(model, case, monkeypatch):
 @pytest.mark.parametrize(
     "over,lever",
     [
-        (dict(band_backend="xla", fused_tables=True, table_layout="split"),
-         "fused_tables"),
         (dict(train_method="hs", negative=0, band_backend="xla",
               table_layout="split"), "hierarchical softmax"),
         (dict(kernel="pair", band_backend="xla", table_layout="split"),

@@ -319,11 +319,16 @@ def test_trainer_launches_each_kernel_per_step(cuda, route):
                          max_sentence_len=30, band_chunk=10, shared_negatives=8,
                          table_layout=layout, band_backend=backend)
     tr = Trainer(cfg, vocab, corpus)
-    launch.reset_launch_counts()
-    state, report = tr.train(log_every=2)
     want = {k: 0 for k in launch.LAUNCHES}
     want["ordered_row_sum"] = 3
     want.update(ROUTE_LAUNCHES[route])
+    # the first run captures the step as a CUDA graph: one eager warm-up
+    # step on clones of the params, then a replay per step
+    launch.reset_launch_counts()
+    state, report = tr.train(log_every=2)
+    assert launch.LAUNCHES == {k: v * (report.steps + 1) for k, v in want.items()}
+    launch.reset_launch_counts()
+    state, report = tr.train(log_every=2)
     assert launch.LAUNCHES == {k: v * report.steps for k, v in want.items()}
     assert np.all(np.isfinite(report.loss_history))
 
@@ -404,3 +409,86 @@ def test_band_core_tensor_cores_match_plain(cuda, shape, model, scope):
         assert torch.equal(_bits(g), _bits(a))
     assert bool((got[1][args[4] < 0] == 0).all())
     assert bool((rec >= 0).all()) and bool((rec.sum(1) > 0).all())
+
+
+# ------------------------------------------------- graphed dispatch (A4)
+def _graph_trainer(cuda, route, graphs=True, **over):
+    from word2vec_tpu_torch import Trainer, Word2VecConfig
+
+    backend, layout = route
+    vocab, corpus = _small_corpus()
+    cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=8,
+                         max_sentence_len=30, band_chunk=10, shared_negatives=8,
+                         table_layout=layout, band_backend=backend, iters=2, **over)
+    tr = Trainer(cfg, vocab, corpus, device=cuda)
+    tr.graphs = graphs
+    return tr
+
+
+def _same(a, b):
+    return sorted(a) == sorted(b) and all(torch.equal(_bits(a[k]), _bits(b[k])) for k in a)
+
+
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES), ids="-".join)
+def test_graph_replay_matches_eager(cuda, route):
+    """Every step replayed as a CUDA graph (per-step, chunked streaming,
+    chunked resident, a mid-epoch resume) against the eager per-step run of
+    the same seed: bitwise-equal params."""
+    ref, _ = _graph_trainer(cuda, route, graphs=False).train(log_every=0)
+    g = _graph_trainer(cuda, route)
+    part, _ = g.train(log_every=0, max_steps=5)
+    assert g.capture_s > 0 and g._runners  # captured, not eager
+    resumed, _ = g.train(state=part, log_every=0)
+    assert _same(resumed.params, ref.params)
+    whole, _ = g.train(log_every=0)
+    assert _same(whole.params, ref.params)
+    for over in (dict(chunk_steps=3, resident="off"), dict(chunk_steps=3, resident="on")):
+        state, rep = _graph_trainer(cuda, route, **over).train(log_every=0)
+        assert state.step == ref.step and _same(state.params, ref.params), over
+
+
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES), ids="-".join)
+def test_graph_replays_count_their_launches(cuda, route):
+    """A capture launches nothing and each replay adds the capture's
+    counts: a graphed run launches each kernel as often per step as an
+    eager one (the counts chip_smoke.expected_launches holds)."""
+    want = {k: 0 for k in launch.LAUNCHES}
+    want["ordered_row_sum"] = 3
+    want.update(ROUTE_LAUNCHES[route])
+    for over in (dict(), dict(chunk_steps=3, resident="off"),
+                 dict(chunk_steps=3, resident="on")):
+        tr = _graph_trainer(cuda, route, **over)
+        tr.train(log_every=0, max_steps=2)  # warm-up and capture
+        launch.reset_launch_counts()
+        state, rep = tr.train(log_every=0)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES == {k: v * rep.steps for k, v in want.items()}, over
+
+
+def test_step_graph_reads_each_alpha_and_seed(cuda):
+    """One StepGraph of three slots: each replay reads its slot's alpha and
+    the seed set before it, as the eager step does."""
+    from word2vec_tpu_torch import Word2VecConfig
+    from word2vec_tpu_torch.models.params import init_params
+    from word2vec_tpu_torch.ops.band_step import BandStep
+    from word2vec_tpu_torch.ops.graphs import StepGraph
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+
+    vocab, corpus = _small_corpus()
+    cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=8,
+                         max_sentence_len=30, band_chunk=10, shared_negatives=8,
+                         micro_steps=2)
+    step = BandStep(cfg, DeviceTables.build(vocab, cfg, cuda))
+    toks = torch.from_numpy(corpus.flat[:3 * 8 * 30].reshape(3, 8, 30)).to(cuda)
+    out = []
+    for graphed in (False, True):
+        params = init_params(cfg, len(vocab), torch.Generator(device=cuda).manual_seed(1))
+        g = StepGraph(step, params, lambda s: toks.index_select(0, s).reshape(8, 30),
+                      3, graphed=graphed)
+        assert (g.graph is not None) == graphed
+        m = g.dispatch(np.float32([0.05, 0.01, 0.03]), 7, 100)
+        torch.cuda.synchronize()
+        out.append((params, {k: v.clone() for k, v in m.items()}))
+    assert _same(out[0][0], out[1][0])
+    for k in out[0][1]:
+        assert torch.equal(out[0][1][k], out[1][1][k]), k

@@ -192,7 +192,6 @@ def test_jax_split_params_round_trip_bit_for_bit(dtype):
     [
         (dict(kernel="pair"), "kernel='pair'"),
         (dict(train_method="hs", negative=0, kernel="band"), "hierarchical softmax"),
-        (dict(fused_tables=True), "fused_tables"),
     ],
 )
 def test_unported_routes_raise(over, lever):

@@ -177,3 +177,45 @@ def assert_metrics_close(tm, jm):
     np.testing.assert_allclose(float(tm["loss_sum"]), float(jm["loss_sum"]),
                                rtol=1e-5)
     assert float(tm["clip_engaged"]) == float(jm["clip_engaged"])
+
+
+# ------------------------------------------------- trainer-level harness
+# (tests/test_torch_{chunk,resident,resume}.py): every single-device route
+# of the port, by (band_backend, table_layout)
+ROUTES = [("xla", "split"), ("xla", "unified"), ("pallas_oa", "split"),
+          ("pallas", "split"), ("pallas_fused", "unified")]
+ROUTE_IDS = ["-".join(r) for r in ROUTES]
+
+
+def small_corpus(n_tokens=1500):
+    """A Zipf corpus of 37-token sentences, packed at L=24 (two rows a
+    sentence, the second one ragged)."""
+    from word2vec_tpu_torch import PackedCorpus
+    from word2vec_tpu_torch.utils.synthetic import zipf_corpus_ids, zipf_vocab
+
+    vocab = zipf_vocab(50, 5000)
+    ids = zipf_corpus_ids(vocab, n_tokens, seed=3, sentence_len=37)
+    return vocab, PackedCorpus.pack(ids, 24)
+
+
+def trainer_cfg(route=("xla", "split"), **over):
+    """A Trainer config at the small shape (B=4 x L=24, band_chunk 8) on
+    one route."""
+    backend, layout = route
+    base = dict(
+        model="sg", train_method="ns", negative=3, word_dim=16, window=3,
+        min_count=1, subsample_threshold=1e-3, iters=1, batch_rows=4,
+        max_sentence_len=24, band_chunk=8, shared_negatives=8, seed=11,
+        band_backend=backend, table_layout=layout,
+    )
+    base.update(over)
+    return Word2VecConfig(**base)
+
+
+def assert_params_bitwise(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        x, y = a[k], b[k]
+        assert x.dtype == y.dtype and x.shape == y.shape, k
+        w = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(x.view(w), y.view(w)), k

@@ -32,13 +32,12 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_step": {
         "w2v_fused_grad_core": (
             _I,
-            [_P, _I, _P, _P, _P, _P, _P, _F,
+            [_P, _I, _P, _P, _P, _P, _P, _P,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),
@@ -54,7 +53,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "band_core": {
         "w2v_band_core": (
             _I,
-            [_P, _P, _P, _I, _P, _P, _P, _P, _P, _F,
+            [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),

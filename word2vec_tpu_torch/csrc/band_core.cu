@@ -76,7 +76,7 @@ struct BandArgs {
   const float* keep_c;   // [B, C, S]
   const float* w_c;      // [B, C, S]
   const int* negs;       // [NB, KP]
-  float alpha;
+  const float* alpha;    // [] the step's learning rate, on the device
   float* d_h;            // [B, C, S, d]
   float* d_ctx;          // [B, C, SK, d]
   float* n_ctx;          // [B, C, S]
@@ -109,6 +109,8 @@ inline size_t band_smem_words(int S, int SK, int KP, int d, int W) {
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     band_core_f32_kernel(const BandArgs p) {
+  // read once a block: a captured graph replays the pointer, not a value
+  const float alpha = *p.alpha;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -219,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
       const float nlog = warp_sum(part);
       if (lane == 0) {
         const float wn = s_wn[q];
-        s_gn[q] = (0.f - sigmoid_stable(nlog)) * wn * p.alpha;
+        s_gn[q] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
         neg_acc += wn * (log_sigmoid(nlog) - nlog);
       }
     }
@@ -239,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
                   to_f(bk[(size_t)k * d + e]);
         const float plog = warp_sum(part);
         if (lane == 0) {
-          s_gpb[q] = (1.f - sigmoid_stable(plog)) * m * p.alpha;
+          s_gpb[q] = (1.f - sigmoid_stable(plog)) * m * alpha;
           pos_acc += m * log_sigmoid(plog);
         }
       }
@@ -252,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
         const float plog = warp_sum(part);
         if (lane == 0) {
           const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
-          s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * p.alpha;
+          s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * alpha;
           pos_acc += active * log_sigmoid(plog);
         }
       }
@@ -349,6 +351,8 @@ inline size_t band_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads, 1)
     band_core_tc_kernel(const BandArgs p) {
+  // read once a block: a captured graph replays the pointer, not a value
+  const float alpha = *p.alpha;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int C = p.C, S = p.S, SK = p.SK, KP = p.KP, d = p.d, W = p.W;
@@ -434,11 +438,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     clk.mark(kPhaseMasks);
 
     // ---- negative logits and weights (tensor cores), positive logits
-    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, p.alpha);
+    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, alpha);
     if constexpr (!CBOW) {
-      pos_acc += band_logits(band, tl, sA, d, p.alpha, s_gpb, bk_row);
+      pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb, bk_row);
     } else {
-      pos_acc += center_logits(band, sA, tl.lda, d, p.alpha, s_gpc, a_row);
+      pos_acc += center_logits(band, sA, tl.lda, d, alpha, s_gpc, a_row);
     }
     __syncthreads();
     clk.mark(kPhaseLogits);
@@ -565,7 +569,7 @@ const char* w2v_error_string(int err) {
 int w2v_band_core(const void* a, const void* bk, const void* en,
                   int table_bf16, const int* tok_c, const int* tok_k,
                   const float* keep_c, const float* w_c, const int* negs,
-                  float alpha, float* d_h, float* d_ctx, float* n_ctx,
+                  const float* alpha, float* d_h, float* d_ctx, float* n_ctx,
                   float* ctx_w, float* dneg_row, float* wsum_row,
                   float* d_neg, float* w_neg_sum, float* loss_part,
                   float* losses, float* h_ws, float* dh_ws, int B, int C,

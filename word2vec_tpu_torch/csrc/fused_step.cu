@@ -107,7 +107,7 @@ struct GradArgs {
   const float* keep_c;   // [B, C, S]
   const float* w_c;      // [B, C, S]
   const int* negs;       // [B, KP]
-  float alpha;
+  const float* alpha;    // [] the step's learning rate, on the device
   float* d_ctr;          // [B, C, S, d]
   float* d_ctx;          // [B, C, S, d]
   float* n_ctx;          // [B, C, S]
@@ -142,6 +142,8 @@ inline size_t grad_smem_words(int S, int SK, int KP, int d, int W) {
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     grad_core_f32_kernel(const GradArgs a) {
+  // read once a block: a captured graph replays the pointer, not a value
+  const float alpha = *a.alpha;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -260,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
       const float nlog = warp_sum(part);
       if (lane == 0) {
         const float wn = s_wn[p];
-        s_gn[p] = (0.f - sigmoid_stable(nlog)) * wn * a.alpha;
+        s_gn[p] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
         neg_acc += wn * (log_sigmoid(nlog) - nlog);
       }
     }
@@ -279,7 +281,7 @@ __global__ void __launch_bounds__(kThreads)
           part += a_row(s, e) * bk_row(k, e);
         const float plog = warp_sum(part);
         if (lane == 0) {
-          s_gpb[p] = (1.f - sigmoid_stable(plog)) * m * a.alpha;
+          s_gpb[p] = (1.f - sigmoid_stable(plog)) * m * alpha;
           pos_acc += m * log_sigmoid(plog);
         }
       }
@@ -292,7 +294,7 @@ __global__ void __launch_bounds__(kThreads)
         const float plog = warp_sum(part);
         if (lane == 0) {
           const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
-          s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * a.alpha;
+          s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * alpha;
           pos_acc += active * log_sigmoid(plog);
         }
       }
@@ -415,6 +417,8 @@ inline size_t grad_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_core_tc_kernel(const GradArgs a) {
+  // read once a block: a captured graph replays the pointer, not a value
+  const float alpha = *a.alpha;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int C = a.C, S = a.S, SK = a.SK, KP = a.KP, d = a.d, W = a.W;
@@ -504,11 +508,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     clk.mark(kPhaseMasks);
 
     // ---- negative logits and weights (tensor cores), positive logits
-    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, a.alpha);
+    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, alpha);
     if constexpr (!CBOW) {
-      pos_acc += band_logits(band, tl, sA, d, a.alpha, s_gpb, bk_row);
+      pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb, bk_row);
     } else {
-      pos_acc += center_logits(band, sA, tl.lda, d, a.alpha, s_gpc, a_row);
+      pos_acc += center_logits(band, sA, tl.lda, d, alpha, s_gpc, a_row);
     }
     __syncthreads();
     clk.mark(kPhaseLogits);
@@ -852,7 +856,7 @@ const char* w2v_error_string(int err) {
 
 int w2v_fused_grad_core(const void* emb, int table_bf16, const int* tok_c,
                         const int* tok_k, const float* keep_c,
-                        const float* w_c, const int* negs, float alpha,
+                        const float* w_c, const int* negs, const float* alpha,
                         float* d_ctr, float* d_ctx, float* n_ctx,
                         float* ctx_w, float* d_neg, float* w_neg_sum,
                         float* loss_part, float* losses, float* h_ws,

@@ -2,7 +2,11 @@
 
 A copy of word2vec_tpu/data/batcher.py for the PyTorch port. Batch assembly
 is the numpy fill (the JAX package's `native._fill_batch_py`); the native
-C++ fill is not ported yet, and both produce identical batches.
+C++ fill is not ported yet, and both produce identical batches. The
+background-thread prefetch of the JAX module is not copied: the port's
+trainer fills the next chunk on its own thread while the card runs the
+current one, which measured faster on the H100 host than a producer thread
+competing with it for the GIL (PERF.md).
 
 Device-first design (SURVEY §7 step 2): the host does *no* pair generation.
 Sentences are packed into fixed-shape int32 rows (pad = -1); subsampling,
@@ -19,8 +23,6 @@ wrap points.
 
 from __future__ import annotations
 
-import queue
-import threading
 from typing import Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -191,68 +193,22 @@ def fill_batch(
     return words
 
 
-def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
-    """Background-thread prefetch so host batch assembly overlaps device compute.
-
-    The device step is launched asynchronously, so batch assembly for the
-    next step overlaps the current one's kernels. If the consumer abandons the
-    generator early (exception in the training loop, GeneratorExit), the
-    producer thread is signalled to stop rather than blocking forever on the
-    bounded queue.
-
-    Producer-failure contract (pinned for the JAX package by tests/test_batcher.py): an
-    exception anywhere in the producer — the underlying iterator or batch
-    assembly — RE-RAISES in the consumer
-    after the items produced before it drain; it never hangs the consumer
-    or silently ends the epoch short. The consumer's queue wait is
-    additionally guarded against the producer dying without its sentinel
-    (interpreter teardown killing the daemon thread): a dead producer with
-    an empty queue raises RuntimeError instead of blocking forever.
-    """
-    q: "queue.Queue" = queue.Queue(maxsize=depth)
-    stop = threading.Event()
-    sentinel = object()
-    err: List[BaseException] = []
-
-    def _put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def producer() -> None:
-        try:
-            for item in iterator:
-                if not _put(item):
-                    return
-        except BaseException as e:  # propagate into consumer
-            err.append(e)
-        finally:
-            _put(sentinel)
-
-    t = threading.Thread(target=producer, daemon=True)
-    t.start()
-    try:
-        while True:
-            try:
-                item = q.get(timeout=1.0)
-            except queue.Empty:
-                if not t.is_alive() and q.empty():
-                    # sentinel never arrived: the producer was torn down
-                    # without running its finally (daemon-thread kill)
-                    if err:
-                        raise err[0]
-                    raise RuntimeError(
-                        "prefetch producer thread died without a sentinel"
-                    )
-                continue
-            if item is sentinel:
-                if err:
-                    raise err[0]
-                return
-            yield item
-    finally:
-        stop.set()
+def chunk_batches(
+    epoch_iter: Iterator[Tuple[np.ndarray, int]], s: int
+) -> Iterator[Tuple[np.ndarray, List[int]]]:
+    """Group an epoch's [B, L] batches into [S, B, L] chunks for the chunked
+    dispatch runner (ops/train_step.make_chunk_runner). The trailing partial
+    chunk is padded with all-(-1) batches — provable no-op steps — so one
+    captured shape covers every chunk. Yields (tokens, per-batch word
+    counts: len(words) < S exactly when the chunk is padded)."""
+    buf: List[np.ndarray] = []
+    words: List[int] = []
+    for tokens, w in epoch_iter:
+        buf.append(tokens)
+        words.append(w)
+        if len(buf) == s:
+            yield np.stack(buf), words
+            buf, words = [], []
+    if buf:
+        dead = np.full_like(buf[0], PAD)
+        yield np.stack(buf + [dead] * (s - len(buf))), words

@@ -37,8 +37,37 @@ def torch_dtype(name: str) -> torch.dtype:
     return table[name]
 
 
+_U64 = 0xFFFF_FFFF_FFFF_FFFF
+
+
 def generator(device: torch.device, seed: Optional[int]) -> torch.Generator:
     """A torch.Generator on `device`, seeded."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
+    g.manual_seed(int(seed) & _U64)
     return g
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E37_79B9_7F4A_7C15) & _U64
+    x = ((x ^ (x >> 30)) * 0xBF58_476D_1CE4_E5B9) & _U64
+    x = ((x ^ (x >> 27)) * 0x94D0_49BB_1331_11EB) & _U64
+    return x ^ (x >> 31)
+
+
+def step_seed(run_seed: int, step: int) -> int:
+    """The seed of optimizer step `step`'s draws: a fixed mix of
+    (run_seed ^ 0x5EED, step), the port's counterpart of
+    fold_in(key(run_seed ^ 0x5EED), step) (word2vec_tpu/train.py:683-686,
+    749). The draws of a step, all of its micro sub-steps included, are a
+    pure function of (run seed, step), so a run resumed at any step
+    continues the trajectory, and chunked, per-step and graph-replayed
+    dispatch draw the same numbers."""
+    base = _splitmix64((int(run_seed) ^ 0x5EED) & _U64)
+    return _splitmix64(base ^ (int(step) & _U64))
+
+
+def seed_step(gen: torch.Generator, run_seed: int, step: int) -> None:
+    """Re-seed `gen` for step `step`'s draws. Under CUDA graph replay the
+    generator is registered with the graph, so the replayed kernels read
+    this seed (and offset 0) from the graph's seed holders."""
+    gen.manual_seed(step_seed(run_seed, step))

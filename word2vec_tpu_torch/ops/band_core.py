@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .banded import band_dist
-from .launch import LAUNCHES, check, on_cuda, phase_record, stream
+from .launch import check, count, on_cuda, phase_record, scalar_arg, stream
 
 CoreOutputs = Tuple[torch.Tensor, ...]
 
@@ -160,7 +160,7 @@ def band_core(
     keep_c: torch.Tensor,
     w_c: torch.Tensor,
     negs: torch.Tensor,
-    alpha: float,
+    alpha,                # float, or a 0-d float32 tensor on the device
     *,
     W: int,
     K: int,
@@ -178,7 +178,7 @@ def band_core(
     if not on_cuda("band_core", *ins):
         if phase_cycles is not None:
             raise ValueError("band_core: phase_cycles needs the CUDA kernel")
-        return band_core_plain(*ins, float(alpha), **kw)
+        return band_core_plain(*ins, alpha, **kw)
     B, C, S, d = a.shape
     SK = bk.shape[2]
     NB, KP = negs.shape
@@ -204,6 +204,7 @@ def band_core(
 
     dev = a.device
     rec = phase_record("band_core", phase_cycles, B, dev)
+    alpha_t = scalar_arg("band_core alpha", alpha, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h = torch.empty((B, C, S, d), **f32)
     d_ctx = torch.empty((B, C, SK, d), **f32)
@@ -229,7 +230,7 @@ def band_core(
             a.data_ptr(), bk.data_ptr(), en.data_ptr(),
             int(T == torch.bfloat16),
             tok_c.data_ptr(), tok_k.data_ptr(), keep_c.data_ptr(),
-            w_c.data_ptr(), negs.data_ptr(), float(alpha),
+            w_c.data_ptr(), negs.data_ptr(), alpha_t.data_ptr(),
             d_h.data_ptr(), d_ctx.data_ptr(), n_ctx.data_ptr(),
             ctx_w.data_ptr(), dneg_row.data_ptr(), wsum_row.data_ptr(),
             d_neg.data_ptr(), w_neg_sum.data_ptr(), loss_part.data_ptr(),
@@ -241,5 +242,5 @@ def band_core(
     if err != 0:
         smem = lib.w2v_band_core_smem_bytes(S, SK, KP, d, W, int(cdt == torch.bfloat16))
         _build.check(lib, err, f"band_core launch ({smem} B shared memory)")
-    LAUNCHES["band_core"] += 1
+    count("band_core")
     return d_h, d_ctx, d_neg, n_ctx, ctx_w, w_neg_sum, losses

@@ -92,13 +92,6 @@ def check_route(config: Word2VecConfig) -> None:
             f"kernel={config.kernel!r} (the pair step, ops/train_step.py) "
             "is a later slice of the PyTorch port"
         )
-    if config.fused_tables:
-        raise NotImplementedError(
-            "fused_tables (the chunk runners' transient [V, 2, d] restack, "
-            "ops/train_step.py make_chunk_runner) comes with the chunked "
-            "dispatch, a later slice of the PyTorch port; "
-            "table_layout='unified' stores the slab for every step"
-        )
     torch_dtype(config.dtype)
     torch_dtype(config.compute_dtype)
 
@@ -106,15 +99,28 @@ def check_route(config: Word2VecConfig) -> None:
 class BandStep:
     """The band step for one config and its device tables. Tensor-parallel,
     data-parallel and sequence-parallel mesh axes (the JAX step's tp/dp/sp
-    arguments, `_halo_exchange`) come with the multi-GPU slice."""
+    arguments, `_halo_exchange`) come with the multi-GPU slice.
 
-    def __init__(self, config: Word2VecConfig, tables: DeviceTables):
+    fused=True (the chunk runners under config.fused_tables): the params
+    carry the two ns tables as one [V, 2, d] slab, as under
+    table_layout='unified' (make_band_train_step's `fused`)."""
+
+    def __init__(
+        self, config: Word2VecConfig, tables: DeviceTables, fused: bool = False
+    ):
         check_route(config)
+        if fused and config.band_backend == "pallas":
+            raise ValueError(
+                "band_backend='pallas' does not support fused_tables (the "
+                "fused [V, 2, d] restack has no split gather for this "
+                "kernel — use band_backend='pallas_oa', which composes with "
+                "fused_tables, or 'pallas_fused' on table_layout='unified')"
+            )
         self.config = config
         self.tables = tables
         self.cdt = torch_dtype(config.compute_dtype)
         self.route = config.band_backend
-        self.unified = config.table_layout == "unified"
+        self.unified = fused or config.table_layout == "unified"
 
     # ---------------------------------------------------------------- draws
     def sr_rows(self, B: int, L: int) -> Tuple[int, int, int]:
@@ -169,11 +175,13 @@ class BandStep:
         params: Params,
         tokens: torch.Tensor,
         draws: Draws,
-        alpha: float,
+        alpha,
     ) -> Metrics:
         """One step on [B, L] int32 tokens (pad -1). Updates the tables of
         `params` in place and returns the metrics (device scalars:
-        loss_sum, pairs, clip_engaged)."""
+        loss_sum, pairs, clip_engaged). `alpha` is a float or a 0-d
+        float32 tensor on the tokens' device (what a captured step reads
+        at every replay); the two give bitwise the same step."""
         if not self.config.stochastic_rounding:
             draws = Draws(draws.u_sub, draws.w_eff, draws.negs)
         elif draws.sr is None:
@@ -189,7 +197,7 @@ class BandStep:
         params: Params,
         tokens: torch.Tensor,
         gen: torch.Generator,
-        alpha: float,
+        alpha,
     ) -> Metrics:
         return self.apply(params, tokens, self.draw(gen, tokens), alpha)
 

@@ -18,6 +18,8 @@ card (torch.backends.cuda.matmul.allow_tf32 = False, the default).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -81,6 +83,14 @@ def band_dist(L: int, W: int, S: int) -> np.ndarray:
     return np.abs(s[:, None] + W - k[None, :])
 
 
+@functools.lru_cache(maxsize=None)
+def band_dist_tensor(L: int, W: int, S: int, device: torch.device) -> torch.Tensor:
+    """band_dist as a tensor on `device`, made once per geometry: a step
+    captured as a CUDA graph may not copy from the host, so the first
+    (eager) step places it and every later step reuses it."""
+    return torch.as_tensor(band_dist(L, W, S), device=device)
+
+
 def _slabs(x_pad: torch.Tensor, C: int, S: int, F_: int) -> torch.Tensor:
     """[B, P, ...] -> [B, C, S+F, ...]: chunk c = x_pad[:, c*S : c*S+S+F]."""
     need = S + C * S
@@ -116,7 +126,7 @@ def band_mask(
     valid_j & 0 < |i-j| <= w_eff_i (Word2Vec.cpp:282,285-287,332,335-337);
     keep/valid/w_eff are [B, L]."""
     L = keep.shape[1]
-    dist = torch.as_tensor(band_dist(L, W, S), device=keep.device)
+    dist = band_dist_tensor(L, W, S, keep.device)
     if S == 0:
         return (
             keep[:, :, None]

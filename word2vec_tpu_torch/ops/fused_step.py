@@ -29,7 +29,7 @@ import torch
 
 from .. import _build
 from .banded import _overlap_add, band_dist
-from .launch import LAUNCHES, check, on_cuda, phase_record, stream
+from .launch import check, count, on_cuda, phase_record, scalar_arg, stream
 from .runs import check_runs, find_runs
 
 GradOutputs = Tuple[torch.Tensor, ...]
@@ -149,7 +149,7 @@ def fused_grad_core(
     keep_c: torch.Tensor,  # [B, C, S] float32
     w_c: torch.Tensor,    # [B, C, S] float32
     negs: torch.Tensor,   # [B, KP] int32
-    alpha: float,
+    alpha,                # float, or a 0-d float32 tensor on the device
     *,
     W: int,
     K: int,
@@ -179,7 +179,7 @@ def fused_grad_core(
         if phase_cycles is not None:
             raise ValueError("fused_grad_core: phase_cycles needs the CUDA kernel")
         return fused_grad_core_plain(
-            emb, tok_c, tok_k, keep_c, w_c, negs, float(alpha), **kw
+            emb, tok_c, tok_k, keep_c, w_c, negs, alpha, **kw
         )
     B, C, S = tok_c.shape
     SK = tok_k.shape[2]
@@ -206,6 +206,7 @@ def fused_grad_core(
 
     dev = emb.device
     rec = phase_record("fused_grad_core", phase_cycles, B, dev)
+    alpha_t = scalar_arg("fused_grad_core alpha", alpha, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     d_ctr = torch.empty((B, C, S, d), **f32)
     d_ctx = torch.empty((B, C, S, d), **f32)
@@ -226,7 +227,7 @@ def fused_grad_core(
         err = lib.w2v_fused_grad_core(
             emb.data_ptr(), int(emb.dtype == torch.bfloat16),
             tok_c.data_ptr(), tok_k.data_ptr(), keep_c.data_ptr(),
-            w_c.data_ptr(), negs.data_ptr(), float(alpha),
+            w_c.data_ptr(), negs.data_ptr(), alpha_t.data_ptr(),
             d_ctr.data_ptr(), d_ctx.data_ptr(), n_ctx.data_ptr(),
             ctx_w.data_ptr(), d_neg.data_ptr(), w_neg_sum.data_ptr(),
             loss_part.data_ptr(), losses.data_ptr(),
@@ -238,7 +239,7 @@ def fused_grad_core(
     if err != 0:
         smem = lib.w2v_grad_core_smem_bytes(S, SK, KP, d, W, int(cdt == torch.bfloat16))
         _build.check(lib, err, f"fused_grad_core launch ({smem} B shared memory)")
-    LAUNCHES["fused_grad_core"] += 1
+    count("fused_grad_core")
     return d_ctr, d_ctx, n_ctx, ctx_w, d_neg, w_neg_sum, losses
 
 
@@ -348,5 +349,5 @@ def fused_slab_scatter(
             rows.shape[1], col0, v.shape[1], vec, stream(dev),
         )
     _build.check(lib, err, "fused_slab_scatter launch")
-    LAUNCHES["fused_slab_scatter"] += 1
+    count("fused_slab_scatter")
     return emb

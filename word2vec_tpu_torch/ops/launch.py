@@ -6,11 +6,17 @@ launches its CUDA kernel for tensors on one CUDA device, or raises; there
 is no fallback. LAUNCHES counts kernel launches per wrapper; only a
 launch adds to it, so a run that resets the counts, drives the trainer
 and reads them shows which kernels carried it.
+
+A CUDA graph capture runs the wrappers without launching anything: inside
+`recording()` a wrapper's count goes to the capture's record instead, and
+every replay of the graph adds that record to LAUNCHES (`add_counts`), so
+the counts say what ran, graphed or eager.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -46,6 +52,36 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+_recording: Optional[Dict[str, int]] = None
+
+
+def count(name: str) -> None:
+    """One launch of `name`'s kernel (or, inside recording(), one captured
+    launch that each replay will make)."""
+    counts = LAUNCHES if _recording is None else _recording
+    counts[name] += 1
+
+
+@contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Counts of the launches captured inside the block, kept out of
+    LAUNCHES (a capture launches nothing)."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a launch recording is already open")
+    _recording = {k: 0 for k in LAUNCHES}
+    try:
+        yield _recording
+    finally:
+        _recording = None
+
+
+def add_counts(counts: Dict[str, int]) -> None:
+    """One replay of a graph whose capture recorded `counts`."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v
+
+
 def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
     """True for all-CUDA inputs, False for all-CPU ones; raises otherwise."""
     types = {t.device.type for t in tensors}
@@ -65,6 +101,20 @@ def check(name: str, t: torch.Tensor, shape, dtype) -> None:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def scalar_arg(name: str, x, dev: torch.device) -> torch.Tensor:
+    """A float32 scalar for a kernel that reads it from device memory: `x`
+    itself when it is a 0-d float32 tensor on `dev` (a captured graph then
+    reads its value at every replay), else a new one holding float32(x)."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() != 0 or x.dtype != torch.float32 or x.device != dev:
+            raise ValueError(
+                f"{name}: need a 0-d float32 tensor on {dev}, got "
+                f"{tuple(x.shape)} {x.dtype} on {x.device}"
+            )
+        return x
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
 
 
 def stream(dev: torch.device) -> int:

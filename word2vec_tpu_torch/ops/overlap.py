@@ -19,7 +19,7 @@ import torch
 
 from .. import _build
 from .banded import _overlap_add
-from .launch import LAUNCHES, check, on_cuda, stream
+from .launch import check, count, on_cuda, stream
 
 
 def _check_geometry(y: torch.Tensor, W: int, S: int) -> None:
@@ -59,7 +59,7 @@ def overlap_add_slabs(y: torch.Tensor, W: int, S: int) -> torch.Tensor:
             y.data_ptr(), out.data_ptr(), B, C, S, W, d, stream(dev)
         )
     _build.check(lib, err, "overlap_add_slabs launch")
-    LAUNCHES["overlap_add_slabs"] += 1
+    count("overlap_add_slabs")
     return out
 
 

@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
-from .launch import LAUNCHES, check, on_cuda, stream
+from .launch import check, count, on_cuda, stream
 
 #: runs longer than this take the consumers' staged long-run path; the
 #: same constant as kLongRun in csrc/runs.cu (tests/test_torch_runs.py
@@ -90,7 +90,7 @@ def find_runs(idx: torch.Tensor) -> torch.Tensor:
             runs.data_ptr() + 4 * (HEADER + 4 * n), stream(dev),
         )
     _build.check(lib, err, "find_runs launch")
-    LAUNCHES["find_runs"] += 1
+    count("find_runs")
     return runs
 
 

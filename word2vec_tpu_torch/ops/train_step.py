@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .launch import LAUNCHES, check, on_cuda, stream
+from .launch import check, count, on_cuda, stream
 from .runs import check_runs, find_runs
 
 
@@ -116,7 +116,7 @@ def ordered_row_sum(
             n, stream(dev),
         )
     _build.check(lib, err, "ordered_row_sum launch")
-    LAUNCHES["ordered_row_sum"] += 1
+    count("ordered_row_sum")
     return out
 
 
@@ -179,3 +179,27 @@ def _dup_mean_scale(
         num_rows, flat_idx, flat_weight, presorted=presorted, runs=runs
     )
     return (1.0 / torch.clamp_min(cnt, 1.0))[flat_idx.long()]
+
+
+def make_chunk_runner(config, tables, *, fused=None, graphed: bool = True):
+    """S sequential optimizer steps as one dispatch (make_chunk_runner of
+    word2vec_tpu/ops/train_step.py:624-683, which scans the step under
+    lax.scan):
+
+        chunk(params, tokens [S, B, L], seed, step0, alphas [S], steps=None)
+            -> {"loss_sum": [S], "pairs": [S], "clip_engaged": [S]}
+
+    Step i applies the step on tokens[i] with the draws of step step0 + i
+    (device.step_seed, the counterpart of fold_in(base_key, step0 + i))
+    and LR alphas[i] — the exact per-step driver sequence, so chunked and
+    per-step training produce identical parameter trajectories
+    (tests/test_torch_chunk.py). On the card each step is one replay of a
+    captured CUDA graph (ops/graphs.StepGraph), the S replays issued back
+    to back with no host sync. The trailing partial chunk of an epoch is
+    padded with all-PAD batches, provable no-ops, which the runner skips
+    (`steps` = the real ones). With config.fused_tables (or fused=True)
+    the ns tables are restacked to [V, 2, d] for the chunk's lifetime.
+    See ops/graphs.ChunkRunner."""
+    from .graphs import ChunkRunner
+
+    return ChunkRunner(config, tables, fused=fused, graphed=graphed)

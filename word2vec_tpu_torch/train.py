@@ -1,38 +1,54 @@
 """Training loop (single device).
 
-Port of the single-device path of word2vec_tpu/train.py (Trainer
-construction, init_state, alpha_at and the per-step loop): epochs over a
-shuffled corpus with the linear alpha decay of Word2Vec.cpp:379-380,
+Port of the single-device path of word2vec_tpu/train.py: Trainer
+construction, init_state, alpha_at, the mid-epoch resume skip and the
+chunked dispatch driver (_train_chunked with its streaming and
+device-resident dispatches). Epochs run over a shuffled corpus with the
+linear alpha decay of Word2Vec.cpp:379-380,
 
     alpha = max(min_alpha, init_alpha * (1 - words_done / (iters * total_words)))
 
-refreshed every step. The host fills [B, L] batches in a prefetch thread;
-each step draws its randomness from a torch.Generator on the device and
-runs the band step of the config's route (ops/band_step.py: 'xla',
-'pallas_oa' and 'pallas' on split tables, 'xla', 'pallas_oa' and
-'pallas_fused' on the unified slab), which updates the tables in place. The loop reads the device only at log points and at the end.
+refreshed every step (rounded to float32 on the host, as the JAX driver
+passes it). Every optimizer step goes through an ops/graphs.StepGraph: on
+the card the step — its draws, the band step of the config's route
+(ops/band_step.py) and, on the resident path, the batch assembly — is
+captured once as a CUDA graph and each step is one replay; on the CPU the
+same step runs eagerly. A dispatch is config.chunk_steps steps (1, the
+default, is the per-step path; 0 picks chunks of up to chunk_cap steps
+per epoch, config.chunk_geometry), issued back to back. Batches reach the
+device from the host ([S, B, L] chunks filled while the card runs the
+previous dispatch, staged through page-locked memory) or are assembled on
+the device from a resident copy of the corpus (config.resident,
+ops/resident.py; chunked dispatch only). The draws of step s are a pure function of (seed, s)
+(device.step_seed), so chunked, per-step, resident and resumed runs
+follow the same trajectory. Metrics are fetched one dispatch late, so the
+host never waits on the step it just issued.
 
-Not in this slice: the chunked / device-resident dispatch (the step runs
-one launch sequence per batch whatever `chunk_steps` says; the trajectory
-is the same), checkpoints, and the obs / resilience / planner hooks.
-Configs that need them raise NotImplementedError.
+Not in this slice: checkpoint files (the checkpoint_cb hook is here), and
+the obs / resilience / planner hooks. Configs that need them raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .config import Word2VecConfig
-from .data.batcher import BatchIterator, PackedCorpus, prefetch
+from .data.batcher import BatchIterator, PackedCorpus, chunk_batches, epoch_order
 from .data.vocab import Vocab
 from .device import DeviceLike, generator, resolve_device
-from .models.params import Params, init_params
-from .ops.band_step import BandStep, check_route
+from .models.params import Params, convert_params_layout, init_params, params_layout
+from .ops import resident as res
+from .ops.band_step import check_route
+from .ops.graphs import METRICS, capture_env
 from .ops.tables import DeviceTables
+from .ops.train_step import make_chunk_runner
 
 
 @dataclass
@@ -51,6 +67,9 @@ class TrainReport:
     wall_time: float
     final_loss: float
     loss_history: List[float] = field(default_factory=list)
+    # the resident-corpus resolution record (Trainer._build_resident), None
+    # when the run never resolved it (per-step dispatch, resident='off')
+    resident: Optional[Dict] = None
 
 
 def _check_slice(config: Word2VecConfig) -> None:
@@ -58,7 +77,6 @@ def _check_slice(config: Word2VecConfig) -> None:
     unported = [
         (config.autotune != "off", "autotune (tune/)"),
         (config.corpus_mode != "resident", "corpus_mode='streaming' (stream/)"),
-        (config.resident == "on", "resident='on' (ops/resident.py)"),
         (config.quality_probe_every > 0, "quality_probe_every (obs/quality.py)"),
         (config.health_metrics, "health_metrics (obs/health.py)"),
         (config.divergence_budget > 0, "divergence_budget (obs/health.py)"),
@@ -73,6 +91,14 @@ def _check_slice(config: Word2VecConfig) -> None:
 
 class Trainer:
     """End-to-end single-device trainer; device defaults to "cuda"."""
+
+    #: resident-corpus resolution of the last chunked run (TrainReport.resident)
+    resident_resolution: Optional[Dict] = None
+    #: "epoch_restart" once a resumed state's step counter did not fit
+    resume_fallback: Optional[str] = None
+    #: replay each step as a CUDA graph on the card; False issues the same
+    #: steps eagerly (an A/B arm for measurements, not a config field)
+    graphs: bool = True
 
     def __init__(
         self,
@@ -90,7 +116,19 @@ class Trainer:
         self.device = resolve_device(device)
         self.tables = DeviceTables.build(vocab, config, self.device)
         self.total_words = corpus.num_tokens
-        self.step_fn = BandStep(config, self.tables)
+        # the params every step updates in place: the graphs are captured
+        # against these buffers, and train() copies a caller's state in
+        self._params: Optional[Params] = None
+        self._runners: Dict[tuple, object] = {}
+        self._env = None
+        self._resident_ready = False
+        self._resident_cache = None
+        self._resident = None
+        self._warned_nonfinite = False
+        self._last_chunk_loss = float("nan")
+        #: seconds the last run's graph took to warm up and capture, when
+        #: it was captured (0 for eager steps)
+        self.capture_s = 0.0
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         seed = self.config.seed if seed is None else seed
@@ -108,73 +146,403 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _log(self, rec: Dict) -> None:
+        if self.log_fn:
+            self.log_fn(rec)
+
+    # -------------------------------------------------------------- params
+    def _coerce_param_layout(self, params: Params) -> Params:
+        """Params in the other table layout are restacked losslessly
+        (models/params.convert_params_layout), or the conversion fails
+        naming both layouts."""
+        target = self.config.table_layout
+        src = params_layout(params)
+        if src == target:
+            return params
+        self._log({"event": "param_layout_convert", "from": src, "to": target})
+        return convert_params_layout(params, target)
+
+    def _adopt(self, params: Params) -> Params:
+        """The trainer's persistent buffers, holding `params`. The caller's
+        tensors are copied in, never trained in place (the JAX trainer
+        copies a handed-in state for the same reason, train.py:643-663);
+        buffers of a new shape drop the graphs captured on the old ones."""
+        mine = self._params
+        same = mine is not None and sorted(mine) == sorted(params) and all(
+            mine[k].shape == v.shape and mine[k].dtype == v.dtype
+            for k, v in params.items()
+        )
+        if not same:
+            self._params = {
+                k: torch.empty_like(v, device=self.device).copy_(v)
+                for k, v in params.items()
+            }
+            self._runners.clear()
+            return self._params
+        for k, v in params.items():
+            if v.data_ptr() != mine[k].data_ptr():
+                mine[k].copy_(v)
+        return mine
+
+    # ---------------------------------------------------------------- train
     def train(
         self,
         state: Optional[TrainState] = None,
         log_every: int = 50,
         max_steps: int = 0,
-    ) -> tuple:
-        """Run the epochs (or stop after `max_steps` optimizer steps when
-        it is > 0). Returns (state, TrainReport)."""
+        checkpoint_cb: Optional[Callable[[TrainState], None]] = None,
+        checkpoint_every: int = 0,
+    ) -> Tuple[TrainState, TrainReport]:
+        """Run the epochs (or stop once state.step reaches `max_steps` when
+        it is > 0). A `state` from a checkpoint or an earlier call resumes
+        at its step: mid-epoch at the first batch not yet trained
+        (_resume_skip), with the draws of that step. checkpoint_cb(state)
+        runs at each step boundary where state.step crosses a multiple of
+        checkpoint_every (chunk boundaries on the chunked path), with the
+        live params. Returns (state, TrainReport); the returned params are
+        the caller's to keep."""
         cfg = self.config
-        state = state or self.init_state()
+        if state is None:
+            state = self.init_state()
+        else:
+            state.params = self._coerce_param_layout(state.params)
+        state.params = self._adopt(state.params)
         batcher = BatchIterator(
             self.corpus, cfg.batch_rows, cfg.max_sentence_len, seed=cfg.seed
         )
-        # the root of the device draw streams (cf. train.py:683-685)
-        gen = generator(self.device, cfg.seed ^ 0x5EED)
-        k = cfg.micro_steps
+        self._warned_nonfinite = False
+        self._last_chunk_loss = float("nan")
+        chunk_len = self._resolve_chunk_len(batcher)
+        if chunk_len == 1:
+            if cfg.resident == "on":
+                # the config contract is force-or-error; the per-step
+                # loop streams from the host by construction
+                raise ValueError(
+                    "config.resident='on' requires chunked dispatch "
+                    "(chunk_steps=0 for auto, or >1), but this run resolved "
+                    "to per-step dispatch"
+                )
+            if cfg.fused_tables:
+                warnings.warn(
+                    "config.fused_tables applies to chunked dispatch only "
+                    "(chunk_steps=0 or >1); the per-step path uses the "
+                    "unfused step.",
+                    stacklevel=2,
+                )
+        return self._train_chunked(
+            state, batcher, chunk_len, log_every, max_steps,
+            checkpoint_cb, checkpoint_every,
+        )
+
+    # ------------------------------------------------------- resume skip
+    def _resume_skip(self, state: TrainState, batcher: BatchIterator) -> int:
+        """Steps of state.epoch already done per the step counter. Valid
+        because epoch permutations are pure functions of (seed, epoch).
+        An out-of-range value (a state from another batch geometry) falls
+        back to an epoch restart, loudly (_note_resume_fallback).
+        skip == steps_per_epoch is valid: a state on the epoch boundary
+        resumes into an empty epoch and rolls on into the next."""
+        spe = batcher.steps_per_epoch()
+        skip = state.step - state.epoch * spe
+        if 0 <= skip <= spe:
+            return skip
+        return self._note_resume_fallback(state, skip, spe)
+
+    def _note_resume_fallback(
+        self, state: TrainState, skip: int, steps_per_epoch: int
+    ) -> int:
+        """Restart the epoch (the only consistent recovery), with a warning
+        and a log record: the restart re-trains data the state has seen."""
+        self.resume_fallback = "epoch_restart"
+        warnings.warn(
+            f"checkpointed step counter {state.step} (epoch {state.epoch}) "
+            f"is out of range for this config's {steps_per_epoch} "
+            f"steps/epoch (derived skip {skip}): the checkpoint was taken "
+            "under different batch geometry. Restarting the epoch from its "
+            "first batch — already-trained data will be re-trained.",
+            stacklevel=3,
+        )
+        self._log({
+            "event": "resume_fallback",
+            "mode": "epoch_restart",
+            "step": state.step,
+            "epoch": state.epoch,
+            "steps_per_epoch": steps_per_epoch,
+            "derived_skip": skip,
+        })
+        return 0
+
+    # ------------------------------------------------------ chunked driver
+    def _resolve_chunk_len(self, batcher: BatchIterator) -> int:
+        """config.chunk_steps resolved against this corpus (0 = auto)."""
+        cfg = self.config
+        if cfg.chunk_steps == 1:
+            return 1
+        steps = batcher.steps_per_epoch()
+        if cfg.chunk_steps == 0:
+            s, _ = cfg.chunk_geometry(steps, cap=cfg.chunk_cap)
+            return s
+        return min(cfg.chunk_steps, steps)
+
+    def _runner(self, chunk_len: int):
+        """The dispatch runner for chunks of `chunk_len` steps, its graph
+        captured here, before the run's first dispatch."""
+        graphed = self.graphs and self.device.type == "cuda"
+        resident = self._resident is not None
+        key = (chunk_len, resident, graphed)
+        runner = self._runners.get(key)
+        if runner is None:
+            if resident:
+                runner = res.make_resident_chunk_runner(
+                    self.config, self.tables, graphed=graphed
+                )
+            else:
+                # the per-step path takes the unfused step (as JAX's does)
+                runner = make_chunk_runner(
+                    self.config, self.tables, graphed=graphed,
+                    fused=self.config.fused_tables and chunk_len > 1,
+                )
+            if graphed:
+                if self._env is None:
+                    self._env = capture_env(self.device)
+                runner.env = self._env
+            self._runners[key] = runner
+        cfg = self.config
+        if resident:
+            g = runner.resident_graph(
+                self._params, self._resident, chunk_len, self.corpus.num_rows
+            )
+        else:
+            g = runner.stream_graph(
+                self._params, (chunk_len, cfg.batch_rows, cfg.max_sentence_len)
+            )
+        self.capture_s = g.capture_s
+        return runner
+
+    def _train_chunked(
+        self,
+        state: TrainState,
+        batcher: BatchIterator,
+        chunk_len: int,
+        log_every: int,
+        max_steps: int,
+        checkpoint_cb: Optional[Callable[[TrainState], None]],
+        checkpoint_every: int,
+    ) -> Tuple[TrainState, TrainReport]:
+        """Epochs dispatched chunk_len optimizer steps at a time (1 on the
+        per-step path). The trajectory is the per-step one (the same
+        step-indexed draws and per-step alphas, tests/test_torch_chunk.py);
+        only dispatch granularity changes. Metrics of dispatch i are
+        fetched after dispatch i+1 is issued; logging and the checkpoint
+        hook run at dispatch boundaries."""
+        cfg = self.config
+        self._resident = self._setup_resident() if chunk_len > 1 else None
+        runner = self._runner(chunk_len)
         loss_hist: List[float] = []
-        last = None
+        pending: Optional[tuple] = None
+
+        def drain() -> None:
+            nonlocal pending
+            if pending is not None:
+                self._note_metrics(*pending, t0, loss_hist)
+                pending = None
+
+        skip = self._resume_skip(state, batcher)
         self._sync()
         t0 = time.perf_counter()
         done = False
         for epoch in range(state.epoch, cfg.iters):
             state.epoch = epoch
-            for tokens_np, words in prefetch(batcher.epoch(epoch)):
-                tokens = torch.from_numpy(tokens_np).to(
-                    self.device, non_blocking=True
+            for words_list, dispatch in self._chunk_dispatches(
+                state, batcher, runner, epoch, skip, chunk_len
+            ):
+                if max_steps and state.step >= max_steps:
+                    done = True
+                    break
+                n = len(words_list)
+                if max_steps:
+                    n = min(n, max_steps - state.step)
+                alphas = np.zeros(chunk_len, np.float32)
+                wd = state.words_done
+                for i in range(n):
+                    alphas[i] = self.alpha_at(wd)
+                    wd += words_list[i]
+                snap = self._snapshot(dispatch(alphas, n))
+                prev_step = state.step
+                state.step += n
+                state.words_done = wd
+                drain()
+                # per-step contract: history/logs only at log_every
+                # boundaries (here: once per dispatch that crosses one)
+                do_log = bool(
+                    log_every and state.step // log_every != prev_step // log_every
                 )
-                alpha = self.alpha_at(state.words_done)
-                # micro_steps: k sequential optimizer sub-steps over row
-                # blocks of the batch (ops/train_step.py micro wrapper)
-                last = None
-                for sub in tokens.chunk(k, dim=0):
-                    m = self.step_fn(state.params, sub, gen, alpha)
-                    last = m if last is None else {
-                        key: last[key] + m[key] for key in m
-                    }
-                state.step += 1
-                state.words_done += words
-                if log_every and state.step % log_every == 0:
-                    loss = float(last["loss_sum"]) / max(1.0, float(last["pairs"]))
-                    loss_hist.append(loss)
-                    if self.log_fn is not None:
-                        dt = time.perf_counter() - t0
-                        self.log_fn({
-                            "step": state.step,
-                            "epoch": epoch,
-                            "alpha": alpha,
-                            "loss": loss,
-                            "words_per_sec": state.words_done / max(dt, 1e-9),
-                        })
+                pending = (snap, state.step, epoch, float(alphas[n - 1]),
+                           state.words_done, do_log)
+                if (
+                    checkpoint_every
+                    and checkpoint_cb
+                    and state.step // checkpoint_every
+                    != prev_step // checkpoint_every
+                ):
+                    checkpoint_cb(state)
                 if max_steps and state.step >= max_steps:
                     done = True
                     break
             if done:
                 break
             state.epoch = epoch + 1
+            skip = 0  # only the resumed epoch re-enters mid-way
         self._sync()
         wall = time.perf_counter() - t0
-        final_loss = float("nan")
-        if last is not None:
-            final_loss = float(last["loss_sum"]) / max(1.0, float(last["pairs"]))
-        report = TrainReport(
+        drain()
+        # the returned params are the caller's: the buffers stay the trainer's
+        state.params = {k: v.clone() for k, v in state.params.items()}
+        return state, TrainReport(
             words_per_sec=state.words_done / max(wall, 1e-9),
             total_words=state.words_done,
             steps=state.step,
             wall_time=wall,
-            final_loss=final_loss,
+            final_loss=self._last_chunk_loss,
             loss_history=loss_hist,
+            resident=self.resident_resolution,
         )
-        return state, report
+
+    def _snapshot(self, metrics: Dict[str, torch.Tensor]):
+        """(host [3, S] tensor, event): a dispatch's metrics copied to the
+        host right behind it, so that fetching them waits for that dispatch
+        alone and not for the ones issued since (the static outputs belong
+        to the next dispatch). On the card the copy lands in page-locked
+        memory and the event marks it; on the CPU there is nothing to wait
+        for."""
+        stacked = torch.stack([metrics[k] for k in METRICS])
+        if not stacked.is_cuda:
+            return stacked, None
+        host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+        host.copy_(stacked, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _note_metrics(
+        self, snap, at_step: int, at_epoch: int, at_alpha: float,
+        at_words: int, do_log: bool, t0: float, loss_hist: List[float],
+    ) -> None:
+        """A dispatch's per-step metrics [3, S], fetched (this waits only
+        for that dispatch, already issued one dispatch earlier): the loss,
+        the non-finite warning, and the log record at the log_every
+        boundaries."""
+        host, done = snap
+        if done is not None:
+            done.synchronize()
+        m = dict(zip(METRICS, host.numpy().astype(np.float64).sum(axis=1)))
+        loss = float(m["loss_sum"]) / max(1.0, float(m["pairs"]))
+        self._last_chunk_loss = loss
+        if not np.isfinite(loss) and not self._warned_nonfinite:
+            self._warned_nonfinite = True
+            warnings.warn(
+                f"non-finite loss in the dispatch ending at step {at_step}: "
+                "batched-sum updates have diverged. Known cause: extreme "
+                "duplicate-row aggregation (tiny vocabulary or hot rows) — "
+                "shrink the batch, or set config.scatter_mean=True (see "
+                "config.py notes).",
+                stacklevel=3,
+            )
+        if not do_log:
+            return
+        loss_hist.append(loss)
+        if self.log_fn:
+            dt = time.perf_counter() - t0
+            self._log({
+                "step": at_step,
+                "epoch": at_epoch,
+                "alpha": at_alpha,
+                "loss": loss,
+                "progress": at_words / (self.config.iters * max(1, self.total_words)),
+                "words_per_sec": at_words / max(dt, 1e-9),
+                "clip_engaged_rows": float(m["clip_engaged"]),
+            })
+
+    def _setup_resident(self):
+        """The device corpus when the resident path is active for this
+        run, else None (config.resident; ops/resident.py). Cached: repeated
+        train() calls reuse the placed corpus."""
+        if not self._resident_ready:
+            self._resident_cache = self._build_resident()
+            self._resident_ready = True
+        return self._resident_cache
+
+    def _build_resident(self):
+        cfg = self.config
+        if cfg.resident == "off":
+            return None
+        # auto mode gates on free device memory at call time, so record the
+        # resolution and the budget (TrainReport.resident, a log record)
+        budget = res.resident_budget_bytes(self.device)
+        fits = res.corpus_fits(self.corpus, max_bytes=budget)
+        self.resident_resolution = {
+            "event": "resident_path",
+            "mode": cfg.resident,
+            "resolved": "resident" if fits else "streaming",
+            "budget_bytes": int(budget),
+            "corpus_bytes": int(self.corpus.flat.nbytes + 8 * self.corpus.num_rows),
+        }
+        self._log(dict(self.resident_resolution))
+        if not fits:
+            if cfg.resident == "on":
+                raise ValueError(
+                    f"config.resident='on' but the packed corpus "
+                    f"({self.corpus.flat.nbytes >> 20} MiB) exceeds the "
+                    f"device-memory budget ({budget >> 20} MiB, half the "
+                    f"free memory, capped at ops/resident.RESIDENT_MAX_BYTES)"
+                )
+            return None
+        return self._make_resident_runtime()
+
+    def _make_resident_runtime(self):
+        """The corpus placed on the device, once."""
+        return res.device_corpus(self.corpus, self.device)
+
+    def _chunk_dispatches(
+        self,
+        state: TrainState,
+        batcher: BatchIterator,
+        runner,
+        epoch: int,
+        skip: int,
+        chunk_len: int,
+    ) -> Iterator[Tuple[List[int], Callable]]:
+        """One epoch's dispatches: yields (words per optimizer step,
+        dispatch(alphas, steps) -> metrics).
+
+        Streaming: host-filled [S, B, L] chunks, staged through page-locked
+        memory into the graph's static input. Resident: the corpus lives
+        on the device, so only this epoch's [R] row order goes up (once),
+        and each dispatch carries scalars."""
+        cfg = self.config
+        if self._resident is not None:
+            order = epoch_order(cfg.seed, epoch, self.corpus.num_rows)
+            step_words = res.epoch_step_words(self.corpus, order, cfg.batch_rows)
+            order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
+            for t0 in range(skip, len(step_words), chunk_len):
+                words_list = [int(w) for w in step_words[t0:t0 + chunk_len]]
+
+                def dispatch(al, n, t0=t0):
+                    return runner(
+                        self._params, self._resident, order_dev, cfg.seed,
+                        state.step, t0, al, steps=n,
+                    )
+
+                yield words_list, dispatch
+            return
+        # filled on this thread: the fill of chunk i+1 runs while the card
+        # runs chunk i (a replay returns at once); a producer thread only
+        # fought this one for the GIL (slower in both arms, PERF.md)
+        for tokens, words_list in chunk_batches(
+            batcher.epoch(epoch, skip), chunk_len
+        ):
+
+            def dispatch(al, n, tokens=tokens):
+                return runner(self._params, tokens, cfg.seed, state.step, al, steps=n)
+
+            yield words_list, dispatch
