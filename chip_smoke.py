@@ -53,6 +53,22 @@ Phases (any failure exits non-zero and prints no result line):
      graph, C graphed chunk_steps=0 streaming, D graphed chunk_steps=0
      resident; each arm's capture seconds and its device busy / idle
      shares under torch.profiler; the median host batch fill [256 x 192].
+  6. cli: the command line a user runs (word2vec_tpu_torch.cli), in
+     process on the card: the phase-5 Zipf corpus written as a text8 file
+     and its 71,000-word vocabulary as a -read-vocab file; at flagship
+     width on pallas_fused/unified (chunk_steps 6) and xla/split
+     (per-step): a full epoch (31 steps) with a checkpoint file every 18
+     steps, then --resume from the mid-epoch checkpoint (step 18) to the
+     end, the resumed final params and exported binary vectors bitwise
+     equal to the uninterrupted run's; exact launch counts of each run
+     (expected_launches of its steps + the capture's warm-up step); the
+     checkpoint's save (from the CLI's log) and load seconds; the exported
+     vectors loaded back into a query engine on the card and one on the
+     CPU, 256 neighbor queries with identical ids and scores within 1e-5,
+     f32 and bf16 tables, and each engine's wall ms; --eval-ws353 on the
+     topical toy corpus at -size 300 reading (20/20 pairs); the native
+     host layer built, its fill bitwise equal to the numpy fill on the
+     flagship corpus, and both fills' median ms. One cli_phase JSON line.
   4b (between 4 and 5) graphs: on each route, at flagship width, the
      graphed per-step run (whole, and resumed mid-epoch by
      train(state=...)), chunk_steps=4 streaming and chunk_steps=4 resident
@@ -1323,6 +1339,223 @@ def phase_dispatch(vocab, corpus, card):
     log(json.dumps({"dispatch_arms": rows, "host_fill_ms": fill, "card": card}))
 
 
+# the CLI phase: (band_backend, table_layout, chunk_steps) per route, the
+# checkpoint cadence (the epoch is 31 steps: a mid-epoch file at 18)
+CLI_ROUTES = [("pallas_fused", "unified", 6), ("xla", "split", 1)]
+CLI_EVERY = 18
+QUERIES = 256
+
+
+def check_no_jax() -> None:
+    if any(m == "jax" or m.startswith(("jax.", "word2vec_tpu."))
+           or m == "word2vec_tpu" for m in sys.modules):
+        fail("the port imported jax or the JAX package")
+
+
+def run_cli(argv, log_path):
+    """cli.main(argv) with the launch counts set to 0 just before it and
+    read just after; returns (counts, the JSONL log records)."""
+    from word2vec_tpu_torch import cli
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    rc = cli.main(argv + ["--log-jsonl", log_path])
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    if rc != 0:
+        fail(f"cli exited {rc}: {' '.join(argv)}")
+    with open(log_path) as f:
+        return counts, [json.loads(line) for line in f]
+
+
+def npz_bitwise(a: str, b: str) -> bool:
+    with np.load(os.path.join(a, "state.npz")) as x, \
+            np.load(os.path.join(b, "state.npz")) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].tobytes() == y[k].tobytes() and x[k].dtype == y[k].dtype
+            for k in x.files)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock ms of fn() (which returns host data, so each call
+    includes its device work)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_cli(vocab, corpus, card, tmp):
+    """The CLI main path on the card (phase 6 of the module docstring)."""
+    import contextlib
+    import filecmp
+    import io
+    import shutil
+
+    from word2vec_tpu_torch import native
+    from word2vec_tpu_torch.data.batcher import epoch_order, fill_batch
+    from word2vec_tpu_torch.io.checkpoint import load_checkpoint
+    from word2vec_tpu_torch.io.embeddings import load_embeddings_binary
+    from word2vec_tpu_torch.serve.query import QueryEngine
+
+    t_phase = time.perf_counter()
+    row = {"card": card}
+    # the native host layer: built on this host, its fill = the numpy fill
+    if not native.available():
+        fail(f"the native host layer did not build: {native.build_error}")
+    order = epoch_order(0, 0, corpus.num_rows)
+    a, b = np.empty((B, L), np.int32), np.empty((B, L), np.int32)
+    for pos in range(0, corpus.num_rows, 997):
+        wa = native.fill_batch(corpus.flat, corpus.row_starts, corpus.row_lens, order, pos, a)
+        wb = fill_batch(corpus.flat, corpus.row_starts, corpus.row_lens, order, pos, b)
+        if wa != wb or not np.array_equal(a, b):
+            fail(f"native fill != numpy fill at row {pos}")
+    fills = {}
+    for name, fn in (("native", native.fill_batch), ("numpy", fill_batch)):
+        fills[name] = wall_ms(lambda fn=fn: fn(
+            corpus.flat, corpus.row_starts, corpus.row_lens, order, 4096, a), 50)
+    row["host_fill_ms"] = fills
+    row["native_library"] = str(native._target().relative_to(HERE))
+    log(f"  native host layer {row['native_library']}: fill [{B} x {L}] "
+        f"native {fills['native']:.4f} ms, numpy {fills['numpy']:.4f} ms "
+        f"(median; equal bitwise on the flagship corpus)")
+
+    # the phase-5 corpus as a text8 file, its vocabulary as a vocab file
+    txt = os.path.join(tmp, "zipf.txt")
+    vtxt = os.path.join(tmp, "vocab.txt")
+    with open(txt, "w") as f:
+        f.write(" ".join(np.asarray(vocab.words)[corpus.flat].tolist()))
+    vocab.save(vtxt)
+    rows = -(-corpus.num_tokens // L)  # a text8 stream, cut every L tokens
+    spe = -(-rows // B)
+    routes = {}
+    exported = None
+    for backend, layout, chunk in CLI_ROUTES:
+        tag = f"{backend}/{layout}"
+        flags = ["-train", txt, "-read-vocab", vtxt, "-size", str(D),
+                 "-window", str(W), "-negative", str(K), "-iter", "1",
+                 "--batch-rows", str(B), "--max-sentence-len", str(L),
+                 "--shared-negatives", str(KP), "--band-backend", backend,
+                 "--table-layout", layout, "--chunk-steps", str(chunk),
+                 "-binary", "1", "--quiet"]
+        ck, ck2, mid = (os.path.join(tmp, f"{n}_{backend}") for n in ("ck", "ck2", "mid"))
+        out, out2 = (os.path.join(tmp, f"{n}_{backend}.bin") for n in ("v", "v2"))
+        counts, recs = run_cli(flags + [
+            "-output", out, "--checkpoint-dir", ck,
+            "--checkpoint-every", str(CLI_EVERY)], os.path.join(tmp, f"log_{backend}"))
+        rep = [r for r in recs if r.get("event") == "train_report"][-1]
+        saves = [r["seconds"] for r in recs if r.get("event") == "checkpoint"]
+        if rep["steps"] != spe or rep["nonfinite_loss_steps"]:
+            fail(f"cli {tag}: {rep}")
+        want = expected_launches(backend, layout, spe + 1)
+        if counts != want:
+            fail(f"cli {tag}: launch counts {counts} != {want}")
+        t0 = time.perf_counter()
+        st, _, _ = load_checkpoint(ck + ".old", fallback=False)
+        load_s = time.perf_counter() - t0
+        if st.step != CLI_EVERY:
+            fail(f"cli {tag}: the mid-epoch checkpoint holds step {st.step}")
+        mid_words = st.words_done
+        del st
+        shutil.copytree(ck + ".old", mid)
+        counts2, recs2 = run_cli(flags + [
+            "-output", out2, "--checkpoint-dir", ck2, "--resume", mid],
+            os.path.join(tmp, f"log2_{backend}"))
+        rep2 = [r for r in recs2 if r.get("event") == "train_report"][-1]
+        # the report's words/sec counts the checkpoint's words too (as the
+        # JAX trainer's does): the tail's own rate is its words over the
+        # same wall time
+        with np.load(os.path.join(ck2, "state.npz")) as z:
+            end_words = int(z["__words_done"])
+        tail_wps = (end_words - mid_words) * rep2["words_per_sec"] / end_words
+        want2 = expected_launches(backend, layout, spe - CLI_EVERY + 1)
+        if counts2 != want2:
+            fail(f"cli {tag} resumed: launch counts {counts2} != {want2}")
+        same = npz_bitwise(ck, ck2) and filecmp.cmp(out, out2, shallow=False)
+        if not same:
+            fail(f"cli {tag}: the resumed run's params or vectors differ from "
+                 "the uninterrupted run's (bitwise)")
+        nbytes = os.path.getsize(os.path.join(ck, "state.npz"))
+        routes[tag] = {
+            "steps": rep["steps"], "chunk_steps": chunk,
+            "words_per_sec": rep["words_per_sec"],
+            "resumed_steps": rep2["steps"] - CLI_EVERY,
+            "resumed_words_per_sec": tail_wps,
+            "final_loss": rep["final_loss"],
+            "checkpoint_save_s": saves, "checkpoint_load_s": load_s,
+            "checkpoint_bytes": nbytes, "resume_bitwise": same,
+            "launches": counts, "resumed_launches": counts2,
+        }
+        log(f"  cli {tag} (chunk_steps {chunk}): {rep['steps']} steps "
+            f"{rep['words_per_sec']:.1f} words/sec; resumed at {CLI_EVERY}: "
+            f"{tail_wps:.1f} words/sec, params and vectors bitwise "
+            f"equal; checkpoint {nbytes} B saved in "
+            + ", ".join(f"{x:.3f}" for x in saves) + f" s, loaded in "
+            f"{load_s:.3f} s ({card})")
+        exported = out
+    row["routes"] = routes
+
+    # the exported vectors through the query engine: card vs CPU
+    words, M = load_embeddings_binary(exported)
+    if words != vocab.words or M.shape != (V, D) or not np.isfinite(M).all():
+        fail("the exported vectors do not load back")
+    rng = np.random.default_rng(0)
+    qid = rng.choice(V, QUERIES, replace=False).astype(np.int32)
+    trip = np.stack([qid, qid, qid], axis=1)
+    wts = np.tile(np.float32([[1.0, 0.0, 0.0]]), (QUERIES, 1))
+    row["query_ms"] = {}
+    for dt in ("float32", "bfloat16"):
+        card_e = QueryEngine(M, vocab, table_dtype=dt)
+        cpu_e = QueryEngine(M, vocab, table_dtype=dt, device="cpu")
+        got, ref = card_e.batch_topk(trip, wts, 10), cpu_e.batch_topk(trip, wts, 10)
+        err = 0.0
+        for (gi, gv), (ri, rv) in zip(got, ref):
+            if not np.array_equal(gi, ri):
+                fail(f"query engine {dt}: card ids {gi} != cpu ids {ri}")
+            err = max(err, float(np.abs(gv - rv).max()))
+        if err > 1e-5:
+            fail(f"query engine {dt}: scores differ by {err}")
+        ms = {"card": wall_ms(lambda: card_e.batch_topk(trip, wts, 10), 20),
+              "cpu": wall_ms(lambda: cpu_e.batch_topk(trip, wts, 10), 3),
+              "max_abs_err": err}
+        row["query_ms"][dt] = ms
+        log(f"  query engine {dt} table, {QUERIES} neighbor queries (k=10) on "
+            f"V={V}, d={D}: ids identical card vs cpu, max score err {err:.2e}; "
+            f"card {ms['card']:.3f} ms, cpu {ms['cpu']:.3f} ms (wall, median; {card})")
+        del card_e, cpu_e
+
+    # --eval-ws353 on the topical toy corpus of tests/test_cli.py
+    topics = [["cat", "kitten", "dog", "puppy", "horse"],
+              ["king", "queen", "prince", "princess"],
+              ["paris", "france", "berlin", "germany", "city", "country"],
+              ["apple", "banana", "fruit"]]
+    trng = np.random.default_rng(11)
+    toks = []
+    for _ in range(300):
+        t = topics[trng.integers(len(topics))]
+        toks += list(trng.choice(t, size=6))
+    toy = os.path.join(tmp, "toy.txt")
+    with open(toy, "w") as f:
+        f.write(" ".join(toks))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run_cli(["-train", toy, "-output", "", "-size", str(D), "-negative", "3",
+                 "-min-count", "1", "-iter", "2", "--batch-rows", "4",
+                 "--max-sentence-len", "32", "--eval-ws353",
+                 os.path.join(HERE, "tests", "fixtures", "wordsim_fixture_20.csv"),
+                 "--quiet"], os.path.join(tmp, "log_toy"))
+    line = [x for x in out.getvalue().splitlines() if x.startswith("WS-353")]
+    if not line or "(20/20 pairs)" not in line[0]:
+        fail(f"--eval-ws353 on the toy corpus: {out.getvalue()!r}")
+    row["ws353"] = line[0]
+    log(f"  toy corpus -size {D} on the card: {line[0]}")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"cli_phase": row}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1331,9 +1564,7 @@ def main() -> int:
     import word2vec_tpu_torch  # noqa: F401 — fails outside the repository
     from word2vec_tpu_torch import _build
 
-    if any(m == "jax" or m.startswith(("jax.", "word2vec_tpu."))
-           or m == "word2vec_tpu" for m in sys.modules):
-        fail("the port imported jax or the JAX package")
+    check_no_jax()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1388,8 +1619,15 @@ def main() -> int:
             f"({card})")
     t5 = time.perf_counter()
     phase_dispatch(vocab, corpus, card)
-    log(f"  (dispatch A/B {time.perf_counter() - t5:.1f} s; the whole smoke "
-        f"{time.perf_counter() - t0:.1f} s)")
+    log(f"  (dispatch A/B {time.perf_counter() - t5:.1f} s)")
+
+    log(f"[6 cli] (at {time.perf_counter() - t0:.1f} s)")
+    with tempfile.TemporaryDirectory(
+        prefix="smoke_cli_", dir=os.path.join(HERE, "build")
+    ) as tmp:
+        phase_cli(vocab, corpus, card, tmp)
+    check_no_jax()
+    log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,9 @@
 """Fixed-shape batch pipeline: encoded corpus -> [B, L] token-id matrices.
 
 A copy of word2vec_tpu/data/batcher.py for the PyTorch port. Batch assembly
-is the numpy fill (the JAX package's `native._fill_batch_py`); the native
-C++ fill is not ported yet, and both produce identical batches. The
+goes through the native C++ fill (native.fill_batch) when the host layer
+builds; `fill_batch` below is its plain numpy version (the JAX package's
+`native._fill_batch_py`), and both produce identical batches. The
 background-thread prefetch of the JAX module is not copied: the port's
 trainer fills the next chunk on its own thread while the card runs the
 current one, which measured faster on the H100 host than a producer thread
@@ -150,8 +151,11 @@ class BatchIterator:
         """Yield (tokens [B, L], words_in_batch) for one pass over the corpus,
         starting `skip` batches in.
 
-        Batch assembly is the numpy fill (fill_batch below).
+        Batch assembly goes through the native fill (native.fill_batch)
+        when the C++ layer is available; the numpy fill below is identical.
         """
+        from .. import native
+
         if epoch_index is None:
             epoch_index = self._epoch_counter
             self._epoch_counter += 1
@@ -165,7 +169,7 @@ class BatchIterator:
         B, L = self.B, self.L
         for i in range(skip * B, len(order), B):
             batch = np.empty((B, L), dtype=np.int32)
-            words = fill_batch(flat, starts, lens, order, i, batch)
+            words = native.fill_batch(flat, starts, lens, order, i, batch)
             yield batch, words
 
 
@@ -178,7 +182,7 @@ def fill_batch(
     out: np.ndarray,
 ) -> int:
     """Fill out[B, L] (pad -1) from packed-corpus rows order[pos:pos+B];
-    returns the real-token count."""
+    returns the real-token count. The plain version of native.fill_batch."""
     B, L = out.shape
     out[:] = PAD
     words = 0

@@ -11,9 +11,11 @@ Readers are generators: the corpus streams through vocab counting and encoding
 without materializing a vector<vector<string>> like the reference does, which
 matters at enwik9 scale (~124M tokens).
 
-A copy of word2vec_tpu/data/corpus.py for the PyTorch port: the
-pure-Python readers only. The one-shot `load_corpus` rides on the JAX
-package's native C++ host layer, which the port has not taken over yet.
+A copy of word2vec_tpu/data/corpus.py for the PyTorch port. When the
+native C++ host library is available (word2vec_tpu_torch.native), the
+tokenize/encode hot path of `load_corpus` is done there; these pure-Python
+readers are the always-available fallback and the reference semantics
+definition.
 """
 
 from __future__ import annotations
@@ -62,3 +64,30 @@ def line_docs(path: str) -> Iterator[List[str]]:
             toks = line.split()
             if toks:
                 yield toks
+
+
+def load_corpus(
+    path: str, fmt: str = "text8", min_count: int = 5, max_vocab: int = 0
+):
+    """One-shot corpus load: (Vocab, flat int32 id stream).
+
+    Uses the native C++ layer (word2vec_tpu_torch.native) for the two
+    host-side O(corpus) passes — word counting and id encoding — falling
+    back to Python transparently. `fmt` selects the reference reader
+    semantics: "text8" is a whitespace stream (main.cpp:63-92), "lines"
+    treats each line as a sentence (Word2Vec.cpp:19-30; sentence breaks
+    become -1 separators in the stream). max_vocab > 0 caps the vocabulary
+    to the top-N by count (the working replacement for the reference's
+    declared-but-undefined reduce_vocab, Word2Vec.h:69); capped-out words
+    encode as OOV and are dropped.
+
+    Pack the result with PackedCorpus.from_flat(flat, max_sentence_len).
+    """
+    from .. import native
+    from .vocab import Vocab
+
+    mode = native.MODE_STREAM if fmt == "text8" else native.MODE_LINES
+    counts, total = native.count_file(path)
+    vocab = Vocab.from_counter(counts, min_count=min_count, max_vocab=max_vocab)
+    flat = native.encode_file(path, vocab, mode, max_tokens=total)
+    return vocab, flat

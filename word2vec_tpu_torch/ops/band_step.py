@@ -179,18 +179,25 @@ class BandStep:
     ) -> Metrics:
         """One step on [B, L] int32 tokens (pad -1). Updates the tables of
         `params` in place and returns the metrics (device scalars:
-        loss_sum, pairs, clip_engaged). `alpha` is a float or a 0-d
-        float32 tensor on the tokens' device (what a captured step reads
-        at every replay); the two give bitwise the same step."""
+        loss_sum, pairs, clip_engaged, and nonfinite_loss: 1.0 when
+        loss_sum is not finite, the always-on tripwire that the JAX
+        package's obs/health.instrument_step adds around its step).
+        `alpha` is a float or a 0-d float32 tensor on the tokens' device
+        (what a captured step reads at every replay); the two give bitwise
+        the same step."""
         if not self.config.stochastic_rounding:
             draws = Draws(draws.u_sub, draws.w_eff, draws.negs)
         elif draws.sr is None:
             raise ValueError("stochastic_rounding needs the SR uniforms")
         if self.route == "pallas_fused":
-            return self._apply_fused(params, tokens, draws, alpha)
-        if self.route == "pallas":
-            return self._apply_pallas(params, tokens, draws, alpha)
-        return self._apply_xla(params, tokens, draws, alpha)
+            m = self._apply_fused(params, tokens, draws, alpha)
+        elif self.route == "pallas":
+            m = self._apply_pallas(params, tokens, draws, alpha)
+        else:
+            m = self._apply_xla(params, tokens, draws, alpha)
+        m = dict(m)
+        m["nonfinite_loss"] = (~torch.isfinite(m["loss_sum"])).float()
+        return m
 
     def __call__(
         self,

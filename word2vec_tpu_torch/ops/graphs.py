@@ -15,8 +15,9 @@ replay, whatever Python values they held at capture):
            [S, B, L] (ops/train_step.make_chunk_runner) or the resident
            corpus, the epoch's row order and the chunk's first batch index
            (ops/resident.make_resident_chunk_runner);
-  outputs  `out` [3, S] f32: loss_sum, pairs and clip_engaged of each step
-           (METRICS order), written into the step's slot;
+  outputs  `out` [4, S] f32: loss_sum, pairs, clip_engaged and
+           nonfinite_loss of each step (METRICS order), written into the
+           step's slot;
   state    the params, updated in place (the JAX package donates them).
 The step's draws come from a private generator that `run` re-seeds with
 device.step_seed(run seed, step) before each step; the graph registers it,
@@ -44,8 +45,10 @@ from ..models.params import FUSED_KEY, FUSED_SUBTABLES, Params, unfuse_tables
 from . import launch
 from .band_step import BandStep, Draws
 
-#: the metrics of a step, in the rows of StepGraph.out
-METRICS = ("loss_sum", "pairs", "clip_engaged")
+#: the metrics of a step, in the rows of StepGraph.out, each summed over
+#: the step's micro sub-steps (nonfinite_loss: the sub-steps whose loss_sum
+#: is not finite, BandStep.apply), computed inside the captured step.
+METRICS = ("loss_sum", "pairs", "clip_engaged", "nonfinite_loss")
 
 #: slot [1] int64 -> the step's tokens [B, L] int32
 BatchFn = Callable[[torch.Tensor], torch.Tensor]
@@ -202,7 +205,8 @@ class ChunkRunner:
     (ops/train_step.make_chunk_runner; the streaming path):
 
         runner(params, tokens [S, B, L], seed, step0, alphas [S], steps=None)
-            -> {"loss_sum": [S], "pairs": [S], "clip_engaged": [S]}
+            -> {"loss_sum": [S], "pairs": [S], "clip_engaged": [S],
+                "nonfinite_loss": [S]}
 
     Step i runs on tokens[i] at alphas[i] with the draws of step step0 + i
     of the run seeded `seed` (device.step_seed), exactly as the per-step

@@ -130,7 +130,7 @@ class ResidentChunkRunner(ChunkRunner):
     (make_resident_chunk_runner):
 
         runner(params, corpus, order [R], seed, step0, epoch_t0, alphas [S],
-               steps=None) -> {"loss_sum": [S], "pairs": [S], "clip_engaged": [S]}
+               steps=None) -> {name: [S] for name in ops/graphs.METRICS}
 
     The same trajectory contract as ChunkRunner: step i is step step0 + i
     of the run, on batch epoch_t0 + i of this epoch's order (epoch_t0 is

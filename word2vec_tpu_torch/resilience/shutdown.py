@@ -1,0 +1,102 @@
+"""Preemption-safe shutdown: cooperative stop at the next step boundary.
+
+A copy of word2vec_tpu/resilience/shutdown.py for the PyTorch port, for
+one process: the multi-process agreement of make_stop_check (which rides
+on parallel/multihost.py) and the SIGUSR1/SIGUSR2 diagnostic dumps (which
+ride on obs/) are not ported.
+
+Preemptible fleets deliver SIGTERM with a short grace window before the
+hard kill. Dying mid-step wastes every step since the last checkpoint and,
+with an unlucky landing inside a checkpoint write, risks a torn
+checkpoint. The protocol here:
+
+  1. `ShutdownHandler.install()` registers SIGTERM/SIGINT handlers that only
+     SET A FLAG. The first signal is a request; a second delivery of the
+     same signal restores the original disposition and re-raises it, so an
+     operator's double Ctrl-C (or a scheduler escalating to a second
+     SIGTERM) still kills a wedged process the classic way.
+  2. The trainer polls `stop_check(step)` at every dispatch boundary and
+     returns cleanly with `TrainReport.interrupted = "preempted"` instead
+     of raising — its params are consistent.
+  3. The CLI writes a final checkpoint and exits with EXIT_PREEMPTED so an
+     external scheduler can distinguish "requeue me with --resume" from
+     success (0) and failure.
+"""
+
+from __future__ import annotations
+
+import signal
+import warnings
+from typing import Callable, List, Optional
+
+#: exit code of a preempted-but-checkpointed run (EX_TEMPFAIL: "try again
+#: later" — the conventional requeue signal, distinct from 0=ok, 1=usage
+#: error, 2=diverged)
+EXIT_PREEMPTED = 75
+
+#: the default request signals: the scheduler's eviction notice and the
+#: operator's Ctrl-C
+DEFAULT_SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+
+class ShutdownHandler:
+    """Flag-setting signal handler with second-signal escalation."""
+
+    def __init__(self, signals=DEFAULT_SIGNALS):
+        self.signals = tuple(signals)
+        self.requested = False
+        #: the signal number that requested the stop (None until then)
+        self.signum: Optional[int] = None
+        self._previous: List = []
+        self._installed = False
+
+    # ------------------------------------------------------------ install
+    def install(self) -> "ShutdownHandler":
+        """Register the handlers; returns self for chaining. Safe to call
+        only from the main thread (Python's signal rule); callers off the
+        main thread get a no-op with a warning rather than a crash."""
+        if self._installed:
+            return self
+        try:
+            self._previous = [
+                (s, signal.signal(s, self._handle)) for s in self.signals
+            ]
+        except ValueError:  # not the main thread
+            warnings.warn(
+                "ShutdownHandler.install() outside the main thread: signal "
+                "handlers cannot be registered; preemption-safe shutdown "
+                "is disabled for this run.",
+                stacklevel=2,
+            )
+            self._previous = []
+            return self
+        self._installed = True
+        return self
+
+    def uninstall(self) -> None:
+        """Restore the original dispositions (idempotent)."""
+        for s, prev in self._previous:
+            try:
+                signal.signal(s, prev)
+            except (ValueError, OSError):
+                pass
+        self._previous = []
+        self._installed = False
+
+    def _handle(self, signum, frame) -> None:
+        if self.requested:
+            # second delivery: the cooperative window is over — restore the
+            # original disposition and re-deliver so the default action
+            # (terminate) or the operator's own handler runs
+            self.uninstall()
+            signal.raise_signal(signum)
+            return
+        self.requested = True
+        self.signum = signum
+
+    # ------------------------------------------------------- stop checks
+    def make_stop_check(self) -> Callable[[int], bool]:
+        """A `stop_check(step) -> bool` for the trainer: a flag read at
+        every boundary (one process; the agreement across processes comes
+        with the multi-GPU slice)."""
+        return lambda step: self.requested

@@ -24,9 +24,16 @@ ops/resident.py; chunked dispatch only). The draws of step s are a pure function
 follow the same trajectory. Metrics are fetched one dispatch late, so the
 host never waits on the step it just issued.
 
-Not in this slice: checkpoint files (the checkpoint_cb hook is here), and
-the obs / resilience / planner hooks. Configs that need them raise
-NotImplementedError.
+Also here: the construction-time config hazard warnings
+(_warn_config_hazards), the cooperative stop (install_shutdown with a
+resilience/shutdown.ShutdownHandler; polled at every dispatch boundary,
+TrainReport.interrupted = "preempted"), the always-on non-finite-loss
+count (ops/graphs.METRICS) with its divergence tripwire
+(obs/health.HealthMonitor, config.divergence_budget; TrainReport.health)
+and the checkpoint_cb hook that io/checkpoint.save_checkpoint plugs into.
+
+Not in this slice: the obs / watchdog / fault-injection / planner hooks.
+Configs that need them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from .data.batcher import BatchIterator, PackedCorpus, chunk_batches, epoch_orde
 from .data.vocab import Vocab
 from .device import DeviceLike, generator, resolve_device
 from .models.params import Params, convert_params_layout, init_params, params_layout
+from .obs.health import HealthMonitor
 from .ops import resident as res
 from .ops.band_step import check_route
 from .ops.graphs import METRICS, capture_env
@@ -70,6 +78,12 @@ class TrainReport:
     # the resident-corpus resolution record (Trainer._build_resident), None
     # when the run never resolved it (per-step dispatch, resident='off')
     resident: Optional[Dict] = None
+    # why the run ended before its epochs did: "preempted" when a
+    # cooperative stop landed at a dispatch boundary, None for a full run
+    interrupted: Optional[str] = None
+    # the divergence tripwire's summary (obs/health.HealthMonitor.summary):
+    # observations, nonfinite_loss_steps, max_streak, divergence_budget
+    health: Optional[Dict] = None
 
 
 def _check_slice(config: Word2VecConfig) -> None:
@@ -79,7 +93,6 @@ def _check_slice(config: Word2VecConfig) -> None:
         (config.corpus_mode != "resident", "corpus_mode='streaming' (stream/)"),
         (config.quality_probe_every > 0, "quality_probe_every (obs/quality.py)"),
         (config.health_metrics, "health_metrics (obs/health.py)"),
-        (config.divergence_budget > 0, "divergence_budget (obs/health.py)"),
         (config.elastic != "off", "elastic (resilience/elastic.py)"),
     ]
     names = [name for cond, name in unported if cond]
@@ -99,6 +112,11 @@ class Trainer:
     #: replay each step as a CUDA graph on the card; False issues the same
     #: steps eagerly (an A/B arm for measurements, not a config field)
     graphs: bool = True
+    #: cooperative-stop poll (resilience/shutdown.ShutdownHandler
+    #: .make_stop_check): called with state.step at every dispatch
+    #: boundary; True ends the run cleanly with TrainReport.interrupted =
+    #: "preempted". Wire via install_shutdown().
+    stop_check: Optional[Callable[[int], bool]] = None
 
     def __init__(
         self,
@@ -129,6 +147,90 @@ class Trainer:
         #: seconds the last run's graph took to warm up and capture, when
         #: it was captured (0 for eager steps)
         self.capture_s = 0.0
+        self._health: Optional[HealthMonitor] = None
+        self._warn_config_hazards()
+
+    def _warn_config_hazards(self) -> None:
+        """Pre-training configuration hazards, warned once at construction
+        with the JAX package's text (word2vec_tpu/train.py:324-396):
+        (a) optimizer blocks too token-heavy per vocabulary word (summed
+        updates overshoot, measured NaN at ~15x), (b) too few optimizer
+        steps per epoch to converge (measured threshold ~70), and (c) the
+        degenerate-corpus domain where the band kernel's shared negative
+        pool collapses planted structure (BAND_DEGENERACY_r5.md). The CLI
+        auto-sizes batch_rows; library users constructing Trainer directly
+        get these guards instead."""
+        cfg = self.config
+        tokens_per_step = cfg.batch_rows * cfg.max_sentence_len
+        block_tokens = tokens_per_step // cfg.micro_steps
+        if len(self.vocab) and block_tokens > 8 * len(self.vocab):
+            warnings.warn(
+                f"optimizer block carries ~{block_tokens // len(self.vocab)}x "
+                f"tokens per vocabulary word ({block_tokens} tokens, "
+                f"{len(self.vocab)} words) — duplicate-row summed updates at "
+                "this ratio overshoot and can diverge (measured NaN at ~15x; "
+                "config.MAX_BLOCK_TOKENS_PER_VOCAB). Raise micro_steps or "
+                "shrink batch_rows; Word2VecConfig.auto_geometry(..., "
+                "vocab_size=len(vocab)) sizes this automatically.",
+                stacklevel=3,
+            )
+        # Degenerate-corpus fence: with a tiny closed vocabulary trained for
+        # thousands of occurrences per word, the band kernel's SHARED
+        # negative pool correlates the negative-side gradient across a
+        # row's positives and collapses planted structure. Onset ~1,000+
+        # occ/word at vocab < ~5k; realistic corpora are far outside it.
+        # The port has no kernel='pair' yet, so kernel='auto' keeps band
+        # here too and gets the same warning.
+        if (
+            cfg.use_ns
+            and cfg.resolved_kernel == "band"
+            and 0 < len(self.vocab) < 5000
+            and self.total_words * cfg.iters > 1000 * len(self.vocab)
+        ):
+            occ = self.total_words * cfg.iters // len(self.vocab)
+            warnings.warn(
+                f"~{occ} training occurrences per vocabulary word on a "
+                f"{len(self.vocab)}-word vocabulary: the band kernel's "
+                "shared negative pool measurably degrades planted "
+                "structure in this over-trained tiny-vocab regime "
+                "(benchmarks/BAND_DEGENERACY_r5.md). The planner selects "
+                "kernel='pair' automatically here for kernel='auto' runs "
+                "(tune/planner.select_kernel); this config FORCES the band "
+                "fast path, so expect planted-structure collapse — drop "
+                "the explicit kernel='band' (or pass --quality-probe-every "
+                "/ --quality-budget to watch and gate it live).",
+                stacklevel=3,
+            )
+        steps_per_epoch = max(
+            1, self.total_words * cfg.micro_steps // max(1, tokens_per_step)
+        )
+        if self.total_words and steps_per_epoch < 70:
+            rows, micro = cfg.auto_geometry(
+                self.total_words, cfg.max_sentence_len,
+                vocab_size=len(self.vocab),
+            )
+            warnings.warn(
+                f"batch geometry ({cfg.batch_rows} rows x "
+                f"{cfg.max_sentence_len} x {cfg.micro_steps} micro-steps) "
+                f"gives only ~{steps_per_epoch} optimizer steps/epoch on "
+                f"this {self.total_words}-token corpus — batched updates may "
+                f"not converge (threshold ~70; benchmarks/parity.py). "
+                f"Suggested: Word2VecConfig.auto_geometry(...) = "
+                f"(batch_rows={rows}, micro_steps={micro}).",
+                stacklevel=3,
+            )
+
+    # ------------------------------------------------------------ shutdown
+    def install_shutdown(self, handler) -> None:
+        """Wire a resilience.shutdown.ShutdownHandler's cooperative stop
+        into this trainer: a flag read at every dispatch boundary."""
+        self.stop_check = handler.make_stop_check()
+
+    def _check_stop(self, state: TrainState) -> bool:
+        """One dispatch-boundary poll of the cooperative stop (the JAX
+        trainer's _check_stop without the watchdog, signal-plane, memory,
+        profiler, fault and quality hooks, which the port does not have)."""
+        return self.stop_check is not None and self.stop_check(state.step)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         seed = self.config.seed if seed is None else seed
@@ -212,6 +314,7 @@ class Trainer:
         )
         self._warned_nonfinite = False
         self._last_chunk_loss = float("nan")
+        self._health = HealthMonitor(cfg.divergence_budget)
         chunk_len = self._resolve_chunk_len(batcher)
         if chunk_len == 1:
             if cfg.resident == "on":
@@ -333,8 +436,8 @@ class Trainer:
         per-step path). The trajectory is the per-step one (the same
         step-indexed draws and per-step alphas, tests/test_torch_chunk.py);
         only dispatch granularity changes. Metrics of dispatch i are
-        fetched after dispatch i+1 is issued; logging and the checkpoint
-        hook run at dispatch boundaries."""
+        fetched after dispatch i+1 is issued; logging, the checkpoint hook
+        and the cooperative stop run at dispatch boundaries."""
         cfg = self.config
         self._resident = self._setup_resident() if chunk_len > 1 else None
         runner = self._runner(chunk_len)
@@ -351,6 +454,7 @@ class Trainer:
         self._sync()
         t0 = time.perf_counter()
         done = False
+        interrupted: Optional[str] = None
         for epoch in range(state.epoch, cfg.iters):
             state.epoch = epoch
             for words_list, dispatch in self._chunk_dispatches(
@@ -378,7 +482,7 @@ class Trainer:
                     log_every and state.step // log_every != prev_step // log_every
                 )
                 pending = (snap, state.step, epoch, float(alphas[n - 1]),
-                           state.words_done, do_log)
+                           state.words_done, do_log, n)
                 if (
                     checkpoint_every
                     and checkpoint_cb
@@ -386,6 +490,13 @@ class Trainer:
                     != prev_step // checkpoint_every
                 ):
                     checkpoint_cb(state)
+                if self._check_stop(state):
+                    # cooperative stop (preemption): leave at this boundary
+                    # with state.step/epoch mid-epoch-consistent, so a
+                    # checkpoint of this state resumes exactly here
+                    interrupted = "preempted"
+                    done = True
+                    break
                 if max_steps and state.step >= max_steps:
                     done = True
                     break
@@ -406,10 +517,12 @@ class Trainer:
             final_loss=self._last_chunk_loss,
             loss_history=loss_hist,
             resident=self.resident_resolution,
+            interrupted=interrupted,
+            health=self._health.summary(),
         )
 
     def _snapshot(self, metrics: Dict[str, torch.Tensor]):
-        """(host [3, S] tensor, event): a dispatch's metrics copied to the
+        """(host [len(METRICS), S] tensor, event): a dispatch's metrics copied to the
         host right behind it, so that fetching them waits for that dispatch
         alone and not for the ones issued since (the static outputs belong
         to the next dispatch). On the card the copy lands in page-locked
@@ -426,16 +539,23 @@ class Trainer:
 
     def _note_metrics(
         self, snap, at_step: int, at_epoch: int, at_alpha: float,
-        at_words: int, do_log: bool, t0: float, loss_hist: List[float],
+        at_words: int, do_log: bool, real_steps: int, t0: float,
+        loss_hist: List[float],
     ) -> None:
-        """A dispatch's per-step metrics [3, S], fetched (this waits only
-        for that dispatch, already issued one dispatch earlier): the loss,
-        the non-finite warning, and the log record at the log_every
-        boundaries."""
+        """A dispatch's per-step metrics [len(METRICS), S], fetched (this
+        waits only for that dispatch, already issued one dispatch earlier):
+        the loss, the divergence tripwire (every real step observed; raises
+        DivergenceError at the budget), the non-finite warning, and the log
+        record at the log_every boundaries."""
         host, done = snap
         if done is not None:
             done.synchronize()
-        m = dict(zip(METRICS, host.numpy().astype(np.float64).sum(axis=1)))
+        per_step = host.numpy().astype(np.float64)
+        # the pad slots of a partial chunk did not run: observe the real ones
+        self._health.observe_chunk(
+            dict(zip(METRICS, per_step[:, :real_steps])), at_step
+        )
+        m = dict(zip(METRICS, per_step.sum(axis=1)))
         loss = float(m["loss_sum"]) / max(1.0, float(m["pairs"]))
         self._last_chunk_loss = loss
         if not np.isfinite(loss) and not self._warned_nonfinite:
@@ -461,6 +581,7 @@ class Trainer:
                 "progress": at_words / (self.config.iters * max(1, self.total_words)),
                 "words_per_sec": at_words / max(dt, 1e-9),
                 "clip_engaged_rows": float(m["clip_engaged"]),
+                "nonfinite_loss_steps": float(m["nonfinite_loss"]),
             })
 
     def _setup_resident(self):
