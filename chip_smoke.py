@@ -75,6 +75,26 @@ Phases (any failure exits non-zero and prints no result line):
      (a partial last chunk) against the eager per-step run of the same
      seed, bitwise on the params, each path's launch counts exact
      (expected_launches). A capture that fails raises.
+  7. hs and pair: the other step routes at flagship width on the phase-5
+     corpus and vocabulary (split tables, f32 tables, bf16 compute, clip
+     1.0): hs sg one tier, hs sg two tiers (hs_dense_top=512, auto tail
+     bound), hs cbow one tier, pair on ns (K=5) and pair on hs with 4
+     micro sub-steps. First one step per route at a small shape, the
+     card vs the plain versions on the CPU with the same draws (params
+     within 1e-6, f32 compute). Per route: one (sub-)step with every ordered-sum
+     call recorded (run list, row sum, scatter at the route's own call
+     shapes), each held bitwise against its plain version and the
+     scatters timed beside index_add_, their bytes and chain bounds and
+     their longest run; eager per-step, graphed per-step and chunked
+     resident runs of 6 steps from one seed, bitwise equal, each with its
+     launch counts set to 0 just before it and exact just after
+     (hs_launches); 24 graphed steps whose loss must fall and stay
+     finite, with words/sec, the host-clock step and the peak memory.
+     Then the CLI on hs cbow two tiers (chunk_steps 6) and pair on ns
+     (per-step): a full epoch with a checkpoint file every 18 steps,
+     --resume from the mid-epoch file ≡ the uninterrupted run bitwise
+     (state.npz and the binary vectors), exact launch counts. One
+     hs_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -749,7 +769,8 @@ def phase_small_step(dev):
     from word2vec_tpu_torch.data.negative import build_alias_table
     from word2vec_tpu_torch.device import generator
     from word2vec_tpu_torch.models.params import FUSED_KEY
-    from word2vec_tpu_torch.ops.band_step import BandStep, Draws
+    from word2vec_tpu_torch.ops.band_step import BandStep
+    from word2vec_tpu_torch.ops.train_step import Draws
     from word2vec_tpu_torch.ops.tables import DeviceTables
 
     v, d = 500, 64
@@ -1556,6 +1577,427 @@ def phase_cli(vocab, corpus, card, tmp):
     log(json.dumps({"cli_phase": row}))
 
 
+
+# ------------------------------------------------- phase 7: hs and pair
+# the other step routes at flagship width (d=300, window 5, B=256 x
+# L=192, V=71,000), split tables, f32 tables, bf16 compute, clip 1.0:
+# (name, config overrides); pair on hs runs 4 micro sub-steps of 64 rows
+# (one [P, C, d] f32 buffer is ~3.1 GB there, ~12.4 GB at 256 rows)
+HS_ROUTES = [
+    ("hs-sg-1tier", dict(train_method="hs", negative=0)),
+    ("hs-sg-2tier", dict(train_method="hs", negative=0, hs_dense_top=512,
+                         hs_tail_slots=-1)),
+    ("hs-cbow-1tier", dict(train_method="hs", negative=0, model="cbow")),
+    ("pair-ns", dict(kernel="pair")),
+    ("pair-hs-micro4", dict(kernel="pair", train_method="hs", negative=0,
+                            micro_steps=4)),
+]
+HS_STEPS = 6       # steps of each dispatch path's run
+HS_LOSS_STEPS = 24  # steps of the run whose loss must fall
+HS_CHUNK = 4
+
+
+def hs_cfg(**over):
+    from word2vec_tpu_torch import Word2VecConfig
+
+    base = dict(model="sg", train_method="ns", negative=K, word_dim=D,
+                window=W, batch_rows=B, max_sentence_len=L,
+                shared_negatives=KP, min_count=5, iters=1)
+    base.update(over)
+    return Word2VecConfig(**base)
+
+
+def hs_launches(cfg, steps: int) -> dict:
+    """Kernel launches of `steps` steps of an hs or pair route: every
+    table update is one sorted scatter (ops/train_step.sorted_scatter)
+    with its run list and, with the clip on, one ordered row sum (two
+    with scatter_mean); the two-tier hs step's dense slice is a plain add.
+    Per micro sub-step."""
+    from word2vec_tpu_torch.ops.launch import LAUNCHES
+
+    scatters = 2
+    sums = 2 * ((cfg.clip_row_update > 0) + cfg.scatter_mean)
+    per = {k: 0 for k in LAUNCHES}
+    per.update(find_runs=scatters, fused_slab_scatter=scatters, ordered_row_sum=sums)
+    return {k: v * steps * cfg.micro_steps for k, v in per.items()}
+
+
+class CallRecorder:
+    """Records the inputs and outputs of every ordered-sum kernel call the
+    hs and pair steps make (the three wrappers as ops/train_step calls
+    them), so each is held against its plain version at its own shape."""
+
+    NAMES = ("find_runs", "ordered_row_sum", "fused_slab_scatter")
+
+    def __init__(self):
+        from word2vec_tpu_torch.ops import train_step as ts
+
+        self.ts = ts
+        self.real = {n: getattr(ts, n) for n in self.NAMES}
+        self.calls = []
+
+    def __enter__(self):
+        real, calls = self.real, self.calls
+
+        def runs(idx):
+            r = real["find_runs"](idx)
+            calls.append(("find_runs", idx.clone(), r.clone()))
+            return r
+
+        def row_sum(num_rows, idx, vals, out=None, *, presorted=False, runs=None):
+            before = None if out is None else out.clone()
+            r = real["ordered_row_sum"](num_rows, idx, vals, out,
+                                        presorted=presorted, runs=runs)
+            calls.append(("ordered_row_sum", num_rows, idx.clone(), vals.clone(),
+                          before, r.clone(), presorted))
+            return r
+
+        def scatter(emb, sorted_idx, vals, plane=None, runs=None):
+            before = emb.clone()
+            r = real["fused_slab_scatter"](emb, sorted_idx, vals, plane, runs=runs)
+            calls.append(("fused_slab_scatter", before, sorted_idx.clone(),
+                          vals.clone(), r.clone(), runs))
+            return r
+
+        for n, f in (("find_runs", runs), ("ordered_row_sum", row_sum),
+                     ("fused_slab_scatter", scatter)):
+            setattr(self.ts, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.real.items():
+            setattr(self.ts, n, f)
+
+
+def run_row(idx) -> int:
+    """The row of the longest run of sorted ids."""
+    ids, n = torch.unique_consecutive(idx, return_counts=True)
+    return int(ids[n.argmax()])
+
+
+def check_hs_calls(name, calls, card, clock):
+    """Every recorded call against its plain version, bitwise (the run
+    list exact); the scatters also timed (kernel ms, index_add_ ms, bytes
+    and chain bounds). Returns the scatter rows."""
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import runs as rl
+    from word2vec_tpu_torch.ops import train_step as ts
+
+    rows = []
+    for c in calls:
+        kind = c[0]
+        if kind == "find_runs":
+            _, idx, got = c
+            n = idx.numel()
+            want = rl.find_runs_plain(idx)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(rl.unpack_runs(got, n), rl.unpack_runs(want, n))):
+                fail(f"hs {name}: find_runs [N={n}] kernel != plain")
+        elif kind == "ordered_row_sum":
+            _, num_rows, idx, vals, before, got, presorted = c
+            if not presorted:
+                order = torch.argsort(idx, stable=True)
+                idx, vals = idx[order], vals[order]
+            want = ts.ordered_row_sum_plain(
+                num_rows, idx, vals, None if before is None else before.clone())
+            if not torch.equal(bits(got), bits(want)):
+                fail(f"hs {name}: ordered_row_sum [N={idx.numel()}] kernel != plain")
+        else:
+            _, before, idx, vals, got, runs = c
+            t0 = time.perf_counter()
+            want = fs.fused_slab_scatter_plain(before.clone(), idx, vals)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if not torch.equal(bits(got), bits(want)):
+                fail(f"hs {name}: fused_slab_scatter [N={idx.numel()}] kernel != plain")
+            tb = before.clone()
+            k_ms = cuda_ms(lambda: ts.fused_slab_scatter(tb, idx, vals, runs=runs),
+                           reps=10)
+            li = idx.long()
+            lib = cuda_ms(lambda: tb.index_add_(0, li, vals), reps=10)
+            b_bytes, _ = scatter_bound(idx, vals)
+            longest = longest_run(idx)
+            live = vals.reshape(vals.shape[0], -1).ne(0).any(dim=1)
+            rows.append({
+                "n": idx.numel(), "table_rows": before.shape[0],
+                "dtype": str(before.dtype)[6:], "ms": k_ms, "index_add_ms": lib,
+                "bytes_bound_ms": b_bytes,
+                "chain_bound_ms": longest * CHAIN_CYCLES[before.dtype] / clock * 1e3,
+                "longest_run": longest,
+                "longest_run_row": run_row(li),
+                "zero_terms": int((~live).sum()),
+                "longest_nonzero_run": longest_run(idx[live]), "plain_s": plain_s,
+            })
+            log(f"  hs {name} scatter [N={idx.numel()} into {before.shape[0]} rows]: "
+                f"{k_ms:.4f} ms, index_add_ {lib:.4f} ms, bytes bound "
+                f"{b_bytes:.4f} ms, chain bound {rows[-1]['chain_bound_ms']:.4f} ms "
+                f"(longest run {longest} on row {rows[-1]['longest_run_row']}; "
+                f"{rows[-1]['zero_terms']} zero terms; longest run of nonzero terms "
+                f"{rows[-1]['longest_nonzero_run']}; plain {plain_s:.1f} s) ({card})")
+    return rows
+
+
+# the CLI on the hs and pair routes: (name, flags, chunk_steps); a chunk
+# of 6 steps ends at the step-18 checkpoint (CLI_EVERY)
+HS_CLI_ROUTES = [
+    ("hs-cbow-2tier", ["-train_method", "hs", "-negative", "0", "-model", "cbow",
+                       "--hs-dense-top", "512"], 6),
+    ("pair-ns", ["-negative", str(K), "--kernel", "pair"], 1),
+]
+
+
+def phase_hs_cli(vocab, corpus, card, tmp):
+    """The CLI on two of phase 7's routes, at flagship width on the
+    phase-5 corpus as a text8 file: a full epoch with a checkpoint file
+    every CLI_EVERY steps, then --resume from the mid-epoch file to the
+    end, bitwise equal to the uninterrupted run (state.npz and the binary
+    vectors); exact launch counts (the epoch's steps + the capture's
+    warm-up); the exported vectors of every word, finite."""
+    import filecmp
+    import shutil
+
+    from word2vec_tpu_torch.io.embeddings import load_embeddings_binary
+
+    txt, vtxt = os.path.join(tmp, "zipf.txt"), os.path.join(tmp, "vocab.txt")
+    with open(txt, "w") as f:
+        f.write(" ".join(np.asarray(vocab.words)[corpus.flat].tolist()))
+    vocab.save(vtxt)
+    spe = -(-(-(-corpus.num_tokens // L)) // B)  # text8 rows of L, B a step
+    rows = []
+    for name, route_flags, chunk in HS_CLI_ROUTES:
+        flags = ["-train", txt, "-read-vocab", vtxt, "-size", str(D),
+                 "-window", str(W), "-iter", "1", "--batch-rows", str(B),
+                 "--max-sentence-len", str(L), "--chunk-steps", str(chunk),
+                 "-binary", "1", "--quiet"] + route_flags
+        ck, ck2, mid = (os.path.join(tmp, f"{n}_{name}") for n in ("ck", "ck2", "mid"))
+        out, out2 = (os.path.join(tmp, f"{n}_{name}.bin") for n in ("v", "v2"))
+        counts, recs = run_cli(flags + [
+            "-output", out, "--checkpoint-dir", ck,
+            "--checkpoint-every", str(CLI_EVERY)], os.path.join(tmp, f"log_{name}"))
+        rep = [r for r in recs if r.get("event") == "train_report"][-1]
+        if rep["steps"] != spe or rep["nonfinite_loss_steps"]:
+            fail(f"cli {name}: {rep}")
+        with open(os.path.join(ck, "config.json")) as f:
+            saved = json.load(f)
+        cfg = hs_cfg(**{k: saved[k] for k in (
+            "model", "train_method", "negative", "kernel", "hs_dense_top",
+            "micro_steps", "clip_row_update", "scatter_mean")})
+        if counts != hs_launches(cfg, spe + 1):
+            fail(f"cli {name}: launch counts {counts} != {hs_launches(cfg, spe + 1)}")
+        with np.load(os.path.join(ck + ".old", "state.npz")) as z:
+            if int(z["__step"]) != CLI_EVERY:
+                fail(f"cli {name}: the mid-epoch checkpoint holds step "
+                     f"{int(z['__step'])}")
+        shutil.copytree(ck + ".old", mid)
+        counts2, recs2 = run_cli(flags + [
+            "-output", out2, "--checkpoint-dir", ck2, "--resume", mid],
+            os.path.join(tmp, f"log2_{name}"))
+        if counts2 != hs_launches(cfg, spe - CLI_EVERY + 1):
+            fail(f"cli {name} resumed: launch counts {counts2}")
+        same = npz_bitwise(ck, ck2) and filecmp.cmp(out, out2, shallow=False)
+        words, M = load_embeddings_binary(out)
+        if not same or words != vocab.words or M.shape != (V, D) or not np.isfinite(M).all():
+            fail(f"cli {name}: resumed != uninterrupted (bitwise) or bad vectors")
+        rows.append({"route": name, "steps": rep["steps"], "chunk_steps": chunk,
+                     "words_per_sec": rep["words_per_sec"],
+                     "final_loss": rep["final_loss"], "resume_bitwise": same,
+                     "launches": counts, "resumed_launches": counts2})
+        log(f"  cli {name} (chunk_steps {chunk}): {rep['steps']} steps "
+            f"{rep['words_per_sec']:.1f} words/sec (a checkpoint inside), final "
+            f"loss {rep['final_loss']:.5f}; resumed at {CLI_EVERY}: params and "
+            f"vectors bitwise equal; launches {counts} ({card})")
+    return rows
+
+
+def phase_hs_small(dev):
+    """One step per hs / pair route at a small shape, the card's kernels
+    vs the plain versions on the CPU, same params and draws (f32
+    compute, scatter_mean and the clip on): params within 1e-6, loss
+    within 1e-4 relative, pairs and hs_tail_dropped exact."""
+    from word2vec_tpu_torch.data.vocab import Vocab
+    from word2vec_tpu_torch.device import generator
+    from word2vec_tpu_torch.models.params import init_params
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+    from word2vec_tpu_torch.ops.steps import make_step
+    from word2vec_tpu_torch.ops.train_step import Draws
+
+    v, d = 500, 64
+    counts = np.maximum(1, np.round(20000.0 / np.arange(1, v + 1))).astype(np.int64)
+    vocab = Vocab([f"w{i}" for i in range(v)], counts)
+    rng = np.random.default_rng(6)
+    toks = rng.choice(v, size=(8, 40), p=counts / counts.sum()).astype(np.int32)
+    toks[3, 25:] = -1
+    cpu = torch.device("cpu")
+    for name, over in HS_ROUTES:
+        over = dict(over, micro_steps=1)
+        if over.get("hs_dense_top"):
+            over.update(hs_dense_top=16, hs_tail_slots=40)  # drops some updates
+        cfg = hs_cfg(**dict(over, word_dim=d, window=3, max_sentence_len=40,
+                            batch_rows=8, compute_dtype="float32", band_chunk=10,
+                            scatter_mean=True, subsample_threshold=1e-3,
+                            negative=0 if "hs" in name else 3))
+        steps = {dv: make_step(cfg, DeviceTables.build(vocab, cfg, dv))
+                 for dv in (cpu, dev)}
+        p_cpu = init_params(cfg, v, generator(cpu, 4))
+        g = generator(cpu, 5)
+        for t in p_cpu.values():  # nonzero everywhere, so every table moves
+            t.normal_(0.0, 0.1, generator=g)
+        start = {k: t.clone() for k, t in p_cpu.items()}
+        p_gpu = {k: t.to(dev, copy=True) for k, t in p_cpu.items()}
+        tok = torch.from_numpy(toks)
+        dr = steps[cpu].draw(generator(cpu, 3), tok)
+        m_cpu = steps[cpu].apply(p_cpu, tok, dr, 0.03)
+        m_gpu = steps[dev].apply(p_gpu, tok.to(dev), Draws(
+            dr.u_sub.to(dev), dr.w_eff.to(dev),
+            None if dr.negs is None else dr.negs.to(dev)), 0.03)
+        torch.cuda.synchronize()
+        err = max(float((p_gpu[k].cpu() - p_cpu[k]).abs().max()) for k in p_cpu)
+        moved = max(float((p_cpu[k] - start[k]).abs().max()) for k in p_cpu)
+        lerr = abs(float(m_gpu["loss_sum"]) - float(m_cpu["loss_sum"]))
+        same = all(float(m_gpu[k]) == float(m_cpu[k])
+                   for k in ("pairs", "hs_tail_dropped"))
+        log(f"  small step {name}: params max_abs_err={err:.3e} (update max "
+            f"{moved:.3e}), loss_sum err={lerr:.3e}, pairs "
+            f"{float(m_cpu['pairs']):.0f}, hs_tail_dropped "
+            f"{float(m_cpu['hs_tail_dropped']):.0f} (card == CPU: {same})")
+        # f32 compute: the two versions differ only in summation order
+        if not (err <= 1e-6 and moved > 1e-4 and same):
+            fail(f"small step {name}: the card's step disagrees with the CPU step")
+        if lerr > 1e-4 * abs(float(m_cpu["loss_sum"])):
+            fail(f"small step {name}: loss_sum disagrees")
+
+
+def phase_hs(dev, vocab, corpus, card, tmp):
+    """Phase 7 of the module docstring: the hs and pair routes at flagship
+    width, each route's ordered-sum calls vs their plain versions, the
+    dispatch paths bitwise and counted, the loss, and the route's time;
+    then the CLI on two of them (phase_hs_cli)."""
+    import gc
+
+    from word2vec_tpu_torch import Trainer
+    from word2vec_tpu_torch.device import generator
+    from word2vec_tpu_torch.models.params import init_params
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+    from word2vec_tpu_torch.ops.steps import make_step
+
+    phase_hs_small(dev)
+    clock = sm_clock_hz()
+    tokens = corpus_batch(dev, corpus)
+    out = []
+    for name, over in HS_ROUTES:
+        t_route = time.perf_counter()
+        cfg = hs_cfg(**over)
+        row = {"route": name, "card": card}
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        # (a) one sub-step's ordered-sum calls at this route's shapes
+        tables = DeviceTables.build(vocab, cfg, dev)
+        if tables.hs_msig is not None:
+            row.update(hs_P=tables.hs_msig.shape[1], hs_Ct=tables.hs_tail_codes.shape[1],
+                       hs_coverage=tables.hs_dense_coverage)
+        if tables.hs_codes is not None:
+            row["hs_C"] = tables.hs_codes.shape[1]
+        step = make_step(cfg, tables)
+        params = init_params(cfg, len(vocab), generator(dev, 3))
+        g = generator(dev, 4)
+        for k in ("emb_out_hs", "emb_out_ns"):  # zero at init: every update
+            if k in params:                     # of the step is nonzero here
+                params[k].normal_(0.0, 0.1, generator=g)
+        sub = tokens[: B // cfg.micro_steps]
+        draws = step.draw(generator(dev, 5), sub)
+        with CallRecorder() as rec:
+            m = step.apply(params, sub, draws, 0.025)
+        torch.cuda.synchronize()
+        if not np.isfinite(float(m["loss_sum"])):
+            fail(f"hs {name}: non-finite loss on the recorded step")
+        del params, draws, step
+        calls = rec.calls
+        kinds = [c[0] for c in calls]
+        want = hs_launches(cfg, 1)
+        if {k: kinds.count(k) * cfg.micro_steps for k in rec.NAMES} != {
+                k: want[k] for k in rec.NAMES}:
+            fail(f"hs {name}: recorded calls {kinds} != {want}")
+        row["scatters"] = check_hs_calls(name, calls, card, clock)
+        del calls, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["scatter_ms_step"] = cfg.micro_steps * sum(r["ms"] for r in row["scatters"])
+        row["longest_run"] = max(r["longest_run"] for r in row["scatters"])
+
+        # (b) eager per-step, graphed per-step and chunked resident runs
+        # of HS_STEPS steps from the same seed: bitwise, counts exact
+        def trainer(graphs=True, **kw):
+            tr = Trainer(hs_cfg(**over, **kw), vocab, corpus)
+            tr.graphs = graphs
+            return tr
+
+        def counted(tr, what, **kw):
+            reset_launch_counts()
+            state, rep = tr.train(log_every=0, max_steps=HS_STEPS, **kw)
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            want = hs_launches(cfg, HS_STEPS)
+            if counts != want:
+                fail(f"hs {name} {what}: launch counts {counts} != {want}")
+            if not all(counts[k] > 0 for k in CallRecorder.NAMES):
+                fail(f"hs {name} {what}: a kernel of the path never launched")
+            if rep.steps != HS_STEPS or not np.isfinite(rep.final_loss):
+                fail(f"hs {name} {what}: {rep.steps} steps, loss {rep.final_loss}")
+            return state, counts
+
+        ref, counts = counted(trainer(graphs=False), "eager per-step")
+        row["launches_per_step"] = {k: v // HS_STEPS for k, v in counts.items() if v}
+        g = trainer()
+        g.train(log_every=0, max_steps=1)  # captures the step
+        row["capture_s"] = g.capture_s
+        got, _ = counted(g, "graphed per-step")
+        row["graphed == eager"] = same_params(got.params, ref.params)
+        c = trainer(chunk_steps=HS_CHUNK, resident="on")
+        _, rep = c.train(log_every=0, max_steps=HS_CHUNK)  # captures the chunk's step
+        if rep.resident["resolved"] != "resident":
+            fail(f"hs {name}: the resident path resolved {rep.resident}")
+        got_c, _ = counted(c, "chunked resident")
+        row["chunked resident == eager"] = same_params(got_c.params, ref.params)
+        if not (row["graphed == eager"] and row["chunked resident == eager"]):
+            fail(f"hs {name}: a dispatch path != the eager per-step run (bitwise)")
+        del c, got_c, got, ref
+        gc.collect()
+
+        # (c) the loss falls and stays finite; words/sec and the
+        # host-clock step of the graphed per-step path
+        g.train(log_every=0, max_steps=2)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rep = g.train(log_every=6, max_steps=HS_LOSS_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = rep.loss_history
+        if not (hist and all(np.isfinite(hist)) and hist[-1] < hist[0]):
+            fail(f"hs {name}: loss did not fall or is not finite: {hist}")
+        row.update(
+            loss_history=hist, words_per_sec=rep.words_per_sec,
+            step_ms=wall * 1e3 / rep.steps,
+            max_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+            route_s=time.perf_counter() - t_route,
+        )
+        if g.kernel_decision is not None:
+            fail(f"hs {name}: unexpected kernel auto-selection {g.kernel_decision}")
+        log(f"  hs {name}: words/sec={rep.words_per_sec:.1f} step={row['step_ms']:.3f} ms "
+            f"(host clock) peak memory={row['max_memory_gib']:.2f} GiB "
+            f"longest run={row['longest_run']} scatter ms/step="
+            f"{row['scatter_ms_step']:.4f} launches/step={row['launches_per_step']} "
+            f"capture={row['capture_s']:.2f} s graphed==eager, chunked resident==eager "
+            f"loss_history={[round(x, 5) for x in hist]} ({row['route_s']:.1f} s) ({card})")
+        out.append(row)
+        del g
+        gc.collect()
+        torch.cuda.empty_cache()
+    cli = phase_hs_cli(vocab, corpus, card, tmp)
+    log(json.dumps({"hs_phase": out, "hs_cli": cli}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1605,7 +2047,6 @@ def main() -> int:
                 dev, vocab, corpus, *route,
                 out_dir=out_dir if route == ROUTES[0] else None,
             )
-
     phase_repeat(dev, vocab, corpus)
 
     log("[4b graphs: every dispatch path vs the eager per-step run] "
@@ -1626,6 +2067,12 @@ def main() -> int:
         prefix="smoke_cli_", dir=os.path.join(HERE, "build")
     ) as tmp:
         phase_cli(vocab, corpus, card, tmp)
+
+    log(f"[7 hs and pair] (at {time.perf_counter() - t0:.1f} s)")
+    with tempfile.TemporaryDirectory(
+        prefix="smoke_hs_", dir=os.path.join(HERE, "build")
+    ) as tmp:
+        phase_hs(dev, vocab, corpus, card, tmp)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -41,8 +41,10 @@ from word2vec_tpu_torch.models.params import (  # noqa: E402
 )
 from word2vec_tpu_torch.ops import band_step  # noqa: E402
 from word2vec_tpu_torch.ops.launch import LAUNCHES  # noqa: E402
-from word2vec_tpu_torch.ops.band_step import BandStep, Draws  # noqa: E402
+from word2vec_tpu_torch.ops.band_step import BandStep  # noqa: E402
 from word2vec_tpu_torch.ops.tables import DeviceTables as TTables  # noqa: E402
+from word2vec_tpu_torch.ops.steps import make_step  # noqa: E402
+from word2vec_tpu_torch.ops.train_step import Draws  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -208,15 +210,22 @@ def test_three_steps_match_jax_fused_step(model, case, monkeypatch):
     "over,lever",
     [
         (dict(train_method="hs", negative=0, band_backend="xla",
-              table_layout="split"), "hierarchical softmax"),
+              table_layout="split"), "negative sampling only"),
         (dict(kernel="pair", band_backend="xla", table_layout="split"),
-         "kernel='pair'"),
+         "fused_tables applies to the ns band kernel only"),
     ],
 )
-def test_unported_routes_raise(over, lever):
+def test_refusals_match_jax(over, lever):
+    """What the JAX package refuses, the port refuses: the band step on
+    hs (hs routes to ops/hs_step.HsStep) and the pair step on the fused
+    [V, 2, d] slab."""
     _, tt = _tables()
-    with pytest.raises(NotImplementedError) as e:
-        BandStep(Word2VecConfig(**_kw(**over)), tt)
+    cfg = Word2VecConfig(**_kw(**over))
+    with pytest.raises(ValueError) as e:
+        if cfg.use_hs:
+            BandStep(cfg, tt)
+        else:
+            make_step(cfg, tt, fused=True)
     assert lever in str(e.value)
 
 

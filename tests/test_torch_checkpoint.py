@@ -146,6 +146,35 @@ def test_port_checkpoint_loads_into_jax(tmp_path, dtype, layout):
         np.testing.assert_array_equal(_bits_t(back.params[k]), _bits_t(t))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hs_checkpoint_round_trips_across_packages(tmp_path, dtype):
+    """hs params ({emb_in [V, d], emb_out_hs [V-1, d]}): the port's
+    checkpoint loads into JAX, JAX writes it back, the port loads it;
+    params bitwise at both ends, the configs equal."""
+    rng = np.random.default_rng(12)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    params = {"emb_in": torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)),
+              "emb_out_hs": torch.from_numpy(
+                  rng.normal(size=(V - 1, D)).astype(np.float32))}
+    params = {k: v.to(tdt) for k, v in params.items()}
+    kw = dict(_cfg_kw(dtype, "split"), train_method="hs", negative=0,
+              hs_dense_top=4, model="cbow")
+    vocab, jvocab = _vocab_pair()
+    path, jpath = str(tmp_path / "ck"), str(tmp_path / "jck")
+    ck.save_checkpoint(path, TrainState(params, step=5, words_done=77, epoch=0),
+                       Word2VecConfig(**kw), vocab)
+    jstate, jcfg, _ = jck.load_checkpoint(path)
+    assert jcfg == JConfig(**kw) and sorted(jstate.params) == sorted(params)
+    for k, t in params.items():
+        np.testing.assert_array_equal(_bits_np(jstate.params[k]), _bits_t(t), err_msg=k)
+    jck.save_checkpoint(jpath, jstate, jcfg, jvocab)
+    back, cfg, _ = ck.load_checkpoint(jpath)
+    assert cfg == Word2VecConfig(**kw) and back.step == 5
+    for k, t in params.items():
+        assert back.params[k].shape == t.shape and back.params[k].dtype == tdt
+        np.testing.assert_array_equal(_bits_t(back.params[k]), _bits_t(t), err_msg=k)
+
+
 def test_truncated_state_is_quarantined_and_old_loads(tmp_path):
     vocab, _ = _vocab_pair()
     cfg = Word2VecConfig(**_cfg_kw("float32", "split"))

@@ -86,8 +86,9 @@ def test_chunk_runner_matches_jax_chunk_runner(case):
     tp_.assert_params_close(tp, jp, kw)
     assert sorted(tp) == sorted(jp)  # fused_tables: the public layout stays
     for i in range(S):
-        tp_.assert_metrics_close({k: tm[k][i] for k in METRICS},
-                                 {k: jm[k][i] for k in METRICS})
+        tp_.assert_metrics_close({k: tm[k][i] for k in jm},
+                                 {k: jm[k][i] for k in jm})
+        assert float(tm["hs_tail_dropped"][i]) == 0.0  # no hs tail here
     assert float(jm["pairs"][2]) == 0.0 and float(tm["pairs"][2]) == 0.0
 
 
@@ -111,6 +112,20 @@ def test_chunked_matches_per_step_bitwise(route, model):
     tp_.assert_params_bitwise(one.params, five.params)
     assert r1.loss_history and np.isfinite(r1.loss_history).all()
     assert np.isfinite(r5.final_loss)
+
+
+@pytest.mark.parametrize("name", list(tp_.STEP_ROUTES))
+def test_step_routes_chunked_match_per_step_bitwise(name):
+    """The hs and pair steps through the chunk runner: chunk_steps=5 (the
+    last chunk padded) equals the per-step path, params and loss."""
+    over = tp_.STEP_ROUTES[name]
+    one, r1 = _run(tp_.trainer_cfg(**over))
+    five, r5 = _run(tp_.trainer_cfg(chunk_steps=5, resident="off", **over))
+    assert one.step == five.step > 5 and one.step % 5 != 0
+    tp_.assert_params_bitwise(one.params, five.params)
+    assert sorted(one.params) == sorted(five.params)
+    assert np.isfinite(r1.final_loss) and r1.loss_history
+    assert r1.loss_history[-1] == r5.loss_history[-1]
 
 
 @pytest.mark.parametrize("over", [dict(chunk_steps=0, iters=2),

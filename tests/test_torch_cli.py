@@ -164,10 +164,14 @@ def test_export_side_override_and_guard(tmp_path, corpus_file, capsys):
 
 @pytest.mark.parametrize("flags", [["-train_method", "hs", "-negative", "0"],
                                    ["-negative", "3", "--kernel", "pair"]])
-def test_unported_routes_raise(corpus_file, flags):
-    with pytest.raises(NotImplementedError):
-        run(["-train", corpus_file, "-min-count", "1", "-output", ""]
-            + flags + CPU)
+def test_hs_and_pair_routes_train(corpus_file, tmp_path, flags):
+    """hs and the pair step train through the CLI and export every
+    word's vector."""
+    out = tmp_path / "v.txt"
+    assert run(["-train", corpus_file, "-min-count", "1", "-size", "8",
+                "-output", str(out)] + flags + CPU) == 0
+    words, W = load_embeddings_text(str(out))
+    assert sorted(words) == sorted("abcdpqxy") and np.isfinite(W).all()
 
 
 def test_eval_fixture_end_to_end(tmp_path, capsys):
@@ -245,3 +249,32 @@ def test_same_vocab_and_config_as_the_jax_cli(tmp_path):
         jcfg, tcfg = json.load(a), json.load(b)
     assert jcfg == tcfg
     assert tcfg["batch_rows"] != 32  # auto geometry, not the placeholder
+
+
+def test_hs_two_tier_cli_run_matches_the_jax_cli(tmp_path, corpus_file, capsys):
+    """-train_method hs --hs-dense-top / --hs-tail-slots through both CLIs
+    on one corpus: equal config.json and vocab.txt; the port's progress
+    line shows hs_tail_dropped; cbow+hs exports C (the input table,
+    main.cpp:198-199) and both exports hold every word."""
+    from word2vec_tpu.cli import main as jax_run
+
+    flags = ["-train", corpus_file, "-size", "8", "-negative", "0",
+             "-train_method", "hs", "-model", "cbow", "-min-count", "1",
+             "-iter", "1", "--hs-dense-top", "3", "--hs-tail-slots", "4",
+             "--max-sentence-len", "32", "--batch-rows", "4",
+             "--log-every", "5"]
+    jck, tck = str(tmp_path / "jck"), str(tmp_path / "tck")
+    jout, tout = str(tmp_path / "j.txt"), str(tmp_path / "t.txt")
+    assert jax_run(flags + ["--checkpoint-dir", jck, "-output", jout, "--quiet"]) == 0
+    capsys.readouterr()
+    assert run(flags + ["--checkpoint-dir", tck, "-output", tout,
+                        "--backend", "cpu"]) == 0
+    assert "hs_tail_dropped:" in capsys.readouterr().err
+    with open(os.path.join(jck, "config.json")) as a, \
+            open(os.path.join(tck, "config.json")) as b:
+        assert json.load(a) == json.load(b)
+    with open(os.path.join(jck, "vocab.txt"), "rb") as a, \
+            open(os.path.join(tck, "vocab.txt"), "rb") as b:
+        assert a.read() == b.read()
+    (jw, jW), (tw, tW) = load_embeddings_text(jout), load_embeddings_text(tout)
+    assert jw == tw and tW.shape == jW.shape == (8, 8) and np.isfinite(tW).all()

@@ -134,8 +134,9 @@ def test_resident_runner_matches_jax(case):
                 t0, alphas, steps=2)
     tp_.assert_params_close(tp, jp, kw)
     for i in range(S):
-        tp_.assert_metrics_close({k: tm[k][i] for k in METRICS},
-                                 {k: jm[k][i] for k in METRICS})
+        tp_.assert_metrics_close({k: tm[k][i] for k in jm},
+                                 {k: jm[k][i] for k in jm})
+        assert float(tm["hs_tail_dropped"][i]) == 0.0  # no hs tail here
 
 
 def _train(cfg, **kw):
@@ -153,6 +154,18 @@ def test_resident_trainer_matches_streaming_bitwise(route):
     tp_.assert_params_bitwise(on.params, off.params)
     assert r_on.resident["resolved"] == "resident" and r_off.resident is None
     assert r_on.final_loss == r_off.final_loss
+
+
+@pytest.mark.parametrize("name", list(tp_.STEP_ROUTES))
+def test_step_routes_resident_match_streaming_bitwise(name):
+    """The hs and pair steps on the resident corpus equal streaming."""
+    over = tp_.STEP_ROUTES[name]
+    on, r_on = _train(tp_.trainer_cfg(chunk_steps=4, resident="on", **over))
+    off, r_off = _train(tp_.trainer_cfg(chunk_steps=4, resident="off", **over))
+    assert on.step == off.step and on.words_done == off.words_done
+    tp_.assert_params_bitwise(on.params, off.params)
+    assert r_on.resident["resolved"] == "resident"
+    assert r_on.final_loss == r_off.final_loss and len(METRICS) == 5
 
 
 def test_resident_report_and_auto_resolution(monkeypatch):

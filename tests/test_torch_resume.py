@@ -80,6 +80,19 @@ def test_mid_epoch_resume_matches_uninterrupted(route, mode):
         tp_.assert_params_bitwise(got.params, full.params)
 
 
+@pytest.mark.parametrize("mode", ["per_step", "resident"])
+@pytest.mark.parametrize("name", list(tp_.STEP_ROUTES))
+def test_step_routes_resume_matches_uninterrupted(name, mode):
+    """The hs and pair steps resumed mid-epoch in a fresh trainer end on
+    the uninterrupted params."""
+    cfg = tp_.trainer_cfg(**tp_.STEP_ROUTES[name], **MODES[mode])
+    full, _ = _trainer(cfg).train(log_every=0)
+    part, _ = _trainer(cfg).train(log_every=0, max_steps=7)
+    got, _ = _trainer(cfg).train(state=part, log_every=0)
+    assert (got.step, got.words_done) == (full.step, full.words_done)
+    tp_.assert_params_bitwise(got.params, full.params)
+
+
 def test_checkpoint_cb_state_resumes_to_the_uninterrupted_params():
     """tests/test_resident.py:100-139 in the port: checkpoint mid-epoch on
     the resident path, resume in a new trainer, land on the same params."""

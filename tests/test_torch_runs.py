@@ -324,3 +324,42 @@ def test_run_list_rules():
         rl.check_runs(torch.zeros(5, dtype=torch.int32), 3, torch.device("cpu"))
     empty = rl.find_runs(torch.zeros(0, dtype=torch.int32))
     assert empty.tolist() == [0] * rl.HEADER
+
+
+def _oracle_add(dest, idx, vals):
+    """dest[idx[q]] += vals[q] one term at a time, rounded per add."""
+    for q in range(idx.numel()):
+        i = int(idx[q])
+        if i >= 0:
+            dest[i] = (dest[i].float() + vals[q].float()).to(dest.dtype)
+    return dest
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_versions_keep_zero_signs_bitwise(dtype):
+    """The plain ordered sums leave all-zero terms out of their passes
+    (runs.ordered_add_plain); against adding every term in order, they
+    stay bitwise on cells and terms that are +0.0 and -0.0 in every mix,
+    sums that cancel to zero, and a -1 prefix."""
+    g = torch.Generator().manual_seed(0)
+    bits = (lambda t: t.view(torch.int16)) if dtype == torch.bfloat16 else (
+        lambda t: t.view(torch.int32))
+    for trial in range(40):
+        V, d, n = 12, 5, int(torch.randint(2, 80, (1,), generator=g))
+        emb = (torch.randn(V, d, generator=g) * 0.1).to(dtype)
+        emb[torch.rand(V, d, generator=g) < 0.3] = -0.0
+        emb[torch.rand(V, d, generator=g) < 0.2] = 0.0
+        idx = torch.sort(torch.randint(-1, V, (n,), generator=g)).values.int()
+        vals = (torch.randn(n, d, generator=g) * 0.1).to(dtype)
+        vals[torch.rand(n, generator=g) < 0.4] = 0.0
+        vals[torch.rand(n, generator=g) < 0.3] = -0.0
+        vals[torch.rand(n, d, generator=g) < 0.3] = -0.0
+        vals[1] = -vals[0]  # a cancellation when the two ids meet
+        want = _oracle_add(emb.clone(), idx, vals)
+        got = fs.fused_slab_scatter_plain(emb.clone(), idx, vals)
+        assert torch.equal(bits(got), bits(want)), trial
+        if dtype == torch.float32:
+            out = emb[:, 0].contiguous()
+            want = _oracle_add(out.clone(), idx, vals[:, 0])
+            got = ts.ordered_row_sum_plain(V, idx, vals[:, 0], out.clone())
+            assert torch.equal(bits(got), bits(want)), trial

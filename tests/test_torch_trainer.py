@@ -52,6 +52,9 @@ HAZARDS = {
     "degenerate-band": (dict(batch_rows=4, kernel="band", iters=30), 40, 2000, 2),
     # a config that triggers none of them
     "clean": (dict(batch_rows=1), 400, 4000, 0),
+    # (c)'s domain under kernel='auto': the trainer selects 'pair' and the
+    # degeneracy warning stays silent; (b)
+    "degenerate-auto": (dict(batch_rows=4, iters=30), 40, 2000, 1),
 }
 
 
@@ -153,3 +156,26 @@ def test_sigterm_requests_a_cooperative_stop():
         handler.uninstall()
     assert handler.requested and handler.signum == signal.SIGTERM
     assert state.step == 2 and rep.interrupted == "preempted"
+
+
+def test_hs_tail_drops_reach_the_log_and_warn():
+    """Two-tier hs with a tail bound that overflows: every log record of
+    the hs route carries hs_tail_dropped (the JAX record's key), the
+    other routes' records do not, and two consecutive dropping
+    observations warn once with the JAX trainer's fix."""
+    vocab, corpus = tp_.small_corpus()
+    logs = []
+    cfg = tp_.trainer_cfg(**tp_.STEP_ROUTES["hs-cbow-2tier-overflow"])
+    tr = Trainer(cfg, vocab, corpus, log_fn=logs.append, device="cpu")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        tr.train(log_every=2)
+    steps = [r for r in logs if "step" in r]
+    assert steps and all(r["hs_tail_dropped"] >= 0 for r in steps)
+    assert sum(r["hs_tail_dropped"] for r in steps) > 0
+    msgs = [str(w.message) for w in rec if "hs tail compaction" in str(w.message)]
+    assert len(msgs) == 1 and "hs_tail_slots" in msgs[0]
+    logs.clear()
+    Trainer(tp_.trainer_cfg(**tp_.STEP_ROUTES["pair-ns"]), vocab, corpus,
+            log_fn=logs.append, device="cpu").train(log_every=2, max_steps=4)
+    assert logs and not any("hs_tail_dropped" in r for r in logs)

@@ -31,6 +31,7 @@ from word2vec_tpu_torch.models.params import (  # noqa: E402
 from word2vec_tpu_torch.ops import band_step  # noqa: E402
 from word2vec_tpu_torch.ops import train_step as tts  # noqa: E402
 from word2vec_tpu_torch.ops.band_step import BandStep  # noqa: E402
+from word2vec_tpu_torch.ops.steps import make_step  # noqa: E402
 from word2vec_tpu_torch.ops.launch import LAUNCHES  # noqa: E402
 
 torch.set_num_threads(1)
@@ -190,14 +191,17 @@ def test_jax_split_params_round_trip_bit_for_bit(dtype):
 @pytest.mark.parametrize(
     "over,lever",
     [
-        (dict(kernel="pair"), "kernel='pair'"),
-        (dict(train_method="hs", negative=0, kernel="band"), "hierarchical softmax"),
+        (dict(kernel="pair"), "fused_tables applies to the ns band kernel only"),
+        (dict(train_method="hs", negative=0, kernel="band"),
+         "fused_tables applies to the ns band kernel only"),
     ],
 )
-def test_unported_routes_raise(over, lever):
+def test_fused_slab_refuses_hs_and_pair(over, lever):
+    """The pair and hs steps run (ops/steps.make_step); what the JAX
+    router refuses stays refused: either on the fused [V, 2, d] slab."""
     _, tt = tp_.tables()
-    with pytest.raises(NotImplementedError) as e:
-        BandStep(Word2VecConfig(**tp_.kw(**over)), tt)
+    with pytest.raises(ValueError) as e:
+        make_step(Word2VecConfig(**tp_.kw(**over)), tt, fused=True)
     assert lever in str(e.value)
 
 

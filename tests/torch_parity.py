@@ -29,7 +29,8 @@ from word2vec_tpu.ops.train_step import _sr_streams
 
 from word2vec_tpu_torch import Word2VecConfig
 from word2vec_tpu_torch.models.params import params_from_numpy
-from word2vec_tpu_torch.ops.band_step import BandStep, Draws
+from word2vec_tpu_torch.ops.band_step import BandStep
+from word2vec_tpu_torch.ops.train_step import Draws
 from word2vec_tpu_torch.ops.tables import DeviceTables as TTables
 
 V, D, B, L = 60, 16, 6, 40
@@ -198,6 +199,19 @@ def small_corpus(n_tokens=1500):
     return vocab, PackedCorpus.pack(ids, 24)
 
 
+#: the other step routes (ops/steps.make_step) as trainer_cfg
+#: overrides: the positional hs step (one tier, two tiers with a tail
+#: bound that overflows) and the pair step on ns and on hs
+STEP_ROUTES = {
+    "hs-sg": dict(train_method="hs", negative=0),
+    "hs-cbow-2tier-overflow": dict(train_method="hs", negative=0, model="cbow",
+                                   hs_dense_top=8, hs_tail_slots=3),
+    "pair-ns": dict(kernel="pair"),
+    "pair-hs-micro2": dict(kernel="pair", train_method="hs", negative=0,
+                           micro_steps=2),
+}
+
+
 def trainer_cfg(route=("xla", "split"), **over):
     """A Trainer config at the small shape (B=4 x L=24, band_chunk 8) on
     one route."""
@@ -219,3 +233,111 @@ def assert_params_bitwise(a, b):
         assert x.dtype == y.dtype and x.shape == y.shape, k
         w = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
         assert torch.equal(x.view(w), y.view(w)), k
+
+
+# ------------------------------------------- hs and pair step harness
+# (tests/test_torch_{hs_step,pair_step,huffman}.py): a Zipf vocabulary of
+# HV words whose Huffman tree both packages build from the same counts,
+# tokens [HB, HL] drawn from it, and the JAX step's draws for any step of
+# the router (ops/steps.make_step)
+HV, HD, HB, HL = 60, 16, 4, 24
+
+
+def hs_counts():
+    return np.maximum(1, np.round(3000.0 / np.arange(1, HV + 1))).astype(np.int64)
+
+
+def hs_vocabs():
+    """(JAX Vocab, port Vocab) over the same words and counts."""
+    from word2vec_tpu.data.vocab import Vocab as JVocab
+    from word2vec_tpu_torch.data.vocab import Vocab as TVocab
+
+    words = [f"w{i}" for i in range(HV)]
+    return JVocab(words, hs_counts()), TVocab(words, hs_counts())
+
+
+def hs_kw(**over):
+    """Step config kwargs of the hs / pair cases (one-tier sg hs)."""
+    base = dict(
+        model="sg", train_method="hs", negative=0, word_dim=HD, window=3,
+        min_count=1, compute_dtype="float32", max_sentence_len=HL,
+        subsample_threshold=1e-2,
+    )
+    base.update(over)
+    return base
+
+
+def hs_tokens(seed=4):
+    counts = hs_counts()
+    rng = np.random.default_rng(seed)
+    toks = rng.choice(HV, size=(HB, HL), p=counts / counts.sum()).astype(np.int32)
+    toks[2, 18:] = -1
+    return toks
+
+
+def any_draws(step, key, jt, B, L) -> Draws:
+    """The JAX step's draws for `key` and [B, L] tokens, for a BandStep,
+    HsStep or PairStep: the subsample uniforms and w_eff of split(key, 3)
+    (every JAX step), the pair step's per-pair negatives from the third
+    key (its _draw_negatives), and the SR uniforms of each site
+    (jax.random.uniform(k_sr(i), [n, d]), None for a site of 0 rows)."""
+    from word2vec_tpu.ops.train_step import _draw_negatives as j_negs
+    from word2vec_tpu_torch.ops.pair_step import PairStep
+
+    cfg = step.config
+    W = cfg.window
+    k_sub, k_win, k_neg = jax.random.split(key, 3)
+    u_sub = jax.random.uniform(k_sub, (B, L))
+    w_eff = W - jax.random.randint(k_win, (B, L), 0, W, dtype=jnp.int32)
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    negs = None
+    if isinstance(step, PairStep) and cfg.use_ns:
+        negs = t(j_negs(k_neg, (step.pairs(B, L), cfg.negative),
+                        jt.alias_accept, jt.alias_idx)).to(torch.int32)
+    sr = None
+    if cfg.stochastic_rounding:
+        k_sr = _sr_streams(key, True)
+        sr = tuple(
+            t(jax.random.uniform(k_sr(i), (n, cfg.word_dim))) if n else None
+            for i, n in enumerate(step.sr_rows(B, L))
+        )
+    return Draws(t(u_sub), t(w_eff), negs, sr)
+
+
+_HS_STEPS = {}
+
+
+def hs_run(cfg_kw, steps=2, toks=None):
+    """`steps` steps of the JAX step the config routes to
+    (make_hs_train_step / make_pair_train_step) and of the port's
+    make_step, from the same JAX-initialized params (emb_out_hs drawn
+    nonzero, so the first step moves every table), tokens and draws.
+    Returns (jax params, jax metrics, port params, port metrics)."""
+    from word2vec_tpu.ops.hs_step import make_hs_train_step
+    from word2vec_tpu.ops.train_step import make_pair_train_step
+    from word2vec_tpu_torch.ops.steps import make_step
+
+    key_ = tuple(sorted(cfg_kw.items()))
+    if key_ not in _HS_STEPS:
+        jcfg, tcfg = JConfig(**cfg_kw), Word2VecConfig(**cfg_kw)
+        jv, tv = hs_vocabs()
+        jt = JTables.build(jv, jcfg)
+        tt = TTables.build(tv, tcfg, torch.device("cpu"))
+        make = (make_pair_train_step if jcfg.resolved_kernel == "pair"
+                else make_hs_train_step)
+        _HS_STEPS[key_] = (jcfg, tcfg, jt, tt, jax.jit(make(jcfg, jt)))
+    jcfg, tcfg, jt, tt, jfn = _HS_STEPS[key_]
+    jp = j_init(jcfg, HV, jax.random.key(1))
+    if "emb_out_hs" in jp:
+        jp["emb_out_hs"] = (0.1 * jax.random.normal(
+            jax.random.key(3), jp["emb_out_hs"].shape)).astype(jp["emb_out_hs"].dtype)
+    tp = torch_params(jp, tcfg)
+    toks = hs_tokens() if toks is None else toks
+    step = make_step(tcfg, tt)
+    for i in range(steps):
+        key = jax.random.fold_in(jax.random.key(7), i)
+        alpha = 0.05 - 0.01 * i
+        jp, jm = jfn(jp, jnp.asarray(toks), key, jnp.float32(alpha))
+        tm = step.apply(tp, torch.from_numpy(toks),
+                        any_draws(step, key, jt, *toks.shape), alpha)
+    return jp, jm, tp, tm

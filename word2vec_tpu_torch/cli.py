@@ -105,8 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="normalize duplicate-row updates by count (hot-row "
                         "stabilizer; 0 = reference-faithful sum)")
     p.add_argument("--kernel", choices=["auto", "band", "pair"], default="auto",
-                   help="device kernel: band (the port's only one; 'pair' "
-                        "raises NotImplementedError)")
+                   help="device kernel: band (the objective's fast path: "
+                        "banded ns or positional hs), pair (per-pair "
+                        "enumeration, reference-faithful), auto (band; pair "
+                        "in the band kernel's degeneracy domain)")
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"],
                    default="bfloat16",
                    help="dot-product dtype; float32 for reference-exact scores")
@@ -134,6 +136,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "step; --table-layout unified)")
     p.add_argument("--slab-scatter", type=int, default=0, choices=[0, 1],
                    help="band kernel: scatter context grads from slab space")
+    p.add_argument("--hs-dense-top", type=int, default=0, metavar="P",
+                   help="two-tier hs update: handle the top-P Huffman nodes "
+                        "(a contiguous slice + per-path prefix) with dense "
+                        "matmuls, gather/scatter only the short path tails "
+                        "(config.hs_dense_top; 0 = single-tier)")
+    p.add_argument("--hs-tail-slots", type=int, default=-1, metavar="T",
+                   help="two-tier hs tail-scatter compaction bound per batch "
+                        "row: -1 auto (+6 sigma), 0 off, >0 explicit "
+                        "(config.hs_tail_slots)")
     p.add_argument("--resident", choices=["auto", "on", "off"], default="auto",
                    help="device-resident corpus (chunked dispatch)")
     p.add_argument("--max-sentence-len", type=int, default=192)
@@ -310,6 +321,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         negative_scope=args.negative_scope,
         scatter_mean=bool(args.scatter_mean),
         slab_scatter=bool(args.slab_scatter),
+        hs_dense_top=args.hs_dense_top,
+        hs_tail_slots=args.hs_tail_slots,
         band_backend=args.band_backend,
         table_layout=args.table_layout,
         resident=args.resident,

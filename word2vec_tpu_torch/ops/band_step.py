@@ -39,8 +39,7 @@ same trajectory.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,43 +54,18 @@ from .overlap import overlap_add_tokens
 from .runs import find_runs
 from .tables import DeviceTables
 from .train_step import (
-    _cast_update, _draw_negatives, _dup_mean_scale, _row_clip_scale,
-    ordered_row_sum,
+    Draws, Metrics, _cast_update, _draw_negatives, _dup_mean_scale,
+    _row_clip_scale, finish_metrics, gate, ordered_row_sum,
 )
 
-Metrics = Dict[str, torch.Tensor]
 # (sorted ids [N] int32, values [N, d] f32, scatter_mean weights [N] f32)
 Side = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-@dataclass
-class Draws:
-    """Every random draw of one step."""
-
-    u_sub: torch.Tensor   # [B, L] f32 subsample uniforms
-    w_eff: torch.Tensor   # [B, L] int32 shrunk window per center
-    negs: torch.Tensor    # [B, KP] (row scope) or [KP] (batch) int32
-    # SR uniforms per update site, None unless config.stochastic_rounding:
-    # 0 = the emb_in update [n_in, d] and 1 = the emb_out update
-    # [n_out, d], each in sorted order, n = B*L rows for a side scattered
-    # in token order and B*C*(S+2W) for one scattered from slab space
-    # (BandStep.sr_rows); 2 = the negative rows [negs.numel(), d] in draw
-    # order
-    sr: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
-
-
 def check_route(config: Word2VecConfig) -> None:
-    """Raise NotImplementedError for any route the port does not run yet."""
-    if config.use_hs:
-        raise NotImplementedError(
-            "hierarchical softmax is a later slice of the PyTorch port "
-            "(ops/hs_step.py)"
-        )
-    if config.resolved_kernel != "band":
-        raise NotImplementedError(
-            f"kernel={config.kernel!r} (the pair step, ops/train_step.py) "
-            "is a later slice of the PyTorch port"
-        )
+    """Raise for a table or compute dtype the port does not run. Every
+    step route of a single device runs: the band step (ns), the
+    positional hs step and the pair step (ops/steps.make_step)."""
     torch_dtype(config.dtype)
     torch_dtype(config.compute_dtype)
 
@@ -103,11 +77,22 @@ class BandStep:
 
     fused=True (the chunk runners under config.fused_tables): the params
     carry the two ns tables as one [V, 2, d] slab, as under
-    table_layout='unified' (make_band_train_step's `fused`)."""
+    table_layout='unified' (make_band_train_step's `fused`).
+
+    SR sites (Draws.sr): 0 = the emb_in update [n_in, d] and 1 = the
+    emb_out update [n_out, d], each in sorted order, n = B*L rows for a
+    side scattered in token order and B*C*(S+2W) for one scattered from
+    slab space (sr_rows); 2 = the negative rows [negs.numel(), d] in draw
+    order."""
 
     def __init__(
         self, config: Word2VecConfig, tables: DeviceTables, fused: bool = False
     ):
+        if not config.use_ns or config.use_hs:
+            raise ValueError(
+                "band kernel supports negative sampling only "
+                "(hs routes through ops/hs_step.HsStep)"
+            )
         check_route(config)
         if fused and config.band_backend == "pallas":
             raise ValueError(
@@ -195,9 +180,7 @@ class BandStep:
             m = self._apply_pallas(params, tokens, draws, alpha)
         else:
             m = self._apply_xla(params, tokens, draws, alpha)
-        m = dict(m)
-        m["nonfinite_loss"] = (~torch.isfinite(m["loss_sum"])).float()
-        return m
+        return finish_metrics(m)
 
     def __call__(
         self,
@@ -207,14 +190,6 @@ class BandStep:
         alpha,
     ) -> Metrics:
         return self.apply(params, tokens, self.draw(gen, tokens), alpha)
-
-    def _gate(self, tokens: torch.Tensor, draws: Draws):
-        """(valid, clamped ids, keep): the center-word subsample gate
-        (Word2Vec.cpp:282,332)."""
-        valid = tokens >= 0
-        tok = torch.where(valid, tokens, 0)
-        keep = valid & (draws.u_sub < self.tables.keep_probs[tok.long()])
-        return valid, tok, keep
 
     def _chunked(self, L: int) -> int:
         """The chunk size S of a kernel route; raises for rows that resolve
@@ -240,7 +215,7 @@ class BandStep:
         per_row = cfg.negative_scope == "row"
         is_cbow = cfg.model == "cbow"
         B, L = tokens.shape
-        valid, tok, keep = self._gate(tokens, draws)
+        valid, tok, keep = gate(tokens, draws.u_sub, self.tables.keep_probs)
         S = banded.resolve_chunk(L, W, cfg.band_chunk)
         if self.route == "pallas_oa":
             S = self._chunked(L)
@@ -379,7 +354,7 @@ class BandStep:
         per_row = cfg.negative_scope == "row"
         is_cbow = cfg.model == "cbow"
         B, L = tokens.shape
-        _, tok, keep = self._gate(tokens, draws)
+        _, tok, keep = gate(tokens, draws.u_sub, self.tables.keep_probs)
         S = self._chunked(L)
         C, P = banded._geom(L, W, S)
         emb_in, emb_out = params["emb_in"], params["emb_out_ns"]
@@ -455,7 +430,7 @@ class BandStep:
         B, L = tokens.shape
         emb = params[FUSED_KEY]  # [V, 2, d]
         V, _, d = emb.shape
-        _, tok, keep = self._gate(tokens, draws)
+        _, tok, keep = gate(tokens, draws.u_sub, self.tables.keep_probs)
         S = self._chunked(L)
         C, _ = banded._geom(L, W, S)
         pad_c = C * S - L

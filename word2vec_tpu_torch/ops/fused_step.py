@@ -30,7 +30,7 @@ import torch
 from .. import _build
 from .banded import _overlap_add, band_dist
 from .launch import check, count, on_cuda, phase_record, scalar_arg, stream
-from .runs import check_runs, find_runs
+from .runs import check_runs, find_runs, ordered_add_plain
 
 GradOutputs = Tuple[torch.Tensor, ...]
 
@@ -288,30 +288,15 @@ def fused_slab_scatter_plain(
     vals: torch.Tensor,
     plane: Optional[int] = None,
 ) -> torch.Tensor:
-    """The sorted scatter in plain torch ops, in place: one pass per
-    duplicate rank (the r-th occurrence of every id in pass r), so each
-    row receives its updates in sorted order, rounded to the table dtype
-    after every add, exactly as the kernel applies them."""
+    """The sorted scatter in plain torch ops, in place: each row receives
+    its updates in sorted order, rounded to the table dtype after every
+    add, exactly as the kernel applies them (runs.ordered_add_plain)."""
     rows, v, col0 = _scatter_view(emb, vals, plane)
-    width = v.shape[1]
     keep = sorted_idx >= 0
     idx = sorted_idx[keep].long()
-    v = v[keep]
-    n = idx.numel()
-    if n == 0:
-        return emb
     if bool((idx[1:] < idx[:-1]).any()):
         raise ValueError("fused_slab_scatter: ids must be sorted ascending")
-    pos = torch.arange(n, device=idx.device)
-    start = torch.ones(n, dtype=torch.bool, device=idx.device)
-    start[1:] = idx[1:] != idx[:-1]
-    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
-    cols = slice(col0, col0 + width)
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
-        ids = idx[sel]
-        cur = rows[ids, cols]
-        rows[ids, cols] = (cur.float() + v[sel].float()).to(emb.dtype)
+    ordered_add_plain(rows[:, col0:col0 + v.shape[1]], idx, v[keep])
     return emb
 
 

@@ -15,9 +15,9 @@ replay, whatever Python values they held at capture):
            [S, B, L] (ops/train_step.make_chunk_runner) or the resident
            corpus, the epoch's row order and the chunk's first batch index
            (ops/resident.make_resident_chunk_runner);
-  outputs  `out` [4, S] f32: loss_sum, pairs, clip_engaged and
-           nonfinite_loss of each step (METRICS order), written into the
-           step's slot;
+  outputs  `out` [5, S] f32: loss_sum, pairs, clip_engaged,
+           nonfinite_loss and hs_tail_dropped of each step (METRICS order),
+           written into the step's slot;
   state    the params, updated in place (the JAX package donates them).
 The step's draws come from a private generator that `run` re-seeds with
 device.step_seed(run seed, step) before each step; the graph registers it,
@@ -43,12 +43,15 @@ import torch
 from ..device import seed_step
 from ..models.params import FUSED_KEY, FUSED_SUBTABLES, Params, unfuse_tables
 from . import launch
-from .band_step import BandStep, Draws
+from .steps import make_step
+from .train_step import Draws
 
 #: the metrics of a step, in the rows of StepGraph.out, each summed over
 #: the step's micro sub-steps (nonfinite_loss: the sub-steps whose loss_sum
-#: is not finite, BandStep.apply), computed inside the captured step.
-METRICS = ("loss_sum", "pairs", "clip_engaged", "nonfinite_loss")
+#: is not finite; hs_tail_dropped: the two-tier hs tail slots dropped by
+#: compaction, 0 on every other route; ops/train_step.finish_metrics),
+#: computed inside the captured step. Readers take them by name.
+METRICS = ("loss_sum", "pairs", "clip_engaged", "nonfinite_loss", "hs_tail_dropped")
 
 #: slot [1] int64 -> the step's tokens [B, L] int32
 BatchFn = Callable[[torch.Tensor], torch.Tensor]
@@ -78,12 +81,14 @@ def copy_in(dst: torch.Tensor, src) -> None:
 
 class StepGraph:
     """One optimizer step (config.micro_steps sub-steps) over static
-    buffers; see the module docstring. `params` are the tensors the graph
-    updates in place for its whole life."""
+    buffers; see the module docstring. `step` is any step of the router
+    (ops/steps.make_step: BandStep, HsStep, PairStep), all with the
+    draw / apply contract. `params` are the tensors the graph updates in
+    place for its whole life."""
 
     def __init__(
         self,
-        step: BandStep,
+        step,
         params: Params,
         batch: BatchFn,
         S: int,
@@ -233,7 +238,7 @@ class ChunkRunner:
     ):
         self.config = config
         self.fused = config.fused_tables if fused is None else fused
-        self.step = BandStep(config, tables, fused=self.fused)
+        self.step = make_step(config, tables, fused=self.fused)
         self.graphed = graphed
         #: (pool, stream) shared by this runner's graphs; a trainer shares
         #: one between its runners

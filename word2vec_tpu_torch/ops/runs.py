@@ -7,7 +7,7 @@ them on the device with the prepass kernel of csrc/runs.cu (no host
 sync: the counts stay on the device). Every sorted id array of the step
 feeds one row sum and one scatter, so the step builds the list once per
 array and passes it to both; each wrapper builds it itself when it is
-given none.
+given none. `ordered_add_plain` is the plain version of both sums.
 
 Layout (int32 [HEADER + 4N + ceil(N / RUN_TILE)], csrc/runs.cuh; only
 the used prefixes meaningful):
@@ -21,7 +21,7 @@ no run.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -64,6 +64,58 @@ def find_runs_plain(idx: torch.Tensor) -> torch.Tensor:
     at = HEADER + 2 * n
     runs[at : at + 2 * longs.shape[0]] = longs.flatten()
     return runs
+
+
+def _rank_passes(idx: torch.Tensor) -> Tuple[torch.Tensor, List[int]]:
+    """(perm, sizes) for ids sorted ascending: perm groups the positions by
+    duplicate rank (the r-th term of each run in group r, ascending ids
+    within), sizes[r] the group sizes (a host sync). Group r holds
+    distinct rows, one term each, so adding the groups in turn adds each
+    row's terms one by one in order."""
+    n = idx.numel()
+    pos = torch.arange(n, device=idx.device)
+    start = torch.ones(n, dtype=torch.bool, device=idx.device)
+    start[1:] = idx[1:] != idx[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    return torch.argsort(rank, stable=True), torch.bincount(rank).tolist()
+
+
+def ordered_add_plain(dest: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> None:
+    """dest[idx[q]] += v[q] for q in order, in place, rounding to dest's
+    dtype after every add: the plain version of both ordered sums (dest a
+    [rows] or [rows, width] view, idx int64 sorted ascending, no -1).
+
+    A term that is zero in every column adds nothing but a zero's sign
+    (x + (+-0) == x for x != 0, (+-0) + y == y for y != 0), so such terms
+    stay out of the ordered passes, which then walk only the longest run
+    of nonzero terms, and the signs are restored: a zero result is -0.0
+    exactly when the cell began at -0.0 and every term added there was
+    -0.0 (round-to-nearest gives +0.0 for x + (-x) and -0.0 + +0.0)."""
+    n = idx.numel()
+    if n == 0:
+        return
+    start = torch.ones(n, dtype=torch.bool, device=idx.device)
+    start[1:] = idx[1:] != idx[:-1]
+    touched = idx[start]
+    group = torch.cumsum(start, 0) - 1  # each term's row among `touched`
+    init = dest[touched].clone()
+    neg_zero = (v == 0) & torch.signbit(v)
+    not_neg_zero = torch.zeros(
+        (touched.numel(),) + tuple(v.shape[1:]), device=idx.device
+    ).index_add_(0, group, (~neg_zero).float())
+    live = (v != 0).reshape(n, -1).any(dim=1)
+    li, lv = idx[live], v[live]
+    if li.numel():
+        perm, sizes = _rank_passes(li)
+        at = 0
+        for size in sizes:
+            sel = perm[at:at + size]
+            at += size
+            ids = li[sel]
+            dest[ids] = (dest[ids].float() + lv[sel].float()).to(dest.dtype)
+    cur = dest[touched]
+    neg = (init == 0) & torch.signbit(init) & (not_neg_zero == 0)
+    dest[touched] = torch.where(cur == 0, torch.where(neg, -0.0, 0.0).to(cur.dtype), cur)
 
 
 def unpack_runs(runs: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:

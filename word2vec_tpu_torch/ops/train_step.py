@@ -15,17 +15,44 @@ result is bitwise the JAX helper's and the same on every run. On a CUDA
 tensor it is the kernel of csrc/row_sum.cu (an unordered `index_add_`
 adds in atomic order there, which changes from run to run), which hands
 out its work per run of equal ids from the run list of ops/runs.py.
+
+Also here: the pieces every step shares — the draws (`Draws`), the
+subsample gate, the metrics tail and the update tail of the hs and pair
+steps (`sorted_scatter`). The steps are ops/band_step, ops/hs_step and
+ops/pair_step; ops/steps.make_step picks one for a config.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import _build
+from .fused_step import fused_slab_scatter
 from .launch import check, count, on_cuda, stream
-from .runs import check_runs, find_runs
+from .runs import check_runs, find_runs, ordered_add_plain
+
+Metrics = Dict[str, torch.Tensor]
+#: SR uniforms per update site (None for a site the step does not have)
+SrDraws = Tuple[Optional[torch.Tensor], ...]
+
+
+@dataclass
+class Draws:
+    """Every random draw of one step: the inputs that stand in for the
+    JAX step's key (its threefry streams cannot be reproduced in torch)."""
+
+    u_sub: torch.Tensor   # [B, L] f32 subsample uniforms
+    w_eff: torch.Tensor   # [B, L] int32 shrunk window per center
+    # negative ids, int32: the band step's shared pool, [B, KP] (row
+    # scope) or [KP] (batch); the pair step's per-pair draws [P, K]; None
+    # under hs
+    negs: Optional[torch.Tensor]
+    # SR uniforms per update site, None unless config.stochastic_rounding;
+    # each step documents its sites and their shapes (`sr_rows`)
+    sr: Optional[SrDraws] = None
 
 
 def _draw_negatives(
@@ -46,26 +73,16 @@ def ordered_row_sum_plain(
     vals: torch.Tensor,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """ordered_row_sum in plain torch ops, for ids sorted ascending: one
-    pass per duplicate rank (the r-th term of every row in pass r), so
-    each row adds its terms one by one in order, on any device."""
+    """ordered_row_sum in plain torch ops, for ids sorted ascending (ids
+    < 0 skipped, as on the card): each row adds its terms one by one in
+    order, on any device (ops/runs.ordered_add_plain)."""
     if out is None:
         out = torch.zeros(num_rows, dtype=torch.float32, device=vals.device)
-    n = idx.numel()
-    if n == 0:
-        return out
-    idx = idx.long()
-    v = vals.float()
+    keep = idx >= 0
+    idx = idx[keep].long()
     if bool((idx[1:] < idx[:-1]).any()):
         raise ValueError("ordered_row_sum: ids must be sorted ascending")
-    pos = torch.arange(n, device=idx.device)
-    start = torch.ones(n, dtype=torch.bool, device=idx.device)
-    start[1:] = idx[1:] != idx[:-1]
-    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
-        ids = idx[sel]
-        out[ids] = out[ids] + v[sel]
+    ordered_add_plain(out, idx, vals.float()[keep])
     return out
 
 
@@ -203,3 +220,84 @@ def make_chunk_runner(config, tables, *, fused=None, graphed: bool = True):
     from .graphs import ChunkRunner
 
     return ChunkRunner(config, tables, fused=fused, graphed=graphed)
+
+
+# ------------------------------------------------------- shared step tail
+def gate(tokens: torch.Tensor, u_sub: torch.Tensor, keep_probs: torch.Tensor):
+    """(valid, clamped ids, keep): the center-word subsample gate
+    (Word2Vec.cpp:282,332), shared by every step."""
+    valid = tokens >= 0
+    tok = torch.where(valid, tokens, 0)
+    keep = valid & (u_sub < keep_probs[tok.long()])
+    return valid, tok, keep
+
+
+def finish_metrics(m: Metrics) -> Metrics:
+    """A step's metrics in the keys of ops/graphs.METRICS: adds
+    nonfinite_loss (1.0 when loss_sum is not finite, the always-on
+    tripwire that the JAX package's obs/health.instrument_step adds around
+    its step) and hs_tail_dropped (0 on the steps that have no compacted
+    hs tail scatter)."""
+    m = dict(m)
+    m["nonfinite_loss"] = (~torch.isfinite(m["loss_sum"])).float()
+    if "hs_tail_dropped" not in m:
+        m["hs_tail_dropped"] = torch.zeros_like(m["loss_sum"])
+    return m
+
+
+def sorted_scatter(
+    table: torch.Tensor,
+    idx: torch.Tensor,
+    vals: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    *,
+    scatter_mean: bool,
+    clip_tau: float,
+    u: Optional[torch.Tensor] = None,
+    u_sorted: bool = True,
+) -> torch.Tensor:
+    """`table.at[idx].add(cast(vals))` in place, with the scatter_mean
+    normalization and the per-row trust region before it: the update tail
+    of every table of the hs and pair steps (hs_step.py:295-326 and
+    _score_and_update, train_step.py:215-231). Returns the clip count.
+
+    Ids and values pass through one STABLE argsort (jnp.argsort is
+    stable), so each row's terms keep the order they have in `idx`: that
+    is the JAX sorted scatter's order, and also XLA's order for an
+    unsorted `.at[idx].add`, which applies duplicates in update order.
+    Every per-row sum is an ordered_row_sum and the update is the ordered
+    scatter of ops/fused_step (a [V, d] table is a slab of one plane), so
+    the result is bitwise on the card what it is on the CPU. `u` are the
+    SR uniforms, [N, d] in sorted order (u_sorted, the hs step's sites) or
+    in the order of `idx` (the pair step's, drawn before the JAX step
+    sorts nothing)."""
+    d = vals.shape[-1]
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    sidx = idx.reshape(-1)[order].to(torch.int32).contiguous()
+    vals = vals.reshape(-1, d)[order]
+    if u is not None and not u_sorted:
+        u = u[order]
+    rows = table.shape[0]
+    runs = find_runs(sidx) if sidx.is_cuda else None
+    sl = sidx.long()
+    if scatter_mean:
+        w = weights.reshape(-1)[order]
+        vals = vals * _dup_mean_scale(rows, sidx, w, presorted=True, runs=runs)[:, None]
+    clip = torch.zeros((), dtype=torch.float32, device=vals.device)
+    if clip_tau > 0.0:
+        scale = _row_clip_scale(
+            rows, clip_tau, (sidx, vals), presorted=True, runs=(runs,)
+        )
+        clip = torch.sum((scale < 1.0).float())
+        vals = vals * scale[sl][:, None]
+    sr = u is not None and table.dtype == torch.bfloat16
+    v = _cast_update(vals, table.dtype, u if sr else None, table[sl] if sr else None)
+    fused_slab_scatter(table, sidx, v.contiguous(), runs=runs)
+    return clip
+
+
+def _rc(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """x rounded to the compute dtype, held in float32: the operand of an
+    einsum(..., preferred_element_type=float32) on cdt inputs (ops/banded
+    .cdot); rounding once lets one operand feed several contractions."""
+    return x.to(cdt).to(torch.float32)

@@ -1,12 +1,17 @@
 """Where the flagship step's time goes on the GPU.
 
     python -m word2vec_tpu_torch.profile_step [--backend xla] [--steps 10]
-        [--chunk-steps N] [--out DIR]
+        [--chunk-steps N] [--train-method ns|hs] [--hs-dense-top P]
+        [--kernel band|pair] [--model sg|cbow] [--micro-steps K] [--out DIR]
 
 Builds the flagship trainer (sg, ns, K=5, d=300, window 5, B=256 x L=192,
 KP=64) on the route `--backend` names (xla, pallas_oa or pallas on split
 tables, the JAX package's default layout; pallas_fused on the unified
-slab) on a synthetic 71k-word Zipf corpus of one epoch of --steps + 1
+slab), or on the other step routes: `--train-method hs` (the positional
+hs step; `--hs-dense-top P` for its two-tier form) and `--kernel pair`
+(the pair step, on ns or hs; pair on hs at flagship width wants
+`--micro-steps 4`), those on xla and split tables, the only layout they
+take; on a synthetic 71k-word Zipf corpus of one epoch of --steps + 1
 batches, with config.chunk_steps = --chunk-steps (1, the default, is the
 per-step path; 0 = auto: one chunk of the whole epoch here, the corpus
 resident on the card). Every step is replayed as a CUDA graph, as the
@@ -63,18 +68,29 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--chunk-steps", type=int, default=1,
                     help="config.chunk_steps (1 = per step, 0 = auto)")
+    ap.add_argument("--train-method", default="ns", choices=["ns", "hs"])
+    ap.add_argument("--hs-dense-top", type=int, default=0)
+    ap.add_argument("--kernel", default="band", choices=["band", "pair"])
+    ap.add_argument("--model", default="sg", choices=["sg", "cbow"])
+    ap.add_argument("--micro-steps", type=int, default=1)
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    hs = args.train_method == "hs"
     cfg = Word2VecConfig(
-        model="sg", train_method="ns", negative=5, word_dim=300, window=5,
+        model=args.model, train_method=args.train_method,
+        negative=0 if hs else 5, word_dim=300, window=5,
         batch_rows=256, max_sentence_len=192, shared_negatives=64,
         negative_scope="row", band_backend=args.backend,
         table_layout="unified" if args.backend == "pallas_fused" else "split",
-        chunk_steps=args.chunk_steps, iters=1,
+        chunk_steps=args.chunk_steps, iters=1, kernel=args.kernel,
+        hs_dense_top=args.hs_dense_top, micro_steps=args.micro_steps,
     )
+    route = f"{args.backend}_{args.model}_{args.train_method}_{args.kernel}"
+    if args.hs_dense_top:
+        route += f"_top{args.hs_dense_top}"
     vocab = zipf_vocab(71000)
     n_tok = (args.steps + 1) * cfg.batch_rows * cfg.max_sentence_len
     corpus = PackedCorpus.pack(
@@ -117,12 +133,14 @@ def main() -> int:
     card = _card()
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
-        args.out, f"profile_step_{args.backend}_{dispatch}_trace.json"))
+        args.out, f"profile_step_{route}_{dispatch}_trace.json"))
     total = sum(by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
     print(f"card: {card}")
-    print(f"route: band_backend={cfg.band_backend!r} table_layout={cfg.table_layout!r}"
-          f" dispatch={dispatch} (capture {capture_s:.3f} s)")
+    print(f"route: {route} band_backend={cfg.band_backend!r} "
+          f"table_layout={cfg.table_layout!r} dispatch={dispatch} "
+          f"(capture {capture_s:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     print(f"step ms (host clock, {steps}-step runs, synchronized): "
           f"median {sorted(step_ms)[len(step_ms) // 2]:.4f}")
     print(f"profiled window: {window_us / 1e3:.4f} ms for {steps} steps; "
@@ -134,10 +152,12 @@ def main() -> int:
               f"{name[:110]}")
     print(json.dumps({
         "card": card,
+        "route": route,
         "band_backend": cfg.band_backend,
         "table_layout": cfg.table_layout,
         "dispatch": dispatch,
         "capture_s": capture_s,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "step_ms_median": sorted(step_ms)[len(step_ms) // 2],
         "window_ms": window_us / 1e3,
         "device_busy_ms": busy / 1e3,

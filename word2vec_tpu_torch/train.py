@@ -10,8 +10,9 @@ linear alpha decay of Word2Vec.cpp:379-380,
 
 refreshed every step (rounded to float32 on the host, as the JAX driver
 passes it). Every optimizer step goes through an ops/graphs.StepGraph: on
-the card the step — its draws, the band step of the config's route
-(ops/band_step.py) and, on the resident path, the batch assembly — is
+the card the step — its draws, the step of the config's route
+(ops/steps.make_step: the band ns step, the positional hs step or the
+pair step) and, on the resident path, the batch assembly — is
 captured once as a CUDA graph and each step is one replay; on the CPU the
 same step runs eagerly. A dispatch is config.chunk_steps steps (1, the
 default, is the per-step path; 0 picks chunks of up to chunk_cap steps
@@ -24,20 +25,25 @@ ops/resident.py; chunked dispatch only). The draws of step s are a pure function
 follow the same trajectory. Metrics are fetched one dispatch late, so the
 host never waits on the step it just issued.
 
-Also here: the construction-time config hazard warnings
-(_warn_config_hazards), the cooperative stop (install_shutdown with a
+Also here: the kernel auto-selection in the band kernel's degeneracy
+domain (tune/planner.select_kernel: kernel='auto' trains 'pair' there,
+Trainer.kernel_decision), the construction-time config hazard warnings
+(_warn_config_hazards), the hs tail-drop warning (_note_tail_dropped),
+the cooperative stop (install_shutdown with a
 resilience/shutdown.ShutdownHandler; polled at every dispatch boundary,
 TrainReport.interrupted = "preempted"), the always-on non-finite-loss
 count (ops/graphs.METRICS) with its divergence tripwire
 (obs/health.HealthMonitor, config.divergence_budget; TrainReport.health)
 and the checkpoint_cb hook that io/checkpoint.save_checkpoint plugs into.
 
-Not in this slice: the obs / watchdog / fault-injection / planner hooks.
+Not in this slice: the obs / watchdog / fault-injection hooks and the
+planner's plan search (autotune).
 Configs that need them raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -57,6 +63,7 @@ from .ops.band_step import check_route
 from .ops.graphs import METRICS, capture_env
 from .ops.tables import DeviceTables
 from .ops.train_step import make_chunk_runner
+from .tune.planner import select_kernel
 
 
 @dataclass
@@ -112,6 +119,9 @@ class Trainer:
     #: replay each step as a CUDA graph on the card; False issues the same
     #: steps eagerly (an A/B arm for measurements, not a config field)
     graphs: bool = True
+    #: the kernel auto-selection record when kernel='auto' resolved to
+    #: 'pair' in the degeneracy domain (tune/planner.select_kernel)
+    kernel_decision: Optional[Dict] = None
     #: cooperative-stop poll (resilience/shutdown.ShutdownHandler
     #: .make_stop_check): called with state.step at every dispatch
     #: boundary; True ends the run cleanly with TrainReport.interrupted =
@@ -126,11 +136,23 @@ class Trainer:
         log_fn: Optional[Callable[[Dict], None]] = None,
         device: DeviceLike = None,
     ):
-        _check_slice(config)
         self.config = config
         self.vocab = vocab
         self.corpus = corpus
         self.log_fn = log_fn
+        if config.kernel == "auto":
+            # inside the measured band degeneracy domain the planner
+            # CHOOSES kernel='pair' instead of warning and collapsing (an
+            # explicit kernel='band' overrides: select_kernel only fires
+            # for 'auto'), as the JAX trainer does (train.py:225-239)
+            decision = select_kernel(config, len(vocab), corpus.num_tokens)
+            if decision is not None:
+                self.kernel_decision = decision
+                self.config = config = dataclasses.replace(
+                    config, kernel=decision["selected"]
+                )
+                self._log(dict(decision))
+        _check_slice(config)
         self.device = resolve_device(device)
         self.tables = DeviceTables.build(vocab, config, self.device)
         self.total_words = corpus.num_tokens
@@ -144,6 +166,10 @@ class Trainer:
         self._resident = None
         self._warned_nonfinite = False
         self._last_chunk_loss = float("nan")
+        self._tail_drop_streak = 0
+        # the positional hs step emits hs_tail_dropped (the JAX hs step's
+        # metric); logs and the tail-drop warning read it on that route
+        self._hs_route = config.use_hs and config.resolved_kernel == "band"
         #: seconds the last run's graph took to warm up and capture, when
         #: it was captured (0 for eager steps)
         self.capture_s = 0.0
@@ -179,8 +205,9 @@ class Trainer:
         # negative pool correlates the negative-side gradient across a
         # row's positives and collapses planted structure. Onset ~1,000+
         # occ/word at vocab < ~5k; realistic corpora are far outside it.
-        # The port has no kernel='pair' yet, so kernel='auto' keeps band
-        # here too and gets the same warning.
+        # kernel='auto' selected 'pair' in __init__ wherever the planner
+        # could, so this fires for a forced band config, or for band-only
+        # levers that make the selection stand aside (as in JAX).
         if (
             cfg.use_ns
             and cfg.resolved_kernel == "band"
@@ -551,11 +578,15 @@ class Trainer:
         if done is not None:
             done.synchronize()
         per_step = host.numpy().astype(np.float64)
+        m = dict(zip(METRICS, per_step.sum(axis=1)))
+        if self._hs_route:
+            # every fetched dispatch is an observation, whatever the log
+            # cadence (the JAX trainer's chunk drain, train.py:1290-1296)
+            self._note_tail_dropped(float(m["hs_tail_dropped"]), at_step)
         # the pad slots of a partial chunk did not run: observe the real ones
         self._health.observe_chunk(
             dict(zip(METRICS, per_step[:, :real_steps])), at_step
         )
-        m = dict(zip(METRICS, per_step.sum(axis=1)))
         loss = float(m["loss_sum"]) / max(1.0, float(m["pairs"]))
         self._last_chunk_loss = loss
         if not np.isfinite(loss) and not self._warned_nonfinite:
@@ -573,7 +604,7 @@ class Trainer:
         loss_hist.append(loss)
         if self.log_fn:
             dt = time.perf_counter() - t0
-            self._log({
+            rec = {
                 "step": at_step,
                 "epoch": at_epoch,
                 "alpha": at_alpha,
@@ -581,8 +612,37 @@ class Trainer:
                 "progress": at_words / (self.config.iters * max(1, self.total_words)),
                 "words_per_sec": at_words / max(dt, 1e-9),
                 "clip_engaged_rows": float(m["clip_engaged"]),
-                "nonfinite_loss_steps": float(m["nonfinite_loss"]),
-            })
+            }
+            if self._hs_route:
+                # two-tier hs tail-compaction observability
+                # (config.hs_tail_slots): slots whose updates the bound
+                # dropped; the JAX record carries it on the hs route only
+                rec["hs_tail_dropped"] = float(m["hs_tail_dropped"])
+            rec["nonfinite_loss_steps"] = float(m["nonfinite_loss"])
+            self._log(rec)
+
+    def _note_tail_dropped(self, dropped: float, at_step: int) -> None:
+        """Escalate persistent two-tier hs tail overflow from a metric to a
+        warning (word2vec_tpu/train.py:1229-1262). The auto compaction
+        bound assumes tail lengths are independent across positions
+        (ops/hs_step.resolve_tail_slots); bursty corpora can break that.
+        One nonzero observation is a spike; two CONSECUTIVE ones mean the
+        bound is too tight for this corpus, so say so once, with the fix."""
+        if dropped > 0:
+            self._tail_drop_streak += 1
+        else:
+            self._tail_drop_streak = 0
+        if self._tail_drop_streak == 2:
+            warnings.warn(
+                f"hs tail compaction dropped updates in consecutive "
+                f"observations (latest: {dropped:.0f} slots at step "
+                f"{at_step}). "
+                "The auto bound (mean + 6 sigma, independence "
+                "approximation) is too tight for this corpus — raise "
+                "config.hs_tail_slots or set hs_tail_slots=0 to disable "
+                "compaction.",
+                stacklevel=2,
+            )
 
     def _setup_resident(self):
         """The device corpus when the resident path is active for this

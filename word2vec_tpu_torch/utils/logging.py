@@ -38,11 +38,16 @@ def progress_logger(stream: Optional[IO] = None) -> Callable[[Dict], None]:
             detail = " ".join(f"{k}={v}" for k, v in m.items() if k != "event")
             out.write(f"\n[{m['event']}] {detail}\n")
         else:
+            tail = ""
+            if "hs_tail_dropped" in m:
+                # the two-tier hs tail compaction's dropped slots (its
+                # records carry the key on that route only)
+                tail = f" hs_tail_dropped: {m['hs_tail_dropped']:.0f} "
             out.write(
                 f"\ralpha: {m.get('alpha', float('nan')):.6f}  "
                 f"progress: {100 * m.get('progress', 0):6.2f}%  "
                 f"loss: {m.get('loss', float('nan')):.4f}  "
-                f"{m.get('words_per_sec', 0.0):,.0f} words/sec "
+                f"{m.get('words_per_sec', 0.0):,.0f} words/sec {tail}"
             )
         out.flush()
 
