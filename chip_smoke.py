@@ -95,6 +95,35 @@ Phases (any failure exits non-zero and prints no result line):
      --resume from the mid-epoch file ≡ the uninterrupted run bitwise
      (state.npz and the binary vectors), exact launch counts. One
      hs_phase JSON line.
+  8. serve: the serving tier on the card. Two `python -m
+     word2vec_tpu_torch.serve` processes over phase 6's exported binary
+     vectors (V=71,000 x d=300, --coalesce-ms 2), started together. The
+     chaos one (--faults oom:times=1,stall@5:secs=0.2,hang@26:secs=60,
+     cache off): one query alone gets the injected oom's 503, the next 24
+     sequential queries are 200 and equal to the port's engine on the CPU
+     over the same file (the stall fires at batch 5), then a query wedges
+     batch 26 and the process gets two SIGTERMs; its exit, collected at
+     the end of the phase, must be 75 with flight.json reason preempted /
+     forced. The other (--metrics-dir and --trace): 2,000 queries (70%
+     neighbors k=10, 20% analogy k=5, 10% similarity; words drawn Zipf
+     with a fixed seed, 20% repeats) from 64 keep-alive connections, half
+     on the GET routes and half as POST /v1/query batches of 4: every
+     response 200, every word list equal to the CPU engine's and every
+     score and similarity within 1e-6; /stats and /metrics count 2,000
+     requests, no error, some cache hits; SIGTERM exits 0 with flight.json
+     and a schema-valid trace.json. In process: a real CUDA OOM (the
+     allocator's free cached blocks occupied, its limit set 16 MiB above
+     what it holds) fails a batch of 256 neighbor queries with 256 x 503
+     "allocation failure (device out of memory): CUDA out of memory...";
+     the limit restored, the same batch is 200 and right. Then a V=1,000,000
+     x d=300 f32 table made from a seed: 8,192 neighbor queries (k=10,
+     distinct words) from 128 clients on coalesce_ms 0, 2, 0, 2, with
+     queries/sec, ServeStats p50/p99, batch fill, the first batch_topk
+     call and the CUDA-event ms per batch_topk; no port kernel launched;
+     64 answers equal to a plain f64 top-k on the card; five batch_topk
+     calls of the measured fill under torch.profiler (device busy ms a
+     call, idle share, the largest device items, the bound). One
+     serve_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -103,6 +132,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1575,6 +1605,7 @@ def phase_cli(vocab, corpus, card, tmp):
     log(f"  toy corpus -size {D} on the card: {line[0]}")
     row["phase_s"] = time.perf_counter() - t_phase
     log(json.dumps({"cli_phase": row}))
+    return exported
 
 
 
@@ -1998,6 +2029,608 @@ def phase_hs(dev, vocab, corpus, card, tmp):
     return out
 
 
+# ------------------------------------------------------ phase 8: serving
+SERVE_QUERIES = 2000     # queries of the CLI server's mixed traffic
+SERVE_CONNS = 64         # its concurrent keep-alive connections
+SERVE_POST_BATCH = 4     # queries per POST /v1/query on half of them
+CHAOS_CLEAN = 24         # sequential requests after the injected oom
+CHAOS_HANG = CHAOS_CLEAN + 2   # the batch the hang fault wedges
+CHAOS_FAULTS = f"oom:times=1,stall@5:secs=0.2,hang@{CHAOS_HANG}:secs=60"
+TIMING_V = 1_000_000     # rows of the timing arm's table (d = D)
+TIMING_QUERIES = 8192
+TIMING_CLIENTS = 128
+TIMING_ARMS = (0.0, 2.0, 0.0, 2.0)   # coalesce_ms, interleaved twice
+SERVE_TOL = 1e-6
+
+
+async def http_call(reader, writer, method, path, body=None):
+    """One HTTP/1.1 request on a keep-alive connection -> (status, doc)."""
+    data = json.dumps(body).encode() if body is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+                 f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    await writer.drain()
+    head = await reader.readline()
+    if not head:
+        raise ConnectionError("the server closed the connection")
+    status, n = int(head.split()[1]), 0
+    while True:
+        line = await reader.readline()
+        if line in (b"\r\n", b"\n", b""):
+            break
+        key, _, val = line.decode("latin-1").partition(":")
+        if key.strip().lower() == "content-length":
+            n = int(val)
+    payload = await reader.readexactly(n)
+    try:
+        return status, json.loads(payload)
+    except ValueError:
+        return status, payload.decode()
+
+
+async def http_session(port, reqs):
+    """reqs [(method, path, body)] in order on one connection."""
+    import asyncio
+
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        return [await http_call(r, w, *q) for q in reqs]
+    finally:
+        w.close()
+
+
+def http_once(port, method, path, body=None):
+    import asyncio
+
+    return asyncio.run(http_session(port, [(method, path, body)]))[0]
+
+
+def query_path(q):
+    """A query dict as its GET route."""
+    import urllib.parse
+
+    args = {k: v for k, v in q.items() if k != "op"}
+    return f"/v1/{q['op']}?{urllib.parse.urlencode(args)}"
+
+
+def serve_mix(words, n, seed):
+    """n queries: 70% neighbors (k=10), 20% analogy (k=5), 10% similarity,
+    words drawn Zipf (p ~ 1/rank) from the vocabulary, 20% of them repeats
+    of earlier queries, shuffled."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, len(words) + 1)
+    n_new = n - n // 5
+    ids = rng.choice(len(words), size=(n_new, 3), p=p / p.sum())
+    kind = rng.random(n_new)
+    qs = []
+    for (a, b, c), u in zip(ids, kind):
+        if u < 0.7:
+            qs.append({"op": "neighbors", "word": words[a], "k": 10})
+        elif u < 0.9:
+            qs.append({"op": "analogy", "a": words[a], "b": words[b],
+                       "c": words[c], "k": 5})
+        else:
+            qs.append({"op": "similarity", "w1": words[a], "w2": words[b]})
+    qs += [dict(qs[i]) for i in rng.choice(n_new, n - n_new)]
+    return [qs[i] for i in rng.permutation(n)]
+
+
+def expected_answers(eng, qs):
+    """{query key: the CPU engine's answer} for every distinct query."""
+    keys = {json.dumps(q, sort_keys=True): q for q in qs}
+    out = {}
+    for op, k in (("neighbors", 10), ("analogy", 5)):
+        todo = [(key, q) for key, q in keys.items() if q["op"] == op]
+        if op == "neighbors":
+            res = eng.neighbors_batch([q["word"] for _, q in todo], k=k)
+        else:
+            res = eng.analogy_batch([(q["a"], q["b"], q["c"]) for _, q in todo],
+                                    k=k)
+        out.update({key: r for (key, _), r in zip(todo, res)})
+    sims = [(key, q) for key, q in keys.items() if q["op"] == "similarity"]
+    for (key, _), s in zip(sims, eng.similarity_batch(
+            [(q["w1"], q["w2"]) for _, q in sims])):
+        out[key] = s
+    return out
+
+
+def check_answer(what, q, status, doc, want):
+    """One query's response against the CPU engine's answer."""
+    if status != 200:
+        fail(f"{what}: {q} -> {status} {doc}")
+    if q["op"] == "similarity":
+        if abs(doc["similarity"] - want) > SERVE_TOL:
+            fail(f"{what}: {q} similarity {doc['similarity']} != {want}")
+        return
+    got = doc["neighbors"]
+    if [w for w, _ in got] != [w for w, _ in want]:
+        fail(f"{what}: {q} -> {[w for w, _ in got]} != {[w for w, _ in want]}")
+    err = max((abs(s - t) for (_, s), (_, t) in zip(got, want)), default=0.0)
+    if err > SERVE_TOL:
+        fail(f"{what}: {q} scores differ by {err}")
+
+
+def start_server(args, tmp, name):
+    """`python -m word2vec_tpu_torch.serve` on the card; stderr goes to a
+    file."""
+    err = open(os.path.join(tmp, f"{name}.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "word2vec_tpu_torch.serve", *args],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    proc.err_path = os.path.join(tmp, f"{name}.err")
+    proc.t_start = time.perf_counter()
+    return proc
+
+
+def await_ready(procs, timeout=180.0):
+    """Read each server's ready line as it comes: proc.ready (the JSON
+    line) and proc.ready_s (seconds from launch)."""
+    import select
+
+    pending = {p.stdout: p for p in procs}
+    deadline = time.perf_counter() + timeout
+    while pending:
+        got, _, _ = select.select(list(pending), [], [],
+                                  max(0.0, deadline - time.perf_counter()))
+        if not got:
+            fail("a serve CLI did not print its ready line in "
+                 f"{timeout:.0f} s: {open(next(iter(pending.values())).err_path).read()}")
+        for f in got:
+            p = pending.pop(f)
+            line = f.readline()
+            if not line:
+                fail(f"a serve CLI exited before serving: {open(p.err_path).read()}")
+            p.ready, p.ready_s = json.loads(line), time.perf_counter() - p.t_start
+
+
+def phase_serve_cli(proc, cpu_eng, words, mdir, card):
+    """Part 1: mixed traffic on the CLI server, every answer held against
+    the CPU engine, the counters, then SIGTERM -> 0 with its dumps."""
+    import asyncio
+
+    from word2vec_tpu_torch.obs.trace import load_trace, validate_trace_doc
+
+    ready, start_s = proc.ready, proc.ready_s
+    port = ready["port"]
+    if (ready["event"], ready["vocab"], ready["dim"],
+            ready["table_dtype"]) != ("serving", V, D, "float32"):
+        fail(f"serve CLI ready line {ready}")
+    qs = serve_mix(words, SERVE_QUERIES, seed=8)
+    t0 = time.perf_counter()
+    want = expected_answers(cpu_eng, qs)
+    cpu_s = time.perf_counter() - t0
+    # the first query alone (the cold process's first batch), then the rest
+    t0 = time.perf_counter()
+    first = http_once(port, "GET", query_path(qs[0]))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check_answer("serve cli", qs[0], *first, want[json.dumps(qs[0], sort_keys=True)])
+    rest = qs[1:]
+    sessions, asked = [], []   # per connection: requests, their queries
+    for c in range(SERVE_CONNS):
+        mine = rest[c::SERVE_CONNS]
+        if c % 2 == 0:      # GET routes, one query a request
+            sessions.append([("GET", query_path(q), None) for q in mine])
+            asked.append([[q] for q in mine])
+        else:               # POST /v1/query batches
+            groups = [mine[i:i + SERVE_POST_BATCH]
+                      for i in range(0, len(mine), SERVE_POST_BATCH)]
+            sessions.append([("POST", "/v1/query", {"queries": g})
+                             for g in groups])
+            asked.append(groups)
+
+    async def drive():
+        return await asyncio.gather(*(http_session(port, s) for s in sessions))
+
+    t0 = time.perf_counter()
+    replies = asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    checked = 1
+    for groups, rep in zip(asked, replies, strict=True):
+        for group, (status, doc) in zip(groups, rep, strict=True):
+            if status != 200:
+                fail(f"serve cli: {group} -> {status} {doc}")
+            results = doc["results"] if "results" in doc else [
+                dict(doc, status=status)]
+            for q, res in zip(group, results, strict=True):
+                check_answer("serve cli", q, res["status"], res,
+                             want[json.dumps(q, sort_keys=True)])
+                checked += 1
+    if checked != SERVE_QUERIES:
+        fail(f"serve cli: {checked} answers checked of {SERVE_QUERIES}")
+    _, stats = http_once(port, "GET", "/stats")
+    _, prom = http_once(port, "GET", "/metrics")
+    gauges = {}
+    for line in prom.splitlines():
+        if line and not line.startswith("#"):
+            name, _, val = line.rpartition(" ")
+            gauges[name] = float(val)
+    if (stats["serve_requests_total"] != SERVE_QUERIES
+            or gauges.get("w2v_serve_requests_total") != SERVE_QUERIES
+            or stats["serve_errors_total"] or stats["serve_shed_429_total"]
+            or not stats["serve_cache_hits"]):
+        fail(f"serve cli counters: /stats {stats}, /metrics requests "
+             f"{gauges.get('w2v_serve_requests_total')}")
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=60)
+    if rc != 0:
+        fail(f"serve cli: SIGTERM drain exited {rc}: {open(proc.err_path).read()}")
+    fl = json.load(open(os.path.join(mdir, "flight.json")))
+    if (fl["reason"], fl["exit_code"]) != ("drained", 0):
+        fail(f"serve cli flight.json: {fl['reason']} {fl['exit_code']}")
+    counts = validate_trace_doc(load_trace(os.path.join(mdir, "trace.json")))
+    row = {
+        "start_s": start_s, "queries": SERVE_QUERIES, "connections": SERVE_CONNS,
+        "wall_s": wall, "queries_per_s": (SERVE_QUERIES - 1) / wall,
+        "first_query_ms": first_ms, "cpu_reference_s": cpu_s,
+        "p50_ms": stats["serve_p50_ms"], "p99_ms": stats["serve_p99_ms"],
+        "batch_fill_mean": stats["serve_batch_fill_mean"],
+        "batches": stats["serve_batches_total"],
+        "cache_hit_rate": stats["serve_cache_hit_rate"],
+        "trace_events": counts, "exit_code": rc,
+    }
+    log(f"  serve cli (V={V}, d={D}, the phase-6 export, coalesce 2 ms): ready in "
+        f"{start_s:.1f} s; {SERVE_QUERIES} queries (70/20/10 neighbors/analogy/"
+        f"similarity, Zipf words, 20% repeats) on {SERVE_CONNS} connections in "
+        f"{wall:.2f} s = {row['queries_per_s']:.0f} q/s, all 200 and = the CPU "
+        f"engine; p50 {row['p50_ms']:.3f} ms p99 {row['p99_ms']:.3f} ms, fill "
+        f"{row['batch_fill_mean']:.2f}, cache hits {row['cache_hit_rate']:.3f}; "
+        f"first query {first_ms:.1f} ms; SIGTERM -> 0, flight.json + trace.json "
+        f"({card})")
+    return row
+
+
+def phase_serve_chaos(proc, cpu_eng, words):
+    """Part 2, until the hang: the injected oom fails the first batch 503,
+    the next CHAOS_CLEAN requests are 200 and right (the stall fires at
+    batch 5), then a request wedges batch CHAOS_HANG and the server gets
+    two SIGTERMs. Returns the hung request's thread (the forced exit is
+    collected at the end of the phase)."""
+    import asyncio
+    import threading
+
+    port = proc.ready["port"]
+    qs = serve_mix(words, CHAOS_CLEAN + 2, seed=9)
+    want = expected_answers(cpu_eng, qs)
+    key = lambda q: json.dumps(q, sort_keys=True)  # noqa: E731
+    st, doc = http_once(port, "GET", query_path(qs[0]))
+    oom_msg = doc.get("error", "")
+    if st != 503 or not oom_msg.startswith(
+            "allocation failure (device out of memory): injected fault"):
+        fail(f"serve chaos: the injected oom gave {st} {doc}")
+    lat = []
+    for q in [qs[0]] + qs[1:CHAOS_CLEAN]:
+        t0 = time.perf_counter()
+        st, doc = http_once(port, "GET", query_path(q))
+        lat.append(time.perf_counter() - t0)
+        check_answer("serve chaos", q, st, doc, want[key(q)])
+    if lat[3] < 0.2:       # batch 5 carries the stall
+        fail(f"serve chaos: the stall@5 did not fire ({lat[3]:.3f} s)")
+    st, h = http_once(port, "GET", "/healthz")
+    _, stats = http_once(port, "GET", "/stats")
+    if st != 200 or stats["serve_batches_total"] != CHAOS_CLEAN + 1:
+        fail(f"serve chaos: healthz {st}, batches {stats['serve_batches_total']}")
+    hung = {}
+
+    def wedge():
+        try:
+            hung["reply"] = http_once(port, "GET", query_path(qs[-1]))
+        except (ConnectionError, asyncio.IncompleteReadError) as e:
+            hung["error"] = repr(e)
+
+    t = threading.Thread(target=wedge, daemon=True)
+    t.start()
+    time.sleep(0.5)
+    proc.send_signal(signal.SIGTERM)
+    time.sleep(0.5)
+    if proc.poll() is not None:
+        fail(f"serve chaos: exited {proc.returncode} on the first SIGTERM "
+             "with a batch wedged")
+    proc.send_signal(signal.SIGTERM)
+    t_forced = time.perf_counter()
+
+    def reap():             # the exit's time, while the phase goes on
+        proc.wait()
+        proc.exit_after_forced_s = time.perf_counter() - t_forced
+
+    proc.reaper = threading.Thread(target=reap, daemon=True)
+    proc.reaper.start()
+    log(f"  serve chaos ({CHAOS_FAULTS}): the injected oom -> 503 "
+        f"'{oom_msg}', then {CHAOS_CLEAN} requests 200 and right (the stall "
+        f"at batch 5: {lat[3] * 1e3:.0f} ms), batch {CHAOS_HANG} wedged, two "
+        f"SIGTERMs sent")
+    return t, hung
+
+
+def finish_serve_chaos(proc, thread, hung, mdir):
+    """Part 2's end: the forced exit is 75 with a flight dump."""
+    proc.reaper.join(timeout=120)
+    if proc.reaper.is_alive():
+        proc.kill()
+        fail("serve chaos: no exit within 120 s of the second SIGTERM")
+    rc, exit_s = proc.returncode, proc.exit_after_forced_s
+    thread.join(timeout=30)
+    if rc != 75:
+        fail(f"serve chaos: forced exit {rc} != 75: {open(proc.err_path).read()}")
+    fl = json.load(open(os.path.join(mdir, "flight.json")))
+    if (fl["reason"], fl["exit_code"], fl["exit_reason"]) != (
+            "preempted", 75, "forced"):
+        fail(f"serve chaos flight.json: {fl['reason']} {fl['exit_code']} "
+             f"{fl['exit_reason']}")
+    if "reply" in hung and hung["reply"][0] == 200:
+        fail("serve chaos: the wedged batch answered")
+    return {"exit_code": rc, "exit_after_forced_s": exit_s,
+            "flight_reason": fl["reason"], "exit_reason": fl["exit_reason"],
+            "stats": {k: fl["stats"][k] for k in (
+                "serve_requests_total", "serve_errors_total",
+                "serve_batches_total")}}
+
+
+def fill_cached_blocks():
+    """Tensors occupying every free block of 1 MiB or more that the caching
+    allocator holds, largest first, so that an allocation that follows
+    needs new device memory."""
+    free = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                   for b in seg["blocks"]
+                   if b["state"] == "inactive" and b["size"] >= 1 << 20),
+                  reverse=True)
+    return [torch.empty(n, dtype=torch.uint8, device="cuda") for n in free]
+
+
+def phase_serve_oom(M, vocab, cpu_eng):
+    """Part 3: a real CUDA allocation failure inside the batch -> 503 for
+    every query of that batch; the next batch -> 200 and right."""
+    import asyncio
+
+    from word2vec_tpu_torch.serve.query import QueryEngine
+    from word2vec_tpu_torch.serve.server import EmbeddingServer, ServeConfig
+
+    eng = QueryEngine(M, vocab)
+    rng = np.random.default_rng(10)
+    qs = [{"op": "neighbors", "word": vocab.words[i], "k": 10}
+          for i in rng.choice(V, 256, replace=False)]
+    want = expected_answers(cpu_eng, qs)
+
+    async def drive():
+        srv = EmbeddingServer(eng, ServeConfig(coalesce_ms=2.0, cache_size=0))
+        await srv.start()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = fill_cached_blocks()
+            limit = torch.cuda.memory_reserved() + (16 << 20)
+            total = torch.cuda.get_device_properties(0).total_memory
+            torch.cuda.set_per_process_memory_fraction(limit / total)
+            try:
+                oom = await http_session(
+                    srv.port, [("POST", "/v1/query", {"queries": qs})])
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+                del held
+            ok = await http_session(
+                srv.port, [("POST", "/v1/query", {"queries": qs})])
+            return oom[0], ok[0], limit, srv.stats.snapshot()
+        finally:
+            srv.begin_drain()
+            if await srv.run() != 0:
+                fail("serve oom: the in-process server did not drain to 0")
+
+    (st1, doc1), (st2, doc2), limit, stats = asyncio.run(drive())
+    msgs = {r["error"].split(".")[0] for r in doc1["results"]
+            if r["status"] == 503}
+    if st1 != 200 or len(doc1["results"]) != 256 or any(
+            r["status"] != 503 for r in doc1["results"]) or msgs != {
+            "allocation failure (device out of memory): CUDA out of memory"}:
+        fail(f"serve oom: a real CUDA OOM gave {st1} "
+             f"{[r['status'] for r in doc1['results']]} {msgs}")
+    for q, res in zip(qs, doc2["results"], strict=True):
+        check_answer("serve oom recovery", q, res["status"], res,
+                     want[json.dumps(q, sort_keys=True)])
+    log(f"  serve real CUDA OOM: allocator limit {limit / 2**20:.0f} MiB (16 MiB "
+        f"above what this process holds, its free cached blocks occupied), a "
+        f"batch of 256 neighbor queries -> 256 x "
+        f"503 '{sorted(msgs)[0]}'; limit restored, the same batch -> 256 x 200 "
+        f"and right ({stats['serve_batches_total']} batches)")
+    return {"limit_mib": limit / 2**20, "oom_503": 256, "recovered_200": 256}
+
+
+class TimedTopk:
+    """Wraps QueryEngine.batch_topk: per call the host ms, the batch rows,
+    and a CUDA-event pair around the call on the thread's current stream."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, ids, weights, k):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = self.fn(ids, weights, k)
+        b.record()
+        self.calls.append((time.perf_counter() - t0, len(ids), a, b))
+        return out
+
+    def summary(self):
+        torch.cuda.synchronize()
+        host = [c[0] * 1e3 for c in self.calls]
+        dev = [c[2].elapsed_time(c[3]) for c in self.calls]
+        rows = [c[1] for c in self.calls]
+        return {"calls": len(self.calls), "first_host_ms": host[0],
+                "first_device_ms": dev[0],
+                "device_ms_median": float(np.median(dev)),
+                "device_ms_mean": float(np.mean(dev)),
+                "host_ms_median": float(np.median(host)),
+                "rows_mean": float(np.mean(rows))}
+
+
+def phase_serve_timing(card):
+    """Part 4: an in-process server on a V=1,000,000 x d=300 f32 table, 8,192
+    neighbor queries (k=10, distinct words) from 128 clients, coalesce_ms 0
+    and 2 interleaved twice; a sample of the answers against a plain f64
+    top-k on the card."""
+    import asyncio
+
+    from word2vec_tpu_torch.data.vocab import Vocab
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+    from word2vec_tpu_torch.serve.query import QueryEngine
+    from word2vec_tpu_torch.serve.server import EmbeddingServer, ServeConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    W = rng.standard_normal((TIMING_V, D), dtype=np.float32)
+    words = [f"w{i}" for i in range(TIMING_V)]
+    eng = QueryEngine(W, Vocab(words, np.ones(TIMING_V, np.int64)))
+    del W
+    build_s = time.perf_counter() - t0
+    qids = rng.choice(TIMING_V, TIMING_QUERIES, replace=False)
+    paths = [f"/v1/neighbors?word=w{i}&k=10" for i in qids]
+    per = TIMING_QUERIES // TIMING_CLIENTS
+    real = eng.batch_topk
+
+    async def arm(coalesce_ms):
+        srv = EmbeddingServer(eng, ServeConfig(coalesce_ms=coalesce_ms))
+        await srv.start()
+        try:
+            t = time.perf_counter()
+            rep = await asyncio.gather(*(
+                http_session(srv.port, [("GET", p, None)
+                                        for p in paths[c * per:(c + 1) * per]])
+                for c in range(TIMING_CLIENTS)))
+            wall = time.perf_counter() - t
+            return rep, wall, srv.stats.snapshot(srv.cache)
+        finally:
+            srv.begin_drain()
+            if await srv.run() != 0:
+                fail("serve timing: the in-process server did not drain to 0")
+
+    arms = []
+    reset_launch_counts()
+    for coalesce_ms in TIMING_ARMS:
+        eng.batch_topk = TimedTopk(real)
+        rep, wall, stats = asyncio.run(arm(coalesce_ms))
+        flat = [r for sess in rep for r in sess]
+        bad = [s for s, _ in flat if s != 200]
+        if bad or stats["serve_errors_total"] or len(flat) != TIMING_QUERIES:
+            fail(f"serve timing: {len(bad)} non-200 answers, {stats}")
+        row = {"coalesce_ms": coalesce_ms, "wall_s": wall,
+               "queries_per_s": TIMING_QUERIES / wall,
+               "p50_ms": stats["serve_p50_ms"], "p99_ms": stats["serve_p99_ms"],
+               "batch_fill_mean": stats["serve_batch_fill_mean"],
+               "batches": stats["serve_batches_total"],
+               "batch_topk": eng.batch_topk.summary()}
+        arms.append(row)
+        log(f"  serve timing V={TIMING_V} d={D} coalesce {coalesce_ms} ms: "
+            f"{TIMING_QUERIES} queries / {TIMING_CLIENTS} clients in {wall:.2f} s "
+            f"= {row['queries_per_s']:.0f} q/s; p50 {row['p50_ms']:.2f} ms p99 "
+            f"{row['p99_ms']:.2f} ms; fill {row['batch_fill_mean']:.1f} over "
+            f"{row['batches']} batches; batch_topk device "
+            f"{row['batch_topk']['device_ms_median']:.3f} ms median (CUDA "
+            f"events), first call {row['batch_topk']['first_host_ms']:.1f} ms "
+            f"host ({card})")
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    if launched:
+        fail(f"serve timing: the serving path launched port kernels {launched}")
+    eng.batch_topk = real
+    prof = profile_topk(eng, qids, round(arms[-1]["batch_topk"]["rows_mean"]))
+    log(f"  serve timing: batch_topk of {prof['rows']} rows under torch.profiler: "
+        f"{prof['wall_ms']:.3f} ms a call, device busy {prof['busy_ms']:.3f} ms "
+        f"(idle {100 * prof['idle_share']:.1f}%), bound {prof['bound_ms']:.4f} ms "
+        f"({prof['bound_by']}); top: "
+        + ", ".join(f"{n[:40]} {ms:.3f}" for n, ms in prof["top"]) + f" ({card})")
+    # a sample of the last arm's answers against a plain f64 top-k
+    sample = np.arange(0, TIMING_QUERIES, TIMING_QUERIES // 64)
+    t = eng.table.double()
+    rows = torch.as_tensor(qids[sample], device=t.device)
+    qs = t[rows]
+    sc = qs @ t.T
+    sc[torch.arange(len(sample), device=t.device), rows] = -float("inf")
+    ref_v, ref_i = sc.float().topk(10, dim=1)
+    ref_v, ref_i = ref_v.cpu().numpy(), ref_i.cpu().numpy()
+    for n, s in enumerate(sample):
+        st, doc = flat[s]
+        got = doc["neighbors"]
+        if [w for w, _ in got] != [f"w{i}" for i in ref_i[n]] or max(
+                abs(x - y) for (_, x), y in zip(got, ref_v[n])) > SERVE_TOL:
+            fail(f"serve timing: {paths[s]} -> {got[:3]}... != plain f64 top-k")
+    del t, qs, sc, eng
+    torch.cuda.empty_cache()
+    return {"V": TIMING_V, "d": D, "table_bytes": TIMING_V * D * 4,
+            "queries": TIMING_QUERIES, "clients": TIMING_CLIENTS,
+            "build_s": build_s, "arms": arms, "batch_topk_profile": prof}
+
+
+def profile_topk(eng, qids, rows, calls=5):
+    """batch_topk of `rows` neighbor queries (k=10) under torch.profiler:
+    wall and device-busy ms a call, the idle share, the largest device
+    items, and the bound of the function it computes: each f32 table
+    byte read once, 2·rows·d·V f32 operations."""
+    from word2vec_tpu_torch.profile_step import _busy_us
+
+    ids = np.repeat(qids[:rows, None], 3, axis=1).astype(np.int32)
+    w = np.tile(np.float32([[1.0, 0.0, 0.0]]), (rows, 1))
+    eng.batch_topk(ids, w, 10)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            eng.batch_topk(ids, w, 10)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / calls
+    busy = _busy_us(dev)
+    V_, d_ = eng.table.shape
+    bound, by = bound_ms(V_ * d_ * 4 + rows * 10 * 8, 2.0 * rows * d_ * V_,
+                         PEAK_FLOPS[torch.float32])
+    return {"rows": rows, "calls": calls, "wall_ms": window_us / 1e3 / calls,
+            "busy_ms": busy / 1e3 / calls, "idle_share": 1.0 - busy / window_us,
+            "bound_ms": bound, "bound_by": by,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def phase_serve(exported, card, tmp):
+    """Phase 8 of the module docstring: the serving tier on the card."""
+    from word2vec_tpu_torch.data.vocab import Vocab
+    from word2vec_tpu_torch.io.embeddings import load_embeddings_binary
+    from word2vec_tpu_torch.serve.query import QueryEngine
+
+    t_phase = time.perf_counter()
+    cli_dir, chaos_dir = (os.path.join(tmp, n) for n in ("serve_cli", "serve_chaos"))
+    common = ["--vectors", exported, "--format", "binary", "--port", "0",
+              "--coalesce-ms", "2"]
+    procs = [start_server(common + ["--metrics-dir", cli_dir, "--trace", cli_dir],
+                          tmp, "serve_cli"),
+             start_server(common + ["--metrics-dir", chaos_dir, "--cache-size", "0",
+                                    "--faults", CHAOS_FAULTS], tmp, "serve_chaos")]
+    try:
+        words, M = load_embeddings_binary(exported)
+        vocab = Vocab(words, np.ones(len(words), np.int64))
+        cpu_eng = QueryEngine(M, vocab, device="cpu")
+        await_ready(procs)
+        thread, hung = phase_serve_chaos(procs[1], cpu_eng, words)
+        row = {"card": card, "cli": phase_serve_cli(procs[0], cpu_eng, words,
+                                                    cli_dir, card)}
+        row["real_oom"] = phase_serve_oom(M, vocab, cpu_eng)
+        row["timing"] = phase_serve_timing(card)
+        row["chaos"] = finish_serve_chaos(procs[1], thread, hung, chaos_dir)
+        log(f"  serve chaos: forced exit 75 {row['chaos']['exit_after_forced_s']:.1f} s "
+            f"after the second SIGTERM (the wedged batch thread is joined at exit), "
+            f"flight.json reason preempted / forced")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"serve_phase": row}))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2065,14 +2698,17 @@ def main() -> int:
     log(f"[6 cli] (at {time.perf_counter() - t0:.1f} s)")
     with tempfile.TemporaryDirectory(
         prefix="smoke_cli_", dir=os.path.join(HERE, "build")
-    ) as tmp:
-        phase_cli(vocab, corpus, card, tmp)
+    ) as tmp_cli:
+        exported = phase_cli(vocab, corpus, card, tmp_cli)
 
-    log(f"[7 hs and pair] (at {time.perf_counter() - t0:.1f} s)")
-    with tempfile.TemporaryDirectory(
-        prefix="smoke_hs_", dir=os.path.join(HERE, "build")
-    ) as tmp:
-        phase_hs(dev, vocab, corpus, card, tmp)
+        log(f"[7 hs and pair] (at {time.perf_counter() - t0:.1f} s)")
+        with tempfile.TemporaryDirectory(
+            prefix="smoke_hs_", dir=os.path.join(HERE, "build")
+        ) as tmp:
+            phase_hs(dev, vocab, corpus, card, tmp)
+
+        log(f"[8 serve] (at {time.perf_counter() - t0:.1f} s)")
+        phase_serve(exported, card, tmp_cli)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -273,15 +273,30 @@ def test_stochastic_rounding_cast_matches_jax():
 
 
 # ------------------------------------------------------------ isolation
+#: the serving tier's modules, which the walk below must reach
+SERVE_TIER = (
+    "serve.server", "serve.metrics", "serve.__main__", "obs.trace",
+    "obs.flight", "obs.export", "obs.signals", "obs.quality",
+    "resilience.faults", "resilience.watchdog", "resilience.shutdown",
+)
+
+
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax blocked, and no module of
-    the JAX package is loaded."""
+    """Every module of the port (the serving tier's among them) imports
+    with jax and the JAX package blocked, and no module of either is
+    loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['word2vec_tpu'] = None\n"
         "import word2vec_tpu_torch as p\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, 'word2vec_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        f"missing = [m for m in {SERVE_TIER!r}\n"
+        "           if 'word2vec_tpu_torch.' + m not in names]\n"
+        "assert not missing, missing\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m in ('jax', 'word2vec_tpu') or m.startswith('jax.')\n"
         "        or m.startswith('word2vec_tpu.'))]\n"
@@ -304,6 +319,9 @@ def test_port_sources_name_no_jax():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "word2vec_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for m in SERVE_TIER:
+        assert os.path.join(REPO, "word2vec_tpu_torch",
+                            *m.split(".")) + ".py" in files, m
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f

@@ -2,8 +2,9 @@
 
 A copy of word2vec_tpu/resilience/shutdown.py for the PyTorch port, for
 one process: the multi-process agreement of make_stop_check (which rides
-on parallel/multihost.py) and the SIGUSR1/SIGUSR2 diagnostic dumps (which
-ride on obs/) are not ported.
+on parallel/multihost.py) and the SIGUSR2 device dump (which rides on
+obs/devmem and obs/profiler) are not ported; the SIGUSR1 flight dump
+(install_usr1_dump) is.
 
 Preemptible fleets deliver SIGTERM with a short grace window before the
 hard kill. Dying mid-step wastes every step since the last checkpoint and,
@@ -25,6 +26,7 @@ checkpoint. The protocol here:
 
 from __future__ import annotations
 
+import os
 import signal
 import warnings
 from typing import Callable, List, Optional
@@ -100,3 +102,46 @@ class ShutdownHandler:
         every boundary (one process; the agreement across processes comes
         with the multi-GPU slice)."""
         return lambda step: self.requested
+
+
+def install_usr1_dump(metrics_dir: str, flight=None) -> Callable[[], None]:
+    """On-demand diagnostics WITHOUT stopping the run: SIGUSR1 dumps the
+    flight recorder (`flight_usr1.json`) and an all-thread stack dump
+    (`stacks_usr1.txt`) into `metrics_dir`, then returns to the interrupted
+    code (resilience/watchdog.dump_all_stacks: signal-safe formatting).
+
+    `flight` defaults to the process-wide active recorder
+    (obs/flight.activate). Returns an uninstall callable; a no-op on
+    platforms without SIGUSR1 or off the main thread (Python's signal
+    rule), mirroring ShutdownHandler.install's degrade.
+    """
+    usr1 = getattr(signal, "SIGUSR1", None)
+    if usr1 is None:
+        return lambda: None
+
+    def _handle(signum, frame) -> None:
+        try:
+            from ..obs import flight as flight_mod
+            from .watchdog import dump_all_stacks
+
+            os.makedirs(metrics_dir, exist_ok=True)
+            dump_all_stacks(os.path.join(metrics_dir, "stacks_usr1.txt"))
+            fl = flight if flight is not None else flight_mod.active()
+            if fl is not None:
+                fl.dump(metrics_dir, reason="sigusr1",
+                        filename="flight_usr1.json")
+        except Exception:  # noqa: BLE001 — an on-demand dump must never
+            pass           # kill the run it observes
+
+    try:
+        prev = signal.signal(usr1, _handle)
+    except ValueError:  # not the main thread
+        return lambda: None
+
+    def uninstall() -> None:
+        try:
+            signal.signal(usr1, prev)
+        except (ValueError, OSError):
+            pass
+
+    return uninstall
