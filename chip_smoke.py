@@ -124,6 +124,34 @@ Phases (any failure exits non-zero and prints no result line):
      calls of the measured fill under torch.profiler (device busy ms a
      call, idle share, the largest device items, the bound). One
      serve_phase JSON line.
+  9. telemetry: the trainer's telemetry through the CLI, in process on
+     the card, at flagship width on pallas_fused/unified (chunk_steps 6)
+     over the first 18 steps of phase 5's corpus, two epochs (36 steps).
+     Four timing runs interleaved (A B A B): A with every telemetry flag
+     (--metrics-dir --trace --prom-textfile --health-metrics 1
+     --quality-probe-every 12 --slo --signal-window 6 --emit-device
+     --log-jsonl), B with none; words/sec of each. In every run the port
+     kernels' launch counts equal expected_launches of 37 steps (the
+     capture's warm-up included) and the graph replays 36; a fifth run
+     with the telemetry on but the probe off makes as many synchronizing
+     torch calls (torch.cuda.set_sync_debug_mode) as the off run. A's
+     files: manifest.json with TEL_MANIFEST_KEYS and shutdown clean,
+     trace.json valid with one chunk parent per dispatch (36 steps), the
+     prom file's w2v_* names, the health fields in every step record, the
+     probe rows at steps 12, 24, 36, `device: gpu NVIDIA H100...` on
+     stderr. Then one graphed health step against the same step run
+     eagerly from the same draws, its counters against full-table
+     float64 sums (1e-5 relative; non-finite cells exact, one planted inf
+     counted as 1) and the step's device ms with health on and off (CUDA
+     events around a replay); the probe's host copy and scoring ms on the
+     flagship tables; and the exits, each with flight.json and the
+     manifest's shutdown: a QualityAlert (--quality-budget 1
+     --quality-floor 0.99 --quality-grace 0 and a --probe-pairs file: the
+     Zipf vocabulary carries no planted golds) rc 3, a divergence
+     (--resume from a checkpoint written by the port's saver with NaN in
+     row 0 of emb_in and divergence_budget 2 in its config) rc 2 with
+     nonfinite_params > 0 in the dump, a preemption (a patched stop check)
+     rc 75. One telemetry_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2631,6 +2659,356 @@ def phase_serve(exported, card, tmp):
     return row
 
 
+# ------------------------------------------------- phase 9: telemetry
+TEL_SPE = 18          # steps per epoch of the telemetry corpus
+TEL_ITERS = 2         # epochs: 36 steps
+TEL_CHUNK = 6
+TEL_PROBE = 12        # probe cadence: rows at steps 12, 24, 36
+TEL_WINDOW = 6
+TEL_SLO = "throughput_wps<0.5*baseline:for=3"
+#: the keys of the port CLI's manifest.json after a clean run with --slo:
+#: the JAX CLI's, less those of layers the port does not have yet (pinned
+#: against the JAX CLI by tests/test_torch_telemetry_cli.py)
+TEL_MANIFEST_KEYS = (
+    "argv", "band_backend", "config", "corpus_mode", "corpus_rows",
+    "corpus_tokens", "created_utc", "device", "final_step", "fleet_health",
+    "git_sha", "kernel", "kernel_decision", "mesh_size", "plan",
+    "plan_source", "recoveries", "resumed_from", "schema", "shutdown",
+    "slo", "versions", "vocab_size",
+)
+TEL_PROM = ("w2v_loss", "w2v_grad_norm", "w2v_nonfinite_params",
+            "w2v_update_norm_emb_in", "w2v_update_norm_emb_out_ns",
+            "w2v_alpha_device", "w2v_quality_probes_total",
+            "w2v_signal_throughput_wps", "w2v_slo_breaches_total",
+            "w2v_step_time_seconds_bucket", "w2v_fleet_throughput_wps")
+TEL_HEALTH = ("grad_norm", "update_norm_emb_in", "update_norm_emb_out_ns",
+              "nonfinite_params", "alpha_device")
+
+
+def tel_cli(argv, stop_at=None):
+    """cli.main(argv) in process with the launch counts set to 0 just
+    before it and read just after, the graph replays counted, the
+    synchronizing torch calls counted (torch.cuda.set_sync_debug_mode) and
+    stderr captured; stop_at patches the cooperative stop to fire at that
+    step (a preemption). Returns (rc, counts, replays, syncs, stderr)."""
+    import contextlib
+    import io
+    import warnings
+
+    from word2vec_tpu_torch import cli
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+    from word2vec_tpu_torch.resilience import shutdown
+
+    replays = [0]
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        replays[0] += 1
+        return replay(self)
+
+    make_stop = shutdown.ShutdownHandler.make_stop_check
+    torch.cuda.CUDAGraph.replay = counted
+    if stop_at is not None:
+        shutdown.ShutdownHandler.make_stop_check = (
+            lambda self: lambda step: step >= stop_at)
+    err = io.StringIO()
+    try:
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.redirect_stderr(err):
+            warnings.simplefilter("always")
+            rc = cli.main(argv)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.CUDAGraph.replay = replay
+        shutdown.ShutdownHandler.make_stop_check = make_stop
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return rc, dict(LAUNCHES), replays[0], syncs, err.getvalue()
+
+
+def tel_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def tel_counter_check(dev, vocab, corpus):
+    """One flagship step with health_metrics on, graphed, against the same
+    step run eagerly from the same draws on a copy of the tables, whose
+    counters are computed here from full-table snapshots in float64; then
+    the graph once more with an inf planted in a cell the step does not
+    touch (the non-finite count must be exactly 1). Returns the comparison
+    row and the graphs' device ms a step with health on and off."""
+    from word2vec_tpu_torch.device import seed_step
+    from word2vec_tpu_torch.models.params import FUSED_KEY, init_params
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+    from word2vec_tpu_torch.ops.train_step import make_chunk_runner
+
+    cfg = flagship_cfg("pallas_fused", "unified", health_metrics=True)
+    tables = DeviceTables.build(vocab, cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    p0 = init_params(cfg, len(vocab), gen)
+    p0[FUSED_KEY][:, 1].normal_(0.0, 0.01, generator=gen)  # both planes move
+    tokens = corpus_batch(dev, corpus)
+    seed, step, alpha = 7, 3, 0.025
+    runner = make_chunk_runner(cfg, tables, graphed=True)
+    base = runner.step.base
+    ref = {k: v.clone() for k, v in p0.items()}
+    seed_step(gen, seed, step)
+    draws = base.draw(gen, tokens)
+    old = ref[FUSED_KEY].clone()
+    base.apply(ref, tokens, draws, torch.tensor(alpha, device=dev))
+    want = {}
+    for i, sub in enumerate(("emb_in", "emb_out_ns")):
+        d = ref[FUSED_KEY][:, i].double() - old[:, i].double()
+        want["update_sq_" + sub] = float((d * d).sum())
+    want["grad_sq"] = want["update_sq_emb_in"] + want["update_sq_emb_out_ns"]
+    want["nonfinite_params"] = float((~torch.isfinite(ref[FUSED_KEY])).sum())
+    work = {k: v.clone() for k, v in p0.items()}
+    m = runner(work, tokens[None], seed, step, np.float32([alpha]))
+    got = {k: float(m[k][0]) for k in want}
+    if not same_params(work, ref):
+        fail("telemetry: the graphed health step's tables differ from the "
+             "eager step's (bitwise)")
+    # the same graph again on the start tables with one cell no step of
+    # these draws touches set to inf: the whole table is counted
+    touched = torch.zeros(V, dtype=torch.bool, device=dev)
+    ids = torch.cat([tokens.reshape(-1), draws.negs.reshape(-1)]).long()
+    touched[ids[ids >= 0]] = True
+    free = int((~touched).nonzero().max())
+    work[FUSED_KEY].copy_(p0[FUSED_KEY])
+    work[FUSED_KEY][free, 1, 7] = float("inf")
+    m = runner(work, tokens[None], seed, step, np.float32([alpha]))
+    got_inf = float(m["nonfinite_params"][0])
+    row = {"free_row": free, "nonfinite_params_planted": got_inf}
+    if got_inf != 1.0:
+        fail(f"telemetry: one planted inf cell counted as {got_inf}")
+    for k in want:
+        if k == "nonfinite_params":
+            err = abs(got[k] - want[k])
+            ok = err == 0.0
+        else:
+            err = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            ok = err <= 1e-5 and want[k] > 0
+        row[k] = {"graph": got[k], "reference": want[k], "rel_err": err}
+        if not ok:
+            fail(f"telemetry counter {k}: graph {got[k]} vs reference {want[k]}")
+    # the step's device time with health on and off (CUDA events around
+    # one replay; the off graph is the one captured without health_metrics)
+    off = make_chunk_runner(flagship_cfg("pallas_fused", "unified"), tables,
+                            graphed=True)
+    times = {}
+    for name, r in (("health_on", runner), ("health_off", off)):
+        params = {k: v.clone() for k, v in p0.items()}
+        g = r.stream_graph(params, (1, B, L))
+        g.tokens.copy_(tokens[None])
+        g.alphas.fill_(alpha)
+        times[name] = cuda_ms(lambda g=g: (g.slot.zero_(), g.run(seed, step)), 20)
+        del params, g
+    return row, times
+
+
+def phase_telemetry(vocab, corpus, card, tmp):
+    """The trainer's telemetry through the CLI on the card (phase 9 of the
+    module docstring)."""
+    from word2vec_tpu_torch.io.checkpoint import save_checkpoint
+    from word2vec_tpu_torch.models.params import FUSED_KEY, init_params
+    from word2vec_tpu_torch.obs import tracediff
+    from word2vec_tpu_torch.obs.quality import ProbeSet, QualityProbe
+    from word2vec_tpu_torch.obs.trace import load_trace, validate_trace_doc
+    from word2vec_tpu_torch.train import TrainState
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    row = {"card": card}
+    steps = TEL_SPE * TEL_ITERS
+    txt = os.path.join(tmp, "telemetry.txt")
+    vtxt = os.path.join(tmp, "vocab.txt")  # phase 6's vocabulary file
+    with open(txt, "w") as f:
+        f.write(" ".join(np.asarray(vocab.words)[
+            corpus.flat[:TEL_SPE * B * L]].tolist()))
+    pairs = os.path.join(tmp, "probe_pairs.txt")
+    prng = np.random.default_rng(4)
+    with open(pairs, "w") as f:
+        for i in range(0, 64, 2):
+            f.write(f"{vocab.words[i]},{vocab.words[i + 1]},{prng.uniform(0, 10):.2f}\n")
+    flags = ["-train", txt, "-read-vocab", vtxt, "-output", "", "-size", str(D),
+             "-window", str(W), "-negative", str(K), "-iter", str(TEL_ITERS),
+             "--batch-rows", str(B), "--max-sentence-len", str(L),
+             "--shared-negatives", str(KP), "--band-backend", "pallas_fused",
+             "--table-layout", "unified", "--chunk-steps", str(TEL_CHUNK),
+             "--quiet", "--log-every", str(TEL_CHUNK)]
+    want = expected_launches("pallas_fused", "unified", steps + 1)
+
+    def run_on(i, probe=TEL_PROBE):
+        d = os.path.join(tmp, f"tel_on{i}")
+        argv = flags + [
+            "--metrics-dir", d, "--trace", d + "_trace",
+            "--prom-textfile", d + ".prom", "--health-metrics", "1",
+            "--quality-probe-every", str(probe), "--slo", TEL_SLO,
+            "--signal-window", str(TEL_WINDOW), "--emit-device",
+            "--log-jsonl", d + ".jsonl"]
+        return d, tel_cli(argv)
+
+    def run_off(i):
+        jl = os.path.join(tmp, f"tel_off{i}.jsonl")
+        return jl, tel_cli(flags + ["--log-jsonl", jl])
+
+    # the timing arms, interleaved twice: all telemetry on, all off
+    wps = {"on": [], "off": []}
+    arms = {}
+    for i in range(2):
+        for arm, fn in (("on", run_on), ("off", run_off)):
+            where, (rc, counts, replays, syncs, err) = fn(i)
+            if rc != 0:
+                fail(f"telemetry {arm} run {i}: exit {rc}: {err[-2000:]}")
+            jl = where + ".jsonl" if arm == "on" else where
+            recs = tel_records(jl)
+            rep = [r for r in recs if r.get("event") == "train_report"][-1]
+            if rep["steps"] != steps or rep["nonfinite_loss_steps"]:
+                fail(f"telemetry {arm} run {i}: {rep}")
+            if counts != want or replays != steps:
+                fail(f"telemetry {arm} run {i}: launches {counts} (want {want}), "
+                     f"{replays} replays (want {steps})")
+            wps[arm].append(rep["words_per_sec"])
+            arms[arm] = (where, recs, err, syncs)
+    # the same run without the probe: health, signals, phases, the flight
+    # recorder and the sinks add no synchronizing call to the off run's
+    where, (rc, counts, replays, syncs_np, _) = run_on(9, probe=0)
+    if rc != 0 or counts != want or replays != steps:
+        fail(f"telemetry run without the probe: rc {rc}, {counts}, {replays}")
+    wps["on_without_probe"] = [r for r in tel_records(where + ".jsonl")
+                               if r.get("event") == "train_report"][-1]["words_per_sec"]
+    syncs_off = arms["off"][3]
+    if syncs_np != syncs_off:
+        fail(f"telemetry: {syncs_np} synchronizing calls with the telemetry on "
+             f"and no probe, {syncs_off} with it off")
+    row["syncs"] = {"off": syncs_off, "on_without_probe": syncs_np,
+                    "on_with_probe": arms["on"][3]}
+    row["launches"], row["replays"] = want, steps
+
+    # the files of the last on run
+    d, recs, err, _ = arms["on"]
+    line = [x for x in err.splitlines() if x.startswith("device: ")]
+    if not line or not line[0].startswith("device: gpu NVIDIA H100"):
+        fail(f"--emit-device printed {line}")
+    row["emit_device"] = line[0]
+    with open(os.path.join(d, "manifest.json")) as f:
+        man = json.load(f)
+    if sorted(man) != sorted(TEL_MANIFEST_KEYS) or man["shutdown"] != "clean" \
+            or man["device"]["platform"] != "gpu":
+        fail(f"manifest.json keys {sorted(man)} / shutdown {man.get('shutdown')}")
+    doc = load_trace(os.path.join(d + "_trace", "trace.json"))
+    validate_trace_doc(doc)
+    parents = [e for e in doc["traceEvents"]
+               if e.get("ph") == "X" and e.get("name") in ("step", "chunk")]
+    summ = tracediff.summarize(doc)
+    if summ["steps"] != steps or len(parents) != steps // TEL_CHUNK or \
+            sorted(e["args"]["step"] for e in parents) != list(
+                range(TEL_CHUNK, steps + 1, TEL_CHUNK)):
+        fail(f"trace.json: {len(parents)} parents, {summ['steps']} steps")
+    with open(d + ".prom") as f:
+        prom = f.read()
+    missing = [n for n in TEL_PROM if n not in prom]
+    if missing:
+        fail(f"the prom file lacks {missing}")
+    srecs = [r for r in recs if "loss" in r and "event" not in r]
+    if len(srecs) != steps // TEL_CHUNK or any(
+            k not in r for r in srecs for k in TEL_HEALTH) or any(
+            r["nonfinite_params"] != 0 or not r["grad_norm"] > 0 for r in srecs):
+        fail(f"step records without the health fields: {srecs[:1]}")
+    probes = [r for r in recs if "quality_row_norm_p50" in r]
+    if [r["step"] for r in probes] != list(range(TEL_PROBE, steps + 1, TEL_PROBE)):
+        fail(f"probe rows at {[r['step'] for r in probes]}")
+    row["files"] = sorted(os.listdir(d))
+    row["trace_steps"] = summ["steps"]
+    row["phases"] = srecs[-1]["phases"]
+    row["words_per_sec"] = wps
+    log(f"  telemetry on/off, {steps} steps (chunk {TEL_CHUNK}), words/sec: "
+        f"on {wps['on']}, off {wps['off']} (A B A B), on without the probe "
+        f"{wps['on_without_probe']} (after them; {card}); launches and "
+        f"{steps} replays equal in both; synchronizing calls off "
+        f"{syncs_off}, on without the probe {syncs_np}, with it {arms['on'][3]}")
+
+    # the counters against a full-table reference, the step's device ms
+    chk, step_ms = tel_counter_check(dev, vocab, corpus)
+    row["counter_check"], row["step_device_ms"] = chk, step_ms
+    log(f"  health counters vs full-table reference: "
+        + ", ".join(f"{k} rel err {v['rel_err']:.2e}" for k, v in chk.items()
+                    if isinstance(v, dict))
+        + f"; step device ms health on {step_ms['health_on']:.4f}, off "
+        f"{step_ms['health_off']:.4f} ({card})")
+
+    # the probe's ms on the flagship tables: host copy and scoring
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    cfg = flagship_cfg("pallas_fused", "unified")
+    params = init_params(cfg, len(vocab), gen)
+    params[FUSED_KEY][:, 1].normal_(0.0, 0.01, generator=gen)
+    probe = QualityProbe(vocab, ProbeSet.from_files(vocab, pairs, None), every=1)
+    split = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        probe.probe(params, i + 1)
+        split.append(dict(probe.timing))
+    row["probe_ms"] = {k: float(np.median([t[k] for t in split[1:]]))
+                       for k in ("copy_ms", "score_ms")}
+    log(f"  quality probe (V={V}, d={D}, unified): host copy "
+        f"{row['probe_ms']['copy_ms']:.2f} ms, scoring "
+        f"{row['probe_ms']['score_ms']:.2f} ms (wall, median of 3; {card})")
+    del params
+
+    # the abnormal exits, each with flight.json and the manifest's shutdown
+    exits = {}
+    qd = os.path.join(tmp, "tel_quality")
+    rc, *_ = tel_cli(flags + [
+        "--metrics-dir", qd, "--quality-probe-every", str(TEL_CHUNK),
+        "--probe-pairs", pairs, "--quality-budget", "1",
+        "--quality-floor", "0.99", "--quality-grace", "0"])
+    exits["quality_alert"] = (rc, qd, 3)
+    ck = os.path.join(tmp, "tel_nan_ck")
+    ncfg = flagship_cfg("pallas_fused", "unified", chunk_steps=TEL_CHUNK,
+                        iters=TEL_ITERS, health_metrics=True,
+                        divergence_budget=2)
+    nparams = init_params(ncfg, len(vocab), gen)
+    nparams[FUSED_KEY][0, 0, :] = float("nan")
+    save_checkpoint(ck, TrainState(nparams, 0, 0, 0), ncfg, vocab)
+    del nparams
+    nd = os.path.join(tmp, "tel_nan")
+    rc, *_ = tel_cli(flags + ["--metrics-dir", nd, "--resume", ck])
+    exits["diverged"] = (rc, nd, 2)
+    pd = os.path.join(tmp, "tel_preempt")
+    rc, *_ = tel_cli(flags + ["--metrics-dir", pd], stop_at=TEL_PROBE)
+    exits["preempted"] = (rc, pd, 75)
+    shutdowns = {"quality_alert": "quality_degraded", "diverged": "diverged",
+                 "preempted": "preempted"}
+    row["exits"] = {}
+    for reason, (rc, where, want_rc) in exits.items():
+        with open(os.path.join(where, "flight.json")) as f:
+            fl = json.load(f)
+        with open(os.path.join(where, "manifest.json")) as f:
+            sd = json.load(f).get("shutdown")
+        if rc != want_rc or fl.get("reason") != reason or sd != shutdowns[reason]:
+            fail(f"telemetry exit {reason}: rc {rc}, flight {fl.get('reason')}, "
+                 f"shutdown {sd}")
+        bad = max([c.get("nonfinite_params", 0) for c in fl.get("counters", [])]
+                  or [0])
+        if reason == "diverged" and not bad > 0:
+            fail(f"the divergence dump has no non-finite cells: {fl.get('counters')}")
+        row["exits"][reason] = {"rc": rc, "failure_step": fl.get("failure_step"),
+                                "nonfinite_params_max": bad}
+    log("  exits: " + ", ".join(f"{k} rc {v['rc']} at step {v['failure_step']}"
+                                for k, v in row["exits"].items())
+        + " — each with flight.json and the manifest's shutdown")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"telemetry_phase": row}))
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2709,6 +3087,9 @@ def main() -> int:
 
         log(f"[8 serve] (at {time.perf_counter() - t0:.1f} s)")
         phase_serve(exported, card, tmp_cli)
+
+        log(f"[9 telemetry] (at {time.perf_counter() - t0:.1f} s)")
+        phase_telemetry(vocab, corpus, card, tmp_cli)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

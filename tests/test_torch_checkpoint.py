@@ -299,13 +299,15 @@ def test_periodic_checkpoint_resume_matches(tmp_path, zipf_file):
 def test_cli_resumes_a_jax_checkpoint(tmp_path, zipf_file, capsys):
     """A checkpoint written by the JAX package (with the JAX CLI's runtime
     wiring in its config) resumes through the port's CLI: the writer line,
-    the reset of unported wiring, and a run that continues from its step."""
+    the telemetry wiring carried on (health_metrics, quality_probe_every),
+    the reset of the wiring of layers still unported (elastic), and a run
+    that continues from its step."""
     from word2vec_tpu.data.corpus import load_corpus as j_load
 
     jvocab, _ = j_load(zipf_file, min_count=1)
     kw = dict(_cfg_kw("float32", "split"), max_sentence_len=192,
               word_dim=16, subsample_threshold=0.0, chunk_steps=1,
-              health_metrics=True, quality_probe_every=100)
+              health_metrics=True, quality_probe_every=100, elastic="shrink")
     jcfg = JConfig(**kw)
     rng = np.random.default_rng(2)
     n = len(jvocab)
@@ -320,8 +322,10 @@ def test_cli_resumes_a_jax_checkpoint(tmp_path, zipf_file, capsys):
     assert rc == 0
     err = capsys.readouterr().err
     assert "checkpoint written by word2vec_tpu;" in err
-    assert "['health_metrics', 'quality_probe_every']" in err
+    assert "resetting config fields of layers this package does not have: " \
+        "['elastic']" in err
     state, cfg, _ = ck.load_checkpoint(out)
     assert state.step > 3 and cfg.word_dim == 16
-    assert not cfg.health_metrics and cfg.quality_probe_every == 0
+    assert cfg.health_metrics and cfg.quality_probe_every == 100
+    assert cfg.elastic == "off"
     assert ck.checkpoint_writer(out) == ck.WRITER

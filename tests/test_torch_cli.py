@@ -60,7 +60,7 @@ def test_validation_errors_mirror_reference(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--faults", "nan@3"],
-                                  ["--metrics-dir", "m"], ["--prng", "rbg"]])
+                                  ["--mem-sample-every", "5"], ["--prng", "rbg"]])
 def test_flags_of_unported_layers_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as e:
         run(["-train", "x", "-negative", "5"] + flag)

@@ -492,3 +492,36 @@ def test_step_graph_reads_each_alpha_and_seed(cuda):
     assert _same(out[0][0], out[1][0])
     for k in out[0][1]:
         assert torch.equal(out[0][1][k], out[1][1][k]), k
+
+
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES), ids="-".join)
+def test_health_rows_in_the_graph_match_eager(cuda, route):
+    """health_metrics on: the captured step's health rows (per-step and
+    chunked resident) equal the eager run's bitwise, and the port's
+    kernels launch as often per step as with health off."""
+    want = {k: 0 for k in launch.LAUNCHES}
+    want["ordered_row_sum"] = 3
+    want.update(ROUTE_LAUNCHES[route])
+    logs = {}
+    for name, graphs, over in (("eager", False, dict()), ("graph", True, dict()),
+                               ("resident", True, dict(chunk_steps=3,
+                                                       resident="on"))):
+        tr = _graph_trainer(cuda, route, graphs=graphs, health_metrics=True,
+                            **over)
+        rec = []
+        tr.flight.note_counters = lambda step, c, rec=rec: rec.append((step, c))
+        launch.reset_launch_counts()
+        state, rep = tr.train(log_every=0)
+        torch.cuda.synchronize()
+        if graphs and not over:
+            assert launch.LAUNCHES == {k: v * (rep.steps + 1)
+                                       for k, v in want.items()}
+        logs[name] = (state, rep, rec)
+    for step, c in logs["eager"][2]:
+        assert c["nonfinite_params"] == 0 and c["grad_norm"] > 0
+    assert logs["graph"][2] == logs["eager"][2]
+    assert _same(logs["resident"][0].params, logs["eager"][0].params)
+    he, hr = logs["eager"][1].health, logs["resident"][1].health
+    assert he["observations"] == hr["observations"] == logs["eager"][1].steps
+    np.testing.assert_allclose(hr["grad_norm_cumulative"],
+                               he["grad_norm_cumulative"], rtol=1e-12)

@@ -24,26 +24,41 @@ Reference divergences (deliberate, as in the JAX CLI):
     only when model=cbow and -alpha was not given (word2vec.c behavior).
   - `-threads` is accepted for compatibility and ignored.
 
+The telemetry flags are the JAX CLI's: --metrics-dir writes
+manifest.json (the realized config, the card, the library versions, the
+git sha; `shutdown` added on every exit), metrics.jsonl and metrics.prom
+there, turns on the full health counters (unless --health-metrics 0),
+the quality probe (every 100 steps unless --quality-probe-every says
+otherwise) and the derived-signal plane (signals_p0.jsonl, fleet.json);
+--trace DIR exports the run's span timeline (trace_p0.json, trace.json);
+a divergence (exit 2), a QualityAlert (exit 3) and a preemption (exit 75)
+each dump flight.json into --metrics-dir. --slo rules and --signal-window
+shape the signal plane, --prom-textfile and --tensorboard add sinks,
+--emit-device prints `device: <platform> <kind>` to stderr, and
+--debug-nans runs eagerly, one step a dispatch, raising FloatingPointError
+at the first non-finite loss or table cell (there is no torch counterpart
+of jax_debug_nans).
+
 Flags of layers the port does not have yet (--dp/--tp/--sp, --multihost,
---elastic*, --faults, --slo, --trace, --metrics-dir, --quality-*,
---autotune, --corpus-mode, --prng, ...) are not defined: argparse rejects
-them.
+--elastic*, --faults, --inject-nan, --profile*, --mem-sample-every,
+--step-deadline, --autotune, --corpus-mode, --prng, ...) are not defined:
+argparse rejects them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
+import os
 import sys
 import time
 from typing import List, Optional
 
 #: config fields that are runtime wiring of layers the port does not have
-#: (telemetry, planner, elasticity); a resumed checkpoint of the JAX
-#: package may carry them on, and the resume resets them to these values
+#: (planner, elasticity); a resumed checkpoint of the JAX package may carry
+#: them on, and the resume resets them to these values
 _UNPORTED_WIRING = {
-    "health_metrics": False,
-    "quality_probe_every": 0,
     "autotune": "off",
     "elastic": "off",
     "elastic_policy": "",
@@ -185,6 +200,75 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--log-jsonl", metavar="FILE",
                    help="append machine-readable JSONL log records to FILE")
+    # telemetry (word2vec_tpu/cli.py's flags, same names and defaults)
+    p.add_argument("--metrics-dir", metavar="DIR",
+                   help="telemetry directory (obs/): writes manifest.json "
+                        "(realized config, device, versions, git sha), "
+                        "metrics.jsonl and metrics.prom there, and enables "
+                        "the full health counters unless --health-metrics 0")
+    p.add_argument("--trace", metavar="DIR",
+                   help="export this run's step-scoped span timeline as "
+                        "Chrome-trace/Perfetto JSON into DIR (trace_p0.json "
+                        "and the merged trace.json); diff two runs with "
+                        "python -m word2vec_tpu_torch.obs.tracediff. The "
+                        "flight recorder itself is always on")
+    p.add_argument("--prom-textfile", metavar="FILE",
+                   help="maintain a Prometheus-format textfile of the "
+                        "latest metrics at FILE (obs/export.py)")
+    p.add_argument("--health-metrics", type=int, choices=[0, 1], default=None,
+                   help="full health counters (grad norm, per-table update "
+                        "magnitudes, non-finite cells) in the step metrics, "
+                        "computed inside the captured step "
+                        "(config.health_metrics; default: on with "
+                        "--metrics-dir — they cost a copy and two reads of "
+                        "each table per step)")
+    p.add_argument("--quality-probe-every", type=int, default=None,
+                   metavar="STEPS",
+                   help="in-training embedding-quality probe cadence "
+                        "(obs/quality.py). Default: 100 when --metrics-dir "
+                        "or a --probe-* file is set, else off; 0 disables. "
+                        "Non-probe steps add no device sync")
+    p.add_argument("--probe-pairs", metavar="FILE",
+                   help="held-out word-pair golds for the quality probe "
+                        "(WS-353-shaped word1,word2,score lines)")
+    p.add_argument("--probe-analogies", metavar="FILE",
+                   help="held-out analogy questions for the quality probe "
+                        "(questions-words.txt format)")
+    p.add_argument("--quality-budget", type=int, default=0, metavar="N",
+                   help="degeneracy-sentinel budget: N consecutive degraded "
+                        "probes -> checkpoint-and-continue, 2N -> abort "
+                        "rc=3 with a QualityAlert in flight.json. 0 = warn "
+                        "only")
+    p.add_argument("--quality-floor", type=float, default=0.1, metavar="F",
+                   help="sentinel absolute floor on the watched planted "
+                        "score (analogy accuracy, else Spearman)")
+    p.add_argument("--quality-drop", type=float, default=0.5, metavar="F",
+                   help="sentinel relative-drop fraction: a probe below "
+                        "(1-F) x the score's own peak counts as degraded")
+    p.add_argument("--quality-grace", type=int, default=2, metavar="N",
+                   help="scored probes ignored by the sentinel's absolute "
+                        "floor before it arms")
+    p.add_argument("--slo", metavar="RULES", default="",
+                   help="declarative SLO rules over the derived signals "
+                        "(obs/slo.py): comma-separated "
+                        "'<signal><op><threshold>[:for=N][:baseline=N]' "
+                        "clauses or a .json rule list. A breach is a log + "
+                        "event, never an exit. Implies the signal plane on")
+    p.add_argument("--signal-window", type=int, default=0, metavar="STEPS",
+                   help="optimizer steps per derived-signal window "
+                        "(obs/signals.py; 0 = auto: 50). On with "
+                        "--metrics-dir, --prom-textfile or --slo")
+    p.add_argument("--tensorboard", metavar="DIR",
+                   help="write TensorBoard scalar summaries to DIR "
+                        "(degrades to a warning without tensorboardX)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="eager, ungraphed, one step a dispatch: raise "
+                        "FloatingPointError at the first non-finite loss "
+                        "or table cell (the counterpart of jax_debug_nans)")
+    p.add_argument("--emit-device", action="store_true",
+                   help="print one machine-readable 'device: <platform> "
+                        "<kind>' line to stderr after training, even under "
+                        "--quiet (proof of where the run executed)")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -247,14 +331,45 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     from .io.embeddings import save_word2vec
     from .models.params import export_matrix
+    from .obs.export import MetricsHub, prometheus_textfile
+    from .obs.fleet import FleetAggregator
     from .obs.health import DivergenceError
+    from .obs.manifest import device_info, update_manifest, write_manifest
+    from .obs.quality import (
+        EXIT_QUALITY, ProbeSet, QualityAlert, QualityProbe, QualitySentinel,
+    )
+    from .obs.signals import SignalEngine
+    from .obs.slo import SloEvaluator
     from .resilience.shutdown import EXIT_PREEMPTED, ShutdownHandler
     from .train import Trainer
-    from .utils.logging import jsonl_logger, progress_logger, tee
+    from .utils.logging import jsonl_logger, progress_logger, tensorboard_logger
 
     if args.checkpoint_keep < 0:
         print("error: --checkpoint-keep must be >= 0", file=sys.stderr)
         return 1
+    # SLO rules fail in milliseconds, before the corpus scan (the parse
+    # errors name clause + offset, obs/slo.py)
+    from .obs.slo import SloError, parse_slo
+
+    try:
+        slo_rules = parse_slo(args.slo)
+    except SloError as e:
+        print(f"error: bad --slo spec: {e}", file=sys.stderr)
+        return 1
+    for name, val in (("--signal-window", args.signal_window),
+                      ("--quality-budget", args.quality_budget),
+                      ("--quality-grace", args.quality_grace),
+                      ("--quality-probe-every", args.quality_probe_every or 0)):
+        if val < 0:
+            print(f"error: {name} must be >= 0", file=sys.stderr)
+            return 1
+    # quality-probe cadence: on by default for instrumented runs
+    # (--metrics-dir) and whenever the user supplies probe material
+    q_every = args.quality_probe_every
+    if q_every is None:
+        q_every = 100 if (
+            args.metrics_dir or args.probe_pairs or args.probe_analogies
+        ) else 0
 
     # Resume: the checkpoint's config and vocab are authoritative — resuming
     # against a rebuilt vocab would silently re-attribute embedding rows.
@@ -329,7 +444,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         clip_row_update=args.clip_row_update,
         dtype=args.table_dtype,
         stochastic_rounding=bool(args.stochastic_rounding),
+        # --metrics-dir implies the full health counters unless the user
+        # explicitly opted out
+        health_metrics=bool(
+            args.health_metrics
+            if args.health_metrics is not None
+            else args.metrics_dir
+        ),
         divergence_budget=args.divergence_budget,
+        quality_probe_every=q_every,
     )
     try:
         cfg = ck_cfg if ck_cfg is not None else Word2VecConfig(**flag_kwargs)
@@ -462,15 +585,53 @@ def main(argv: Optional[List[str]] = None) -> int:
                 f"micro-steps (~{steps} optimizer steps/epoch)"
             )
 
-    sinks = []
+    # one MetricsHub fans every record out to the enabled sinks and is
+    # their single close point (obs/export.py)
+    hub = MetricsHub()
     if not args.quiet:
-        sinks.append(progress_logger())
-    if args.log_jsonl:
-        sinks.append(jsonl_logger(args.log_jsonl))
-    hub = tee(*sinks)
-    log_fn = hub if sinks else None
+        hub.add(progress_logger())
+    metrics_dir = args.metrics_dir
+    if metrics_dir:
+        os.makedirs(metrics_dir, exist_ok=True)
+    jsonl_path = args.log_jsonl or (
+        os.path.join(metrics_dir, "metrics.jsonl") if metrics_dir else None
+    )
+    prom_path = args.prom_textfile or (
+        os.path.join(metrics_dir, "metrics.prom") if metrics_dir else None
+    )
+    if jsonl_path:
+        hub.add(jsonl_logger(jsonl_path))
+    if prom_path:
+        hub.add(prometheus_textfile(prom_path))
+    if args.tensorboard:
+        hub.add(tensorboard_logger(args.tensorboard))
+    log_fn = hub if hub.sinks else None
 
     trainer = Trainer(cfg, vocab, corpus, log_fn=log_fn, device=device)
+    manifest_path = (
+        os.path.join(metrics_dir, "manifest.json") if metrics_dir else None
+    )
+    if manifest_path:
+        # the REALIZED config, where the run went and what it ran under
+        write_manifest(
+            manifest_path,
+            trainer.config,
+            vocab_size=len(vocab),
+            device=device,
+            extra={
+                "corpus_tokens": corpus.num_tokens,
+                "corpus_rows": corpus.num_rows,
+                "corpus_mode": cfg.corpus_mode,
+                "resumed_from": args.resume or None,
+                "kernel_decision": trainer.kernel_decision,
+                "mesh_size": 1,
+            },
+        )
+    if log_fn is not None:
+        # the mesh gauges (obs/export.GAUGE_EVENTS), as the JAX CLI logs
+        # them: one process, one card
+        log_fn({"event": "mesh", "mesh_size": 1, "mesh_processes": 1,
+                "elastic_generation": 0})
 
     def save_ckpt(s) -> None:
         t = time.perf_counter()
@@ -483,6 +644,118 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "seconds": time.perf_counter() - t})
 
     ckpt_cb = save_ckpt if args.checkpoint_dir and args.checkpoint_every else None
+
+    # the quality probe: the CLI's flags are authoritative over the
+    # trainer's config-built default (telemetry is runtime wiring); it logs
+    # through the hub, rides the flight recorder, and the sentinel
+    # escalates per --quality-budget with the run's checkpoint callback
+    if q_every > 0:
+        from .tune.planner import degeneracy_domain
+
+        try:
+            pset = (
+                ProbeSet.from_files(vocab, args.probe_pairs, args.probe_analogies)
+                if (args.probe_pairs or args.probe_analogies)
+                else ProbeSet.synthesize(vocab)
+            )
+        except (OSError, ValueError) as e:
+            print(f"error: bad probe file: {e}", file=sys.stderr)
+            hub.close()
+            return 1
+        trainer.quality_probe = QualityProbe(
+            vocab, pset, every=q_every, log_fn=log_fn,
+            flight=trainer.flight,
+            sentinel=QualitySentinel(
+                budget=args.quality_budget,
+                floor=args.quality_floor,
+                drop=args.quality_drop,
+                grace=args.quality_grace,
+                in_domain=degeneracy_domain(
+                    trainer.config, len(vocab), corpus.num_tokens
+                ),
+            ),
+        )
+        if ckpt_cb is not None:
+            trainer.quality_probe.checkpoint_fn = (
+                lambda: ckpt_cb(trainer.last_state)
+            )
+        if not args.quiet:
+            print(
+                f"quality probe: every {q_every} steps, "
+                f"{len(pset.pairs)} pairs + {len(pset.analogies)} "
+                f"analogies ({pset.source}), sentinel budget "
+                f"{args.quality_budget}"
+            )
+    else:
+        trainer.quality_probe = None
+
+    # the derived-signal plane (obs/signals.py): on for instrumented runs
+    # and whenever SLO rules are set; a hub sink, so the probe's gauge
+    # records feed quality_planted
+    if slo_rules or metrics_dir or args.prom_textfile:
+        sig_window = args.signal_window or 50
+        sig_engine = SignalEngine(
+            window=sig_window,
+            phases=trainer.phases,
+            flight=trainer.flight,
+            log_fn=hub,
+            metrics_dir=metrics_dir,
+            slo=SloEvaluator(slo_rules) if slo_rules else None,
+            aggregator=(
+                FleetAggregator(metrics_dir, window_steps=sig_window)
+                if metrics_dir else None
+            ),
+        )
+        trainer.signals = sig_engine
+        hub.add(sig_engine)  # hub.close() also closes the row file
+        if not args.quiet and slo_rules:
+            print(
+                f"slo: {len(slo_rules)} rule(s) over {sig_window}-step "
+                f"windows: {[str(r) for r in slo_rules]}"
+            )
+    trainer.debug_nans = args.debug_nans
+
+    def dump_flight(reason: str, failure_step=None) -> None:
+        """flight.json into the metrics dir (every abnormal exit)."""
+        if metrics_dir and trainer.flight is not None:
+            trainer.flight.dump(
+                metrics_dir, reason=reason,
+                extra={"failure_step": failure_step},
+            )
+
+    def export_trace() -> None:
+        """--trace DIR: the run's span timeline as Chrome-trace JSON, on
+        every exit path (best effort: a failed export warns and leaves
+        the exit code alone)."""
+        if not args.trace or trainer.flight is None:
+            return
+        try:
+            from .obs.trace import (
+                chrome_trace_doc, load_trace, merge_traces, write_trace,
+            )
+
+            os.makedirs(args.trace, exist_ok=True)
+            write_trace(
+                os.path.join(args.trace, "trace_p0.json"),
+                chrome_trace_doc(trainer.flight.ring.events(), process_index=0),
+            )
+            docs = [
+                load_trace(p) for p in sorted(
+                    glob.glob(os.path.join(args.trace, "trace_p*.json"))
+                )
+            ]
+            write_trace(os.path.join(args.trace, "trace.json"), merge_traces(docs))
+        except Exception as e:  # noqa: BLE001 — best-effort export
+            print(f"warning: trace export failed: {e}", file=sys.stderr)
+
+    def emit_device() -> None:
+        if args.emit_device:
+            info = device_info(device)
+            print(f"device: {info['platform']} {info['device_kind']}",
+                  file=sys.stderr)
+
+    def last_step(default):
+        return getattr(trainer.last_state, "step", None) or default
 
     # Preemption-safe shutdown: SIGTERM/SIGINT request a cooperative stop at
     # the next dispatch boundary; the run then checkpoints and exits
@@ -497,29 +770,81 @@ def main(argv: Optional[List[str]] = None) -> int:
             checkpoint_every=args.checkpoint_every,
         )
     except DivergenceError as e:
+        # structured abort: the manifest says why, the flight dump carries
+        # the timeline of the steps that led here
         print(f"error: DivergenceError: {e}", file=sys.stderr)
+        if manifest_path:
+            update_manifest(manifest_path, {
+                "shutdown": "diverged", "divergence": e.record(),
+                "recoveries": [],
+            })
+        dump_flight("diverged", failure_step=last_step(e.step))
+        export_trace()
         hub.close()
         return 2
+    except QualityAlert as e:
+        # the degeneracy sentinel escalated past 2x its budget
+        print(f"error: QualityAlert: {e}", file=sys.stderr)
+        if manifest_path:
+            update_manifest(manifest_path, {
+                "shutdown": "quality_degraded",
+                "quality_alert": e.record(),
+            })
+        dump_flight("quality_alert", failure_step=last_step(e.step))
+        export_trace()
+        hub.close()
+        return EXIT_QUALITY
     finally:
         handler.uninstall()
     if log_fn is not None:
+        # the run's verdict in the log tail, one record
         summary = {
             "event": "train_report",
             "steps": report.steps,
-            "words_per_sec": report.words_per_sec,
+            "words_per_sec": round(report.words_per_sec, 1),
             "final_loss": report.final_loss,
             "nonfinite_loss_steps": report.health.get("nonfinite_loss_steps"),
             "health_observations": report.health.get("observations"),
         }
+        if report.phases is not None:
+            summary.update(
+                verdict=report.phases.get("verdict"),
+                input_fraction=report.phases.get("input_fraction"),
+            )
         if report.interrupted:
             summary["interrupted"] = report.interrupted
+        if report.signals:
+            fh = report.signals.get("fleet_health") or {}
+            summary["fleet_health"] = fh.get("verdict")
+            slo_rep = report.signals.get("slo")
+            if slo_rep:
+                summary["slo_state"] = slo_rep.get("state")
+                summary["slo_breaches"] = slo_rep.get("breaches_total")
         log_fn(summary)
 
-    if report.interrupted == "preempted":
+    preempted = report.interrupted == "preempted"
+    if manifest_path:
+        # how the run ended, beside how it started
+        end_fields = {
+            "shutdown": "preempted" if preempted else "clean",
+            "final_step": state.step,
+            "recoveries": [],
+        }
+        if trainer.resume_fallback:
+            end_fields["resume_fallback"] = trainer.resume_fallback
+        if report.signals:
+            if report.signals.get("slo"):
+                end_fields["slo"] = report.signals["slo"]
+            end_fields["fleet_health"] = report.signals.get("fleet_health")
+        update_manifest(manifest_path, end_fields)
+
+    if preempted:
         # checkpoint the stopped-at-boundary state, skip export/eval (the
         # run is not finished), exit with the distinct requeue rc
         if args.checkpoint_dir:
             save_ckpt(state)
+        dump_flight("preempted", failure_step=state.step)
+        export_trace()
         print(
             f"preempted (signal {handler.signum}): stopped at step "
             f"{state.step}; "
@@ -531,9 +856,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             ),
             file=sys.stderr,
         )
+        emit_device()
         hub.close()
         return EXIT_PREEMPTED
 
+    emit_device()
     if not args.quiet:
         print(f"\ntrained {report.total_words} words in {report.wall_time:.1f}s "
               f"({report.words_per_sec:,.0f} words/sec), final loss "
@@ -560,6 +887,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         save_embeddings_int8(args.export_int8, vocab.words, W)
         if not args.quiet:
             print(f"saved int8-quantized vectors to {args.export_int8}")
+
+    export_trace()
 
     if args.eval_ws353 or args.eval_analogy:
         from .eval.analogy import evaluate_analogies

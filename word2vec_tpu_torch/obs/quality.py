@@ -6,8 +6,8 @@ on the port's query engine and eval/ (serve/query.get_engine,
 eval/analogy, eval/similarity) on the device `device=` names (the card
 unless the caller asks for the CPU), and QualityProbe.probe moves the
 table planes to the host with one `.cpu()` each. The serve CLI's startup
-probe (`--probe-pairs`) uses score_table; the port's trainer does not
-run the probe yet.
+probe (`--probe-pairs`) uses score_table; the trainer runs the probe at
+its due dispatch boundaries (train.Trainer.quality_probe).
 
 The pieces:
 
@@ -438,8 +438,8 @@ class QualityProbe:
     moves the needed table planes to the host, one `.cpu()` each
     (logical_table views, so a unified [V, 2, d] slab is sliced, never
     copied whole host-side), and scores everything host/engine-side, on
-    the device the tables live on. The port's Trainer
-    does not call it yet (config.quality_probe_every is refused there).
+    the device the tables live on. `timing` splits the last probe's wall
+    into the host copy and the scoring.
     """
 
     def __init__(
@@ -471,6 +471,8 @@ class QualityProbe:
         )
         self.probes = 0
         self.last_step = 0
+        #: the last probe's wall split, ms: {"copy_ms", "score_ms"}
+        self.timing: Dict[str, float] = {}
         self._prev_neighbors: Optional[Dict[int, np.ndarray]] = None
         #: checkpoint-and-continue hook (the CLI wires the run's checkpoint
         #: callback); called once per sentinel degradation window
@@ -499,6 +501,7 @@ class QualityProbe:
         except KeyError:
             pass  # hs runs: no ns output plane, the ratio stat is skipped
         host = {k: v.detach().float().cpu().numpy() for k, v in views.items()}
+        t_copy = time.perf_counter()
         rec: Dict = {"step": int(step)}
         scores, neighbors = score_table(
             host["emb_in"],
@@ -516,6 +519,12 @@ class QualityProbe:
         self._prev_neighbors = neighbors
         dur = time.perf_counter() - t0
         rec["quality_probe_ms"] = round(1e3 * dur, 3)
+        # the probe's wall split: the planes' host copy (which also waits
+        # for the steps still queued on the card) and the scoring
+        self.timing = {
+            "copy_ms": 1e3 * (t_copy - t0),
+            "score_ms": 1e3 * (t0 + dur - t_copy),
+        }
         self.probes += 1
         self.history.append(dict(rec))
 

@@ -1,9 +1,8 @@
 """Derived-signal plane: windowed time series over streams that already exist.
 
-A copy of word2vec_tpu/obs/signals.py for the PyTorch port (host code). Its
-training-mode phase split reads INPUT_PHASES / COMPUTE_PHASES, which live
-in obs/phases.py in the JAX package; until phases.py is ported, the two
-tuples are kept here (the port's serve tier uses the serve mode only).
+A copy of word2vec_tpu/obs/signals.py for the PyTorch port (host code).
+The trainer (train.py) beats it in training mode, the serve tier in serve
+mode; the training-mode phase split reads obs/phases.py's tuples.
 
 The other telemetry layers are per-process and RAW: health counters,
 trace spans, `w2v_serve_*` gauges, quality rows. A control loop (serve
@@ -59,8 +58,8 @@ obs/export.GAUGE_EVENTS), a line in `signals_p<host>.jsonl` under
 bounded signal ring (every flight.json carries the recent signal history),
 and a publish on the bus. SLO rules (obs/slo.py) are evaluated against the
 same row — breach maps to a structured event, NEVER an exit: the plane
-observes, it does not actuate. (obs/slo.py and obs/fleet.py are not
-ported yet: `slo=` and `aggregator=` take their objects when they are.)
+observes, it does not actuate (`slo=` takes an obs/slo.SloEvaluator,
+`aggregator=` an obs/fleet.FleetAggregator).
 """
 
 from __future__ import annotations
@@ -73,6 +72,8 @@ import time
 import warnings
 from typing import Callable, Dict, List, Optional
 
+from .phases import COMPUTE_PHASES, INPUT_PHASES
+
 #: default optimizer steps per derived-signal window (training mode)
 WINDOW_STEPS_DEFAULT = 50
 #: default seconds per window (serve mode)
@@ -81,12 +82,6 @@ WINDOW_SECS_DEFAULT = 10.0
 RING_WINDOWS = 256
 #: default EWMA smoothing factor (weight of the newest window)
 EWMA_ALPHA = 0.3
-
-#: the PhaseRecorder's loop-stalling phase names (copies of
-#: word2vec_tpu/obs/phases.py's tuples; move them there when phases.py is
-#: ported)
-INPUT_PHASES = ("batcher_wait",)
-COMPUTE_PHASES = ("dispatch", "device_wait")
 
 #: cumulative step-time histogram bucket bounds, seconds (le-style; +Inf is
 #: implicit). Spans CPU-smoke chunk walls down to on-chip step times.

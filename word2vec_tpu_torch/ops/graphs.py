@@ -15,8 +15,11 @@ replay, whatever Python values they held at capture):
            [S, B, L] (ops/train_step.make_chunk_runner) or the resident
            corpus, the epoch's row order and the chunk's first batch index
            (ops/resident.make_resident_chunk_runner);
-  outputs  `out` [5, S] f32: loss_sum, pairs, clip_engaged,
-           nonfinite_loss and hs_tail_dropped of each step (METRICS order),
+  outputs  `out` [len(names), S] f32: loss_sum, pairs, clip_engaged,
+           nonfinite_loss and hs_tail_dropped of each step (METRICS
+           order), then, with config.health_metrics, the health counters
+           of obs/health.instrument_step (obs/health.health_names: the
+           step's alpha_sum, grad_sq, nonfinite_params and update_sq_<table>),
            written into the step's slot;
   state    the params, updated in place (the JAX package donates them).
 The step's draws come from a private generator that `run` re-seeds with
@@ -42,6 +45,7 @@ import torch
 
 from ..device import seed_step
 from ..models.params import FUSED_KEY, FUSED_SUBTABLES, Params, unfuse_tables
+from ..obs.health import HealthStep, health_names
 from . import launch
 from .steps import make_step
 from .train_step import Draws
@@ -106,7 +110,12 @@ class StepGraph:
         self.gen = torch.Generator(device=dev)
         self.alphas = torch.zeros(S, dtype=torch.float32, device=dev)
         self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.out = torch.zeros((len(METRICS), S), dtype=torch.float32, device=dev)
+        #: the rows of `out`: METRICS, then the health counters of an
+        #: instrumented step (computed inside the step, so inside the graph)
+        self.names = METRICS + (
+            health_names(params) if isinstance(step, HealthStep) else ()
+        )
+        self.out = torch.zeros((len(self.names), S), dtype=torch.float32, device=dev)
         self.draws_hook: Optional[DrawsHook] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         #: launches of one replay, by wrapper (the capture's record)
@@ -119,8 +128,8 @@ class StepGraph:
 
     @property
     def metrics(self) -> Dict[str, torch.Tensor]:
-        """{name: [S]} views of `out`."""
-        return {k: self.out[i] for i, k in enumerate(METRICS)}
+        """{name: [S]} views of `out`, in `names` order."""
+        return {k: self.out[i] for i, k in enumerate(self.names)}
 
     def _body(self, params: Params) -> None:
         tokens = self.batch(self.slot)
@@ -141,7 +150,7 @@ class StepGraph:
                 draws = self.step.draw(self.gen, sub)
             m = self.step.apply(params, sub, draws, alpha)
             total = m if total is None else {k: total[k] + m[k] for k in total}
-        vals = torch.stack([total[k].float() for k in METRICS]).reshape(-1, 1)
+        vals = torch.stack([total[k].float() for k in self.names]).reshape(-1, 1)
         self.out.index_copy_(1, self.slot, vals)
         self.slot.add_(1)
 
@@ -260,7 +269,9 @@ class ChunkRunner:
             self._slab = torch.zeros(shape, dtype=ein.dtype, device=ein.device)
         return {FUSED_KEY: self._slab}
 
-    def _run(self, g: StepGraph, params: Params, alphas, seed, step0, steps):
+    def run(self, g: StepGraph, params: Params, alphas, seed, step0, steps):
+        """Dispatch the staged graph `g` (stage / resident_graph): steps
+        step0 .. step0 + steps - 1 at `alphas`; see StepGraph.dispatch."""
         if self.fused:
             torch.stack([params[k] for k in FUSED_SUBTABLES], dim=-2, out=self._slab)
         m = g.dispatch(alphas, seed, step0, steps)
@@ -301,8 +312,14 @@ class ChunkRunner:
 
         return self._cached(("stream", S, B, L), work, make)
 
-    def __call__(self, params: Params, tokens, seed: int, step0: int, alphas,
-                 steps: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    def stage(self, params: Params, tokens) -> StepGraph:
+        """The graph for `tokens` [S, B, L] with them copied into its
+        static input (the host-to-device leg of a dispatch; no host sync)."""
         g = self.stream_graph(params, tuple(tokens.shape))
         copy_in(g.tokens, tokens)
-        return self._run(g, params, alphas, seed, step0, steps)
+        return g
+
+    def __call__(self, params: Params, tokens, seed: int, step0: int, alphas,
+                 steps: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        g = self.stage(params, tokens)
+        return self.run(g, params, alphas, seed, step0, steps)

@@ -130,7 +130,7 @@ class ResidentChunkRunner(ChunkRunner):
     (make_resident_chunk_runner):
 
         runner(params, corpus, order [R], seed, step0, epoch_t0, alphas [S],
-               steps=None) -> {name: [S] for name in ops/graphs.METRICS}
+               steps=None) -> {name: [S] for name in StepGraph.names (ops/graphs.py)}
 
     The same trajectory contract as ChunkRunner: step i is step step0 + i
     of the run, on batch epoch_t0 + i of this epoch's order (epoch_t0 is
@@ -169,7 +169,7 @@ class ResidentChunkRunner(ChunkRunner):
         g = self.resident_graph(params, corpus, len(alphas), order.shape[0])
         copy_in(g.order, order)
         g.t0.fill_(int(epoch_t0))
-        return self._run(g, params, alphas, seed, step0, steps)
+        return self.run(g, params, alphas, seed, step0, steps)
 
 
 def make_resident_chunk_runner(

@@ -204,7 +204,7 @@ def make_chunk_runner(config, tables, *, fused=None, graphed: bool = True):
     lax.scan):
 
         chunk(params, tokens [S, B, L], seed, step0, alphas [S], steps=None)
-            -> {name: [S] for name in ops/graphs.METRICS}
+            -> {name: [S] for name in StepGraph.names (ops/graphs.py)}
 
     Step i applies the step on tokens[i] with the draws of step step0 + i
     (device.step_seed, the counterpart of fold_in(base_key, step0 + i))

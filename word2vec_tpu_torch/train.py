@@ -31,14 +31,34 @@ Trainer.kernel_decision), the construction-time config hazard warnings
 (_warn_config_hazards), the hs tail-drop warning (_note_tail_dropped),
 the cooperative stop (install_shutdown with a
 resilience/shutdown.ShutdownHandler; polled at every dispatch boundary,
-TrainReport.interrupted = "preempted"), the always-on non-finite-loss
-count (ops/graphs.METRICS) with its divergence tripwire
-(obs/health.HealthMonitor, config.divergence_budget; TrainReport.health)
-and the checkpoint_cb hook that io/checkpoint.save_checkpoint plugs into.
+TrainReport.interrupted = "preempted"), the checkpoint_cb hook that
+io/checkpoint.save_checkpoint plugs into, and the trainer's telemetry
+(word2vec_tpu/train.py's hooks):
 
-Not in this slice: the obs / watchdog / fault-injection hooks and the
-planner's plan search (autotune).
-Configs that need them raise NotImplementedError.
+  - the always-on flight recorder (obs/flight.FlightRecorder: a bounded
+    ring of span events, counters and log records, activated process-wide
+    for the run) and the PhaseRecorder wired to its ring (obs/phases:
+    batcher_wait, h2d, dispatch, device_wait, checkpoint and
+    quality_probe spans; a step or chunk parent span per dispatch and an
+    epoch span; TrainReport.phases);
+  - the non-finite-loss count and, with config.health_metrics, the full
+    health counters, computed inside the captured step (obs/health,
+    extra rows of ops/graphs.StepGraph.out), observed through the lagged
+    fetch by the divergence tripwire (obs/health.HealthMonitor,
+    config.divergence_budget; TrainReport.health) and written into the
+    log records and the flight ring (obs/health.health_record);
+  - the derived-signal plane (`signals`, obs/signals.SignalEngine, beaten
+    at every boundary; TrainReport.signals) and the in-training quality
+    probe (`quality_probe`, obs/quality.QualityProbe: built from
+    config.quality_probe_every, run under its own span at due
+    boundaries; non-probe boundaries are one integer compare, no sync);
+  - `debug_nans`: an eager, ungraphed, per-step run that checks each
+    step's loss and tables and raises FloatingPointError at the first
+    non-finite one (the port's counterpart of jax_debug_nans).
+
+Not in this slice: the device-memory ledger, the profiler capture, the
+watchdog and fault-injection hooks, and the planner's plan search
+(autotune). Configs that need them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,10 +77,13 @@ from .data.batcher import BatchIterator, PackedCorpus, chunk_batches, epoch_orde
 from .data.vocab import Vocab
 from .device import DeviceLike, generator, resolve_device
 from .models.params import Params, convert_params_layout, init_params, params_layout
-from .obs.health import HealthMonitor
+from .obs import flight as flight_mod
+from .obs.flight import FlightRecorder
+from .obs.health import HealthMonitor, health_record
+from .obs.phases import PhaseRecorder
 from .ops import resident as res
 from .ops.band_step import check_route
-from .ops.graphs import METRICS, capture_env
+from .ops.graphs import capture_env
 from .ops.tables import DeviceTables
 from .ops.train_step import make_chunk_runner
 from .tune.planner import select_kernel
@@ -90,7 +113,16 @@ class TrainReport:
     interrupted: Optional[str] = None
     # the divergence tripwire's summary (obs/health.HealthMonitor.summary):
     # observations, nonfinite_loss_steps, max_streak, divergence_budget
+    # (+ grad_norm_cumulative with config.health_metrics)
     health: Optional[Dict] = None
+    # phase-timing breakdown (obs/phases.PhaseRecorder.report): per-phase
+    # p50/p90 over batcher_wait / h2d / dispatch / device_wait /
+    # checkpoint plus the input-bound-vs-compute-bound verdict
+    phases: Optional[Dict] = None
+    # derived-signal plane report (obs/signals.SignalEngine.report), None
+    # unless a driver wired trainer.signals (cli.py does with
+    # --metrics-dir, --prom-textfile or --slo)
+    signals: Optional[Dict] = None
 
 
 def _check_slice(config: Word2VecConfig) -> None:
@@ -98,8 +130,6 @@ def _check_slice(config: Word2VecConfig) -> None:
     unported = [
         (config.autotune != "off", "autotune (tune/)"),
         (config.corpus_mode != "resident", "corpus_mode='streaming' (stream/)"),
-        (config.quality_probe_every > 0, "quality_probe_every (obs/quality.py)"),
-        (config.health_metrics, "health_metrics (obs/health.py)"),
         (config.elastic != "off", "elastic (resilience/elastic.py)"),
     ]
     names = [name for cond, name in unported if cond]
@@ -127,6 +157,23 @@ class Trainer:
     #: boundary; True ends the run cleanly with TrainReport.interrupted =
     #: "preempted". Wire via install_shutdown().
     stop_check: Optional[Callable[[int], bool]] = None
+    #: in-training quality probe (obs/quality.QualityProbe): built from
+    #: config.quality_probe_every > 0 (synthesized golds, a warn-only
+    #: sentinel), or installed by a driver; None = off. Beaten from
+    #: _check_stop: due() is one integer compare, so non-probe boundaries
+    #: add no device sync.
+    quality_probe = None
+    #: derived-signal plane (obs/signals.SignalEngine), None unless a
+    #: driver wires one. Beaten from _check_stop: one clock read and an
+    #: integer compare off the window edge, no device fetch.
+    signals = None
+    #: the TrainState of the current / most recent train() run (the object
+    #: the loop advances), for the drivers' abort paths
+    last_state: Optional["TrainState"] = None
+    #: eager, ungraphed per-step run that checks each step's loss and
+    #: tables and raises FloatingPointError at the first non-finite one
+    #: (cli.py --debug-nans; the counterpart of jax_debug_nans)
+    debug_nans: bool = False
 
     def __init__(
         self,
@@ -140,6 +187,12 @@ class Trainer:
         self.vocab = vocab
         self.corpus = corpus
         self.log_fn = log_fn
+        # always-on flight recorder (obs/flight.py): the last N steps of
+        # span events, counters and log records, dumped as flight.json on
+        # the drivers' failure paths; set trainer.flight = None to opt out.
+        # The phase spans also land on its timeline (the tracer hook).
+        self.flight: Optional[FlightRecorder] = FlightRecorder()
+        self.phases = PhaseRecorder(tracer=self.flight.ring)
         if config.kernel == "auto":
             # inside the measured band degeneracy domain the planner
             # CHOOSES kernel='pair' instead of warning and collapsing (an
@@ -174,6 +227,27 @@ class Trainer:
         #: it was captured (0 for eager steps)
         self.capture_s = 0.0
         self._health: Optional[HealthMonitor] = None
+        if config.quality_probe_every > 0:
+            # the default in-training probe: synthesized planted golds
+            # (stats-only when the vocab carries none) and a warn-only
+            # sentinel; drivers replace it (cli.py wires probe files, a
+            # budgeted sentinel and the checkpoint hook)
+            from .obs.quality import ProbeSet, QualityProbe, QualitySentinel
+            from .tune.planner import degeneracy_domain
+
+            self.quality_probe = QualityProbe(
+                vocab,
+                ProbeSet.synthesize(vocab),
+                every=config.quality_probe_every,
+                log_fn=log_fn,
+                flight=self.flight,
+                sentinel=QualitySentinel(
+                    budget=0,
+                    in_domain=degeneracy_domain(
+                        config, len(vocab), corpus.num_tokens
+                    ),
+                ),
+            )
         self._warn_config_hazards()
 
     def _warn_config_hazards(self) -> None:
@@ -254,10 +328,33 @@ class Trainer:
         self.stop_check = handler.make_stop_check()
 
     def _check_stop(self, state: TrainState) -> bool:
-        """One dispatch-boundary poll of the cooperative stop (the JAX
-        trainer's _check_stop without the watchdog, signal-plane, memory,
-        profiler, fault and quality hooks, which the port does not have)."""
+        """One dispatch-boundary poll (the JAX trainer's _check_stop without
+        the watchdog, memory-ledger, profiler and fault hooks, which the
+        port does not have yet): beat the signal plane (host clocks and
+        ints only), run the quality probe when it is due, then ask the
+        cooperative-stop check."""
+        if self.signals is not None:
+            self.signals.on_boundary(state.step, state.words_done)
+        if self.quality_probe is not None and self.quality_probe.due(state.step):
+            # due() is one integer compare: non-probe boundaries stay
+            # sync-free; the probe itself reads the live tables
+            self._run_quality_probe(state)
         return self.stop_check is not None and self.stop_check(state.step)
+
+    def _run_quality_probe(self, state: TrainState) -> None:
+        """One in-training quality probe under its own phase span.
+        QualityAlert propagates out of train() like DivergenceError
+        (cli.py maps it to EXIT_QUALITY, rc 3)."""
+        with self.phases.span("quality_probe"):
+            self.quality_probe.probe(state.params, state.step)
+
+    def _finish_signals(self, state: TrainState) -> Optional[Dict]:
+        """Close the signal plane's partial tail window and return the
+        TrainReport.signals payload; None when no engine is wired."""
+        if self.signals is None:
+            return None
+        self.signals.finish(state.step, state.words_done)
+        return self.signals.report()
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         seed = self.config.seed if seed is None else seed
@@ -276,6 +373,10 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def _log(self, rec: Dict) -> None:
+        """One log record, to the run's sink AND the flight recorder's
+        record ring (a failure dump shows what the run last said)."""
+        if self.flight is not None:
+            self.flight.log_record(rec)
         if self.log_fn:
             self.log_fn(rec)
 
@@ -329,22 +430,44 @@ class Trainer:
         runs at each step boundary where state.step crosses a multiple of
         checkpoint_every (chunk boundaries on the chunked path), with the
         live params. Returns (state, TrainReport); the returned params are
-        the caller's to keep."""
+        the caller's to keep. The flight recorder is installed process-wide
+        for the run (obs/flight.activate), so a signal handler finds the
+        live ring."""
+        prev_flight = flight_mod.activate(self.flight)
+        try:
+            return self._train_impl(
+                state, log_every, max_steps, checkpoint_cb, checkpoint_every
+            )
+        finally:
+            flight_mod.activate(prev_flight)
+
+    def _train_impl(
+        self,
+        state: Optional[TrainState],
+        log_every: int,
+        max_steps: int,
+        checkpoint_cb: Optional[Callable[[TrainState], None]],
+        checkpoint_every: int,
+    ) -> Tuple[TrainState, TrainReport]:
         cfg = self.config
         if state is None:
             state = self.init_state()
         else:
             state.params = self._coerce_param_layout(state.params)
         state.params = self._adopt(state.params)
+        self.last_state = state
+        if self.debug_nans:
+            self._check_finite(state, None)
         batcher = BatchIterator(
             self.corpus, cfg.batch_rows, cfg.max_sentence_len, seed=cfg.seed
         )
         self._warned_nonfinite = False
         self._last_chunk_loss = float("nan")
-        self._health = HealthMonitor(cfg.divergence_budget)
+        self.phases.reset()
+        self._health = HealthMonitor(cfg.divergence_budget, cfg.micro_steps)
         chunk_len = self._resolve_chunk_len(batcher)
         if chunk_len == 1:
-            if cfg.resident == "on":
+            if cfg.resident == "on" and not self.debug_nans:
                 # the config contract is force-or-error; the per-step
                 # loop streams from the host by construction
                 raise ValueError(
@@ -363,6 +486,24 @@ class Trainer:
             state, batcher, chunk_len, log_every, max_steps,
             checkpoint_cb, checkpoint_every,
         )
+
+    def _check_finite(self, state: TrainState, metrics) -> None:
+        """debug_nans: raise FloatingPointError when the step that brought
+        the run to state.step left a non-finite loss or table cell (at
+        entry, `metrics` None: the tables handed in). A host sync."""
+        what = []
+        if metrics is not None and not bool(torch.isfinite(metrics["loss_sum"]).all()):
+            what.append("loss")
+        what += [
+            k for k, v in sorted(state.params.items())
+            if not bool(torch.isfinite(v).all())
+        ]
+        if what:
+            where = f"entry (step {state.step})" if metrics is None else (
+                f"step {state.step}")
+            raise FloatingPointError(
+                f"debug_nans: non-finite {', '.join(what)} at {where}"
+            )
 
     # ------------------------------------------------------- resume skip
     def _resume_skip(self, state: TrainState, batcher: BatchIterator) -> int:
@@ -406,7 +547,7 @@ class Trainer:
     def _resolve_chunk_len(self, batcher: BatchIterator) -> int:
         """config.chunk_steps resolved against this corpus (0 = auto)."""
         cfg = self.config
-        if cfg.chunk_steps == 1:
+        if cfg.chunk_steps == 1 or self.debug_nans:
             return 1
         steps = batcher.steps_per_epoch()
         if cfg.chunk_steps == 0:
@@ -417,7 +558,7 @@ class Trainer:
     def _runner(self, chunk_len: int):
         """The dispatch runner for chunks of `chunk_len` steps, its graph
         captured here, before the run's first dispatch."""
-        graphed = self.graphs and self.device.type == "cuda"
+        graphed = self.graphs and not self.debug_nans and self.device.type == "cuda"
         resident = self._resident is not None
         key = (chunk_len, resident, graphed)
         runner = self._runners.get(key)
@@ -463,8 +604,11 @@ class Trainer:
         per-step path). The trajectory is the per-step one (the same
         step-indexed draws and per-step alphas, tests/test_torch_chunk.py);
         only dispatch granularity changes. Metrics of dispatch i are
-        fetched after dispatch i+1 is issued; logging, the checkpoint hook
-        and the cooperative stop run at dispatch boundaries."""
+        fetched after dispatch i+1 is issued (the device_wait span);
+        logging, the checkpoint hook, the signal beat, the quality probe
+        and the cooperative stop run at dispatch boundaries, each of which
+        closes a step (chunk_len 1) or chunk parent span on the flight
+        timeline."""
         cfg = self.config
         self._resident = self._setup_resident() if chunk_len > 1 else None
         runner = self._runner(chunk_len)
@@ -480,12 +624,17 @@ class Trainer:
         skip = self._resume_skip(state, batcher)
         self._sync()
         t0 = time.perf_counter()
+        t_bound = t0
         done = False
         interrupted: Optional[str] = None
         for epoch in range(state.epoch, cfg.iters):
             state.epoch = epoch
-            for words_list, dispatch in self._chunk_dispatches(
-                state, batcher, runner, epoch, skip, chunk_len
+            t_epoch = time.perf_counter()
+            for words_list, dispatch in self.phases.timed_iter(
+                self._chunk_dispatches(
+                    state, batcher, runner, epoch, skip, chunk_len
+                ),
+                "batcher_wait",
             ):
                 if max_steps and state.step >= max_steps:
                     done = True
@@ -498,10 +647,28 @@ class Trainer:
                 for i in range(n):
                     alphas[i] = self.alpha_at(wd)
                     wd += words_list[i]
-                snap = self._snapshot(dispatch(alphas, n))
+                metrics = dispatch(alphas, n)
+                snap = self._snapshot(metrics)
                 prev_step = state.step
                 state.step += n
                 state.words_done = wd
+                if self.debug_nans:
+                    self._check_finite(state, metrics)
+                if self.flight is not None:
+                    # the dispatch's parent span, boundary to boundary,
+                    # carrying the step index (the trace merge/diff key);
+                    # a chunk's args.steps is its width
+                    now = time.perf_counter()
+                    if chunk_len == 1:
+                        self.flight.note_step(
+                            state.step, t_bound, now - t_bound, epoch=epoch
+                        )
+                    else:
+                        self.flight.note_step(
+                            state.step, t_bound, now - t_bound, kind="chunk",
+                            steps=n, epoch=epoch,
+                        )
+                    t_bound = now
                 drain()
                 # per-step contract: history/logs only at log_every
                 # boundaries (here: once per dispatch that crosses one)
@@ -516,7 +683,7 @@ class Trainer:
                     and state.step // checkpoint_every
                     != prev_step // checkpoint_every
                 ):
-                    checkpoint_cb(state)
+                    self._run_checkpoint(checkpoint_cb, state)
                 if self._check_stop(state):
                     # cooperative stop (preemption): leave at this boundary
                     # with state.step/epoch mid-epoch-consistent, so a
@@ -527,6 +694,11 @@ class Trainer:
                 if max_steps and state.step >= max_steps:
                     done = True
                     break
+            if self.flight is not None:
+                self.flight.note_step(
+                    state.step, t_epoch, time.perf_counter() - t_epoch,
+                    kind="epoch", epoch=epoch,
+                )
             if done:
                 break
             state.epoch = epoch + 1
@@ -546,49 +718,66 @@ class Trainer:
             resident=self.resident_resolution,
             interrupted=interrupted,
             health=self._health.summary(),
+            phases=self.phases.report(),
+            signals=self._finish_signals(state),
         )
 
+    def _run_checkpoint(self, checkpoint_cb, state: TrainState) -> None:
+        """The checkpoint callback under its phase span; the landing step
+        becomes the divergence tripwire's last-good hint."""
+        with self.phases.span("checkpoint"):
+            checkpoint_cb(state)
+        self._health.checkpoint_hint = f"step {state.step}"
+
     def _snapshot(self, metrics: Dict[str, torch.Tensor]):
-        """(host [len(METRICS), S] tensor, event): a dispatch's metrics copied to the
-        host right behind it, so that fetching them waits for that dispatch
-        alone and not for the ones issued since (the static outputs belong
-        to the next dispatch). On the card the copy lands in page-locked
-        memory and the event marks it; on the CPU there is nothing to wait
-        for."""
-        stacked = torch.stack([metrics[k] for k in METRICS])
+        """(names, host [len(names), S] tensor, event): a dispatch's
+        metrics copied to the host right behind it, so that fetching them
+        waits for that dispatch alone and not for the ones issued since
+        (the static outputs belong to the next dispatch). On the card the
+        copy lands in page-locked memory and the event marks it; on the
+        CPU there is nothing to wait for."""
+        names = tuple(metrics)
+        stacked = torch.stack([metrics[k] for k in names])
         if not stacked.is_cuda:
-            return stacked, None
+            return names, stacked, None
         host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
         host.copy_(stacked, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return names, host, done
 
     def _note_metrics(
         self, snap, at_step: int, at_epoch: int, at_alpha: float,
         at_words: int, do_log: bool, real_steps: int, t0: float,
         loss_hist: List[float],
     ) -> None:
-        """A dispatch's per-step metrics [len(METRICS), S], fetched (this
-        waits only for that dispatch, already issued one dispatch earlier):
-        the loss, the divergence tripwire (every real step observed; raises
-        DivergenceError at the budget), the non-finite warning, and the log
-        record at the log_every boundaries."""
-        host, done = snap
-        if done is not None:
-            done.synchronize()
-        per_step = host.numpy().astype(np.float64)
-        m = dict(zip(METRICS, per_step.sum(axis=1)))
+        """A dispatch's per-step metrics [len(names), S], fetched under the
+        device_wait span (this waits only for that dispatch, already
+        issued one dispatch earlier): the loss, the flight recorder's
+        counter timeline, the divergence tripwire (every real step
+        observed; raises DivergenceError at the budget, after the counters
+        are recorded so a dump carries the poisoned observation), the
+        non-finite warning, and the log record at the log_every
+        boundaries."""
+        names, host, done = snap
+        with self.phases.span("device_wait"):
+            if done is not None:
+                done.synchronize()
+        # the pad slots of a partial chunk did not run: observe the real ones
+        per_step = dict(zip(names, host.numpy().astype(np.float64)[:, :real_steps]))
+        m = {k: v.sum() for k, v in per_step.items()}
+        micro = self.config.micro_steps
         if self._hs_route:
             # every fetched dispatch is an observation, whatever the log
             # cadence (the JAX trainer's chunk drain, train.py:1290-1296)
             self._note_tail_dropped(float(m["hs_tail_dropped"]), at_step)
-        # the pad slots of a partial chunk did not run: observe the real ones
-        self._health.observe_chunk(
-            dict(zip(METRICS, per_step[:, :real_steps])), at_step
-        )
         loss = float(m["loss_sum"]) / max(1.0, float(m["pairs"]))
         self._last_chunk_loss = loss
+        if self.flight is not None:
+            c = {"loss": loss}
+            c.update(health_record(per_step, micro))
+            self.flight.note_counters(at_step, c)
+        self._health.observe_chunk(per_step, at_step)
         if not np.isfinite(loss) and not self._warned_nonfinite:
             self._warned_nonfinite = True
             warnings.warn(
@@ -602,7 +791,7 @@ class Trainer:
         if not do_log:
             return
         loss_hist.append(loss)
-        if self.log_fn:
+        if self.log_fn or self.flight is not None:
             dt = time.perf_counter() - t0
             rec = {
                 "step": at_step,
@@ -618,7 +807,10 @@ class Trainer:
                 # (config.hs_tail_slots): slots whose updates the bound
                 # dropped; the JAX record carries it on the hs route only
                 rec["hs_tail_dropped"] = float(m["hs_tail_dropped"])
-            rec["nonfinite_loss_steps"] = float(m["nonfinite_loss"])
+            rec.update(health_record(per_step, micro))
+            ph = self.phases.snapshot()
+            if ph:
+                rec["phases"] = ph
             self._log(rec)
 
     def _note_tail_dropped(self, dropped: float, at_step: int) -> None:
@@ -697,9 +889,10 @@ class Trainer:
         dispatch(alphas, steps) -> metrics).
 
         Streaming: host-filled [S, B, L] chunks, staged through page-locked
-        memory into the graph's static input. Resident: the corpus lives
-        on the device, so only this epoch's [R] row order goes up (once),
-        and each dispatch carries scalars."""
+        memory into the graph's static input (the h2d span), then the
+        replays (the dispatch span). Resident: the corpus lives on the
+        device, so only this epoch's [R] row order goes up (once), and each
+        dispatch carries scalars."""
         cfg = self.config
         if self._resident is not None:
             order = epoch_order(cfg.seed, epoch, self.corpus.num_rows)
@@ -709,10 +902,11 @@ class Trainer:
                 words_list = [int(w) for w in step_words[t0:t0 + chunk_len]]
 
                 def dispatch(al, n, t0=t0):
-                    return runner(
-                        self._params, self._resident, order_dev, cfg.seed,
-                        state.step, t0, al, steps=n,
-                    )
+                    with self.phases.span("dispatch"):
+                        return runner(
+                            self._params, self._resident, order_dev, cfg.seed,
+                            state.step, t0, al, steps=n,
+                        )
 
                 yield words_list, dispatch
             return
@@ -724,6 +918,9 @@ class Trainer:
         ):
 
             def dispatch(al, n, tokens=tokens):
-                return runner(self._params, tokens, cfg.seed, state.step, al, steps=n)
+                with self.phases.span("h2d"):
+                    g = runner.stage(self._params, tokens)
+                with self.phases.span("dispatch"):
+                    return runner.run(g, self._params, al, cfg.seed, state.step, n)
 
             yield words_list, dispatch

@@ -1,8 +1,8 @@
 """Structured training logs.
 
 A copy of word2vec_tpu/utils/logging.py for the PyTorch port: the console,
-JSONL and fan-out sinks (the TensorBoard sink and the obs/ MetricsHub are
-not ported).
+JSONL, TensorBoard and fan-out sinks (drivers compose them through
+obs/export.MetricsHub).
 
 The reference's observability is a single in-place printf of alpha +
 percent every 100 sentences (Word2Vec.cpp:382-385). Here every log record
@@ -78,6 +78,47 @@ def jsonl_logger(path: str) -> Callable[[Dict], None]:
 
     log.close = close
     atexit.register(close)
+    return log
+
+
+def tensorboard_logger(logdir: str) -> Callable[[Dict], None]:
+    """Scalar summaries (loss, alpha, words/sec, progress, health counters)
+    per step for TensorBoard, through tensorboardX (standard event files,
+    no TensorFlow). Without tensorboardX the sink degrades to a one-line
+    warning and a no-op: a missing optional viewer must not kill a
+    training run that only incidentally asked for it."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        import warnings
+
+        warnings.warn(
+            "tensorboardX is not installed; TensorBoard logging to "
+            f"{logdir!r} is disabled (pip install tensorboardX to enable)",
+            stacklevel=2,
+        )
+
+        def noop(m: Dict) -> None:
+            pass
+
+        noop.close = lambda: None
+        return noop
+
+    writer = SummaryWriter(logdir)
+
+    def log(m: Dict) -> None:
+        if "event" in m:
+            return
+        step = int(m.get("step", 0))
+        for key, val in m.items():
+            if isinstance(val, bool) or not isinstance(val, (int, float)):
+                continue
+            if key in ("step", "epoch"):
+                continue
+            writer.add_scalar(f"train/{key}", float(val), step)
+        writer.flush()
+
+    log.close = writer.close
     return log
 
 
