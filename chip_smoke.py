@@ -152,6 +152,34 @@ Phases (any failure exits non-zero and prints no result line):
      row 0 of emb_in and divergence_budget 2 in its config) rc 2 with
      nonfinite_params > 0 in the dump, a preemption (a patched stop check)
      rc 75. One telemetry_phase JSON line.
+ 10. resilience and device telemetry: phase 9's CLI runs (36 flagship
+     steps, pallas_fused/unified, chunk_steps 6), in process unless said
+     otherwise, each with its launch counts, graph replays and captures
+     counted: an uninterrupted run (the reference); auto-recovery
+     (--faults nan@20 --divergence-budget 2 --auto-recover 1, checkpoints
+     every 12, keep 2): exit 0, one auto_recover record (resume_step <
+     failed_step, alpha halved, seed + 1), one capture and launches of the
+     replayed steps plus the warm-up, finite tables, the recovery's
+     checkpoint load and copy into the graph's buffers timed; --faults
+     sigterm@18: exit 75, the resume bitwise equal to the reference
+     (state.npz and the binary vectors); --faults ckpt_oserror:times=2:
+     exit 0, two retry warnings, a checkpoint that verifies; the memory
+     ledger every 6 boundaries (w2v_mem_* gauges, the manifest's init /
+     table_place / train_step watermarks, table_place at least the slab's
+     170,400,000 bytes, headroom in (0, 1)) with the launches, replays and
+     synchronizing calls of a run sampling every 36, and its us a sample;
+     --profile-steps 12:18 (capture_1.json valid, its trace holding the
+     window's six steps of fused_grad_core and slab scatter launches, the
+     profiler's start / stop ms) and a real SIGUSR2 at step 12 (a window
+     armed at 18, mem_usr2.json, exit 0); a wedged card (~2 s of
+     torch.cuda._sleep waited on under device_wait) named by a
+     StepWatchdog(0.5 s); a subprocess with --faults hang@12:secs=120
+     --step-deadline 2 started first: exit 76 within 2 x 2 + 1 s of the
+     wedge, stall.json, stall_stacks.txt, flight.json (stalled), shutdown
+     stalled, then --resume bitwise equal to the reference; words/sec with
+     --step-deadline 30 and without, interleaved twice, with equal
+     launches, replays and synchronizing calls. One resilience_phase JSON
+     line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2671,10 +2699,10 @@ TEL_SLO = "throughput_wps<0.5*baseline:for=3"
 #: against the JAX CLI by tests/test_torch_telemetry_cli.py)
 TEL_MANIFEST_KEYS = (
     "argv", "band_backend", "config", "corpus_mode", "corpus_rows",
-    "corpus_tokens", "created_utc", "device", "final_step", "fleet_health",
-    "git_sha", "kernel", "kernel_decision", "mesh_size", "plan",
-    "plan_source", "recoveries", "resumed_from", "schema", "shutdown",
-    "slo", "versions", "vocab_size",
+    "corpus_tokens", "cost_harvest", "created_utc", "device", "device_memory",
+    "final_step", "fleet_health", "git_sha", "kernel", "kernel_decision",
+    "mesh_size", "plan", "plan_source", "profiler", "recoveries",
+    "resumed_from", "schema", "shutdown", "slo", "versions", "vocab_size",
 )
 TEL_PROM = ("w2v_loss", "w2v_grad_norm", "w2v_nonfinite_params",
             "w2v_update_norm_emb_in", "w2v_update_norm_emb_out_ns",
@@ -2685,12 +2713,13 @@ TEL_HEALTH = ("grad_norm", "update_norm_emb_in", "update_norm_emb_out_ns",
               "nonfinite_params", "alpha_device")
 
 
-def tel_cli(argv, stop_at=None):
+def counted_cli(argv, stop_check=None):
     """cli.main(argv) in process with the launch counts set to 0 just
-    before it and read just after, the graph replays counted, the
-    synchronizing torch calls counted (torch.cuda.set_sync_debug_mode) and
-    stderr captured; stop_at patches the cooperative stop to fire at that
-    step (a preemption). Returns (rc, counts, replays, syncs, stderr)."""
+    before it and read just after, the graph replays and captures counted,
+    the synchronizing torch calls counted (torch.cuda.set_sync_debug_mode),
+    the warnings and stderr captured; stop_check(step) replaces the
+    cooperative stop's poll. Returns a dict: rc, launches, replays,
+    captures, syncs, warnings (their texts), stderr, seconds."""
     import contextlib
     import io
     import warnings
@@ -2699,19 +2728,25 @@ def tel_cli(argv, stop_at=None):
     from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
     from word2vec_tpu_torch.resilience import shutdown
 
-    replays = [0]
+    n = {"replays": 0, "captures": 0}
     replay = torch.cuda.CUDAGraph.replay
+    capture_begin = torch.cuda.CUDAGraph.capture_begin
 
     def counted(self):
-        replays[0] += 1
+        n["replays"] += 1
         return replay(self)
+
+    def counted_capture(self, *a, **k):
+        n["captures"] += 1
+        return capture_begin(self, *a, **k)
 
     make_stop = shutdown.ShutdownHandler.make_stop_check
     torch.cuda.CUDAGraph.replay = counted
-    if stop_at is not None:
-        shutdown.ShutdownHandler.make_stop_check = (
-            lambda self: lambda step: step >= stop_at)
+    torch.cuda.CUDAGraph.capture_begin = counted_capture
+    if stop_check is not None:
+        shutdown.ShutdownHandler.make_stop_check = lambda self: stop_check
     err = io.StringIO()
+    t0 = time.perf_counter()
     try:
         reset_launch_counts()
         torch.cuda.set_sync_debug_mode("warn")
@@ -2724,9 +2759,22 @@ def tel_cli(argv, stop_at=None):
     finally:
         torch.cuda.set_sync_debug_mode(0)
         torch.cuda.CUDAGraph.replay = replay
+        torch.cuda.CUDAGraph.capture_begin = capture_begin
         shutdown.ShutdownHandler.make_stop_check = make_stop
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    return rc, dict(LAUNCHES), replays[0], syncs, err.getvalue()
+    texts = [str(w.message) for w in caught]
+    return dict(rc=rc, launches=dict(LAUNCHES), replays=n["replays"],
+                captures=n["captures"],
+                syncs=sum("synchroniz" in t for t in texts), warnings=texts,
+                stderr=err.getvalue(), seconds=time.perf_counter() - t0)
+
+
+def tel_cli(argv, stop_at=None):
+    """counted_cli(argv), stop_at patching the cooperative stop to fire at
+    that step (a preemption). Returns (rc, counts, replays, syncs,
+    stderr)."""
+    r = counted_cli(argv, None if stop_at is None
+                    else (lambda step: step >= stop_at))
+    return r["rc"], r["launches"], r["replays"], r["syncs"], r["stderr"]
 
 
 def tel_records(path):
@@ -2811,6 +2859,27 @@ def tel_counter_check(dev, vocab, corpus):
     return row, times
 
 
+def tel_flags(vocab, corpus, tmp):
+    """The CLI flags of the phase 9 and 10 runs: the first TEL_SPE
+    flagship steps of phase 5's corpus as a text8 file beside phase 6's
+    vocabulary file (written here when missing), pallas_fused/unified,
+    chunk_steps TEL_CHUNK, TEL_ITERS epochs, no vectors written."""
+    txt = os.path.join(tmp, "telemetry.txt")
+    vtxt = os.path.join(tmp, "vocab.txt")  # phase 6's vocabulary file
+    if not os.path.exists(vtxt):
+        vocab.save(vtxt)
+    if not os.path.exists(txt):
+        with open(txt, "w") as f:
+            f.write(" ".join(np.asarray(vocab.words)[
+                corpus.flat[:TEL_SPE * B * L]].tolist()))
+    return ["-train", txt, "-read-vocab", vtxt, "-output", "", "-size", str(D),
+            "-window", str(W), "-negative", str(K), "-iter", str(TEL_ITERS),
+            "--batch-rows", str(B), "--max-sentence-len", str(L),
+            "--shared-negatives", str(KP), "--band-backend", "pallas_fused",
+            "--table-layout", "unified", "--chunk-steps", str(TEL_CHUNK),
+            "--quiet", "--log-every", str(TEL_CHUNK)]
+
+
 def phase_telemetry(vocab, corpus, card, tmp):
     """The trainer's telemetry through the CLI on the card (phase 9 of the
     module docstring)."""
@@ -2825,22 +2894,12 @@ def phase_telemetry(vocab, corpus, card, tmp):
     dev = torch.device("cuda", 0)
     row = {"card": card}
     steps = TEL_SPE * TEL_ITERS
-    txt = os.path.join(tmp, "telemetry.txt")
-    vtxt = os.path.join(tmp, "vocab.txt")  # phase 6's vocabulary file
-    with open(txt, "w") as f:
-        f.write(" ".join(np.asarray(vocab.words)[
-            corpus.flat[:TEL_SPE * B * L]].tolist()))
+    flags = tel_flags(vocab, corpus, tmp)
     pairs = os.path.join(tmp, "probe_pairs.txt")
     prng = np.random.default_rng(4)
     with open(pairs, "w") as f:
         for i in range(0, 64, 2):
             f.write(f"{vocab.words[i]},{vocab.words[i + 1]},{prng.uniform(0, 10):.2f}\n")
-    flags = ["-train", txt, "-read-vocab", vtxt, "-output", "", "-size", str(D),
-             "-window", str(W), "-negative", str(K), "-iter", str(TEL_ITERS),
-             "--batch-rows", str(B), "--max-sentence-len", str(L),
-             "--shared-negatives", str(KP), "--band-backend", "pallas_fused",
-             "--table-layout", "unified", "--chunk-steps", str(TEL_CHUNK),
-             "--quiet", "--log-every", str(TEL_CHUNK)]
     want = expected_launches("pallas_fused", "unified", steps + 1)
 
     def run_on(i, probe=TEL_PROBE):
@@ -3007,6 +3066,360 @@ def phase_telemetry(vocab, corpus, card, tmp):
     log(json.dumps({"telemetry_phase": row}))
 
 
+# ------------------------------- phase 10: resilience and device telemetry
+RES_STEPS = TEL_SPE * TEL_ITERS   # 36 steps a run, chunk TEL_CHUNK
+RES_NAN = 20          # nan@20 lands at boundary 24, after its checkpoint
+RES_HANG = 12         # hang@12: wedges the loop right after boundary 12
+RES_DEADLINE = 2.0
+RES_TERM = 18
+RES_PROFILE = (12, 18)
+RES_USR2_AT = 12      # the SIGUSR2 is sent at this boundary
+RES_MEM_EVERY = 6
+SLAB_BYTES = V * 2 * D * 4   # the unified f32 slab, 170,400,000 bytes
+RES_PROM = ("w2v_mem_bytes_in_use", "w2v_mem_peak_bytes",
+            "w2v_mem_bytes_limit", "w2v_mem_headroom_frac",
+            "w2v_mem_available", "w2v_cost_harvest_programs")
+
+
+def res_wedge(vocab, corpus, dev, out_dir):
+    """A wedged card: a StepWatchdog (deadline 0.5 s, on_fire, its stall
+    files into out_dir) on a flagship Trainer's PhaseRecorder, two beats,
+    then ~2 s of spin enqueued (torch.cuda._sleep) and the host waiting
+    for it under the device_wait span, as the trainer's lagged fetch
+    waits. Returns (the fire record, the spin's wall seconds)."""
+    from word2vec_tpu_torch.resilience.watchdog import StepWatchdog
+    from word2vec_tpu_torch.train import Trainer
+
+    tr = Trainer(flagship_cfg("pallas_fused", "unified"), vocab, corpus,
+                 device=dev)
+    rec = {}
+    wd = StepWatchdog(deadline=0.5, phases=tr.phases, metrics_dir=out_dir,
+                      on_fire=rec.update)
+    torch.cuda.synchronize()
+    wd.arm()
+    wd.beat(1)
+    wd.beat(2)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(int(2.0 * sm_clock_hz()))
+    with tr.phases.span("device_wait"):
+        torch.cuda.synchronize()
+    spin = time.perf_counter() - t0
+    wd.disarm()
+    with open(os.path.join(out_dir, "stall.json")) as f:
+        phase = json.load(f)["phase"]
+    if not wd.fired.is_set() or rec.get("phase") != "device_wait" \
+            or phase != "device_wait":
+        fail(f"the watchdog did not name the wedged card: {rec}")
+    return rec, spin
+
+
+def phase_resilience(vocab, corpus, card, tmp):
+    """Resilience and device telemetry through the CLI on the card (phase
+    10 of the module docstring)."""
+    from word2vec_tpu_torch import train as train_mod
+    from word2vec_tpu_torch.io.checkpoint import load_checkpoint, verify_checkpoint
+    from word2vec_tpu_torch.obs import profiler as profiler_mod
+    from word2vec_tpu_torch.obs.devmem import MemoryLedger
+    from word2vec_tpu_torch.obs.profiler import validate_capture_doc
+    from word2vec_tpu_torch.resilience import supervisor as sup_mod
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    flags = tel_flags(vocab, corpus, tmp)
+    steps = RES_STEPS
+    row = {"card": card}
+
+    def path(name):
+        return os.path.join(tmp, "res_" + name)
+
+    def run(argv, what, want_rc=0, stop_check=None):
+        r = counted_cli(argv, stop_check)
+        if r["rc"] != want_rc:
+            fail(f"resilience {what}: exit {r['rc']} (want {want_rc}): "
+                 f"{r['stderr'][-2000:]}")
+        return r
+
+    def counts_of(r, replays, what):
+        want = expected_launches("pallas_fused", "unified", replays + 1)
+        if r["launches"] != want or r["replays"] != replays or r["captures"] != 1:
+            fail(f"resilience {what}: launches {r['launches']} (want {want}), "
+                 f"{r['replays']} replays (want {replays}), {r['captures']} "
+                 "captures (want 1)")
+
+    def manifest(d):
+        with open(os.path.join(d, "manifest.json")) as f:
+            return json.load(f)
+
+    def same_vectors(a, b):
+        with open(a, "rb") as x, open(b, "rb") as y:
+            return x.read() == y.read()
+
+    # the stall: a subprocess (the watchdog's fire path os._exits), started
+    # first; it is collected after the in-process runs
+    stall_d, stall_ck = path("stall"), path("stall_ck")
+    stall_log = open(path("stall.log"), "w")
+    stall = subprocess.Popen(
+        [sys.executable, "-m", "word2vec_tpu_torch.cli", *flags,
+         "--health-metrics", "0", "--checkpoint-dir", stall_ck,
+         "--checkpoint-every", "6", "--faults", f"hang@{RES_HANG}:secs=120",
+         "--step-deadline", str(RES_DEADLINE), "--metrics-dir", stall_d],
+        stdout=stall_log, stderr=subprocess.STDOUT, cwd=HERE,
+        env={**os.environ, "PYTHONPATH": HERE},
+    )
+    t_stall = time.perf_counter()
+    try:
+        # the uninterrupted run every resume is held against
+        full_ck, full_vec = path("full_ck"), path("full.bin")
+        full = run(flags + ["--checkpoint-dir", full_ck, "-output", full_vec,
+                            "-binary", "1"], "uninterrupted run")
+        counts_of(full, steps, "uninterrupted run")
+
+        # auto-recovery: the rollback (its checkpoint load, then the copy
+        # into the captured graph's buffers) timed in place
+        timing = {}
+        recover, adopt = sup_mod.Supervisor._recover, train_mod.Trainer._adopt
+
+        def timed_recover(self, err, attempt):
+            t0 = time.perf_counter()
+            out = recover(self, err, attempt)
+            timing["load_s"] = time.perf_counter() - t0
+            return out
+
+        def timed_adopt(self, params):
+            if "load_s" not in timing or "copy_s" in timing:
+                return adopt(self, params)
+            t0 = time.perf_counter()
+            out = adopt(self, params)
+            torch.cuda.synchronize()
+            timing["copy_s"] = time.perf_counter() - t0
+            return out
+
+        rec_d, rec_ck = path("rec"), path("rec_ck")
+        sup_mod.Supervisor._recover = timed_recover
+        train_mod.Trainer._adopt = timed_adopt
+        try:
+            rec = run(flags + [
+                "--checkpoint-dir", rec_ck, "--checkpoint-every", "12",
+                "--checkpoint-keep", "2", "--faults", f"nan@{RES_NAN}",
+                "--divergence-budget", "2", "--auto-recover", "1",
+                "--metrics-dir", rec_d], "auto-recovery")
+        finally:
+            sup_mod.Supervisor._recover = recover
+            train_mod.Trainer._adopt = adopt
+        man = manifest(rec_d)
+        recs = man.get("recoveries") or []
+        if man["shutdown"] != "clean" or len(recs) != 1:
+            fail(f"auto-recovery: shutdown {man['shutdown']}, recoveries {recs}")
+        r0 = recs[0]
+        if not (r0["resume_step"] < r0["failed_step"]
+                and r0["init_alpha"] == 0.025 * 0.5 and r0["seed"] == 1):
+            fail(f"auto-recovery record {r0}")
+        counts_of(rec, steps + steps - r0["resume_step"], "auto-recovery")
+        st, _, _ = load_checkpoint(rec_ck)
+        if st.step != steps or not all(
+                bool(torch.isfinite(v).all()) for v in st.params.values()):
+            fail(f"auto-recovery: the final tables (step {st.step}) are not "
+                 "all finite")
+        recovery_s = timing["load_s"] + timing["copy_s"]
+        row["recovery"] = dict(r0, load_s=timing["load_s"],
+                               copy_s=timing["copy_s"], total_s=recovery_s,
+                               replays=rec["replays"], captures=rec["captures"])
+        log(f"  auto-recovery: rolled back from step {r0['failed_step']} to "
+            f"{r0['rolled_back_to']}, alpha {r0['init_alpha']}, seed "
+            f"{r0['seed']}; one capture, {rec['replays']} replays; recovery "
+            f"{recovery_s:.4f} s = checkpoint load {timing['load_s']:.4f} s + "
+            f"copy into the graph's buffers {timing['copy_s']:.4f} s ({card})")
+
+        # preemption by a real SIGTERM, then the resume
+        term_ck = path("term_ck")
+        run(flags + ["--checkpoint-dir", term_ck, "--faults",
+                     f"sigterm@{RES_TERM}"], "sigterm", want_rc=75)
+        term_res_ck, term_vec = path("term_res_ck"), path("term_res.bin")
+        term_res = run(flags + ["--resume", term_ck, "--checkpoint-dir",
+                                term_res_ck, "-output", term_vec, "-binary", "1"],
+                       "resume after the preemption")
+        counts_of(term_res, steps - RES_TERM, "resume after the preemption")
+        if not (npz_bitwise(full_ck, term_res_ck) and same_vectors(full_vec, term_vec)):
+            fail("the resume after sigterm differs from the uninterrupted run")
+
+        # checkpoint write faults: two injected OSErrors, retried
+        oe_ck = path("oe_ck")
+        oe = run(flags + ["--checkpoint-dir", oe_ck, "--checkpoint-every", "12",
+                          "--faults", "ckpt_oserror:times=2"], "ckpt_oserror")
+        retries = [w for w in oe["warnings"] if "retry" in w]
+        verify_checkpoint(oe_ck)
+        if len(retries) != 2 or load_checkpoint(oe_ck)[0].step != steps:
+            fail(f"ckpt_oserror: {len(retries)} retry warnings: {retries}")
+        row["ckpt_oserror_retries"] = retries
+
+        # the memory ledger, sampled every 6 boundaries and every 36
+        mem_d = path("mem")
+        mem = run(flags + ["--metrics-dir", mem_d, "--mem-sample-every",
+                           str(RES_MEM_EVERY)], "memory ledger")
+        mem36 = run(flags + ["--metrics-dir", path("mem36"),
+                             "--mem-sample-every", str(steps)], "ledger / 36")
+        for k in ("launches", "replays", "syncs"):
+            if mem[k] != mem36[k]:
+                fail(f"memory ledger: {k} {mem[k]} sampling every "
+                     f"{RES_MEM_EVERY}, {mem36[k]} every {steps}")
+        counts_of(mem, steps, "memory ledger")
+        with open(os.path.join(mem_d, "metrics.prom")) as f:
+            prom = f.read()
+        missing = [n for n in RES_PROM if n not in prom]
+        dm = manifest(mem_d)["device_memory"]
+        ph = dm["phases"]
+        if missing or not dm["available"] or sorted(ph) != [
+                "init", "table_place", "train_step"] \
+                or ph["table_place"]["bytes_in_use_max"] < SLAB_BYTES \
+                or ph["train_step"]["samples"] != steps // RES_MEM_EVERY \
+                or not 0.0 < dm["headroom_frac_min"] < 1.0:
+            fail(f"memory ledger: prom lacks {missing}; device_memory {dm}")
+        led = MemoryLedger(devices=[dev])
+        led.sample("init")
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            led.sample("train_step")
+        sample_us = (time.perf_counter() - t0) / 1000 * 1e6
+        row["memory"] = {"device_memory": dm, "sample_us": sample_us,
+                         "syncs": mem["syncs"]}
+        log(f"  memory ledger: table_place {ph['table_place']['bytes_in_use_max']:,}"
+            f" B in use (slab {SLAB_BYTES:,}), peak {dm['peak_bytes']:,} B, "
+            f"headroom min {dm['headroom_frac_min']}, {ph['train_step']['samples']} "
+            f"train samples; launches, replays and {mem['syncs']} synchronizing "
+            f"calls equal at every 6 and every 36; {sample_us:.2f} us a sample "
+            f"({card})")
+
+        # bounded profiler windows: --profile-steps, then a real SIGUSR2
+        caps = []
+        init = profiler_mod.ProfilerCapture.__init__
+
+        def keep(self, *a, **k):
+            init(self, *a, **k)
+            caps.append(self)
+
+        profiler_mod.ProfilerCapture.__init__ = keep
+        try:
+            prof_d = path("prof")
+            prof = run(flags + ["--metrics-dir", prof_d, "--profile-steps",
+                                "%d:%d" % RES_PROFILE], "profile window")
+            usr2_d, sent = path("usr2"), []
+
+            def send_usr2(step):
+                if step >= RES_USR2_AT and not sent:
+                    sent.append(step)
+                    os.kill(os.getpid(), signal.SIGUSR2)
+                return False
+
+            run(flags + ["--metrics-dir", usr2_d], "SIGUSR2",
+                stop_check=send_usr2)
+        finally:
+            profiler_mod.ProfilerCapture.__init__ = init
+        counts_of(prof, steps, "profile window")
+        with open(os.path.join(prof_d, "capture_1.json")) as f:
+            doc = json.load(f)
+        validate_capture_doc(doc)
+        with open(os.path.join(doc["trace_dir"], doc["files"][0])) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        window = RES_PROFILE[1] - RES_PROFILE[0]
+        seen = {"fused_grad_core": sum("grad_core" in n for n in names),
+                "fused_slab_scatter": sum("slab_scatter" in n for n in names)}
+        per = expected_launches("pallas_fused", "unified", window)
+        if (doc["armed_step"], doc["stopped_step"]) != RES_PROFILE or any(
+                seen[k] != per[k] for k in seen):
+            fail(f"profile window {doc['armed_step']}:{doc['stopped_step']}: "
+                 f"kernels {seen} (want {dict((k, per[k]) for k in seen)})")
+        with open(os.path.join(usr2_d, "capture_1.json")) as f:
+            udoc = json.load(f)
+        validate_capture_doc(udoc)
+        with open(os.path.join(usr2_d, "mem_usr2.json")) as f:
+            umem = json.load(f)
+        if udoc["reason"] != "sigusr2" or umem["reason"] != "sigusr2" \
+                or not umem["summary"]["available"]:
+            fail(f"SIGUSR2: capture {udoc}, ledger dump {umem.get('reason')}")
+        row["profiler"] = {"window": doc, "kernels": seen,
+                           "timing": [c.timing for c in caps],
+                           "sigusr2": {"capture": udoc, "sent_at": sent}}
+        log(f"  profiler: window {RES_PROFILE[0]}:{RES_PROFILE[1]} holds "
+            f"{seen} (the {window} steps' launches); profiler start / stop "
+            + ", ".join(f"{c.timing['start_ms']:.1f} / {c.timing['stop_ms']:.1f} ms"
+                        for c in caps)
+            + f"; SIGUSR2 at step {sent} -> capture armed at "
+            f"{udoc['armed_step']}, stopped at {udoc['stopped_step']}, "
+            f"mem_usr2.json ({card})")
+
+        # the device wedge, named by the watchdog
+        wedge, spin = res_wedge(vocab, corpus, dev, path("wedge"))
+        row["wedge"] = dict(wedge, spin_s=spin)
+        log(f"  device wedge: fired after {wedge['elapsed_s']} s (deadline "
+            f"{wedge['effective_deadline_s']} s) naming {wedge['phase']}; "
+            f"the spin took {spin:.2f} s")
+
+        # the stall, collected
+        try:
+            stall_rc = stall.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            stall.kill()
+            fail("the stalled run was not shot within 300 s")
+        stall_wall = time.perf_counter() - t_stall
+    finally:
+        if stall.poll() is None:
+            stall.kill()
+            stall.wait()
+        stall_log.close()
+    with open(path("stall.log")) as f:
+        stall_out = f.read()
+    if stall_rc != 76:
+        fail(f"the stalled run exited {stall_rc}: {stall_out[-2000:]}")
+    with open(os.path.join(stall_d, "stall.json")) as f:
+        srec = json.load(f)
+    with open(os.path.join(stall_d, "flight.json")) as f:
+        sfl = json.load(f)
+    if srec["step"] < RES_HANG or srec["elapsed_s"] > 2 * RES_DEADLINE + 1.0 \
+            or os.path.getsize(os.path.join(stall_d, "stall_stacks.txt")) == 0 \
+            or sfl["reason"] != "stalled" \
+            or manifest(stall_d)["shutdown"] != "stalled":
+        fail(f"stall: {srec}, flight {sfl.get('reason')}")
+    stall_res_ck, stall_vec = path("stall_res_ck"), path("stall_res.bin")
+    sres = run(flags + ["--resume", stall_ck, "--checkpoint-dir", stall_res_ck,
+                        "-output", stall_vec, "-binary", "1"],
+               "resume after the stall")
+    counts_of(sres, steps - RES_HANG, "resume after the stall")
+    if not (npz_bitwise(full_ck, stall_res_ck) and same_vectors(full_vec, stall_vec)):
+        fail("the resume after the stall differs from the uninterrupted run")
+    row["stall"] = dict(srec, process_wall_s=stall_wall,
+                        past_deadline_s=srec["elapsed_s"] - RES_DEADLINE)
+    log(f"  stall: exit 76, stall.json at step {srec['step']}, phase "
+        f"{srec['phase']}, {srec['elapsed_s']} s after the wedge (deadline "
+        f"{RES_DEADLINE} s, effective {srec['effective_deadline_s']} s); "
+        "stall_stacks.txt, flight.json (stalled), shutdown stalled; the resume "
+        "and the sigterm resume equal the uninterrupted run bitwise")
+
+    # words/sec with the watchdog armed and without, interleaved twice
+    wps, arms = {"on": [], "off": []}, {}
+    for i in range(2):
+        for arm in ("on", "off"):
+            jl = path(f"wd_{arm}{i}.jsonl")
+            extra = ["--step-deadline", "30"] if arm == "on" else []
+            r = run(flags + extra + ["--log-jsonl", jl], f"watchdog {arm}")
+            rep = [x for x in tel_records(jl)
+                   if x.get("event") == "train_report"][-1]
+            wps[arm].append(rep["words_per_sec"])
+            arms.setdefault(arm, []).append(r)
+    for a, b in zip(arms["on"], arms["off"]):
+        if any(a[k] != b[k] for k in ("launches", "replays", "syncs")):
+            fail(f"the watchdog changed the launches, replays or syncs: "
+                 f"{[(a[k], b[k]) for k in ('launches', 'replays', 'syncs')]}")
+    row["words_per_sec"] = wps
+    row["syncs"] = {"watchdog_on": arms["on"][0]["syncs"],
+                    "watchdog_off": arms["off"][0]["syncs"]}
+    log(f"  words/sec with --step-deadline 30 {wps['on']}, without "
+        f"{wps['off']} (A B A B; {card}); launches, replays and "
+        f"{arms['on'][0]['syncs']} synchronizing calls equal")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"resilience_phase": row}, default=str))
+
+
 
 
 def main() -> int:
@@ -3090,6 +3503,9 @@ def main() -> int:
 
         log(f"[9 telemetry] (at {time.perf_counter() - t0:.1f} s)")
         phase_telemetry(vocab, corpus, card, tmp_cli)
+
+        log(f"[10 resilience and device telemetry] (at {time.perf_counter() - t0:.1f} s)")
+        phase_resilience(vocab, corpus, card, tmp_cli)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -59,8 +59,8 @@ def test_validation_errors_mirror_reference(capsys):
     assert "--checkpoint-keep must be >= 0" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--faults", "nan@3"],
-                                  ["--mem-sample-every", "5"], ["--prng", "rbg"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--segment-tokens", "1000"],
+                                  ["--sync-deadline", "5"], ["--prng", "rbg"]])
 def test_flags_of_unported_layers_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as e:
         run(["-train", "x", "-negative", "5"] + flag)

@@ -10,9 +10,10 @@ quality probes score the same tables although their draws differ.
 Pins:
   * --metrics-dir --trace --quality-probe-every --probe-pairs --slo
     --signal-window --emit-device: the same files in the metrics and trace
-    dirs, the same Prometheus names (those of the JAX package's memory
-    ledger and cost harvest aside: a later slice), the same manifest keys
-    (those of the unported layers aside), quality rows within 1e-6 at the
+    dirs, the same Prometheus names (the cost harvest's byte and flop
+    totals aside: torch has no compiled cost analysis to read them from),
+    the same manifest keys (those of the unported layers aside), quality
+    rows within 1e-6 at the
     same steps, every step record with the health fields, and a trace
     whose step parents count every step;
   * a divergence (rc 2), a QualityAlert (rc 3) and a preemption (rc 75):
@@ -49,15 +50,14 @@ from word2vec_tpu_torch.obs import tracediff  # noqa: E402
 from word2vec_tpu_torch.obs.trace import load_trace, validate_trace_doc  # noqa: E402
 from word2vec_tpu_torch.resilience import shutdown as tshutdown  # noqa: E402
 
-#: metric names of the JAX package's device-memory ledger and cost harvest
-#: (obs/devmem.py, obs/harvest.py: not in the port yet)
-UNPORTED_PROM = ("w2v_mem_", "w2v_cost_harvest_")
+#: the JAX cost harvest's totals, read from XLA's cost analysis: the
+#: port's harvest rows carry none (obs/harvest.py)
+UNPORTED_PROM = ("w2v_cost_harvest_flops", "w2v_cost_harvest_bytes",
+                 "w2v_cost_harvest_temp_bytes", "w2v_cost_harvest_code_bytes")
 #: manifest keys of layers the port does not have yet (elasticity, the
-#: compile cache, the memory ledger, the cost harvest and calibration, the
-#: profiler capture)
-UNPORTED_MANIFEST = {"compile_cache", "cost_calibrate", "cost_harvest",
-                     "device_memory", "elastic", "elastic_generation",
-                     "elastic_policy", "profiler"}
+#: compile cache, the cost calibration)
+UNPORTED_MANIFEST = {"compile_cache", "cost_calibrate", "elastic",
+                     "elastic_generation", "elastic_policy"}
 STEPS = 24  # the corpus's steps per epoch at 4 x 32
 
 

@@ -39,15 +39,29 @@ shape the signal plane, --prom-textfile and --tensorboard add sinks,
 at the first non-finite loss or table cell (there is no torch counterpart
 of jax_debug_nans).
 
+The resilience and device-telemetry flags are the JAX CLI's too:
+--auto-recover N rolls a divergence back to the last good checkpoint
+(scaling alpha by --recover-alpha-scale, advancing the seed) up to N
+times before exit 2; --faults injects the chaos plan (the hidden
+--inject-nan is nan@0); --step-deadline arms the watchdog, which writes
+stall.json, stall_stacks.txt and flight.json and exits 76 when no step
+boundary lands in time; the memory ledger (--mem-sample-every, w2v_mem_*
+gauges, the manifest's device_memory) and the program harvest are on with
+the signal plane; --profile-steps A:B and --profile-on-breach N write
+bounded torch.profiler windows (capture_<n>.json + profile_<n>/) into
+--metrics-dir, where SIGUSR2 asks for one more window and writes
+mem_usr2.json (SIGUSR1: flight_usr1.json + stacks_usr1.txt); --profile DIR
+traces the whole run.
+
 Flags of layers the port does not have yet (--dp/--tp/--sp, --multihost,
---elastic*, --faults, --inject-nan, --profile*, --mem-sample-every,
---step-deadline, --autotune, --corpus-mode, --prng, ...) are not defined:
-argparse rejects them.
+--elastic*, --sync-deadline, --autotune, --corpus-mode, --segment-tokens,
+--prng, ...) are not defined: argparse rejects them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import os
@@ -181,17 +195,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="STEPS")
     p.add_argument("--checkpoint-keep", type=int, default=1, metavar="N",
                    help="previous checkpoints retained as rollback targets "
-                        "(<dir>.old ... .old{N})")
+                        "(<dir>.old ... .old{N}); --auto-recover depends on "
+                        "N >= 1 (io/checkpoint.py retention)")
     p.add_argument("--resume", metavar="DIR", help="resume from checkpoint "
                    "dir (integrity-checked; a corrupt checkpoint is "
                    "quarantined as .corrupt and the .old backup loads "
                    "instead); a checkpoint of either package loads")
     p.add_argument("--allow-vocab-mismatch", action="store_true",
                    help="skip the --resume vocabulary-compatibility guard")
+    p.add_argument("--auto-recover", type=int, default=0, metavar="N",
+                   help="supervised divergence recovery: on DivergenceError "
+                        "roll back to the last-good checkpoint (integrity + "
+                        "finite-params validated, .old fallback) into the "
+                        "trainer's captured buffers, rescale alpha "
+                        "(--recover-alpha-scale), advance the shuffle seed, "
+                        "and retry up to N times before exiting rc=2 "
+                        "(resilience/supervisor.py; needs --checkpoint-dir "
+                        "+ --checkpoint-every for rollback targets)")
+    p.add_argument("--recover-alpha-scale", type=float, default=0.5,
+                   metavar="S",
+                   help="multiply init_alpha by S on every auto-recovery "
+                        "(1.0 = keep the schedule)")
+    p.add_argument("--faults", metavar="SPEC", default="",
+                   help="fault-injection plan for chaos testing "
+                        "(resilience/faults.py): comma-separated "
+                        "kind[@step][:key=val], e.g. 'nan@40,sigterm@80', "
+                        "'hang@10:secs=300', or "
+                        "'ckpt_oserror:times=2,stall@10:secs=0.5'; or a "
+                        ".json plan file")
+    p.add_argument("--step-deadline", type=float, default=0.0, metavar="SECS",
+                   help="step-deadline watchdog (resilience/watchdog.py; "
+                        "0 = off): if no step/chunk boundary lands within "
+                        "max(SECS, 4x rolling-p90 boundary time) — the graph "
+                        "capture covered by a grace window — dump all "
+                        "thread stacks + the wedged phase to --metrics-dir, "
+                        "mark the manifest 'shutdown: stalled', and exit "
+                        "76 (EXIT_STALLED) so schedulers requeue with "
+                        "--resume. Set SECS above your worst checkpoint "
+                        "write")
     p.add_argument("--divergence-budget", type=int, default=8,
                    help="consecutive non-finite-loss steps before the run "
                         "aborts with a DivergenceError (exit 2) instead of "
                         "training on NaN parameters (0 = count only)")
+    p.add_argument("--inject-nan", action="store_true", help=argparse.SUPPRESS)
+    # ^ the JAX CLI's legacy alias for `--faults nan@0` (poison the initial
+    #   params)
     p.add_argument("--eval-ws353", metavar="FILE",
                    help="WordSim-353 csv/tsv for post-train eval")
     p.add_argument("--eval-analogy", metavar="FILE",
@@ -261,6 +309,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensorboard", metavar="DIR",
                    help="write TensorBoard scalar summaries to DIR "
                         "(degrades to a warning without tensorboardX)")
+    p.add_argument("--profile", metavar="DIR",
+                   help="capture a torch.profiler trace of training into "
+                        "DIR (Chrome-trace JSON). This traces the WHOLE "
+                        "run; for bounded windows use --profile-steps / "
+                        "--profile-on-breach")
+    p.add_argument("--profile-steps", metavar="A:B", default="",
+                   help="bounded profiler window (obs/profiler.py): start "
+                        "torch.profiler at step A, stop at step B, and "
+                        "write a schema-checked capture manifest "
+                        "(capture_<n>.json) next to flight.json in "
+                        "--metrics-dir (required)")
+    p.add_argument("--profile-on-breach", type=int, default=0, metavar="N",
+                   help="breach-triggered profiler capture "
+                        "(obs/profiler.py): when an --slo rule enters "
+                        "breach, profile N step boundaries — one bounded "
+                        "capture per breach episode, cooldown-gated — and "
+                        "dump a capture manifest next to flight.json. "
+                        "Needs --metrics-dir and --slo; SIGUSR2 requests "
+                        "the same bounded window on demand (plus a "
+                        "memory-ledger dump) without stopping the run")
+    p.add_argument("--mem-sample-every", type=int, default=0, metavar="N",
+                   help="memory-ledger cadence (obs/devmem.py; 0 = auto: "
+                        "50): read the CUDA caching allocator's counters "
+                        "every N step boundaries into w2v_mem_* gauges, "
+                        "the mem_headroom_frac derived signal (SLO-able), "
+                        "flight.json, and the manifest's per-phase "
+                        "watermarks + growth-headroom forecast. Boundaries "
+                        "that are not sampled add no launch and no sync; "
+                        "the CPU degrades to present-from-zero gauges")
     p.add_argument("--debug-nans", action="store_true",
                    help="eager, ungraphed, one step a dispatch: raise "
                         "FloatingPointError at the first non-finite loss "
@@ -340,15 +417,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     from .obs.signals import SignalEngine
     from .obs.slo import SloEvaluator
-    from .resilience.shutdown import EXIT_PREEMPTED, ShutdownHandler
+    from .resilience.shutdown import (
+        EXIT_PREEMPTED, ShutdownHandler, install_usr1_dump, install_usr2_profile,
+    )
     from .train import Trainer
     from .utils.logging import jsonl_logger, progress_logger, tensorboard_logger
+    from .utils.profiling import trace
 
-    if args.checkpoint_keep < 0:
-        print("error: --checkpoint-keep must be >= 0", file=sys.stderr)
+    # The fault plan and the resilience knobs are validated before any
+    # expensive work (a chaos run with a typo'd spec must fail in
+    # milliseconds, not after the corpus scan), in the JAX CLI's order.
+    from .resilience.faults import Fault, FaultPlan
+
+    try:
+        fault_plan = FaultPlan.parse(args.faults)
+        if args.inject_nan:
+            fault_plan.faults.append(Fault("nan", step=0))
+    except (ValueError, OSError) as e:
+        print(f"error: bad --faults spec: {e}", file=sys.stderr)
         return 1
-    # SLO rules fail in milliseconds, before the corpus scan (the parse
-    # errors name clause + offset, obs/slo.py)
+    # SLO rules fail in milliseconds too (the parse errors name clause +
+    # offset, obs/slo.py)
     from .obs.slo import SloError, parse_slo
 
     try:
@@ -357,12 +446,55 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"error: bad --slo spec: {e}", file=sys.stderr)
         return 1
     for name, val in (("--signal-window", args.signal_window),
+                      ("--checkpoint-keep", args.checkpoint_keep),
+                      ("--auto-recover", args.auto_recover),
+                      ("--step-deadline", args.step_deadline),
                       ("--quality-budget", args.quality_budget),
                       ("--quality-grace", args.quality_grace),
-                      ("--quality-probe-every", args.quality_probe_every or 0)):
+                      ("--quality-probe-every", args.quality_probe_every or 0),
+                      ("--mem-sample-every", args.mem_sample_every),
+                      ("--profile-on-breach", args.profile_on_breach)):
         if val < 0:
             print(f"error: {name} must be >= 0", file=sys.stderr)
             return 1
+    if args.auto_recover and not (0.0 < args.recover_alpha_scale <= 1.0):
+        print("error: --recover-alpha-scale must be in (0, 1]", file=sys.stderr)
+        return 1
+    # bounded profiler windows need a manifest destination; parse A:B
+    # before the corpus scan
+    profile_window = None
+    if args.profile_steps:
+        try:
+            a_s, _, b_s = args.profile_steps.partition(":")
+            profile_window = (int(a_s), int(b_s))
+        except ValueError:
+            print(
+                f"error: bad --profile-steps {args.profile_steps!r} "
+                "(want A:B, two integer steps)",
+                file=sys.stderr,
+            )
+            return 1
+        if profile_window[1] <= profile_window[0]:
+            print(
+                f"error: --profile-steps window is empty: "
+                f"{args.profile_steps!r}",
+                file=sys.stderr,
+            )
+            return 1
+    if (args.profile_steps or args.profile_on_breach) and not args.metrics_dir:
+        print(
+            "error: --profile-steps/--profile-on-breach write their capture "
+            "manifests into --metrics-dir; set it",
+            file=sys.stderr,
+        )
+        return 1
+    if args.profile_on_breach and not slo_rules:
+        print(
+            "error: --profile-on-breach triggers on --slo breaches; set "
+            "--slo rules (SIGUSR2 windows work without any)",
+            file=sys.stderr,
+        )
+        return 1
     # quality-probe cadence: on by default for instrumented runs
     # (--metrics-dir) and whenever the user supplies probe material
     q_every = args.quality_probe_every
@@ -611,6 +743,45 @@ def main(argv: Optional[List[str]] = None) -> int:
     manifest_path = (
         os.path.join(metrics_dir, "manifest.json") if metrics_dir else None
     )
+
+    # Device telemetry (obs/devmem.py, obs/harvest.py, obs/profiler.py), on
+    # for the runs the signal plane covers: the memory ledger (per-phase
+    # watermarks, w2v_mem_* gauges, the mem_headroom_frac signal, the
+    # growth forecast), the program harvest (banked into the manifest at
+    # run end) and the bounded profiler windows (--profile-steps, SLO
+    # breaches, SIGUSR2). The ledger is made before the manifest write so
+    # its start block carries the init watermark; it is installed
+    # process-wide for the run (swap_table and the SIGUSR2 handler find
+    # it there).
+    mem_ledger = cost_harvest = prof_capture = None
+    if slo_rules or metrics_dir or args.prom_textfile:
+        from .obs.devmem import MemoryLedger, table_row_bytes
+        from .obs.harvest import CostHarvest
+
+        mem_ledger = MemoryLedger(
+            sample_every=args.mem_sample_every or 50,
+            # the hub itself (not the log_fn gate): the SignalEngine is a
+            # hub sink, and the mem rows must reach it under --quiet too
+            log_fn=hub,
+            flight=trainer.flight,
+            devices=[device],
+            row_bytes=table_row_bytes(trainer.config),
+            vocab_reserve=trainer.config.vocab_reserve,
+        )
+        trainer.devmem = mem_ledger
+        mem_ledger.sample("init")
+        cost_harvest = trainer.harvest = CostHarvest()
+    if metrics_dir:
+        from .obs.profiler import ProfilerCapture
+
+        prof_capture = ProfilerCapture(
+            metrics_dir, steps=args.profile_on_breach or 8, log_fn=hub,
+            flight=trainer.flight,
+        )
+        trainer.profiler = prof_capture
+        if profile_window is not None:
+            prof_capture.schedule(*profile_window)
+
     if manifest_path:
         # the REALIZED config, where the run went and what it ran under
         write_manifest(
@@ -625,6 +796,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "resumed_from": args.resume or None,
                 "kernel_decision": trainer.kernel_decision,
                 "mesh_size": 1,
+                # the memory view at run start; the end-of-run update
+                # rewrites it with the full per-phase ledger
+                "device_memory": (
+                    mem_ledger.summary() if mem_ledger is not None else None
+                ),
             },
         )
     if log_fn is not None:
@@ -708,6 +884,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         trainer.signals = sig_engine
         hub.add(sig_engine)  # hub.close() also closes the row file
+        if prof_capture is not None and args.profile_on_breach:
+            # an SLO breach requests one bounded profiler window, armed at
+            # the next step boundary (obs/profiler.py)
+            prof_capture.attach(sig_engine.bus)
         if not args.quiet and slo_rules:
             print(
                 f"slo: {len(slo_rules)} rule(s) over {sig_window}-step "
@@ -757,26 +937,95 @@ def main(argv: Optional[List[str]] = None) -> int:
     def last_step(default):
         return getattr(trainer.last_state, "step", None) or default
 
+    # Step-deadline watchdog: a run that stops reaching step boundaries is
+    # shot (EXIT_STALLED) with stacks, the wedged phase and the flight
+    # timeline in the metrics dir. flush_fn counts the stall in the
+    # Prometheus sink and closes the sinks: the fire path os._exits,
+    # skipping every atexit hook.
+    if args.step_deadline:
+        from .resilience.watchdog import StepWatchdog
+
+        def _stall_flush(rec):
+            hub({"event": "stalled", "step": rec.get("step")})
+            hub.close()
+
+        trainer.watchdog = StepWatchdog(
+            deadline=args.step_deadline,
+            phases=trainer.phases,
+            metrics_dir=metrics_dir,
+            manifest_path=manifest_path,
+            flight=trainer.flight,
+            flush_fn=_stall_flush,
+        )
+
     # Preemption-safe shutdown: SIGTERM/SIGINT request a cooperative stop at
     # the next dispatch boundary; the run then checkpoints and exits
     # EXIT_PREEMPTED so a scheduler can requeue with --resume.
     handler = ShutdownHandler().install()
     trainer.install_shutdown(handler)
-    try:
-        state, report = trainer.train(
-            state=state,
-            log_every=args.log_every,
-            checkpoint_cb=ckpt_cb,
-            checkpoint_every=args.checkpoint_every,
+    # On-demand diagnostics: SIGUSR1 dumps the flight recorder + all-thread
+    # stacks into the metrics dir without stopping the run; SIGUSR2 is the
+    # device-side mirror — a bounded profiler window + the memory ledger.
+    uninstall_usr1 = (
+        install_usr1_dump(metrics_dir, trainer.flight)
+        if metrics_dir else (lambda: None)
+    )
+    uninstall_usr2 = (
+        install_usr2_profile(metrics_dir, prof_capture, mem_ledger)
+        if metrics_dir else (lambda: None)
+    )
+
+    # Supervised auto-recovery: DivergenceError rolls back to the last-good
+    # checkpoint (into the trainer's captured buffers) and retries.
+    run_train = trainer.train
+    supervisor = None
+    if args.auto_recover:
+        from .resilience.supervisor import Supervisor
+
+        if not (args.checkpoint_dir and args.checkpoint_every) and not args.quiet:
+            print(
+                "warning: --auto-recover without --checkpoint-dir/"
+                "--checkpoint-every has no rollback target; recovery "
+                "restarts from a fresh init",
+                file=sys.stderr,
+            )
+        supervisor = Supervisor(
+            trainer,
+            checkpoint_dir=args.checkpoint_dir,
+            max_retries=args.auto_recover,
+            alpha_scale=args.recover_alpha_scale,
+            log_fn=log_fn,
         )
+        run_train = supervisor.run
+
+    from .obs import devmem as devmem_mod
+    from .resilience import faults as faults_mod
+
+    prev_plan = None
+    if fault_plan:
+        trainer.fault_plan = fault_plan
+        prev_plan = faults_mod.activate(fault_plan)
+    prev_ledger = devmem_mod.activate(mem_ledger) if mem_ledger else None
+    profile_ctx = (
+        trace(args.profile) if args.profile else contextlib.nullcontext()
+    )
+    try:
+        with profile_ctx:
+            state, report = run_train(
+                state=state,
+                log_every=args.log_every,
+                checkpoint_cb=ckpt_cb,
+                checkpoint_every=args.checkpoint_every,
+            )
     except DivergenceError as e:
-        # structured abort: the manifest says why, the flight dump carries
-        # the timeline of the steps that led here
+        # structured abort: the manifest says why (and what the supervisor
+        # tried), the flight dump carries the timeline of the steps that
+        # led here
         print(f"error: DivergenceError: {e}", file=sys.stderr)
         if manifest_path:
             update_manifest(manifest_path, {
                 "shutdown": "diverged", "divergence": e.record(),
-                "recoveries": [],
+                "recoveries": supervisor.recoveries if supervisor else [],
             })
         dump_flight("diverged", failure_step=last_step(e.step))
         export_trace()
@@ -795,7 +1044,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         hub.close()
         return EXIT_QUALITY
     finally:
+        # restore the signal dispositions, the process-wide fault plan and
+        # ledger on every exit path (main() runs in process under tests)
         handler.uninstall()
+        uninstall_usr1()
+        uninstall_usr2()
+        if fault_plan:
+            faults_mod.activate(prev_plan)
+        if mem_ledger:
+            devmem_mod.activate(prev_ledger)
     if log_fn is not None:
         # the run's verdict in the log tail, one record
         summary = {
@@ -813,6 +1070,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
         if report.interrupted:
             summary["interrupted"] = report.interrupted
+        if report.recoveries:
+            summary["recoveries"] = len(report.recoveries)
         if report.signals:
             fh = report.signals.get("fleet_health") or {}
             summary["fleet_health"] = fh.get("verdict")
@@ -820,7 +1079,21 @@ def main(argv: Optional[List[str]] = None) -> int:
             if slo_rep:
                 summary["slo_state"] = slo_rep.get("state")
                 summary["slo_breaches"] = slo_rep.get("breaches_total")
+        if report.device_memory and report.device_memory.get("available"):
+            # the device-memory one-liner: worst headroom seen this run
+            summary["mem_headroom_frac_min"] = report.device_memory.get(
+                "headroom_frac_min")
+            summary["mem_peak_bytes"] = report.device_memory.get("peak_bytes")
         log_fn(summary)
+
+    # the program harvest, banked after the measured loop (obs/harvest.py)
+    harvest_report = None
+    if cost_harvest is not None:
+        harvest_report = cost_harvest.finalize()
+        if log_fn is not None:
+            hrec = cost_harvest.gauge_record()
+            if hrec:
+                log_fn(hrec)
 
     preempted = report.interrupted == "preempted"
     if manifest_path:
@@ -828,8 +1101,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         end_fields = {
             "shutdown": "preempted" if preempted else "clean",
             "final_step": state.step,
-            "recoveries": [],
+            "recoveries": report.recoveries or [],
         }
+        if report.device_memory is not None:
+            # the full per-phase ledger replaces the start block's init
+            # watermark (one manifest read answers "where did the memory go")
+            end_fields["device_memory"] = report.device_memory
+        if harvest_report is not None:
+            end_fields["cost_harvest"] = harvest_report
+        if prof_capture is not None:
+            end_fields["profiler"] = prof_capture.summary()
         if trainer.resume_fallback:
             end_fields["resume_fallback"] = trainer.resume_fallback
         if report.signals:

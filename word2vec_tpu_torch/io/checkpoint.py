@@ -30,8 +30,9 @@ Durability contract:
 
 Tables come back as CPU tensors; Trainer.train copies them into its own
 device buffers (the ones its CUDA graphs replay against), never rebinding
-them. Not ported: the fault-injection hook of the save
-(resilience/faults.py, `ckpt_oserror`).
+them. Each save attempt is an injection point of the `ckpt_oserror` fault
+(resilience/faults.py): the active plan makes it raise OSError, which the
+retry loop absorbs up to its bound.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import tempfile
 import time
 import warnings
 import zipfile
-from typing import Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ import torch
 from ..config import Word2VecConfig
 from ..data.vocab import Vocab
 from ..models.params import params_layout
+from ..resilience import faults as _faults
 from ..train import TrainState
 
 INTEGRITY_FILE = "integrity.json"
@@ -252,6 +254,7 @@ def read_stream_cursor(path: str) -> Optional[dict]:
 def _save_once(path: str, state: TrainState, config: Word2VecConfig,
                vocab: Optional[Vocab], keep: int,
                stream: Optional[dict] = None) -> None:
+    _faults.raise_if_active("ckpt_oserror", where=path)
     parent = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=parent, prefix=".ckpt_tmp_")
@@ -347,26 +350,39 @@ def _load_dir(path: str) -> Tuple[TrainState, Word2VecConfig, Optional[Vocab]]:
     return state, config, vocab
 
 
+#: validate(state, config, vocab) raises to reject a parsed checkpoint
+Validator = Callable[[TrainState, Word2VecConfig, Optional[Vocab]], None]
+
+
 def load_checkpoint(
-    path: str, fallback: bool = True
+    path: str,
+    fallback: bool = True,
+    quarantine: bool = True,
+    validate: Optional[Validator] = None,
 ) -> Tuple[TrainState, Word2VecConfig, Optional[Vocab]]:
     """Load the newest GOOD checkpoint at `path`.
 
     Candidates are tried newest-first (`path`, `.old`, `.old2`, ...). A
-    candidate fails on integrity mismatch (verify_checkpoint) or any parse
-    error of a truncated/torn dir. Failed candidates are quarantined
-    (renamed `.corrupt*`) so the next save's rotation never resurrects
-    them; `fallback=False` restricts the search to `path` itself. Raises
-    CheckpointError when nothing loads. (The JAX loader's `validate` and
-    `quarantine` arguments serve its divergence supervisor, which is not
-    ported.)
+    candidate fails on integrity mismatch (verify_checkpoint), any parse
+    error of a truncated/torn dir, or a caller-supplied `validate(state,
+    config, vocab)` raising (the supervisor validates that the tables are
+    finite — a checkpoint saved after divergence is not a rollback
+    target). Failed candidates are quarantined (renamed `.corrupt*`;
+    `quarantine=False` leaves them in place) so the next save's rotation
+    never resurrects them; `fallback=False` restricts the search to `path`
+    itself. Raises CheckpointError when nothing loads.
     """
-    state, config, vocab, _ = load_checkpoint_with_path(path, fallback)
+    state, config, vocab, _ = load_checkpoint_with_path(
+        path, fallback=fallback, quarantine=quarantine, validate=validate
+    )
     return state, config, vocab
 
 
 def load_checkpoint_with_path(
-    path: str, fallback: bool = True
+    path: str,
+    fallback: bool = True,
+    quarantine: bool = True,
+    validate: Optional[Validator] = None,
 ) -> Tuple[TrainState, Word2VecConfig, Optional[Vocab], str]:
     """load_checkpoint, additionally returning the DIRECTORY that loaded
     (`path` itself, or the `.old*` backup the fallback walked to)."""
@@ -379,10 +395,13 @@ def load_checkpoint_with_path(
             continue
         try:
             verify_checkpoint(cand)
-            return _load_dir(cand) + (cand,)
+            out = _load_dir(cand)
+            if validate is not None:
+                validate(*out)
+            return out + (cand,)
         except _CORRUPT_ERRORS as e:
             tried.append(f"{cand}: {type(e).__name__}: {e}")
-            moved = _quarantine(cand)
+            moved = _quarantine(cand) if quarantine else None
             warnings.warn(
                 f"corrupt checkpoint {cand!r} ({type(e).__name__}: {e})"
                 + (f"; quarantined as {moved!r}" if moved else "")

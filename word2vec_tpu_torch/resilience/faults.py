@@ -2,11 +2,14 @@
 
 A copy of word2vec_tpu/resilience/faults.py for the PyTorch port: the
 same spec grammar, kinds and firing log. Two deliveries are torch's: `nan`
-writes NaN into the param tensors in place (the port's trainer does not
-call on_step yet), and the `oom` event raises torch.OutOfMemoryError, the
-type a real CUDA allocation failure raises, so the server treats an
-injected and a real one alike. The serve batch executor is the port's
-only event injection point so far (its checkpoint writer has none).
+writes NaN into the param tensors in place — in the trainer those are its
+persistent buffers, the ones its CUDA graphs replay against, so the next
+replay reads the poison — and the `oom` event raises
+torch.OutOfMemoryError, the type a real CUDA allocation failure raises, so
+the server treats an injected and a real one alike. The injection points:
+the trainer's dispatch boundaries (train.Trainer._check_stop and its entry,
+for the step kinds), each checkpoint save attempt (io/checkpoint.py,
+`ckpt_oserror`) and the serve batch executor (`oom`).
 
 A `FaultPlan` is a list of `Fault`s, each naming WHAT breaks and WHEN,
 parsed from a compact spec string:
@@ -247,8 +250,8 @@ class FaultPlan:
         """Deliver every due, unspent step fault at this boundary.
 
         `state` is a train.TrainState (needs .step and .params, a dict of
-        tensors); `trainer`
-        is unused today but keeps the hook forward-compatible (a fault that
+        tensors: the trainer's own buffers); `trainer` is unused today but
+        keeps the hook forward-compatible (a fault that
         needs the config or the phase recorder can reach them). Chunked
         dispatch calls this at chunk boundaries, so a fault pinned inside a
         chunk fires at the first boundary past its step — the plan's step is
@@ -325,10 +328,10 @@ class FaultPlan:
 
 
 # ------------------------------------------------------ module-level plan
-# Event-fault injection points (the serve batch executor) consult the
-# process-wide active plan: threading a plan object through every call
-# chain that might write a checkpoint would couple the io layer to the
-# chaos harness for no benefit. Tests activate/deactivate around the block
+# Event-fault injection points (the checkpoint save, the serve batch
+# executor) consult the process-wide active plan: threading a plan object
+# through every call chain that might write a checkpoint would couple the
+# io layer to the chaos harness for no benefit. Tests activate/deactivate around the block
 # under test.
 _ACTIVE: Optional[FaultPlan] = None
 

@@ -2,9 +2,10 @@
 
 A copy of word2vec_tpu/resilience/shutdown.py for the PyTorch port, for
 one process: the multi-process agreement of make_stop_check (which rides
-on parallel/multihost.py) and the SIGUSR2 device dump (which rides on
-obs/devmem and obs/profiler) are not ported; the SIGUSR1 flight dump
-(install_usr1_dump) is.
+on parallel/multihost.py) is not ported; the SIGUSR1 flight dump
+(install_usr1_dump) and the SIGUSR2 device dump (install_usr2_profile: a
+bounded profiler window, obs/profiler.py, and the memory ledger,
+obs/devmem.py) are.
 
 Preemptible fleets deliver SIGTERM with a short grace window before the
 hard kill. Dying mid-step wastes every step since the last checkpoint and,
@@ -141,6 +142,57 @@ def install_usr1_dump(metrics_dir: str, flight=None) -> Callable[[], None]:
     def uninstall() -> None:
         try:
             signal.signal(usr1, prev)
+        except (ValueError, OSError):
+            pass
+
+    return uninstall
+
+
+def install_usr2_profile(
+    metrics_dir: str, capture=None, ledger=None
+) -> Callable[[], None]:
+    """On-demand DEVICE diagnostics without stopping the run: SIGUSR2
+    requests a bounded profiler window (obs/profiler.ProfilerCapture —
+    armed at the next step boundary on the training thread, never from the
+    handler itself) and dumps the current memory ledger (`mem_usr2.json`)
+    into `metrics_dir`. The device-side mirror of the SIGUSR1 flight dump:
+    USR1 answers "what is the HOST doing right now", USR2 "what is the
+    DEVICE doing right now".
+
+    `capture` is the run's ProfilerCapture (None degrades to the ledger
+    dump alone); `ledger` defaults to the process-wide active one
+    (obs/devmem.activate — the one cli.py installs). Returns an uninstall
+    callable; a no-op on platforms without SIGUSR2 or off the main
+    thread, mirroring install_usr1_dump's degrade."""
+    usr2 = getattr(signal, "SIGUSR2", None)
+    if usr2 is None:
+        return lambda: None
+
+    def _handle(signum, frame) -> None:
+        try:
+            from ..obs import devmem as devmem_mod
+
+            if capture is not None:
+                # a flag write — arming happens at the next step boundary
+                capture.request("sigusr2")
+            led = ledger if ledger is not None else devmem_mod.active()
+            if led is not None:
+                led.sample("sigusr2")
+                led.dump(
+                    os.path.join(metrics_dir, "mem_usr2.json"),
+                    reason="sigusr2",
+                )
+        except Exception:  # noqa: BLE001 — an on-demand dump must never
+            pass           # kill the run it observes
+
+    try:
+        prev = signal.signal(usr2, _handle)
+    except ValueError:  # not the main thread
+        return lambda: None
+
+    def uninstall() -> None:
+        try:
+            signal.signal(usr2, prev)
         except (ValueError, OSError):
             pass
 

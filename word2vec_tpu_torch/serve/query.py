@@ -213,6 +213,13 @@ class QueryEngine:
                 f"table has d={Wn.shape[1]}"
             )
         new_table = self._place(Wn)
+        # the swap's transient double residency (old table serving + new
+        # table placed) is the serve tier's memory spike: attribute it on
+        # the process-wide memory ledger when one is wired (obs/devmem.py;
+        # no-op otherwise)
+        from ..obs import devmem as _devmem
+
+        _devmem.sample_active("serve_swap")
         with self._swap_lock:
             self.table = new_table
             self.V = int(Wn.shape[0])

@@ -54,11 +54,23 @@ io/checkpoint.save_checkpoint plugs into, and the trainer's telemetry
     boundaries; non-probe boundaries are one integer compare, no sync);
   - `debug_nans`: an eager, ungraphed, per-step run that checks each
     step's loss and tables and raises FloatingPointError at the first
-    non-finite one (the port's counterpart of jax_debug_nans).
+    non-finite one (the port's counterpart of jax_debug_nans);
+  - the one-process resilience and device-telemetry hooks, each None
+    unless a caller wires one: the step-deadline watchdog (`watchdog`,
+    resilience/watchdog.StepWatchdog: armed by train(), beaten at every
+    boundary, disarmed on every exit path), the fault plan (`fault_plan`,
+    resilience/faults.FaultPlan: delivered at every boundary and once at
+    entry; a `nan` fault fills the trainer's persistent buffers, which the
+    graphs replay against), the memory ledger (`devmem`,
+    obs/devmem.MemoryLedger; TrainReport.device_memory), bounded profiler
+    windows (`profiler`, obs/profiler.ProfilerCapture; stopped on every
+    exit path) and the program harvest (`harvest`, obs/harvest.CostHarvest:
+    each dispatched program, captured once). The divergence
+    supervisor (resilience/supervisor.Supervisor) drives train() across
+    rollbacks and sets TrainReport.recoveries.
 
-Not in this slice: the device-memory ledger, the profiler capture, the
-watchdog and fault-injection hooks, and the planner's plan search
-(autotune). Configs that need them raise NotImplementedError.
+Not in this slice: the planner's plan search (autotune). Configs that need
+it raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -123,6 +135,14 @@ class TrainReport:
     # unless a driver wired trainer.signals (cli.py does with
     # --metrics-dir, --prom-textfile or --slo)
     signals: Optional[Dict] = None
+    # auto-recovery records, attached by resilience.Supervisor when the run
+    # rolled back and retried past a DivergenceError
+    recoveries: Optional[List[Dict]] = None
+    # memory ledger summary (obs/devmem.MemoryLedger.summary): availability,
+    # overall and per-phase watermarks, growth forecast. None unless a
+    # caller wired trainer.devmem (cli.py does with the signal plane);
+    # available=False with zeroed watermarks on the CPU
+    device_memory: Optional[Dict] = None
 
 
 def _check_slice(config: Word2VecConfig) -> None:
@@ -174,6 +194,25 @@ class Trainer:
     #: tables and raises FloatingPointError at the first non-finite one
     #: (cli.py --debug-nans; the counterpart of jax_debug_nans)
     debug_nans: bool = False
+    #: fault-injection plan (resilience/faults.FaultPlan): None in
+    #: production; chaos tests and `--faults` set it. Duck-typed: anything
+    #: with .on_step(state, trainer).
+    fault_plan = None
+    #: step-deadline watchdog (resilience/watchdog.StepWatchdog): None
+    #: unless --step-deadline. train() arms / disarms it; _check_stop
+    #: beats it (one clock read, no device sync).
+    watchdog = None
+    #: memory ledger (obs/devmem.MemoryLedger): None unless a caller wires
+    #: one. Non-sample boundaries are one integer compare; a sample reads
+    #: the caching allocator's host-side counters.
+    devmem = None
+    #: program harvest (obs/harvest.CostHarvest): None unless a caller
+    #: wires one; each dispatched program is captured once.
+    harvest = None
+    #: bounded profiler windows (obs/profiler.ProfilerCapture): None unless
+    #: a caller wires one. Idle boundaries are None-checks; a requested or
+    #: scheduled window arms here, on the training thread.
+    profiler = None
 
     def __init__(
         self,
@@ -328,13 +367,23 @@ class Trainer:
         self.stop_check = handler.make_stop_check()
 
     def _check_stop(self, state: TrainState) -> bool:
-        """One dispatch-boundary poll (the JAX trainer's _check_stop without
-        the watchdog, memory-ledger, profiler and fault hooks, which the
-        port does not have yet): beat the signal plane (host clocks and
-        ints only), run the quality probe when it is due, then ask the
-        cooperative-stop check."""
+        """One dispatch-boundary poll, in the JAX trainer's order: beat the
+        watchdog (the boundary landed), the signal plane (host clocks and
+        ints only), the memory ledger (an integer compare off its cadence)
+        and the profiler (None-checks when idle), deliver due faults, run
+        the quality probe when it is due, then ask the cooperative-stop
+        check. The beat comes BEFORE fault delivery, so an injected hang
+        is measured from the boundary it wedges."""
+        if self.watchdog is not None:
+            self.watchdog.beat(state.step)
         if self.signals is not None:
             self.signals.on_boundary(state.step, state.words_done)
+        if self.devmem is not None:
+            self.devmem.on_boundary(state.step)
+        if self.profiler is not None:
+            self.profiler.on_boundary(state.step)
+        if self.fault_plan is not None:
+            self.fault_plan.on_step(state, self)
         if self.quality_probe is not None and self.quality_probe.due(state.step):
             # due() is one integer compare: non-probe boundaries stay
             # sync-free; the probe itself reads the live tables
@@ -431,14 +480,24 @@ class Trainer:
         checkpoint_every (chunk boundaries on the chunked path), with the
         live params. Returns (state, TrainReport); the returned params are
         the caller's to keep. The flight recorder is installed process-wide
-        for the run (obs/flight.activate), so a signal handler finds the
-        live ring."""
+        for the run (obs/flight.activate), so a signal handler and the
+        watchdog's monitor thread find the live ring. The watchdog is armed
+        for exactly this stretch and disarmed on every exit path (a
+        supervisor's rollback load must not count against the step
+        deadline: its retry re-arms), and a profiler window the run ends
+        inside is stopped on every exit path."""
         prev_flight = flight_mod.activate(self.flight)
+        if self.watchdog is not None:
+            self.watchdog.arm()
         try:
             return self._train_impl(
                 state, log_every, max_steps, checkpoint_cb, checkpoint_every
             )
         finally:
+            if self.watchdog is not None:
+                self.watchdog.disarm()
+            if self.profiler is not None:
+                self.profiler.finish(getattr(self.last_state, "step", None))
             flight_mod.activate(prev_flight)
 
     def _train_impl(
@@ -456,6 +515,15 @@ class Trainer:
             state.params = self._coerce_param_layout(state.params)
         state.params = self._adopt(state.params)
         self.last_state = state
+        if self.devmem is not None:
+            # the tables are placed by here: attribute this watermark to
+            # table placement, before the first train-phase sample
+            self.devmem.sample("table_place", step=state.step)
+        if self.fault_plan is not None:
+            # entry boundary: a fault pinned at/before the entry step
+            # (nan@0, or nan@s on a resumed run) applies to the trainer's
+            # buffers before the first dispatch (the --inject-nan semantics)
+            self.fault_plan.on_step(state, self)
         if self.debug_nans:
             self._check_finite(state, None)
         batcher = BatchIterator(
@@ -720,6 +788,9 @@ class Trainer:
             health=self._health.summary(),
             phases=self.phases.report(),
             signals=self._finish_signals(state),
+            device_memory=(
+                self.devmem.summary() if self.devmem is not None else None
+            ),
         )
 
     def _run_checkpoint(self, checkpoint_cb, state: TrainState) -> None:
@@ -836,6 +907,12 @@ class Trainer:
                 stacklevel=2,
             )
 
+    def _harvest_capture(self, name: str) -> None:
+        """Record one dispatched program for the harvest (obs/harvest.py)
+        the first time it runs; one set lookup after."""
+        if self.harvest is not None and self.harvest.want(name):
+            self.harvest.capture(name)
+
     def _setup_resident(self):
         """The device corpus when the resident path is active for this
         run, else None (config.resident; ops/resident.py). Cached: repeated
@@ -902,6 +979,7 @@ class Trainer:
                 words_list = [int(w) for w in step_words[t0:t0 + chunk_len]]
 
                 def dispatch(al, n, t0=t0):
+                    self._harvest_capture("resident_chunk")
                     with self.phases.span("dispatch"):
                         return runner(
                             self._params, self._resident, order_dev, cfg.seed,
@@ -913,11 +991,13 @@ class Trainer:
         # filled on this thread: the fill of chunk i+1 runs while the card
         # runs chunk i (a replay returns at once); a producer thread only
         # fought this one for the GIL (slower in both arms, PERF.md)
+        program = "train_step" if chunk_len == 1 else "train_chunk"
         for tokens, words_list in chunk_batches(
             batcher.epoch(epoch, skip), chunk_len
         ):
 
             def dispatch(al, n, tokens=tokens):
+                self._harvest_capture(program)
                 with self.phases.span("h2d"):
                     g = runner.stage(self._params, tokens)
                 with self.phases.span("dispatch"):

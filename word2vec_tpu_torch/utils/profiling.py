@@ -35,16 +35,21 @@ from typing import Dict, Iterator, List, Optional
 import torch
 
 
+def activities() -> list:
+    """The profiler's activities: the host, and the card when there is one."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
     """Capture a torch.profiler trace of the enclosed region into
     `logdir`/trace_profile.json (CUDA activity included when a card is
     present)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=activities()) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace_profile.json"))
 
