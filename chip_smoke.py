@@ -180,6 +180,38 @@ Phases (any failure exits non-zero and prints no result line):
      --step-deadline 30 and without, interleaved twice, with equal
      launches, replays and synchronizing calls. One resilience_phase JSON
      line.
+ 11. stream: continuous training through the CLI, in process on the card,
+     at flagship width on pallas_fused/unified (chunk_steps 6) over the
+     first 1,520,000 tokens of phase 5's corpus as one text8 file, with
+     --corpus-mode streaming --segment-tokens 380000 --vocab-reserve 4096
+     -min-count 5 and no -read-vocab (the vocabulary boots from segment
+     0; later segments admit words). (a) uninterrupted, with checkpoints
+     every 6 steps and --metrics-dir: exit 0, 4 stream_segment records, a
+     vocab_growth with admitted > 0, table capacity = the boot vocabulary
+     + 4096, captures = one for the first segment and one more after each
+     growth that precedes a trained segment (and per new chunk length),
+     launches = expected_launches of the steps + one warm-up a capture,
+     replays = steps, the manifest's stream block, finite tables, the rows
+     past the final vocabulary at their init bits and every boot row
+     trained; its boundaries timed on the host clock (the gap from the
+     last sync of a segment to the next one's first dispatch, split into
+     encode, pack, refresh, the boundary checkpoint, capture, the first
+     chunk's fill and the rest), refresh_vocab_tables ms, the producer's
+     read ms per segment beside each segment's train s. Words/sec of (a)'s
+     flags against --corpus-mode resident, interleaved twice, and both
+     final tables' row norms and effective rank. (b) a real SIGTERM at the
+     first boundary of the first segment after a growth: exit 75, a
+     stream.json cursor naming that segment, then --resume: state.npz and
+     the binary vectors bitwise equal to (a), launches exact. (c) -train -
+     from a subprocess pipe of the same bytes with --stream-spool: exit 0,
+     4 spooled segments, (a)'s admissions, cursors and vectors bitwise.
+     (d) the library StreamRun over an ArraySource of the same ids (the
+     final vocabulary) with a QueryEngine on the card as swap_engine and a
+     thread of 64-word neighbor queries from the first dispatch on: one
+     swap a boundary, no failed query, the swapped table's top-10 ids equal
+     to the CPU engine's on the same table, swap_floor 1.01 with planted
+     pairs -> table_swap_refused and the generation kept. One stream_phase
+     JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1762,10 +1794,16 @@ def run_row(idx) -> int:
     return int(ids[n.argmax()])
 
 
+#: phase 7 times the ordered row sums of at least this many terms (the
+#: pair hs sub-step's [2,457,600]) beside index_add_
+ROW_SUM_TIMED_N = 1_000_000
+
+
 def check_hs_calls(name, calls, card, clock):
     """Every recorded call against its plain version, bitwise (the run
-    list exact); the scatters also timed (kernel ms, index_add_ ms, bytes
-    and chain bounds). Returns the scatter rows."""
+    list exact); the scatters and the row sums of ROW_SUM_TIMED_N terms or
+    more also timed (kernel ms, index_add_ ms, bytes and chain bounds).
+    Returns the timed rows."""
     from word2vec_tpu_torch.ops import fused_step as fs
     from word2vec_tpu_torch.ops import runs as rl
     from word2vec_tpu_torch.ops import train_step as ts
@@ -1789,6 +1827,31 @@ def check_hs_calls(name, calls, card, clock):
                 num_rows, idx, vals, None if before is None else before.clone())
             if not torch.equal(bits(got), bits(want)):
                 fail(f"hs {name}: ordered_row_sum [N={idx.numel()}] kernel != plain")
+            if idx.numel() >= ROW_SUM_TIMED_N:
+                # the long sums timed beside index_add_ (unordered) into
+                # the same zeroed [num_rows] f32 vector
+                i32 = idx.to(torch.int32).contiguous()
+                runs = rl.find_runs(i32)
+                k_ms = cuda_ms(lambda: ts.ordered_row_sum(
+                    num_rows, i32, vals, presorted=True, runs=runs), reps=10)
+                li, v32 = idx.long(), vals.float()
+                lib = cuda_ms(lambda: torch.zeros(
+                    num_rows, dtype=torch.float32, device=idx.device
+                ).index_add_(0, li, v32), reps=10)
+                n = idx.numel()
+                b_bytes = (8 * n + 4 * num_rows) / HBM_BYTES_PER_S * 1e3
+                longest = longest_run(idx)
+                rows.append({
+                    "call": "ordered_row_sum", "n": n, "table_rows": num_rows,
+                    "ms": k_ms, "index_add_ms": lib, "bytes_bound_ms": b_bytes,
+                    "chain_bound_ms": longest * CHAIN_CYCLES[torch.float32]
+                    / clock * 1e3, "longest_run": longest,
+                })
+                log(f"  hs {name} row sum [N={n} into {num_rows} rows]: "
+                    f"{k_ms:.4f} ms, index_add_ {lib:.4f} ms, bytes bound "
+                    f"{b_bytes:.4f} ms, chain bound "
+                    f"{rows[-1]['chain_bound_ms']:.4f} ms (longest run "
+                    f"{longest}) ({card})")
         else:
             _, before, idx, vals, got, runs = c
             t0 = time.perf_counter()
@@ -1806,6 +1869,7 @@ def check_hs_calls(name, calls, card, clock):
             longest = longest_run(idx)
             live = vals.reshape(vals.shape[0], -1).ne(0).any(dim=1)
             rows.append({
+                "call": "fused_slab_scatter",
                 "n": idx.numel(), "table_rows": before.shape[0],
                 "dtype": str(before.dtype)[6:], "ms": k_ms, "index_add_ms": lib,
                 "bytes_bound_ms": b_bytes,
@@ -2713,13 +2777,14 @@ TEL_HEALTH = ("grad_norm", "update_norm_emb_in", "update_norm_emb_out_ns",
               "nonfinite_params", "alpha_device")
 
 
-def counted_cli(argv, stop_check=None):
+def counted_cli(argv, stop_check=None, stop_wrap=None):
     """cli.main(argv) in process with the launch counts set to 0 just
     before it and read just after, the graph replays and captures counted,
     the synchronizing torch calls counted (torch.cuda.set_sync_debug_mode),
     the warnings and stderr captured; stop_check(step) replaces the
-    cooperative stop's poll. Returns a dict: rc, launches, replays,
-    captures, syncs, warnings (their texts), stderr, seconds."""
+    cooperative stop's poll, stop_wrap(real_check) wraps it. Returns a
+    dict: rc, launches, replays, captures, syncs, warnings (their texts),
+    stderr, seconds."""
     import contextlib
     import io
     import warnings
@@ -2745,6 +2810,9 @@ def counted_cli(argv, stop_check=None):
     torch.cuda.CUDAGraph.capture_begin = counted_capture
     if stop_check is not None:
         shutdown.ShutdownHandler.make_stop_check = lambda self: stop_check
+    if stop_wrap is not None:
+        shutdown.ShutdownHandler.make_stop_check = (
+            lambda self: stop_wrap(make_stop(self)))
     err = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -3420,6 +3488,508 @@ def phase_resilience(vocab, corpus, card, tmp):
     log(json.dumps({"resilience_phase": row}, default=str))
 
 
+# ------------------------------------------------------------ phase 11
+STREAM_SEG = 380_000       # --segment-tokens: 4 segments of ~8 flagship steps
+STREAM_TOKENS = 4 * STREAM_SEG   # the first 1,520,000 tokens of phase 5's corpus
+STREAM_RESERVE = 4096      # --vocab-reserve
+STREAM_CHUNK = 6           # --chunk-steps
+STREAM_EVERY = 6           # --checkpoint-every
+
+
+def stream_flags(vocab, corpus, tmp, train=None, mode="streaming"):
+    """The CLI flags of the phase 11 runs: phase 5's corpus, its first
+    STREAM_TOKENS tokens as one text8 file (no -read-vocab: the vocabulary
+    boots from segment 0 at -min-count 5), pallas_fused/unified, chunk
+    STREAM_CHUNK, one epoch, no vectors written unless -output is added."""
+    txt = os.path.join(tmp, "stream.txt")
+    if not os.path.exists(txt):
+        with open(txt, "w") as f:
+            f.write(" ".join(np.asarray(vocab.words)[
+                corpus.flat[:STREAM_TOKENS]].tolist()))
+    flags = ["-train", train or txt, "-output", "", "-size", str(D),
+             "-window", str(W), "-negative", str(K), "-iter", "1",
+             "-min-count", "5", "--batch-rows", str(B),
+             "--max-sentence-len", str(L), "--shared-negatives", str(KP),
+             "--band-backend", "pallas_fused", "--table-layout", "unified",
+             "--chunk-steps", str(STREAM_CHUNK), "--quiet",
+             "--log-every", str(STREAM_CHUNK)]
+    if mode == "streaming":
+        flags += ["--corpus-mode", "streaming", "--segment-tokens",
+                  str(STREAM_SEG), "--vocab-reserve", str(STREAM_RESERVE)]
+    return flags, txt
+
+
+class StreamTimeline:
+    """Host-clock events of one streaming CLI run, taken by wrapping the
+    functions a segment boundary runs (no sync is added): each train()
+    call (one a segment), the trainer's syncs, every _runner call (and
+    whether it captured), refresh_vocab_tables, each dispatch's start,
+    the encode and the pack of each segment, each checkpoint save and each
+    source read (with the thread it ran on)."""
+
+    def __init__(self):
+        self.ev = []
+
+    def __enter__(self):
+        import threading
+
+        from word2vec_tpu_torch import train as train_mod
+        from word2vec_tpu_torch.io import checkpoint as ck_mod
+        from word2vec_tpu_torch.ops import graphs
+        from word2vec_tpu_torch.stream import driver, source
+
+        ev, now = self.ev, time.perf_counter
+        T = train_mod.Trainer
+        real = {
+            (T, "_sync"): T._sync, (T, "train"): T.train,
+            (T, "_runner"): T._runner,
+            (T, "refresh_vocab_tables"): T.refresh_vocab_tables,
+            (graphs.ChunkRunner, "run"): graphs.ChunkRunner.run,
+            (driver, "encode_segment"): driver.encode_segment,
+            (driver, "PackedCorpus"): driver.PackedCorpus,
+            (ck_mod, "save_checkpoint"): ck_mod.save_checkpoint,
+            (source.FileSource, "read_segment"): source.FileSource.read_segment,
+        }
+        self.real = real
+
+        def timed(kind, fn):
+            def call(*a, **k):
+                t0 = now()
+                out = fn(*a, **k)
+                ev.append((kind, t0, now()))
+                return out
+            return call
+
+        def sync(tr):
+            real[(T, "_sync")](tr)
+            ev.append(("sync", now(), now()))
+
+        def runner(tr, n):
+            before = sum(len(r._graphs) for r in tr._runners.values())
+            t0 = now()
+            out = real[(T, "_runner")](tr, n)
+            after = sum(len(r._graphs) for r in tr._runners.values())
+            ev.append(("capture" if after > before else "runner", t0, now()))
+            return out
+
+        def run(self_, *a, **k):
+            ev.append(("dispatch", now(), now()))
+            return real[(graphs.ChunkRunner, "run")](self_, *a, **k)
+
+        packed = real[(driver, "PackedCorpus")]
+
+        class TimedPack:
+            @staticmethod
+            def from_flat(flat, max_len):
+                t0 = now()
+                out = packed.from_flat(flat, max_len)
+                ev.append(("pack", t0, now()))
+                return out
+
+        read = real[(source.FileSource, "read_segment")]
+
+        def read_segment(self_, index, shard, offset, vocab=None):
+            t0 = now()
+            out = read(self_, index, shard, offset, vocab=vocab)
+            main = threading.current_thread() is threading.main_thread()
+            ev.append(("read" if not main else "boot_read", t0, now(), index))
+            return out
+
+        T._sync = sync
+        T.train = timed("train", real[(T, "train")])
+        T._runner = runner
+        T.refresh_vocab_tables = timed("refresh", real[(T, "refresh_vocab_tables")])
+        graphs.ChunkRunner.run = run
+        driver.encode_segment = timed("encode", real[(driver, "encode_segment")])
+        driver.PackedCorpus = TimedPack
+        ck_mod.save_checkpoint = timed("save", real[(ck_mod, "save_checkpoint")])
+        source.FileSource.read_segment = read_segment
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in self.real.items():
+            setattr(owner, name, fn)
+
+    def boundaries(self):
+        """Per segment boundary (train i -> train i + 1), ms: the gap from
+        the last sync of train i to the first dispatch of train i + 1, and
+        its parts: encode, pack, refresh (growth), save (the boundary
+        checkpoint), capture, fill (the next train's first sync to its
+        first dispatch: the first chunk's fill and staging) and the rest."""
+        ev = sorted(self.ev, key=lambda e: e[1])
+        trains = [e for e in ev if e[0] == "train"]
+        out = []
+        for a, b in zip(trains, trains[1:]):
+            last_sync = max(e[2] for e in ev if e[0] == "sync" and e[2] <= a[2])
+            inner = [e for e in ev if b[1] <= e[1] <= b[2]]
+            first_dispatch = min(e[1] for e in inner if e[0] == "dispatch")
+            first_sync = min(e[2] for e in inner if e[0] == "sync")
+
+            def ms(kind, lo=a[2], hi=b[1], pool=ev):
+                return sum((e[2] - e[1]) * 1e3 for e in pool
+                           if e[0] == kind and lo <= e[1] <= hi)
+
+            row = {
+                "gap_ms": (first_dispatch - last_sync) * 1e3,
+                "encode_ms": ms("encode"), "pack_ms": ms("pack"),
+                "refresh_ms": ms("refresh"), "save_ms": ms("save"),
+                "capture_ms": ms("capture", b[1], b[2], inner),
+                "fill_ms": (first_dispatch - first_sync) * 1e3,
+            }
+            row["rest_ms"] = row["gap_ms"] - sum(
+                v for k, v in row.items() if k != "gap_ms")
+            out.append(row)
+        return out
+
+    def segments(self):
+        """Per trained segment: its train() s, and the producer's read ms
+        of each segment index (reads on the producer thread)."""
+        trains = [e[2] - e[1] for e in self.ev if e[0] == "train"]
+        reads = {e[3]: (e[2] - e[1]) * 1e3 for e in self.ev if e[0] == "read"}
+        return trains, reads
+
+
+def phase_stream(vocab, corpus, card, tmp):
+    """Continuous training on the card (phase 11 of the module docstring)."""
+    import threading
+
+    from word2vec_tpu_torch import Trainer
+    from word2vec_tpu_torch.data.batcher import PackedCorpus
+    from word2vec_tpu_torch.device import generator
+    from word2vec_tpu_torch.io.checkpoint import load_checkpoint, read_stream_cursor
+    from word2vec_tpu_torch.models.params import FUSED_KEY, init_params, logical_table
+    from word2vec_tpu_torch.obs.quality import ProbeSet
+    from word2vec_tpu_torch.ops import graphs
+    from word2vec_tpu_torch.serve.query import QueryEngine
+    from word2vec_tpu_torch.stream import ArraySource, StreamRun
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    row = {"card": card}
+    flags, txt = stream_flags(vocab, corpus, tmp)
+    res_flags, _ = stream_flags(vocab, corpus, tmp, mode="resident")
+
+    def path(name):
+        return os.path.join(tmp, "st_" + name)
+
+    def run(argv, what, want_rc=0, **kw):
+        r = counted_cli(argv, **kw)
+        if r["rc"] != want_rc:
+            fail(f"stream {what}: exit {r['rc']} (want {want_rc}): "
+                 f"{r['stderr'][-2000:]}")
+        return r
+
+    def records(mdir):
+        return tel_records(os.path.join(mdir, "metrics.jsonl"))
+
+    def same_vectors(a, b):
+        with open(a, "rb") as x, open(b, "rb") as y:
+            return x.read() == y.read()
+
+    def io_flags(name, vec=True):
+        out = ["--checkpoint-dir", path(name + "_ck"), "--checkpoint-every",
+               str(STREAM_EVERY), "--metrics-dir", path(name + "_m")]
+        return out + (["-output", path(name + ".bin"), "-binary", "1"] if vec else [])
+
+    # (a) uninterrupted, its boundaries timed
+    with StreamTimeline() as tl:
+        a = run(flags + io_flags("a"), "(a) uninterrupted")
+    recs = records(path("a_m"))
+    segs = [r for r in recs if r.get("event") == "stream_segment"]
+    grows = [r for r in recs if r.get("event") == "vocab_growth"]
+    rep = [r for r in recs if r.get("event") == "train_report"][-1]
+    man = manifest_of(path("a_m"))
+    v_boot = man["vocab_size"]
+    cursor = read_stream_cursor(path("a_ck"))
+    # captures: one a runner; a growth drops them all, and a chunk length
+    # not seen since the last growth captures one more
+    steps_of = [-(-s["rows"] // B) for s in segs]
+    cache, want_caps = set(), 0
+    for s, n in zip(segs, steps_of):
+        if any(g["segment"] == s["segment"] - 1 for g in grows):
+            cache.clear()
+        key = min(STREAM_CHUNK, n)
+        want_caps += key not in cache
+        cache.add(key)
+    trained_growths = sum(g["segment"] < segs[-1]["segment"] for g in grows)
+    chunk_lens = {min(STREAM_CHUNK, n) for n in steps_of}
+    want = expected_launches("pallas_fused", "unified", sum(steps_of) + want_caps)
+    if (len(segs) != 4 or not grows or not all(g["admitted"] > 0 for g in grows)
+            or cursor["capacity"] != v_boot + STREAM_RESERVE
+            or rep["steps"] != sum(steps_of) or a["captures"] != want_caps
+            or a["launches"] != want or a["replays"] != sum(steps_of)):
+        fail(f"stream (a): {len(segs)} segments, growths {grows}, capacity "
+             f"{cursor['capacity']} (boot {v_boot}), steps {rep['steps']} vs "
+             f"{steps_of}, captures {a['captures']} (want {want_caps}), "
+             f"launches {a['launches']} (want {want}), replays {a['replays']}")
+    mst = man.get("stream") or {}
+    if man["shutdown"] != "clean" or mst.get("segments") != 4 \
+            or mst.get("cursor", {}).get("segment") != 4 \
+            or mst.get("growths") != len(grows):
+        fail(f"stream (a): manifest shutdown {man['shutdown']}, stream {mst}")
+    st, ck_cfg, ck_vocab = load_checkpoint(path("a_ck"))
+    slab = st.params[FUSED_KEY]
+    init = init_params(ck_cfg, v_boot, generator(dev, ck_cfg.seed))[FUSED_KEY].cpu()
+    n_live = len(ck_vocab)
+    moved = (slab[:v_boot] != init[:v_boot]).reshape(v_boot, -1).any(dim=1)
+    if not bool(torch.isfinite(slab).all()) or slab.shape[0] != v_boot + STREAM_RESERVE \
+            or not torch.equal(slab[n_live:], init[n_live:]) or not bool(moved.all()):
+        fail(f"stream (a): tables finite {bool(torch.isfinite(slab).all())}, "
+             f"shape {tuple(slab.shape)}, reserve rows at init "
+             f"{torch.equal(slab[n_live:], init[n_live:])}, boot rows trained "
+             f"{int(moved.sum())} of {v_boot}")
+    bounds = tl.boundaries()
+    train_s, read_ms = tl.segments()
+    refresh = [(e[2] - e[1]) * 1e3 for e in tl.ev if e[0] == "refresh"]
+    captures = [(e[2] - e[1]) * 1e3 for e in tl.ev if e[0] == "capture"]
+    row["a"] = {
+        "segments": [{k: s[k] for k in ("segment", "raw_tokens", "encoded_tokens", "rows")}
+                     for s in segs],
+        "growths": grows, "boot_vocab": v_boot, "final_vocab": n_live,
+        "capacity": cursor["capacity"], "steps": rep["steps"],
+        "captures": a["captures"], "launches": a["launches"],
+        "replays": a["replays"], "words_per_sec": rep["words_per_sec"],
+        "seconds": a["seconds"],
+    }
+    row["boundaries"] = bounds
+    row["refresh_ms"] = refresh
+    row["capture_ms"] = captures
+    row["segment_train_s"] = train_s
+    row["producer_read_ms"] = read_ms
+    log(f"  (a) {len(segs)} segments ({[s['encoded_tokens'] for s in segs]} tokens, "
+        f"{steps_of} steps), boot vocabulary {v_boot}, growths "
+        f"{[(g['segment'], g['admitted']) for g in grows]} -> {n_live} words, "
+        f"capacity {cursor['capacity']}; {a['captures']} captures, "
+        f"{a['replays']} replays, launches = expected of {sum(steps_of)} steps "
+        f"+ {want_caps} warm-ups (1 + {trained_growths} growths before a "
+        f"segment + {len(chunk_lens) - 1} more chunk lengths); reserve rows at their init bits, every boot "
+        f"row trained; {rep['words_per_sec']} words/sec ({card})")
+    for i, bd in enumerate(bounds):
+        log(f"  boundary {i} -> {i + 1}: gap {bd['gap_ms']:.1f} ms = encode "
+            f"{bd['encode_ms']:.1f} + pack {bd['pack_ms']:.1f} + refresh "
+            f"{bd['refresh_ms']:.1f} + save {bd['save_ms']:.1f} + capture "
+            f"{bd['capture_ms']:.1f} + fill {bd['fill_ms']:.1f} + rest "
+            f"{bd['rest_ms']:.1f}; segment {i} trained in {train_s[i]:.3f} s")
+    log(f"  refresh_vocab_tables ms {refresh}; captures ms {captures}; producer "
+        f"read ms per segment {read_ms}; train s per segment {train_s}")
+
+    # words/sec: (a)'s flags streaming against resident, interleaved twice
+    wps = {"streaming": [rep["words_per_sec"]], "resident": []}
+    for i in range(2):
+        if i:
+            a2 = run(flags + io_flags("a2", vec=False), "(a) again")
+            if a2["launches"] != a["launches"]:
+                fail(f"stream (a) again: launches {a2['launches']} != {a['launches']}")
+            wps["streaming"].append([r for r in records(path("a2_m"))
+                                     if r.get("event") == "train_report"][-1]["words_per_sec"])
+        r_run = run(res_flags + io_flags(f"r{i}", vec=False), f"resident {i}")
+        wps["resident"].append([r for r in records(path(f"r{i}_m"))
+                                if r.get("event") == "train_report"][-1]["words_per_sec"])
+    row["words_per_sec"] = wps
+    log(f"  words/sec streaming {wps['streaming']}, resident {wps['resident']} "
+        f"(A B A B; {card})")
+    # the final tables of (a) and of the first resident run: the golds-free
+    # quality statistics (row norms, effective rank) on the card
+    from word2vec_tpu_torch.obs.quality import score_table
+
+    row["table_stats"] = {}
+    for name in ("a", "r0"):
+        stq, _, vq = load_checkpoint(path(name + "_ck"))
+        rec, _ = score_table(logical_table(stq.params, "emb_in")[: len(vq)]
+                             .float().numpy(), vq, ProbeSet(), device=dev)
+        row["table_stats"][name] = {k: v for k, v in rec.items() if k in (
+            "quality_row_norm_p50", "quality_row_norm_p99",
+            "quality_effective_rank")}
+    log(f"  final tables (row norm p50 / p99, effective rank): "
+        f"{row['table_stats']}")
+
+    # (b) a real SIGTERM at the first boundary of the first segment after a
+    # growth, exit 75, then --resume bitwise equal to (a)
+    g0 = grows[0]["segment"] + 1
+    per_seg = [-(-n // STREAM_CHUNK) for n in steps_of]
+    term_at = sum(per_seg[:g0]) + 1
+
+    def wrap(real):
+        seen = [0]
+
+        def check(step):
+            seen[0] += 1
+            if seen[0] == term_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return real(step)
+        return check
+
+    run(flags + io_flags("b", vec=False), "(b) sigterm", want_rc=75, stop_wrap=wrap)
+    bdoc = read_stream_cursor(path("b_ck"))
+    bst, _, _ = load_checkpoint(path("b_ck"))
+    if bdoc["segment"] != g0 or bdoc["vocab_generation"] < 1:
+        fail(f"stream (b): the cursor names segment {bdoc['segment']} "
+             f"(generation {bdoc['vocab_generation']}), want {g0}")
+    b2 = run(flags + io_flags("b2") + ["--resume", path("b_ck")], "(b) resume")
+    left = sum(steps_of) - bdoc["global_steps"] - bst.step
+    want_b = expected_launches("pallas_fused", "unified", left + b2["captures"])
+    if not (npz_bitwise(path("a_ck"), path("b2_ck"))
+            and same_vectors(path("a.bin"), path("b2.bin"))) \
+            or b2["launches"] != want_b:
+        fail(f"stream (b): the resume differs from (a), or launches "
+             f"{b2['launches']} != {want_b}")
+    row["b"] = {"stopped_segment": bdoc["segment"], "stopped_step": bst.step,
+                "generation": bdoc["vocab_generation"], "resume_steps": left,
+                "resume_captures": b2["captures"]}
+    log(f"  (b) SIGTERM at boundary {term_at} -> exit 75 in segment "
+        f"{bdoc['segment']} at its step {bst.step} (generation "
+        f"{bdoc['vocab_generation']}); the resume ({left} steps, "
+        f"{b2['captures']} captures) equals (a) bitwise")
+
+    # (c) -train - from a subprocess pipe of the same bytes, spooled
+    spool = path("spool")
+    r_fd, w_fd = os.pipe()
+    feeder = subprocess.Popen(
+        [sys.executable, "-c", "import shutil, sys; shutil.copyfileobj("
+         "open(sys.argv[1], 'rb'), sys.stdout.buffer)", txt], stdout=w_fd)
+    os.close(w_fd)
+    stdin = os.dup(0)
+    os.dup2(r_fd, 0)
+    os.close(r_fd)
+    try:
+        c_flags, _ = stream_flags(vocab, corpus, tmp, train="-")
+        c = run(c_flags + io_flags("c") + ["--stream-spool", spool], "(c) pipe")
+    finally:
+        os.dup2(stdin, 0)
+        os.close(stdin)
+        feeder.wait(timeout=60)
+    c_grows = [r for r in records(path("c_m")) if r.get("event") == "vocab_growth"]
+    c_doc = read_stream_cursor(path("c_ck"))
+    keys = ("segment", "vocab_generation", "tokens_total", "global_steps",
+            "global_words")
+    cursors_match = all(c_doc[k] == cursor[k] for k in keys)
+    c_same = same_vectors(path("a.bin"), path("c.bin"))
+    if c["rc"] != 0 or sorted(os.listdir(spool)) != [
+            f"seg_{i:06d}.txt" for i in range(4)] or c_grows != grows \
+            or not cursors_match or not c_same or c["launches"] != a["launches"]:
+        fail(f"stream (c): spool {sorted(os.listdir(spool))}, growths equal "
+             f"{c_grows == grows}, cursors match {cursors_match} ({c_doc} vs "
+             f"{cursor}), vectors equal {c_same}, launches {c['launches']}")
+    row["c"] = {"spool": sorted(os.listdir(spool)), "cursors_match": cursors_match,
+                "vectors_equal": c_same, "words_per_sec": [
+                    r for r in records(path("c_m"))
+                    if r.get("event") == "train_report"][-1]["words_per_sec"]}
+    log(f"  (c) -train - through a pipe: 4 spooled segments, the same "
+        f"admissions, cursors (segment, generation, tokens, steps, words) "
+        f"equal, vectors equal to (a) bitwise")
+
+    # (d) the library StreamRun over an ArraySource of the same ids, with a
+    # CUDA query engine as swap_engine and neighbor queries throughout
+    to_final = np.full(len(vocab), -1, np.int32)
+    for w in ck_vocab.words:
+        to_final[vocab[w]] = ck_vocab[w]
+    ids = to_final[corpus.flat[:STREAM_TOKENS]]
+    ids = ids[ids >= 0]
+    cfg = flagship_cfg("pallas_fused", "unified", corpus_mode="streaming",
+                       chunk_steps=STREAM_CHUNK)
+    tr = Trainer(cfg, ck_vocab, PackedCorpus.from_flat(ids[:STREAM_SEG], L),
+                 device=dev)
+    W0 = logical_table(tr.init_state().params, "emb_in").float().cpu().numpy()
+    from word2vec_tpu_torch.data.vocab import Vocab as _Vocab
+
+    engine = QueryEngine(W0, _Vocab(list(ck_vocab.words), ck_vocab.counts.copy()),
+                         device=dev)
+    qwords = ck_vocab.words[:64]
+    stop = threading.Event()
+    served = {"ok": 0, "failed": 0, "errors": [], "spans": []}
+
+    def client():
+        while not stop.is_set():
+            t_q = time.perf_counter()
+            try:
+                out = engine.neighbors_batch(qwords, k=10)
+                if len(out) != 64 or any(len(o) != 10 for o in out):
+                    raise AssertionError("short answer")
+                served["ok"] += 1
+            except Exception as e:  # noqa: BLE001 — counted, then failed on
+                served["failed"] += 1
+                served["errors"].append(repr(e)[:200])
+            served["spans"].append((t_q, time.perf_counter()))
+
+    # the captures of (d), timed: the queries run across them (a capture
+    # on the trainer's stream leaves other threads' device work alone)
+    real_capture, cap_spans = graphs.StepGraph._capture, []
+
+    def timed_capture(self_, env):
+        t_c = time.perf_counter()
+        real_capture(self_, env)
+        cap_spans.append((t_c, time.perf_counter()))
+
+    q = threading.Thread(target=client, daemon=True)
+    graphs.StepGraph._capture = timed_capture
+    swap_recs = []
+    try:
+        q.start()
+        srun = StreamRun(tr, ArraySource(ids, STREAM_SEG), swap_engine=engine,
+                         swap_floor=0.0, log_fn=swap_recs.append)
+        t0 = time.perf_counter()
+        d_state, d_rep = srun.train(log_every=0)
+        d_s = time.perf_counter() - t0
+    finally:
+        graphs.StepGraph._capture = real_capture
+        stop.set()
+        q.join(timeout=60)
+    if q.is_alive():
+        fail("stream (d): the query thread did not stop")
+    # no growth in (d): one capture a distinct chunk length (a text8
+    # segment of n ids packs into ceil(n / L) rows)
+    d_chunks = {min(STREAM_CHUNK, -(-(-(-min(STREAM_SEG, len(ids) - i) // L)) // B))
+                for i in range(0, len(ids), STREAM_SEG)}
+    during = sum(any(a < c1 and c0 < b for a, b in served["spans"])
+                 for c0, c1 in cap_spans)
+    W_fin = logical_table(d_state.params, "emb_in")[: len(ck_vocab)].float().cpu().numpy()
+    cpu = QueryEngine(W_fin, ck_vocab, device="cpu")
+    probe = ck_vocab.words[100:164]
+    ids_card = [[w for w, _ in o] for o in engine.neighbors_batch(probe, k=10)]
+    ids_cpu = [[w for w, _ in o] for o in cpu.neighbors_batch(probe, k=10)]
+    gen = engine.generation
+    rng = np.random.default_rng(11)
+    pick = rng.choice(min(2000, len(ck_vocab)), size=(64, 2), replace=True)
+    srun.swap_floor = 1.01
+    srun.probe_set = ProbeSet(
+        pairs=[(ck_vocab.words[i], ck_vocab.words[j], float(g)) for (i, j), g
+               in zip(pick, rng.uniform(0, 10, 64)) if i != j],
+        analogies=[], tracked=[], source="file")
+    t0 = time.perf_counter()
+    srun._maybe_swap(d_state, d_rep.stream["segments"])
+    refuse_ms = (time.perf_counter() - t0) * 1e3
+    swaps = [r for r in swap_recs if r.get("event") == "table_swap"]
+    if (d_rep.stream["swaps"] != d_rep.stream["segments"] or gen != len(swaps)
+            or len(cap_spans) != len(d_chunks)
+            or [r["segment"] for r in swaps] != list(range(d_rep.stream["segments"]))
+            or served["failed"] or not served["ok"] or ids_card != ids_cpu
+            or srun.swaps_refused != 1 or engine.generation != gen
+            or swap_recs[-1].get("event") != "table_swap_refused"):
+        fail(f"stream (d): {d_rep.stream}, generation {gen}, captures "
+             f"{len(cap_spans)} (chunk lengths {d_chunks}), queries "
+             f"{dict(served, spans=len(served['spans']))}, "
+             f"top-k card == cpu {ids_card == ids_cpu}, refused "
+             f"{srun.swaps_refused}, last record {swap_recs[-1]}")
+    row["d"] = {"segments": d_rep.stream["segments"], "swaps": d_rep.stream["swaps"],
+                "queries_ok": served["ok"], "queries_failed": served["failed"],
+                "captures": len(cap_spans), "captures_with_queries": during,
+                "capture_ms": [(b - a) * 1e3 for a, b in cap_spans],
+                "train_s": d_s, "refused_swap_ms": refuse_ms,
+                "refused": swap_recs[-1]}
+    log(f"  (d) library StreamRun: {d_rep.stream['segments']} segments, "
+        f"{d_rep.stream['swaps']} swaps (one a boundary), {served['ok']} "
+        f"neighbor batches of 64 served during it, 0 failed, queries in "
+        f"flight during {during} of its {len(cap_spans)} captures; the swapped "
+        f"table's top-10 ids = the CPU engine's; swap_floor 1.01 -> "
+        f"table_swap_refused (score {swap_recs[-1].get('score')}, "
+        f"{refuse_ms:.1f} ms), generation stays {gen}")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"stream_phase": row}, default=str))
+
+
+def manifest_of(mdir):
+    with open(os.path.join(mdir, "manifest.json")) as f:
+        return json.load(f)
 
 
 def main() -> int:
@@ -3506,6 +4076,9 @@ def main() -> int:
 
         log(f"[10 resilience and device telemetry] (at {time.perf_counter() - t0:.1f} s)")
         phase_resilience(vocab, corpus, card, tmp_cli)
+
+        log(f"[11 stream] (at {time.perf_counter() - t0:.1f} s)")
+        phase_stream(vocab, corpus, card, tmp_cli)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

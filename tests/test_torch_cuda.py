@@ -525,3 +525,54 @@ def test_health_rows_in_the_graph_match_eager(cuda, route):
     assert he["observations"] == hr["observations"] == logs["eager"][1].steps
     np.testing.assert_allclose(hr["grad_norm_cumulative"],
                                he["grad_norm_cumulative"], rtol=1e-12)
+
+
+def test_capture_beside_a_querying_thread(cuda):
+    """A thread answering neighbor queries on the card runs on while the
+    trainer captures its step (the first dispatch, and again after a
+    vocabulary growth dropped the graphs): no query fails, nothing of the
+    thread's work lands in a graph, and the params equal the same run's
+    without the thread, bitwise."""
+    import threading
+
+    from word2vec_tpu_torch import Trainer, Word2VecConfig
+    from word2vec_tpu_torch.serve.query import QueryEngine
+
+    def run(with_queries):
+        vocab, corpus = _small_corpus()
+        cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=8,
+                             max_sentence_len=30, band_chunk=10,
+                             shared_negatives=8, table_layout="unified",
+                             band_backend="pallas_fused", chunk_steps=3,
+                             corpus_mode="streaming", vocab_reserve=4)
+        tr = Trainer(cfg, vocab, corpus, device=cuda)
+        W = torch.randn(len(vocab), 32, generator=torch.Generator().manual_seed(0))
+        eng = QueryEngine(W.numpy(), vocab, device=cuda)
+        stop, served, errors = threading.Event(), [0], []
+
+        def client():
+            while not stop.is_set():
+                try:
+                    assert len(eng.neighbors_batch(vocab.words[:16], k=5)) == 16
+                    served[0] += 1
+                except Exception as e:  # noqa: BLE001 — the assertion target
+                    errors.append(e)
+
+        q = threading.Thread(target=client, daemon=True)
+        if with_queries:
+            q.start()
+        try:
+            state, _ = tr.train(log_every=0)
+            vocab.admit([("zz_new", 50)])
+            tr.refresh_vocab_tables()
+            state, _ = tr.train(state=state, log_every=0)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            if with_queries:
+                q.join(timeout=30)
+        assert not errors, errors[:1]
+        assert not with_queries or (served[0] > 0 and not q.is_alive())
+        return state.params
+
+    assert _same(run(True), run(False))

@@ -53,9 +53,17 @@ bounded torch.profiler windows (capture_<n>.json + profile_<n>/) into
 mem_usr2.json (SIGUSR1: flight_usr1.json + stacks_usr1.txt); --profile DIR
 traces the whole run.
 
+Continuous training is the JAX CLI's too: --corpus-mode streaming reads
+-train (a file, a comma list, a directory, a glob, or `-` for stdin,
+spooled to --stream-spool) in --segment-tokens segments, one Trainer.train
+call a segment (stream/driver.StreamRun), admits new words into
+--vocab-reserve rows at segment boundaries (the step is captured again
+after a growth), and writes the stream cursor (stream.json) into every
+checkpoint, so --resume re-enters the segment it stopped in, bitwise.
+
 Flags of layers the port does not have yet (--dp/--tp/--sp, --multihost,
---elastic*, --sync-deadline, --autotune, --corpus-mode, --segment-tokens,
---prng, ...) are not defined: argparse rejects them.
+--elastic*, --sync-deadline, --autotune, --prng, ...) are not defined:
+argparse rejects them.
 """
 
 from __future__ import annotations
@@ -176,6 +184,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "(config.hs_tail_slots)")
     p.add_argument("--resident", choices=["auto", "on", "off"], default="auto",
                    help="device-resident corpus (chunked dispatch)")
+    p.add_argument("--corpus-mode", choices=["resident", "streaming"],
+                   default="resident",
+                   help="how the corpus reaches the device (stream/): "
+                        "resident = read+pack the whole corpus up front; "
+                        "streaming = consume it in bounded segments from a "
+                        "file set / comma list / directory / glob (-train "
+                        "accepts all of those) or a pipe (-train -), with "
+                        "the next segment read while the card trains, "
+                        "mid-stream cursor checkpoints (bitwise SIGTERM "
+                        "resume), and online vocab growth into "
+                        "--vocab-reserve rows. A streaming checkpoint "
+                        "resumes streaming automatically")
+    p.add_argument("--segment-tokens", type=int, default=0, metavar="N",
+                   help="streaming segment size in raw corpus tokens "
+                        "(config.segment_tokens; 0 = auto, 4M). The "
+                        "segment is the growth/swap/resume boundary unit "
+                        "and the per-'epoch' alpha-schedule horizon")
+    p.add_argument("--vocab-reserve", type=int, default=0, metavar="N",
+                   help="reserve N embedding rows for online vocabulary "
+                        "growth (streaming only): new words seen in a "
+                        "consumed segment are admitted into reserved rows "
+                        "at the next segment boundary, deterministically, "
+                        "leaving existing rows bitwise untouched; a grown "
+                        "vocab resumes through the compatible-superset "
+                        "content-hash guard (0 = fixed vocabulary)")
+    p.add_argument("--stream-spool", metavar="DIR", default="",
+                   help="pipe-ingest spool directory (-train - only): "
+                        "segments read from the pipe are spooled here so "
+                        "a mid-stream resume can replay them (default: "
+                        "<--checkpoint-dir>/stream_spool, else a temp dir "
+                        "— resumable only while it survives)")
     p.add_argument("--max-sentence-len", type=int, default=192)
     p.add_argument("--corpus-format", choices=["text8", "lines"], default="text8",
                    help="text8: whitespace stream (main.cpp:63-92); "
@@ -404,7 +443,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .device import resolve_device
     from .io.checkpoint import (
         WRITER, CheckpointError, checkpoint_writer, load_checkpoint_with_path,
-        save_checkpoint,
+        read_stream_cursor, save_checkpoint,
     )
     from .io.embeddings import save_word2vec
     from .models.params import export_matrix
@@ -508,6 +547,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     state = None
     ck_cfg = None
     ck_vocab = None
+    stream_doc = None
     if args.resume:
         try:
             state, ck_cfg, ck_vocab, ck_dir = load_checkpoint_with_path(
@@ -516,8 +556,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         except CheckpointError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
+        # streaming checkpoints carry their replay cursor next to the
+        # params (same integrity manifest, same backup rotation): read it
+        # from the dir that actually loaded, which may be a .old fallback
+        stream_doc = read_stream_cursor(ck_dir)
         if not args.quiet:
-            print(f"resumed from {args.resume} at step {state.step}")
+            print(
+                f"resumed from {args.resume} at step {state.step}"
+                + (
+                    f" (stream segment {stream_doc.get('segment')}, "
+                    f"vocab generation {stream_doc.get('vocab_generation')})"
+                    if stream_doc else ""
+                )
+            )
         writer = checkpoint_writer(ck_dir)
         if writer is not None and writer != WRITER:
             # unconditional (even under --quiet): the run changes package
@@ -573,6 +624,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         band_backend=args.band_backend,
         table_layout=args.table_layout,
         resident=args.resident,
+        corpus_mode=args.corpus_mode,
+        segment_tokens=args.segment_tokens,
+        vocab_reserve=args.vocab_reserve,
         clip_row_update=args.clip_row_update,
         dtype=args.table_dtype,
         stochastic_rounding=bool(args.stochastic_rounding),
@@ -625,7 +679,100 @@ def main(argv: Optional[List[str]] = None) -> int:
             "from the corpus; the loaded vocabulary (checkpoint/-read-vocab) "
             "is used as-is", file=sys.stderr,
         )
-    if ck_vocab is not None:
+    streaming = cfg.corpus_mode == "streaming"
+    stream_source = None
+    stream_cursor = None
+    stream_run = None  # set after the trainer exists; save sites read it lazily
+    if args.train == "-" and not streaming:
+        print(
+            "error: -train - (pipe ingestion) requires --corpus-mode "
+            "streaming: a pipe cannot be packed resident",
+            file=sys.stderr,
+        )
+        return 1
+    if streaming:
+        import numpy as np
+
+        from .stream import DEFAULT_SEGMENT_TOKENS, StreamCursor, make_source
+        from .stream.driver import encode_segment
+
+        seg_tokens = cfg.segment_tokens or DEFAULT_SEGMENT_TOKENS
+        spool = args.stream_spool
+        if not spool and args.train == "-":
+            import tempfile
+
+            spool = (
+                os.path.join(args.checkpoint_dir, "stream_spool")
+                if args.checkpoint_dir
+                else os.path.join(
+                    tempfile.gettempdir(), f"w2v_stream_spool_{os.getpid()}"
+                )
+            )
+        try:
+            stream_source = make_source(
+                args.train, fmt=args.corpus_format,
+                segment_tokens=seg_tokens, spool_dir=spool,
+            )
+        except (FileNotFoundError, ValueError, OSError) as e:
+            print(f"error: bad streaming corpus spec: {e}", file=sys.stderr)
+            return 1
+        stream_cursor = (
+            StreamCursor.from_json(stream_doc) if stream_doc
+            else StreamCursor()
+        )
+        if args.resume and stream_doc is None and not args.quiet:
+            print(
+                "warning: resuming a non-streaming checkpoint into "
+                "--corpus-mode streaming: the stream starts from its "
+                "beginning (no cursor to replay)",
+                file=sys.stderr,
+            )
+        # Vocabulary bootstrap: checkpoint > -read-vocab > first segment.
+        # The streaming resume skips the full-corpus rebuild guard (a
+        # stream cannot be re-counted mid-flight); identity is pinned by
+        # the cursor + the checkpoint's own vocab instead.
+        boot = None
+        if ck_vocab is not None:
+            vocab = ck_vocab
+        elif args.read_vocab:
+            vocab = Vocab.load(args.read_vocab)
+        else:
+            boot = stream_source.read_segment(
+                stream_cursor.segment, stream_cursor.shard,
+                stream_cursor.offset, vocab=None,
+            )
+            if boot.raw_tokens == 0:
+                print(
+                    "error: the streaming corpus produced no tokens "
+                    "(empty stream at the start cursor)", file=sys.stderr,
+                )
+                return 1
+            vocab = Vocab.from_counter(
+                boot.counts or {}, min_count=cfg.min_count,
+                max_vocab=args.max_vocab,
+            )
+            if len(vocab) == 0:
+                print(
+                    "error: the first streaming segment built an empty "
+                    "vocabulary (every word under -min-count "
+                    f"{cfg.min_count}); lower -min-count or enlarge "
+                    "--segment-tokens", file=sys.stderr,
+                )
+                return 1
+        if boot is None:
+            boot = stream_source.read_segment(
+                stream_cursor.segment, stream_cursor.shard,
+                stream_cursor.offset, vocab=vocab,
+            )
+        # bootstrap corpus: feeds auto geometry, the kernel selection and
+        # the hazard warnings at construction; the driver replaces it per
+        # segment
+        flat = encode_segment(
+            boot, vocab, getattr(stream_source, "fmt", "text8")
+        )
+        if flat.size == 0 or not (flat >= 0).any():
+            flat = np.zeros(1, dtype=np.int32)
+    elif ck_vocab is not None:
         vocab = ck_vocab
         if args.read_vocab and Vocab.load(
             args.read_vocab
@@ -784,24 +931,31 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if manifest_path:
         # the REALIZED config, where the run went and what it ran under
+        extra = {
+            "corpus_tokens": corpus.num_tokens,
+            "corpus_rows": corpus.num_rows,
+            "corpus_mode": cfg.corpus_mode,
+            "resumed_from": args.resume or None,
+            "kernel_decision": trainer.kernel_decision,
+            "mesh_size": 1,
+            # the memory view at run start; the end-of-run update
+            # rewrites it with the full per-phase ledger
+            "device_memory": (
+                mem_ledger.summary() if mem_ledger is not None else None
+            ),
+        }
+        if streaming:
+            # the data plane: corpus_tokens is the bootstrap segment, and
+            # this block the stream's shape and where it resumed
+            extra["stream"] = {
+                "segment_tokens": seg_tokens,
+                "vocab_reserve": cfg.vocab_reserve,
+                "source": stream_source.describe(),
+                "resume_cursor": stream_doc,
+            }
         write_manifest(
-            manifest_path,
-            trainer.config,
-            vocab_size=len(vocab),
-            device=device,
-            extra={
-                "corpus_tokens": corpus.num_tokens,
-                "corpus_rows": corpus.num_rows,
-                "corpus_mode": cfg.corpus_mode,
-                "resumed_from": args.resume or None,
-                "kernel_decision": trainer.kernel_decision,
-                "mesh_size": 1,
-                # the memory view at run start; the end-of-run update
-                # rewrites it with the full per-phase ledger
-                "device_memory": (
-                    mem_ledger.summary() if mem_ledger is not None else None
-                ),
-            },
+            manifest_path, trainer.config, vocab_size=len(vocab),
+            device=device, extra=extra,
         )
     if log_fn is not None:
         # the mesh gauges (obs/export.GAUGE_EVENTS), as the JAX CLI logs
@@ -811,9 +965,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def save_ckpt(s) -> None:
         t = time.perf_counter()
+        # the stream cursor is read at save time: the driver's cursor
+        # advances per segment, and every checkpoint must carry the cursor
+        # of the segment it was taken IN (None on resident runs)
         save_checkpoint(
             args.checkpoint_dir, s, trainer.config, vocab,
             keep=args.checkpoint_keep,
+            stream=stream_run.cursor_meta() if stream_run is not None else None,
         )
         if log_fn is not None:
             log_fn({"event": "checkpoint", "step": s.step,
@@ -978,8 +1136,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     # Supervised auto-recovery: DivergenceError rolls back to the last-good
     # checkpoint (into the trainer's captured buffers) and retries.
     run_train = trainer.train
+    if streaming:
+        # the continuous-training driver (stream/): segments in, the same
+        # (state, report) contract out — everything below (preemption,
+        # divergence, manifest, export) works unchanged, and every
+        # checkpoint the run writes carries the stream cursor (save_ckpt)
+        from .stream import StreamRun
+
+        stream_run = StreamRun(
+            trainer, stream_source, cursor=stream_cursor,
+            fault_plan=fault_plan if fault_plan else None,
+            log_fn=log_fn,
+        )
+        run_train = stream_run.train
     supervisor = None
-    if args.auto_recover:
+    if args.auto_recover and streaming:
+        print(
+            "warning: --auto-recover is not supported with --corpus-mode "
+            "streaming yet (the supervisor's rollback replays a resident "
+            "epoch, not a stream cursor); continuing without it",
+            file=sys.stderr,
+        )
+    elif args.auto_recover:
         from .resilience.supervisor import Supervisor
 
         if not (args.checkpoint_dir and args.checkpoint_every) and not args.quiet:
@@ -1072,6 +1250,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             summary["interrupted"] = report.interrupted
         if report.recoveries:
             summary["recoveries"] = len(report.recoveries)
+        if report.stream:
+            summary.update(
+                stream_segments=report.stream.get("segments"),
+                vocab_size=report.stream.get("vocab_size"),
+                table_swaps=report.stream.get("swaps"),
+            )
         if report.signals:
             fh = report.signals.get("fleet_health") or {}
             summary["fleet_health"] = fh.get("verdict")
@@ -1113,6 +1297,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             end_fields["profiler"] = prof_capture.summary()
         if trainer.resume_fallback:
             end_fields["resume_fallback"] = trainer.resume_fallback
+        if report.stream:
+            # the continuous-training verdict: segments consumed, final
+            # cursor, vocab generation, growth/swap counts
+            end_fields["stream"] = report.stream
         if report.signals:
             if report.signals.get("slo"):
                 end_fields["slo"] = report.signals["slo"]

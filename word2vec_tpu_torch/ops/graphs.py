@@ -29,10 +29,14 @@ so every replay reads the new seed (CUDAGraph.register_generator_state).
 Capture: one warm-up step runs eagerly on the capture stream on CLONES of
 the params (every kernel, cuBLAS and the sort workspaces meet the stream
 once; the run's params do not move and no step is counted), then the step
-is captured in "global" error mode, so a host sync or a stray device call
-from another thread fails the capture instead of being baked in. A
-capture that fails raises; nothing falls back to eager. On the CPU, or
-with graphed=False, `run` calls the same step eagerly.
+is captured on the trainer's private capture stream in "thread_local"
+error mode: a host sync or another unsafe call in the step fails the
+capture instead of being baked in, while other threads of the process
+(a query engine serving on the same card while the streaming driver
+captures again after a vocabulary growth) go on with their own device
+work, which no capture records. A capture that fails raises; nothing
+falls back to eager. On the CPU, or with graphed=False, `run` calls the
+same step eagerly.
 """
 
 from __future__ import annotations
@@ -176,7 +180,7 @@ class StepGraph:
         graph.register_generator_state(self.gen)
         with launch.recording() as rec:
             with torch.cuda.graph(
-                graph, pool=pool, stream=side, capture_error_mode="global"
+                graph, pool=pool, stream=side, capture_error_mode="thread_local"
             ):
                 self._body(self.params)
         torch.cuda.synchronize(self.device)

@@ -67,7 +67,13 @@ io/checkpoint.save_checkpoint plugs into, and the trainer's telemetry
     exit path) and the program harvest (`harvest`, obs/harvest.CostHarvest:
     each dispatched program, captured once). The divergence
     supervisor (resilience/supervisor.Supervisor) drives train() across
-    rollbacks and sets TrainReport.recoveries.
+    rollbacks and sets TrainReport.recoveries;
+  - the streaming driver's hooks (stream/driver.StreamRun, one train()
+    call a segment): `set_corpus` (the segment), `seed_offset` (the
+    segment index: every seed site reads `run_seed`), and
+    `refresh_vocab_tables` after an online vocabulary growth, which drops
+    the captured graphs so the next dispatch captures against the new
+    tables; the resident path resolves off under streaming.
 
 Not in this slice: the planner's plan search (autotune). Configs that need
 it raise NotImplementedError.
@@ -143,13 +149,15 @@ class TrainReport:
     # caller wired trainer.devmem (cli.py does with the signal plane);
     # available=False with zeroed watermarks on the CPU
     device_memory: Optional[Dict] = None
+    # continuous-training summary (stream.StreamRun.train): segments
+    # consumed, stream cursor, vocab generation, growth/swap counts
+    stream: Optional[Dict] = None
 
 
 def _check_slice(config: Word2VecConfig) -> None:
     check_route(config)
     unported = [
         (config.autotune != "off", "autotune (tune/)"),
-        (config.corpus_mode != "resident", "corpus_mode='streaming' (stream/)"),
         (config.elastic != "off", "elastic (resilience/elastic.py)"),
     ]
     names = [name for cond, name in unported if cond]
@@ -213,6 +221,15 @@ class Trainer:
     #: a caller wires one. Idle boundaries are None-checks; a requested or
     #: scheduled window arms here, on the training thread.
     profiler = None
+    #: additive offset on config.seed for the shuffle and draw streams
+    #: (run_seed). The streaming driver (stream/driver.py) sets it to the
+    #: SEGMENT index before each per-segment train() call, so every segment
+    #: has its own streams, still a pure function of (config.seed,
+    #: segment): a mid-segment resume replays exactly what the
+    #: uninterrupted run drew. The seed is a replay input of the captured
+    #: step, so a new offset captures nothing. 0 (resident runs) keeps the
+    #: streams of config.seed.
+    seed_offset: int = 0
 
     def __init__(
         self,
@@ -359,6 +376,48 @@ class Trainer:
                 f"(batch_rows={rows}, micro_steps={micro}).",
                 stacklevel=3,
             )
+
+    # ---------------------------------------------------------------- hooks
+    def set_corpus(self, corpus: PackedCorpus) -> None:
+        """Swap the training corpus between train() calls: the streaming
+        driver's per-segment hook (stream/driver.py). The captured graphs
+        survive (a new segment of the same chunk shape replays them); only
+        the resident-corpus cache is dropped, since it held the OLD
+        corpus on the device."""
+        self.corpus = corpus
+        self.total_words = corpus.num_tokens
+        self._resident = None
+        self._resident_cache = None
+        self._resident_ready = False
+        self.resident_resolution = None
+
+    def refresh_vocab_tables(self) -> None:
+        """Rebuild the frequency-derived device tables after an online
+        vocabulary admission (the streaming driver's growth boundary): the
+        keep probabilities and the alias table must cover the admitted
+        rows, or new words would never be subsample-gated or drawn as
+        negatives. A growth changes the total count, so every keep
+        probability and the whole alias table change, and so does the
+        vocabulary size each captured step read as a constant: every cached
+        runner and its graphs are dropped, and the next _runner captures
+        again against the new tables (a capture that fails raises; nothing
+        falls back to eager steps). The embedding params are NOT touched:
+        reserved rows keep the bits init_params gave them until admitted."""
+        self.tables = DeviceTables.build(self.vocab, self.config, self.device)
+        self._resident = None
+        self._resident_cache = None
+        self._resident_ready = False
+        self._runners.clear()
+        if self.devmem is not None:
+            # the growth boundary's rebuild (new tables, one capture) is the
+            # allocation spike the growth-headroom forecast exists for
+            self.devmem.sample("vocab_growth")
+
+    @property
+    def run_seed(self) -> int:
+        """The seed of the current train() call's shuffle and draw streams
+        (config.seed + seed_offset)."""
+        return int(self.config.seed) + int(self.seed_offset)
 
     # ------------------------------------------------------------ shutdown
     def install_shutdown(self, handler) -> None:
@@ -527,7 +586,7 @@ class Trainer:
         if self.debug_nans:
             self._check_finite(state, None)
         batcher = BatchIterator(
-            self.corpus, cfg.batch_rows, cfg.max_sentence_len, seed=cfg.seed
+            self.corpus, cfg.batch_rows, cfg.max_sentence_len, seed=self.run_seed
         )
         self._warned_nonfinite = False
         self._last_chunk_loss = float("nan")
@@ -926,6 +985,11 @@ class Trainer:
         cfg = self.config
         if cfg.resident == "off":
             return None
+        if cfg.corpus_mode == "streaming":
+            # segments replace each other: pinning one on the device would
+            # train the same segment forever (resident='on' is refused by
+            # the config; 'auto' resolves off here)
+            return None
         # auto mode gates on free device memory at call time, so record the
         # resolution and the budget (TrainReport.resident, a log record)
         budget = res.resident_budget_bytes(self.device)
@@ -972,7 +1036,8 @@ class Trainer:
         dispatch carries scalars."""
         cfg = self.config
         if self._resident is not None:
-            order = epoch_order(cfg.seed, epoch, self.corpus.num_rows)
+            seed = self.run_seed
+            order = epoch_order(seed, epoch, self.corpus.num_rows)
             step_words = res.epoch_step_words(self.corpus, order, cfg.batch_rows)
             order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
             for t0 in range(skip, len(step_words), chunk_len):
@@ -982,7 +1047,7 @@ class Trainer:
                     self._harvest_capture("resident_chunk")
                     with self.phases.span("dispatch"):
                         return runner(
-                            self._params, self._resident, order_dev, cfg.seed,
+                            self._params, self._resident, order_dev, seed,
                             state.step, t0, al, steps=n,
                         )
 
@@ -992,6 +1057,7 @@ class Trainer:
         # runs chunk i (a replay returns at once); a producer thread only
         # fought this one for the GIL (slower in both arms, PERF.md)
         program = "train_step" if chunk_len == 1 else "train_chunk"
+        seed = self.run_seed
         for tokens, words_list in chunk_batches(
             batcher.epoch(epoch, skip), chunk_len
         ):
@@ -1001,6 +1067,6 @@ class Trainer:
                 with self.phases.span("h2d"):
                     g = runner.stage(self._params, tokens)
                 with self.phases.span("dispatch"):
-                    return runner.run(g, self._params, al, cfg.seed, state.step, n)
+                    return runner.run(g, self._params, al, seed, state.step, n)
 
             yield words_list, dispatch
