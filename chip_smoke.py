@@ -212,6 +212,46 @@ Phases (any failure exits non-zero and prints no result line):
      to the CPU engine's on the same table, swap_floor 1.01 with planted
      pairs -> table_swap_refused and the generation kept. One stream_phase
      JSON line.
+ 12. planner: the autotuned planner on the card (tune/), on phase 5's
+     corpus and vocabulary at flagship width. (a) The host copy of the band
+     cores' shared memory (ops/launch.core_smem_bytes) equal to the
+     library's at every (S, KP) of the grid, the card's per-block limit
+     equal to the planner's constant; one step of each kernel call shape
+     the flagship band-ns grid offers beyond phases 3-4 (GRID_SHAPES: KP 16
+     / 32, S 96 / 64, 128 / 512 rows, batch scope at KP 256, on each
+     kernel route), the kernels on the card vs the plain versions on the
+     CPU with the same draws (f32 compute, phase 4's tolerances), and the
+     band cores' bf16 bodies at the same shapes vs their plain versions
+     (phase 3's tolerances); band_core at batch scope and KP 256 refused
+     before any launch and absent from the grid (REFUSED_SHAPES, ROADMAP
+     Queue C). (b) probe_plan of the four routes' flagship plans: launches
+     exact (the capture's warm-up step + 3 dispatches of 2 steps), the
+     measured and predicted ms, the model's order of the routes beside the
+     measured one. (c) the CLI with --autotune probe --plan-cache on phase
+     9's corpus (36 steps), configured pallas_fused/unified (chunk 6) and
+     xla/split (per-step), --metrics-dir with the health counters and the
+     probe off: exit 0, one autotune record under the key
+     `<card>|gpu|band-ns|V71000|d300|<layout>|kp64|<route>`, at most 4
+     probes and no error record, the winner stored, the device memory
+     allocated after resolve_plan equal to before it, each survivor's
+     measured and predicted ms and the search's seconds. (d) the same with
+     --autotune cached: a hit, zero probes, state.npz and the binary
+     vectors bitwise equal to (c), launches and captures (counted after
+     resolve_plan returned) equal, the checkpoint's config the
+     plan-applied one. (e) words/sec of the plan-applied run against the
+     configured default (--autotune off), interleaved twice. (f) the
+     anchors fitted (tune/cost_model.py): the xla step's scatter kernels
+     over its scatter rows and its device window less busy time over its
+     programs (torch.profiler), the per-dispatch overhead (host clock less
+     CUDA events of a 6-step pallas_fused dispatch), the layout-copy
+     inefficiency and the DMA cost a row by the inversion cost_calibrate
+     makes on the mean measured step of the default runs of xla and
+     pallas_fused; each anchor's verdict on the mean of the plan-applied
+     runs under the fitted anchors, and in the manifests of (c) and (d)
+     under the module's, printed beside the measured step's spread (not
+     held: it spreads by more than the smaller terms); every manifest's
+     cost_calibrate block the JAX CLI's, with a measured step. One
+     planner_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -880,10 +920,12 @@ def phase_ordered_sets(dev):
             fail(f"ordered_row_sum {name}: kernel != plain or not repeatable")
 
 
-def phase_small_step(dev):
-    """One step per route, kernels on the card vs plain versions on the CPU,
-    same params and draws (small shape, f32 compute)."""
-    from word2vec_tpu_torch.config import Word2VecConfig
+def step_vs_cpu(dev, cfg, v, rows, rng, tag):
+    """One step of `cfg`'s band route on `rows` x cfg.max_sentence_len
+    tokens over a v-row vocabulary: the kernels on the card vs the plain
+    versions on the CPU, the same params and draws (f32 compute: the two
+    differ only in summation order). Params within 1e-6, loss_sum within
+    1e-4 relative; returns the params' max abs error."""
     from word2vec_tpu_torch.data.negative import build_alias_table
     from word2vec_tpu_torch.device import generator
     from word2vec_tpu_torch.models.params import FUSED_KEY
@@ -891,7 +933,59 @@ def phase_small_step(dev):
     from word2vec_tpu_torch.ops.train_step import Draws
     from word2vec_tpu_torch.ops.tables import DeviceTables
 
-    v, d = 500, 64
+    d, Lc = cfg.word_dim, cfg.max_sentence_len
+    counts = np.arange(2 * v, v, -1).astype(np.float64)
+    at = build_alias_table(counts ** 0.75 / np.sum(counts ** 0.75))
+    keep = rng.uniform(0.3, 1.0, size=v).astype(np.float32)
+
+    def tables(dv):
+        return DeviceTables(
+            torch.as_tensor(keep, device=dv),
+            torch.as_tensor(at.accept, device=dv),
+            torch.as_tensor(at.alias, device=dv),
+        )
+
+    toks = rng.integers(0, v, size=(rows, Lc)).astype(np.int32)
+    toks[3, (5 * Lc) // 8:] = -1
+    emb = np.stack([rng.uniform(-0.5, 0.5, (v, d)) / d,
+                    rng.normal(0, 0.05, (v, d))], axis=1).astype(np.float32)
+
+    def params(dv):
+        t = torch.from_numpy(emb.copy()).to(dv)
+        if cfg.table_layout == "unified":
+            return {FUSED_KEY: t}
+        return {"emb_in": t[:, 0].contiguous(),
+                "emb_out_ns": t[:, 1].contiguous()}
+
+    cpu = torch.device("cpu")
+    step_cpu = BandStep(cfg, tables(cpu))
+    step_gpu = BandStep(cfg, tables(dev))
+    tok_cpu = torch.from_numpy(toks)
+    dr = step_cpu.draw(generator(cpu, 3), tok_cpu)
+    p_cpu, p_gpu, start = params(cpu), params(dev), params(cpu)
+    m_cpu = step_cpu.apply(p_cpu, tok_cpu, dr, 0.03)
+    m_gpu = step_gpu.apply(
+        p_gpu, tok_cpu.to(dev),
+        Draws(dr.u_sub.to(dev), dr.w_eff.to(dev), dr.negs.to(dev)), 0.03,
+    )
+    torch.cuda.synchronize()
+    err = max(float((p_gpu[k].cpu() - p_cpu[k]).abs().max()) for k in p_cpu)
+    moved = max(float((p_cpu[k] - start[k]).abs().max()) for k in p_cpu)
+    lerr = abs(float(m_gpu["loss_sum"]) - float(m_cpu["loss_sum"]))
+    log(f"  {tag}: params max_abs_err={err:.3e} (update max {moved:.3e}), "
+        f"loss_sum err={lerr:.3e}")
+    if not (err <= 1e-6 and moved > 1e-4):
+        fail(f"{tag}: GPU step disagrees with the CPU step")
+    if lerr > 1e-4 * abs(float(m_cpu["loss_sum"])):
+        fail(f"{tag}: loss_sum disagrees")
+    return err
+
+
+def phase_small_step(dev):
+    """One step per route, kernels on the card vs plain versions on the CPU,
+    same params and draws (small shape, f32 compute)."""
+    from word2vec_tpu_torch.config import Word2VecConfig
+
     rng = np.random.default_rng(5)
     cases = [
         ("pallas_fused", "unified", "sg", "row"),
@@ -906,57 +1000,13 @@ def phase_small_step(dev):
     ]
     for backend, layout, model, scope in cases:
         cfg = Word2VecConfig(
-            model=model, negative=3, word_dim=d, window=3, min_count=1,
+            model=model, negative=3, word_dim=64, window=3, min_count=1,
             compute_dtype="float32", shared_negatives=8, max_sentence_len=40,
             band_chunk=10, table_layout=layout, band_backend=backend,
             negative_scope=scope, scatter_mean=True,
         )
-        counts = np.arange(2 * v, v, -1).astype(np.float64)
-        at = build_alias_table(counts ** 0.75 / np.sum(counts ** 0.75))
-        keep = rng.uniform(0.3, 1.0, size=v).astype(np.float32)
-
-        def tables(dv):
-            return DeviceTables(
-                torch.as_tensor(keep, device=dv),
-                torch.as_tensor(at.accept, device=dv),
-                torch.as_tensor(at.alias, device=dv),
-            )
-
-        toks = rng.integers(0, v, size=(8, 40)).astype(np.int32)
-        toks[3, 25:] = -1
-        emb = np.stack([rng.uniform(-0.5, 0.5, (v, d)) / d,
-                        rng.normal(0, 0.05, (v, d))], axis=1).astype(np.float32)
-
-        def params(dv):
-            t = torch.from_numpy(emb.copy()).to(dv)
-            if layout == "unified":
-                return {FUSED_KEY: t}
-            return {"emb_in": t[:, 0].contiguous(),
-                    "emb_out_ns": t[:, 1].contiguous()}
-
-        cpu = torch.device("cpu")
-        step_cpu = BandStep(cfg, tables(cpu))
-        step_gpu = BandStep(cfg, tables(dev))
-        tok_cpu = torch.from_numpy(toks)
-        dr = step_cpu.draw(generator(cpu, 3), tok_cpu)
-        p_cpu, p_gpu, start = params(cpu), params(dev), params(cpu)
-        m_cpu = step_cpu.apply(p_cpu, tok_cpu, dr, 0.03)
-        m_gpu = step_gpu.apply(
-            p_gpu, tok_cpu.to(dev),
-            Draws(dr.u_sub.to(dev), dr.w_eff.to(dev), dr.negs.to(dev)), 0.03,
-        )
-        torch.cuda.synchronize()
-        err = max(float((p_gpu[k].cpu() - p_cpu[k]).abs().max()) for k in p_cpu)
-        moved = max(float((p_cpu[k] - start[k]).abs().max()) for k in p_cpu)
-        lerr = abs(float(m_gpu["loss_sum"]) - float(m_cpu["loss_sum"]))
-        log(f"  small step {backend}/{layout} {model} {scope}: params "
-            f"max_abs_err={err:.3e} (update max {moved:.3e}), loss_sum "
-            f"err={lerr:.3e}")
-        # f32 compute: the two versions differ only in summation order
-        if not (err <= 1e-6 and moved > 1e-4):
-            fail(f"small step {backend} {model}: GPU step disagrees with the CPU step")
-        if lerr > 1e-4 * abs(float(m_cpu["loss_sum"])):
-            fail(f"small step {backend} {model}: loss_sum disagrees")
+        step_vs_cpu(dev, cfg, 500, 8, rng,
+                    f"small step {backend}/{layout} {model} {scope}")
 
 
 def flagship_corpus():
@@ -2763,8 +2813,8 @@ TEL_SLO = "throughput_wps<0.5*baseline:for=3"
 #: against the JAX CLI by tests/test_torch_telemetry_cli.py)
 TEL_MANIFEST_KEYS = (
     "argv", "band_backend", "config", "corpus_mode", "corpus_rows",
-    "corpus_tokens", "cost_harvest", "created_utc", "device", "device_memory",
-    "final_step", "fleet_health", "git_sha", "kernel", "kernel_decision",
+    "corpus_tokens", "cost_calibrate", "cost_harvest", "created_utc",
+    "device", "device_memory", "final_step", "fleet_health", "git_sha", "kernel", "kernel_decision",
     "mesh_size", "plan", "plan_source", "profiler", "recoveries",
     "resumed_from", "schema", "shutdown", "slo", "versions", "vocab_size",
 )
@@ -3987,6 +4037,584 @@ def phase_stream(vocab, corpus, card, tmp):
     log(json.dumps({"stream_phase": row}, default=str))
 
 
+# ------------------------------------------------------- phase 12: planner
+#: (band route, layout, rows, band chunk S, KP, negative scope): kernel call
+#: shapes of the flagship band-ns grid on the card (tune/planner
+#: .candidate_grid) that phases 3-4 do not hold: KP 16 / 32, S 96 / 64,
+#: 128 / 512 rows, batch scope at KP 256, on each kernel route
+GRID_SHAPES = (
+    ("pallas_fused", "unified", 128, 96, 16, "row"),
+    ("pallas_fused", "unified", 512, 64, 32, "row"),
+    ("pallas", "split", 128, 96, 16, "row"),
+    ("pallas", "split", 512, 64, 32, "row"),
+    ("pallas_oa", "split", 128, 96, 16, "row"),
+    ("pallas_oa", "split", 512, 64, 32, "row"),
+    ("pallas_oa", "split", B, 0, 256, "batch"),
+)
+#: grid shapes a wrapper refuses before any launch (ROADMAP Queue C): the
+#: band_core tiles of batch scope at KP 256 and d 300 exceed a block's
+#: shared memory
+REFUSED_SHAPES = (("pallas", "split", B, 0, 256, "batch"),)
+#: the CLI runs of (c)-(f): (band route, layout, chunk_steps); the search
+#: key of each is the configured route's
+PLAN_CLI = (("pallas_fused", "unified", 6), ("xla", "split", 1))
+#: torch.profiler kernel names of the xla step's sorted-scatter machinery
+#: (the slab scatter, its run lists, the ordered row sums, the sorts) and
+#: of its layout copies
+SCATTER_NAMES = ("slab_scatter", "runs_kernel", "ordered_row_sum", "adix",
+                 "sort", "Sort")
+COPY_NAMES = ("copy", "Copy")
+
+
+def grid_cfg(backend, layout, rows, chunk, kp, scope, cdt="bfloat16"):
+    from word2vec_tpu_torch import Word2VecConfig
+
+    return Word2VecConfig(
+        model="sg", negative=K, word_dim=D, window=W, min_count=1,
+        compute_dtype=cdt, shared_negatives=kp, max_sentence_len=L,
+        band_chunk=chunk, table_layout=layout, band_backend=backend,
+        negative_scope=scope, batch_rows=rows,
+    )
+
+
+def planner_shapes(dev):
+    """(a): the host copy of the band cores' shared memory against the
+    library's at every (S, KP) the grid offers, the card's per-block limit
+    against the planner's constant; one step of each GRID_SHAPES entry,
+    card vs CPU (f32 compute, phase 4's tolerances), and the band core of
+    the kernel routes at that shape with bf16 compute (the tensor-core
+    bodies the grid runs) vs its plain version (phase 3's tolerances);
+    each REFUSED_SHAPES entry refused by its wrapper with no launch, and
+    absent from the planner's grid."""
+    from word2vec_tpu_torch import _build
+    from word2vec_tpu_torch.ops import band_core as bc
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import launch
+    from word2vec_tpu_torch.ops.banded import resolve_chunk
+    from word2vec_tpu_torch.tune import planner
+
+    out = {}
+    optin = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", None)
+    if optin != launch.SMEM_PER_BLOCK:
+        fail(f"shared memory a block may opt into: {optin}, the planner "
+             f"assumes {launch.SMEM_PER_BLOCK}")
+    n = 0
+    for kernel, lib, fn in (("fused_grad_core", "fused_step",
+                             "w2v_grad_core_smem_bytes"),
+                            ("band_core", "band_core", "w2v_band_core_smem_bytes")):
+        get = getattr(_build.library(lib), fn)
+        for S in (118, 96, 64):
+            for kp in (16, 32, 64, 256):
+                for bf in (1, 0):
+                    host = launch.core_smem_bytes(kernel, S, S + 2 * W, kp, D, W,
+                                                  bool(bf))
+                    if host != get(S, S + 2 * W, kp, D, W, bf):
+                        fail(f"{kernel} shared memory S={S} KP={kp} bf16={bf}: "
+                             f"host {host} != library {get(S, S + 2 * W, kp, D, W, bf)}")
+                    n += 1
+    out["smem_shapes_equal"] = n
+    out["smem_optin"] = optin
+    rng = np.random.default_rng(12)
+    out["steps"] = []
+    for backend, layout, rows, chunk, kp, scope in GRID_SHAPES:
+        S = resolve_chunk(L, W, chunk)
+        tag = f"grid step {backend}/{layout} B={rows} S={S} KP={kp} {scope}"
+        err = step_vs_cpu(dev, grid_cfg(backend, layout, rows, chunk, kp, scope,
+                                         "float32"), 4000, rows, rng, tag)
+        row = {"shape": [backend, layout, rows, S, kp, scope], "step_err": err}
+        if backend in ("pallas_fused", "pallas"):
+            geo = dict(V=4000, d=D, B=rows, L=L, W=W, S=S, KP=kp)
+            cdt = torch.bfloat16
+            if backend == "pallas_fused":
+                inp = small_grad_inputs(table=torch.float32, **geo)
+                args = [inp[k].to(dev) for k in GRAD_ORDER]
+                kw = dict(W=W, K=K, L=L, cdt=cdt, is_cbow=False)
+                got = fs.fused_grad_core(*args, 0.03, **kw)
+                ref = fs.fused_grad_core_plain(*args, 0.03, **kw)
+                names = GRAD_NAMES
+            else:
+                inp = small_core_inputs(table=torch.float32, scope=scope,
+                                        model="sg", **geo)
+                args = [inp[k].to(dev) for k in CORE_ORDER]
+                kw = dict(W=W, K=K, cdt=cdt, is_cbow=False)
+                got = bc.band_core(*args, 0.03, **kw)
+                ref = bc.band_core_plain(*args, 0.03, **kw)
+                names = CORE_NAMES
+            torch.cuda.synchronize()
+            row["core_bf16_max_abs_err"] = check_outputs(
+                f"{tag} core bf16", names, got, ref, cdt, quiet=True)
+            del got, ref, args, inp
+        out["steps"].append(row)
+    log(f"  (a) {len(GRID_SHAPES)} grid shapes held (step card vs CPU, f32 "
+        f"compute; the band cores' bf16 bodies vs plain); shared memory host "
+        f"== library at {n} shapes, per-block limit {optin} B")
+    out["refused"] = []
+    grid = planner.candidate_grid(flagship_cfg("xla", "split"), V,
+                                  {"platform": "gpu"})
+    for backend, layout, rows, chunk, kp, scope in REFUSED_SHAPES:
+        S = resolve_chunk(L, W, chunk)
+        inp = small_core_inputs(table=torch.float32, scope=scope, model="sg",
+                                V=4000, d=D, B=rows, L=L, W=W, S=S, KP=kp)
+        args = [inp[k].to(dev) for k in CORE_ORDER]
+        before = dict(launch.LAUNCHES)
+        try:
+            bc.band_core(*args, 0.03, W=W, K=K, cdt=torch.bfloat16, is_cbow=False)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            fail(f"band_core {scope} KP={kp}: not refused")
+        if launch.LAUNCHES != before or "shared memory" not in msg:
+            fail(f"band_core {scope} KP={kp}: refused after a launch or "
+                 f"for another reason: {msg}")
+        cfg = grid_cfg(backend, layout, rows, chunk, kp, scope)
+        offered = [p for p in grid if p.band_backend == backend
+                   and p.negative_scope == scope]
+        if planner.kernel_fits(cfg) or offered:
+            fail(f"the grid still offers {backend} {scope} at KP {kp}")
+        out["refused"].append({"shape": [backend, layout, rows, S, kp, scope],
+                               "why": msg})
+        log(f"  (a) refused, as ROADMAP Queue C names it: {backend} {scope} "
+            f"KP={kp} S={S}: {msg}")
+    return out
+
+
+def planner_incumbents(dev, vocab, corpus):
+    """(b): probe_plan of each route's flagship plan, its launches exact,
+    its measured and predicted ms, the model's order beside the measured
+    one."""
+    from word2vec_tpu_torch.tune import cost_model, planner
+
+    kind, platform = planner.device_identity(dev)
+    rows = {}
+    for backend, layout in ROUTES:
+        cfg = flagship_cfg(backend, layout)
+        rec = planner.probe_plan(cfg, cfg.current_plan(), vocab, corpus,
+                                 device=dev)
+        planner.free_probe_residue(dev)
+        if "error" in rec:
+            fail(f"probe {backend}/{layout}: {rec['error']}")
+        # the capture's eager warm-up step, then 3 dispatches of 2 steps
+        want = expected_launches(backend, layout, 1 + 3 * 2)
+        if rec["launches"] != want:
+            fail(f"probe {backend}/{layout}: launches {rec['launches']} != {want}")
+        est = cost_model.predict(cfg, len(vocab), kind, platform)
+        rows[f"{backend}/{layout}"] = {
+            "measured_step_ms": rec["measured_step_ms"],
+            "predicted_total_ms": est.total_ms,
+            "probe_words_per_sec": rec["probe_words_per_sec"],
+            "launches": {k: v for k, v in rec["launches"].items() if v},
+        }
+        log(f"  (b) probe {backend}/{layout}: measured {rec['measured_step_ms']} "
+            f"ms/step, predicted {est.total_ms:.4f}, launches exact "
+            f"{rows[f'{backend}/{layout}']['launches']}")
+    model = sorted(rows, key=lambda r: rows[r]["predicted_total_ms"])
+    measured = sorted(rows, key=lambda r: rows[r]["measured_step_ms"])
+    log(f"  (b) order, fastest first: model {model}; measured {measured}")
+    return {"routes": rows, "model_order": model, "measured_order": measured}
+
+
+def planner_cli(argv):
+    """counted_cli(argv) with resolve_plan wrapped: the device memory
+    allocated just before and just after it (cached blocks and cuBLAS
+    workspaces released first, so the check reads only what the search
+    left), its seconds, and the launch counts and captures reset when it
+    returns, so they count the trainer's run alone."""
+    from word2vec_tpu_torch import tune
+    from word2vec_tpu_torch.ops.launch import reset_launch_counts
+    from word2vec_tpu_torch.tune import planner
+
+    seen, caps = {}, {"n": 0}
+    real = tune.resolve_plan
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counting(self, *a, **k):
+        caps["n"] += 1
+        return begin(self, *a, **k)
+
+    def wrapped(*a, **k):
+        planner.free_probe_residue(torch.device("cuda", 0))
+        seen["mem_before"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = real(*a, **k)
+        seen["search_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seen["mem_after"] = torch.cuda.memory_allocated()
+        seen["search_captures"] = caps["n"]
+        reset_launch_counts()
+        caps["n"] = 0
+        return res
+
+    tune.resolve_plan = wrapped
+    torch.cuda.CUDAGraph.capture_begin = counting
+    try:
+        r = counted_cli(argv)
+    finally:
+        tune.resolve_plan = real
+        torch.cuda.CUDAGraph.capture_begin = begin
+    r["trainer_captures"] = caps["n"]
+    r.update(seen)
+    if r["rc"] != 0:
+        fail(f"cli exited {r['rc']}: {' '.join(argv)}\n{r['stderr'][-2000:]}")
+    return r
+
+
+def spans_of(out) -> dict:
+    """ms a step of the loop's spans in a CLI run's merged trace."""
+    from word2vec_tpu_torch.obs import tracediff
+
+    with open(os.path.join(out + "_t", "trace.json")) as f:
+        summ = tracediff.summarize(json.load(f))
+    return {k: v["ms_per_step"] for k, v in summ["spans"].items()}
+
+
+def calibrated_ms(man) -> float:
+    """The measured device ms a step of a run's manifest cost_calibrate
+    block, which must be the JAX CLI's: no error, a measurement, one row
+    an anchor with a verdict."""
+    from word2vec_tpu_torch.tune import cost_model
+
+    cal = man.get("cost_calibrate") or {"error": "missing"}
+    rows = cal.get("anchors", [])
+    if ("error" in cal or not cal.get("measured_device_ms", 0) > 0
+            or [r["anchor"] for r in rows] != list(cost_model.ANCHORS)
+            or any(r["verdict"] not in ("ok", "drift", "stale") for r in rows)):
+        fail(f"manifest cost_calibrate: {cal}")
+    return cal["measured_device_ms"]
+
+
+def cli_wps(log_path) -> float:
+    return [r for r in tel_records(log_path)
+            if r.get("event") == "train_report"][-1]["words_per_sec"]
+
+
+def profile_xla(dev, vocab, corpus, steps=10):
+    """One graphed dispatch of `steps` xla/split flagship steps (a
+    ChunkRunner chunk: the replays issued back to back, the host ahead of
+    the card) under torch.profiler: device ms a step of the scatter
+    machinery and of the layout copies, and the window (first kernel start
+    to last kernel end) less the busy time, a step."""
+    from word2vec_tpu_torch.device import generator
+    from word2vec_tpu_torch.models.params import init_params
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+    from word2vec_tpu_torch.ops.train_step import make_chunk_runner
+    from word2vec_tpu_torch.profile_step import _busy_us
+    from word2vec_tpu_torch.tune import planner
+
+    cfg = flagship_cfg("xla", "split")
+    chunks = planner._probe_chunks(corpus, cfg, steps, 2)
+    tables = DeviceTables.build(vocab, cfg, dev)
+    params = init_params(cfg, len(vocab), generator(dev, 0))
+    runner = make_chunk_runner(cfg, tables)
+    alphas = np.full(steps, cfg.init_alpha, np.float32)
+    runner(params, chunks[0][0], 13, 0, alphas)
+    g = runner.stage(params, chunks[1][0])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        runner.run(g, params, alphas, 13, steps, steps)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "Memcpy HtoD" not in e.name]  # the alphas' upload ahead of it
+    if not ev:
+        fail("profile_xla: the profiler saw no device time")
+
+    def ms(names):
+        return sum(e.time_range.end - e.time_range.start for e in ev
+                   if any(n in e.name for n in names)) / 1e3 / steps
+
+    window = (max(e.time_range.end for e in ev)
+              - min(e.time_range.start for e in ev))
+    busy = _busy_us(ev)
+    del runner, tables, params, g
+    planner.free_probe_residue(dev)
+    return {"steps": steps, "scatter_ms": ms(SCATTER_NAMES),
+            "copy_ms": ms(COPY_NAMES), "window_ms": window / 1e3 / steps,
+            "busy_ms": busy / 1e3 / steps}
+
+
+def dispatch_overhead_ms(dev, vocab, corpus, steps=6, reps=20):
+    """The host cost of one graphed ChunkRunner dispatch of `steps` flagship
+    pallas_fused steps beyond its device time: the median over `reps`
+    dispatches of (host clock from the call to a synchronize) less (CUDA
+    events around the call). Returns (that ms, the host ms of staging the
+    tokens of the runner's first 5 dispatches)."""
+    from word2vec_tpu_torch.device import generator
+    from word2vec_tpu_torch.models.params import init_params
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+    from word2vec_tpu_torch.ops.train_step import make_chunk_runner
+    from word2vec_tpu_torch.tune import planner
+
+    cfg = flagship_cfg("pallas_fused", "unified")
+    chunks = planner._probe_chunks(corpus, cfg, steps, 2)
+    tables = DeviceTables.build(vocab, cfg, dev)
+    params = init_params(cfg, len(vocab), generator(dev, 0))
+    runner = make_chunk_runner(cfg, tables)
+    alphas = np.full(steps, cfg.init_alpha, np.float32)
+    runner(params, chunks[0][0], 13, 0, alphas)
+    torch.cuda.synchronize()
+    # the host ms of staging a dispatch's tokens from a numpy array (pinned
+    # by copy_in) over the runner's first dispatches: what a probe paid
+    # before it pinned its chunks ahead of its timing
+    stage_ms = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        g = runner.stage(params, chunks[1][0])
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+        runner.run(g, params, alphas, 13, (i + 1) * steps, steps)
+        torch.cuda.synchronize()
+    gaps = []
+    for i in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        runner(params, chunks[1][0], 13, (i + 1) * steps, alphas)
+        b.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        gaps.append(host - a.elapsed_time(b))
+    del runner, tables, params
+    planner.free_probe_residue(dev)
+    return float(np.median(gaps)), stage_ms
+
+
+class patched_anchors:
+    """The cost model's anchors and the card's per-dispatch overhead set to
+    `fit` inside the block (the module constants outside it)."""
+
+    def __init__(self, fit):
+        from word2vec_tpu_torch.tune import cost_model
+
+        self.cm, self.fit = cost_model, fit
+
+    def __enter__(self):
+        cm = self.cm
+        self.old = {k: getattr(cm, k) for k in
+                    ("LAYOUT_COPY_INEFFICIENCY", "SCATTER_SEC_PER_ROW",
+                     "PROGRAM_GAP_MS", "DMA_SEC_PER_ROW")}
+        self.old_spec = dict(cm.DEVICE_SPECS)
+        for k, v in self.fit.items():
+            if k == "dispatch_overhead_ms":
+                for kind, (peak, bw, _) in self.old_spec.items():
+                    cm.DEVICE_SPECS[kind] = (peak, bw, v)
+            else:
+                setattr(cm, k, v)
+        return cm
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            setattr(self.cm, k, v)
+        self.cm.DEVICE_SPECS.clear()
+        self.cm.DEVICE_SPECS.update(self.old_spec)
+
+
+def fit_anchors(dev, vocab, corpus, measured):
+    """(f): the four anchors and the per-dispatch overhead, each fitted on
+    the route where its term is largest. measured[backend] = the device ms
+    a step (cost_model.measured_device_ms) of a CLI run of that route's
+    flagship plan."""
+    from word2vec_tpu_torch.tune import cost_model, planner
+
+    kind, platform = planner.device_identity(dev)
+    prof = profile_xla(dev, vocab, corpus)
+    xla = flagship_cfg("xla", "split")
+    fused = flagship_cfg("pallas_fused", "unified")
+    est_x = cost_model.predict(xla, len(vocab), kind, platform)
+    fit = {
+        "SCATTER_SEC_PER_ROW": prof["scatter_ms"] / est_x.scatter_rows / 1e3,
+        "PROGRAM_GAP_MS": (prof["window_ms"] - prof["busy_ms"]) / est_x.programs,
+    }
+    fit["dispatch_overhead_ms"], stage_ms = dispatch_overhead_ms(dev, vocab, corpus)
+    stream_ms = 1e3 * est_x.copy_bytes / HBM_BYTES_PER_S
+    direct = prof["copy_ms"] / stream_ms
+    with patched_anchors(dict(fit, LAYOUT_COPY_INEFFICIENCY=0.0)) as cm:
+        rest = cm.predict(xla, len(vocab), kind, platform)
+        # the xla step less every other predicted term, over the copies'
+        # streaming time (the inversion cost_calibrate makes)
+        fit["LAYOUT_COPY_INEFFICIENCY"] = (
+            (measured["xla"] - rest.total_ms) / stream_ms)
+    with patched_anchors(dict(fit, DMA_SEC_PER_ROW=1e-9)) as cm:
+        est_f = cm.predict(fused, len(vocab), kind, platform)
+        cal = cm.cost_calibrate(est_f, measured["pallas_fused"])
+        dma = [r for r in cal["anchors"] if r["anchor"] == "dma_sec_per_row"][0]
+        if "implied_value" not in dma:
+            fail(f"(f) the DMA term is not active on pallas_fused: {dma}")
+        fit["DMA_SEC_PER_ROW"] = dma["implied_value"]
+    prof["first_stage_ms"] = stage_ms
+    log(f"  (f) xla profile: {prof}; layout copies alone {direct:.2f}x their "
+        f"streaming time; fitted {fit}")
+    return fit, prof, direct
+
+
+def calibrate_with(fit, cfg, vocab_size, kind, platform, measured):
+    with patched_anchors(fit) as cm:
+        return cm.cost_calibrate(
+            cm.predict(cfg, vocab_size, kind, platform), measured)
+
+
+def phase_planner(vocab, corpus, card, tmp):
+    """The autotuning planner on the card (phase 12 of the module
+    docstring)."""
+    import filecmp
+
+    from word2vec_tpu_torch.io.checkpoint import load_checkpoint
+    from word2vec_tpu_torch.tune import cache as plan_cache
+    from word2vec_tpu_torch.tune import cost_model, planner
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    kind, platform = planner.device_identity(dev)
+    row = {"card": card}
+    row["a"] = planner_shapes(dev)
+    row["b"] = planner_incumbents(dev, vocab, corpus)
+    base = tel_flags(vocab, corpus, tmp)
+
+    def flags(backend, layout, chunk, name, autotune, cache):
+        argv = list(base)
+        for flag, val in (("--band-backend", backend), ("--table-layout", layout),
+                          ("--chunk-steps", str(chunk))):
+            argv[argv.index(flag) + 1] = val
+        out = os.path.join(tmp, f"p12_{name}")
+        return argv + [
+            "-output", out + ".bin", "-binary", "1", "--checkpoint-dir",
+            out + "_ck", "--checkpoint-every", "1000", "--metrics-dir",
+            out + "_m", "--health-metrics", "0", "--quality-probe-every", "0",
+            "--autotune", autotune, "--plan-cache", cache, "--trace",
+            out + "_t", "--log-jsonl", out + ".jsonl"], out
+
+    row["c"], row["d"], row["e"], row["f"] = {}, {}, {}, {}
+    measured = {}
+    for backend, layout, chunk in PLAN_CLI:
+        cache = os.path.join(tmp, f"p12_plans_{backend}.json")
+        key = plan_cache.plan_key(kind, platform, "band-ns", V, D, layout, KP,
+                                  backend)
+        # (c) the search, then training with the winner
+        argv, out_c = flags(backend, layout, chunk, f"c_{backend}", "probe", cache)
+        c = planner_cli(argv)
+        recs = tel_records(out_c + ".jsonl")
+        tune_rec = [r for r in recs if r.get("event") == "autotune"]
+        probes = [r for r in recs if r.get("event") == "autotune_probe"]
+        if (len(tune_rec) != 1 or tune_rec[0]["key"] != key
+                or not 0 < len(probes) <= 4 or any("error" in p for p in probes)):
+            fail(f"(c) {backend}: autotune records {tune_rec}, probes {probes}")
+        winner = tune_rec[0]["plan"]
+        entry = plan_cache.lookup(
+            key, planner.config_fingerprint(flagship_cfg(backend, layout)), cache)
+        if entry is None or entry["plan"] != winner:
+            fail(f"(c) {backend}: the winner is not stored under {key}: {entry}")
+        if c["mem_after"] != c["mem_before"]:
+            fail(f"(c) {backend}: device memory {c['mem_before']} before the "
+                 f"search, {c['mem_after']} after it")
+        man_c = manifest_of(out_c + "_m")
+        if man_c.get("plan_source") != "probe" or man_c["plan"] != winner:
+            fail(f"(c) {backend}: manifest plan {man_c.get('plan')} / "
+                 f"{man_c.get('plan_source')}, winner {winner}")
+        survivors = [{"plan": p["plan"], "measured_step_ms": p["measured_step_ms"],
+                      "predicted_total_ms": p["predicted_total_ms"],
+                      "launches": {k: v for k, v in p["launches"].items() if v}}
+                     for p in probes]
+        row["c"][backend] = {
+            "key": key, "winner": winner, "probes": survivors,
+            "search_s": c["search_s"], "search_captures": c["search_captures"],
+            "mem_before": c["mem_before"], "mem_after": c["mem_after"],
+            "launches": c["launches"], "captures": c["trainer_captures"],
+            "replays": c["replays"], "cost_calibrate": man_c.get("cost_calibrate"),
+        }
+        log(f"  (c) {backend}/{layout} --autotune probe: key {key}, "
+            f"{len(probes)} probes in {c['search_s']:.3f} s "
+            f"({c['search_captures']} captures), no error record, winner "
+            f"{winner}, stored; device memory {c['mem_before']} B before the "
+            f"search == after")
+        for p in survivors:
+            log(f"      probe {p['plan']}: measured {p['measured_step_ms']} "
+                f"ms/step, predicted {p['predicted_total_ms']}")
+        # (d) the cached run: a hit, zero probes, bitwise equal to (c)
+        argv, out_d = flags(backend, layout, chunk, f"d_{backend}", "cached", cache)
+        d = planner_cli(argv)
+        recs = tel_records(out_d + ".jsonl")
+        tune_d = [r for r in recs if r.get("event") == "autotune"]
+        if (len(tune_d) != 1 or tune_d[0]["source"] != "cache"
+                or tune_d[0]["probes"] or tune_d[0]["plan"] != winner
+                or any(r.get("event") == "autotune_probe" for r in recs)):
+            fail(f"(d) {backend}: autotune records {tune_d}")
+        same = (npz_bitwise(out_c + "_ck", out_d + "_ck")
+                and filecmp.cmp(out_c + ".bin", out_d + ".bin", shallow=False))
+        if not same or d["launches"] != c["launches"] or (
+                d["trainer_captures"] != c["trainer_captures"]):
+            fail(f"(d) {backend}: bitwise {same}, launches {d['launches']} vs "
+                 f"{c['launches']}, captures {d['trainer_captures']} vs "
+                 f"{c['trainer_captures']}")
+        st, ck_cfg, _ = load_checkpoint(out_d + "_ck")
+        if ck_cfg.current_plan().to_json() != winner or ck_cfg.autotune != "off":
+            fail(f"(d) {backend}: the checkpoint's config is not the plan-applied "
+                 f"one: {ck_cfg.current_plan().to_json()} / {ck_cfg.autotune}")
+        man_d = manifest_of(out_d + "_m")
+        row["d"][backend] = {"bitwise": same, "launches": d["launches"],
+                             "captures": d["trainer_captures"],
+                             "search_s": d["search_s"],
+                             "cost_calibrate": man_d.get("cost_calibrate")}
+        log(f"  (d) {backend}/{layout} --autotune cached: a hit, 0 probes "
+            f"({d['search_s'] * 1e3:.1f} ms), state.npz and vectors bitwise "
+            f"equal to (c), launches {d['launches']} and captures "
+            f"{d['trainer_captures']} equal")
+        # (e) the plan-applied run vs the configured default, A B A B
+        wps = {"plan": [cli_wps(out_d + ".jsonl")], "default": []}
+        ms = {"plan": [calibrated_ms(man_c), calibrated_ms(man_d)],
+              "default": []}
+        for i, arm in enumerate(("default", "plan", "default")):
+            argv, out_e = flags(backend, layout, chunk, f"e{i}_{backend}",
+                                "off" if arm == "default" else "cached", cache)
+            planner_cli(argv)
+            wps[arm].append(cli_wps(out_e + ".jsonl"))
+            ms[arm].append(calibrated_ms(manifest_of(out_e + "_m")))
+            log(f"      {arm} run spans ms/step: {spans_of(out_e)}")
+        row["e"][backend] = wps
+        log(f"  (e) {backend}/{layout} words/sec, plan-applied {wps['plan']} vs "
+            f"configured default {wps['default']} ({card})")
+        measured[backend] = dict(ms, winner=winner, chunk=chunk, layout=layout)
+    # (f) the anchors, fitted on the mean measured step of each route's
+    # default runs, then held on the mean of its plan-applied runs ((c), (d)
+    # and (e)'s), each predicted at the plan it trained
+    fit, prof, direct = fit_anchors(dev, vocab, corpus, {
+        k: float(np.mean(v["default"])) for k, v in measured.items()})
+    if not all(np.isfinite(v) and v > 0 for v in fit.values()):
+        fail(f"(f) a fitted anchor is not a positive number: {fit}")
+    verdicts = {}
+    for backend, m in measured.items():
+        cfg = flagship_cfg(backend, m["layout"], chunk_steps=m["chunk"]).apply_plan(
+            planner.TunePlan.from_json(m["winner"]))
+        held = float(np.mean(m["plan"]))
+        cal = calibrate_with(fit, cfg, V, kind, platform, held)
+        verdicts[backend] = cal
+        log(f"  (f) {backend} held on its plan-applied runs ({m['plan']} ms "
+            f"measured, mean {held:.4f}; {cal['predicted_device_ms']} predicted; "
+            f"default runs {m['default']}): " + ", ".join(
+                f"{r['anchor']} {r['verdict']} {r.get('ratio', '')} "
+                f"(share {r.get('share_of_measured', 0)})" for r in cal["anchors"]))
+        # not held as a pass/fail: the measured step (the loop's spans on a
+        # shared host) spreads by more than the smaller terms between runs
+        # of one plan, so their verdicts move with the run; the spread is
+        # in the line beside them
+        runs = m["plan"] + m["default"]
+        verdicts[backend]["spread_ms"] = [min(runs), max(runs)]
+        for tag in ("c", "d"):
+            cc = row[tag][backend]["cost_calibrate"]
+            log(f"  (f) {backend} manifest cost_calibrate of ({tag}), the module's "
+                f"anchors: verdict {cc.get('verdict')}, " + ", ".join(
+                    f"{r['anchor']} {r['verdict']} {r.get('ratio', '')}"
+                    for r in cc.get("anchors", ())))
+    row["f"] = {"fit": fit, "profile": prof, "copy_kernels_x_stream": direct,
+                "measured_device_ms": measured, "held": verdicts,
+                "module": {k: getattr(cost_model, k) for k in (
+                    "LAYOUT_COPY_INEFFICIENCY", "SCATTER_SEC_PER_ROW",
+                    "PROGRAM_GAP_MS", "DMA_SEC_PER_ROW")},
+                "module_overhead_ms": cost_model.device_spec(kind, platform)[2]}
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"planner_phase": row}, default=str))
+
+
 def manifest_of(mdir):
     with open(os.path.join(mdir, "manifest.json")) as f:
         return json.load(f)
@@ -4079,6 +4707,9 @@ def main() -> int:
 
         log(f"[11 stream] (at {time.perf_counter() - t0:.1f} s)")
         phase_stream(vocab, corpus, card, tmp_cli)
+
+        log(f"[12 planner] (at {time.perf_counter() - t0:.1f} s)")
+        phase_planner(vocab, corpus, card, tmp_cli)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -576,3 +576,80 @@ def test_capture_beside_a_querying_thread(cuda):
         return state.params
 
     assert _same(run(True), run(False))
+
+
+# ------------------------------------------------- the planner (A10d)
+def _plan_cfg(route, **over):
+    from word2vec_tpu_torch import Word2VecConfig
+
+    backend, layout = route
+    return Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=8,
+                          max_sentence_len=30, band_chunk=10, shared_negatives=8,
+                          table_layout=layout, band_backend=backend, **over)
+
+
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES), ids="-".join)
+def test_probe_plan_counts_its_launches(cuda, route):
+    """probe_plan on the card: a graphed ChunkRunner whose capture runs one
+    eager warm-up step, then 1 + probe_dispatches dispatches of
+    probe_steps replays; its record counts exactly those launches and
+    carries no error."""
+    from word2vec_tpu_torch.tune import planner
+
+    vocab, corpus = _small_corpus()
+    cfg = _plan_cfg(route)
+    before = dict(launch.LAUNCHES)
+    rec = planner.probe_plan(cfg, cfg.current_plan(), vocab, corpus,
+                             probe_steps=2, probe_dispatches=2, device=cuda)
+    planner.free_probe_residue(cuda)
+    assert "error" not in rec and rec["measured_step_ms"] > 0
+    per = {k: 0 for k in launch.LAUNCHES}
+    per["ordered_row_sum"] = 3
+    per.update(ROUTE_LAUNCHES[route])
+    steps = 1 + (1 + 2) * 2
+    assert rec["launches"] == {k: v * steps for k, v in per.items()}
+    assert {k: launch.LAUNCHES[k] - before[k] for k in launch.LAUNCHES} == (
+        rec["launches"])
+
+
+def test_probe_search_leaves_no_device_memory(cuda, tmp_path):
+    """resolve_plan on the card probes graphed candidates of the kernel
+    routes and returns the device memory it found: no graph, pool, table
+    or param of a probe survives the search; a trainer on the winner then
+    trains."""
+    from word2vec_tpu_torch import Trainer
+    from word2vec_tpu_torch.tune import planner
+
+    vocab, corpus = _small_corpus()
+    cfg = _plan_cfg(("pallas_fused", "unified"), chunk_steps=2)
+    planner.free_probe_residue(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    res = planner.resolve_plan(cfg, vocab, corpus=corpus, mode="probe",
+                               cache_path=str(tmp_path / "plans.json"),
+                               device=cuda)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == before
+    assert res.probes and all("error" not in p for p in res.probes)
+    assert res.key.startswith(torch.cuda.get_device_name(cuda) + "|gpu|band-ns|")
+    tr = Trainer(cfg.apply_plan(res.plan), vocab, corpus, device=cuda)
+    state, rep = tr.train(log_every=0)
+    assert rep.steps > 0 and np.isfinite(rep.final_loss)
+
+
+def test_band_core_refuses_a_shape_over_shared_memory(cuda):
+    """band_core at batch scope and KP 256 with d 300 needs more shared
+    memory a block than the card has: refused before any launch, the
+    host copy of the size equal to the library's."""
+    from word2vec_tpu_torch import _build
+
+    get = _build.library("band_core").w2v_band_core_smem_bytes
+    for kp in (64, 256):
+        assert launch.core_smem_bytes("band_core", 118, 128, kp, 300, 5, True) == (
+            get(118, 128, kp, 300, 5, 1))
+    inp = small_core_inputs(V=200, d=300, B=2, L=192, W=5, S=118, KP=256,
+                            table=torch.float32, scope="batch", model="sg")
+    args = [inp[k].to(cuda) for k in CORE_ORDER]
+    before = dict(launch.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.band_core(*args, 0.03, W=5, K=3, cdt=torch.bfloat16, is_cbow=False)
+    assert launch.LAUNCHES == before

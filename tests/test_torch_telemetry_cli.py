@@ -55,9 +55,9 @@ from word2vec_tpu_torch.resilience import shutdown as tshutdown  # noqa: E402
 UNPORTED_PROM = ("w2v_cost_harvest_flops", "w2v_cost_harvest_bytes",
                  "w2v_cost_harvest_temp_bytes", "w2v_cost_harvest_code_bytes")
 #: manifest keys of layers the port does not have yet (elasticity, the
-#: compile cache, the cost calibration)
-UNPORTED_MANIFEST = {"compile_cache", "cost_calibrate", "elastic",
-                     "elastic_generation", "elastic_policy"}
+#: compile cache)
+UNPORTED_MANIFEST = {"compile_cache", "elastic", "elastic_generation",
+                     "elastic_policy"}
 STEPS = 24  # the corpus's steps per epoch at 4 x 32
 
 

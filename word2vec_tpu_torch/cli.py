@@ -61,9 +61,19 @@ call a segment (stream/driver.StreamRun), admits new words into
 after a growth), and writes the stream cursor (stream.json) into every
 checkpoint, so --resume re-enters the segment it stopped in, bitwise.
 
+The planner's flags are the JAX CLI's too: --autotune probe searches the
+step-shape grid around the configured plan (pruned by the cost model with
+the card's own anchors, then timed probes of the hand-written kernel
+routes on CUDA graphs), stores the winner in --plan-cache (default
+$W2V_PLAN_CACHE or ~/.cache/word2vec_tpu_torch/plan_cache.json) and
+trains with it; --autotune cached starts from the stored plan with zero
+probes (probing on a miss). The plan-applied config goes into the
+checkpoints and the manifest, and with the telemetry on the run-end
+manifest carries cost_calibrate's per-anchor verdict.
+
 Flags of layers the port does not have yet (--dp/--tp/--sp, --multihost,
---elastic*, --sync-deadline, --autotune, --prng, ...) are not defined:
-argparse rejects them.
+--elastic*, --sync-deadline, --compile-cache, --prng, ...) are not
+defined: argparse rejects them.
 """
 
 from __future__ import annotations
@@ -78,10 +88,9 @@ import time
 from typing import List, Optional
 
 #: config fields that are runtime wiring of layers the port does not have
-#: (planner, elasticity); a resumed checkpoint of the JAX package may carry
-#: them on, and the resume resets them to these values
+#: (elasticity); a resumed checkpoint of the JAX package may carry them on,
+#: and the resume resets them to these values
 _UNPORTED_WIRING = {
-    "autotune": "off",
     "elastic": "off",
     "elastic_policy": "",
 }
@@ -182,6 +191,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="two-tier hs tail-scatter compaction bound per batch "
                         "row: -1 auto (+6 sigma), 0 off, >0 explicit "
                         "(config.hs_tail_slots)")
+    p.add_argument("--autotune", choices=["off", "probe", "cached"],
+                   default="off",
+                   help="autotuned execution planner (tune/): probe = search "
+                        "the step-shape space (cost-model-pruned grid, short "
+                        "timed probes) and persist the winner; cached = "
+                        "start from the persisted plan for this (device, "
+                        "kernel, vocab, dim) with zero probe cost (falls "
+                        "back to probe on a miss)")
+    p.add_argument("--plan-cache", dest="plan_cache", metavar="FILE",
+                   default="",
+                   help="plan-cache JSON path (default: $W2V_PLAN_CACHE or "
+                        "~/.cache/word2vec_tpu_torch/plan_cache.json; the "
+                        "packaged seed plans back every lookup)")
     p.add_argument("--resident", choices=["auto", "on", "off"], default="auto",
                    help="device-resident corpus (chunked dispatch)")
     p.add_argument("--corpus-mode", choices=["resident", "streaming"],
@@ -627,6 +649,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         corpus_mode=args.corpus_mode,
         segment_tokens=args.segment_tokens,
         vocab_reserve=args.vocab_reserve,
+        autotune=args.autotune,
+        plan_cache=args.plan_cache,
         clip_row_update=args.clip_row_update,
         dtype=args.table_dtype,
         stochastic_rounding=bool(args.stochastic_rounding),
@@ -887,6 +911,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     log_fn = hub if hub.sinks else None
 
     trainer = Trainer(cfg, vocab, corpus, log_fn=log_fn, device=device)
+    if trainer.plan_resolution is not None:
+        cfg = trainer.config  # the plan-applied config (checkpoints pin it)
+        if not args.quiet:
+            pr = trainer.plan_resolution
+            hit = "cache hit" if pr.source == "cache" else "probed"
+            print(f"autotune ({hit}, key {pr.key}): {pr.plan.to_json()}")
     manifest_path = (
         os.path.join(metrics_dir, "manifest.json") if metrics_dir else None
     )
@@ -955,7 +985,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             }
         write_manifest(
             manifest_path, trainer.config, vocab_size=len(vocab),
-            device=device, extra=extra,
+            plan_resolution=trainer.plan_resolution, device=device,
+            extra=extra,
         )
     if log_fn is not None:
         # the mesh gauges (obs/export.GAUGE_EVENTS), as the JAX CLI logs
@@ -1295,6 +1326,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             end_fields["cost_harvest"] = harvest_report
         if prof_capture is not None:
             end_fields["profiler"] = prof_capture.summary()
+        if trainer.flight is not None and cost_harvest is not None:
+            # the anchor-drift verdict (tune/cost_model.cost_calibrate): the
+            # run's measured device step inverted against the cost model's
+            # anchors, as the JAX CLI banks it (word2vec_tpu/cli.py:2160-2180)
+            try:
+                from .obs import tracediff
+                from .tune import cost_model
+                from .tune.planner import device_identity
+
+                est = cost_model.predict(
+                    trainer.config, len(vocab), *device_identity(trainer.device)
+                )
+                end_fields["cost_calibrate"] = cost_model.cost_calibrate(
+                    est,
+                    cost_model.measured_device_ms(
+                        tracediff.summarize(trainer.flight.ring.events())
+                    ),
+                )
+            except Exception as ce:  # noqa: BLE001 — advisory, never fatal
+                end_fields["cost_calibrate"] = {"error": str(ce)}
         if trainer.resume_fallback:
             end_fields["resume_fallback"] = trainer.resume_fallback
         if report.stream:

@@ -38,7 +38,10 @@ import torch.nn.functional as F
 
 from .. import _build
 from .banded import band_dist
-from .launch import check, count, on_cuda, phase_record, scalar_arg, stream
+from .launch import (
+    check, check_smem, core_smem_bytes, count, on_cuda, phase_record,
+    scalar_arg, stream,
+)
 
 CoreOutputs = Tuple[torch.Tensor, ...]
 
@@ -203,6 +206,11 @@ def band_core(
     check("negs", negs, (NB, KP), torch.int32)
 
     dev = a.device
+    check_smem(
+        "band_core",
+        core_smem_bytes("band_core", S, SK, KP, d, W, cdt == torch.bfloat16),
+        dev,
+    )
     rec = phase_record("band_core", phase_cycles, B, dev)
     alpha_t = scalar_arg("band_core alpha", alpha, dev)
     f32 = dict(dtype=torch.float32, device=dev)

@@ -29,7 +29,10 @@ import torch
 
 from .. import _build
 from .banded import _overlap_add, band_dist
-from .launch import check, count, on_cuda, phase_record, scalar_arg, stream
+from .launch import (
+    check, check_smem, core_smem_bytes, count, on_cuda, phase_record,
+    scalar_arg, stream,
+)
 from .runs import check_runs, find_runs, ordered_add_plain
 
 GradOutputs = Tuple[torch.Tensor, ...]
@@ -205,6 +208,13 @@ def fused_grad_core(
     check("negs", negs, (B, KP), torch.int32)
 
     dev = emb.device
+    check_smem(
+        "fused_grad_core",
+        core_smem_bytes(
+            "fused_grad_core", S, SK, KP, d, W, cdt == torch.bfloat16
+        ),
+        dev,
+    )
     rec = phase_record("fused_grad_core", phase_cycles, B, dev)
     alpha_t = scalar_arg("fused_grad_core alpha", alpha, dev)
     f32 = dict(dtype=torch.float32, device=dev)

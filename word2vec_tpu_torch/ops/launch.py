@@ -47,6 +47,53 @@ def phase_record(name: str, phase_cycles, rows: int, dev) -> int:
     return phase_cycles.data_ptr()
 
 
+#: the dynamic shared memory one block may opt into on the H100
+#: (cudaDevAttrMaxSharedMemoryPerBlockOptin: 227 KiB); the planner's grid
+#: reads it on the host, where no card can be asked
+SMEM_PER_BLOCK = 232_448
+#: warps of a band-core block (csrc/band_tiles.cuh kThreads / 32)
+_CORE_WARPS = 16
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def core_smem_bytes(
+    kernel: str, S: int, SK: int, KP: int, d: int, W: int, bf16: bool
+) -> int:
+    """Dynamic shared memory of a band core's launch, in bytes: the host
+    copy of w2v_grad_core_smem_bytes (kernel "fused_grad_core",
+    csrc/fused_step.cu) and w2v_band_core_smem_bytes ("band_core",
+    csrc/band_core.cu), for bf16 compute (the tensor-core body: the bf16
+    tiles of band_tiles.cuh's TileLayout, then f32 words) or f32 compute.
+    The card run holds it equal to the library's (chip_smoke.py phase 12)."""
+    NB = 2 * W + 1
+    words = S * 4 + SK * 2 + KP * 2 + S * NB + S + 2 * _CORE_WARPS
+    if kernel == "fused_grad_core":
+        words += 2 * W * d + 2 * W  # the right overhang, two buffers
+    elif kernel != "band_core":
+        raise ValueError(f"no band core named {kernel!r}")
+    if not bf16:
+        return 4 * (words + S * KP * 2 + KP * d)
+    SP, KPP = _round_up(S, 16), _round_up(KP, 16)
+    lda, ldg = _round_up(d, 16) + 8, KPP + 8
+    tiles = 2 * (SP * lda + KPP * lda + SP * ldg)
+    return tiles + 4 * (words + S * KP)
+
+
+def check_smem(name: str, smem: int, dev: torch.device) -> None:
+    """Refuse, before any launch, a shape whose shared memory exceeds what
+    one block of `dev` may opt into (the kernel would fail to launch)."""
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(
+            f"{name}: this shape needs {smem} B of shared memory a block, "
+            f"over the {limit} B one block of {props.name} may use"
+        )
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

@@ -75,7 +75,14 @@ io/checkpoint.save_checkpoint plugs into, and the trainer's telemetry
     the captured graphs so the next dispatch captures against the new
     tables; the resident path resolves off under streaming.
 
-Not in this slice: the planner's plan search (autotune). Configs that need
+The autotuned planner (config.autotune "probe" or "cached") resolves the
+execution plan after the kernel selection and before anything
+shape-dependent is built (tune/planner.resolve_plan: a cached plan, or
+timed probes on this corpus on the trainer's device, which leave nothing
+behind); the trainer then runs the plan-applied config, whose autotune
+is "off" (Trainer.plan_resolution, plan_constraints, plan_shapes).
+
+Not in this slice: elastic resizing (config.elastic). Configs that need
 it raise NotImplementedError.
 """
 
@@ -157,7 +164,6 @@ class TrainReport:
 def _check_slice(config: Word2VecConfig) -> None:
     check_route(config)
     unported = [
-        (config.autotune != "off", "autotune (tune/)"),
         (config.elastic != "off", "elastic (resilience/elastic.py)"),
     ]
     names = [name for cond, name in unported if cond]
@@ -180,6 +186,10 @@ class Trainer:
     #: the kernel auto-selection record when kernel='auto' resolved to
     #: 'pair' in the degeneracy domain (tune/planner.select_kernel)
     kernel_decision: Optional[Dict] = None
+    #: the planner's resolution (tune/planner.PlanResolution) when
+    #: config.autotune was "probe" or "cached"; self.config is then the
+    #: plan-applied config
+    plan_resolution = None
     #: cooperative-stop poll (resilience/shutdown.ShutdownHandler
     #: .make_stop_check): called with state.step at every dispatch
     #: boundary; True ends the run cleanly with TrainReport.interrupted =
@@ -263,6 +273,25 @@ class Trainer:
                 self._log(dict(decision))
         _check_slice(config)
         self.device = resolve_device(device)
+        if config.autotune != "off":
+            # the plan before anything shape-dependent is built: a cached
+            # plan applies with zero probe cost, probe mode times
+            # candidates on this very corpus, on this device (as the JAX
+            # trainer does, train.py:241-258). The applied config has
+            # autotune="off", so nothing downstream searches again.
+            from .tune import resolve_plan
+
+            self.plan_resolution = resolve_plan(
+                config,
+                vocab,
+                corpus=corpus,
+                mode=config.autotune,
+                cache_path=config.plan_cache or None,
+                constraints=self.plan_constraints(),
+                log_fn=self._log,
+                device=self.device,
+            )
+            self.config = config = config.apply_plan(self.plan_resolution.plan)
         self.tables = DeviceTables.build(vocab, config, self.device)
         self.total_words = corpus.num_tokens
         # the params every step updates in place: the graphs are captured
@@ -305,6 +334,38 @@ class Trainer:
                 ),
             )
         self._warn_config_hazards()
+
+    # ------------------------------------------------------------ planning
+    def plan_constraints(self) -> Dict:
+        """What the planner's candidate grid must respect for this trainer:
+        one device (dp = sp = tp = 1), the kernel routes allowed, and the
+        corpus mode (streaming runs get their own cached plans)."""
+        return {
+            "dp": 1, "sp": 1, "tp": 1, "allow_pallas": True,
+            "corpus_mode": self.config.corpus_mode,
+        }
+
+    def plan_shapes(self) -> Dict:
+        """The realized per-dispatch step shapes (for the planner's records):
+        dispatch geometry, the resolved band chunk, and the chunk length
+        this corpus resolves to."""
+        from .utils.profiling import step_geometry
+
+        cfg = self.config
+        g = step_geometry(cfg, len(self.vocab))
+        batcher = BatchIterator(
+            self.corpus, cfg.batch_rows, cfg.max_sentence_len, seed=cfg.seed
+        )
+        return {
+            "rows_per_dispatch": cfg.batch_rows,
+            "max_sentence_len": cfg.max_sentence_len,
+            "micro_steps": cfg.micro_steps,
+            "band_chunk_S": g["S"],
+            "chunk_len": self._resolve_chunk_len(batcher),
+            "dp": 1,
+            "sp": 1,
+            "tp": 1,
+        }
 
     def _warn_config_hazards(self) -> None:
         """Pre-training configuration hazards, warned once at construction
