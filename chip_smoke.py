@@ -252,6 +252,31 @@ Phases (any failure exits non-zero and prints no result line):
      held: it spreads by more than the smaller terms); every manifest's
      cost_calibrate block the JAX CLI's, with a measured step. One
      planner_phase JSON line.
+ 13. parallel: one-process data parallelism (word2vec_tpu_torch/parallel/)
+     at flagship width on phase 5's corpus, two replicas on the one card
+     (make_mesh(2, devices=[card, card]); its 36 batches make 18 global
+     steps an epoch). (a) Each route of phase 4
+     trains 36 global steps with dp_sync_every 8 in mean mode
+     (pallas_fused/unified also in delta mode): launches exactly
+     expected_launches of 2 x 36 replica steps plus the two captures'
+     warm-ups, a loss that falls and stays finite, five syncs (8, 16, 24,
+     32 and the run's final one), each on the card bitwise equal to the
+     port's sync on the CPU over copies of the same replicas and the
+     replicas bitwise equal after it. (b) On pallas_fused/unified and
+     xla/split: the graphed per-step run, chunk_steps 2 streaming and
+     chunk_steps 2 resident bitwise equal to the eager per-step dp run,
+     each with exact launch counts; a run with a checkpoint every 12 steps
+     (each syncs through export_params), and the same run resumed by a
+     fresh trainer from its mid-epoch step-12 checkpoint file, bitwise
+     equal. (c) words/sec of dp 2 on the one card against dp 1 (Trainer)
+     on pallas_fused/unified, chunk_steps 2, interleaved twice (A B A B), and
+     the CUDA-event ms of one sync of the flagship tables in each mode
+     beside its bytes bound. (d) With two or more cards: two replicas on
+     two cards bitwise equal to two on one, and the CLI with --dp 2;
+     with one card the phase says those arms need a second card (the
+     cross-device code is held with the card and the CPU as the two
+     devices by tests/test_torch_cuda.py::test_dp2_replicas_on_two_devices).
+     One parallel_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -339,8 +364,12 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
-def expected_launches(backend: str, layout: str, steps: int) -> dict:
-    """Kernel launches of `steps` flagship trainer steps on one route. The
+def expected_launches(backend: str, layout: str, steps: int,
+                      replicas: int = 1, warmups: int = 0) -> dict:
+    """Kernel launches of `steps` flagship trainer steps on one route
+    (global steps of `replicas` data-parallel replicas, each running the
+    route's step once a global step; plus `warmups` eager capture warm-up
+    steps, one a captured graph). The
     flagship config keeps the defaults clip_row_update=1.0 (the row trust
     region: one ordered row sum for the in table, two for the out table's
     positive and negative contributions) and scatter_mean=False (which
@@ -361,7 +390,7 @@ def expected_launches(backend: str, layout: str, steps: int) -> dict:
               "pallas": "band_core"}.get(backend)
     if kernel:
         per[kernel] = 1
-    return {k: v * steps for k, v in per.items()}
+    return {k: v * (steps * replicas + warmups) for k, v in per.items()}
 
 
 # ------------------------------------------------------------ inputs
@@ -4615,6 +4644,275 @@ def phase_planner(vocab, corpus, card, tmp):
     log(json.dumps({"planner_phase": row}, default=str))
 
 
+# -------------------------------------------------- 13. data parallelism
+DP = 2                # replicas, both on the one card
+DP_STEPS = 36         # global steps a run: two epochs of phase 5's 36 batches
+DP_EVERY = 8          # dp_sync_every
+# chunk_steps of the chunked runs: it divides the sync interval and tiles
+# the 18-step epoch. A chunk of 4 would end each epoch on a chunk of 2, and
+# the syncs after it would land on its chunk boundaries (26, 34 instead of
+# 24, 32), as in the JAX trainer: another trajectory, not a fault.
+DP_CHUNK = 2
+DP_CKPT = 12          # the resume's checkpoint step: mid-epoch, between syncs
+DP_WPS_REPS = 2       # A B A B
+
+
+def dp_cfg(backend, layout, **over):
+    over.setdefault("iters", 3)
+    return flagship_cfg(backend, layout, dp_sync_every=DP_EVERY, **over)
+
+
+def dp_trainer(vocab, corpus, devs, backend, layout, graphs=True, **over):
+    from word2vec_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    tr = ShardedTrainer(dp_cfg(backend, layout, **over), vocab, corpus,
+                        mesh=make_mesh(len(devs), devices=devs))
+    tr.graphs = graphs
+    return tr
+
+
+class SyncCheck:
+    """Wraps a ShardedTrainer's sync: every sync on the card is held,
+    bitwise, against the port's sync on the CPU over copies of the same
+    replicas (and base), and the replicas must be bitwise equal after it.
+    Launches nothing of the port's kernels."""
+
+    def __init__(self, tr, tag):
+        from word2vec_tpu_torch.parallel import make_delta_sync, make_mesh, make_sync
+
+        self.tr, self.tag, self.n = tr, tag, 0
+        self.inner = tr.sync_fn
+        cpu = make_mesh(tr.dp, device="cpu")
+        self.cpu = make_delta_sync(cpu) if tr.config.sync_mode == "delta" else make_sync(cpu)
+        tr.sync_fn = self
+
+    def __call__(self, params, *base):
+        host = [{k: v.cpu() for k, v in p.items()} for p in params]
+        hbase = [{k: v.cpu() for k, v in b.items()} for b in base]
+        out = self.inner(params, *base)
+        want = self.cpu(host, *hbase)
+        for r, p in enumerate(out):
+            for k, v in p.items():
+                if not torch.equal(bits(v.cpu()), bits(want[r][k])):
+                    fail(f"parallel {self.tag}: sync {self.n} replica {r} {k} "
+                         "!= the CPU sync (bitwise)")
+                if not torch.equal(bits(v), bits(out[0][k])):
+                    fail(f"parallel {self.tag}: replicas differ after sync {self.n}")
+        self.n += 1
+        return out
+
+
+def dp_counted(tr, n_steps, captures, backend, layout, what, **kw):
+    """One run with the counts set to 0 just before it: each replica's
+    kernels once a global step, plus one eager warm-up step per capture."""
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    state, rep = tr.train(**kw)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    want = expected_launches(backend, layout, n_steps, replicas=tr.dp,
+                             warmups=captures)
+    if counts != want:
+        fail(f"parallel {backend}/{layout} {what}: launch counts {counts} != {want}")
+    if rep.steps != n_steps and "state" not in kw:
+        fail(f"parallel {backend}/{layout} {what}: {rep.steps} steps")
+    return state, rep, counts
+
+
+def dp_sync_ms(tr, mode):
+    """CUDA-event ms of one sync of the trainer's replicas (in place, as
+    training syncs them), and its bytes bound: the mean reads and writes
+    every replica once; the delta sync also reads and writes its base."""
+    from word2vec_tpu_torch.parallel import make_delta_sync, make_sync
+
+    reps = tr._replicas
+    table = sum(v.numel() * v.element_size() for v in reps[0].values())
+    if mode == "delta":
+        sync, base = make_delta_sync(tr.mesh), {k: v.clone() for k, v in reps[0].items()}
+        ms = cuda_ms(lambda: sync(reps, base), reps=10)
+        nbytes = 2 * (len(reps) + 1) * table
+    else:
+        sync = make_sync(tr.mesh)
+        ms = cuda_ms(lambda: sync(reps), reps=10)
+        nbytes = 2 * len(reps) * table
+    return ms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def dp_two_cards(dev, vocab, corpus, tmp):
+    """Phase 13 (d): with two or more cards, two replicas on two cards
+    bitwise equal to two on one card, each sync bitwise the CPU sync, and
+    the CLI with --dp 2 (exact launches); with one card, the statement
+    that these arms need a second card."""
+    if torch.cuda.device_count() < 2:
+        log("  parallel: the two-card arms (two replicas on two cards, the CLI "
+            "with --dp 2) need a second card; this machine has one")
+        return "not run: needs a second card (this machine has one)"
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    tr = dp_trainer(vocab, corpus, two, "pallas_fused", "unified")
+    chk = SyncCheck(tr, "two cards")
+    _, rep, _ = dp_counted(tr, DP_STEPS, DP, "pallas_fused", "unified",
+                           "two cards", log_every=4, max_steps=DP_STEPS)
+    one = dp_trainer(vocab, corpus, [dev] * DP, "pallas_fused", "unified")
+    dp_counted(one, DP_STEPS, DP, "pallas_fused", "unified", "one card",
+               log_every=0, max_steps=DP_STEPS)
+    same = all(same_params({k: v.cpu() for k, v in a.items()},
+                           {k: v.cpu() for k, v in b.items()})
+               for a, b in zip(tr._replicas, one._replicas))
+    if not same:
+        fail("parallel: two cards != two replicas on one card (bitwise)")
+    counts, recs = run_cli(tel_flags(vocab, corpus, tmp) + ["--dp", "2"],
+                           os.path.join(tmp, "log_dp2"))
+    steps = TEL_ITERS * -(-TEL_SPE // 2)
+    rep_cli = [r for r in recs if r.get("event") == "train_report"][-1]
+    want = expected_launches("pallas_fused", "unified", steps, replicas=2, warmups=2)
+    if rep_cli["steps"] != steps or counts != want:
+        fail(f"parallel: --dp 2 CLI ran {rep_cli['steps']} steps, counts {counts}")
+    out = {"syncs_bitwise": chk.n, "equals_one_card": same,
+           "words_per_sec": rep.words_per_sec, "cli_steps": rep_cli["steps"],
+           "cli_words_per_sec": rep_cli["words_per_sec"]}
+    log(f"  parallel two cards: {out}")
+    return out
+
+
+def phase_parallel(dev, vocab, corpus, card, tmp):
+    """Data parallelism on the card (phase 13 of the module docstring)."""
+    import gc
+
+    from word2vec_tpu_torch import Trainer, TrainState
+    from word2vec_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+    devs = [dev] * DP
+    row = {"card": card, "dp": DP, "devices": [str(d) for d in devs],
+           "steps": DP_STEPS, "dp_sync_every": DP_EVERY, "routes": []}
+
+    # (a) every route, mean sync (pallas_fused also delta): 36 global steps
+    for backend, layout in ROUTES:
+        for mode in (("mean", "delta") if backend == "pallas_fused" else ("mean",)):
+            tag = f"{backend}/{layout}/{mode}"
+            tr = dp_trainer(vocab, corpus, devs, backend, layout, sync_mode=mode)
+            chk = SyncCheck(tr, tag)
+            t0 = time.perf_counter()
+            _, rep, counts = dp_counted(tr, DP_STEPS, DP, backend, layout, tag,
+                                        log_every=4, max_steps=DP_STEPS)
+            hist = rep.loss_history
+            if not (hist and all(np.isfinite(hist)) and hist[-1] < hist[0]):
+                fail(f"parallel {tag}: loss {hist}")
+            # per-step: syncs at 8, 16, 24, 32 and the run's final one at 36
+            if chk.n != DP_STEPS // DP_EVERY + 1:
+                fail(f"parallel {tag}: {chk.n} syncs")
+            row["routes"].append({
+                "route": tag, "launches": counts, "syncs_bitwise": chk.n,
+                "loss_history": hist, "wall_s": time.perf_counter() - t0,
+                "checked_words_per_sec": rep.words_per_sec, "capture_s": tr.capture_s,
+            })
+            log(f"  parallel {tag}: syncs={chk.n} (each bitwise the CPU sync, "
+                f"replicas equal) loss {hist[0]:.5f} -> {hist[-1]:.5f} "
+                f"words/sec with the checks={rep.words_per_sec:.1f} launches={counts}")
+            del tr, chk
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # (b) the dispatch paths and the resume, against the eager per-step run
+    row["dispatch"] = {}
+    for backend, layout in (("pallas_fused", "unified"), ("xla", "split")):
+        tag = f"{backend}/{layout}"
+        eager = dp_trainer(vocab, corpus, devs, backend, layout, graphs=False)
+        ref, _, _ = dp_counted(eager, DP_STEPS, 0, backend, layout, "eager",
+                               log_every=0, max_steps=DP_STEPS)
+        res = {}
+        for name, over in (("graphed per-step", {}),
+                           (f"chunk_steps={DP_CHUNK} streaming",
+                            dict(chunk_steps=DP_CHUNK, resident="off")),
+                           (f"chunk_steps={DP_CHUNK} resident",
+                            dict(chunk_steps=DP_CHUNK, resident="on"))):
+            tr = dp_trainer(vocab, corpus, devs, backend, layout, **over)
+            st, rep, _ = dp_counted(tr, DP_STEPS, DP, backend, layout, name,
+                                    log_every=0, max_steps=DP_STEPS)
+            if name.endswith("resident") and rep.resident["resolved"] != "resident":
+                fail(f"parallel {tag}: the resident path resolved {rep.resident}")
+            res[name] = same_params(st.params, ref.params) and all(
+                same_params(a, b) for a, b in zip(tr._replicas, eager._replicas))
+            if not res[name]:
+                fail(f"parallel {tag}: {name} != eager per-step (bitwise)")
+        # the resume: a checkpoint every 12 steps (each forces a sync at 12,
+        # 24 and 36 through export_params, in both runs), resumed from 12
+        path = os.path.join(tmp, f"dp_ck_{backend}")
+
+        def ckpt_cb(trainer, save):
+            def cb(s):
+                host = trainer.export_params(s)
+                if save:
+                    save_checkpoint(path, TrainState(host, s.step, s.words_done, s.epoch),
+                                    trainer.config, vocab)
+            return cb
+
+        u = dp_trainer(vocab, corpus, devs, backend, layout)
+        whole, _, _ = dp_counted(u, DP_STEPS, DP, backend, layout, "uninterrupted",
+                                 log_every=0, max_steps=DP_STEPS,
+                                 checkpoint_cb=ckpt_cb(u, False),
+                                 checkpoint_every=DP_CKPT)
+        a = dp_trainer(vocab, corpus, devs, backend, layout)
+        a.train(log_every=0, max_steps=DP_CKPT, checkpoint_cb=ckpt_cb(a, True),
+                checkpoint_every=DP_CKPT)
+        st, _, _ = load_checkpoint(path)
+        if st.step != DP_CKPT or st.params[next(iter(st.params))].dim() not in (2, 3):
+            fail(f"parallel {tag}: checkpoint at step {st.step}")
+        b = dp_trainer(vocab, corpus, devs, backend, layout)
+        resumed, _, _ = dp_counted(b, DP_STEPS - DP_CKPT, DP, backend, layout,
+                                   "resumed", log_every=0, max_steps=DP_STEPS,
+                                   state=st, checkpoint_cb=ckpt_cb(b, False),
+                                   checkpoint_every=DP_CKPT)
+        res[f"resumed at {DP_CKPT}"] = resumed.step == DP_STEPS and same_params(
+            resumed.params, whole.params) and all(
+            same_params(x, y) for x, y in zip(b._replicas, u._replicas))
+        if not res[f"resumed at {DP_CKPT}"]:
+            fail(f"parallel {tag}: the resume from step {DP_CKPT} != the uninterrupted run")
+        row["dispatch"][tag] = res
+        log(f"  parallel dispatch {tag}: {res}")
+        del eager, ref, tr, u, a, b, whole, resumed, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) words/sec, dp 2 on one card against dp 1 (Trainer), A B A B, and
+    # one sync of the flagship tables in each mode
+    arms = {
+        "dp=2 (one card)": dp_trainer(vocab, corpus, devs, "pallas_fused", "unified",
+                                      chunk_steps=DP_CHUNK, resident="off"),
+        "dp=1 (Trainer)": Trainer(dp_cfg("pallas_fused", "unified", chunk_steps=DP_CHUNK,
+                                         resident="off"), vocab, corpus, device=dev),
+    }
+    wps = {k: [] for k in arms}
+    for tr in arms.values():
+        tr.train(log_every=0, max_steps=DP_CHUNK)  # capture
+    for _ in range(DP_WPS_REPS):
+        for name, tr in arms.items():
+            steps = DP_STEPS if name.startswith("dp=2") else DP * DP_STEPS
+            _, rep = tr.train(log_every=0, max_steps=steps)
+            wps[name].append(rep.words_per_sec)
+    row["words_per_sec"] = wps
+    row["dp2_over_dp1"] = float(np.mean(wps["dp=2 (one card)"]) / np.mean(wps["dp=1 (Trainer)"]))
+    log(f"  parallel words/sec A B A B ({card}): {wps} ratio {row['dp2_over_dp1']:.4f}")
+    dp2 = arms["dp=2 (one card)"]
+    row["sync"] = {}
+    for mode in ("mean", "delta"):
+        ms, bound, nbytes = dp_sync_ms(dp2, mode)
+        row["sync"][mode] = {"ms": ms, "bound_ms": bound, "bytes": nbytes,
+                             "bound_by": "bytes"}
+        log(f"  parallel sync {mode} of the flagship tables ({card}): {ms:.4f} ms, "
+            f"bytes bound {bound:.4f} ms ({nbytes} B)")
+    del arms, dp2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) two cards: two replicas on two cards against two on one, bitwise,
+    # and the CLI with --dp 2
+    row["two_cards"] = dp_two_cards(dev, vocab, corpus, tmp)
+    row["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"parallel_phase": row}, default=str))
+
+
 def manifest_of(mdir):
     with open(os.path.join(mdir, "manifest.json")) as f:
         return json.load(f)
@@ -4710,6 +5008,9 @@ def main() -> int:
 
         log(f"[12 planner] (at {time.perf_counter() - t0:.1f} s)")
         phase_planner(vocab, corpus, card, tmp_cli)
+
+        log(f"[13 parallel] (at {time.perf_counter() - t0:.1f} s)")
+        phase_parallel(dev, vocab, corpus, card, tmp_cli)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

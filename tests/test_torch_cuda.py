@@ -7,7 +7,9 @@ elsewhere they skip with that reason. On the H100 run them with
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 chip_smoke.py holds the same kernels against the same plain versions at
-the flagship shapes.
+the flagship shapes. The data-parallel cases hold the replica sync on the
+card bitwise against the CPU sync, and a dp = 2 run of two replicas on one
+card (each its own captured graphs) bitwise against the eager run.
 
 Tolerances: the slab scatter, the overlap-add and the ordered row sum are
 BITWISE (each adds the same terms in the same order as its plain
@@ -653,3 +655,153 @@ def test_band_core_refuses_a_shape_over_shared_memory(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         bc.band_core(*args, 0.03, W=5, K=3, cdt=torch.bfloat16, is_cbow=False)
     assert launch.LAUNCHES == before
+
+
+# ------------------------------------------- data parallelism (A8a)
+@pytest.mark.parametrize("mode", ["mean", "delta"])
+def test_replica_sync_on_the_card_matches_cpu(cuda, mode):
+    """Two replicas on one card, synced there, bitwise equal to the same
+    sync on the CPU on copies of them; the sync writes in place."""
+    from word2vec_tpu_torch.parallel import make_delta_sync, make_mesh, make_sync
+
+    rng = np.random.default_rng(3)
+    base = rng.normal(size=(500, 2, 64)).astype(np.float32)
+    reps = [base + rng.normal(scale=1e-2, size=base.shape).astype(np.float32)
+            for _ in range(2)]
+    dev_mesh, cpu_mesh = make_mesh(2, devices=[cuda, cuda]), make_mesh(2, device="cpu")
+    on_card = [{"emb": torch.from_numpy(r).to(cuda)} for r in reps]
+    on_cpu = [{"emb": torch.from_numpy(r.copy())} for r in reps]
+    ptrs = [p["emb"].data_ptr() for p in on_card]
+    if mode == "mean":
+        make_sync(dev_mesh)(on_card)
+        make_sync(cpu_mesh)(on_cpu)
+    else:
+        make_delta_sync(dev_mesh)(on_card, {"emb": torch.from_numpy(base).to(cuda)})
+        make_delta_sync(cpu_mesh)(on_cpu, {"emb": torch.from_numpy(base.copy())})
+    torch.cuda.synchronize()
+    assert [p["emb"].data_ptr() for p in on_card] == ptrs
+    for r in range(2):
+        assert torch.equal(_bits(on_card[r]["emb"].cpu()), _bits(on_cpu[r]["emb"]))
+        assert torch.equal(on_card[r]["emb"], on_card[0]["emb"])
+
+
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES), ids="-".join)
+def test_dp2_graphed_run_matches_eager(cuda, route):
+    """ShardedTrainer(dp=2) with both replicas on one card: each replica's
+    steps replayed as its own CUDA graph, chunked and resident, bitwise
+    equal to the eager per-step run, with each replica's kernels launched
+    once a step."""
+    from word2vec_tpu_torch import Word2VecConfig
+    from word2vec_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    backend, layout = route
+    vocab, corpus = _small_corpus()
+
+    def trainer(graphs=True, **over):
+        cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=4,
+                             max_sentence_len=30, band_chunk=10, shared_negatives=8,
+                             table_layout=layout, band_backend=backend, iters=2,
+                             dp_sync_every=2, **over)
+        tr = ShardedTrainer(cfg, vocab, corpus, mesh=make_mesh(2, devices=[cuda, cuda]))
+        tr.graphs = graphs
+        return tr
+
+    eager = trainer(graphs=False)
+    ref, _ = eager.train(log_every=0)
+    want = {k: 0 for k in launch.LAUNCHES}
+    want["ordered_row_sum"] = 3
+    want.update(ROUTE_LAUNCHES[route])
+    for over in (dict(), dict(chunk_steps=2, resident="off"),
+                 dict(chunk_steps=2, resident="on")):
+        tr = trainer(**over)
+        tr.train(log_every=0, max_steps=2)  # warm-up and capture
+        launch.reset_launch_counts()
+        state, rep = tr.train(log_every=0)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES == {k: 2 * v * rep.steps for k, v in want.items()}, over
+        assert state.step == ref.step
+        assert _same(state.params, ref.params), over
+        for r in range(2):
+            assert _same(tr._replicas[r], eager._replicas[r]), over
+
+
+@pytest.mark.parametrize("first", ["cuda", "cpu"])
+def test_dp2_replicas_on_two_devices(cuda, first):
+    """Replicas on two devices, the card and the CPU (a one-card machine's
+    stand-in for a second card): each device gets its own frequency
+    tables, resident corpus and epoch order, the card's replica its own
+    capture pool and stream when the card is not the trainer's first
+    device, the metrics are gathered across devices and the sync is staged
+    through replica 0's device. Without a sync each replica trains bitwise
+    as the same replica of a mesh on its device alone, and only the card's
+    replica launches kernels; with syncs (mean and delta) every sync is
+    bitwise the same sync on the CPU on copies of the replicas, and the
+    replicas end bitwise equal."""
+    from word2vec_tpu_torch import TrainState, Word2VecConfig
+    from word2vec_tpu_torch.parallel import (
+        ShardedTrainer, make_delta_sync, make_mesh, make_sync,
+    )
+
+    cpu = torch.device("cpu")
+    devs = [cuda, cpu] if first == "cuda" else [cpu, cuda]
+    vocab, corpus = _small_corpus()
+    route = ("pallas_fused", "unified")
+
+    def trainer(devices, **over):
+        cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=4,
+                             max_sentence_len=30, band_chunk=10, shared_negatives=8,
+                             table_layout=route[1], band_backend=route[0], iters=2,
+                             **over)
+        return ShardedTrainer(cfg, vocab, corpus, mesh=make_mesh(2, devices=devices))
+
+    want = {k: 0 for k in launch.LAUNCHES}
+    want["ordered_row_sum"] = 3
+    want.update(ROUTE_LAUNCHES[route])
+    # one initial table for every mesh (an init draws from the generator
+    # of the trainer's first device, and the card's differs from the CPU's)
+    init = trainer([cpu, cpu]).init_state().params
+    for over in (dict(chunk_steps=1), dict(chunk_steps=2, resident="on")):
+        runs = {}
+        for name, devices in (("mixed", devs), ("cuda", [cuda, cuda]), ("cpu", [cpu, cpu])):
+            tr = trainer(devices, dp_sync_every=0, **over)
+            tr._finalize = lambda s: None  # no sync: the replicas apart
+            _, rep = tr.train(TrainState(params=init), log_every=2)
+            runs[name] = (tr, rep)
+        mixed, rep = runs["mixed"]
+        assert rep.total_words == runs["cpu"][1].total_words, over
+        assert rep.loss_history and np.isfinite(rep.loss_history).all(), over
+        if over.get("resident"):
+            assert rep.resident["resolved"] == "resident", over
+        for r, dev in enumerate(devs):
+            alone = runs[dev.type][0]._replicas[r]
+            assert {v.device.type for v in mixed._replicas[r].values()} == {dev.type}
+            assert _same({k: v.cpu() for k, v in mixed._replicas[r].items()},
+                         {k: v.cpu() for k, v in alone.items()}), (over, r)
+        launch.reset_launch_counts()
+        _, rep = mixed.train(log_every=0, max_steps=4)  # captured: replays only
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES == {k: v * rep.steps for k, v in want.items()}, over
+
+    for mode in ("mean", "delta"):
+        tr = trainer(devs, dp_sync_every=2, sync_mode=mode, chunk_steps=2)
+        on_cpu = (make_delta_sync if mode == "delta" else make_sync)(
+            make_mesh(2, device="cpu"))
+        inner, seen = tr.sync_fn, []
+
+        def checked(params, *base, inner=inner, on_cpu=on_cpu, seen=seen):
+            # copies: .cpu() of the CPU replica would be its own buffer
+            host = [{k: v.to("cpu", copy=True) for k, v in p.items()} for p in params]
+            hbase = [{k: v.to("cpu", copy=True) for k, v in b.items()} for b in base]
+            out = inner(params, *base)
+            ref = on_cpu(host, *hbase)
+            for r, p in enumerate(out):
+                assert _same({k: v.cpu() for k, v in p.items()}, ref[r]), (mode, r)
+            seen.append(1)
+            return out
+
+        tr.sync_fn = checked
+        state, rep = tr.train(log_every=2)
+        assert len(seen) >= 2, mode
+        assert rep.loss_history and np.isfinite(rep.loss_history).all(), mode
+        a, b = ({k: v.cpu() for k, v in p.items()} for p in tr._replicas)
+        assert _same(a, b) and _same(a, {k: v.cpu() for k, v in state.params.items()}), mode

@@ -71,9 +71,18 @@ probes (probing on a miss). The plan-applied config goes into the
 checkpoints and the manifest, and with the telemetry on the run-end
 manifest carries cost_calibrate's per-anchor verdict.
 
-Flags of layers the port does not have yet (--dp/--tp/--sp, --multihost,
---elastic*, --sync-deadline, --compile-cache, --prng, ...) are not
-defined: argparse rejects them.
+Data parallelism is the JAX CLI's in one process: --dp N trains N
+replicas (parallel/ShardedTrainer), one a visible card (--backend cpu:
+N replicas on the CPU), refusing more replicas than cards with the
+mesh's message; --dp-sync-every and --sync-mode set the replica sync.
+Replicas on several cards are not verified on two cards yet: the
+cross-device code has run only on a mesh of one card and the CPU.
+Checkpoints hold the synced, unreplicated tables, so a --dp run and a
+single-device run (of either package) resume from each other's.
+
+Flags of layers the port does not have yet (--tp, --sp, --multihost,
+--elastic*, --sync-deadline, --compile-cache, --prng) are not defined:
+argparse rejects them.
 """
 
 from __future__ import annotations
@@ -135,6 +144,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
                    help="gpu (default): the CUDA device, raising when there "
                         "is none; cpu: the kernels' plain PyTorch versions")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel mesh axis: replicas, one a visible "
+                        "card (--backend cpu: on the CPU). Replicas on "
+                        "several cards are not verified on two cards yet "
+                        "(only a card and the CPU)")
+    p.add_argument("--dp-sync-every", type=int, default=64)
+    p.add_argument("--sync-mode", choices=["mean", "delta"], default="mean",
+                   help="replica reconciliation: mean = full-table mean; "
+                        "delta = the mean of the bf16-rounded updates since "
+                        "the last sync (parallel/trainer.py)")
     p.add_argument("--micro-steps", type=int, default=0,
                    help="sequential optimizer sub-steps per dispatched batch "
                         "(0 = auto with --batch-rows 0, else 1)")
@@ -635,6 +654,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         chunk_steps=args.chunk_steps,
         max_sentence_len=args.max_sentence_len,
         seed=args.seed,
+        dp_sync_every=args.dp_sync_every,
+        sync_mode=args.sync_mode,
         kernel=args.kernel,
         compute_dtype=args.compute_dtype,
         shared_negatives=args.shared_negatives,
@@ -868,7 +889,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.batch_rows == 0 and not args.resume:
         auto_rows, auto_micro = Word2VecConfig.auto_geometry(
-            corpus.num_tokens, cfg.max_sentence_len, vocab_size=len(vocab),
+            corpus.num_tokens, cfg.max_sentence_len, dp=args.dp,
+            vocab_size=len(vocab),
         )
         if args.micro_steps:
             # explicit micro with auto rows: keep the auto-sized OPTIMIZER
@@ -881,7 +903,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             steps = max(
                 1,
                 corpus.num_tokens * auto_micro
-                // (auto_rows * cfg.max_sentence_len),
+                // (auto_rows * cfg.max_sentence_len * args.dp),
             )
             print(
                 f"batch geometry auto: {auto_rows} rows x {auto_micro} "
@@ -910,7 +932,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         hub.add(tensorboard_logger(args.tensorboard))
     log_fn = hub if hub.sinks else None
 
-    trainer = Trainer(cfg, vocab, corpus, log_fn=log_fn, device=device)
+    sharded = args.dp > 1
+    if sharded:
+        from .parallel import ShardedTrainer
+
+        try:
+            trainer = ShardedTrainer(
+                cfg, vocab, corpus, dp=args.dp, log_fn=log_fn, device=device,
+            )
+        except ValueError as e:  # the mesh's refusal: more replicas than cards
+            print(f"error: {e}", file=sys.stderr)
+            hub.close()
+            return 1
+    else:
+        trainer = Trainer(cfg, vocab, corpus, log_fn=log_fn, device=device)
     if trainer.plan_resolution is not None:
         cfg = trainer.config  # the plan-applied config (checkpoints pin it)
         if not args.quiet:
@@ -941,7 +976,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             # hub sink, and the mem rows must reach it under --quiet too
             log_fn=hub,
             flight=trainer.flight,
-            devices=[device],
+            devices=trainer.mesh.cards if sharded else [device],
             row_bytes=table_row_bytes(trainer.config),
             vocab_reserve=trainer.config.vocab_reserve,
         )
@@ -967,7 +1002,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "corpus_mode": cfg.corpus_mode,
             "resumed_from": args.resume or None,
             "kernel_decision": trainer.kernel_decision,
-            "mesh_size": 1,
+            "mesh_size": args.dp,
             # the memory view at run start; the end-of-run update
             # rewrites it with the full per-phase ledger
             "device_memory": (
@@ -990,12 +1025,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
     if log_fn is not None:
         # the mesh gauges (obs/export.GAUGE_EVENTS), as the JAX CLI logs
-        # them: one process, one card
-        log_fn({"event": "mesh", "mesh_size": 1, "mesh_processes": 1,
+        # them: one process, dp replicas
+        log_fn({"event": "mesh", "mesh_size": args.dp, "mesh_processes": 1,
                 "elastic_generation": 0})
 
     def save_ckpt(s) -> None:
         t = time.perf_counter()
+        # the unreplicated tables (under --dp the synced export: a
+        # pending replica sync runs first)
+        s = dataclasses.replace(s, params=trainer.export_params(s))
         # the stream cursor is read at save time: the driver's cursor
         # advances per segment, and every checkpoint must carry the cursor
         # of the segment it was taken IN (None on resident runs)

@@ -66,8 +66,24 @@ def step_seed(run_seed: int, step: int) -> int:
     return _splitmix64(base ^ (int(step) & _U64))
 
 
-def seed_step(gen: torch.Generator, run_seed: int, step: int) -> None:
-    """Re-seed `gen` for step `step`'s draws. Under CUDA graph replay the
-    generator is registered with the graph, so the replayed kernels read
-    this seed (and offset 0) from the graph's seed holders."""
-    gen.manual_seed(step_seed(run_seed, step))
+def replica_seed(seed: int, replica: int) -> int:
+    """The seed of data-parallel replica `replica`'s draws within the step
+    seeded `seed` (step_seed): the port's counterpart of
+    fold_in(key, axis_index("data")) (word2vec_tpu/ops/train_step.py:
+    394-395), which the JAX step applies only when dp > 1, so a
+    one-replica run keeps the draws of step_seed exactly."""
+    return _splitmix64((int(seed) ^ _splitmix64(0xD47A ^ int(replica))) & _U64)
+
+
+def seed_step(
+    gen: torch.Generator, run_seed: int, step: int,
+    replica: Optional[int] = None,
+) -> None:
+    """Re-seed `gen` for step `step`'s draws (replica `replica`'s, when
+    given: parallel/trainer.py's replicas at dp > 1). Under CUDA graph
+    replay the generator is registered with the graph, so the replayed
+    kernels read this seed (and offset 0) from the graph's seed holders."""
+    seed = step_seed(run_seed, step)
+    if replica is not None:
+        seed = replica_seed(seed, replica)
+    gen.manual_seed(seed)

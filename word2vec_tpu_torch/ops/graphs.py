@@ -63,8 +63,9 @@ METRICS = ("loss_sum", "pairs", "clip_engaged", "nonfinite_loss", "hs_tail_dropp
 
 #: slot [1] int64 -> the step's tokens [B, L] int32
 BatchFn = Callable[[torch.Tensor], torch.Tensor]
-#: (step, micro sub-step) -> the draws to use (a test hook, eager only)
-DrawsHook = Callable[[int, int], Draws]
+#: (step, micro sub-step) -> the draws to use (a test hook, eager only);
+#: a data-parallel replica's graph calls it as (step, sub-step, replica)
+DrawsHook = Callable[..., Draws]
 
 
 def capture_env(device: torch.device) -> Tuple[object, torch.cuda.Stream]:
@@ -92,7 +93,9 @@ class StepGraph:
     buffers; see the module docstring. `step` is any step of the router
     (ops/steps.make_step: BandStep, HsStep, PairStep), all with the
     draw / apply contract. `params` are the tensors the graph updates in
-    place for its whole life."""
+    place for its whole life. `replica` is the data-parallel replica the
+    graph trains (parallel/trainer.py, dp > 1): its draws are the
+    replica's (device.replica_seed); None for a single-device run."""
 
     def __init__(
         self,
@@ -103,8 +106,10 @@ class StepGraph:
         *,
         graphed: bool,
         env: Optional[Tuple[object, torch.cuda.Stream]] = None,
+        replica: Optional[int] = None,
     ):
         self.step = step
+        self.replica = replica
         self.params = params
         self.batch = batch
         self.S = S
@@ -149,7 +154,8 @@ class StepGraph:
         # wrapper); the step's generator feeds them in turn
         for i, sub in enumerate(tokens.chunk(self.micro, dim=0)):
             if self.draws_hook is not None:
-                draws = self.draws_hook(self._at, i)
+                at = (self._at, i) + (() if self.replica is None else (self.replica,))
+                draws = self.draws_hook(*at)
             else:
                 draws = self.step.draw(self.gen, sub)
             m = self.step.apply(params, sub, draws, alpha)
@@ -189,7 +195,7 @@ class StepGraph:
 
     def run(self, seed: int, step: int) -> None:
         """Optimizer step `step` of the run seeded `seed`, in the next slot."""
-        seed_step(self.gen, seed, step)
+        seed_step(self.gen, seed, step, self.replica)
         self._at = step
         if self.graph is not None:
             if self.draws_hook is not None:
@@ -243,7 +249,13 @@ class ChunkRunner:
 
     `draws_hook(step, sub)`, when set, supplies each sub-step's draws
     instead of the generator (tests feed the JAX package's draws; eager
-    runs only)."""
+    runs only).
+
+    `replica` (None, or the replica index at dp > 1) and `stride` (the
+    data-parallel width) place the runner's graphs in a data-parallel
+    trainer (parallel/trainer.py): the replica's draws, its hook called as
+    draws_hook(step, sub, replica), and on the resident path the batches
+    (t0 + slot) * stride + replica of the epoch's order."""
 
     def __init__(
         self, config, tables, *, fused: Optional[bool] = None,
@@ -257,6 +269,8 @@ class ChunkRunner:
         #: one between its runners
         self.env: Optional[Tuple[object, torch.cuda.Stream]] = None
         self.draws_hook: Optional[DrawsHook] = None
+        self.replica: Optional[int] = None
+        self.stride = 1
         self._graphs: Dict[tuple, StepGraph] = {}
         self._slab: Optional[torch.Tensor] = None
 
@@ -309,7 +323,7 @@ class ChunkRunner:
             g = StepGraph(
                 self.step, work,
                 lambda slot: tokens.index_select(0, slot).reshape(B, L), S,
-                graphed=graphed, env=self.env,
+                graphed=graphed, env=self.env, replica=self.replica,
             )
             g.tokens = tokens
             return g

@@ -148,14 +148,22 @@ class ResidentChunkRunner(ChunkRunner):
         B, L = cfg.batch_rows, cfg.max_sentence_len
         work = self._buffers(params)
 
+        r, n = self.replica, self.stride
+
         def make(graphed):
             dev = next(iter(work.values())).device
             order = torch.zeros(R, dtype=torch.int32, device=dev)
             t0 = torch.zeros(1, dtype=torch.int64, device=dev)
+            if r is None:
+                batch = lambda slot: assemble_batch(corpus, order, t0 + slot, B, L)  # noqa: E731
+            else:
+                # replica r's row block of global step t0 + slot, as JAX's
+                # sharded resident chunk takes block t * dp + r
+                batch = lambda slot: assemble_batch(  # noqa: E731
+                    corpus, order, (t0 + slot) * n + r, B, L)
             g = StepGraph(
-                self.step, work,
-                lambda slot: assemble_batch(corpus, order, t0 + slot, B, L), S,
-                graphed=graphed, env=self.env,
+                self.step, work, batch, S,
+                graphed=graphed, env=self.env, replica=r,
             )
             g.order, g.t0 = order, t0
             return g

@@ -250,9 +250,9 @@ class FaultPlan:
         """Deliver every due, unspent step fault at this boundary.
 
         `state` is a train.TrainState (needs .step and .params, a dict of
-        tensors: the trainer's own buffers); `trainer` is unused today but
-        keeps the hook forward-compatible (a fault that
-        needs the config or the phase recorder can reach them). Chunked
+        tensors: the trainer's own buffers); `trainer`, when given, fills
+        its tables for a nan fault (train.Trainer.fill_params), and a fault
+        that needs the config or the phase recorder can reach them. Chunked
         dispatch calls this at chunk boundaries, so a fault pinned inside a
         chunk fires at the first boundary past its step — the plan's step is
         a not-before bound, not an exact landing."""
@@ -264,9 +264,14 @@ class FaultPlan:
                 {"kind": f.kind, "step": f.step, "at_step": state.step}
             )
             if f.kind == "nan":
-                for v in state.params.values():
-                    if v.is_floating_point():
-                        v.fill_(float("nan"))
+                if trainer is not None:
+                    # the trainer's live buffers (every replica's under
+                    # data parallelism: Trainer.fill_params)
+                    trainer.fill_params(state, float("nan"))
+                else:
+                    for v in state.params.values():
+                        if v.is_floating_point():
+                            v.fill_(float("nan"))
             elif f.kind in ("stall", "hang"):
                 # same mechanism, different intent: a stall is a short blip
                 # the run absorbs (bench measures it as overhead); a hang's

@@ -43,9 +43,13 @@ pieces the trainer already has into the continuous-training data plane:
     serving the previous one. No request drops either way
     (QueryEngine.swap_table flips references between batches).
 
-Growth is deterministic over one process's own stream. The port trains in
-one process; a multi-process trainer must refuse vocab_reserve > 0 when
-its ranks read different shards, since their vocabularies would diverge.
+The trainer may be a parallel.ShardedTrainer (one process, dp replicas):
+its set_corpus restarts the sync cadence with the segment's counters, and
+every segment's train() ends on a replica sync and returns the synced
+tables. Growth is deterministic over one process's own stream; a
+multi-process trainer (ROADMAP A8c) must refuse vocab_reserve > 0 when its
+ranks read different shards, since their vocabularies would diverge
+(word2vec_tpu/stream/driver.py:187-193).
 """
 
 from __future__ import annotations

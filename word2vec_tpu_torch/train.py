@@ -82,6 +82,15 @@ timed probes on this corpus on the trainer's device, which leave nothing
 behind); the trainer then runs the plan-applied config, whose autotune
 is "off" (Trainer.plan_resolution, plan_constraints, plan_shapes).
 
+Data parallelism in one process is parallel/trainer.ShardedTrainer, a
+subclass that overrides the runners, the dispatches, the resume skip and
+the chunk length, and fills the seams left empty here: `_post_step` after
+every dispatch and `_finalize` after the last (the replica sync),
+`_detach_params` (train() returns one Params dict), `export_params` (what
+a checkpoint and the quality probe take) and `fill_params` (the nan
+fault); the metrics drain sums the replicas' rows when a dispatch returns
+[replicas, S] each.
+
 Not in this slice: elastic resizing (config.elastic). Configs that need
 it raise NotImplementedError.
 """
@@ -515,7 +524,36 @@ class Trainer:
         QualityAlert propagates out of train() like DivergenceError
         (cli.py maps it to EXIT_QUALITY, rc 3)."""
         with self.phases.span("quality_probe"):
-            self.quality_probe.probe(state.params, state.step)
+            # the unreplicated tables: under data parallelism the synced
+            # export, so a mesh probes what one device would
+            self.quality_probe.probe(self.export_params(state), state.step)
+
+    def _post_step(self, state: TrainState) -> None:
+        """Called after every dispatch, once state.step counts its steps
+        (the data-parallel trainer's replica sync)."""
+
+    def _finalize(self, state: TrainState) -> None:
+        """Called once after the run's last dispatch (the data-parallel
+        trainer's final sync)."""
+
+    def _detach_params(self, params: Params) -> Params:
+        """The params train() hands back: copies, the caller's to keep
+        (the buffers stay the trainer's)."""
+        return {k: v.clone() for k, v in params.items()}
+
+    def export_params(self, state: TrainState) -> Params:
+        """The unreplicated tables of `state` a checkpoint or an export
+        takes: the params themselves here; the data-parallel trainer's
+        synced export of its replicas (parallel/trainer.py)."""
+        return state.params
+
+    def fill_params(self, state: TrainState, value: float) -> None:
+        """Fill every floating table the run trains with `value`, in place
+        (the nan fault, resilience/faults.py): the live params here, every
+        replica's under data parallelism."""
+        for v in state.params.values():
+            if v.is_floating_point():
+                v.fill_(value)
 
     def _finish_signals(self, state: TrainState) -> Optional[Dict]:
         """Close the signal plane's partial tail window and return the
@@ -840,6 +878,7 @@ class Trainer:
                 prev_step = state.step
                 state.step += n
                 state.words_done = wd
+                self._post_step(state)
                 if self.debug_nans:
                     self._check_finite(state, metrics)
                 if self.flight is not None:
@@ -891,11 +930,11 @@ class Trainer:
                 break
             state.epoch = epoch + 1
             skip = 0  # only the resumed epoch re-enters mid-way
+        self._finalize(state)
         self._sync()
         wall = time.perf_counter() - t0
         drain()
-        # the returned params are the caller's: the buffers stay the trainer's
-        state.params = {k: v.clone() for k, v in state.params.items()}
+        state.params = self._detach_params(state.params)
         return state, TrainReport(
             words_per_sec=state.words_done / max(wall, 1e-9),
             total_words=state.words_done,
@@ -954,8 +993,17 @@ class Trainer:
         with self.phases.span("device_wait"):
             if done is not None:
                 done.synchronize()
+        vals = host.numpy()
+        if vals.ndim == 3:
+            # [names, replicas, S] (parallel/trainer.py): the replicas'
+            # rows summed in replica order, in float32, as the JAX
+            # trainer's replica psum sums them
+            acc = vals[:, 0]
+            for r in range(1, vals.shape[1]):
+                acc = acc + vals[:, r]
+            vals = acc
         # the pad slots of a partial chunk did not run: observe the real ones
-        per_step = dict(zip(names, host.numpy().astype(np.float64)[:, :real_steps]))
+        per_step = dict(zip(names, vals.astype(np.float64)[:, :real_steps]))
         m = {k: v.sum() for k, v in per_step.items()}
         micro = self.config.micro_steps
         if self._hs_route:
