@@ -277,6 +277,35 @@ Phases (any failure exits non-zero and prints no result line):
      cross-device code is held with the card and the CPU as the two
      devices by tests/test_torch_cuda.py::test_dp2_replicas_on_two_devices).
      One parallel_phase JSON line.
+ 14. tensor and sequence parallelism (word2vec_tpu_torch/parallel/ and
+     ops/shards.py) at flagship width on 'xla', every shard on the one
+     card (make_mesh(dp, tp=, sp=, devices=[card] * n)). (a) One tp-2 step
+     on split f32 tables and one tp-4 step on the bf16 unified slab (d/tp
+     = 150 and 75) from fixed draws: every fused_slab_scatter (both
+     planes and the plane-1 tail), ordered_row_sum and find_runs call
+     bitwise its plain version, shard 0's scatters timed beside
+     index_add_ and their bounds. (b) Every psum of those steps (ops/
+     shards.shard_sum) bitwise the CPU shard-order sum of copies of its
+     partials, and their CUDA-event ms a step beside their bytes bound
+     (each partial read once, the total written once). (c) tp 2 and tp 4
+     steps on f32 tables within 5e-5 of the tp-1 step of the same draws;
+     with the clip off, the sp-2 shards' deltas (the single-device draws
+     cut to each haloed slice) summed within 1e-4 of the single-device
+     delta. (d) (2, 2, 2), 36 global steps with dp_sync_every 8: the
+     graphed per-step, chunk-2 streaming and chunk-2 resident runs
+     bitwise equal to the eager per-step run, launches exact (8
+     shard-steps a global step plus each capture's warm-up), every sync
+     bitwise the CPU sync, a loss that falls and stays finite. (e) hs sg
+     and pair ns at tp 2: 6 graphed steps bitwise eager, counted. (f)
+     words/sec of tp 2 and sp 2 on the one card against tp = sp = 1
+     (Trainer), chunk 2, interleaved twice (A B C A B C); the tables'
+     bytes of a tp-2 shard against tp 1, the memory each arm holds after
+     its capture and its peak during it. With two or more cards a tp-2
+     replica's shards on two cards (eager) bitwise equal to the one-card
+     run; with one card the phase says that arm needs a second card (the
+     cross-device code is held on a card-and-CPU mesh by tests/
+     test_torch_cuda.py::test_tp2_replica_on_a_card_and_the_cpu). One
+     tp_sp_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1827,10 +1856,13 @@ class CallRecorder:
 
     NAMES = ("find_runs", "ordered_row_sum", "fused_slab_scatter")
 
-    def __init__(self):
+    def __init__(self, band=False):
+        from word2vec_tpu_torch.ops import band_step as bs
         from word2vec_tpu_torch.ops import train_step as ts
 
         self.ts = ts
+        # band=True: the band step's own calls too (it imports the wrappers)
+        self.mods = (ts, bs) if band else (ts,)
         self.real = {n: getattr(ts, n) for n in self.NAMES}
         self.calls = []
 
@@ -1854,17 +1886,19 @@ class CallRecorder:
             before = emb.clone()
             r = real["fused_slab_scatter"](emb, sorted_idx, vals, plane, runs=runs)
             calls.append(("fused_slab_scatter", before, sorted_idx.clone(),
-                          vals.clone(), r.clone(), runs))
+                          vals.clone(), r.clone(), runs, plane))
             return r
 
         for n, f in (("find_runs", runs), ("ordered_row_sum", row_sum),
                      ("fused_slab_scatter", scatter)):
-            setattr(self.ts, n, f)
+            for m in self.mods:
+                setattr(m, n, f)
         return self
 
     def __exit__(self, *exc):
         for n, f in self.real.items():
-            setattr(self.ts, n, f)
+            for m in self.mods:
+                setattr(m, n, f)
 
 
 def run_row(idx) -> int:
@@ -1878,17 +1912,18 @@ def run_row(idx) -> int:
 ROW_SUM_TIMED_N = 1_000_000
 
 
-def check_hs_calls(name, calls, card, clock):
+def check_hs_calls(name, calls, card, clock, timed=None):
     """Every recorded call against its plain version, bitwise (the run
-    list exact); the scatters and the row sums of ROW_SUM_TIMED_N terms or
-    more also timed (kernel ms, index_add_ ms, bytes and chain bounds).
-    Returns the timed rows."""
+    list exact); the scatters (those whose call index is in `timed`, when
+    given) and the row sums of ROW_SUM_TIMED_N terms or more also timed
+    (kernel ms, index_add_ ms, bytes and chain bounds). Returns the timed
+    rows."""
     from word2vec_tpu_torch.ops import fused_step as fs
     from word2vec_tpu_torch.ops import runs as rl
     from word2vec_tpu_torch.ops import train_step as ts
 
     rows = []
-    for c in calls:
+    for at, c in enumerate(calls):
         kind = c[0]
         if kind == "find_runs":
             _, idx, got = c
@@ -1932,23 +1967,27 @@ def check_hs_calls(name, calls, card, clock):
                     f"{rows[-1]['chain_bound_ms']:.4f} ms (longest run "
                     f"{longest}) ({card})")
         else:
-            _, before, idx, vals, got, runs = c
+            _, before, idx, vals, got, runs, plane = c
             t0 = time.perf_counter()
-            want = fs.fused_slab_scatter_plain(before.clone(), idx, vals)
+            want = fs.fused_slab_scatter_plain(before.clone(), idx, vals, plane)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
             if not torch.equal(bits(got), bits(want)):
                 fail(f"hs {name}: fused_slab_scatter [N={idx.numel()}] kernel != plain")
+            if timed is not None and at not in timed:
+                continue
             tb = before.clone()
-            k_ms = cuda_ms(lambda: ts.fused_slab_scatter(tb, idx, vals, runs=runs),
+            k_ms = cuda_ms(lambda: ts.fused_slab_scatter(tb, idx, vals, plane, runs=runs),
                            reps=10)
             li = idx.long()
-            lib = cuda_ms(lambda: tb.index_add_(0, li, vals), reps=10)
+            dst = tb if plane is None else tb[:, plane]
+            lib = cuda_ms(lambda: dst.index_add_(0, li, vals), reps=10)
             b_bytes, _ = scatter_bound(idx, vals)
             longest = longest_run(idx)
             live = vals.reshape(vals.shape[0], -1).ne(0).any(dim=1)
             rows.append({
-                "call": "fused_slab_scatter",
+                "call": "fused_slab_scatter", "width": vals.shape[-1],
+                "layout": "unified" if before.dim() == 3 else "split", "plane": plane,
                 "n": idx.numel(), "table_rows": before.shape[0],
                 "dtype": str(before.dtype)[6:], "ms": k_ms, "index_add_ms": lib,
                 "bytes_bound_ms": b_bytes,
@@ -4671,33 +4710,45 @@ def dp_trainer(vocab, corpus, devs, backend, layout, graphs=True, **over):
     return tr
 
 
+def host_copy(rep):
+    """A replica (a Params dict, or a list of tp shard dicts) copied to
+    the CPU."""
+    if isinstance(rep, list):
+        return [host_copy(s) for s in rep]
+    return {k: v.to("cpu", copy=True) for k, v in rep.items()}
+
+
 class SyncCheck:
     """Wraps a ShardedTrainer's sync: every sync on the card is held,
     bitwise, against the port's sync on the CPU over copies of the same
-    replicas (and base), and the replicas must be bitwise equal after it.
-    Launches nothing of the port's kernels."""
+    replicas (and base), shard by shard, and the replicas must be bitwise
+    equal after it. Launches nothing of the port's kernels."""
 
     def __init__(self, tr, tag):
         from word2vec_tpu_torch.parallel import make_delta_sync, make_mesh, make_sync
 
         self.tr, self.tag, self.n = tr, tag, 0
         self.inner = tr.sync_fn
-        cpu = make_mesh(tr.dp, device="cpu")
+        cpu = make_mesh(tr.dp, tp=tr.tp, sp=tr.sp, device="cpu")
         self.cpu = make_delta_sync(cpu) if tr.config.sync_mode == "delta" else make_sync(cpu)
         tr.sync_fn = self
 
     def __call__(self, params, *base):
-        host = [{k: v.cpu() for k, v in p.items()} for p in params]
-        hbase = [{k: v.cpu() for k, v in b.items()} for b in base]
+        from word2vec_tpu_torch.ops.graphs import shard_list
+
+        host = [host_copy(p) for p in params]
+        hbase = [host_copy(b) for b in base]
         out = self.inner(params, *base)
         want = self.cpu(host, *hbase)
+        first = shard_list(out[0])
         for r, p in enumerate(out):
-            for k, v in p.items():
-                if not torch.equal(bits(v.cpu()), bits(want[r][k])):
-                    fail(f"parallel {self.tag}: sync {self.n} replica {r} {k} "
-                         "!= the CPU sync (bitwise)")
-                if not torch.equal(bits(v), bits(out[0][k])):
-                    fail(f"parallel {self.tag}: replicas differ after sync {self.n}")
+            for t, (sh, ref) in enumerate(zip(shard_list(p), shard_list(want[r]))):
+                for k, v in sh.items():
+                    if not torch.equal(bits(v.cpu()), bits(ref[k])):
+                        fail(f"parallel {self.tag}: sync {self.n} replica {r} shard "
+                             f"{t} {k} != the CPU sync (bitwise)")
+                    if not torch.equal(bits(v), bits(first[t][k])):
+                        fail(f"parallel {self.tag}: replicas differ after sync {self.n}")
         self.n += 1
         return out
 
@@ -4913,6 +4964,365 @@ def phase_parallel(dev, vocab, corpus, card, tmp):
     log(json.dumps({"parallel_phase": row}, default=str))
 
 
+# ------------------------------------------------ 14: tensor and sequence
+TP_MESHES = [(1, 1, 2), (1, 1, 4), (1, 2, 1), (2, 2, 2)]  # (dp, sp, tp)
+TP_ALL = (2, 2, 2)
+TP_STEPS = 36         # global steps of (d): two epochs at dp 2
+TP_EVERY = 8
+TP_CHUNK = 2
+TP_HS_STEPS = 6
+TP_WPS_STEPS = 18
+TP_WPS_REPS = 2       # A B C A B C
+TP_ALPHA = 0.025
+
+
+def tp_cfg(layout="split", **over):
+    over.setdefault("iters", 3)
+    return flagship_cfg("xla", layout, dp_sync_every=TP_EVERY, **over)
+
+
+def tp_trainer(vocab, corpus, devs, mesh, cfg=None, graphs=True, **over):
+    """A ShardedTrainer on the (dp, sp, tp) mesh over `devs` (the card
+    repeated: every replica and shard on the one card)."""
+    from word2vec_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    dp, sp, tp = mesh
+    tr = ShardedTrainer(cfg or tp_cfg(**over), vocab, corpus,
+                        mesh=make_mesh(dp, tp=tp, sp=sp, devices=devs))
+    tr.graphs = graphs
+    return tr
+
+
+def tp_expected(tr, n_steps, captures):
+    """Launches of n_steps global steps: each replica's each shard runs
+    the route's step once a global step, plus one eager warm-up step of
+    every shard a capture."""
+    cfg = tr.config
+    shards = tr.reps * tr.tp
+    if cfg.use_hs or cfg.resolved_kernel == "pair":
+        return {k: v * shards for k, v in hs_launches(cfg, n_steps + captures).items()}
+    return expected_launches("xla", cfg.table_layout, n_steps, replicas=shards,
+                             warmups=captures * tr.tp)
+
+
+def tp_counted(tr, n_steps, captures, what, **kw):
+    """One run with the counts set to 0 just before it, held to tp_expected."""
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    state, rep = tr.train(**kw)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    want = tp_expected(tr, n_steps, captures)
+    if counts != want:
+        fail(f"tp_sp {what}: launch counts {counts} != {want}")
+    if rep.steps != n_steps and "state" not in kw:
+        fail(f"tp_sp {what}: {rep.steps} steps")
+    return state, rep, counts
+
+
+class PsumCheck:
+    """Records every shard-order sum of the model axis (ops/shards.
+    shard_sum at the psum sites) of an eager step: each is then held,
+    bitwise, against the port's CPU sum over copies of the same partials,
+    and timed."""
+
+    def __init__(self):
+        from word2vec_tpu_torch.ops import shards
+
+        self.mod, self.real, self.calls = shards, shards.shard_sum, []
+
+    def __enter__(self):
+        real, calls = self.real, self.calls
+
+        def rec(parts, home):
+            out = real(parts, home)
+            calls.append(([p.clone() for p in parts], out.clone(), home))
+            return out
+
+        self.mod.shard_sum = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.shard_sum = self.real
+
+    def check(self, what):
+        for i, (parts, out, _) in enumerate(self.calls):
+            want = self.real([p.to("cpu", copy=True) for p in parts], torch.device("cpu"))
+            if not torch.equal(bits(out.cpu()), bits(want)):
+                fail(f"tp_sp {what}: psum {i} {tuple(out.shape)} on the card != "
+                     "the CPU shard-order sum (bitwise)")
+        return len(self.calls)
+
+    def timing(self):
+        """(CUDA-event ms of all of the step's sums, their bytes bound:
+        each partial read once and the total written once, the bytes)."""
+        ms = sum(cuda_ms(lambda p=p, h=h: self.real(p, h), reps=10)
+                 for p, _, h in self.calls)
+        nbytes = sum(sum(x.numel() * 4 for x in p) + o.numel() * 4
+                     for p, o, _ in self.calls)
+        return ms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def tp_params(cfg, vocab, dev, seed=3):
+    """Initial tables with a nonzero out table, so the first step moves
+    every table and the logits are not all zero."""
+    from word2vec_tpu_torch.device import generator
+    from word2vec_tpu_torch.models.params import FUSED_KEY, init_params
+
+    p = init_params(cfg, len(vocab), generator(dev, seed))
+    g = generator(dev, seed + 1)
+    out = p[FUSED_KEY][:, 1] if FUSED_KEY in p else p["emb_out_ns"]
+    out.copy_((0.1 * torch.randn(out.shape, generator=g, device=dev)).to(out.dtype))
+    return p
+
+
+def tp_one_step(cfg, tables, full, tokens, draws, tp, sp=1):
+    """One eager step of a replica's tp shards (the runner ShardedTrainer
+    builds) from the full tables `full` on fixed draws; returns the
+    shards' tables concatenated and the metrics."""
+    from word2vec_tpu_torch.ops.train_step import make_chunk_runner
+    from word2vec_tpu_torch.parallel.trainer import concat_shards, split_params
+
+    shards = [{k: v.contiguous().clone() for k, v in part.items()}
+              for part in split_params(full, tp)]
+    runner = make_chunk_runner(cfg, tables, graphed=False, fused=False, tp=tp, sp=sp)
+    runner.draws_hook = lambda step, sub: draws
+    m = runner(shards if tp > 1 else shards[0], tokens[None], 0, 0,
+               np.float32([TP_ALPHA]))
+    return concat_shards(shards), {k: float(v[0]) for k, v in m.items()}
+
+
+def tp_halo_draws(draws, s, sp):
+    """The single-device draws of [B, L] rows cut to sequence shard s's
+    haloed columns (the owned centers keep their own uniforms and
+    windows; the halo's are never read as centers)."""
+    from word2vec_tpu_torch.ops.shards import halo_exchange
+    from word2vec_tpu_torch.ops.train_step import Draws
+
+    return Draws(halo_exchange(draws.u_sub, s, sp, W).contiguous(),
+                 halo_exchange(draws.w_eff, s, sp, W).contiguous(), draws.negs)
+
+
+def tp_steps_arms(dev, vocab, corpus, card, clock, row):
+    """Phase 14 (a) to (c) on one flagship batch and fixed draws."""
+    from word2vec_tpu_torch.ops.band_step import BandStep
+    from word2vec_tpu_torch.ops.shards import halo_exchange
+    from word2vec_tpu_torch.ops.tables import DeviceTables
+    from word2vec_tpu_torch.device import generator
+
+    tokens = corpus_batch(dev, corpus)
+    row["calls"], row["psum"], row["vs_tp1"] = {}, {}, {}
+    for layout, dtype, tps in (("split", "float32", (2, 4)), ("unified", "bfloat16", (4,))):
+        cfg = tp_cfg(layout, dtype=dtype)
+        tables = DeviceTables.build(vocab, cfg, dev)
+        draws = BandStep(cfg, tables).draw(generator(dev, 5), tokens)
+        full = tp_params(cfg, vocab, dev)
+        ref, m1 = tp_one_step(cfg, tables, full, tokens, draws, 1)
+        for tp in tps:
+            tag = f"tp{tp}/{layout}/{dtype}"
+            record = (tp, layout) in ((2, "split"), (4, "unified"))
+            with CallRecorder(band=True) as rec, PsumCheck() as ps:
+                got, m = tp_one_step(cfg, tables, full, tokens, draws, tp)
+            torch.cuda.synchronize()
+            n_psum = ps.check(tag)
+            if n_psum == 0:
+                fail(f"tp_sp {tag}: the step made no shard-order sum")
+            if record:
+                # (a) every call bitwise its plain version; shard 0's
+                # scatters (all issued before shard 1's: they follow the
+                # step's last psum) timed
+                sc = [i for i, c in enumerate(rec.calls) if c[0] == "fused_slab_scatter"]
+                rows = check_hs_calls(f"tp_sp {tag}", rec.calls, card, clock,
+                                      timed=set(sc[:len(sc) // tp]))
+                widths = {c[3].shape[-1] for c in rec.calls if c[0] == "fused_slab_scatter"}
+                if widths != {D // tp}:
+                    fail(f"tp_sp {tag}: scatter widths {widths}")
+                row["calls"][tag] = {"n_calls": len(rec.calls), "timed": rows}
+                ms, bound, nbytes = ps.timing()
+                row["psum"][tag] = {"sums": n_psum, "ms": ms, "bound_ms": bound,
+                                    "bytes": nbytes, "bound_by": "bytes"}
+                log(f"  tp_sp {tag}: {len(rec.calls)} kernel calls bitwise their plain "
+                    f"versions; {n_psum} psums bitwise the CPU sum, {ms:.4f} ms a "
+                    f"step (bytes bound {bound:.4f} ms, {nbytes} B) ({card})")
+            if dtype == "float32":
+                # (c) the tp step against the tp-1 step of the same draws
+                err = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+                row["vs_tp1"][tag] = {"max_abs_err": err, "loss_sum": m["loss_sum"],
+                                      "loss_sum_tp1": m1["loss_sum"]}
+                if not err <= 5e-5 or abs(m["pairs"] - m1["pairs"]) > 1e-6 * m1["pairs"]:
+                    fail(f"tp_sp {tag}: {err} from the tp-1 step (5e-5), pairs "
+                         f"{m['pairs']} vs {m1['pairs']}")
+                log(f"  tp_sp {tag} vs tp 1: max abs err {err:.3e} (<= 5e-5)")
+        del tables, full, ref
+    # (c) sp 2: the sum of the shards' deltas is the single-device delta
+    cfg = tp_cfg("split", clip_row_update=0.0)
+    tables = DeviceTables.build(vocab, cfg, dev)
+    draws = BandStep(cfg, tables).draw(generator(dev, 6), tokens)
+    full = tp_params(cfg, vocab, dev)
+    one, m1 = tp_one_step(cfg, tables, full, tokens, draws, 1)
+    delta = {k: torch.zeros_like(v) for k, v in full.items()}
+    pairs = 0.0
+    for s in range(2):
+        toks = halo_exchange(tokens, s, 2, W).contiguous()
+        got, m = tp_one_step(cfg, tables, full, toks, tp_halo_draws(draws, s, 2), 1, sp=2)
+        pairs += m["pairs"]
+        for k in delta:
+            delta[k] += got[k] - full[k]
+    err = max(float((delta[k] - (one[k] - full[k])).abs().max()) for k in full)
+    row["sp2_conservation"] = {"max_abs_err": err, "pairs": pairs, "pairs_one": m1["pairs"]}
+    if not err <= 1e-4 or abs(pairs - m1["pairs"]) > 1e-6 * m1["pairs"]:
+        fail(f"tp_sp sp 2: shard deltas {err} from the single-device delta (1e-4), "
+             f"pairs {pairs} vs {m1['pairs']}")
+    log(f"  tp_sp sp 2: the shards' deltas sum to the single-device delta within "
+        f"{err:.3e} (<= 1e-4), pairs {pairs} vs {m1['pairs']}")
+
+
+def tp_two_cards(vocab, corpus):
+    """Phase 14, the two-card arm: a tp-2 replica's shards on two cards
+    (eager: no graph spans two cards) bitwise equal to the same run on
+    one card; with one card, the statement that it needs a second."""
+    if torch.cuda.device_count() < 2:
+        log("  tp_sp: the two-card arm (a tp-2 replica's shards on two cards) "
+            "needs a second card; this machine has one")
+        return "not run: needs a second card (this machine has one)"
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    a = tp_trainer(vocab, corpus, two, (1, 1, 2))
+    if not a.split_shards:
+        fail("tp_sp: two cards did not split the shards")
+    sa, _ = a.train(log_every=0, max_steps=TP_HS_STEPS)
+    b = tp_trainer(vocab, corpus, [two[0]] * 2, (1, 1, 2), graphs=False)
+    sb, _ = b.train(log_every=0, max_steps=TP_HS_STEPS)
+    same = same_params({k: v.cpu() for k, v in sa.params.items()},
+                       {k: v.cpu() for k, v in sb.params.items()})
+    if not same:
+        fail("tp_sp: shards on two cards != the one-card run (bitwise)")
+    return {"equals_one_card": same, "steps": TP_HS_STEPS}
+
+
+def phase_tp_sp(dev, vocab, corpus, card, tmp):
+    """Tensor and sequence parallelism on the card (phase 14 of the module
+    docstring)."""
+    import gc
+
+    from word2vec_tpu_torch import Trainer
+
+    t_phase = time.perf_counter()
+    clock = sm_clock_hz()
+    row = {"card": card, "meshes": [list(m) for m in TP_MESHES]}
+
+    # (a) the kernels' calls at d/tp, (b) the psums, (c) vs tp 1 and sp 1
+    tp_steps_arms(dev, vocab, corpus, card, clock, row)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the dispatch paths at (2, 2, 2) against the eager per-step run
+    devs = [dev] * 8
+    reps, tp = TP_ALL[0] * TP_ALL[1], TP_ALL[2]
+    eager = tp_trainer(vocab, corpus, devs, TP_ALL, graphs=False)
+    chk = SyncCheck(eager, "(2,2,2) eager")
+    ref, _, _ = tp_counted(eager, TP_STEPS, 0, "(2,2,2) eager", log_every=0,
+                           max_steps=TP_STEPS)
+    res = {"eager syncs bitwise": chk.n}
+    for name, over in (("graphed per-step", {}),
+                       (f"chunk_steps={TP_CHUNK} streaming",
+                        dict(chunk_steps=TP_CHUNK, resident="off")),
+                       (f"chunk_steps={TP_CHUNK} resident",
+                        dict(chunk_steps=TP_CHUNK, resident="on"))):
+        tr = tp_trainer(vocab, corpus, devs, TP_ALL, **over)
+        chk = SyncCheck(tr, f"(2,2,2) {name}")
+        st, rep, counts = tp_counted(tr, TP_STEPS, reps, f"(2,2,2) {name}",
+                                     log_every=4, max_steps=TP_STEPS)
+        if chk.n != TP_STEPS // TP_EVERY + 1:
+            fail(f"tp_sp (2,2,2) {name}: {chk.n} syncs")
+        if name.endswith("resident") and rep.resident["resolved"] != "resident":
+            fail(f"tp_sp: the resident path resolved {rep.resident}")
+        same = same_params(st.params, ref.params)
+        if not same:
+            fail(f"tp_sp (2,2,2): {name} != eager per-step (bitwise)")
+        hist = rep.loss_history
+        if not (hist and all(np.isfinite(hist)) and hist[-1] < hist[0]):
+            fail(f"tp_sp (2,2,2) {name}: loss {hist}")
+        res[name] = {"bitwise_eager": same, "launches": counts, "syncs_bitwise": chk.n,
+                     "loss_history": hist, "capture_s": tr.capture_s}
+        log(f"  tp_sp (2,2,2) {name}: bitwise the eager run, {chk.n} syncs bitwise the "
+            f"CPU sync, loss {hist[0]:.5f} -> {hist[-1]:.5f}, launches {counts}")
+        del tr
+    row["dispatch"] = res
+    del eager, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) hs sg and pair ns at tp 2: graphed == eager, counted
+    row["hs_pair"] = {}
+    for name, over in (("hs-sg", dict(train_method="hs", negative=0)),
+                       ("pair-ns", dict(kernel="pair"))):
+        cfg = hs_cfg(dp_sync_every=TP_EVERY, **over)
+        runs = {}
+        for graphs in (False, True):
+            tr = tp_trainer(vocab, corpus, [dev] * 2, (1, 1, 2), cfg=cfg, graphs=graphs)
+            runs[graphs] = tp_counted(tr, TP_HS_STEPS, int(graphs), f"{name} tp 2",
+                                      log_every=0, max_steps=TP_HS_STEPS)
+        same = same_params(runs[True][0].params, runs[False][0].params)
+        if not same:
+            fail(f"tp_sp {name} tp 2: graphed != eager (bitwise)")
+        row["hs_pair"][name] = {"bitwise_eager": same, "launches": runs[True][2]}
+        log(f"  tp_sp {name} tp 2: {TP_HS_STEPS} graphed steps bitwise eager, "
+            f"launches {runs[True][2]}")
+        del runs, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (f) words/sec of tp 2 and sp 2 on the one card against tp = sp = 1,
+    # interleaved; the device memory each arm holds after its capture
+    # (its tables and static buffers) and its peak during the capture (the
+    # warm-up step on clones of the tables: tables, clones, workspace)
+    arms = {
+        "tp=sp=1 (Trainer)": Trainer(tp_cfg(chunk_steps=TP_CHUNK, resident="off"),
+                                     vocab, corpus, device=dev),
+        "tp=2": tp_trainer(vocab, corpus, [dev] * 2, (1, 1, 2), chunk_steps=TP_CHUNK,
+                           resident="off"),
+        "sp=2": tp_trainer(vocab, corpus, [dev] * 2, (1, 2, 1), chunk_steps=TP_CHUNK,
+                           resident="off"),
+    }
+    held, peak = {}, {}
+    for name, tr in arms.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        tr.train(log_every=0, max_steps=TP_CHUNK)  # capture
+        torch.cuda.synchronize()
+        held[name] = torch.cuda.memory_allocated(dev) - base
+        peak[name] = torch.cuda.max_memory_allocated(dev) - base
+    wps = {k: [] for k in arms}
+    for _ in range(TP_WPS_REPS):
+        for name, tr in arms.items():
+            _, rep = tr.train(log_every=0, max_steps=TP_WPS_STEPS)
+            wps[name].append(rep.words_per_sec)
+    one = float(np.mean(wps["tp=sp=1 (Trainer)"]))
+    row["words_per_sec"] = wps
+    row["over_tp1"] = {k: float(np.mean(v)) / one for k, v in wps.items()}
+    tp2 = arms["tp=2"]
+    shard_bytes = [sum(v.numel() * v.element_size() for v in s.values())
+                   for s in tp2._replicas[0]]
+    row["memory"] = {
+        "tp1_table_bytes": sum(v.numel() * v.element_size()
+                               for v in arms["tp=sp=1 (Trainer)"]._params.values()),
+        "tp2_shard_table_bytes": shard_bytes,
+        "held_after_capture_bytes": held,
+        "peak_during_capture_bytes": peak,
+    }
+    log(f"  tp_sp words/sec A B C A B C ({card}): {wps}; over tp=sp=1 {row['over_tp1']}")
+    log(f"  tp_sp memory: {row['memory']}")
+    del arms, tp2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    row["two_cards"] = tp_two_cards(vocab, corpus)
+    row["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"tp_sp_phase": row}, default=str))
+
+
 def manifest_of(mdir):
     with open(os.path.join(mdir, "manifest.json")) as f:
         return json.load(f)
@@ -5011,6 +5421,9 @@ def main() -> int:
 
         log(f"[13 parallel] (at {time.perf_counter() - t0:.1f} s)")
         phase_parallel(dev, vocab, corpus, card, tmp_cli)
+
+        log(f"[14 tensor and sequence parallel] (at {time.perf_counter() - t0:.1f} s)")
+        phase_tp_sp(dev, vocab, corpus, card, tmp_cli)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -59,7 +59,7 @@ def test_validation_errors_mirror_reference(capsys):
     assert "--checkpoint-keep must be >= 0" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--compile-cache", "d"],
+@pytest.mark.parametrize("flag", [["--multihost"], ["--compile-cache", "d"],
                                   ["--sync-deadline", "5"], ["--prng", "rbg"]])
 def test_flags_of_unported_layers_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as e:

@@ -805,3 +805,127 @@ def test_dp2_replicas_on_two_devices(cuda, first):
         assert rep.loss_history and np.isfinite(rep.loss_history).all(), mode
         a, b = ({k: v.cpu() for k, v in p.items()} for p in tr._replicas)
         assert _same(a, b) and _same(a, {k: v.cpu() for k, v in state.params.items()}), mode
+
+
+# ------------------------------------------- tensor and sequence parallel
+@pytest.mark.parametrize("tp", [2, 4])
+def test_psum_on_the_card_is_the_cpu_sum(cuda, tp):
+    """ops/shards.shard_sum on the card (the psum of the model axis) is
+    bitwise the CPU shard-order sum of copies of the same partials."""
+    from word2vec_tpu_torch.ops.shards import shard_sum
+
+    g = torch.Generator(device=cuda).manual_seed(tp)
+    parts = [torch.randn((64, 197), generator=g, device=cuda)
+             * 10.0 ** torch.randint(-6, 6, (64, 1), generator=g, device=cuda)
+             for _ in range(tp)]
+    got = shard_sum(parts, cuda)
+    want = shard_sum([p.cpu() for p in parts], torch.device("cpu"))
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("width", [150, 75])
+@pytest.mark.parametrize("layout", ["split", "unified"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_at_the_tp_shard_widths(cuda, width, layout, dtype):
+    """The slab scatter at a tp shard's width of the flagship d = 300 (tp 2
+    and 4: the vector load drops to 2 and 1 values), whole rows and the
+    unified slab's plane-1 tail, bitwise its plain version."""
+    rng = np.random.default_rng(width)
+    p = 1.0 / np.arange(1, NVR + 1)
+    ids = np.sort(rng.choice(NVR, size=6000, p=p / p.sum())).astype(np.int32)
+    idx = torch.from_numpy(ids).to(cuda)
+    shape = (NVR, 2, width) if layout == "unified" else (NVR, width)
+    table = (0.1 * torch.randn(shape, device=cuda)).to(dtype)
+    vals = (1e-2 * torch.randn((ids.size,) + shape[1:], device=cuda)).to(dtype)
+    got = fs.fused_slab_scatter(table.clone(), idx, vals)
+    want = fs.fused_slab_scatter_plain(table.clone(), idx, vals)
+    assert torch.equal(_bits(got), _bits(want))
+    if layout == "unified":
+        tail = (1e-2 * torch.randn((ids.size, width), device=cuda)).to(dtype)
+        got = fs.fused_slab_scatter(table.clone(), idx, tail, plane=1)
+        want = fs.fused_slab_scatter_plain(table.clone(), idx, tail, plane=1)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def _tp_trainer(devices, mesh, **over):
+    from word2vec_tpu_torch import Word2VecConfig
+    from word2vec_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    vocab, corpus = _small_corpus()
+    cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=4,
+                         max_sentence_len=30, shared_negatives=8, iters=2,
+                         dp_sync_every=2, **over)
+    dp, sp, tp = mesh
+    return ShardedTrainer(cfg, vocab, corpus,
+                          mesh=make_mesh(dp, tp=tp, sp=sp, devices=devices))
+
+
+def test_tp2_sp2_graphed_run_matches_eager(cuda):
+    """ShardedTrainer at sp 2 x tp 2 on one card: each replica's two
+    shards, their psums included, replayed as one CUDA graph, per-step and
+    chunked resident, bitwise equal to the eager per-step run, with each
+    shard's kernels launched once a step."""
+    eager = _tp_trainer([cuda] * 4, (1, 2, 2), chunk_steps=1)
+    eager.graphs = False
+    ref, _ = eager.train(log_every=0)
+    for over in (dict(chunk_steps=1), dict(chunk_steps=2, resident="on")):
+        tr = _tp_trainer([cuda] * 4, (1, 2, 2), **over)
+        assert not tr.split_shards
+        st, rep = tr.train(log_every=2)
+        assert _same(st.params, ref.params), over
+        assert rep.loss_history and np.isfinite(rep.loss_history).all(), over
+        launch.reset_launch_counts()
+        _, rep = tr.train(log_every=0, max_steps=4)  # captured: replays only
+        torch.cuda.synchronize()
+        want = {k: 0 for k in launch.LAUNCHES}
+        want.update(ordered_row_sum=3, **ROUTE_LAUNCHES[("xla", "split")])
+        assert launch.LAUNCHES == {k: v * 4 * rep.steps for k, v in want.items()}, over
+
+
+@pytest.mark.parametrize("first", ["cuda", "cpu"])
+def test_tp2_replica_on_a_card_and_the_cpu(cuda, first):
+    """A tp-2 replica whose shards sit on the card and the CPU (a one-card
+    machine's stand-in for two cards) runs eagerly (StepGraph.split): the
+    tokens, draws and partial logits cross the devices, every psum is
+    bitwise the CPU shard-order sum of its partials, only the card's shard
+    launches kernels (once a step), and the tables stay within the JAX tp
+    test's 5e-5 of the same run with both shards on its first device,
+    whose generator draws the replica's draws (the shards' partial logits
+    come from two devices' matrix products, which add in other orders, so
+    the runs are not bitwise)."""
+    from word2vec_tpu_torch import TrainState
+    from word2vec_tpu_torch.ops import shards
+
+    cpu = torch.device("cpu")
+    devs = [cuda, cpu] if first == "cuda" else [cpu, cuda]
+    init = _tp_trainer([cpu, cpu], (1, 1, 2)).init_state().params
+    one = _tp_trainer([devs[0]] * 2, (1, 1, 2), chunk_steps=1)
+    one.graphs = False
+    ref, _ = one.train(TrainState(params=init), log_every=0, max_steps=6)
+    mixed = _tp_trainer(devs, (1, 1, 2), chunk_steps=1)
+    assert mixed.split_shards
+    real, sums = shards.shard_sum, []
+
+    def checked(parts, home):
+        out = real(parts, home)
+        want = real([p.to("cpu", copy=True) for p in parts], cpu)
+        sums.append(torch.equal(_bits(out.cpu()), _bits(want)))
+        return out
+
+    shards.shard_sum = checked
+    try:
+        launch.reset_launch_counts()
+        st, rep = mixed.train(TrainState(params=init), log_every=2, max_steps=6)
+        torch.cuda.synchronize()
+    finally:
+        shards.shard_sum = real
+    assert sums and all(sums)
+    assert rep.loss_history and np.isfinite(rep.loss_history).all()
+    want = {k: 0 for k in launch.LAUNCHES}
+    want.update(ordered_row_sum=3, **ROUTE_LAUNCHES[("xla", "split")])
+    assert launch.LAUNCHES == {k: v * rep.steps for k, v in want.items()}
+    for i, s in enumerate(mixed._replicas[0]):
+        assert {v.device.type for v in s.values()} == {devs[i].type}
+    for k in ref.params:
+        err = float((st.params[k].cpu() - ref.params[k].cpu()).abs().max())
+        assert err <= 5e-5, (k, err)

@@ -26,8 +26,8 @@ Pins:
     its per-replica single-device steps (ROADMAP C10: every route trains
     under the mesh; JAX refuses the Pallas routes there), a preempted run
     stopped on a sync boundary resumes onto the uninterrupted one;
-  * tp > 1, sp > 1 raise NotImplementedError; the mesh refuses more
-    replicas than devices with the JAX message;
+  * the model and seq axes build, and refuse the kernel routes; the mesh
+    refuses more replicas than devices with the JAX message;
   * the quality probe scores the synced export (a due probe forces the
     pending sync) and records what a single-device probe of the same
     tables records; the planner's constraints and shapes; a nan fault
@@ -329,13 +329,16 @@ def test_kernel_routes_train_under_dp_bitwise_per_replica(route):
 
 
 def test_mesh_axes_and_refusals():
-    with pytest.raises(NotImplementedError, match="A8b"):
-        make_mesh(1, tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8b"):
-        make_mesh(2, sp=2, device="cpu")
+    """The model and seq axes build (ROADMAP A8b, tests/test_torch_tp_sp.py
+    holds them against JAX); the kernel routes are refused under them."""
+    assert make_mesh(1, tp=2, device="cpu").shape == {"data": 1, "seq": 1, "model": 2}
+    assert make_mesh(2, sp=2, device="cpu").shape == {"data": 2, "seq": 2, "model": 1}
     vocab, corpus = tp_.small_corpus()
-    with pytest.raises(NotImplementedError):
-        ShardedTrainer(tp_.trainer_cfg(), vocab, corpus, dp=2, tp=2, device="cpu")
+    assert ShardedTrainer(tp_.trainer_cfg(), vocab, corpus, dp=2, tp=2,
+                          device="cpu").reps == 2
+    with pytest.raises(ValueError, match="single-chip only"):
+        ShardedTrainer(tp_.trainer_cfg(("pallas", "split")), vocab, corpus, dp=2,
+                       tp=2, device="cpu")
     with pytest.raises(ValueError, match=r"mesh \(3x1x1\) needs 3 devices, have 2"):
         make_mesh(3, devices=["cpu", "cpu"])
     m = make_mesh(2, device="cpu")

@@ -277,28 +277,36 @@ def hs_tokens(seed=4):
 
 def any_draws(step, key, jt, B, L) -> Draws:
     """The JAX step's draws for `key` and [B, L] tokens, for a BandStep,
-    HsStep or PairStep: the subsample uniforms and w_eff of split(key, 3)
-    (every JAX step), the pair step's per-pair negatives from the third
-    key (its _draw_negatives), and the SR uniforms of each site
-    (jax.random.uniform(k_sr(i), [n, d]), None for a site of 0 rows)."""
+    HsStep or PairStep (or one instrumented with the health counters):
+    the subsample uniforms and w_eff of split(key, 3) (every JAX step),
+    the band step's shared negatives and the pair step's per-pair
+    negatives from the third key (their _draw_negatives), and the SR
+    uniforms of each site (jax.random.uniform(k_sr(i), [n, d]), None for a
+    site of 0 rows; d the step's width, d/tp for a tensor-parallel
+    shard's step). [B, L] may be a sequence shard's haloed tokens."""
     from word2vec_tpu.ops.train_step import _draw_negatives as j_negs
     from word2vec_tpu_torch.ops.pair_step import PairStep
 
     cfg = step.config
+    step = getattr(step, "base", step)  # an instrumented step's route
     W = cfg.window
     k_sub, k_win, k_neg = jax.random.split(key, 3)
     u_sub = jax.random.uniform(k_sub, (B, L))
     w_eff = W - jax.random.randint(k_win, (B, L), 0, W, dtype=jnp.int32)
     t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
     negs = None
-    if isinstance(step, PairStep) and cfg.use_ns:
+    if isinstance(step, BandStep):
+        KP = cfg.shared_negatives
+        shape = (B, KP) if cfg.negative_scope == "row" else (KP,)
+        negs = t(j_negs(k_neg, shape, jt.alias_accept, jt.alias_idx)).to(torch.int32)
+    elif isinstance(step, PairStep) and cfg.use_ns:
         negs = t(j_negs(k_neg, (step.pairs(B, L), cfg.negative),
                         jt.alias_accept, jt.alias_idx)).to(torch.int32)
     sr = None
     if cfg.stochastic_rounding:
         k_sr = _sr_streams(key, True)
         sr = tuple(
-            t(jax.random.uniform(k_sr(i), (n, cfg.word_dim))) if n else None
+            t(jax.random.uniform(k_sr(i), (n, step.dim))) if n else None
             for i, n in enumerate(step.sr_rows(B, L))
         )
     return Draws(t(u_sub), t(w_eff), negs, sr)

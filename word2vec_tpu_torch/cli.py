@@ -71,18 +71,23 @@ probes (probing on a miss). The plan-applied config goes into the
 checkpoints and the manifest, and with the telemetry on the run-end
 manifest carries cost_calibrate's per-anchor verdict.
 
-Data parallelism is the JAX CLI's in one process: --dp N trains N
-replicas (parallel/ShardedTrainer), one a visible card (--backend cpu:
-N replicas on the CPU), refusing more replicas than cards with the
-mesh's message; --dp-sync-every and --sync-mode set the replica sync.
-Replicas on several cards are not verified on two cards yet: the
-cross-device code has run only on a mesh of one card and the CPU.
-Checkpoints hold the synced, unreplicated tables, so a --dp run and a
-single-device run (of either package) resume from each other's.
+The mesh is the JAX CLI's in one process: --dp N replicas, --sp S
+sequence shards of each row and --tp T tensor-parallel shards of each
+table (parallel/ShardedTrainer; dp*sp*tp > 1 routes there), one a
+visible card (--backend cpu: all on the CPU), refusing more than there
+are cards with the mesh's message and, under --tp or --sp > 1, the
+Pallas routes with the JAX trainer's reason (exit 1); --dp-sync-every
+and --sync-mode set the replica sync. A replica whose shards sit on
+different cards runs its steps eagerly (no CUDA graph spans two cards;
+the manifest's split_shards). Meshes over several cards are not verified
+on two cards yet: the cross-device code has run only on a mesh of one
+card and the CPU. Checkpoints hold the synced, unreplicated [V, d]
+tables, so a mesh run and a single-device run (of either package)
+resume from each other's.
 
-Flags of layers the port does not have yet (--tp, --sp, --multihost,
---elastic*, --sync-deadline, --compile-cache, --prng) are not defined:
-argparse rejects them.
+Flags of layers the port does not have yet (--multihost, --elastic*,
+--sync-deadline, --compile-cache, --prng) are not defined: argparse
+rejects them.
 """
 
 from __future__ import annotations
@@ -149,6 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "card (--backend cpu: on the CPU). Replicas on "
                         "several cards are not verified on two cards yet "
                         "(only a card and the CPU)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel mesh axis (halo-exchange context "
+                        "parallelism for long rows; band-route kernels — "
+                        "ns band or positional hs)")
     p.add_argument("--dp-sync-every", type=int, default=64)
     p.add_argument("--sync-mode", choices=["mean", "delta"], default="mean",
                    help="replica reconciliation: mean = full-table mean; "
@@ -932,15 +942,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         hub.add(tensorboard_logger(args.tensorboard))
     log_fn = hub if hub.sinks else None
 
-    sharded = args.dp > 1
+    mesh_size = args.dp * args.tp * args.sp
+    sharded = mesh_size > 1
     if sharded:
         from .parallel import ShardedTrainer
 
         try:
             trainer = ShardedTrainer(
-                cfg, vocab, corpus, dp=args.dp, log_fn=log_fn, device=device,
+                cfg, vocab, corpus, dp=args.dp, tp=args.tp, sp=args.sp,
+                log_fn=log_fn, device=device,
             )
-        except ValueError as e:  # the mesh's refusal: more replicas than cards
+        except ValueError as e:
+            # the mesh's refusals: more devices than cards, a width that
+            # does not divide, a route the model or seq axis cannot run
             print(f"error: {e}", file=sys.stderr)
             hub.close()
             return 1
@@ -1002,13 +1016,27 @@ def main(argv: Optional[List[str]] = None) -> int:
             "corpus_mode": cfg.corpus_mode,
             "resumed_from": args.resume or None,
             "kernel_decision": trainer.kernel_decision,
-            "mesh_size": args.dp,
+            "mesh_size": mesh_size,
             # the memory view at run start; the end-of-run update
             # rewrites it with the full per-phase ledger
             "device_memory": (
                 mem_ledger.summary() if mem_ledger is not None else None
             ),
         }
+        if sharded:
+            extra.update({
+                "dp": args.dp, "sp": args.sp, "tp": args.tp,
+                # a replica whose tp shards span devices runs eagerly
+                # (ops/graphs.StepGraph.split): no graph spans two devices
+                "split_shards": trainer.split_shards,
+                # the mesh record of the JAX CLI's generation start
+                "mesh_events": [{
+                    "event": "generation_start", "gen": 0, "world": 1,
+                    "mesh_size": mesh_size,
+                    "dp": args.dp, "tp": args.tp, "sp": args.sp,
+                    "resumed_from": args.resume or None,
+                }],
+            })
         if streaming:
             # the data plane: corpus_tokens is the bootstrap segment, and
             # this block the stream's shape and where it resumed
@@ -1025,8 +1053,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
     if log_fn is not None:
         # the mesh gauges (obs/export.GAUGE_EVENTS), as the JAX CLI logs
-        # them: one process, dp replicas
-        log_fn({"event": "mesh", "mesh_size": args.dp, "mesh_processes": 1,
+        # them: one process, dp*sp*tp devices
+        log_fn({"event": "mesh", "mesh_size": mesh_size, "mesh_processes": 1,
                 "elastic_generation": 0})
 
     def save_ckpt(s) -> None:

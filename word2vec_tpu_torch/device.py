@@ -75,15 +75,28 @@ def replica_seed(seed: int, replica: int) -> int:
     return _splitmix64((int(seed) ^ _splitmix64(0xD47A ^ int(replica))) & _U64)
 
 
+def seq_seed(seed: int, shard: int) -> int:
+    """The seed of sequence shard `shard`'s draws within the step seeded
+    `seed` (after replica_seed when dp > 1): the port's counterpart of
+    fold_in(key, axis_index("seq")) (word2vec_tpu/ops/band_step.py:
+    248-249), which the JAX step applies after the data fold and only
+    when sp > 1. Every tensor-parallel shard of a replica uses the
+    replica's draws (JAX folds no model index)."""
+    return _splitmix64((int(seed) ^ _splitmix64(0x5E9 ^ int(shard))) & _U64)
+
+
 def seed_step(
     gen: torch.Generator, run_seed: int, step: int,
-    replica: Optional[int] = None,
+    replica: Optional[int] = None, seq: Optional[int] = None,
 ) -> None:
-    """Re-seed `gen` for step `step`'s draws (replica `replica`'s, when
-    given: parallel/trainer.py's replicas at dp > 1). Under CUDA graph
-    replay the generator is registered with the graph, so the replayed
-    kernels read this seed (and offset 0) from the graph's seed holders."""
+    """Re-seed `gen` for step `step`'s draws (data replica `replica`'s,
+    when given: parallel/trainer.py's replicas at dp > 1; then sequence
+    shard `seq`'s, when given: at sp > 1). Under CUDA graph replay the
+    generator is registered with the graph, so the replayed kernels read
+    this seed (and offset 0) from the graph's seed holders."""
     seed = step_seed(run_seed, step)
     if replica is not None:
         seed = replica_seed(seed, replica)
+    if seq is not None:
+        seed = seq_seed(seed, seq)
     gen.manual_seed(seed)

@@ -29,6 +29,11 @@ A port of word2vec_tpu/obs/health.py, in two layers:
     reports as its two FUSED_SUBTABLES, as in JAX, so the keys do not
     depend on the layout or on the chunk runner's fusion.
 
+    Under tensor parallelism the step is one shard's body (ops/shards.py)
+    and each table's squared update and non-finite count are psum sites
+    (obs/health.py:142-144 of the JAX package): every shard then holds the
+    table's global value, which the trainer's metrics contract assumes.
+
     All counters are float32 and ADDITIVE (the graph sums micro sub-steps;
     the chunk runner stacks steps): alpha_sum is micro_steps alphas per
     step, `health_record` divides.
@@ -50,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.params import FUSED_KEY, FUSED_SUBTABLES
+from ..ops.shards import solo
 
 #: metrics key prefix of the per-table update-magnitude counters
 UPDATE_SQ_PREFIX = "update_sq_"
@@ -143,20 +149,28 @@ class HealthStep:
         return getattr(self.base, name)
 
     def apply(self, params, tokens, draws, alpha):
+        return solo(self.body(params, tokens, draws, alpha))
+
+    def body(self, params, tokens, draws, alpha):
+        """`apply` as a step body (ops/shards.py): the wrapped step's
+        psum sites, then two a table."""
         before = {k: v.clone() for k, v in params.items()}
-        m = dict(self.base.apply(params, tokens, draws, alpha))
+        m = dict((yield from self.base.body(params, tokens, draws, alpha)))
         dev = tokens.device
         m["alpha_sum"] = torch.as_tensor(alpha, dtype=torch.float32).to(dev).reshape(())
         grad_sq = torch.zeros((), dtype=torch.float32, device=dev)
+        bad = torch.zeros((), dtype=torch.float32, device=dev)
         old = dict(_subtables(before))
         for sub, new in _subtables(params):
             # Σ(new − old)² over f32 deltas, the JAX counter's arithmetic,
             # in one elementwise pass and one sum
-            sq = F.mse_loss(new.float(), old[sub].float(), reduction="sum")
+            sq = yield F.mse_loss(new.float(), old[sub].float(), reduction="sum")
             m[UPDATE_SQ_PREFIX + sub] = sq
             grad_sq = grad_sq + sq
+            # whole counts in float32: exact in any order below 2^24 cells
+            bad = bad + (yield _nonfinite(new))
         m["grad_sq"] = grad_sq
-        m["nonfinite_params"] = sum(_nonfinite(t) for t in params.values())
+        m["nonfinite_params"] = bad
         return m
 
 

@@ -53,9 +53,10 @@ from .fused_step import fused_grad_core, fused_slab_scatter
 from .overlap import overlap_add_tokens
 from .runs import find_runs
 from .tables import DeviceTables
+from .shards import center_zone, solo
 from .train_step import (
     Draws, Metrics, _cast_update, _draw_negatives, _dup_mean_scale,
-    _row_clip_scale, finish_metrics, gate, ordered_row_sum,
+    finish_metrics, gate, ordered_row_sum, row_clip_scale,
 )
 
 # (sorted ids [N] int32, values [N, d] f32, scatter_mean weights [N] f32)
@@ -71,9 +72,16 @@ def check_route(config: Word2VecConfig) -> None:
 
 
 class BandStep:
-    """The band step for one config and its device tables. Tensor-parallel,
-    data-parallel and sequence-parallel mesh axes (the JAX step's tp/dp/sp
-    arguments, `_halo_exchange`) come with the multi-GPU slice.
+    """The band step for one config and its device tables.
+
+    Mesh axes (the JAX step's tp_axis / sp_axis; the data axis only
+    re-seeds the draws, device.seed_step): with tp > 1 the params are one
+    tensor-parallel shard's [V, d/tp] tables, every logit is summed over
+    the shards before the sigmoid (the psum sites of `body`, ops/
+    shards.py) and the SR uniforms are [n, d/tp]; with sp > 1 the tokens
+    are a sequence shard's haloed slice [B, Lloc + 2W] and only the
+    positions the shard owns train as centers (center_zone). Both run on
+    'xla' only: the JAX package refuses its Pallas routes under a mesh.
 
     fused=True (the chunk runners under config.fused_tables): the params
     carry the two ns tables as one [V, 2, d] slab, as under
@@ -86,7 +94,8 @@ class BandStep:
     order."""
 
     def __init__(
-        self, config: Word2VecConfig, tables: DeviceTables, fused: bool = False
+        self, config: Word2VecConfig, tables: DeviceTables, fused: bool = False,
+        tp: int = 1, sp: int = 1,
     ):
         if not config.use_ns or config.use_hs:
             raise ValueError(
@@ -101,11 +110,20 @@ class BandStep:
                 "kernel — use band_backend='pallas_oa', which composes with "
                 "fused_tables, or 'pallas_fused' on table_layout='unified')"
             )
+        if (tp > 1 or sp > 1) and config.band_backend != "xla":
+            raise ValueError(
+                f"band_backend={config.band_backend!r} covers the single-"
+                "device step; unsupported here: a (tp, sp) = "
+                f"({tp}, {sp}) mesh (use band_backend='xla')"
+            )
         self.config = config
         self.tables = tables
         self.cdt = torch_dtype(config.compute_dtype)
         self.route = config.band_backend
         self.unified = fused or config.table_layout == "unified"
+        self.sp = sp
+        #: the width of the tables this step updates (a tp shard's d/tp)
+        self.dim = config.word_dim // tp
 
     # ---------------------------------------------------------------- draws
     def sr_rows(self, B: int, L: int) -> Tuple[int, int, int]:
@@ -147,7 +165,7 @@ class BandStep:
         )
         sr = None
         if cfg.stochastic_rounding:
-            d = cfg.word_dim
+            d = self.dim
             sr = tuple(
                 torch.rand((n, d), generator=gen, device=dev)
                 for n in self.sr_rows(B, L)
@@ -170,16 +188,22 @@ class BandStep:
         `alpha` is a float or a 0-d float32 tensor on the tokens' device
         (what a captured step reads at every replay); the two give bitwise
         the same step."""
+        return solo(self.body(params, tokens, draws, alpha))
+
+    def body(self, params: Params, tokens: torch.Tensor, draws: Draws, alpha):
+        """`apply` as a step body (ops/shards.py): yields the float32
+        partial at every psum site over the model axis and continues with
+        the sum it is sent; returns the metrics."""
         if not self.config.stochastic_rounding:
             draws = Draws(draws.u_sub, draws.w_eff, draws.negs)
         elif draws.sr is None:
             raise ValueError("stochastic_rounding needs the SR uniforms")
         if self.route == "pallas_fused":
-            m = self._apply_fused(params, tokens, draws, alpha)
+            m = yield from self._apply_fused(params, tokens, draws, alpha)
         elif self.route == "pallas":
-            m = self._apply_pallas(params, tokens, draws, alpha)
+            m = yield from self._apply_pallas(params, tokens, draws, alpha)
         else:
-            m = self._apply_xla(params, tokens, draws, alpha)
+            m = yield from self._apply_xla(params, tokens, draws, alpha)
         return finish_metrics(m)
 
     def __call__(
@@ -207,15 +231,19 @@ class BandStep:
         return S
 
     # ------------------------------------------------------------ xla chain
-    def _apply_xla(self, params, tokens, draws, alpha) -> Metrics:
+    def _apply_xla(self, params, tokens, draws, alpha):
         """band_step.py:242-589: the chain in torch ops ('xla'), with the
-        overlap-add kernel on 'pallas_oa'."""
+        overlap-add kernel on 'pallas_oa'; psum sites at the negative and
+        positive logits (band_step.py:351, :377, :398) and in the row
+        clip."""
         cfg = self.config
         W, K, KP, cdt = cfg.window, cfg.negative, cfg.shared_negatives, self.cdt
         per_row = cfg.negative_scope == "row"
         is_cbow = cfg.model == "cbow"
         B, L = tokens.shape
         valid, tok, keep = gate(tokens, draws.u_sub, self.tables.keep_probs)
+        if self.sp > 1:
+            keep = keep & center_zone(L, W, tokens.device)[None, :]
         S = banded.resolve_chunk(L, W, cfg.band_chunk)
         if self.route == "pallas_oa":
             S = self._chunked(L)
@@ -266,7 +294,7 @@ class BandStep:
 
         # ---- negative side: dense contractions against the shared draws
         en_spec = "bnd" if per_row else "nd"
-        nlog = banded.cdot(f"bid,{en_spec}->bin", h, en, cdt)  # [B, L, KP]
+        nlog = yield banded.cdot(f"bid,{en_spec}->bin", h, en, cdt)  # [B, L, KP]
         w_neg = (k_i / KP)[:, :, None] * neg_ok
         gn = (0.0 - torch.sigmoid(nlog)) * w_neg * alpha
         d_h = banded.cdot(f"bin,{en_spec}->bid", gn, en, cdt)  # [B, L, d]
@@ -274,7 +302,7 @@ class BandStep:
 
         # ---- positive side
         if not is_cbow:
-            plog = banded.band_qk(ein, eout, W, S, cdt)
+            plog = yield banded.band_qk(ein, eout, W, S, cdt)
             gp = (1.0 - torch.sigmoid(plog)) * band_f * alpha  # label 1
             d_h = d_h + banded.band_sv(gp, eout, W, S, cdt)
             if use_slab:
@@ -289,7 +317,7 @@ class BandStep:
             pos_pairs = banded.band_loss_sum(band_f)
             in_weight = (keep & (n_ctx > 0)).float()
         else:
-            plog = banded.cdot("bid,bid->bi", h, eout, cdt)  # [B, L]
+            plog = yield banded.cdot("bid,bid->bi", h, eout, cdt)  # [B, L]
             active = (keep & (n_ctx > 0)).float()
             gp = (1.0 - torch.sigmoid(plog)) * active * alpha
             d_h = d_h + gp[:, :, None] * eout
@@ -333,7 +361,7 @@ class BandStep:
         in_side = token_side(d_in_pos, in_weight) if d_in_pos is not None else slab_side
         out_side = token_side(d_out_pos, out_weight) if d_out_pos is not None else slab_side
         w_neg_flat = w_neg.sum(dim=1).reshape(-1) if per_row else w_neg.sum(dim=(0, 1))
-        clip_count = self._update(
+        clip_count = yield from self._update(
             params, (V_in, V_out), in_side, out_side,
             (negs.reshape(-1), d_neg.reshape(-1, d), w_neg_flat), draws.sr,
         )
@@ -346,7 +374,7 @@ class BandStep:
         }
 
     # ------------------------------------------------------- pallas (B4)
-    def _apply_pallas(self, params, tokens, draws, alpha) -> Metrics:
+    def _apply_pallas(self, params, tokens, draws, alpha):
         """band_step.py:596-781: the gathers, the band-core kernel, and the
         slab-space scatter tail (split tables)."""
         cfg = self.config
@@ -410,7 +438,7 @@ class BandStep:
             pos_pairs = torch.sum(active_flat)
         w_neg_flat = (wns if per_row else wns[0]).reshape(-1)
         d_neg_flat = (d_neg_k if per_row else d_neg_k[0]).reshape(-1, d)
-        clip_count = self._update(
+        clip_count = yield from self._update(
             params, (emb_in.shape[0], emb_out.shape[0]), in_side, out_side,
             (negs.reshape(-1), d_neg_flat, w_neg_flat), draws.sr,
         )
@@ -421,7 +449,7 @@ class BandStep:
         }
 
     # ------------------------------------------------- pallas_fused (B1, B2)
-    def _apply_fused(self, params, tokens, draws, alpha) -> Metrics:
+    def _apply_fused(self, params, tokens, draws, alpha):
         """band_step.py:784-961: the fused grad core on the unified slab,
         then the shared tail."""
         cfg = self.config
@@ -462,7 +490,7 @@ class BandStep:
         flat = tok.reshape(-1)
         order = torch.argsort(flat, stable=True)
         sorted_idx = flat[order].contiguous()
-        clip_count = self._update(
+        clip_count = yield from self._update(
             params, (V, V),
             (sorted_idx, d_in_pos.reshape(-1, d)[order], in_weight.reshape(-1)[order]),
             (sorted_idx, d_out_pos.reshape(-1, d)[order], out_weight.reshape(-1)[order]),
@@ -483,11 +511,12 @@ class BandStep:
         out_side: Side,
         neg: Side,
         sr: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
-    ) -> torch.Tensor:
+    ):
         """scatter_mean, the row clip, the casts and the table updates
-        (band_step.py:454-579), in place. The sides carry their ids sorted;
-        `neg` carries the negative ids in draw order and is stably sorted
-        here. Returns the clip count."""
+        (band_step.py:454-579), in place, as a step body (the row clip's
+        psum sites). The sides carry their ids sorted; `neg` carries the
+        negative ids in draw order and is stably sorted here. Returns the
+        clip count."""
         cfg = self.config
         V_in, V_out = rows
         in_idx, in_vals, in_w = in_side
@@ -527,10 +556,10 @@ class BandStep:
             # the out table's positive and negative contributions share rows,
             # so they share one budget
             tau = cfg.clip_row_update
-            in_scale = _row_clip_scale(
+            in_scale = yield from row_clip_scale(
                 V_in, tau, (in_idx, in_vals), presorted=True, runs=(in_runs,)
             )
-            out_scale = _row_clip_scale(
+            out_scale = yield from row_clip_scale(
                 V_out, tau, (out_idx, out_vals), (neg_idx, neg_vals),
                 presorted=True, runs=(out_runs, neg_runs),
             )

@@ -37,12 +37,24 @@ captures again after a vocabulary growth) go on with their own device
 work, which no capture records. A capture that fails raises; nothing
 falls back to eager. On the CPU, or with graphed=False, `run` calls the
 same step eagerly.
+
+Tensor parallelism (parallel/trainer.py, tp > 1): a graph trains one
+replica's tp shards, each its own dict of [V, d/tp] tables. Every micro
+sub-step draws once and runs the tp shard bodies in lockstep (ops/
+shards.lockstep: the shard-order sums at the psum sites on shard 0's
+device), so all of a replica's shards, their sums included, are one
+captured graph when they share a card. A replica whose shards sit on
+different devices (two cards; a card and the CPU) is not captured: its
+steps run eagerly, the draws, tokens and sums copied between the devices
+(`StepGraph.split` says so, and the trainer's run manifest records it).
+The step's metrics are then the JAX trainer's model-axis contract
+psum(v, model) / tp over the shards' micro-summed metrics.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +63,7 @@ from ..device import seed_step
 from ..models.params import FUSED_KEY, FUSED_SUBTABLES, Params, unfuse_tables
 from ..obs.health import HealthStep, health_names
 from . import launch
+from .shards import lockstep, shard_sum
 from .steps import make_step
 from .train_step import Draws
 
@@ -76,6 +89,22 @@ def capture_env(device: torch.device) -> Tuple[object, torch.cuda.Stream]:
     return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
 
 
+def _on_device(draws: Draws, dev: torch.device) -> Draws:
+    """`draws` with every tensor on `dev` (the tensors themselves where
+    they are there already)."""
+    def to(t):
+        return t if t is None or t.device == dev else t.to(dev)
+
+    sr = None if draws.sr is None else tuple(to(u) for u in draws.sr)
+    return Draws(to(draws.u_sub), to(draws.w_eff), to(draws.negs), sr)
+
+
+def shard_list(params) -> List[Params]:
+    """The tp shards of a replica: a list of shard dicts as it is, one
+    Params dict as a list of one."""
+    return params if isinstance(params, list) else [params]
+
+
 def copy_in(dst: torch.Tensor, src) -> None:
     """dst <- src (numpy, or a tensor on any device) on the current stream,
     without a host sync: a host source on its way to the card goes through
@@ -93,9 +122,16 @@ class StepGraph:
     buffers; see the module docstring. `step` is any step of the router
     (ops/steps.make_step: BandStep, HsStep, PairStep), all with the
     draw / apply contract. `params` are the tensors the graph updates in
-    place for its whole life. `replica` is the data-parallel replica the
-    graph trains (parallel/trainer.py, dp > 1): its draws are the
-    replica's (device.replica_seed); None for a single-device run."""
+    place for its whole life: one Params dict, or a replica's list of tp
+    shard dicts (shard t the step's d/tp slice; `step` is then a shard's
+    step, make_step(..., tp=tp)). `replica` is the replica the graph
+    trains (parallel/trainer.py; None for a single-device run): the third
+    argument of draws_hook. `fold` = (data, seq) re-seeds the draws
+    (device.seed_step: the data replica's fold at dp > 1, the sequence
+    shard's at sp > 1); by default (replica, None). `shard_steps` gives
+    each shard its step when the shards sit on different devices (each
+    step reads its own device's frequency tables); by default `step`
+    serves every shard."""
 
     def __init__(
         self,
@@ -107,22 +143,32 @@ class StepGraph:
         graphed: bool,
         env: Optional[Tuple[object, torch.cuda.Stream]] = None,
         replica: Optional[int] = None,
+        fold: Optional[Tuple[Optional[int], Optional[int]]] = None,
+        shard_steps: Optional[list] = None,
     ):
         self.step = step
         self.replica = replica
+        self.fold = (replica, None) if fold is None else tuple(fold)
         self.params = params
+        self.shards = shard_list(params)
+        self.shard_steps = shard_steps or [step] * len(self.shards)
         self.batch = batch
         self.S = S
         self.micro = step.config.micro_steps
-        dev = next(iter(params.values())).device
+        devs = [next(iter(p.values())).device for p in self.shards]
+        dev = devs[0]
         self.device = dev
+        #: the device of each tp shard; `split`: they differ, and the
+        #: replica's steps run eagerly (no graph spans two devices)
+        self.shard_devices = devs
+        self.split = any(d != dev for d in devs)
         self.gen = torch.Generator(device=dev)
         self.alphas = torch.zeros(S, dtype=torch.float32, device=dev)
         self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
         #: the rows of `out`: METRICS, then the health counters of an
         #: instrumented step (computed inside the step, so inside the graph)
         self.names = METRICS + (
-            health_names(params) if isinstance(step, HealthStep) else ()
+            health_names(self.shards[0]) if isinstance(step, HealthStep) else ()
         )
         self.out = torch.zeros((len(self.names), S), dtype=torch.float32, device=dev)
         self.draws_hook: Optional[DrawsHook] = None
@@ -132,7 +178,7 @@ class StepGraph:
         #: seconds of warm-up and capture
         self.capture_s = 0.0
         self._at = 0  # the step being run (for draws_hook)
-        if graphed and dev.type == "cuda":
+        if graphed and dev.type == "cuda" and not self.split:
             self._capture(env or capture_env(dev))
 
     @property
@@ -140,7 +186,23 @@ class StepGraph:
         """{name: [S]} views of `out`, in `names` order."""
         return {k: self.out[i] for i, k in enumerate(self.names)}
 
-    def _body(self, params: Params) -> None:
+    def _apply(self, shards: List[Params], tokens, draws: Draws, alpha):
+        """One sub-step on every shard: the step alone on one shard, the
+        shards' bodies in lockstep on several (inputs copied to each
+        shard's device). Returns each shard's metrics, in shard order."""
+        if len(shards) == 1:
+            return [self.step.apply(shards[0], tokens, draws, alpha)]
+        bodies = []
+        for p, dev, step in zip(shards, self.shard_devices, self.shard_steps):
+            if dev == self.device:
+                bodies.append(step.body(p, tokens, draws, alpha))
+            else:
+                bodies.append(step.body(
+                    p, tokens.to(dev), _on_device(draws, dev), alpha.to(dev)))
+        return lockstep(bodies, self.device)
+
+    def _body(self, params) -> None:
+        shards = shard_list(params)
         tokens = self.batch(self.slot)
         alpha = self.alphas.index_select(0, self.slot).reshape(())
         B = tokens.shape[0]
@@ -148,18 +210,31 @@ class StepGraph:
             raise ValueError(
                 f"batch_rows {B} not divisible by micro_steps {self.micro}"
             )
-        total = None
+        totals = None
         # micro_steps: sequential optimizer sub-steps over row blocks of
         # the batch, updates visible between them (ops/train_step.py micro
-        # wrapper); the step's generator feeds them in turn
+        # wrapper); the step's generator feeds them in turn, one draw for
+        # every shard of the replica
         for i, sub in enumerate(tokens.chunk(self.micro, dim=0)):
             if self.draws_hook is not None:
                 at = (self._at, i) + (() if self.replica is None else (self.replica,))
                 draws = self.draws_hook(*at)
             else:
                 draws = self.step.draw(self.gen, sub)
-            m = self.step.apply(params, sub, draws, alpha)
-            total = m if total is None else {k: total[k] + m[k] for k in total}
+            ms = self._apply(shards, sub, draws, alpha)
+            totals = ms if totals is None else [
+                {k: t[k] + m[k] for k in t} for t, m in zip(totals, ms)
+            ]
+        if len(shards) == 1:
+            total = totals[0]
+        else:
+            # the JAX trainer's metrics contract over the model axis:
+            # psum(v, model) / tp of each shard's micro-summed metrics
+            tp = len(shards)
+            total = {
+                k: shard_sum([t[k] for t in totals], self.device) / tp
+                for k in totals[0]
+            }
         vals = torch.stack([total[k].float() for k in self.names]).reshape(-1, 1)
         self.out.index_copy_(1, self.slot, vals)
         self.slot.add_(1)
@@ -176,7 +251,7 @@ class StepGraph:
         cur = torch.cuda.current_stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            clones = {k: v.clone() for k, v in self.params.items()}
+            clones = [{k: v.clone() for k, v in p.items()} for p in self.shards]
             self._body(clones)  # warm-up: trains the clones only
             self.slot.zero_()
             self.out.zero_()
@@ -195,7 +270,7 @@ class StepGraph:
 
     def run(self, seed: int, step: int) -> None:
         """Optimizer step `step` of the run seeded `seed`, in the next slot."""
-        seed_step(self.gen, seed, step, self.replica)
+        seed_step(self.gen, seed, step, *self.fold)
         self._at = step
         if self.graph is not None:
             if self.draws_hook is not None:
@@ -255,15 +330,25 @@ class ChunkRunner:
     data-parallel width) place the runner's graphs in a data-parallel
     trainer (parallel/trainer.py): the replica's draws, its hook called as
     draws_hook(step, sub, replica), and on the resident path the batches
-    (t0 + slot) * stride + replica of the epoch's order."""
+    (t0 + slot) * stride + replica of the epoch's order. Under sequence
+    parallelism the trainer also sets `block` (the replica's data index,
+    its row block), `fold` (the (data, seq) folds of its draws,
+    StepGraph) and `halo` = (s, sp): the resident batch is then sequence
+    shard s's haloed slice of the row block (ops/shards.halo_exchange).
+    tp / sp > 1 build the step of one tensor-parallel shard and one
+    sequence shard (ops/steps.make_step); the params handed to the runner
+    are then a replica's list of tp shard dicts, and `shard_tables` (set
+    by the trainer) the frequency tables on each shard's device."""
 
     def __init__(
         self, config, tables, *, fused: Optional[bool] = None,
-        graphed: bool = True,
+        graphed: bool = True, tp: int = 1, sp: int = 1,
     ):
         self.config = config
         self.fused = config.fused_tables if fused is None else fused
-        self.step = make_step(config, tables, fused=self.fused)
+        self.step = make_step(config, tables, fused=self.fused, tp=tp, sp=sp)
+        self._step_kw = dict(fused=self.fused, tp=tp, sp=sp)
+        self.shard_tables: Optional[list] = None
         self.graphed = graphed
         #: (pool, stream) shared by this runner's graphs; a trainer shares
         #: one between its runners
@@ -271,39 +356,62 @@ class ChunkRunner:
         self.draws_hook: Optional[DrawsHook] = None
         self.replica: Optional[int] = None
         self.stride = 1
+        self.block: Optional[int] = None
+        self.fold: Optional[Tuple[Optional[int], Optional[int]]] = None
+        self.halo: Optional[Tuple[int, int]] = None
         self._graphs: Dict[tuple, StepGraph] = {}
-        self._slab: Optional[torch.Tensor] = None
+        self._slabs: List[torch.Tensor] = []
 
     # ---------------------------------------------------------- fused slab
-    def _buffers(self, params: Params) -> Params:
+    def _buffers(self, params):
         """The params the graph updates: `params` itself, or the
-        persistent fused slab."""
+        persistent fused slab (one a tp shard)."""
         if not self.fused:
             return params
-        ein = params[FUSED_SUBTABLES[0]]
-        shape = (ein.shape[0], 2, ein.shape[1])
-        s = self._slab
-        if s is None or s.shape != shape or s.dtype != ein.dtype or s.device != ein.device:
-            self._slab = torch.zeros(shape, dtype=ein.dtype, device=ein.device)
-        return {FUSED_KEY: self._slab}
+        shards = shard_list(params)
+        slabs = []
+        for i, p in enumerate(shards):
+            ein = p[FUSED_SUBTABLES[0]]
+            shape = (ein.shape[0], 2, ein.shape[1])
+            s = self._slabs[i] if i < len(self._slabs) else None
+            if s is None or s.shape != shape or s.dtype != ein.dtype or s.device != ein.device:
+                s = torch.zeros(shape, dtype=ein.dtype, device=ein.device)
+            slabs.append(s)
+        self._slabs = slabs
+        work = [{FUSED_KEY: s} for s in slabs]
+        return work if isinstance(params, list) else work[0]
 
-    def run(self, g: StepGraph, params: Params, alphas, seed, step0, steps):
+    def run(self, g: StepGraph, params, alphas, seed, step0, steps):
         """Dispatch the staged graph `g` (stage / resident_graph): steps
         step0 .. step0 + steps - 1 at `alphas`; see StepGraph.dispatch."""
+        shards = shard_list(params)
         if self.fused:
-            torch.stack([params[k] for k in FUSED_SUBTABLES], dim=-2, out=self._slab)
+            for p, slab in zip(shards, self._slabs):
+                torch.stack([p[k] for k in FUSED_SUBTABLES], dim=-2, out=slab)
         m = g.dispatch(alphas, seed, step0, steps)
         if self.fused:
-            for k, v in unfuse_tables({FUSED_KEY: self._slab}).items():
-                params[k].copy_(v)
+            for p, slab in zip(shards, self._slabs):
+                for k, v in unfuse_tables({FUSED_KEY: slab}).items():
+                    p[k].copy_(v)
         return m
 
-    def _cached(self, key: tuple, work: Params, make: Callable[[bool], StepGraph]):
+    def shard_steps(self) -> Optional[list]:
+        """Each shard's step when shard_tables puts a shard on another
+        device than the runner's step (one step a device)."""
+        if self.shard_tables is None:
+            return None
+        by_tables = {id(self.step.tables): self.step}
+        return [
+            by_tables.setdefault(id(tb), make_step(self.config, tb, **self._step_kw))
+            for tb in self.shard_tables
+        ]
+
+    def _cached(self, key: tuple, work, make: Callable[[bool], StepGraph]):
         """The graph of `key` over `work`, made by make(graphed) on first use."""
-        key = key + tuple(v.data_ptr() for v in work.values())
+        key = key + tuple(v.data_ptr() for p in shard_list(work) for v in p.values())
         g = self._graphs.get(key)
         if g is None:
-            dev = next(iter(work.values())).device
+            dev = next(iter(shard_list(work)[0].values())).device
             graphed = self.graphed and dev.type == "cuda"
             if graphed and self.env is None:
                 self.env = capture_env(dev)
@@ -312,32 +420,35 @@ class ChunkRunner:
         return g
 
     # ----------------------------------------------------------- streaming
-    def stream_graph(self, params: Params, shape: Tuple[int, int, int]) -> StepGraph:
-        """The graph for [S, B, L] token chunks, captured on first use."""
+    def stream_graph(self, params, shape: Tuple[int, int, int]) -> StepGraph:
+        """The graph for [S, B, L] token chunks, captured on first use (L
+        is a sequence shard's haloed Lloc + 2W under sequence
+        parallelism)."""
         S, B, L = shape
         work = self._buffers(params)
 
         def make(graphed):
-            dev = next(iter(work.values())).device
+            dev = next(iter(shard_list(work)[0].values())).device
             tokens = torch.full((S, B, L), -1, dtype=torch.int32, device=dev)
             g = StepGraph(
                 self.step, work,
                 lambda slot: tokens.index_select(0, slot).reshape(B, L), S,
                 graphed=graphed, env=self.env, replica=self.replica,
+                fold=self.fold, shard_steps=self.shard_steps(),
             )
             g.tokens = tokens
             return g
 
         return self._cached(("stream", S, B, L), work, make)
 
-    def stage(self, params: Params, tokens) -> StepGraph:
+    def stage(self, params, tokens) -> StepGraph:
         """The graph for `tokens` [S, B, L] with them copied into its
         static input (the host-to-device leg of a dispatch; no host sync)."""
         g = self.stream_graph(params, tuple(tokens.shape))
         copy_in(g.tokens, tokens)
         return g
 
-    def __call__(self, params: Params, tokens, seed: int, step0: int, alphas,
+    def __call__(self, params, tokens, seed: int, step0: int, alphas,
                  steps: Optional[int] = None) -> Dict[str, torch.Tensor]:
         g = self.stage(params, tokens)
         return self.run(g, params, alphas, seed, step0, steps)

@@ -32,7 +32,13 @@ one long run of sorted ids.
 SR sites (Draws.sr, each [n, d] in sorted order): 0 = the emb_in update
 (B*L rows; cbow with slab_scatter: B*C*(S+2W)), 1 = the path scatter
 (after tail compaction), 2 = the dense tier's [P, d] slice; see sr_rows.
-Tensor, data and sequence parallelism come with the multi-GPU slice.
+
+Mesh axes, as in ops/band_step.BandStep: with tp > 1 the params are one
+tensor-parallel shard's tables ([V, d/tp] and [V-1, d/tp]) and the step is
+a body (ops/shards.py) with psum sites at the dense tier's logits and
+clip norms (hs_step.py:179, :221-222), the path logits (:266, :315) and
+every trust region; with sp > 1 the tokens are a sequence shard's haloed
+slice and only the owned positions train as centers (:435-452).
 """
 
 from __future__ import annotations
@@ -47,8 +53,9 @@ from ..config import Word2VecConfig
 from ..device import torch_dtype
 from . import banded
 from .tables import DeviceTables
+from .shards import center_zone, solo
 from .train_step import (
-    Draws, Metrics, _cast_update, _rc, finish_metrics, gate, sorted_scatter,
+    Draws, Metrics, _cast_update, _rc, finish_metrics, gate, scatter_update,
 )
 
 
@@ -76,7 +83,9 @@ class HsStep:
     """The positional hs step for one config and its device tables (split
     tables: the config refuses the unified slab for hs)."""
 
-    def __init__(self, config: Word2VecConfig, tables: DeviceTables):
+    def __init__(
+        self, config: Word2VecConfig, tables: DeviceTables, tp: int = 1, sp: int = 1
+    ):
         if not config.use_hs or config.use_ns:
             raise ValueError("hs kernel supports hierarchical softmax only")
         if config.table_layout == "unified":
@@ -91,6 +100,9 @@ class HsStep:
         self.two_tier = tables.hs_msig is not None
         self.P = tables.hs_msig.shape[1] if self.two_tier else 0
         self.Ct = tables.hs_tail_codes.shape[1] if self.two_tier else 0
+        self.sp = sp
+        #: the width of the tables this step updates (a tp shard's d/tp)
+        self.dim = config.word_dim // tp
 
     # ---------------------------------------------------------------- draws
     def _path_slots(self, L: int) -> Tuple[int, int]:
@@ -126,7 +138,7 @@ class HsStep:
         sr = None
         if cfg.stochastic_rounding:
             sr = tuple(
-                torch.rand((n, cfg.word_dim), generator=gen, device=dev) if n else None
+                torch.rand((n, self.dim), generator=gen, device=dev) if n else None
                 for n in self.sr_rows(B, L)
             )
         return Draws(u_sub, w_eff, None, sr)
@@ -135,10 +147,10 @@ class HsStep:
         return self.apply(params, tokens, self.draw(gen, tokens), alpha)
 
     # -------------------------------------------------------------- pieces
-    def _update(self, table, idx, vals, weights, u) -> torch.Tensor:
-        """sorted_scatter under this config (hs_step.py:295-326)."""
+    def _update(self, table, idx, vals, weights, u):
+        """scatter_update under this config (hs_step.py:295-326)."""
         cfg = self.config
-        return sorted_scatter(
+        return scatter_update(
             table, idx, vals, weights if cfg.scatter_mean else None,
             scatter_mean=cfg.scatter_mean, clip_tau=cfg.clip_row_update, u=u,
         )
@@ -151,7 +163,7 @@ class HsStep:
         cfg, cdt, P = self.config, self.cdt, self.P
         top = syn1[syn1.shape[0] - P:]  # read before any update lands
         hc, tc = _rc(h, cdt), _rc(top, cdt)
-        Fl = torch.einsum("bid,pd->bip", hc, tc)
+        Fl = yield torch.einsum("bid,pd->bip", hc, tc)
         sigF = torch.sigmoid(Fl)
         G = (A - sigF * N) * alpha
         Gc = _rc(G, cdt)
@@ -168,7 +180,7 @@ class HsStep:
         tau = cfg.clip_row_update
         if tau > 0.0:
             # triangle bound per pair entry: S_p = sum |g| * ||h_i||
-            hsq = torch.sum(h.float() ** 2, dim=-1)
+            hsq = yield torch.sum(h.float() ** 2, dim=-1)
             absg = (A * (1.0 - sigF) + (N - A) * sigF) * alpha
             s_p = torch.einsum("bip,bi->p", absg, torch.sqrt(hsq))
             if mean_inv is not None:
@@ -213,7 +225,7 @@ class HsStep:
             pair_ok = keep & vpad[:, sl] & (abs(o) <= w_eff)  # [B, L]
             m = (pair_ok[:, :, None] & cmask[:, sl]).float()
             r = rows[:, sl]
-            logit = torch.einsum("bid,bicd->bic", hc, r)  # [B, L, Cx]
+            logit = yield torch.einsum("bid,bicd->bic", hc, r)  # [B, L, Cx]
             # g = (1 - code - f) * alpha (Word2Vec.cpp:241-242)
             label = 1.0 - codes[:, sl].float()
             g = (label - torch.sigmoid(logit)) * m * alpha
@@ -243,7 +255,7 @@ class HsStep:
         cmask = (lane[None, None, :] < lens[tl][:, :, None]) & gate_[:, :, None]
         rows = _rc(syn1[paths.long()], cdt)  # [B, L, Cx, d]
         hc = _rc(h, cdt)
-        logit = torch.einsum("bid,bicd->bic", hc, rows)
+        logit = yield torch.einsum("bid,bicd->bic", hc, rows)
         m = cmask.float()
         label = 1.0 - codes.float()
         g = (label - torch.sigmoid(logit)) * m * alpha
@@ -271,7 +283,7 @@ class HsStep:
                 weights = weights.gather(1, order)
             n_touched = touched.sum(dim=1)
             dropped = torch.clamp_min(n_touched - T, 0).float().sum()
-        clip = self._update(
+        clip = yield from self._update(
             syn1, flat_p.reshape(-1), vals.reshape(-1, d),
             weights.reshape(-1) if weights is not None else None, u,
         )
@@ -291,6 +303,10 @@ class HsStep:
         """One step on [B, L] int32 tokens (pad -1). Updates params
         ({emb_in, emb_out_hs}) in place; metrics loss_sum, pairs,
         clip_engaged, hs_tail_dropped, nonfinite_loss (see BandStep.apply)."""
+        return solo(self.body(params, tokens, draws, alpha))
+
+    def body(self, params, tokens: torch.Tensor, draws: Draws, alpha):
+        """`apply` as a step body (ops/shards.py, BandStep.body)."""
         cfg, tb = self.config, self.tables
         W, cdt = cfg.window, self.cdt
         if cfg.stochastic_rounding and draws.sr is None:
@@ -298,6 +314,8 @@ class HsStep:
         u_in, u_path, u_top = draws.sr if cfg.stochastic_rounding else (None,) * 3
         B, L = tokens.shape
         valid, tok, keep = gate(tokens, draws.u_sub, tb.keep_probs)
+        if self.sp > 1:
+            keep = keep & center_zone(L, W, tokens.device)[None, :]
         w_eff = draws.w_eff
         emb_in, syn1 = params["emb_in"], params["emb_out_hs"]
         d = emb_in.shape[1]
@@ -315,17 +333,17 @@ class HsStep:
                 M = tb.hs_msig[tok.long()]  # [B, L, P] i8
                 A = banded.band_sv(band_f, (M > 0).float(), W, S, cdt)
                 N = banded.band_sv(band_f, (M != 0).float(), W, S, cdt)
-                d_h, d_top, loss, pairs, c = self._dense_tier(h, A, N, syn1, alpha)
+                d_h, d_top, loss, pairs, c = yield from self._dense_tier(h, A, N, syn1, alpha)
                 clip = clip + c
                 if self.Ct:
                     (paths, d_rows, touched, out_touch, d_h_t, t_loss, t_pairs,
-                     ctx_hit) = self._sg_sweep(
+                     ctx_hit) = yield from self._sg_sweep(
                         h, tokens, keep, w_eff, syn1, alpha, tb.hs_tail_points,
                         tb.hs_tail_codes, tb.hs_tail_len, want_touched=T > 0)
                     d_h = d_h + d_h_t
                     loss = loss + t_loss
                     pairs = pairs + t_pairs
-                    c, dropped = self._path_scatter(
+                    c, dropped = yield from self._path_scatter(
                         syn1, paths.reshape(B, slots), d_rows.reshape(B, slots, d),
                         out_touch.reshape(B, slots) if out_touch is not None else None,
                         touched.reshape(B, slots) if touched is not None else None,
@@ -337,18 +355,18 @@ class HsStep:
                 self._dense_slice_add(syn1, d_top, u_top)
             else:
                 (paths, d_rows, _, out_touch, d_h, loss, pairs,
-                 ctx_hit) = self._sg_sweep(
+                 ctx_hit) = yield from self._sg_sweep(
                     h, tokens, keep, w_eff, syn1, alpha, tb.hs_points,
                     tb.hs_codes, tb.hs_len, want_touched=False)
-                c, _ = self._path_scatter(
+                c, _ = yield from self._path_scatter(
                     syn1, paths.reshape(B, slots), d_rows.reshape(B, slots, d),
                     out_touch.reshape(B, slots) if out_touch is not None else None,
                     None, 0, u_path)
                 clip = clip + c
             # W.row(center) += accumulated grad (:351)
-            clip = clip + self._update(
+            clip = clip + (yield from self._update(
                 emb_in, tok.reshape(-1), d_h.reshape(B * L, d),
-                ctx_hit.float().reshape(-1), u_in)
+                ctx_hit.float().reshape(-1), u_in))
         else:
             # h = (mean of) the banded context rows; targets = the
             # center's own path
@@ -365,25 +383,25 @@ class HsStep:
                 act = active[:, :, None].float()
                 A = (M > 0).float() * act
                 N = (M != 0).float() * act
-                d_h, d_top, loss, pairs, c = self._dense_tier(h, A, N, syn1, alpha)
+                d_h, d_top, loss, pairs, c = yield from self._dense_tier(h, A, N, syn1, alpha)
                 clip = clip + c
                 if self.Ct:
-                    paths, d_rows, m, d_h_add, t_loss, t_pairs = self._cbow_path_block(
+                    paths, d_rows, m, d_h_add, t_loss, t_pairs = yield from self._cbow_path_block(
                         h, tok, active, syn1, alpha, tb.hs_tail_points,
                         tb.hs_tail_codes, tb.hs_tail_len)
                     d_h = d_h + d_h_add
                     loss = loss + t_loss
                     pairs = pairs + t_pairs
-                    c, dropped = self._path_scatter(
+                    c, dropped = yield from self._path_scatter(
                         syn1, paths.reshape(B, slots), d_rows.reshape(B, slots, d),
                         m.reshape(B, slots), (m > 0).reshape(B, slots), T, u_path)
                     clip = clip + c
                 self._dense_slice_add(syn1, d_top, u_top)
             else:
-                paths, d_rows, m, d_h, loss, pairs = self._cbow_path_block(
+                paths, d_rows, m, d_h, loss, pairs = yield from self._cbow_path_block(
                     h, tok, active, syn1, alpha, tb.hs_points, tb.hs_codes,
                     tb.hs_len)
-                c, _ = self._path_scatter(
+                c, _ = yield from self._path_scatter(
                     syn1, paths.reshape(B, slots), d_rows.reshape(B, slots, d),
                     m.reshape(B, slots), None, 0, u_path)
                 clip = clip + c
@@ -396,16 +414,16 @@ class HsStep:
                 d_in_slab = banded.band_vs_slab(band_f, d_h, W, S, cdt)
                 slab_ids = banded.slab_token_ids(tok, W, S)
                 ok = slab_ids >= 0
-                clip = clip + self._update(
+                clip = clip + (yield from self._update(
                     emb_in, torch.where(ok, slab_ids, 0).reshape(-1),
                     torch.where(ok[..., None], d_in_slab, 0.0).reshape(-1, d),
                     torch.where(ok, banded.band_col_sum_slab(band_f), 0.0).reshape(-1),
-                    u_in)
+                    u_in))
             else:
                 d_in_pos = banded.band_vs(band_f, d_h, W, S, cdt)
-                clip = clip + self._update(
+                clip = clip + (yield from self._update(
                     emb_in, tok.reshape(-1), d_in_pos.reshape(-1, d),
-                    banded.band_col_sum(band_f, L, W, S).reshape(-1), u_in)
+                    banded.band_col_sum(band_f, L, W, S).reshape(-1), u_in))
 
         m = {"loss_sum": loss, "pairs": pairs, "clip_engaged": clip}
         if dropped is not None:

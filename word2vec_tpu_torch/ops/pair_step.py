@@ -5,6 +5,12 @@ make_pair_train_step (word2vec_tpu/ops/train_step.py:168-237 and
 Every table update is the JAX step's unsorted `.at[].add`, here a stable
 argsort and the ordered scatter (ops/train_step.sorted_scatter), so each
 row adds its terms in update order, as XLA does on the CPU.
+
+Mesh axes, as in ops/band_step.BandStep: with tp > 1 the step is a body
+(ops/shards.py) with psum sites at every objective's logits
+(train_step.py:205-206) and trust region; with sp > 1 the tokens are a
+sequence shard's haloed slice and only the owned positions train as
+centers (train_step.py:396-419).
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ import torch.nn.functional as F
 
 from ..config import Word2VecConfig
 from ..device import torch_dtype
+from .shards import center_zone, solo
 from .train_step import (
-    Draws, Metrics, _draw_negatives, _rc, finish_metrics, gate, sorted_scatter,
+    Draws, Metrics, _draw_negatives, _rc, finish_metrics, gate, scatter_update,
 )
 
 
@@ -39,17 +46,18 @@ def _score_and_update(
     table update is the unsorted `.at[targets].add` of the JAX step, here
     a stable argsort and the ordered scatter (sorted_scatter), so each
     row adds its terms in update order, as XLA does. `u` are the SR
-    uniforms [P*T, d] in update order. Returns (grad_h, loss_sum,
-    pair_count, clip_count)."""
+    uniforms [P*T, d] in update order. A step body (ops/shards.py): the
+    logits and the trust region are psum sites. Returns (grad_h,
+    loss_sum, pair_count, clip_count)."""
     d = h.shape[-1]
     t = out[targets.long()]  # [P, T, d], gathered before the update
     tc, hc = _rc(t, cdt), _rc(h, cdt)
-    logits = torch.einsum("pd,ptd->pt", hc, tc)
+    logits = yield torch.einsum("pd,ptd->pt", hc, tc)
     g = (labels - torch.sigmoid(logits)) * tmask * alpha  # [P, T]
     grad_h = torch.einsum("pt,ptd->pd", _rc(g, cdt), tc)
     del tc
     grad_t = g[:, :, None] * h.float()[:, None, :]  # [P, T, d]
-    clip = sorted_scatter(
+    clip = yield from scatter_update(
         out, targets.reshape(-1), grad_t.reshape(-1, d), tmask.reshape(-1),
         scatter_mean=scatter_mean, clip_tau=clip_tau, u=u, u_sorted=False,
     )
@@ -79,13 +87,17 @@ class PairStep:
 
     SR sites (Draws.sr, each in update order): 0 = the emb_in update
     ([B*L, d] for sg, [B*L*2W, d] for cbow), 1 = the ns table's
-    [P*(1+K), d], 2 = the hs table's [P*C, d] (C = max code length)."""
+    [P*(1+K), d], 2 = the hs table's [P*C, d] (C = max code length).
+    Under tp > 1 each is [n, d/tp] (`dim`)."""
 
-    def __init__(self, config: Word2VecConfig, tables):
+    def __init__(self, config: Word2VecConfig, tables, tp: int = 1, sp: int = 1):
         torch_dtype(config.dtype)
         self.config = config
         self.tables = tables
         self.cdt = torch_dtype(config.compute_dtype)
+        self.sp = sp
+        #: the width of the tables this step updates (a tp shard's d/tp)
+        self.dim = config.word_dim // tp
 
     def pairs(self, B: int, L: int) -> int:
         W = self.config.window
@@ -122,7 +134,7 @@ class PairStep:
         sr = None
         if cfg.stochastic_rounding:
             sr = tuple(
-                torch.rand((n, cfg.word_dim), generator=gen, device=dev) if n else None
+                torch.rand((n, self.dim), generator=gen, device=dev) if n else None
                 for n in self.sr_rows(B, L)
             )
         return Draws(u_sub, w_eff, negs, sr)
@@ -150,7 +162,7 @@ class PairStep:
                 [torch.ones((P, 1), dtype=torch.bool, device=h.device),
                  negs != pred[:, None]], dim=1)
             tmask = (mask[:, None] & ok).float()
-            gh, ls, pc, cc = _score_and_update(
+            gh, ls, pc, cc = yield from _score_and_update(
                 h, params["emb_out_ns"], targets, labels, tmask, alpha,
                 u=sr[1] if sr else None, **kw)
         else:
@@ -160,13 +172,17 @@ class PairStep:
             Lc = targets.shape[1]
             lane = torch.arange(Lc, dtype=torch.int32, device=h.device)
             tmask = (mask[:, None] & (lane[None, :] < tb.hs_len[pl][:, None])).float()
-            gh, ls, pc, cc = _score_and_update(
+            gh, ls, pc, cc = yield from _score_and_update(
                 h, params["emb_out_hs"], targets, labels, tmask, alpha,
                 u=sr[2] if sr else None, **kw)
         return grad_h + gh, loss + ls, pairs + pc, clip + cc
 
     def apply(self, params, tokens, draws: Draws, alpha) -> Metrics:
         """One step on [B, L] int32 tokens (pad -1); see BandStep.apply."""
+        return solo(self.body(params, tokens, draws, alpha))
+
+    def body(self, params, tokens, draws: Draws, alpha):
+        """`apply` as a step body (ops/shards.py, BandStep.body)."""
         cfg = self.config
         W = cfg.window
         B, L = tokens.shape
@@ -174,6 +190,8 @@ class PairStep:
         if cfg.stochastic_rounding and draws.sr is None:
             raise ValueError("stochastic_rounding needs the SR uniforms")
         valid, tok, keep = gate(tokens, draws.u_sub, self.tables.keep_probs)
+        if self.sp > 1:
+            keep = keep & center_zone(L, W, dev)[None, :]
         # ctx[b, i, k] = tokens[b, i + offsets[k]] via a padded gather (the
         # unrolled j-loop of Word2Vec.cpp:339, j != i excluded)
         offsets = torch.cat([torch.arange(-W, 0, device=dev),
@@ -197,7 +215,7 @@ class PairStep:
             P = B * L * 2 * W
             centers = tok[:, :, None].expand(B, L, 2 * W).reshape(P)
             h = emb_in[centers.long()]  # [P, d]
-            grad_h, loss, pairs, clip = self._objectives(
+            grad_h, loss, pairs, clip = yield from self._objectives(
                 params, h, ctx.reshape(P), pair_mask.reshape(P), draws, alpha)
             # W.row(center) += the grad summed over the center's window
             # (:351), the window's terms added in offset order
@@ -205,9 +223,9 @@ class PairStep:
             gh_pos = g4[:, :, 0]
             for k in range(1, 2 * W):
                 gh_pos = gh_pos + g4[:, :, k]
-            clip = clip + sorted_scatter(
+            clip = clip + (yield from scatter_update(
                 emb_in, tok.reshape(-1), gh_pos.reshape(B * L, d),
-                pair_mask.any(dim=2).reshape(-1).float(), **upd)
+                pair_mask.any(dim=2).reshape(-1).float(), **upd))
         else:
             # projection = (mean of) the context rows (Word2Vec.cpp:273-317);
             # duplicate context words count with multiplicity
@@ -221,7 +239,7 @@ class PairStep:
             center_ok = keep & (n_ctx > 0)  # skip if no context, :289
             if cfg.cbow_mean:
                 h_bl = h_bl / torch.clamp_min(n_ctx, 1.0)[:, :, None]
-            grad_h, loss, pairs, clip = self._objectives(
+            grad_h, loss, pairs, clip = yield from self._objectives(
                 params, h_bl.reshape(B * L, d), tok.reshape(-1),
                 center_ok.reshape(-1), draws, alpha)
             # fan the projection grad back to every contributing context
@@ -230,9 +248,9 @@ class PairStep:
             if cfg.cbow_mean:
                 g_bl = g_bl / torch.clamp_min(n_ctx, 1.0)[:, :, None]
             g_ctx = (g_bl[:, :, None, :] * fmask).reshape(-1, d)
-            clip = clip + sorted_scatter(
+            clip = clip + (yield from scatter_update(
                 emb_in, ctx.reshape(-1), g_ctx,
-                pair_mask.reshape(-1).float(), **upd)
+                pair_mask.reshape(-1).float(), **upd))
         return finish_metrics(
             {"loss_sum": loss, "pairs": pairs, "clip_engaged": clip}
         )

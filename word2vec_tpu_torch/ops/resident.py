@@ -34,7 +34,8 @@ from ..config import Word2VecConfig
 # epoch_order re-exported: the row permutation is shared with BatchIterator
 # so resident and streaming paths visit identical rows in identical order
 from ..data.batcher import PAD, PackedCorpus, epoch_order  # noqa: F401
-from .graphs import ChunkRunner, StepGraph, copy_in
+from .graphs import ChunkRunner, StepGraph, copy_in, shard_list
+from .shards import halo_exchange
 from .tables import DeviceTables
 
 # Ceiling of the auto-mode resident gate: 2 GiB leaves the tables and the
@@ -149,21 +150,32 @@ class ResidentChunkRunner(ChunkRunner):
         work = self._buffers(params)
 
         r, n = self.replica, self.stride
+        blk = r if self.block is None else self.block
+        halo = self.halo
 
         def make(graphed):
-            dev = next(iter(work.values())).device
+            dev = next(iter(shard_list(work)[0].values())).device
             order = torch.zeros(R, dtype=torch.int32, device=dev)
             t0 = torch.zeros(1, dtype=torch.int64, device=dev)
             if r is None:
                 batch = lambda slot: assemble_batch(corpus, order, t0 + slot, B, L)  # noqa: E731
-            else:
+            elif halo is None:
                 # replica r's row block of global step t0 + slot, as JAX's
                 # sharded resident chunk takes block t * dp + r
                 batch = lambda slot: assemble_batch(  # noqa: E731
-                    corpus, order, (t0 + slot) * n + r, B, L)
+                    corpus, order, (t0 + slot) * n + blk, B, L)
+            else:
+                # sequence shard s of the row block: its haloed column
+                # slice, what the streaming path stages (halo_exchange)
+                s, sp = halo
+                W = cfg.window
+                batch = lambda slot: halo_exchange(  # noqa: E731
+                    assemble_batch(corpus, order, (t0 + slot) * n + blk, B, L),
+                    s, sp, W)
             g = StepGraph(
                 self.step, work, batch, S,
-                graphed=graphed, env=self.env, replica=r,
+                graphed=graphed, env=self.env, replica=r, fold=self.fold,
+                shard_steps=self.shard_steps(),
             )
             g.order, g.t0 = order, t0
             return g
@@ -181,11 +193,12 @@ class ResidentChunkRunner(ChunkRunner):
 
 
 def make_resident_chunk_runner(
-    config: Word2VecConfig, tables: DeviceTables, *, graphed: bool = True
+    config: Word2VecConfig, tables: DeviceTables, *, graphed: bool = True,
+    tp: int = 1, sp: int = 1,
 ) -> ResidentChunkRunner:
     """The resident chunk runner (see ResidentChunkRunner); with
     config.fused_tables its steps run on the restacked [V, 2, d] slab."""
-    return ResidentChunkRunner(config, tables, graphed=graphed)
+    return ResidentChunkRunner(config, tables, graphed=graphed, tp=tp, sp=sp)
 
 
 def epoch_step_words(

@@ -33,6 +33,7 @@ from .. import _build
 from .fused_step import fused_slab_scatter
 from .launch import check, count, on_cuda, stream
 from .runs import check_runs, find_runs, ordered_add_plain
+from .shards import solo
 
 Metrics = Dict[str, torch.Tensor]
 #: SR uniforms per update site (None for a site the step does not have)
@@ -137,26 +138,35 @@ def ordered_row_sum(
     return out
 
 
-def _row_clip_scale(
+def row_clip_scale(
     num_rows: int,
     tau: float,
     *contribs: Tuple[torch.Tensor, torch.Tensor],
     presorted: bool = False,
     runs: Tuple[Optional[torch.Tensor], ...] = (),
-) -> torch.Tensor:
-    """Per-row trust-region scale for batched duplicate-summed updates:
-    scale_r = tau / max(S_r, tau), S_r = sum_j ||vals_j|| over the row's
-    contributions, each contribution one ordered_row_sum in turn
-    (train_step.py:52-89; single device, no tp psum). `runs` gives each
+):
+    """Per-row trust-region scale for batched duplicate-summed updates, as
+    a step body (ops/shards.py): scale_r = tau / max(S_r, tau), S_r =
+    sum_j ||vals_j|| over the row's contributions, each contribution one
+    ordered_row_sum in turn (train_step.py:52-89). Under tensor
+    parallelism vals hold the shard's d/tp slice, so each contribution's
+    squared norms are a psum site, summed over the shards BEFORE the sqrt:
+    every shard then scales by the row's global norm. `runs` gives each
     contribution's run list (presorted ids), built per call when absent."""
     s = None
     for j, (idx, vals) in enumerate(contribs):
         v = vals.float()
+        sq = yield torch.sum(v * v, dim=-1)
         s = ordered_row_sum(
-            num_rows, idx, torch.sqrt(torch.sum(v * v, dim=-1)), s,
+            num_rows, idx, torch.sqrt(sq), s,
             presorted=presorted, runs=runs[j] if j < len(runs) else None,
         )
     return tau / torch.clamp_min(s, tau)
+
+
+def _row_clip_scale(num_rows: int, tau: float, *contribs, **kw) -> torch.Tensor:
+    """row_clip_scale on one device (no shards: each norm is its own)."""
+    return solo(row_clip_scale(num_rows, tau, *contribs, **kw))
 
 
 def _cast_update(
@@ -198,7 +208,9 @@ def _dup_mean_scale(
     return (1.0 / torch.clamp_min(cnt, 1.0))[flat_idx.long()]
 
 
-def make_chunk_runner(config, tables, *, fused=None, graphed: bool = True):
+def make_chunk_runner(
+    config, tables, *, fused=None, graphed: bool = True, tp: int = 1, sp: int = 1
+):
     """S sequential optimizer steps as one dispatch (make_chunk_runner of
     word2vec_tpu/ops/train_step.py:624-683, which scans the step under
     lax.scan):
@@ -219,7 +231,7 @@ def make_chunk_runner(config, tables, *, fused=None, graphed: bool = True):
     See ops/graphs.ChunkRunner."""
     from .graphs import ChunkRunner
 
-    return ChunkRunner(config, tables, fused=fused, graphed=graphed)
+    return ChunkRunner(config, tables, fused=fused, graphed=graphed, tp=tp, sp=sp)
 
 
 # ------------------------------------------------------- shared step tail
@@ -245,7 +257,7 @@ def finish_metrics(m: Metrics) -> Metrics:
     return m
 
 
-def sorted_scatter(
+def scatter_update(
     table: torch.Tensor,
     idx: torch.Tensor,
     vals: torch.Tensor,
@@ -259,7 +271,8 @@ def sorted_scatter(
     """`table.at[idx].add(cast(vals))` in place, with the scatter_mean
     normalization and the per-row trust region before it: the update tail
     of every table of the hs and pair steps (hs_step.py:295-326 and
-    _score_and_update, train_step.py:215-231). Returns the clip count.
+    _score_and_update, train_step.py:215-231), as a step body (its psum
+    sites are the trust region's, row_clip_scale). Returns the clip count.
 
     Ids and values pass through one STABLE argsort (jnp.argsort is
     stable), so each row's terms keep the order they have in `idx`: that
@@ -285,7 +298,7 @@ def sorted_scatter(
         vals = vals * _dup_mean_scale(rows, sidx, w, presorted=True, runs=runs)[:, None]
     clip = torch.zeros((), dtype=torch.float32, device=vals.device)
     if clip_tau > 0.0:
-        scale = _row_clip_scale(
+        scale = yield from row_clip_scale(
             rows, clip_tau, (sidx, vals), presorted=True, runs=(runs,)
         )
         clip = torch.sum((scale < 1.0).float())
@@ -294,6 +307,11 @@ def sorted_scatter(
     v = _cast_update(vals, table.dtype, u if sr else None, table[sl] if sr else None)
     fused_slab_scatter(table, sidx, v.contiguous(), runs=runs)
     return clip
+
+
+def sorted_scatter(table, idx, vals, weights, **kw) -> torch.Tensor:
+    """scatter_update on one device (no shards)."""
+    return solo(scatter_update(table, idx, vals, weights, **kw))
 
 
 def _rc(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:

@@ -1,21 +1,26 @@
-"""The replica mesh of one-process data-parallel training.
+"""The (data, seq, model) mesh of one-process parallel training.
 
-Port of word2vec_tpu/parallel/mesh.py at tp = sp = 1. The JAX package lays
-its devices out as a (data, seq, model) jax.sharding.Mesh; here a Mesh is
-the list of devices the data-parallel replicas train on, replica r on
-devices[r], with the same axis names and the same shape check. Each
-replica holds a full copy of the tables and trains its own row block of
-every global step; parallel/trainer.py averages the replicas every
-dp_sync_every optimizer steps.
+Port of word2vec_tpu/parallel/mesh.py. The JAX package lays its devices
+out as a (dp, sp, tp) jax.sharding.Mesh, the model axis innermost; here a
+Mesh is the same grid as a flat device list: coordinate (d, s, t) is
+devices[(d*sp + s)*tp + t], with the same axis names and the same shape
+check.
 
-The default devices are the visible cards, each once (one replica a
-card); on the CPU, [cpu] * dp. A caller may name one card several times:
-the replicas then take turns on it, which is how a one-card machine runs
-dp = 2 (the counterpart of the JAX tests' virtual CPU devices).
+  data  — replica d trains its own row block of every global step;
+  seq   — sequence shard s trains the column slice [s*Lloc, (s+1)*Lloc)
+          of those rows, with W halo tokens on each side (ops/shards.py);
+          replica-wise it behaves like the data axis and shares its sync;
+  model — tensor-parallel shard t holds the dim slice [t*d/tp, (t+1)*d/tp)
+          of every table; the step sums its partial logits over the
+          shards (ops/shards.lockstep).
 
-Not in this slice (ROADMAP A8b): the model (tensor-parallel) and seq
-(sequence-parallel) axes, whose steps exchange partial logits and halo
-tokens inside the step; tp > 1 or sp > 1 raises NotImplementedError.
+A replica of parallel/trainer.py is one (d, s) coordinate, index r =
+d*sp + s; its tp shards are devices[r*tp:(r+1)*tp].
+
+The default devices are the visible cards, each once; on the CPU, [cpu]
+* (dp*sp*tp). A caller may name one card several times: the replicas and
+shards then take turns on it, which is how a one-card machine runs a
+(2, 2, 2) mesh (the counterpart of the JAX tests' virtual CPU devices).
 """
 
 from __future__ import annotations
@@ -34,18 +39,34 @@ MODEL_AXIS = "model"
 
 @dataclass(frozen=True)
 class Mesh:
-    """dp replicas, replica r on devices[r] (a device may repeat)."""
+    """A (dp, sp, tp) grid; coordinate (d, s, t) on devices[(d*sp + s)*tp + t]
+    (a device may repeat)."""
 
     devices: Tuple[torch.device, ...]
+    sp: int = 1
+    tp: int = 1
+
+    @property
+    def dp(self) -> int:
+        return len(self.devices) // (self.sp * self.tp)
 
     @property
     def shape(self) -> Dict[str, int]:
         """Axis widths by name, as jax.sharding.Mesh.shape gives them."""
-        return {DATA_AXIS: len(self.devices), SEQ_AXIS: 1, MODEL_AXIS: 1}
+        return {DATA_AXIS: self.dp, SEQ_AXIS: self.sp, MODEL_AXIS: self.tp}
+
+    @property
+    def replicas(self) -> int:
+        """The (data, seq) coordinates: dp * sp."""
+        return self.dp * self.sp
+
+    def shard_devices(self, replica: int) -> Tuple[torch.device, ...]:
+        """The devices of replica r's tp shards, shard order."""
+        return self.devices[replica * self.tp:(replica + 1) * self.tp]
 
     @property
     def cards(self) -> List[torch.device]:
-        """The distinct devices of the mesh, in replica order."""
+        """The distinct devices of the mesh, in mesh order."""
         out: List[torch.device] = []
         for d in self.devices:
             if d not in out:
@@ -60,18 +81,13 @@ def make_mesh(
     devices: Optional[Sequence[DeviceLike]] = None,
     device: DeviceLike = None,
 ) -> Mesh:
-    """A (dp, 1, 1) mesh over the first dp of `devices`.
+    """A (dp, sp, tp) mesh over the first dp*sp*tp of `devices`.
 
     With devices=None the platform is `device`'s (the card unless the
-    caller asks for the CPU): every visible card once, or [cpu] * dp."""
-    if tp != 1 or sp != 1:
-        raise NotImplementedError(
-            f"mesh ({dp}x{sp}x{tp}): only data parallelism is in this slice "
-            "of the PyTorch port; tensor (tp) and sequence (sp) parallelism "
-            "are ROADMAP A8b"
-        )
-    if dp < 1:
-        raise ValueError(f"dp must be >= 1, got {dp}")
+    caller asks for the CPU): every visible card once, or [cpu] * (dp*sp*tp)."""
+    for name, n in (("dp", dp), ("tp", tp), ("sp", sp)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
     need = dp * sp * tp
     if devices is None:
         dev = resolve_device(device)
@@ -91,4 +107,4 @@ def make_mesh(
         if d.type == "cuda" and d.index is None else d
         for d in devices[:need]
     ]
-    return Mesh(tuple(devices))
+    return Mesh(tuple(devices), sp=sp, tp=tp)

@@ -1,37 +1,55 @@
-"""One-process data-parallel training: dp replicas and their periodic sync.
+"""One-process parallel training: a (dp, sp, tp) mesh of replicas, their
+tensor-parallel shards and the periodic replica sync.
 
-Port of word2vec_tpu/parallel/trainer.py at tp = sp = 1 (the JAX
-ShardedTrainer on a (dp, 1, 1) mesh):
+Port of word2vec_tpu/parallel/trainer.py (the JAX ShardedTrainer on a
+(data, seq, model) mesh, parallel/mesh.py), in one process:
 
-  params   — every replica holds a full copy of the tables on its device
-             (parallel/mesh.Mesh.devices[r]); the port's counterpart of the
-             JAX package's leading replica axis [DP, V, ...] is a list of dp
-             Params dicts (`Replicas`), replica r's tensors on its device.
-             The list stays inside the trainer: init_state, the state
-             train() returns and export_params hold one Params dict, as
-             Trainer's do, and a dict handed to train() is copied into
+  params   — every table is split on its last (dim) axis into tp shards
+             (param_spec of the JAX package: split tables [V, d/tp], the
+             unified slab [V, 2, d/tp] with its 2-wide table axis whole);
+             shard t of replica r is its own contiguous tensor on
+             Mesh.shard_devices(r)[t], so a device holds V*d/tp floats a
+             table. The port's counterpart of the JAX package's leading
+             replica axis [DP*SP, V, ...] is a list of dp*sp replicas
+             (`Replicas`), one a (data, seq) coordinate r = d*sp + s:
+             replica r is a Params dict at tp = 1 and a list of its tp
+             shard dicts at tp > 1. The list stays inside the trainer:
+             init_state, the state train() returns and export_params hold
+             one unreplicated [V, d] (or [V, 2, d]) Params dict, as
+             Trainer's do, and a dict handed to train() is split into
              every replica. Only the live state a checkpoint_cb or a fault
              sees mid-run holds the list (export_params and fill_params
              read it).
-  tokens   — a global step is dp consecutive [B, L] batches: replica r
-             trains rows [r*B, (r+1)*B) of the step's [dp*B, L] rows, with
-             its own draws (device.replica_seed, the counterpart of
-             fold_in(key, axis_index("data"))). A trailing partial step is
-             padded with all -1 row blocks.
-  step     — each replica runs the single-device step of its route (the
-             four band routes, the hs and pair steps), as its own captured
-             CUDA graph (ops/graphs.StepGraph); nothing crosses replicas
-             inside a step. Replicas on one card share the trainer's
-             capture pool and stream (they never run at the same time);
-             replicas on several cards each get their card's own.
-  metrics  — per-step metrics and the health counters are the sums over
-             replicas, in replica order (the JAX trainer's psum over the
-             data axis): the divergence tripwire and the logs see the sums.
-  sync     — every dp_sync_every optimizer steps the replicas are averaged
-             in place (make_sync: the pmean; make_delta_sync: the delta
-             mode, config.sync_mode). The JAX pmean is an XLA collective,
-             not a Pallas kernel; torch ops are its port. Across cards the
-             sum is staged through replica 0's card.
+  tokens   — a global step is dp consecutive [B, L] batches: data index d
+             trains rows [d*B, (d+1)*B) of the step's [dp*B, L] rows, seq
+             index s the haloed column slice [s*Lloc - W, (s+1)*Lloc + W)
+             of them (ops/shards.halo_exchange), each with its own draws
+             (device.seed_step: the data fold at dp > 1, then the seq fold
+             at sp > 1; no fold over the model axis, so a replica's shards
+             draw alike). A trailing partial step is padded with all -1
+             row blocks.
+  step     — each replica runs its route's step (the four band routes and
+             the hs and pair steps at tp = sp = 1; 'xla', hs and pair
+             under the model and seq axes), as its own captured CUDA
+             graph (ops/graphs.StepGraph): its tp shard bodies in
+             lockstep, the partial logits summed in shard order on shard
+             0's device at the JAX step's psum sites (ops/shards.py). A
+             replica whose shards sit on different devices runs eagerly
+             (StepGraph.split; the run manifest's `dispatch.split_shards`).
+             Replicas on one card share the trainer's capture pool and
+             stream (they never run at the same time); replicas on
+             several cards each get their card's own.
+  metrics  — the JAX trainer's contract psum(psum(v, model) / tp, (data,
+             seq)): per replica the shards' sum in shard order over tp
+             (StepGraph), then the sum over replicas in replica order
+             (train.Trainer._note_metrics), which the divergence tripwire
+             and the logs see.
+  sync     — every dp_sync_every optimizer steps the dp*sp replicas are
+             averaged in place, shard by shard (make_sync: the pmean over
+             the data and seq axes; make_delta_sync: the delta mode,
+             config.sync_mode). The JAX pmean is an XLA collective, not a
+             Pallas kernel; torch ops are its port. Across cards the sum
+             is staged through replica 0's shard's card.
 
 The sync writes into the replicas' own tensors (copy_, add_): every
 replica's graph was captured against those tensors, and a sync that bound
@@ -41,19 +59,20 @@ ShardedTrainer subclasses train.Trainer: the epoch loop, the alpha
 schedule, the metering, the telemetry and the checkpoint hooks are
 inherited; the param layout, the batch grouping, the runners and the sync
 hooks differ. The stop check is the Trainer's flag read (one process:
-there is nobody to agree with). Unlike the JAX package, every kernel route
-trains under the mesh (ROADMAP C10): JAX's shard_map cannot host a
-pallas_call, while here each replica's step is the single-device step.
+there is nobody to agree with). At tp = sp = 1, unlike the JAX package,
+every kernel route trains under the mesh (ROADMAP C10): JAX's shard_map
+cannot host a pallas_call, while here each replica's step is the
+single-device step. At tp or sp > 1 the Pallas routes are refused, as the
+JAX trainer refuses them: their kernels train whole rows of whole tables.
 
-Not in this slice: the model and seq axes (ROADMAP A8b), several processes
-(multihost, the peer agreement, assemble_local_replica; ROADMAP A8c) and
-remesh (A10e).
+Not in this slice: several processes (multihost, the peer agreement,
+assemble_local_replica; ROADMAP A8c) and remesh (A10e).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,14 +83,17 @@ from ..data.vocab import Vocab
 from ..device import DeviceLike
 from ..models.params import Params, convert_params_layout, params_layout
 from ..ops import resident as res
-from ..ops.graphs import capture_env
+from ..ops.graphs import capture_env, shard_list
+from ..ops.shards import halo_exchange
 from ..ops.tables import DeviceTables
 from ..ops.train_step import make_chunk_runner
 from ..train import Trainer, TrainState
 from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, make_mesh
 
-#: one Params dict a replica, replica r's tensors on Mesh.devices[r]
-Replicas = List[Params]
+#: one replica: its Params dict at tp = 1, its tp shard dicts at tp > 1
+Replica = Union[Params, List[Params]]
+#: the replicas of a mesh, replica r = d*sp + s on Mesh.shard_devices(r)
+Replicas = List[Replica]
 
 
 def _on(dev: torch.device):
@@ -79,85 +101,155 @@ def _on(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def replicate_params(params: Params, mesh: Mesh) -> Replicas:
-    """[V, ...] tables -> dp identical copies, replica r's on its device."""
-    return [
+def split_params(params: Params, tp: int) -> List[Params]:
+    """[V, ..., d] tables -> tp views [V, ..., d/tp], shard t the dim slice
+    [t*d/tp, (t+1)*d/tp) (the JAX package's param_spec: the last axis
+    over the model axis, every other axis whole)."""
+    if tp == 1:
+        return [params]
+    out: List[Params] = [{} for _ in range(tp)]
+    for k, v in params.items():
+        w = v.shape[-1] // tp
+        for t in range(tp):
+            out[t][k] = v[..., t * w:(t + 1) * w]
+    return out
+
+
+def concat_shards(shards: List[Params]) -> Params:
+    """A replica's tp shards -> its [V, ..., d] tables, on shard 0's
+    device (new tensors; the shard itself at tp = 1)."""
+    if len(shards) == 1:
+        return shards[0]
+    home = next(iter(shards[0].values())).device
+    return {
+        k: torch.cat([s[k].to(home) for s in shards], dim=-1) for k in shards[0]
+    }
+
+
+def _placed(parts: List[Params], devices) -> Replica:
+    """A replica's own buffers: each shard of `parts` copied into a
+    contiguous tensor on its device (the dict itself at tp = 1)."""
+    shards = [
         {k: torch.empty(v.shape, dtype=v.dtype, device=dev).copy_(v)
-         for k, v in params.items()}
-        for dev in mesh.devices
+         for k, v in part.items()}
+        for part, dev in zip(parts, devices)
     ]
+    return shards[0] if len(shards) == 1 else shards
+
+
+def replicate_params(params: Params, mesh: Mesh) -> Replicas:
+    """[V, ...] tables -> dp*sp identical replicas, each split into its tp
+    contiguous shards on its shard devices."""
+    parts = split_params(params, mesh.tp)
+    return [_placed(parts, mesh.shard_devices(r)) for r in range(mesh.replicas)]
 
 
 def unreplicate_params(params: Replicas) -> Params:
-    """Replica 0's tables; call after a sync, when the replicas are equal."""
-    return params[0]
+    """Replica 0's tables, its shards concatenated; call after a sync,
+    when the replicas are equal."""
+    return concat_shards(shard_list(params[0]))
+
+
+def _unreplicated_copy(params: Replicas) -> Params:
+    """unreplicate_params in new tensors (the caller's to keep)."""
+    if isinstance(params[0], list):  # tp > 1: the concatenation is new
+        return unreplicate_params(params)
+    return {k: v.clone() for k, v in params[0].items()}
+
+
+def _by_shard(params: Replicas) -> List[List[Params]]:
+    """[shard t] -> [replica r's shard t dict], the replicas a sync
+    averages together."""
+    reps = [shard_list(p) for p in params]
+    return [[rep[t] for rep in reps] for t in range(len(reps[0]))]
 
 
 def make_sync(mesh: Mesh) -> Callable[[Replicas], Replicas]:
     """The replica mean, in place: sync(params) averages every table over
-    the replicas and writes the mean into each replica's own tensors
-    (returning the same list).
+    the dp*sp replicas, shard by shard, and writes the mean into each
+    replica's own tensors (returning the same list).
 
-    The mean is XLA's pmean on the CPU, bitwise at dp = 2 and 4 (pinned
-    by tests/test_torch_parallel.py against the JAX package's make_sync):
-    the sum in replica order, in float32 (a bf16 table is summed in
-    float32 and rounded once), times the float32 reciprocal of dp (XLA
-    turns the division by dp into that product)."""
-    recip = 1.0 / len(mesh.devices)
+    The mean is XLA's pmean on the CPU, bitwise at dp = 2 and 4 and over
+    the data and seq axes (pinned by tests/test_torch_parallel.py and
+    tests/test_torch_tp_sp.py against the JAX package's make_sync): the
+    sum in replica order, in float32 (a bf16 table is summed in float32
+    and rounded once), times the float32 reciprocal of dp*sp (XLA turns
+    the division into that product)."""
+    recip = 1.0 / mesh.replicas
 
     def sync(params: Replicas) -> Replicas:
-        for k in params[0]:
-            tables = [p[k] for p in params]
-            home = tables[0]
-            # f32 tables sum in replica 0's own buffer, others in a float32 one
-            acc = home if home.dtype == torch.float32 else home.float()
-            for t in tables[1:]:
-                acc.add_(t.to(home.device))
-            mean = acc.to(home.dtype).mul_(recip)
-            for t in tables:
-                if t.data_ptr() != mean.data_ptr():
-                    t.copy_(mean)
+        for group in _by_shard(params):
+            for k in group[0]:
+                tables = [p[k] for p in group]
+                home = tables[0]
+                # f32 tables sum in replica 0's own buffer, others in a float32 one
+                acc = home if home.dtype == torch.float32 else home.float()
+                for t in tables[1:]:
+                    acc.add_(t.to(home.device))
+                mean = acc.to(home.dtype).mul_(recip)
+                for t in tables:
+                    if t.data_ptr() != mean.data_ptr():
+                        t.copy_(mean)
         return params
 
     return sync
 
 
-def make_delta_sync(mesh: Mesh) -> Callable[[Replicas, Params], Replicas]:
+def make_delta_sync(mesh: Mesh) -> Callable[[Replicas, Replica], Replicas]:
     """Delta-mode reconciliation (config.sync_mode="delta"), in place:
 
         new = base + mean(bf16(params - base))
 
-    over the replicas, `base` the tables of the last sync (replica 0's
-    device; the caller keeps it as a distinct buffer), so only the
-    accumulated local updates are averaged, rounded to bf16 (the JAX
-    package's wire dtype). sync(params, base) writes `new` into every
-    replica and into `base` (the next sync's base).
+    over the dp*sp replicas, shard by shard, `base` the tables of the last
+    sync (a replica's form: replica 0's devices; the caller keeps it as
+    distinct buffers), so only the accumulated local updates are
+    averaged, rounded to bf16 (the JAX package's wire dtype).
+    sync(params, base) writes `new` into every replica and into `base`
+    (the next sync's base).
 
     The bf16 mean is XLA's pmean of a bf16 operand on the CPU: the replica
     deltas summed in float32 in replica order and rounded to bf16 once,
-    then scaled by 1/dp (pinned bitwise at dp = 2 and 4 against the JAX
-    package's make_delta_sync by tests/test_torch_parallel.py)."""
-    recip = 1.0 / len(mesh.devices)
+    then scaled by 1/(dp*sp) (pinned bitwise at dp = 2 and 4 against the
+    JAX package's make_delta_sync by tests/test_torch_parallel.py)."""
+    recip = 1.0 / mesh.replicas
 
-    def sync(params: Replicas, base: Params) -> Replicas:
-        for k in params[0]:
-            b = base[k]
-            acc = None
-            for p in params:
-                wire = (p[k].to(b.device) - b).to(torch.bfloat16).float()
-                acc = wire if acc is None else acc.add_(wire)
-            mean = acc.to(torch.bfloat16).mul_(recip)
-            b.add_(mean.to(b.dtype))
-            for p in params:
-                p[k].copy_(b)
+    def sync(params: Replicas, base: Replica) -> Replicas:
+        for group, bshard in zip(_by_shard(params), shard_list(base)):
+            for k in group[0]:
+                b = bshard[k]
+                acc = None
+                for p in group:
+                    wire = (p[k].to(b.device) - b).to(torch.bfloat16).float()
+                    acc = wire if acc is None else acc.add_(wire)
+                mean = acc.to(torch.bfloat16).mul_(recip)
+                b.add_(mean.to(b.dtype))
+                for p in group:
+                    p[k].copy_(b)
         return params
 
     return sync
 
 
+def _reject_pallas(config: Word2VecConfig, mesh: Mesh) -> None:
+    """The JAX trainer's _reject_pallas (parallel/trainer.py:121-138)
+    under the model and seq axes: the kernel routes train whole rows of
+    whole tables, so a dim-sharded or sequence-sharded step has no kernel
+    to run. Refused up front, naming the mesh and the supported route."""
+    if config.band_backend in ("pallas", "pallas_oa", "pallas_fused"):
+        raise ValueError(
+            f"band_backend={config.band_backend!r} is single-chip only "
+            f"(plain Trainer, or data parallelism alone): a (dp, sp, tp) = "
+            f"({mesh.dp}, {mesh.sp}, {mesh.tp}) mesh is the incompatible "
+            "lever here, since its kernels train whole rows of whole "
+            "tables. Use band_backend='xla' for sharded training, or drop "
+            "the model and seq mesh axes"
+        )
+
+
 class ShardedTrainer(Trainer):
-    """Data-parallel trainer over dp replicas in one process (see the
-    module docstring); dp = 1 trains exactly as Trainer does."""
+    """Data-, sequence- and tensor-parallel trainer over a (dp, sp, tp)
+    mesh in one process (see the module docstring); a (1, 1, 1) mesh
+    trains exactly as Trainer does."""
 
     #: (step, micro sub-step, replica) -> Draws: each replica's draws
     #: instead of its generator (tests feed the JAX trainer's; eager only)
@@ -176,7 +268,8 @@ class ShardedTrainer(Trainer):
         device: DeviceLike = None,
     ):
         self._apply_mesh(
-            mesh if mesh is not None else make_mesh(dp, tp, sp, device=device)
+            mesh if mesh is not None else make_mesh(dp, tp, sp, device=device),
+            config,
         )
         self._last_sync_step: Optional[int] = None
         self._replicas: Optional[Replicas] = None
@@ -188,13 +281,41 @@ class ShardedTrainer(Trainer):
         self._build_sync()
 
     # ------------------------------------------------------ mesh lifecycle
-    def _apply_mesh(self, mesh: Mesh) -> None:
-        """Adopt `mesh` and its axis widths (tp = sp = 1: make_mesh refuses
-        the others, so the JAX trainer's divisibility checks cannot fire)."""
+    def _apply_mesh(self, mesh: Mesh, config: Word2VecConfig) -> None:
+        """Adopt `mesh` and its axis widths, and validate the config
+        against the resolved shape with the JAX trainer's checks and
+        messages (parallel/trainer.py:416-440)."""
         self.mesh = mesh
         self.dp = mesh.shape[DATA_AXIS]
         self.sp = mesh.shape[SEQ_AXIS]
         self.tp = mesh.shape[MODEL_AXIS]
+        #: the (data, seq) replicas: the sync's width
+        self.reps = self.dp * self.sp
+        if config.word_dim % self.tp != 0:
+            raise ValueError(
+                f"word_dim {config.word_dim} not divisible by tp={self.tp}"
+            )
+        if config.max_sentence_len % self.sp != 0:
+            raise ValueError(
+                f"max_sentence_len {config.max_sentence_len} not divisible "
+                f"by sp={self.sp}"
+            )
+        if self.sp > 1 and config.max_sentence_len // self.sp < config.window:
+            # halo_exchange is one hop: a slice shorter than the window
+            # would need tokens from beyond its neighbours
+            raise ValueError(
+                f"per-shard slice {config.max_sentence_len // self.sp} is "
+                f"shorter than window {config.window}; lower sp or raise "
+                f"max_sentence_len"
+            )
+        if self.sp > 1 and config.scatter_mean:
+            raise ValueError(
+                "scatter_mean duplicate counts are shard-local and would "
+                "diverge from single-chip semantics under sp > 1; use the "
+                "default sum semantics with sequence parallelism"
+            )
+        if self.tp > 1 or self.sp > 1:
+            _reject_pallas(config, mesh)
 
     def _build_sync(self) -> None:
         self.sync_fn = (
@@ -222,6 +343,18 @@ class ShardedTrainer(Trainer):
                 self._envs[dev] = capture_env(dev)
         return self._envs[dev]
 
+    def _coord(self, r: int) -> Tuple[int, int]:
+        """Replica r's (data, seq) coordinate."""
+        return divmod(r, self.sp)
+
+    @property
+    def split_shards(self) -> bool:
+        """Some replica's tp shards sit on different devices: its steps
+        run eagerly (ops/graphs.StepGraph.split), never as a graph."""
+        return any(
+            len(set(self.mesh.shard_devices(r))) > 1 for r in range(self.reps)
+        )
+
     def refresh_vocab_tables(self) -> None:
         self._tables_by_dev.clear()
         super().refresh_vocab_tables()
@@ -235,57 +368,80 @@ class ShardedTrainer(Trainer):
     def _coerce_param_layout(self, params):
         if isinstance(params, dict):
             return super()._coerce_param_layout(params)
-        return [super(ShardedTrainer, self)._coerce_param_layout(p) for p in params]
+        coerce = super(ShardedTrainer, self)._coerce_param_layout
+        return [
+            [coerce(s) for s in p] if isinstance(p, list) else coerce(p)
+            for p in params
+        ]
+
+    def _shards_of(self, src) -> List[Params]:
+        """A replica's source as its tp shard dicts: a shard list as it
+        is, a full-width Params dict split into views."""
+        if isinstance(src, list):
+            if len(src) != self.tp:
+                raise ValueError(
+                    f"{len(src)} shards handed to a trainer of tp={self.tp}"
+                )
+            return src
+        return split_params(src, self.tp)
 
     def _adopt(self, params) -> Replicas:
         """The replicas' persistent buffers, holding `params`: a Replicas
         list (replica r's into replica r's buffers) or one unreplicated
-        Params dict (copied into every replica). Tables copied in from
+        Params dict (split into every replica). Tables copied in from
         outside rebase the delta sync."""
-        srcs = params if isinstance(params, list) else [params] * self.dp
-        if len(srcs) != self.dp:
+        srcs = params if isinstance(params, list) else [params] * self.reps
+        if len(srcs) != self.reps:
             raise ValueError(
-                f"{len(srcs)} replicas handed to a trainer of dp={self.dp}"
+                f"{len(srcs)} replicas handed to a trainer of "
+                f"dp*sp={self.reps}"
             )
+        srcs = [self._shards_of(s) for s in srcs]
         mine = self._replicas
         same = mine is not None and all(
             sorted(m) == sorted(s) and all(
                 m[k].shape == v.shape and m[k].dtype == v.dtype
                 for k, v in s.items()
             )
-            for m, s in zip(mine, srcs)
+            for rep, src in zip(mine, srcs)
+            for m, s in zip(shard_list(rep), src)
         )
         copied = not same
         if not same:
-            self._replicas = replicate_params(srcs[0], self.mesh)
-            for m, s in zip(self._replicas[1:], srcs[1:]):
-                for k, v in s.items():
-                    m[k].copy_(v)
+            self._replicas = [
+                _placed(src, self.mesh.shard_devices(r)) for r, src in enumerate(srcs)
+            ]
             self._runners.clear()
         else:
-            for m, s in zip(mine, srcs):
-                for k, v in s.items():
-                    if v.device != m[k].device or v.data_ptr() != m[k].data_ptr():
-                        m[k].copy_(v)
-                        copied = True
-        self._params = self._replicas[0]
+            for rep, src in zip(mine, srcs):
+                for m, s in zip(shard_list(rep), src):
+                    for k, v in s.items():
+                        if v.device != m[k].device or v.data_ptr() != m[k].data_ptr():
+                            m[k].copy_(v)
+                            copied = True
+        self._params = shard_list(self._replicas[0])[0]
         if copied:
             self._reset_sync_base(self._replicas)
         return self._replicas
 
     def _detach_params(self, params: Replicas) -> Params:
         """train() hands back one Params dict, as Trainer does: copies of
-        replica 0's tables (the run ended on a sync: _finalize)."""
-        return super()._detach_params(params[0])
+        replica 0's tables (the run ended on a sync: _finalize), its
+        shards concatenated."""
+        return _unreplicated_copy(params)
+
+    def _all_shards(self, params: Replicas) -> Iterator[Params]:
+        for p in params:
+            yield from shard_list(p)
 
     def _check_finite(self, state: TrainState, metrics) -> None:
-        for p in state.params:
+        for p in self._all_shards(state.params):
             super()._check_finite(
                 TrainState(p, state.step, state.words_done, state.epoch), metrics
             )
 
     def fill_params(self, state: TrainState, value: float) -> None:
-        for p in state.params:
+        for p in self._all_shards(state.params):
             super().fill_params(TrainState(p), value)
 
     def train(self, state: Optional[TrainState] = None, *args, **kw):
@@ -303,7 +459,8 @@ class ShardedTrainer(Trainer):
         """Delta sync tracks the tables of the last sync: rebased whenever
         the replicas are (re)filled wholesale (init, import)."""
         if self.config.sync_mode == "delta":
-            self._sync_base = {k: v.clone() for k, v in params[0].items()}
+            base = [{k: v.clone() for k, v in s.items()} for s in shard_list(params[0])]
+            self._sync_base = base[0] if self.tp == 1 else base
 
     def _run_sync(self, params: Replicas) -> Replicas:
         self._harvest_capture("replica_sync")
@@ -322,13 +479,13 @@ class ShardedTrainer(Trainer):
         cfg = self.config
         every = max(1, cfg.dp_sync_every // cfg.micro_steps)
         since = state.step - (self._last_sync_step or 0)
-        if self.dp > 1 and cfg.dp_sync_every and since >= every:
+        if self.reps > 1 and cfg.dp_sync_every and since >= every:
             with self.phases.span("replica_sync"):
                 self._run_sync(state.params)
             self._last_sync_step = state.step
 
     def _finalize(self, state: TrainState) -> None:
-        if self.dp > 1 and self._last_sync_step != state.step:
+        if self.reps > 1 and self._last_sync_step != state.step:
             with self.phases.span("replica_sync"):
                 self._run_sync(state.params)
             self._last_sync_step = state.step
@@ -364,7 +521,7 @@ class ShardedTrainer(Trainer):
             s, _ = cfg.chunk_geometry(steps, cap=cfg.chunk_cap)
         else:
             s = min(cfg.chunk_steps, steps)
-        if self.dp > 1 and cfg.dp_sync_every:
+        if self.reps > 1 and cfg.dp_sync_every:
             every = max(1, cfg.dp_sync_every // cfg.micro_steps)
             s = min(s, every)
             while every % s:
@@ -394,10 +551,24 @@ class ShardedTrainer(Trainer):
         """The corpus placed once on each card of the mesh."""
         return {dev: res.device_corpus(self.corpus, dev) for dev in self.mesh.cards}
 
+    def _home(self, r: int) -> torch.device:
+        """Replica r's first shard's device (its graph, draws and sums)."""
+        return self.mesh.shard_devices(r)[0]
+
+    def _row_len(self) -> int:
+        """The token columns a replica trains: L, or a sequence shard's
+        haloed Lloc + 2W."""
+        cfg = self.config
+        if self.sp == 1:
+            return cfg.max_sentence_len
+        return cfg.max_sentence_len // self.sp + 2 * cfg.window
+
     def _runner(self, chunk_len: int):
         """One runner a replica, each with its graph captured on the
-        replica's buffers (ops/graphs.ChunkRunner with replica / stride);
-        a replica on the CPU runs eagerly."""
+        replica's buffers (ops/graphs.ChunkRunner with replica / stride,
+        and its (data, seq) folds and halo under sequence parallelism);
+        a replica on the CPU, or one whose shards span devices, runs
+        eagerly."""
         graphed = self.graphs and not self.debug_nans
         resident = self._resident is not None
         key = (chunk_len, resident, graphed)
@@ -405,27 +576,39 @@ class ShardedTrainer(Trainer):
         cfg = self.config
         if runners is None:
             runners = []
-            for r, dev in enumerate(self.mesh.devices):
+            for r in range(self.reps):
+                devs = self.mesh.shard_devices(r)
+                dev = devs[0]
                 tables = self._tables_on(dev)
                 on_card = graphed and dev.type == "cuda"
+                mesh_kw = dict(tp=self.tp, sp=self.sp)
                 if resident:
-                    runner = res.make_resident_chunk_runner(cfg, tables, graphed=on_card)
+                    runner = res.make_resident_chunk_runner(
+                        cfg, tables, graphed=on_card, **mesh_kw)
                 else:
                     runner = make_chunk_runner(
                         cfg, tables, graphed=on_card,
-                        fused=cfg.fused_tables and chunk_len > 1,
+                        fused=cfg.fused_tables and chunk_len > 1, **mesh_kw,
                     )
-                if self.dp > 1:
+                if self.reps > 1:
+                    d, s = self._coord(r)
                     runner.replica, runner.stride = r, self.dp
+                    runner.block = d
+                    runner.fold = (d if self.dp > 1 else None,
+                                   s if self.sp > 1 else None)
+                    runner.halo = (s, self.sp) if self.sp > 1 else None
+                if self.tp > 1:
+                    runner.shard_tables = [self._tables_on(x) for x in devs]
                 if on_card:
                     runner.env = self._env_on(dev)
                 runners.append(runner)
             self._runners[key] = runners
         hook = self.draws_hook
-        if hook is not None and self.dp == 1:
+        if hook is not None and self.reps == 1:
             hook = lambda step, sub: self.draws_hook(step, sub, 0)  # noqa: E731
         self.capture_s = 0.0
-        for r, (runner, dev) in enumerate(zip(runners, self.mesh.devices)):
+        for r, runner in enumerate(runners):
+            dev = self._home(r)
             runner.draws_hook = hook
             with _on(dev):
                 if resident:
@@ -436,7 +619,7 @@ class ShardedTrainer(Trainer):
                 else:
                     g = runner.stream_graph(
                         self._replicas[r],
-                        (chunk_len, cfg.batch_rows, cfg.max_sentence_len),
+                        (chunk_len, cfg.batch_rows, self._row_len()),
                     )
             self.capture_s += g.capture_s
         return runners
@@ -465,7 +648,7 @@ class ShardedTrainer(Trainer):
         cfg = self.config
         B = cfg.batch_rows
         seed = self.run_seed
-        devs = self.mesh.devices
+        devs = [self._home(r) for r in range(self.reps)]
         if self._resident is not None:
             order = epoch_order(seed, epoch, self.corpus.num_rows)
             # a global step takes dp row blocks of B rows each
@@ -503,8 +686,7 @@ class ShardedTrainer(Trainer):
                     for r, (runner, dev) in enumerate(zip(runners, devs)):
                         with _on(dev):
                             gs.append(runner.stage(
-                                self._replicas[r],
-                                np.ascontiguousarray(tokens[:, r * B:(r + 1) * B]),
+                                self._replicas[r], self._replica_tokens(tokens, r)
                             ))
                 ms = []
                 with self.phases.span("dispatch"):
@@ -517,46 +699,63 @@ class ShardedTrainer(Trainer):
 
             yield words_list, dispatch
 
+    def _replica_tokens(self, tokens: np.ndarray, r: int):
+        """Replica r's tokens of a [S, dp*B, L] chunk: its data row block
+        [d*B, (d+1)*B), and under sequence parallelism the haloed column
+        slice of its seq shard (ops/shards.halo_exchange)."""
+        B = self.config.batch_rows
+        d, s = self._coord(r)
+        block = tokens[:, d * B:(d + 1) * B]
+        if self.sp == 1:
+            return np.ascontiguousarray(block)
+        return halo_exchange(
+            torch.from_numpy(block), s, self.sp, self.config.window
+        ).contiguous()
+
     # ------------------------------------------------------------- planning
     def plan_constraints(self) -> Dict:
-        """The planner's constraints over the mesh: every kernel route is
-        allowed (each replica's step is the single-device step; ROADMAP
-        C10), dp is the live divider."""
+        """The planner's constraints over the mesh: at tp = sp = 1 every
+        kernel route is allowed (each replica's step is the single-device
+        step; ROADMAP C10); under the model or seq axes none is (the
+        trainer refuses them, _reject_pallas). dp is the live divider."""
         return {
-            "dp": self.dp, "sp": self.sp, "tp": self.tp, "allow_pallas": True,
+            "dp": self.dp, "sp": self.sp, "tp": self.tp,
+            "allow_pallas": self.tp == 1 and self.sp == 1,
             "corpus_mode": self.config.corpus_mode,
         }
 
     def plan_shapes(self) -> Dict:
         """Realized per-dispatch shapes over the mesh: dp row blocks a
-        global step, the sync-capped chunk length."""
+        global step, an L/sp column slice and a d/tp dim slice a shard,
+        the sync-capped chunk length."""
         shapes = super().plan_shapes()
         cfg = self.config
         shapes.update(
             dp=self.dp, sp=self.sp, tp=self.tp,
             rows_per_dispatch=cfg.batch_rows * self.dp,
-            cols_per_shard=cfg.max_sentence_len,
-            dim_per_shard=cfg.word_dim,
+            cols_per_shard=cfg.max_sentence_len // self.sp,
+            dim_per_shard=cfg.word_dim // self.tp,
         )
         return shapes
 
     # ----------------------------------------------------------------- api
     def export_params(self, state: TrainState) -> Params:
-        """The synced, de-replicated tables: of the live replicas, copies
-        of replica 0's on its device (a pending sync runs first, so a
-        quality probe scores what the JAX trainer's does); a state
-        that already holds one Params dict (what train() returns, a
-        checkpoint's) as it is."""
+        """The synced, de-replicated [V, d] tables: of the live replicas,
+        copies of replica 0's on its first device, its shards concatenated
+        (a pending sync runs first, so a quality probe scores what the JAX
+        trainer's does); a state that already holds one Params dict (what
+        train() returns, a checkpoint's) as it is."""
         if isinstance(state.params, dict):
             return state.params
-        if self.dp > 1 and self._last_sync_step != state.step:
+        if self.reps > 1 and self._last_sync_step != state.step:
             self._run_sync(state.params)
             self._last_sync_step = state.step
-        return {k: v.clone() for k, v in state.params[0].items()}
+        return _unreplicated_copy(state.params)
 
     def import_params(self, params: Params, state: TrainState) -> None:
         """Unreplicated tables (a checkpoint's, a single-device run's) into
-        every replica's persistent buffers, in this trainer's table layout
+        every replica's persistent buffers, split into its shards, in this
+        trainer's table layout
         (models/params.convert_params_layout converts the other one);
         the delta sync rebases and the cadence counts from state.step."""
         target = self.config.table_layout
