@@ -306,6 +306,35 @@ Phases (any failure exits non-zero and prints no result line):
      cross-device code is held on a card-and-CPU mesh by tests/
      test_torch_cuda.py::test_tp2_replica_on_a_card_and_the_cpu). One
      tp_sp_phase JSON line.
+ 15. several processes (word2vec_tpu_torch/parallel/multihost.py): two
+     processes on the one card, started as `chip_smoke.py --mp-child SPEC`
+     under the W2V_* contract (W2V_COORDINATOR a fresh localhost port),
+     the tables gathered over gloo through host memory (the recorded
+     backend), phase 5's tokens in whole rows of L split into two
+     equal-row shards (equal words a step on both ranks, so the alpha
+     schedules agree). (a) Arm A, pallas_fused/unified, dp 2 (one replica
+     a process), dp_sync_every 8, mean, 32 global steps; arm B, xla/split,
+     dp 4 x tp 2 (two replicas a process, each two shards on the card),
+     delta, 16 global steps: each arm's export bitwise the one-process run
+     of the same mesh on the card fed the same global steps (each rank's
+     batches in rank order), launches exact on both ranks, the loss falls.
+     (b) Rank 0's one eager flagship step: every fused_slab_scatter,
+     ordered_row_sum and find_runs call bitwise its plain version,
+     fused_grad_core within TOL. (c) Through the CLI (--multihost --dp 2,
+     chunk 8, a checkpoint every 8): sigterm@10 on rank 1 stops both ranks
+     at the agreed step 16, exit 75 each; --resume from it ends bitwise
+     equal to the uninterrupted run (vectors and state.npz). (d)
+     peer_dead@10 on rank 1 under --step-deadline and --sync-deadline 10:
+     rank 0 exits 75 or 76 within the deadlines. (e) Host-clock ms of a
+     cross-process sync of arm A's tables per mode, split into staging
+     out (d2h), the gather and staging in (h2d), beside its host-link
+     bound (each process's replica out and the other's in over the card's
+     PCIe Gen5 x16 at 64 GB/s a direction); the heartbeat and the metrics
+     gather; words/sec of arm A against the one-process dp-2 run,
+     interleaved A B A B. (f) With two or more cards arm A with one card a
+     rank, over NCCL, bitwise equal to (a); with one card the phase says
+     that arm needs a second card and records what NCCL says to two ranks
+     on one card. One multiproc_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -5323,6 +5352,552 @@ def phase_tp_sp(dev, vocab, corpus, card, tmp):
     log(json.dumps({"tp_sp_phase": row}, default=str))
 
 
+# ------------------------------------------------ 15: several processes
+MP_PROCS = 2          # processes, both on the one card (gloo tables)
+MP_EVERY = 8          # dp_sync_every: syncs at 8, 16, 24, 32
+MP_ITERS = 2          # epochs: 16 global steps each at one replica a process
+MP_WPS_REPS = 2       # A B A B
+MP_CUT = 10           # the sigterm / peer_dead step on rank 1
+MP_DEADLINE = 10.0    # --step-deadline and --sync-deadline of the kill drill
+#: the host link of an H100 SXM: PCIe Gen5 x16, 64 GB/s a direction (data
+#: sheet); two processes on one card share it
+HOST_LINK_BYTES_PER_S = 64e9
+#: (name, band_backend, layout, dp, tp, sync_mode) of the library arms
+MP_ARMS = (("A", "pallas_fused", "unified", 2, 1, "mean"),
+           ("B", "xla", "split", 4, 2, "delta"))
+
+
+def mp_cfg(backend, layout, mode):
+    return flagship_cfg(backend, layout, dp_sync_every=MP_EVERY, sync_mode=mode,
+                        iters=MP_ITERS, resident="off")
+
+
+def mp_shards(corpus):
+    """Phase 5's tokens in whole rows of L, split into MP_PROCS rank shards
+    of equal rows: every global step carries equal words on every rank, so
+    the ranks' alpha schedules are the one-process run's."""
+    rows = corpus.num_tokens // L // MP_PROCS
+    return [corpus.flat[p * rows * L:(p + 1) * rows * L].astype(np.int32)
+            for p in range(MP_PROCS)]
+
+
+def mp_corpus(flat):
+    from word2vec_tpu_torch import PackedCorpus
+
+    return PackedCorpus.from_flat(flat, L)  # no separators: rows of exactly L
+
+
+def mp_local_launches(tr, steps):
+    """This process's launches of `steps` global steps of a fresh trainer:
+    each local replica's shards run the step once a global step, plus the
+    capture's eager warm-up step of every shard."""
+    backend, layout = tr.config.band_backend, tr.config.table_layout
+    shards = tr.local_reps * tr.tp
+    return expected_launches(backend, layout, steps, replicas=shards,
+                             warmups=shards)
+
+
+def mp_wait(path, kids, what, timeout=300.0):
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        for k in kids:
+            if k.poll() is not None:
+                fail(f"multiproc {what}: a process exited {k.returncode} early")
+        if time.monotonic() - t0 > timeout:
+            fail(f"multiproc {what}: timed out waiting for {path}")
+        time.sleep(0.01)
+
+
+def rank_fed_trainer(cfg, vocab, flats, dp, devs, tp=1):
+    """The one-process ShardedTrainer of the fleet's mesh fed the fleet's
+    global steps: each global step is rank 0's local_dp batches, then
+    rank 1's (each rank's shard, its own BatchIterator)."""
+    from word2vec_tpu_torch import PackedCorpus
+    from word2vec_tpu_torch.data.batcher import BatchIterator
+    from word2vec_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    shards = [mp_corpus(f) for f in flats]
+
+    class Fed(ShardedTrainer):
+        def _batchers(self):
+            c = self.config
+            return [BatchIterator(s, c.batch_rows, c.max_sentence_len,
+                                  seed=self.run_seed) for s in shards]
+
+        def _agreed_steps_per_epoch(self, batcher):
+            per = self.dp // len(shards)
+            return min(-(-b.steps_per_epoch() // per) for b in self._batchers())
+
+        def _global_batches(self, batcher, epoch, skip):
+            per = self.dp // len(shards)
+            its = [b.epoch(epoch, skip * per) for b in self._batchers()]
+            for _ in range(skip, self._agreed_steps_per_epoch(batcher)):
+                blocks, words = [], 0
+                for it in its:
+                    for _ in range(per):
+                        got = next(it, None)
+                        if got is None:
+                            blocks.append(np.full((B, L), -1, np.int32))
+                        else:
+                            blocks.append(got[0])
+                            words += got[1]
+                yield np.concatenate(blocks, axis=0), words
+
+    whole = PackedCorpus.from_flat(np.concatenate(flats), L)
+    return Fed(cfg, vocab, whole, mesh=make_mesh(dp, tp=tp, devices=devs))
+
+
+def mp_record_step(tr, flat, card, clock):
+    """(b) One eager flagship step of this rank's replica-0 tables on its
+    first batch: every fused_slab_scatter, ordered_row_sum and find_runs
+    call bitwise its plain version, fused_grad_core within the stated
+    tolerance of its plain version."""
+    from word2vec_tpu_torch.device import generator
+    from word2vec_tpu_torch.ops import band_step as bs
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops.steps import make_step
+
+    cfg, dev = tr.config, tr.device
+    step = make_step(cfg, tr.tables)
+    params = {k: v.clone() for k, v in tr._replicas[0].items()}
+    tokens = torch.from_numpy(flat[:B * L].reshape(B, L).copy()).to(dev)
+    draws = step.draw(generator(dev, 5), tokens)
+    grads, real = [], bs.fused_grad_core
+
+    def grad(*a, **kw):
+        out = real(*a, **kw)
+        grads.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw),
+                      [o.clone() for o in out]))
+        return out
+
+    bs.fused_grad_core = grad
+    try:
+        with CallRecorder(band=True) as rec:
+            step.apply(params, tokens, draws, 0.025)
+    finally:
+        bs.fused_grad_core = real
+    torch.cuda.synchronize()
+    kinds = [c[0] for c in rec.calls]
+    want = expected_launches(cfg.band_backend, cfg.table_layout, 1)
+    if {k: kinds.count(k) for k in CallRecorder.NAMES} != {
+            k: want[k] for k in CallRecorder.NAMES} or len(grads) != 1:
+        fail(f"multiproc: recorded calls {kinds} + {len(grads)} grad cores != {want}")
+    check_hs_calls("multiproc rank 0", rec.calls, card, clock, timed=set())
+    a, kw, got = grads[0]
+    ref = fs.fused_grad_core_plain(*a, **kw)
+    errs = check_outputs("multiproc fused_grad_core", GRAD_NAMES, got, ref,
+                         torch.bfloat16, quiet=True)
+    return {"calls": len(rec.calls) + 1, "bitwise": len(rec.calls),
+            "fused_grad_core_max_abs_err": errs}
+
+
+def mp_child(spec_path) -> int:
+    """One process of a phase-15 fleet (`chip_smoke.py --mp-child SPEC`)
+    under the W2V_* contract: the library arms, or the NCCL probe."""
+    from word2vec_tpu_torch.parallel import multihost
+
+    spec = json.load(open(spec_path))
+    tmp = spec["tmp"]
+    if spec["role"] == "nccl_probe":
+        return mp_nccl_probe(spec)
+    from word2vec_tpu_torch.ops.graphs import METRICS
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+    from word2vec_tpu_torch.parallel import (
+        ShardedTrainer, make_delta_sync, make_global_mesh, make_sync,
+    )
+    from word2vec_tpu_torch.utils.synthetic import zipf_vocab
+
+    check_no_jax()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not multihost.initialize_from_env():
+        fail("multiproc child: no W2V_* contract")
+    rank = multihost.process_index()
+    card = card_line()
+    vocab = zipf_vocab(V)
+    flat = np.load(os.path.join(tmp, f"shard{rank}.npy"))
+    corpus = mp_corpus(flat)
+    own = spec["devices"] == "own"
+    out = {"rank": rank, "card": card, "runs": {}}
+
+    def trainer(backend, layout, dp, tp, mode):
+        n = dp // MP_PROCS * tp
+        devs = None if own else [torch.device("cuda", 0)] * n
+        return ShardedTrainer(mp_cfg(backend, layout, mode), vocab, corpus,
+                              mesh=make_global_mesh(dp, tp, devices=devs))
+
+    for name, backend, layout, dp, tp, mode in MP_ARMS:
+        if name not in spec["arms"]:
+            continue
+        reps = MP_WPS_REPS if name == "A" and not own else 1
+        for k in range(reps):
+            tr = trainer(backend, layout, dp, tp, mode)
+            multihost.reset_collective_stats()
+            reset_launch_counts()
+            state, rep = tr.train(log_every=4)
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            want = mp_local_launches(tr, rep.steps)
+            if counts != want:
+                fail(f"multiproc {name} rank {rank}: launch counts {counts} != {want}")
+            hist = rep.loss_history
+            if not (hist and all(np.isfinite(hist)) and hist[-1] < hist[0]):
+                fail(f"multiproc {name} rank {rank}: loss {hist}")
+            if k == 0 and rank == 0:
+                exp = tr.export_params(state)
+                np.savez(os.path.join(tmp, f"export_{name}.npz"),
+                         **{key: v.float().cpu().numpy() for key, v in exp.items()})
+            out["runs"].setdefault(name, []).append({
+                "steps": rep.steps, "words": rep.total_words,
+                "words_per_sec": rep.words_per_sec, "wall_s": rep.wall_time,
+                "launches": counts, "loss_history": hist,
+                "collectives": multihost.collective_stats(),
+                "capture_s": tr.capture_s,
+            })
+            if name == "A" and not own:
+                # the parent's one-process run goes between ours (A B A B)
+                open(os.path.join(tmp, f"a{k}_r{rank}.done"), "w").close()
+                t0 = time.monotonic()
+                while not os.path.exists(os.path.join(tmp, f"b{k}.done")):
+                    if time.monotonic() - t0 > 300:
+                        fail("multiproc: the parent's run never ended")
+                    time.sleep(0.01)
+            if name == "A" and k == reps - 1 and not own:
+                # (e) one cross-process sync of the flagship tables per
+                # mode, split; the heartbeat and the metrics gather
+                out["sync"] = {}
+                for mode_ in ("mean", "delta"):
+                    reps_ = tr._replicas
+                    base = {key: v.clone() for key, v in reps_[0].items()}
+                    sync = (make_sync(tr.mesh) if mode_ == "mean"
+                            else make_delta_sync(tr.mesh))
+                    times = []
+                    multihost.reset_collective_stats()
+                    for _ in range(5):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        sync(reps_) if mode_ == "mean" else sync(reps_, base)
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    st = multihost.collective_stats()
+                    out["sync"][mode_] = {
+                        "ms": float(np.median(times)), "ms_each": times,
+                        "d2h_ms": st["d2h_ms"] / 5, "gather_ms": st["gather_ms"] / 5,
+                        "h2d_ms": st["h2d_ms"] / 5, "bytes_sent": st["bytes"] // 5,
+                    }
+                hb = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    multihost.global_heartbeat([float(rank), 0.0, 1.0, 2.0, 0.0, 0.0])
+                    hb.append((time.perf_counter() - t0) * 1e3)
+                mg = []
+                rows = np.zeros((len(METRICS), 1, 1), np.float32)
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    multihost.gather_replica_rows(rows)
+                    mg.append((time.perf_counter() - t0) * 1e3)
+                out["heartbeat_ms"] = float(np.median(hb))
+                out["metrics_gather_ms"] = float(np.median(mg))
+                if rank == 0:
+                    out["recorded_step"] = mp_record_step(
+                        tr, flat, card, sm_clock_hz())
+            del tr, state
+            torch.cuda.empty_cache()
+    out["topology"] = multihost.topology()
+    with open(os.path.join(tmp, f"child{spec['tag']}_r{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    sys.stdout.flush()
+    # no teardown: the fleet is done, and a group's exit is the process's
+    os._exit(0)
+
+
+def mp_nccl_probe(spec) -> int:
+    """Two ranks asking NCCL for one communicator on the one card: what
+    the library says (NCCL refuses two ranks on one GPU)."""
+    import torch.distributed as dist
+
+    rank = int(os.environ["W2V_PROC_ID"])
+    res = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://{os.environ['W2V_COORDINATOR']}",
+                                world_size=MP_PROCS, rank=rank)
+        t = torch.ones(4, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        res["outcome"] = f"no error: all_reduce gave {t.tolist()}"
+    except Exception as e:  # noqa: BLE001 — the message is the measurement
+        res["outcome"] = f"{type(e).__name__}: {str(e)[:600]}"
+    with open(os.path.join(spec["tmp"], f"nccl_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+#: every process phase 15 started (killed on the way out if still running)
+MP_KIDS: list = []
+
+
+def mp_spawn(argvs, tmp, tag, extra_env=None):
+    """Start one process a rank under the W2V_* contract (a fresh
+    localhost port); each rank's output in tmp/<tag>_r<p>.log."""
+    env = dict(os.environ, W2V_COORDINATOR=f"127.0.0.1:{free_port()}",
+               W2V_NUM_PROCS=str(len(argvs)), PYTHONUNBUFFERED="1")
+    env.update(extra_env or {})
+    kids = []
+    for p, argv in enumerate(argvs):
+        log_f = open(os.path.join(tmp, f"{tag}_r{p}.log"), "w")
+        kids.append(subprocess.Popen(argv, env=dict(env, W2V_PROC_ID=str(p)),
+                                     stdout=log_f, stderr=subprocess.STDOUT,
+                                     cwd=HERE))
+    MP_KIDS.extend(kids)
+    return kids
+
+
+def mp_finish(kids, what, timeout=240.0):
+    """Wait for every rank (killing all at the timeout); the exit codes
+    and the time each one was seen to end."""
+    t0 = time.monotonic()
+    ends = [None] * len(kids)
+    try:
+        while None in ends:
+            for i, k in enumerate(kids):
+                if ends[i] is None and k.poll() is not None:
+                    ends[i] = time.monotonic()
+            if time.monotonic() - t0 > timeout:
+                fail(f"multiproc {what}: ranks still running after {timeout:.0f} s")
+            time.sleep(0.01)
+    finally:
+        for k in kids:
+            if k.poll() is None:
+                k.kill()
+                k.wait()
+    return [k.returncode for k in kids], ends
+
+
+def mp_tail(tmp, tag, p, n=15):
+    with open(os.path.join(tmp, f"{tag}_r{p}.log")) as f:
+        return "".join(f.readlines()[-n:])
+
+
+def mp_cli_flags(tmp, p, ck, out, extra=()):
+    return [sys.executable, "-m", "word2vec_tpu_torch.cli",
+            "-train", os.path.join(tmp, f"shard{p}.txt"),
+            "-read-vocab", os.path.join(tmp, "vocab.txt"), "-output", out,
+            "-binary", "1", "-size", str(D), "-window", str(W), "-negative", str(K),
+            "-iter", str(MP_ITERS), "--batch-rows", str(B), "--max-sentence-len",
+            str(L), "--shared-negatives", str(KP), "--band-backend", "pallas_fused",
+            "--table-layout", "unified", "--chunk-steps", str(MP_EVERY),
+            "--dp", str(MP_PROCS), "--dp-sync-every", str(MP_EVERY), "--multihost",
+            "--checkpoint-dir", ck, "--checkpoint-every", str(MP_EVERY),
+            "--quiet", *extra]
+
+
+def phase_multiproc(dev, vocab, corpus, card, tmp):
+    """Several processes on the one card (phase 15 of the module
+    docstring); no process it started outlives it."""
+    try:
+        mp_phase(dev, vocab, corpus, card, tmp)
+    finally:
+        for k in MP_KIDS:
+            if k.poll() is None:
+                k.kill()
+                k.wait()
+
+
+def mp_phase(dev, vocab, corpus, card, tmp):
+    import gc
+
+    from word2vec_tpu_torch.io.checkpoint import load_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the children share the card
+    t_phase = time.perf_counter()
+    row = {"card": card, "procs": MP_PROCS, "dp_sync_every": MP_EVERY}
+    flats = mp_shards(corpus)
+    for p, f in enumerate(flats):
+        np.save(os.path.join(tmp, f"shard{p}.npy"), f)
+    me = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mp-child"]
+
+    def spec(tag, **kw):
+        path = os.path.join(tmp, f"spec_{tag}.json")
+        with open(path, "w") as f:
+            json.dump(dict(kw, tmp=tmp, tag=tag), f)
+        return me + [path]
+
+    # (a), (b), (e): the library arms, two processes sharing the card;
+    # the one-process dp-2 run (the same mesh fed the same global steps)
+    # between the fleet's runs of arm A: A B A B
+    kids = mp_spawn([spec("lib", role="lib", arms=["A", "B"], devices="shared")] * MP_PROCS,
+                    tmp, "lib")
+    refs, wps_ref = {}, []
+    for k in range(MP_WPS_REPS):
+        for p in range(MP_PROCS):
+            mp_wait(os.path.join(tmp, f"a{k}_r{p}.done"), kids, "arm A")
+        ref = rank_fed_trainer(mp_cfg("pallas_fused", "unified", "mean"), vocab,
+                                  flats, 2, [dev] * 2)
+        state, rep = ref.train(log_every=4)
+        torch.cuda.synchronize()
+        wps_ref.append(rep.words_per_sec)
+        if k == 0:
+            refs["A"] = {key: v.float().cpu().numpy()
+                         for key, v in ref.export_params(state).items()}
+        del ref, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        open(os.path.join(tmp, f"b{k}.done"), "w").close()
+    ref = rank_fed_trainer(mp_cfg("xla", "split", "delta"), vocab, flats, 4,
+                              [dev] * 8, tp=2)
+    state, _ = ref.train(log_every=0)
+    refs["B"] = {key: v.float().cpu().numpy() for key, v in ref.export_params(state).items()}
+    del ref, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcs, _ = mp_finish(kids, "library arms")
+    if rcs != [0] * MP_PROCS:
+        fail(f"multiproc library arms exited {rcs}: {mp_tail(tmp, 'lib', 0)}"
+             f"{mp_tail(tmp, 'lib', 1)}")
+    kid = [json.load(open(os.path.join(tmp, f"childlib_r{p}.json"))) for p in range(MP_PROCS)]
+    row["topology"] = kid[0]["topology"]
+    if row["topology"]["table_backend"] != "gloo":
+        fail(f"multiproc: the table backend on one card is {row['topology']}")
+    row["arms"] = {}
+    for name, backend, layout, dp, tp, mode in MP_ARMS:
+        got = np.load(os.path.join(tmp, f"export_{name}.npz"))
+        same = sorted(got.files) == sorted(refs[name]) and all(
+            got[key].tobytes() == refs[name][key].tobytes() for key in got.files)
+        if not same:
+            fail(f"multiproc arm {name}: the fleet's export != the one-process run of "
+                 "the same mesh fed the same global steps (bitwise)")
+        runs = [c["runs"][name] for c in kid]
+        row["arms"][name] = {
+            "route": f"{backend}/{layout}", "dp": dp, "tp": tp, "sync": mode,
+            "bitwise_one_process": same,
+            "launches_per_rank": [r[0]["launches"] for r in runs],
+            "steps": runs[0][0]["steps"], "loss_history": runs[0][0]["loss_history"],
+            "capture_s": [r[0]["capture_s"] for r in runs],
+            "collectives_rank0": runs[0][0]["collectives"],
+        }
+        log(f"  multiproc arm {name} ({backend}/{layout}, dp {dp}, tp {tp}, {mode}): "
+            f"export bitwise the one-process run; launches exact on both ranks "
+            f"{row['arms'][name]['launches_per_rank'][0]}")
+    fleet = [sum(c["runs"]["A"][k]["words_per_sec"] for c in kid) for k in range(MP_WPS_REPS)]
+    row["words_per_sec"] = {"fleet (2 processes, 1 replica each)": fleet,
+                            "one process, dp 2": wps_ref}
+    row["fleet_over_one_process"] = float(np.mean(fleet) / np.mean(wps_ref))
+    log(f"  multiproc words/sec A B A B ({card}): fleet {fleet}, one process {wps_ref}; "
+        f"ratio {row['fleet_over_one_process']:.4f}")
+    table = V * 2 * D * 4  # one replica's unified f32 slab
+    row["sync"] = {}
+    for mode, wire in (("mean", table), ("delta", table // 2)):
+        s = kid[0]["sync"][mode]
+        # every process stages its replica out and the other's in over the
+        # one card's host link: MP_PROCS * wire bytes each way
+        bound = MP_PROCS * wire / HOST_LINK_BYTES_PER_S * 1e3
+        row["sync"][mode] = dict(s, bound_ms=bound, bound_by="bytes (host link)",
+                                 wire_bytes=wire)
+        log(f"  multiproc sync {mode} ({card}): {s['ms']:.3f} ms (d2h {s['d2h_ms']:.3f}, "
+            f"gather {s['gather_ms']:.3f}, h2d {s['h2d_ms']:.3f}); host-link bound "
+            f"{bound:.3f} ms ({wire} B a replica)")
+    row["heartbeat_ms"] = kid[0]["heartbeat_ms"]
+    row["metrics_gather_ms"] = kid[0]["metrics_gather_ms"]
+    row["recorded_step"] = kid[0]["recorded_step"]
+    log(f"  multiproc heartbeat {row['heartbeat_ms']:.3f} ms, metrics gather "
+        f"{row['metrics_gather_ms']:.3f} ms; rank 0's step: "
+        f"{row['recorded_step']['bitwise']} calls bitwise their plain versions")
+
+    # (c) the agreed stop and the resume, (d) kill one of two: the CLI
+    vocab.save(os.path.join(tmp, "vocab.txt"))
+    words = np.asarray(vocab.words)
+    for p, f in enumerate(flats):
+        with open(os.path.join(tmp, f"shard{p}.txt"), "w") as fh:
+            fh.write(" ".join(words[f].tolist()))
+    ck = {t: os.path.join(tmp, f"ck_{t}") for t in ("whole", "cut", "kill")}
+    vec = {t: os.path.join(tmp, f"v_{t}.bin") for t in ("whole", "cut")}
+    fleets = {
+        "whole": mp_spawn([mp_cli_flags(tmp, p, ck["whole"], vec["whole"])
+                           for p in range(MP_PROCS)], tmp, "whole"),
+        "cut": mp_spawn([mp_cli_flags(tmp, p, ck["cut"], vec["cut"],
+                                      ["--faults", f"sigterm@{MP_CUT}"] if p == 1 else [])
+                         for p in range(MP_PROCS)], tmp, "cut"),
+        "kill": mp_spawn([mp_cli_flags(tmp, p, ck["kill"], "", [
+            "--step-deadline", str(MP_DEADLINE), "--sync-deadline", str(MP_DEADLINE)]
+            + (["--faults", f"peer_dead@{MP_CUT}"] if p == 1 else []))
+            for p in range(MP_PROCS)], tmp, "kill"),
+    }
+    ends = {t: mp_finish(k, t) for t, k in fleets.items()}
+    if ends["whole"][0] != [0, 0]:
+        fail(f"multiproc whole CLI run exited {ends['whole'][0]}: "
+             f"{mp_tail(tmp, 'whole', 0)}{mp_tail(tmp, 'whole', 1)}")
+    if ends["cut"][0] != [75, 75]:
+        fail(f"multiproc agreed stop: exits {ends['cut'][0]} (want 75, 75): "
+             f"{mp_tail(tmp, 'cut', 0)}{mp_tail(tmp, 'cut', 1)}")
+    stopped, _, _ = load_checkpoint(ck["cut"])
+    if stopped.step % MP_EVERY or not MP_CUT <= stopped.step < MP_ITERS * 16:
+        fail(f"multiproc agreed stop at step {stopped.step}")
+    resumed = mp_spawn([mp_cli_flags(tmp, p, ck["cut"], vec["cut"], ["--resume", ck["cut"]])
+                        for p in range(MP_PROCS)], tmp, "resume")
+    rcs, _ = mp_finish(resumed, "resume")
+    if rcs != [0, 0]:
+        fail(f"multiproc resume exited {rcs}: {mp_tail(tmp, 'resume', 0)}")
+    same = (open(vec["cut"], "rb").read() == open(vec["whole"], "rb").read()
+            and npz_bitwise(ck["cut"], ck["whole"]))
+    if not same:
+        fail("multiproc: the resumed run != the uninterrupted run (bitwise)")
+    row["agreed_stop"] = {"exits": ends["cut"][0], "stopped_at": stopped.step,
+                          "resume_bitwise": same}
+    log(f"  multiproc agreed stop: sigterm@{MP_CUT} on rank 1 -> both ranks stopped at "
+        f"step {stopped.step}, exit 75, 75; --resume bitwise the uninterrupted run")
+    (rc0, rc1), (end0, end1) = ends["kill"]
+    after = end0 - end1  # the survivor's exit after the victim's death
+    if rc1 != -signal.SIGKILL or rc0 not in (75, 76) or after > 2 * MP_DEADLINE + 10:
+        fail(f"multiproc kill: exits {rc0}, {rc1}, survivor {after:.1f} s after: "
+             f"{mp_tail(tmp, 'kill', 0)}")
+    with open(os.path.join(tmp, "kill_r0.log")) as f:
+        said = [ln.strip() for ln in f if "peer" in ln or "error" in ln][-3:]
+    # both ends are seen by one 10 ms poll loop, so "after" may read < 0
+    row["kill"] = {"victim_exit": rc1, "survivor_exit": rc0,
+                   "survivor_s_after_victim": after, "survivor_said": said}
+    log(f"  multiproc kill one of two: rank 1 {rc1}, rank 0 exit {rc0} "
+        f"{max(after, 0.0):.2f} s later (deadlines {MP_DEADLINE} s): {said}")
+
+    # (f) NCCL: one card a rank where there are two; on one card, what
+    # NCCL says to two ranks on it
+    if torch.cuda.device_count() >= 2:
+        kids = mp_spawn([spec("nccl", role="lib", arms=["A"], devices="own")] * MP_PROCS,
+                        tmp, "nccl")
+        rcs, _ = mp_finish(kids, "NCCL arm")
+        if rcs != [0] * MP_PROCS:
+            fail(f"multiproc NCCL arm exited {rcs}: {mp_tail(tmp, 'nccl', 0)}")
+        got = np.load(os.path.join(tmp, "export_A.npz"))
+        topo = json.load(open(os.path.join(tmp, "childnccl_r0.json")))["topology"]
+        same = all(got[key].tobytes() == refs["A"][key].tobytes() for key in got.files)
+        if topo["table_backend"] != "nccl" or not same:
+            fail(f"multiproc NCCL arm: backend {topo['table_backend']}, bitwise {same}")
+        row["nccl"] = {"bitwise_one_process": same, "topology": topo}
+    else:
+        log("  multiproc: the NCCL arm (one card a rank) needs a second card; "
+            "this machine has one")
+        kids = mp_spawn([spec("probe", role="nccl_probe")] * MP_PROCS, tmp, "probe")
+        rcs, _ = mp_finish(kids, "NCCL probe", timeout=60.0)
+        said = [json.load(open(os.path.join(tmp, f"nccl_r{p}.json")))["outcome"]
+                if os.path.exists(os.path.join(tmp, f"nccl_r{p}.json")) else None
+                for p in range(MP_PROCS)]
+        row["nccl"] = {"not run": "needs a second card (this machine has one)",
+                       "two_ranks_one_card": said}
+        log(f"  multiproc NCCL, two ranks on one card: {said}")
+    row["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"multiproc_phase": row}, default=str))
+
+
 def manifest_of(mdir):
     with open(os.path.join(mdir, "manifest.json")) as f:
         return json.load(f)
@@ -5335,6 +5910,9 @@ def main() -> int:
         return 2
     import word2vec_tpu_torch  # noqa: F401 — fails outside the repository
     from word2vec_tpu_torch import _build
+
+    if sys.argv[1:2] == ["--mp-child"]:
+        return mp_child(sys.argv[2])  # one process of a phase-15 fleet
 
     check_no_jax()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5424,6 +6002,12 @@ def main() -> int:
 
         log(f"[14 tensor and sequence parallel] (at {time.perf_counter() - t0:.1f} s)")
         phase_tp_sp(dev, vocab, corpus, card, tmp_cli)
+
+        log(f"[15 several processes] (at {time.perf_counter() - t0:.1f} s)")
+        with tempfile.TemporaryDirectory(
+            prefix="smoke_mp_", dir=os.path.join(HERE, "build")
+        ) as tmp_mp:
+            phase_multiproc(dev, vocab, corpus, card, tmp_mp)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -59,8 +59,8 @@ def test_validation_errors_mirror_reference(capsys):
     assert "--checkpoint-keep must be >= 0" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--multihost"], ["--compile-cache", "d"],
-                                  ["--sync-deadline", "5"], ["--prng", "rbg"]])
+@pytest.mark.parametrize("flag", [["--elastic", "shrink"], ["--compile-cache", "d"],
+                                  ["--rejoin-window", "3"], ["--prng", "rbg"]])
 def test_flags_of_unported_layers_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as e:
         run(["-train", "x", "-negative", "5"] + flag)
@@ -278,3 +278,69 @@ def test_hs_two_tier_cli_run_matches_the_jax_cli(tmp_path, corpus_file, capsys):
         assert a.read() == b.read()
     (jw, jW), (tw, tW) = load_embeddings_text(jout), load_embeddings_text(tout)
     assert jw == tw and tW.shape == jW.shape == (8, 8) and np.isfinite(tW).all()
+
+
+# ------------------------------------------------ --multihost, --sync-deadline
+def test_multihost_without_the_environment_warns_and_runs_one_process(
+        tmp_path, corpus_file, capsys, monkeypatch):
+    for k in ("W2V_COORDINATOR", "W2V_NUM_PROCS", "W2V_PROC_ID"):
+        monkeypatch.delenv(k, raising=False)
+    out = str(tmp_path / "v.txt")
+    rc = run(["-train", corpus_file, "-output", out, "-size", "8",
+              "-negative", "2", "-min-count", "1", "-iter", "1", "--multihost",
+              "--backend", "cpu", "--batch-rows", "4", "--max-sentence-len", "32"])
+    assert rc == 0
+    assert ("warning: --multihost set but W2V_COORDINATOR/W2V_NUM_PROCS not "
+            "configured; continuing single-process") in capsys.readouterr().err
+    assert load_word2vec(out)[1].shape[1] == 8
+
+
+def test_multihost_with_a_one_device_mesh_exits_1(corpus_file, capsys, monkeypatch):
+    from word2vec_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "initialize_from_env", lambda: True)
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(multihost, "process_index", lambda: 0)
+    rc = run(["-train", corpus_file, "-size", "8", "-negative", "2",
+              "-min-count", "1", "--multihost", "-output", ""] + CPU)
+    assert rc == 1
+    # the JAX CLI's message (word2vec_tpu/cli.py:1157-1164)
+    assert ("error: --multihost with a 1-device mesh: every process would "
+            "train a redundant full model; set --dp (and optionally "
+            "--tp/--sp) to span the global device set") in capsys.readouterr().err
+
+
+def test_multihost_rank_missing_exits_1(corpus_file, capsys, monkeypatch):
+    monkeypatch.setenv("W2V_COORDINATOR", "localhost:1")
+    monkeypatch.setenv("W2V_NUM_PROCS", "2")
+    monkeypatch.delenv("W2V_PROC_ID", raising=False)
+    assert run(["-train", corpus_file, "-negative", "2", "--multihost"] + CPU) == 1
+    assert "W2V_PROC_ID is not; every host must export its rank" in \
+        capsys.readouterr().err
+
+
+def test_sync_deadline_must_not_be_negative_like_jax(capsys):
+    from word2vec_tpu.cli import main as jrun
+
+    argv = ["-train", "x", "-negative", "5", "--sync-deadline", "-1"]
+    assert jrun(argv) == 1
+    jerr = capsys.readouterr().err
+    assert run(argv) == 1
+    err = capsys.readouterr().err
+    assert "error: --sync-deadline must be >= 0" in err and err == jerr
+
+
+def test_one_process_sync_timeout_exits_1(tmp_path, corpus_file, capsys):
+    m = tmp_path / "m"
+    rc = run(["-train", corpus_file, "-size", "8", "-negative", "2",
+              "-min-count", "1", "-iter", "2", "-output", "",
+              "--faults", "sync_timeout@2", "--sync-deadline", "5",
+              "--chunk-steps", "1", "--metrics-dir", str(m)] + CPU)
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert "SyncTimeout with num_processes == 1: no peer exists to lose or " \
+           "agree with" in err
+    man = json.loads((m / "manifest.json").read_text())
+    assert man["shutdown"] == "sync_timeout_single_host"
+    assert "injected sync_timeout" in man["sync_timeout"]["what"]
+    assert (m / "flight.json").exists()

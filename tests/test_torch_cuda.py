@@ -929,3 +929,65 @@ def test_tp2_replica_on_a_card_and_the_cpu(cuda, first):
     for k in ref.params:
         err = float((st.params[k].cpu() - ref.params[k].cpu()).abs().max())
         assert err <= 5e-5, (k, err)
+
+
+# ------------------------------------------------------- several processes
+def _card_sync_fleet(cuda, tmp_path, devices):
+    """Two spawned ranks (tests/torch_mp_worker.py, card_sync mode) syncing
+    tables on the card; each global replica held bitwise against the
+    one-process sync of the same tables on the card."""
+    import torch_mp_worker as W
+    from word2vec_tpu_torch.parallel import make_delta_sync, make_mesh, make_sync
+
+    rcs, res, arrs, logs = W.launch(tmp_path, {"mode": "card_sync", "devices": devices},
+                                    timeout=120.0)
+    assert rcs == [0, 0], logs
+    for reps in (2, 4):
+        base, tabs = W.tables(reps)
+        mesh = make_mesh(reps, devices=[cuda] * reps)
+        for mode in ("mean", "delta"):
+            mine = [{"t": torch.from_numpy(tabs[r].copy()).to(cuda)} for r in range(reps)]
+            if mode == "mean":
+                make_sync(mesh)(mine)
+            else:
+                make_delta_sync(mesh)(mine, {"t": torch.from_numpy(base.copy()).to(cuda)})
+            local = reps // 2
+            for g in range(reps):
+                fleet = torch.from_numpy(arrs[g // local][f"{mode}{reps}_{g}"])
+                assert torch.equal(_bits(fleet), _bits(mine[g]["t"].cpu())), (mode, reps, g)
+    return [r["topology"] for r in res]
+
+
+def test_two_ranks_on_one_card_sync_bitwise_over_gloo(cuda, tmp_path):
+    """Both ranks on card 0: the table backend is gloo, staged through
+    host memory, recorded with why; every sync is the one-process sync."""
+    topo = _card_sync_fleet(cuda, tmp_path, "shared")
+    for r, t in enumerate(topo):
+        assert t["table_backend"] == "gloo" and t["staged"] is True, t
+        assert t["process_index"] == r and "share a card" in t["reason"]
+        assert len({row["card"] for row in t["ranks"]}) == 1
+
+
+def test_two_ranks_on_two_cards_sync_bitwise_over_nccl(cuda, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (one rank on each)")
+    topo = _card_sync_fleet(cuda, tmp_path, "own")
+    for t in topo:
+        assert t["table_backend"] == "nccl" and t["staged"] is False, t
+        assert len({row["card"] for row in t["ranks"]}) == 2
+
+
+@pytest.mark.parametrize("layout", ["split", "unified"])
+def test_assemble_local_replica_of_a_tp2_replica(cuda, layout):
+    """A tp-2 replica's shards on the card concatenate back to the table,
+    in new tensors on the card."""
+    from word2vec_tpu_torch.parallel import (
+        assemble_local_replica, make_mesh, replicate_params,
+    )
+
+    shape = (300, 64) if layout == "split" else (300, 2, 64)
+    table = torch.from_numpy(np.random.default_rng(4).normal(size=shape).astype(np.float32))
+    reps = replicate_params({"t": table.to(cuda)}, make_mesh(2, tp=2, devices=[cuda] * 4))
+    got = assemble_local_replica(reps)["t"]
+    assert got.is_cuda and torch.equal(_bits(got.cpu()), _bits(table))
+    assert all(got.data_ptr() != s["t"].data_ptr() for s in reps[0])

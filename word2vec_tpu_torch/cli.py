@@ -71,23 +71,31 @@ probes (probing on a miss). The plan-applied config goes into the
 checkpoints and the manifest, and with the telemetry on the run-end
 manifest carries cost_calibrate's per-anchor verdict.
 
-The mesh is the JAX CLI's in one process: --dp N replicas, --sp S
-sequence shards of each row and --tp T tensor-parallel shards of each
-table (parallel/ShardedTrainer; dp*sp*tp > 1 routes there), one a
-visible card (--backend cpu: all on the CPU), refusing more than there
-are cards with the mesh's message and, under --tp or --sp > 1, the
-Pallas routes with the JAX trainer's reason (exit 1); --dp-sync-every
-and --sync-mode set the replica sync. A replica whose shards sit on
-different cards runs its steps eagerly (no CUDA graph spans two cards;
-the manifest's split_shards). Meshes over several cards are not verified
-on two cards yet: the cross-device code has run only on a mesh of one
-card and the CPU. Checkpoints hold the synced, unreplicated [V, d]
-tables, so a mesh run and a single-device run (of either package)
-resume from each other's.
+The mesh is the JAX CLI's: --dp N replicas, --sp S sequence shards of
+each row and --tp T tensor-parallel shards of each table
+(parallel/ShardedTrainer; dp*sp*tp > 1 routes there), one a visible card
+(--backend cpu: all on the CPU), refusing more than there are cards with
+the mesh's message and, under --tp or --sp > 1, the Pallas routes with the
+JAX trainer's reason (exit 1); --dp-sync-every and --sync-mode set the
+replica sync. A replica whose shards sit on different cards runs its steps
+eagerly (no CUDA graph spans two cards; the manifest's split_shards).
+Meshes over several cards are not verified on two cards yet: the
+cross-device code has run only on a mesh of one card and the CPU.
+Checkpoints hold the synced, unreplicated [V, d] tables, so a mesh run and
+a single-device run (of either package) resume from each other's.
 
-Flags of layers the port does not have yet (--multihost, --elastic*,
---sync-deadline, --compile-cache, --prng) are not defined: argparse
-rejects them.
+--multihost runs one process of a fleet on torch.distributed
+(parallel/multihost.py): every process is started with the W2V_COORDINATOR,
+W2V_NUM_PROCS and W2V_PROC_ID environment, its own -train shard and the
+same -read-vocab; the --dp replicas are spread over the processes (the data
+axis is the only one that spans them), and only process 0 writes the
+vocabulary, the vectors, the checkpoints and the metrics directory.
+--sync-deadline SECS bounds every cross-process collective: a dead peer
+becomes a SyncTimeout, and the survivors checkpoint where safe and exit 75
+(one process: exit 1, there is no peer).
+
+Flags of layers the port does not have yet (--elastic*, --compile-cache,
+--prng) are not defined: argparse rejects them.
 """
 
 from __future__ import annotations
@@ -164,6 +172,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="replica reconciliation: mean = full-table mean; "
                         "delta = the mean of the bf16-rounded updates since "
                         "the last sync (parallel/trainer.py)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process mode: torch.distributed from the "
+                        "W2V_COORDINATOR/W2V_NUM_PROCS/W2V_PROC_ID env "
+                        "contract, mesh over the processes with the data "
+                        "axis spanning them (parallel/multihost.py); pass "
+                        "each process its own corpus shard via -train")
     p.add_argument("--micro-steps", type=int, default=0,
                    help="sequential optimizer sub-steps per dispatched batch "
                         "(0 = auto with --batch-rows 0, else 1)")
@@ -323,6 +337,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "76 (EXIT_STALLED) so schedulers requeue with "
                         "--resume. Set SECS above your worst checkpoint "
                         "write")
+    p.add_argument("--sync-deadline", type=float, default=0.0, metavar="SECS",
+                   help="deadline on cross-process collectives (multihost "
+                        "agree/heartbeat + replica sync + the sharded "
+                        "metrics drain; 0 = off/unbounded): a dead peer "
+                        "turns the infinite collective hang into a "
+                        "coordinated abort — survivors checkpoint where "
+                        "safe and exit 75 (EXIT_PREEMPTED) for requeue "
+                        "with --resume")
     p.add_argument("--divergence-budget", type=int, default=8,
                    help="consecutive non-finite-loss steps before the run "
                         "aborts with a DivergenceError (exit 2) instead of "
@@ -539,6 +561,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                       ("--checkpoint-keep", args.checkpoint_keep),
                       ("--auto-recover", args.auto_recover),
                       ("--step-deadline", args.step_deadline),
+                      ("--sync-deadline", args.sync_deadline),
                       ("--quality-budget", args.quality_budget),
                       ("--quality-grace", args.quality_grace),
                       ("--quality-probe-every", args.quality_probe_every or 0),
@@ -585,6 +608,28 @@ def main(argv: Optional[List[str]] = None) -> int:
             file=sys.stderr,
         )
         return 1
+    from .parallel import multihost
+
+    if args.multihost:
+        # joins the process group before any card use on every process
+        try:
+            joined = multihost.initialize_from_env()
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        if not joined and not args.quiet:
+            print(
+                "warning: --multihost set but W2V_COORDINATOR/W2V_NUM_PROCS "
+                "not configured; continuing single-process",
+                file=sys.stderr,
+            )
+    procs = multihost.process_count()
+    # In multi-host mode only process 0 writes shared artifacts (vectors,
+    # vocab, checkpoints, the metrics dir): every process reaching the
+    # save paths with the same -output on a shared filesystem would
+    # interleave writes.
+    is_primary = multihost.process_index() == 0
+
     # quality-probe cadence: on by default for instrumented runs
     # (--metrics-dir) and whenever the user supplies probe material
     q_every = args.quality_probe_every
@@ -763,6 +808,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     tempfile.gettempdir(), f"w2v_stream_spool_{os.getpid()}"
                 )
             )
+            if args.checkpoint_dir and procs > 1:
+                spool += f"_p{multihost.process_index()}"
         try:
             stream_source = make_source(
                 args.train, fmt=args.corpus_format,
@@ -894,12 +941,15 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"({time.perf_counter() - t0:.1f}s, "
               f"{native.implementation()} data layer)")
     corpus = PackedCorpus.from_flat(flat, cfg.max_sentence_len)
-    if args.save_vocab:
+    if args.save_vocab and is_primary:
         vocab.save(args.save_vocab)  # Word2Vec.cpp:171-177
 
     if args.batch_rows == 0 and not args.resume:
+        # multi-host: size from the GLOBAL token count (sum over shards) so
+        # every process derives the same batch_rows and step shapes
+        auto_tokens = multihost.global_agree_sum(corpus.num_tokens)
         auto_rows, auto_micro = Word2VecConfig.auto_geometry(
-            corpus.num_tokens, cfg.max_sentence_len, dp=args.dp,
+            auto_tokens, cfg.max_sentence_len, dp=args.dp,
             vocab_size=len(vocab),
         )
         if args.micro_steps:
@@ -912,7 +962,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not args.quiet:
             steps = max(
                 1,
-                corpus.num_tokens * auto_micro
+                auto_tokens * auto_micro
                 // (auto_rows * cfg.max_sentence_len * args.dp),
             )
             print(
@@ -920,12 +970,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                 f"micro-steps (~{steps} optimizer steps/epoch)"
             )
 
+    if args.multihost and procs > 1 and args.dp * args.tp * args.sp <= 1:
+        print(
+            "error: --multihost with a 1-device mesh: every process would "
+            "train a redundant full model; set --dp (and optionally "
+            "--tp/--sp) to span the global device set",
+            file=sys.stderr,
+        )
+        return 1
+
     # one MetricsHub fans every record out to the enabled sinks and is
     # their single close point (obs/export.py)
     hub = MetricsHub()
     if not args.quiet:
         hub.add(progress_logger())
-    metrics_dir = args.metrics_dir
+    metrics_dir = args.metrics_dir if is_primary else None
     if metrics_dir:
         os.makedirs(metrics_dir, exist_ok=True)
     jsonl_path = args.log_jsonl or (
@@ -997,7 +1056,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         trainer.devmem = mem_ledger
         mem_ledger.sample("init")
         cost_harvest = trainer.harvest = CostHarvest()
-    if metrics_dir:
+    if metrics_dir:  # process 0's
         from .obs.profiler import ProfilerCapture
 
         prof_capture = ProfilerCapture(
@@ -1031,12 +1090,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "split_shards": trainer.split_shards,
                 # the mesh record of the JAX CLI's generation start
                 "mesh_events": [{
-                    "event": "generation_start", "gen": 0, "world": 1,
+                    "event": "generation_start", "gen": 0, "world": procs,
                     "mesh_size": mesh_size,
                     "dp": args.dp, "tp": args.tp, "sp": args.sp,
                     "resumed_from": args.resume or None,
                 }],
             })
+            if procs > 1:
+                # the fleet: processes, this one's index, the collective
+                # backends and why, every process's host, card and devices
+                topo = multihost.topology() or {}
+                extra.update({
+                    "mesh_processes": procs,
+                    "process_index": multihost.process_index(),
+                    "collective_backend": topo.get("table_backend"),
+                })
+                extra["mesh_events"][0]["topology"] = topo
         if streaming:
             # the data plane: corpus_tokens is the bootstrap segment, and
             # this block the stream's shape and where it resumed
@@ -1053,15 +1122,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
     if log_fn is not None:
         # the mesh gauges (obs/export.GAUGE_EVENTS), as the JAX CLI logs
-        # them: one process, dp*sp*tp devices
-        log_fn({"event": "mesh", "mesh_size": mesh_size, "mesh_processes": 1,
-                "elastic_generation": 0})
+        # them: the processes and the dp*sp*tp devices
+        log_fn({"event": "mesh", "mesh_size": mesh_size,
+                "mesh_processes": procs, "elastic_generation": 0})
 
     def save_ckpt(s) -> None:
         t = time.perf_counter()
         # the unreplicated tables (under --dp the synced export: a
-        # pending replica sync runs first)
+        # pending replica sync runs first). The sync is a collective, so
+        # every process enters it; only process 0 writes the files.
         s = dataclasses.replace(s, params=trainer.export_params(s))
+        if not is_primary:
+            return
         # the stream cursor is read at save time: the driver's cursor
         # advances per segment, and every checkpoint must carry the cursor
         # of the segment it was taken IN (None on resident runs)
@@ -1170,10 +1242,14 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
 
             os.makedirs(args.trace, exist_ok=True)
+            idx = multihost.process_index()
             write_trace(
-                os.path.join(args.trace, "trace_p0.json"),
-                chrome_trace_doc(trainer.flight.ring.events(), process_index=0),
+                os.path.join(args.trace, f"trace_p{idx}.json"),
+                chrome_trace_doc(trainer.flight.ring.events(), process_index=idx),
             )
+            if not is_primary:
+                return
+            # merge whatever per-process tracks share this directory
             docs = [
                 load_trace(p) for p in sorted(
                     glob.glob(os.path.join(args.trace, "trace_p*.json"))
@@ -1218,6 +1294,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     # EXIT_PREEMPTED so a scheduler can requeue with --resume.
     handler = ShutdownHandler().install()
     trainer.install_shutdown(handler)
+    # The process-wide collective deadline (--sync-deadline): bounds the
+    # multihost agree/heartbeat, the replica sync and the metrics drain.
+    # Restored in the finally below: main() runs in process under tests.
+    from .resilience import watchdog as watchdog_mod
+
+    prev_sync_deadline = watchdog_mod.set_sync_deadline(
+        args.sync_deadline or None
+    )
     # On-demand diagnostics: SIGUSR1 dumps the flight recorder + all-thread
     # stacks into the metrics dir without stopping the run; SIGUSR2 is the
     # device-side mirror — a bounded profiler window + the memory ledger.
@@ -1286,12 +1370,101 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     try:
         with profile_ctx:
-            state, report = run_train(
-                state=state,
-                log_every=args.log_every,
-                checkpoint_cb=ckpt_cb,
-                checkpoint_every=args.checkpoint_every,
+            try:
+                state, report = run_train(
+                    state=state,
+                    log_every=args.log_every,
+                    checkpoint_cb=ckpt_cb,
+                    checkpoint_every=args.checkpoint_every,
+                )
+            except Exception as e:
+                # A lost peer has TWO faces: the silent hang the bounded
+                # collectives turn into SyncTimeout, and an immediate
+                # runtime ERROR when the peer died mid-transfer (gloo's
+                # "connection closed by peer"). Route the second face into
+                # the same SyncTimeout handling instead of crashing.
+                if (
+                    not isinstance(e, (watchdog_mod.SyncTimeout, DivergenceError))
+                    and procs > 1
+                    and watchdog_mod.is_peer_failure(e)
+                ):
+                    raise watchdog_mod.SyncTimeout(
+                        "distributed runtime peer failure "
+                        f"({type(e).__name__}: "
+                        f"{str(e).splitlines()[0][:160]})",
+                        args.sync_deadline or 0.0,
+                    ) from e
+                raise
+    except watchdog_mod.SyncTimeout as e:
+        if procs <= 1:
+            # a SyncTimeout with no peers (an injected sync_timeout fault,
+            # or a --sync-deadline bounding a local operation that wedged)
+            # must NOT run the peer-loss protocol: there is no fleet to
+            # agree with. Fail fast, named.
+            print(
+                f"error: {e}\n"
+                "error: SyncTimeout with num_processes == 1: no peer "
+                "exists to lose or agree with. This is a misconfiguration "
+                "(a --sync-deadline bounding single-host work, or an "
+                "injected sync_timeout fault outside a fleet) or a wedged "
+                "local device/host operation — use --step-deadline for "
+                "single-host hang detection.",
+                file=sys.stderr,
             )
+            if manifest_path:
+                update_manifest(manifest_path, {
+                    "shutdown": "sync_timeout_single_host",
+                    "sync_timeout": {"what": e.what, "deadline_s": e.deadline},
+                })
+            dump_flight("sync_timeout_single_host", failure_step=last_step(None))
+            export_trace()
+            hub.close()
+            return 1
+        # Coordinated abort-to-requeue: a peer died or wedged and a bounded
+        # collective timed out (or failed) on THIS process. Every survivor
+        # takes this same path, so nobody is stranded. Checkpoint where
+        # safe — the last boundary-consistent state, via a bounded save,
+        # since the export itself runs the replica sync, a collective that
+        # may hang against the dead peer — then exit the requeue rc.
+        print(f"error: {e}", file=sys.stderr)
+        last = trainer.last_state
+        saved = False
+        if args.checkpoint_dir and last is not None:
+            try:
+                watchdog_mod.bounded_call(
+                    lambda: save_ckpt(last),
+                    what="final checkpoint after peer loss",
+                    deadline=args.sync_deadline or 30.0,
+                )
+                saved = True
+            except Exception as ce:  # noqa: BLE001 — best-effort abort path
+                print(
+                    f"warning: final checkpoint not written ({ce}); the "
+                    "last periodic checkpoint is the resume point",
+                    file=sys.stderr,
+                )
+        if manifest_path:
+            update_manifest(manifest_path, {
+                "shutdown": "peer_lost",
+                "sync_timeout": {"what": e.what, "deadline_s": e.deadline},
+                "final_checkpoint": saved,
+            })
+        dump_flight("peer_lost", failure_step=getattr(last, "step", None))
+        export_trace()
+        hub({"event": "peer_lost", "what": e.what})
+        print(
+            f"peer lost: aborting at step {getattr(last, 'step', '?')} for "
+            "requeue"
+            + (
+                f"; requeue with --resume {args.checkpoint_dir}"
+                if args.checkpoint_dir else
+                "; WARNING: no --checkpoint-dir, progress rides on the "
+                "last periodic checkpoint only"
+            ),
+            file=sys.stderr,
+        )
+        hub.close()
+        return EXIT_PREEMPTED
     except DivergenceError as e:
         # structured abort: the manifest says why (and what the supervisor
         # tried), the flight dump carries the timeline of the steps that
@@ -1324,6 +1497,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         handler.uninstall()
         uninstall_usr1()
         uninstall_usr2()
+        watchdog_mod.set_sync_deadline(prev_sync_deadline)
         if fault_plan:
             faults_mod.activate(prev_plan)
         if mem_ledger:
@@ -1447,7 +1621,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return EXIT_PREEMPTED
 
     emit_device()
-    if not args.quiet:
+    if not args.quiet and is_primary:
         print(f"\ntrained {report.total_words} words in {report.wall_time:.1f}s "
               f"({report.words_per_sec:,.0f} words/sec), final loss "
               f"{report.final_loss:.4f}")
@@ -1459,7 +1633,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # and the eval engine (its cache is keyed on this array object)
     matrix = export_matrix(state.params, cfg, side=args.export_side)
     W = matrix.float().cpu().numpy()
-    if args.output:
+    if args.output and is_primary:
         save_word2vec(
             args.output, vocab, W,
             binary=bool(args.binary), layout=args.binary_layout,
@@ -1467,7 +1641,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not args.quiet:
             print(f"saved {'binary' if args.binary else 'text'} vectors to "
                   f"{args.output}")
-    if args.export_int8:
+    if args.export_int8 and is_primary:
         from .io.embeddings import save_embeddings_int8
 
         save_embeddings_int8(args.export_int8, vocab.words, W)
@@ -1476,7 +1650,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     export_trace()
 
-    if args.eval_ws353 or args.eval_analogy:
+    if (args.eval_ws353 or args.eval_analogy) and is_primary:
         from .eval.analogy import evaluate_analogies
         from .eval.similarity import evaluate_ws353
 

@@ -21,6 +21,13 @@ The default devices are the visible cards, each once; on the CPU, [cpu]
 * (dp*sp*tp). A caller may name one card several times: the replicas and
 shards then take turns on it, which is how a one-card machine runs a
 (2, 2, 2) mesh (the counterpart of the JAX tests' virtual CPU devices).
+
+Across several processes (parallel/multihost.make_global_mesh) a Mesh is
+one process's part of the global grid: `devices` are its own local_dp *
+sp * tp devices, `procs` the process count and `process` its index. Only
+the data axis spans processes, data-major, so process p holds the global
+replicas [p * local_replicas, (p + 1) * local_replicas); `dp` and
+`replicas` are the global widths, `shard_devices` takes a local replica.
 """
 
 from __future__ import annotations
@@ -45,10 +52,18 @@ class Mesh:
     devices: Tuple[torch.device, ...]
     sp: int = 1
     tp: int = 1
+    #: the process count of the global grid and this process's index in it
+    procs: int = 1
+    process: int = 0
+
+    @property
+    def local_dp(self) -> int:
+        """The data coordinates this process holds."""
+        return len(self.devices) // (self.sp * self.tp)
 
     @property
     def dp(self) -> int:
-        return len(self.devices) // (self.sp * self.tp)
+        return self.local_dp * self.procs
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -60,8 +75,18 @@ class Mesh:
         """The (data, seq) coordinates: dp * sp."""
         return self.dp * self.sp
 
+    @property
+    def local_replicas(self) -> int:
+        """The (data, seq) coordinates this process holds."""
+        return self.local_dp * self.sp
+
+    @property
+    def replica_offset(self) -> int:
+        """The global index of this process's first replica."""
+        return self.process * self.local_replicas
+
     def shard_devices(self, replica: int) -> Tuple[torch.device, ...]:
-        """The devices of replica r's tp shards, shard order."""
+        """The devices of (local) replica r's tp shards, shard order."""
         return self.devices[replica * self.tp:(replica + 1) * self.tp]
 
     @property

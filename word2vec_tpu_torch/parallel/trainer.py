@@ -1,8 +1,9 @@
-"""One-process parallel training: a (dp, sp, tp) mesh of replicas, their
-tensor-parallel shards and the periodic replica sync.
+"""Parallel training: a (dp, sp, tp) mesh of replicas, their
+tensor-parallel shards and the periodic replica sync, in one process or
+across several (the data axis only, parallel/multihost.py).
 
 Port of word2vec_tpu/parallel/trainer.py (the JAX ShardedTrainer on a
-(data, seq, model) mesh, parallel/mesh.py), in one process:
+(data, seq, model) mesh, parallel/mesh.py):
 
   params   — every table is split on its last (dim) axis into tp shards
              (param_spec of the JAX package: split tables [V, d/tp], the
@@ -28,6 +29,13 @@ Port of word2vec_tpu/parallel/trainer.py (the JAX ShardedTrainer on a
              at sp > 1; no fold over the model axis, so a replica's shards
              draw alike). A trailing partial step is padded with all -1
              row blocks.
+  processes— with several processes (parallel/multihost.make_global_mesh)
+             each process holds dp/procs data coordinates, its global
+             replicas p * local + j, and feeds them from its own corpus
+             shard: local_dp row blocks a global step, as many global
+             steps an epoch as every process can feed (global_agree_min).
+             Draws are keyed by the global replica index, so a fleet draws
+             exactly what one process of the same mesh draws.
   step     — each replica runs its route's step (the four band routes and
              the hs and pair steps at tp = sp = 1; 'xla', hs and pair
              under the model and seq axes), as its own captured CUDA
@@ -43,13 +51,21 @@ Port of word2vec_tpu/parallel/trainer.py (the JAX ShardedTrainer on a
              seq)): per replica the shards' sum in shard order over tp
              (StepGraph), then the sum over replicas in replica order
              (train.Trainer._note_metrics), which the divergence tripwire
-             and the logs see.
+             and the logs see; with several processes every process's
+             replica rows first come together in one small gather
+             (multihost.gather_replica_rows), so every rank sees the same
+             global values.
   sync     — every dp_sync_every optimizer steps the dp*sp replicas are
              averaged in place, shard by shard (make_sync: the pmean over
              the data and seq axes; make_delta_sync: the delta mode,
              config.sync_mode). The JAX pmean is an XLA collective, not a
              Pallas kernel; torch ops are its port. Across cards the sum
-             is staged through replica 0's shard's card.
+             is staged through replica 0's shard's card. Across processes
+             every replica's shard is gathered in global replica order
+             (multihost.all_gather_tables; delta mode gathers the bf16
+             wire deltas) and summed locally in that order, so the mean is
+             bitwise the one-process mean (a ring all_reduce would sum in
+             another order).
 
 The sync writes into the replicas' own tensors (copy_, add_): every
 replica's graph was captured against those tensors, and a sync that bound
@@ -58,15 +74,15 @@ new ones would leave the graphs training stale tables, silently.
 ShardedTrainer subclasses train.Trainer: the epoch loop, the alpha
 schedule, the metering, the telemetry and the checkpoint hooks are
 inherited; the param layout, the batch grouping, the runners and the sync
-hooks differ. The stop check is the Trainer's flag read (one process:
-there is nobody to agree with). At tp = sp = 1, unlike the JAX package,
+hooks differ. The stop check is the Trainer's flag read in one process and
+a resilience/watchdog.PeerAgreement across several (install_shutdown). At
+tp = sp = 1, unlike the JAX package,
 every kernel route trains under the mesh (ROADMAP C10): JAX's shard_map
 cannot host a pallas_call, while here each replica's step is the
 single-device step. At tp or sp > 1 the Pallas routes are refused, as the
 JAX trainer refuses them: their kernels train whole rows of whole tables.
 
-Not in this slice: several processes (multihost, the peer agreement,
-assemble_local_replica; ROADMAP A8c) and remesh (A10e).
+Not in this slice: remesh (ROADMAP A10e).
 """
 
 from __future__ import annotations
@@ -88,7 +104,12 @@ from ..ops.shards import halo_exchange
 from ..ops.tables import DeviceTables
 from ..ops.train_step import make_chunk_runner
 from ..train import Trainer, TrainState
-from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, make_mesh
+from . import multihost
+from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
+
+#: gather(tensors) -> every process's local tensors, process order
+#: (multihost.all_gather_tables; a stand-in in the tests)
+Gather = Callable[[List[torch.Tensor]], List[List[torch.Tensor]]]
 
 #: one replica: its Params dict at tp = 1, its tp shard dicts at tp > 1
 Replica = Union[Params, List[Params]]
@@ -150,8 +171,12 @@ def unreplicate_params(params: Replicas) -> Params:
     return concat_shards(shard_list(params[0]))
 
 
-def _unreplicated_copy(params: Replicas) -> Params:
-    """unreplicate_params in new tensors (the caller's to keep)."""
+def assemble_local_replica(params: Replicas) -> Params:
+    """One full [V, ...] Params dict, in new tensors, from this process's
+    own replicas: after a sync every replica is identical, so this
+    process's first one does, its tp shards concatenated on the dim (last)
+    axis (the JAX package's assemble_local_replica; a replica's model
+    shards never span processes, multihost.hybrid_axes)."""
     if isinstance(params[0], list):  # tp > 1: the concatenation is new
         return unreplicate_params(params)
     return {k: v.clone() for k, v in params[0].items()}
@@ -164,30 +189,51 @@ def _by_shard(params: Replicas) -> List[List[Params]]:
     return [[rep[t] for rep in reps] for t in range(len(reps[0]))]
 
 
-def make_sync(mesh: Mesh) -> Callable[[Replicas], Replicas]:
+def _global_order(local: List[torch.Tensor], mesh: Mesh,
+                  gather: Optional[Gather]) -> List[torch.Tensor]:
+    """This process's replicas' tensors of one table shard -> every
+    replica's, in global replica order (this process's entries are its
+    own tensors; the rest gathered). One process: `local` itself."""
+    if mesh.procs == 1:
+        return local
+    per = (gather or multihost.all_gather_tables)(local)
+    out: List[torch.Tensor] = []
+    for q, tabs in enumerate(per):
+        out.extend(local if q == mesh.process else tabs)
+    return out
+
+
+def make_sync(mesh: Mesh, gather: Optional[Gather] = None
+              ) -> Callable[[Replicas], Replicas]:
     """The replica mean, in place: sync(params) averages every table over
-    the dp*sp replicas, shard by shard, and writes the mean into each
-    replica's own tensors (returning the same list).
+    the dp*sp replicas, shard by shard, and writes the mean into each of
+    this process's replicas' own tensors (returning the same list).
 
     The mean is XLA's pmean on the CPU, bitwise at dp = 2 and 4 and over
     the data and seq axes (pinned by tests/test_torch_parallel.py and
     tests/test_torch_tp_sp.py against the JAX package's make_sync): the
     sum in replica order, in float32 (a bf16 table is summed in float32
     and rounded once), times the float32 reciprocal of dp*sp (XLA turns
-    the division into that product)."""
+    the division into that product). Across processes the replicas are
+    gathered (`gather`, default multihost.all_gather_tables) and summed in
+    the same global order on this process's first replica's device, so
+    every process computes the one-process mean, bitwise."""
     recip = 1.0 / mesh.replicas
 
     def sync(params: Replicas) -> Replicas:
         for group in _by_shard(params):
             for k in group[0]:
-                tables = [p[k] for p in group]
+                local = [p[k] for p in group]
+                tables = _global_order(local, mesh, gather)
                 home = tables[0]
-                # f32 tables sum in replica 0's own buffer, others in a float32 one
+                # f32 tables sum in replica 0's own buffer (a gathered copy
+                # when replica 0 is another process's), others in a
+                # float32 one
                 acc = home if home.dtype == torch.float32 else home.float()
                 for t in tables[1:]:
                     acc.add_(t.to(home.device))
                 mean = acc.to(home.dtype).mul_(recip)
-                for t in tables:
+                for t in local:
                     if t.data_ptr() != mean.data_ptr():
                         t.copy_(mean)
         return params
@@ -195,7 +241,8 @@ def make_sync(mesh: Mesh) -> Callable[[Replicas], Replicas]:
     return sync
 
 
-def make_delta_sync(mesh: Mesh) -> Callable[[Replicas, Replica], Replicas]:
+def make_delta_sync(mesh: Mesh, gather: Optional[Gather] = None
+                    ) -> Callable[[Replicas, Replica], Replicas]:
     """Delta-mode reconciliation (config.sync_mode="delta"), in place:
 
         new = base + mean(bf16(params - base))
@@ -210,16 +257,33 @@ def make_delta_sync(mesh: Mesh) -> Callable[[Replicas, Replica], Replicas]:
     The bf16 mean is XLA's pmean of a bf16 operand on the CPU: the replica
     deltas summed in float32 in replica order and rounded to bf16 once,
     then scaled by 1/(dp*sp) (pinned bitwise at dp = 2 and 4 against the
-    JAX package's make_delta_sync by tests/test_torch_parallel.py)."""
+    JAX package's make_delta_sync by tests/test_torch_parallel.py and
+    tests/test_torch_multihost.py). Of a bf16 table XLA sums the exact
+    float32 differences (its CPU backend computes the bf16 subtraction in
+    float32 and does not round it before the all-reduce), and so does
+    this. Across processes the gathered operand is a bf16 tensor either
+    way, half the bytes of an f32 table: the bf16 wire delta of an f32
+    table, a bf16 table itself (its float32 delta is taken after the
+    gather); every process holds the same base (the tables of the last
+    sync)."""
     recip = 1.0 / mesh.replicas
 
     def sync(params: Replicas, base: Replica) -> Replicas:
         for group, bshard in zip(_by_shard(params), shard_list(base)):
             for k in group[0]:
                 b = bshard[k]
+                if b.dtype == torch.bfloat16:
+                    bf = b.float()
+                    sent = [p[k] for p in group]
+                else:
+                    sent = [(p[k].to(b.device) - b).to(torch.bfloat16)
+                            for p in group]
                 acc = None
-                for p in group:
-                    wire = (p[k].to(b.device) - b).to(torch.bfloat16).float()
+                for w in _global_order(sent, mesh, gather):
+                    if b.dtype == torch.bfloat16:
+                        wire = w.to(b.device).float().sub_(bf)
+                    else:
+                        wire = w.to(b.device).float()
                     acc = wire if acc is None else acc.add_(wire)
                 mean = acc.to(torch.bfloat16).mul_(recip)
                 b.add_(mean.to(b.dtype))
@@ -248,8 +312,8 @@ def _reject_pallas(config: Word2VecConfig, mesh: Mesh) -> None:
 
 class ShardedTrainer(Trainer):
     """Data-, sequence- and tensor-parallel trainer over a (dp, sp, tp)
-    mesh in one process (see the module docstring); a (1, 1, 1) mesh
-    trains exactly as Trainer does."""
+    mesh, in one process or, on the data axis, across several (see the
+    module docstring); a (1, 1, 1) mesh trains exactly as Trainer does."""
 
     #: (step, micro sub-step, replica) -> Draws: each replica's draws
     #: instead of its generator (tests feed the JAX trainer's; eager only)
@@ -268,10 +332,14 @@ class ShardedTrainer(Trainer):
         device: DeviceLike = None,
     ):
         self._apply_mesh(
-            mesh if mesh is not None else make_mesh(dp, tp, sp, device=device),
+            mesh if mesh is not None
+            else multihost.make_global_mesh(dp, tp, sp, device=device),
             config,
         )
         self._last_sync_step: Optional[int] = None
+        #: the agreed global steps an epoch, across processes (cached per
+        #: corpus: agreeing is a collective)
+        self._epoch_steps: Optional[int] = None
         self._replicas: Optional[Replicas] = None
         self._sync_base: Optional[Params] = None
         self._tables_by_dev: Dict[torch.device, DeviceTables] = {}
@@ -291,6 +359,18 @@ class ShardedTrainer(Trainer):
         self.tp = mesh.shape[MODEL_AXIS]
         #: the (data, seq) replicas: the sync's width
         self.reps = self.dp * self.sp
+        #: the processes of the mesh; this one feeds dp/procs data
+        #: coordinates, the global replicas [offset, offset + local_reps)
+        self.procs = mesh.procs
+        if self.procs > 1 and self.dp % self.procs != 0:
+            raise ValueError(
+                f"multi-host: data-parallel width {self.dp} must be divisible "
+                f"by the process count {self.procs} (each process feeds "
+                f"dp/procs replicas; parallel/multihost.py)"
+            )
+        self.local_dp = self.dp // self.procs
+        self.local_reps = mesh.local_replicas
+        self.replica_offset = mesh.replica_offset
         if config.word_dim % self.tp != 0:
             raise ValueError(
                 f"word_dim {config.word_dim} not divisible by tp={self.tp}"
@@ -344,7 +424,8 @@ class ShardedTrainer(Trainer):
         return self._envs[dev]
 
     def _coord(self, r: int) -> Tuple[int, int]:
-        """Replica r's (data, seq) coordinate."""
+        """Replica r's (data, seq) coordinate (r global, or local for the
+        local coordinate)."""
         return divmod(r, self.sp)
 
     @property
@@ -352,7 +433,8 @@ class ShardedTrainer(Trainer):
         """Some replica's tp shards sit on different devices: its steps
         run eagerly (ops/graphs.StepGraph.split), never as a graph."""
         return any(
-            len(set(self.mesh.shard_devices(r))) > 1 for r in range(self.reps)
+            len(set(self.mesh.shard_devices(j))) > 1
+            for j in range(self.local_reps)
         )
 
     def refresh_vocab_tables(self) -> None:
@@ -387,14 +469,16 @@ class ShardedTrainer(Trainer):
 
     def _adopt(self, params) -> Replicas:
         """The replicas' persistent buffers, holding `params`: a Replicas
-        list (replica r's into replica r's buffers) or one unreplicated
-        Params dict (split into every replica). Tables copied in from
-        outside rebase the delta sync."""
-        srcs = params if isinstance(params, list) else [params] * self.reps
-        if len(srcs) != self.reps:
+        list (this process's replica j into replica j's buffers) or one
+        unreplicated Params dict (split into every replica). Tables copied
+        in from outside rebase the delta sync."""
+        srcs = params if isinstance(params, list) else [params] * self.local_reps
+        if len(srcs) != self.local_reps:
             raise ValueError(
                 f"{len(srcs)} replicas handed to a trainer of "
                 f"dp*sp={self.reps}"
+                + (f" ({self.local_reps} in this process)"
+                   if self.procs > 1 else "")
             )
         srcs = [self._shards_of(s) for s in srcs]
         mine = self._replicas
@@ -428,7 +512,7 @@ class ShardedTrainer(Trainer):
         """train() hands back one Params dict, as Trainer does: copies of
         replica 0's tables (the run ended on a sync: _finalize), its
         shards concatenated."""
-        return _unreplicated_copy(params)
+        return assemble_local_replica(params)
 
     def _all_shards(self, params: Replicas) -> Iterator[Params]:
         for p in params:
@@ -467,8 +551,49 @@ class ShardedTrainer(Trainer):
         if self.config.sync_mode == "delta":
             if self._sync_base is None:
                 self._reset_sync_base(params)
-            return self.sync_fn(params, self._sync_base)
-        return self.sync_fn(params)
+            self.sync_fn(params, self._sync_base)
+        else:
+            self.sync_fn(params)
+        self._bound_sync_wait()
+        return params
+
+    def _bound_sync_wait(self) -> None:
+        """Deadline-bound the replica sync's completion with several
+        processes: with a sync deadline installed (--sync-deadline) and
+        peers, wait for the sync's device work in a bounded worker, so a
+        wedge is attributed HERE and raises SyncTimeout for the coordinated
+        abort. One process or no deadline: no wait, no added sync point
+        (the step watchdog still bounds a one-process hang)."""
+        if self.procs <= 1:
+            return
+        from ..resilience.watchdog import bounded_call, sync_deadline
+
+        deadline = sync_deadline()
+        if not deadline:
+            return
+        bounded_call(self._sync, what="replica-sync collective",
+                     deadline=deadline)
+
+    def _device_get(self, fn: Callable):
+        """Deadline-bound the metrics fetch with several processes (the
+        JAX trainer's _device_get): fetching a step's metrics waits on the
+        step, which waits on the collectives before it, so with a dead
+        peer the hang surfaces here, between the bounded agree and
+        heartbeat boundaries. One process, or without --sync-deadline: the
+        plain fetch."""
+        if self.procs > 1:
+            from ..resilience.watchdog import bounded_call, sync_deadline
+
+            if sync_deadline():
+                return bounded_call(fn, what="sharded metrics fetch")
+        return fn()
+
+    def _all_replica_rows(self, vals: np.ndarray) -> np.ndarray:
+        """Every process's replica metric rows, global replica order (one
+        small gather; the identity in one process)."""
+        if self.procs <= 1:
+            return vals
+        return multihost.gather_replica_rows(vals)
 
     def _post_step(self, state: TrainState) -> None:
         """The replica sync, every dp_sync_every optimizer steps. The
@@ -492,14 +617,57 @@ class ShardedTrainer(Trainer):
 
     def set_corpus(self, corpus) -> None:
         """Segment swap (stream/driver.py): the segment's step counters
-        restart at 0, and so does the sync cadence."""
+        restart at 0, and so does the sync cadence; the agreed steps an
+        epoch are agreed again for the new corpus."""
         super().set_corpus(corpus)
         self._last_sync_step = None
+        self._epoch_steps = None
+
+    def install_shutdown(self, handler, agree_every: int = 0) -> None:
+        """The cooperative stop across processes: a preemption notice
+        usually hits ONE process, but every process must leave the step
+        loop at the same global step or the survivors hang in a collective
+        the stopped one never joins. With several processes the stop check
+        is a resilience/watchdog.PeerAgreement (the agreed vote, with a
+        liveness heartbeat: stragglers logged by process, and under
+        --sync-deadline a dead peer raises SyncTimeout instead of hanging),
+        at the replica-sync dispatch cadence by default (a stop lands where
+        replicas reconcile anyway). One process: the flag read."""
+        if self.procs <= 1:
+            self.stop_check = handler.make_stop_check()
+            return
+        from ..resilience.watchdog import PeerAgreement
+
+        if agree_every <= 0:
+            agree_every = max(
+                1, self.config.dp_sync_every // self.config.micro_steps
+            )
+        self.stop_check = PeerAgreement(
+            handler,
+            agree_every=agree_every,
+            step_time_fn=lambda: (
+                self.watchdog.step_stats().get("p50_ms", 0.0)
+                if self.watchdog is not None else 0.0
+            ),
+            log_fn=self.log_fn,
+            flight=self.flight,
+            signals=self.signals,
+            phases=self.phases,
+        ).check
 
     # -------------------------------------------------------- the batches
     def _agreed_steps_per_epoch(self, batcher: BatchIterator) -> int:
-        """Global steps an epoch: ceil(batches / dp)."""
-        return -(-batcher.steps_per_epoch() // self.dp)
+        """Global steps an epoch: ceil(batches / local_dp), agreed across
+        processes as the minimum (multihost.global_agree_min, once a
+        corpus): each process feeds its own shard and every global step is
+        a collective, so all must run the same count (a process whose
+        shard packs one more step would enter a collective alone)."""
+        local = -(-batcher.steps_per_epoch() // self.local_dp)
+        if self.procs == 1:
+            return local
+        if self._epoch_steps is None:
+            self._epoch_steps = multihost.global_agree_min(local)
+        return self._epoch_steps
 
     def _resume_skip(self, state: TrainState, batcher: BatchIterator) -> int:
         """Resume position in global steps (the step counter's unit)."""
@@ -531,29 +699,54 @@ class ShardedTrainer(Trainer):
     def _global_batches(
         self, batcher: BatchIterator, epoch: int, skip: int
     ) -> Iterator[Tuple[np.ndarray, int]]:
-        """The epoch's global steps from global step `skip` on: dp
-        consecutive [B, L] batches as one [dp*B, L] array and their words;
-        the trailing partial step padded with all -1 row blocks."""
+        """The epoch's global steps from global step `skip` on, this
+        process's part of each: local_dp consecutive [B, L] batches of its
+        shard as one [local_dp*B, L] array and their words; the trailing
+        partial step padded with all -1 row blocks; no more than the agreed
+        steps (a larger shard drops its excess this epoch)."""
+        local_dp = self.local_dp
+        limit = self._agreed_steps_per_epoch(batcher)
+        emitted = min(skip, limit)
         buf: List[np.ndarray] = []
         words = 0
-        for tokens, w in batcher.epoch(epoch, skip * self.dp):
+        for tokens, w in batcher.epoch(epoch, skip * local_dp):
             buf.append(tokens)
             words += w
-            if len(buf) == self.dp:
+            if len(buf) == local_dp:
+                if emitted >= limit:
+                    return
                 yield np.concatenate(buf, axis=0), words
+                emitted += 1
                 buf, words = [], 0
-        if buf:
-            pad = [np.full_like(buf[0], PAD)] * (self.dp - len(buf))
+        if buf and emitted < limit:
+            pad = [np.full_like(buf[0], PAD)] * (local_dp - len(buf))
             yield np.concatenate(buf + pad, axis=0), words
 
     # ------------------------------------------------------- the dispatch
+    def _build_resident(self):
+        """Several processes stream: their corpus shards share no row
+        order (resident='on' warns and streams, as in JAX)."""
+        if self.procs > 1:
+            if self.config.resident == "on":
+                import warnings
+
+                warnings.warn(
+                    "config.resident='on' is single-process only (multi-host "
+                    "feeds per-process corpus shards with no shared row "
+                    "order); streaming from host.",
+                    stacklevel=2,
+                )
+            return None
+        return super()._build_resident()
+
     def _make_resident_runtime(self):
         """The corpus placed once on each card of the mesh."""
         return {dev: res.device_corpus(self.corpus, dev) for dev in self.mesh.cards}
 
-    def _home(self, r: int) -> torch.device:
-        """Replica r's first shard's device (its graph, draws and sums)."""
-        return self.mesh.shard_devices(r)[0]
+    def _home(self, j: int) -> torch.device:
+        """Local replica j's first shard's device (its graph, draws and
+        sums)."""
+        return self.mesh.shard_devices(j)[0]
 
     def _row_len(self) -> int:
         """The token columns a replica trains: L, or a sequence shard's
@@ -576,8 +769,9 @@ class ShardedTrainer(Trainer):
         cfg = self.config
         if runners is None:
             runners = []
-            for r in range(self.reps):
-                devs = self.mesh.shard_devices(r)
+            for j in range(self.local_reps):
+                r = self.replica_offset + j  # the global replica
+                devs = self.mesh.shard_devices(j)
                 dev = devs[0]
                 tables = self._tables_on(dev)
                 on_card = graphed and dev.type == "cuda"
@@ -607,26 +801,27 @@ class ShardedTrainer(Trainer):
         if hook is not None and self.reps == 1:
             hook = lambda step, sub: self.draws_hook(step, sub, 0)  # noqa: E731
         self.capture_s = 0.0
-        for r, runner in enumerate(runners):
-            dev = self._home(r)
+        for j, runner in enumerate(runners):
+            dev = self._home(j)
             runner.draws_hook = hook
             with _on(dev):
                 if resident:
                     g = runner.resident_graph(
-                        self._replicas[r], self._resident[dev], chunk_len,
+                        self._replicas[j], self._resident[dev], chunk_len,
                         self.corpus.num_rows,
                     )
                 else:
                     g = runner.stream_graph(
-                        self._replicas[r],
+                        self._replicas[j],
                         (chunk_len, cfg.batch_rows, self._row_len()),
                     )
             self.capture_s += g.capture_s
         return runners
 
     def _gather_metrics(self, ms: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
-        """Per-replica metrics [S] -> {name: [dp, S]} on the first card
-        (the drain sums the replica rows, train.Trainer._note_metrics)."""
+        """Per-replica metrics [S] -> {name: [local replicas, S]} on the
+        first card (the drain gathers every process's rows and sums them,
+        train.Trainer._note_metrics)."""
         names = tuple(ms[0])
         rows = [torch.stack([m[k] for k in names]).to(self.device) for m in ms]
         stacked = torch.stack(rows, dim=1)
@@ -642,13 +837,14 @@ class ShardedTrainer(Trainer):
         chunk_len: int,
     ) -> Iterator[Tuple[List[int], Callable]]:
         """One epoch's dispatches of global steps (Trainer._chunk_dispatches
-        over replicas): each replica's runner on its row block of every
-        step, replica after replica (one card runs them in turn; several
-        cards run them at once), then the replicas' metrics gathered."""
+        over this process's replicas): each replica's runner on its row
+        block of every step, replica after replica (one card runs them in
+        turn; several cards run them at once), then the replicas' metrics
+        gathered."""
         cfg = self.config
         B = cfg.batch_rows
         seed = self.run_seed
-        devs = [self._home(r) for r in range(self.reps)]
+        devs = [self._home(j) for j in range(self.local_reps)]
         if self._resident is not None:
             order = epoch_order(seed, epoch, self.corpus.num_rows)
             # a global step takes dp row blocks of B rows each
@@ -699,12 +895,13 @@ class ShardedTrainer(Trainer):
 
             yield words_list, dispatch
 
-    def _replica_tokens(self, tokens: np.ndarray, r: int):
-        """Replica r's tokens of a [S, dp*B, L] chunk: its data row block
-        [d*B, (d+1)*B), and under sequence parallelism the haloed column
-        slice of its seq shard (ops/shards.halo_exchange)."""
+    def _replica_tokens(self, tokens: np.ndarray, j: int):
+        """Local replica j's tokens of a [S, local_dp*B, L] chunk: its
+        local data row block [d*B, (d+1)*B), and under sequence
+        parallelism the haloed column slice of its seq shard
+        (ops/shards.halo_exchange)."""
         B = self.config.batch_rows
-        d, s = self._coord(r)
+        d, s = self._coord(j)
         block = tokens[:, d * B:(d + 1) * B]
         if self.sp == 1:
             return np.ascontiguousarray(block)
@@ -741,16 +938,18 @@ class ShardedTrainer(Trainer):
     # ----------------------------------------------------------------- api
     def export_params(self, state: TrainState) -> Params:
         """The synced, de-replicated [V, d] tables: of the live replicas,
-        copies of replica 0's on its first device, its shards concatenated
-        (a pending sync runs first, so a quality probe scores what the JAX
-        trainer's does); a state that already holds one Params dict (what
-        train() returns, a checkpoint's) as it is."""
+        copies of this process's first replica on its first device, its
+        shards concatenated (assemble_local_replica; a pending sync runs
+        first, so a quality probe scores what the JAX trainer's does, and
+        with several processes every process must call this, since the
+        sync is a collective); a state that already holds one Params dict
+        (what train() returns, a checkpoint's) as it is."""
         if isinstance(state.params, dict):
             return state.params
         if self.reps > 1 and self._last_sync_step != state.step:
             self._run_sync(state.params)
             self._last_sync_step = state.step
-        return _unreplicated_copy(state.params)
+        return assemble_local_replica(state.params)
 
     def import_params(self, params: Params, state: TrainState) -> None:
         """Unreplicated tables (a checkpoint's, a single-device run's) into

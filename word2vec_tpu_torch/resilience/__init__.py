@@ -1,4 +1,4 @@
-"""Resilience: surviving the failures a one-process run actually has.
+"""Resilience: the failures a run actually has, in one process or more.
 
   shutdown.py   — preemption-safe cooperative stop (SIGTERM/SIGINT ->
                   checkpoint at the next dispatch boundary -> exit
@@ -11,7 +11,9 @@
   faults.py     — the declarative FaultPlan the chaos tests and
                   `--faults` inject.
   watchdog.py   — the step-deadline watchdog (stack dump + wedged phase +
-                  EXIT_STALLED) and bounded_call.
+                  EXIT_STALLED), bounded_call, the peer-failure classifier
+                  and PeerAgreement (the multi-process stop vote with a
+                  liveness heartbeat).
 
 Submodules are imported lazily: io/checkpoint.py consults `faults` for
 its injection point, and an eager `from .supervisor import ...` here would
@@ -23,6 +25,7 @@ from __future__ import annotations
 __all__ = [
     "Fault",
     "FaultPlan",
+    "PeerAgreement",
     "ShutdownHandler",
     "StepWatchdog",
     "Supervisor",
@@ -42,6 +45,7 @@ _LAZY = {
     ),
     "Supervisor": ("word2vec_tpu_torch.resilience.supervisor", "Supervisor"),
     "StepWatchdog": ("word2vec_tpu_torch.resilience.watchdog", "StepWatchdog"),
+    "PeerAgreement": ("word2vec_tpu_torch.resilience.watchdog", "PeerAgreement"),
     "SyncTimeout": ("word2vec_tpu_torch.resilience.watchdog", "SyncTimeout"),
     "EXIT_STALLED": ("word2vec_tpu_torch.resilience.watchdog", "EXIT_STALLED"),
 }

@@ -1,11 +1,11 @@
 """Preemption-safe shutdown: cooperative stop at the next step boundary.
 
-A copy of word2vec_tpu/resilience/shutdown.py for the PyTorch port, for
-one process: the multi-process agreement of make_stop_check (which rides
-on parallel/multihost.py) is not ported; the SIGUSR1 flight dump
+A copy of word2vec_tpu/resilience/shutdown.py for the PyTorch port: the
+stop check (one process: a flag read; several: the agreed vote of
+parallel/multihost.global_agree_max), the SIGUSR1 flight dump
 (install_usr1_dump) and the SIGUSR2 device dump (install_usr2_profile: a
 bounded profiler window, obs/profiler.py, and the memory ledger,
-obs/devmem.py) are.
+obs/devmem.py).
 
 Preemptible fleets deliver SIGTERM with a short grace window before the
 hard kill. Dying mid-step wastes every step since the last checkpoint and,
@@ -98,11 +98,31 @@ class ShutdownHandler:
         self.signum = signum
 
     # ------------------------------------------------------- stop checks
-    def make_stop_check(self) -> Callable[[int], bool]:
-        """A `stop_check(step) -> bool` for the trainer: a flag read at
-        every boundary (one process; the agreement across processes comes
-        with the multi-GPU slice)."""
-        return lambda step: self.requested
+    def make_stop_check(
+        self, process_count: int = 1, agree_every: int = 16
+    ) -> Callable[[int], bool]:
+        """A `stop_check(step) -> bool` for the trainers.
+
+        Single-process: a flag read, every step. Multi-process: the flag is
+        resolved through a global max at step boundaries where
+        `step % agree_every == 0` — every process calls the collective at
+        the same boundaries (step counters advance in lockstep), so nobody
+        enters it alone; between boundaries the check returns False even on
+        the process that caught the signal, because stopping unilaterally
+        would strand the others in the next collective step."""
+        if process_count <= 1:
+            return lambda step: self.requested
+
+        from ..parallel.multihost import global_agree_max
+
+        every = max(1, int(agree_every))
+
+        def check(step: int) -> bool:
+            if step % every != 0:
+                return False
+            return global_agree_max(int(self.requested)) > 0
+
+        return check
 
 
 def install_usr1_dump(metrics_dir: str, flight=None) -> Callable[[], None]:

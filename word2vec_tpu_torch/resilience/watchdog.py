@@ -1,10 +1,11 @@
-"""Step-deadline watchdog: bounded detection of the hang.
+"""Step-deadline watchdog and the peer layer: bounded detection of the hang.
 
-The port's counterpart of word2vec_tpu/resilience/watchdog.py for one
-process. A wedged device or a stuck host phase stalls the step loop
-silently: from a scheduler's point of view a hung run looks like a healthy
-one that has stopped producing steps. This module turns the hang into a
-bounded, requeue-able abort:
+The port's counterpart of word2vec_tpu/resilience/watchdog.py. A wedged
+device or a stuck host phase stalls the step loop silently, and a dead
+peer strands the survivors of a multi-process run in a collective that
+never completes: from a scheduler's point of view a hung run looks like a
+healthy one that has stopped producing steps. This module turns every hang
+into a bounded, requeue-able abort:
 
   StepWatchdog   — a monitor thread armed per train() run. The trainer
                    calls `beat(step)` at every dispatch boundary (one
@@ -22,16 +23,26 @@ bounded, requeue-able abort:
                    inside the device shows as the host blocked in the
                    `device_wait` span, the lagged metrics fetch.
 
-  bounded_call   — deadline-bounded execution of a host call. The
-                   deadline is process-wide (`set_sync_deadline`), default
-                   None = unbounded. Here a runtime error is re-raised
-                   unchanged: classifying a peer's death is the
-                   multi-process layer's work, which the port does not
-                   have yet.
+  bounded_call   — deadline-bounded execution of host-side collectives.
+                   parallel/multihost's agreements, heartbeat, metrics
+                   gather and table gather route through it, so a dead
+                   peer turns an infinite hang into a `SyncTimeout` the
+                   CLI converts into checkpoint-where-safe +
+                   EXIT_PREEMPTED. The deadline is process-wide
+                   (`set_sync_deadline`), default None = unbounded. An
+                   error the distributed runtime raises for a dead peer
+                   (is_peer_failure) becomes the same SyncTimeout.
 
-Also here: `SyncTimeout` (the error the `sync_timeout` fault kind raises,
-resilience/faults.py) and `dump_all_stacks` (the all-thread stack dump
-behind the SIGUSR1 on-demand dump, resilience/shutdown.install_usr1_dump,
+  PeerAgreement  — the multi-process cooperative-stop check with a
+                   liveness heartbeat: at the agreement cadence every
+                   process allgathers (process id, stop flag, step,
+                   step-time p50, elastic flag, policy action), so a
+                   lagging peer is logged as a straggler WITH its process
+                   id and the stop verdict is the any-of vote.
+
+Also here: `SyncTimeout` (also the error the `sync_timeout` fault kind
+raises, resilience/faults.py) and `dump_all_stacks` (the all-thread stack
+dump behind the SIGUSR1 on-demand dump, resilience/shutdown.install_usr1_dump,
 and the watchdog's fire path).
 
 `os._exit` is deliberate in the fire path: a wedged main thread cannot run
@@ -71,6 +82,63 @@ class SyncTimeout(RuntimeError):
             "deadline: a peer process is dead or wedged; aborting for "
             "requeue instead of hanging"
         )
+
+
+#: message fragments of the distributed runtime's peer-death errors. A lost
+#: process surfaces in TWO flavors: a collective that silently never
+#: completes (the hang SyncTimeout bounds) — and, when the peer died
+#: mid-transfer, an IMMEDIATE error out of the data plane. Gloo says
+#: "Connection closed by peer [127.0.0.1]:N. This is typically caused by a
+#: remote worker crashing" (pair.cc; seen when a rank is SIGKILLed during
+#: an all_gather) or "Connection reset by peer"; the JAX package's
+#: coordination-service spellings are kept. Matching is fragment AND type:
+#: is_peer_failure also requires the exception to come from
+#: torch.distributed (_from_distributed_runtime), so an unrelated socket
+#: error sharing a fragment stays a program error.
+_PEER_FAILURE_FRAGMENTS = (
+    "gloo",
+    "connection reset by peer",
+    "connection closed by peer",
+    "remote worker crashing",
+    "heartbeat timeout",
+    "barrier timeout",
+    "barrier timed out",
+    "coordination service",
+    "socket closed",
+    "connection refused",
+    "peer closed",
+)
+
+
+def _from_distributed_runtime(exc: BaseException) -> bool:
+    """Was this exception raised by the distributed runtime itself rather
+    than by application code? torch.distributed's DistError family
+    (DistBackendError, DistNetworkError, DistStoreError), any class of the
+    torch.distributed modules, and the XLA runtime's types (a JAX-side
+    error handed in) vouch for it. The fragments above are deliberately
+    broad ('gloo', 'connection refused'), so the TYPE must vouch for the
+    source: an auxiliary socket failing with 'Connection refused' in a sink
+    or server is not a peer loss."""
+    for klass in type(exc).__mro__:
+        mod = getattr(klass, "__module__", "") or ""
+        if mod == "torch.distributed" or mod.startswith("torch.distributed."):
+            return True
+        if mod.split(".", 1)[0] in ("jax", "jaxlib"):
+            return True
+        if "xlaruntimeerror" in klass.__name__.lower():
+            return True
+    return False
+
+
+def is_peer_failure(exc: BaseException) -> bool:
+    """Does this exception look like the distributed runtime reporting a
+    dead/unreachable peer (as opposed to a genuine program error)? Both
+    the message (a known peer-death fragment) and the type (the runtime
+    raised it) must agree."""
+    msg = str(exc).lower()
+    if not any(f in msg for f in _PEER_FAILURE_FRAGMENTS):
+        return False
+    return _from_distributed_runtime(exc)
 
 
 # ------------------------------------------------------ process-wide deadline
@@ -116,13 +184,24 @@ def bounded_call(fn: Callable, what: str = "collective",
     a plain call (no thread). The bounded path runs `fn` in a daemon
     thread and joins with a timeout — the call itself cannot be
     cancelled, so on expiry the thread is ABANDONED and the caller must
-    treat the process as lost: checkpoint what is safe and exit. An error
-    out of `fn` is re-raised unchanged.
+    treat the process as lost: checkpoint what is safe and exit. A
+    peer-death error out of `fn` (is_peer_failure) becomes a SyncTimeout,
+    bounded or not; any other error is re-raised unchanged.
     """
     if deadline is None:
         deadline = _SYNC_DEADLINE
     if not deadline:
-        return fn()
+        try:
+            return fn()
+        except Exception as e:
+            # even unbounded, a peer-death ERROR (vs hang) out of the
+            # runtime is a SyncTimeout-equivalent — same recovery path
+            if is_peer_failure(e):
+                raise SyncTimeout(
+                    f"{what} failed on a peer error "
+                    f"({str(e).splitlines()[0][:160]})", 0.0
+                ) from e
+            raise
     out: Dict = {}
 
     def run():
@@ -137,7 +216,13 @@ def bounded_call(fn: Callable, what: str = "collective",
     if t.is_alive():
         raise SyncTimeout(what, deadline)
     if "error" in out:
-        raise out["error"]
+        err = out["error"]
+        if isinstance(err, Exception) and is_peer_failure(err):
+            raise SyncTimeout(
+                f"{what} failed on a peer error "
+                f"({str(err).splitlines()[0][:160]})", deadline
+            ) from err
+        raise err
     return out.get("value")
 
 
@@ -371,3 +456,136 @@ class StepWatchdog:
         return {
             k: round(v, 3) for k, v in self.phases.open_spans().items()
         }
+
+
+# ----------------------------------------------------------- peer liveness
+class PeerAgreement:
+    """Multi-process cooperative-stop check with a liveness heartbeat.
+
+    At each agreement boundary every process contributes (process id,
+    stop flag, step, step-time p50 ms, elastic flag, policy action)
+    through ONE allgather (parallel/multihost.global_heartbeat). The stop
+    verdict is the any-of vote (any process's flag stops everyone at the
+    same boundary); the extra columns buy attribution — a peer whose p50
+    is `straggler_factor` x the fleet median is logged as a straggler BY
+    PROCESS ID, and a desynchronized step counter (which would eventually
+    hang a collective) is reported the moment it is visible instead of
+    when it deadlocks.
+
+    A DEAD peer never reaches the allgather: with a sync deadline set
+    (`set_sync_deadline` / `--sync-deadline`) the collective raises
+    SyncTimeout out of `check`, which the trainer lets propagate — the CLI
+    converts it into checkpoint-where-safe + EXIT_PREEMPTED on every
+    surviving process. Without a deadline a dead peer still raises when
+    the runtime reports it (is_peer_failure); a wedged one blocks.
+
+    The elastic and policy columns are the grow and shrink channels of
+    elastic training (ROADMAP A10e): 0 until it is ported, and nothing
+    reads them yet. `inspect()` keeps accepting 4-column rows so
+    synthetic fleets and recorded heartbeats still parse.
+    """
+
+    def __init__(
+        self,
+        handler,
+        agree_every: int = 16,
+        step_time_fn: Optional[Callable[[], float]] = None,
+        straggler_factor: float = 4.0,
+        straggler_min_ms: float = 50.0,
+        log_fn=None,
+        flight=None,
+        signals=None,
+        phases=None,
+    ):
+        self.handler = handler
+        self.every = max(1, int(agree_every))
+        self.step_time_fn = step_time_fn
+        self.straggler_factor = float(straggler_factor)
+        self.straggler_min_ms = float(straggler_min_ms)
+        self.log_fn = log_fn
+        #: derived-signal plane (obs/signals.SignalEngine): every
+        #: heartbeat's rows also feed the straggler_skew signal.
+        #: Duck-typed: anything with .note_heartbeat(rows, step).
+        self.signals = signals
+        #: phase recorder: the heartbeat allgather runs under an "agree"
+        #: span — it is FLEET wait (blocked on the slowest peer), so it
+        #: belongs on the timeline and outside host-attributable overhead
+        self.phases = phases
+        #: flight recorder: every heartbeat's rows land on the timeline, so
+        #: a peer-loss dump shows the fleet's last agreed state
+        self.flight = flight
+        self._warned: set = set()
+
+    def check(self, step: int) -> bool:
+        """The trainers' stop_check: heartbeat + agreed stop verdict at the
+        cadence, False (no collective) off it."""
+        if step % self.every != 0:
+            return False
+        import contextlib
+
+        import numpy as np
+
+        from ..parallel import multihost
+
+        p50 = 0.0
+        if self.step_time_fn is not None:
+            p50 = float(self.step_time_fn() or 0.0)
+        agree_span = (
+            self.phases.span("agree") if self.phases is not None
+            else contextlib.nullcontext()
+        )
+        with agree_span:
+            rows = multihost.global_heartbeat([
+                float(multihost.process_index()),
+                1.0 if self.handler.requested else 0.0,
+                float(step),
+                p50,
+                0.0,  # elastic grow flag (A10e)
+                0.0,  # elastic policy action (A10e)
+            ])
+        if self.flight is not None:
+            self.flight.note_heartbeat(np.asarray(rows).tolist(), step)
+        if self.signals is not None:
+            self.signals.note_heartbeat(np.asarray(rows).tolist(), step)
+        self.inspect(rows, step)
+        return bool(rows[:, 1].max() > 0)
+
+    def inspect(self, rows, step: int) -> None:
+        """Straggler / desync detection over one heartbeat's [P, 4..6]
+        rows (public so tests can feed synthetic fleets; the elastic and
+        policy columns, when present, are not inspected here)."""
+        import numpy as np
+
+        rows = np.asarray(rows)
+        p50s = rows[:, 3]
+        med = float(np.median(p50s))
+        bar = max(self.straggler_min_ms, self.straggler_factor * med)
+        for pid_f, _flag, peer_step, p50 in rows[:, :4]:
+            pid = int(pid_f)
+            if med > 0 and p50 > bar and ("straggler", pid) not in self._warned:
+                self._warned.add(("straggler", pid))
+                self._note({
+                    "event": "straggler",
+                    "process": pid,
+                    "p50_ms": round(float(p50), 3),
+                    "fleet_median_ms": round(med, 3),
+                    "at_step": step,
+                }, f"process {pid} is a straggler: p50 step time "
+                   f"{p50:.1f}ms vs fleet median {med:.1f}ms")
+            if int(peer_step) != int(step) and ("desync", pid) not in self._warned:
+                self._warned.add(("desync", pid))
+                self._note({
+                    "event": "peer_desync",
+                    "process": pid,
+                    "peer_step": int(peer_step),
+                    "at_step": step,
+                }, f"process {pid} reports step {int(peer_step)} at the "
+                   f"step-{step} agreement boundary — step counters have "
+                   "desynchronized and the next collective may deadlock")
+
+    def _note(self, record: Dict, msg: str) -> None:
+        import warnings
+
+        warnings.warn(msg, stacklevel=3)
+        if self.log_fn:
+            self.log_fn(dict(record))

@@ -46,10 +46,10 @@ pieces the trainer already has into the continuous-training data plane:
 The trainer may be a parallel.ShardedTrainer (one process, dp replicas):
 its set_corpus restarts the sync cadence with the segment's counters, and
 every segment's train() ends on a replica sync and returns the synced
-tables. Growth is deterministic over one process's own stream; a
-multi-process trainer (ROADMAP A8c) must refuse vocab_reserve > 0 when its
-ranks read different shards, since their vocabularies would diverge
-(word2vec_tpu/stream/driver.py:187-193).
+tables. Growth is deterministic over one process's own stream; with
+several processes (parallel/multihost.py) StreamRun refuses
+vocab_reserve > 0, as the JAX driver does: ranks read different shards, so
+their vocabularies would diverge.
 """
 
 from __future__ import annotations
@@ -253,6 +253,15 @@ class StreamRun:
         self.segments_done = 0
         self._forced_growth = 0
         self._capacity: Optional[int] = None
+        from ..parallel.multihost import process_count
+
+        if process_count() > 1 and trainer.config.vocab_reserve > 0:
+            raise ValueError(
+                "vocab_reserve > 0 with process_count > 1: per-rank streams "
+                "would admit divergent vocabularies (rank-local counts); "
+                "online growth is single-process today — run the fleet with "
+                "vocab_reserve=0 or stream through one process"
+            )
 
     # ---------------------------------------------------------- chaos hook
     def force_growth(self, n: int) -> None:

@@ -992,12 +992,13 @@ class Trainer:
         names, host, done = snap
         with self.phases.span("device_wait"):
             if done is not None:
-                done.synchronize()
+                self._device_get(done.synchronize)
         vals = host.numpy()
         if vals.ndim == 3:
-            # [names, replicas, S] (parallel/trainer.py): the replicas'
-            # rows summed in replica order, in float32, as the JAX
-            # trainer's replica psum sums them
+            # [names, replicas, S] (parallel/trainer.py): every process's
+            # replica rows, summed in replica order, in float32, as the
+            # JAX trainer's replica psum sums them
+            vals = self._all_replica_rows(vals)
             acc = vals[:, 0]
             for r in range(1, vals.shape[1]):
                 acc = acc + vals[:, r]
@@ -1074,6 +1075,17 @@ class Trainer:
                 "compaction.",
                 stacklevel=2,
             )
+
+    def _device_get(self, fn: Callable):
+        """The metrics fetch (`fn` waits for a dispatch): a plain call here;
+        bounded across processes (parallel/trainer.py)."""
+        return fn()
+
+    def _all_replica_rows(self, vals: np.ndarray) -> np.ndarray:
+        """A dispatch's replica metric rows [names, replicas, S]: this
+        process's are all of them here (parallel/trainer.py gathers every
+        process's)."""
+        return vals
 
     def _harvest_capture(self, name: str) -> None:
         """Record one dispatched program for the harvest (obs/harvest.py)
