@@ -48,8 +48,8 @@ Phases (any failure exits non-zero and prints no result line):
      the pallas slab side), each
      beside index_add_, its bytes bound, its chain bound (longest run x
      dependent-add cycles / SM clock) and its longest run. Then the
-     dispatch A/B: words/sec per route of four arms, interleaved twice (A
-     B C D A B C D): A eager per-step, B each step replayed as a CUDA
+     dispatch A/B: words/sec per route of four arms, one run each in turn
+     (A B C D): A eager per-step, B each step replayed as a CUDA
      graph, C graphed chunk_steps=0 streaming, D graphed chunk_steps=0
      resident; each arm's capture seconds and its device busy / idle
      shares under torch.profiler; the median host batch fill [256 x 192].
@@ -330,11 +330,52 @@ Phases (any failure exits non-zero and prints no result line):
      out (d2h), the gather and staging in (h2d), beside its host-link
      bound (each process's replica out and the other's in over the card's
      PCIe Gen5 x16 at 64 GB/s a direction); the heartbeat and the metrics
-     gather; words/sec of arm A against the one-process dp-2 run,
-     interleaved A B A B. (f) With two or more cards arm A with one card a
+     gather; words/sec of arm A against the one-process dp-2 run (A B).
+     (f) With two or more cards arm A with one card a
      rank, over NCCL, bitwise equal to (a); with one card the phase says
      that arm needs a second card and records what NCCL says to two ranks
      on one card. One multiproc_phase JSON line.
+ 16. elastic training (word2vec_tpu_torch/resilience/elastic.py, policy.py,
+     parallel/coordservice.py): three CLI processes on the one card, each
+     `chip_smoke.py --el-child DIR -- <cli arguments>` (the CLI in process
+     with the drill's instruments; each exec keeps the prefix) in its own
+     process group, --multihost --dp 3 --elastic ... --sync-deadline 10
+     --checkpoint-every 16 --compile-cache, pallas_fused/unified, f32
+     tables, chunk 8, dp_sync_every 8, phase 5's tokens in whole rows, 8
+     batches a rank (an epoch is 8 global steps), 8 epochs. (a)
+     shrink+grow: peer_rejoin@16 on rank 2 shrinks the fleet to 2
+     (generation 1); rank 2 is started again (kept warm, its imports done)
+     and announces once generation 1 passed its first boundary; it is
+     admitted at a sync boundary (generation 2, world 3). (b) rank0_dead@16:
+     the survivors elect old rank 1, which hosts the round and becomes rank
+     0 of generation 1 (world 2). (c) --elastic-policy (a throughput shrink
+     rule and a grow rule, cooldown 3, 16-step signal windows) with 1.5 s
+     stalls injected on rank 2 at 32, 40, 48 and 56, 24 epochs: a
+     zero-failure policy shrink evicting rank 2 (it execs announce-only
+     and parks), then a policy-gated grow re-admitting it.
+     Every leg: exit 0 on every live rank (no 75/76), the manifest's
+     generations, triggers, elastic_generation and remesh / election
+     records, the counters in the metrics log; every generation g >= 1
+     BITWISE a fresh fleet of its shape (the members' shards, no --elastic)
+     resumed from <dir>.elastic_g<g> and fed the same global steps (the
+     last generation's final checkpoint and vectors; an earlier one's
+     checkpoint at the next snapshot's step, the fresh fleet stopped there
+     by a SIGTERM); launches exact per rank per generation (its steps plus
+     one capture's warm-up), one capture a generation, no nvcc after
+     generation 0, no socket of an old image in the new one; rank 0 of a
+     generation after a remesh records one flagship step (after its
+     training, its launches not counted): the scatters, row sums and run
+     lists bitwise their plain versions, fused_grad_core within TOL. The
+     blackout of each transition, from the kill (or the boundary) to the
+     next generation's first dispatch boundary, in parts (the old image's
+     handoff: detection, the boundary checkpoint, the round, the snapshot,
+     the exec; the new rank 0's start-up marks: interpreter and torch
+     import, elastic startup, shepherd, the wait for the store,
+     process-group init, checkpoint load, corpus, trainer and import, the
+     captures, the first dispatch); words/sec of each generation between
+     its first and last boundary; the card's memory (mem_get_info, all
+     processes) before the kill and after each generation's first
+     boundary. One elastic_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1554,9 +1595,13 @@ def host_fill_ms(corpus, reps=50) -> float:
     return float(np.median(times))
 
 
+#: timed runs of each dispatch arm, in turn
+DISPATCH_REPS = 1
+
+
 def phase_dispatch(vocab, corpus, card):
-    """Words/sec of the four dispatch arms per route, interleaved twice on
-    this card (A B C D A B C D), each run two epochs of the flagship corpus
+    """Words/sec of the four dispatch arms per route, one run each in turn
+    on this card (A B C D), each run two epochs of the flagship corpus
     (host clock around Trainer.train, synchronized at both ends); each
     arm's capture seconds; the device's busy and idle shares of one more
     run of each arm under torch.profiler (busy = the union of the device
@@ -1581,7 +1626,7 @@ def phase_dispatch(vocab, corpus, card):
             trainers[arm] = (tr, tr.capture_s)
         wps = {arm: [] for arm in ARMS}
         steps = {}
-        for _ in range(2):
+        for _ in range(DISPATCH_REPS):
             for arm, (tr, _) in trainers.items():
                 _, rep = tr.train(log_every=0)
                 wps[arm].append(rep.words_per_sec)
@@ -2906,12 +2951,12 @@ TEL_PROBE = 12        # probe cadence: rows at steps 12, 24, 36
 TEL_WINDOW = 6
 TEL_SLO = "throughput_wps<0.5*baseline:for=3"
 #: the keys of the port CLI's manifest.json after a clean run with --slo:
-#: the JAX CLI's, less those of layers the port does not have yet (pinned
-#: against the JAX CLI by tests/test_torch_telemetry_cli.py)
+#: the JAX CLI's (pinned against it by tests/test_torch_telemetry_cli.py)
 TEL_MANIFEST_KEYS = (
-    "argv", "band_backend", "config", "corpus_mode", "corpus_rows",
+    "argv", "band_backend", "compile_cache", "config", "corpus_mode", "corpus_rows",
     "corpus_tokens", "cost_calibrate", "cost_harvest", "created_utc",
-    "device", "device_memory", "final_step", "fleet_health", "git_sha", "kernel", "kernel_decision",
+    "device", "device_memory", "elastic", "elastic_generation", "elastic_policy",
+    "final_step", "fleet_health", "git_sha", "kernel", "kernel_decision",
     "mesh_size", "plan", "plan_source", "profiler", "recoveries",
     "resumed_from", "schema", "shutdown", "slo", "versions", "vocab_size",
 )
@@ -5356,7 +5401,7 @@ def phase_tp_sp(dev, vocab, corpus, card, tmp):
 MP_PROCS = 2          # processes, both on the one card (gloo tables)
 MP_EVERY = 8          # dp_sync_every: syncs at 8, 16, 24, 32
 MP_ITERS = 2          # epochs: 16 global steps each at one replica a process
-MP_WPS_REPS = 2       # A B A B
+MP_WPS_REPS = 1       # A B
 MP_CUT = 10           # the sigterm / peer_dead step on rank 1
 MP_DEADLINE = 10.0    # --step-deadline and --sync-deadline of the kill drill
 #: the host link of an H100 SXM: PCIe Gen5 x16, 64 GB/s a direction (data
@@ -5793,7 +5838,7 @@ def mp_phase(dev, vocab, corpus, card, tmp):
     row["words_per_sec"] = {"fleet (2 processes, 1 replica each)": fleet,
                             "one process, dp 2": wps_ref}
     row["fleet_over_one_process"] = float(np.mean(fleet) / np.mean(wps_ref))
-    log(f"  multiproc words/sec A B A B ({card}): fleet {fleet}, one process {wps_ref}; "
+    log(f"  multiproc words/sec A B ({card}): fleet {fleet}, one process {wps_ref}; "
         f"ratio {row['fleet_over_one_process']:.4f}")
     table = V * 2 * D * 4  # one replica's unified f32 slab
     row["sync"] = {}
@@ -5898,12 +5943,666 @@ def mp_phase(dev, vocab, corpus, card, tmp):
     log(json.dumps({"multiproc_phase": row}, default=str))
 
 
+# ------------------------------------------------- phase 16: elastic drills
+EL_PROCS = 3          # processes at launch, all on the one card
+EL_EVERY = 8          # dp_sync_every (the default 64 cut: >= 2 syncs a generation)
+EL_ROWS = 8 * B       # rows a shard: an epoch is 8 global steps, one chunk, one sync
+EL_ITERS = 8          # epochs: 64 global steps (legs a and b)
+EL_ITERS_C = 24       # leg c: 192, so generation 1 outlasts the evicted host's cold start
+EL_KILL = 16          # the peer_rejoin / rank0_dead boundary
+EL_CKPT = 16          # --checkpoint-every
+EL_DEADLINE = 10.0    # --sync-deadline
+EL_POLICY = ("throughput_wps<0.55*baseline:for=2:baseline=2:act=shrink,"
+             "throughput_wps>0.7*baseline:for=2:baseline=2:act=grow,cooldown=3")
+#: the policy leg's straggler: stalls in its signal windows 3 and 4 (a
+#: window is EL_CKPT steps, so each holds one checkpoint and the windows
+#: of a steady run read alike)
+EL_STALLS = ",".join(f"stall@{s}:secs=1.5" for s in (32, 40, 48, 56))
+
+
+def el_ports(n: int) -> int:
+    """A base port with n free consecutive ports after it, below the
+    ephemeral range (a gloo pair listener never takes one mid-drill)."""
+    import random
+    import socket
+
+    rnd = random.SystemRandom()
+    for _ in range(200):
+        base = rnd.randrange(20000, 32000 - n)
+        try:
+            socks = []
+            for q in range(n):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", base + q))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    fail("elastic: no run of free ports")
+
+
+#: every process phase 16 started, each the leader of its process group
+EL_KIDS: list = []
+
+
+def el_kill_group(proc) -> None:
+    """SIGKILL a rank's process group: the rank (any generation of it, the
+    pid survives the execs) and the store shepherds it started."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+class ElasticLeg:
+    """One elastic drill leg: a fleet of CLI processes under the W2V_*
+    contract with --multihost --elastic (the ranks and every generation
+    of them, exec'd in place, each in its own process group), watched from
+    here: exits, the rank-0 manifest's generations, the card's memory.
+    `prefix` is the command a rank runs before the CLI's arguments (the
+    exec keeps it: resilience/elastic.launch_prefix)."""
+
+    def __init__(self, tmp, tag, prefix, flags, shards, mode, extra=None,
+                 env=None, card=False, ckpt_every=EL_CKPT, deadline=EL_DEADLINE):
+        self.tmp, self.tag, self.prefix = tmp, tag, list(prefix)
+        self.ckpt_every, self.deadline = ckpt_every, deadline
+        self.flags, self.shards, self.mode = list(flags), list(shards), mode
+        self.extra = extra or {}
+        self.card = card
+        self.ck = os.path.join(tmp, f"{tag}_ck")
+        self.mdir = os.path.join(tmp, f"{tag}_m")
+        self.out = os.path.join(tmp, f"{tag}_vec.bin")
+        # generation g's store on port0 + g; the rendezvous and its
+        # standby slots on eport + r
+        self.port0 = el_ports(8 + EL_PROCS + 2)
+        self.eport = self.port0 + 8
+        self.base_env = dict(os.environ, **(env or {}),
+                             W2V_COORDINATOR=f"127.0.0.1:{self.port0}",
+                             W2V_NUM_PROCS=str(len(shards)),
+                             W2V_ELASTIC_COORD=f"127.0.0.1:{self.eport}",
+                             PYTHONUNBUFFERED="1")
+        self.procs, self.argvs, self.envs = [], [], []
+        self.mem = []  # (t, bytes in use on the card)
+        self.t0 = time.monotonic()
+
+    def argv(self, p):
+        return self.prefix + [
+            "-train", self.shards[p], *self.flags, "-output", self.out,
+            "--multihost", "--dp", str(len(self.shards)),
+            "--elastic", self.mode, "--sync-deadline", str(self.deadline),
+            "--checkpoint-dir", self.ck, "--checkpoint-every", str(self.ckpt_every),
+            "--metrics-dir", self.mdir, "--quality-probe-every", "0",
+            "--compile-cache", os.path.join(self.tmp, "kcache"),
+            *self.extra.get(p, [])]
+
+    def spawn(self, p, argv=None, env=None):
+        argv = argv or self.argv(p)
+        env = env or dict(self.base_env, W2V_PROC_ID=str(p))
+        log_f = open(os.path.join(self.tmp, f"{self.tag}_r{p}.log"), "a")
+        proc = subprocess.Popen(argv, env=env, stdout=log_f,
+                                stderr=subprocess.STDOUT, cwd=HERE,
+                                start_new_session=True)
+        EL_KIDS.append(proc)
+        return proc, argv, env
+
+    def start(self):
+        for p in range(len(self.shards)):
+            proc, argv, env = self.spawn(p)
+            self.procs.append(proc)
+            self.argvs.append(argv)
+            self.envs.append(env)
+
+    def manifest(self):
+        try:
+            return manifest_of(self.mdir)
+        except (OSError, ValueError):
+            return {}
+
+    def events(self, kind=None):
+        ev = self.manifest().get("mesh_events") or []
+        return [e for e in ev if kind is None or e.get("event") == kind]
+
+    def sample(self):
+        if self.card:
+            free, total = torch.cuda.mem_get_info()
+            self.mem.append((time.monotonic(), total - free))
+
+    def wait(self, pred, what, timeout=240.0, dead_ok=()):
+        """Poll (10 ms) until pred(); a process that exits nonzero (except
+        those in dead_ok) fails the leg at once."""
+        t0 = time.monotonic()
+        while not pred():
+            for i, k in enumerate(self.procs):
+                if k.poll() not in (None, 0) and i not in dead_ok:
+                    fail(f"elastic {self.tag}: rank {i} exited {k.returncode}: "
+                         f"{self.tail(i)}")
+            if time.monotonic() - t0 > timeout:
+                fail(f"elastic {self.tag}: timed out waiting for {what}: "
+                     f"{self.tail(0)}")
+            self.sample()
+            time.sleep(0.01)
+        return time.monotonic()
+
+    def gen_started(self, g):
+        return lambda: any(e.get("gen") == g for e in
+                           self.events("generation_first_boundary"))
+
+    def tail(self, p, n=25):
+        try:
+            with open(os.path.join(self.tmp, f"{self.tag}_r{p}.log")) as f:
+                return "".join(f.readlines()[-n:])
+        except OSError:
+            return ""
+
+    def finish(self, timeout=240.0, dead=()):
+        self.wait(lambda: all(k.poll() is not None for i, k in
+                              enumerate(self.procs) if i not in dead),
+                  "the end", timeout, dead_ok=dead)
+        rcs = [k.returncode for k in self.procs]
+        for k in self.procs:
+            el_kill_group(k)
+        return rcs
+
+    def stop(self):
+        for k in self.procs:
+            el_kill_group(k)
+            if k.poll() is None:
+                k.wait()
+
+
+def el_reference(tmp, tag, prefix, flags, shards, resume, stop_at=None,
+                 env=None, ckpt_every=EL_CKPT):
+    """A fresh fleet of len(shards) processes resumed from `resume`
+    (--multihost, not elastic; its own store), to the end or stopped by a
+    SIGTERM at `stop_at` (exit 75, the checkpoint at that step). Returns
+    (processes, checkpoint dir, vectors path)."""
+    ck = os.path.join(tmp, f"{tag}_ck")
+    out = os.path.join(tmp, f"{tag}_vec.bin")
+    base = dict(os.environ, **(env or {}),
+                W2V_COORDINATOR=f"127.0.0.1:{el_ports(1)}",
+                W2V_NUM_PROCS=str(len(shards)), PYTHONUNBUFFERED="1")
+    kids = []
+    for p, shard in enumerate(shards):
+        argv = prefix + ["-train", shard, *flags, "-output", out, "--multihost",
+                         "--dp", str(len(shards)), "--checkpoint-dir", ck,
+                         "--checkpoint-every", str(ckpt_every), "--quality-probe-every",
+                         "0", "--resume", resume]
+        if stop_at is not None and p == 0:
+            argv += ["--faults", f"sigterm@{stop_at}"]
+        log_f = open(os.path.join(tmp, f"{tag}_r{p}.log"), "w")
+        kids.append(subprocess.Popen(argv, env=dict(base, W2V_PROC_ID=str(p)),
+                                     stdout=log_f, stderr=subprocess.STDOUT,
+                                     cwd=HERE, start_new_session=True))
+    EL_KIDS.extend(kids)
+    return kids, ck, out
+
+
+def el_snapshot_step(ck, g):
+    with np.load(os.path.join(f"{ck}.elastic_g{g}", "state.npz")) as z:
+        return int(z["__step"])
+
+
+def el_leg_a(leg):
+    """(a) shrink then grow: peer_rejoin on rank 2 at EL_KILL; rank 2 is
+    started again as it was launched (less its fault) and, once generation
+    1 passed its first boundary, announces itself; it is admitted at a
+    sync boundary. Behind the el-child prefix the restarted process is
+    kept warm (imports done) until then, so the announce does not wait
+    out an interpreter start on a busy host."""
+    leg.start()
+    t_kill = leg.wait(lambda: leg.procs[2].poll() is not None, "the victim's death",
+                      dead_ok=(2,))
+    mem_kill = leg.mem[-2][1] if len(leg.mem) > 1 else None
+    if leg.procs[2].returncode != -signal.SIGKILL:
+        fail(f"elastic a: the victim exited {leg.procs[2].returncode}")
+    t_kill = el_kill_time(leg, 2, t_kill)
+    argv = [a for a in leg.argvs[2]]
+    i = argv.index("--faults")
+    del argv[i:i + 2]
+    gate = os.path.join(leg.tmp, f"{leg.tag}_rejoin.go")
+    if "--el-child" in argv:
+        j = argv.index("--")
+        argv[j:j] = ["--wait", gate]
+        leg.procs[2], _, _ = leg.spawn(2, argv, leg.envs[2])
+    leg.wait(leg.gen_started(1), "generation 1", dead_ok=(2,))
+    if "--el-child" in argv:
+        open(gate, "w").close()
+    else:
+        leg.procs[2], _, _ = leg.spawn(2, argv, leg.envs[2])
+    t_relaunch = time.monotonic()
+    leg.wait(leg.gen_started(2), "generation 2 (the rejoiner admitted)")
+    return {"t_kill": t_kill, "mem_before_kill": mem_kill,
+            "t_relaunch": t_relaunch}
+
+
+def el_kill_time(leg, rank, seen):
+    """The victim's own clock at its SIGKILL (the el-child writes it),
+    else when this poll loop saw the death."""
+    path = os.path.join(leg.prefix[leg.prefix.index("--el-child") + 1],
+                        f"kill_g0_r{rank}.json") if "--el-child" in leg.prefix else ""
+    if path and os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)["t"]
+    return seen
+
+
+def el_leg_b(leg):
+    """(b) rank0_dead at EL_KILL: the survivors elect the lowest surviving
+    rank, which hosts the round and rank 0 of generation 1."""
+    leg.start()
+    t_kill = leg.wait(lambda: leg.procs[0].poll() is not None, "rank 0's death",
+                      dead_ok=(0,))
+    mem_kill = leg.mem[-2][1] if len(leg.mem) > 1 else None
+    if leg.procs[0].returncode != -signal.SIGKILL:
+        fail(f"elastic b: rank 0 exited {leg.procs[0].returncode}")
+    t_kill = el_kill_time(leg, 0, t_kill)
+    leg.wait(leg.gen_started(1), "generation 1 (elected)", dead_ok=(0,))
+    return {"t_kill": t_kill, "mem_before_kill": mem_kill}
+
+
+def el_leg_c(leg):
+    """(c) the policy: rank 2 stalls (no failure), the throughput rule
+    evicts it at a sync boundary (it execs announce-only and parks), the
+    recovery rule opens the grow gate and it is admitted again."""
+    leg.start()
+    leg.wait(leg.gen_started(1), "generation 1 (policy shrink)")
+    leg.wait(leg.gen_started(2), "generation 2 (policy grow)")
+    return {}
+
+
+def el_transitions(leg, t_kill=None):
+    """Each generation g >= 1's blackout, from the failure (the drill's
+    kill clock) or the boundary (the old image's detect clock) to its
+    first dispatch boundary, in parts (the new rank 0's start-up marks
+    and the old image's handoff); and the card's memory after that
+    boundary."""
+    starts = {e["gen"]: e for e in leg.events("generation_start")}
+    firsts = {e["gen"]: e for e in leg.events("generation_first_boundary")}
+    rows = []
+    for g in sorted(k for k in firsts if k >= 1):
+        st, fb = starts[g]["startup"], firsts[g]
+        h = st.get("handoff") or {}
+        t_from = t_kill if (t_kill is not None and g == 1) else h["detect_t"]
+        round_end = h["round_start_t"] + h["round_s"]
+        parts = {
+            "detection": h["detect_t"] - t_from,
+            "checkpoint": h["round_start_t"] - h["detect_t"],
+            "round (less the snapshot)": h["round_s"] - (h.get("snapshot_s") or 0.0),
+            "snapshot": h.get("snapshot_s") or 0.0,
+            "exec": st["exec_t"] - round_end,
+            "interpreter and torch import": st["main"] - st["exec_t"],
+            "elastic startup": st["elastic_startup"] - st["main"],
+            "shepherd start": st.get("shepherd_s", 0.0),
+            "wait for the store": st.get("store_wait_s", 0.0),
+            "process-group init": st.get("group_init_s", 0.0),
+            "checkpoint load": st["checkpoint_load"] - st["group"],
+            "corpus": st["corpus"] - st["checkpoint_load"],
+            "trainer and import": st["trainer"] - st["corpus"],
+            "to train()": fb["train_start_t"] - st["trainer"],
+            "captures": fb["capture_s"],
+            "first dispatch": fb["t"] - fb["train_start_t"] - fb["capture_s"],
+        }
+        after = [m for t, m in leg.mem if t >= fb["t"]]
+        rows.append({
+            "gen": g, "world": starts[g]["world"], "trigger": starts[g]["trigger"],
+            "blackout_s": fb["t"] - t_from, "parts_s": parts,
+            "first_boundary_step": fb["step"], "nvcc_runs": fb["nvcc_runs"],
+            "inherited_sockets": st.get("inherited_sockets"),
+            "card_bytes_after_first_boundary": after[0] if after else None,
+            "rank0_bytes_allocated": fb.get("memory_allocated"),
+        })
+    return rows
+
+
+def el_child(argv) -> int:
+    """One rank of a phase-16 fleet (`chip_smoke.py --el-child OUT [--wait
+    FILE] -- <cli arguments>`): the port's CLI in process, with the drill's
+    instruments: every dispatch boundary's clock and words, and when the
+    process leaves its generation (exit or exec) its launch counts, nvcc
+    runs and boundaries into OUT; rank 0 of a generation after a remesh
+    also records one flagship step against the plain versions (its
+    launches taken back out of the counts). With --wait the process
+    imports everything, then waits for FILE before the CLI starts: a
+    restarted host kept warm, announced when the drill says."""
+    sep = argv.index("--")
+    out_dir, opts, cli_argv = argv[0], argv[1:sep], argv[sep + 1:]
+    from word2vec_tpu_torch import _build, cli
+    from word2vec_tpu_torch.ops.launch import LAUNCHES
+    from word2vec_tpu_torch.parallel import trainer as ptr
+    from word2vec_tpu_torch.resilience import elastic
+
+    gen = int(os.environ.get("W2V_ELASTIC_GEN", "0") or 0)
+    rank = int(os.environ.get("W2V_PROC_ID", "0"))
+    seen = {"boundaries": [], "trainer": None, "recorded": None}
+    real_train, real_stop = ptr.ShardedTrainer.train, ptr.ShardedTrainer._check_stop
+
+    def train(self, state=None, *a, **kw):
+        seen["trainer"] = self
+        seen["start_step"] = state.step if state is not None else 0
+        return real_train(self, state, *a, **kw)
+
+    def record_step(tr):
+        """After the generation trained (so the blackout is not timed
+        with it): one eager flagship step of rank 0's replica tables."""
+        before = dict(LAUNCHES)
+        i = cli_argv.index("-train")
+        from word2vec_tpu_torch import native
+
+        flat = native.encode_file(cli_argv[i + 1], tr.vocab, native.MODE_STREAM)
+        seen["recorded"] = mp_record_step(tr, flat, card_line(), sm_clock_hz())
+        LAUNCHES.clear()
+        LAUNCHES.update(before)  # the comparison's launches do not count
+
+    def check_stop(self, state):
+        seen["boundaries"].append((time.monotonic(), state.step, state.words_done))
+        return real_stop(self, state)
+
+    def dump(how):
+        tr = seen["trainer"]
+        if gen >= 1 and rank == 0 and tr is not None and seen["boundaries"] \
+                and tr.device.type == "cuda" and seen["recorded"] is None:
+            record_step(tr)
+        rec = {"gen": gen, "rank": rank, "pid": os.getpid(), "how": how,
+               "world": int(os.environ.get("W2V_NUM_PROCS", "1")),
+               "launches": dict(LAUNCHES), "nvcc_runs": list(_build.NVCC_RUNS),
+               "start_step": seen.get("start_step"),
+               "boundaries": seen["boundaries"], "recorded_step": seen["recorded"],
+               "captures": len(tr._runners) if tr is not None else 0,
+               "capture_s": tr.capture_s if tr is not None else None}
+        name = f"g{gen}_r{rank}_{os.getpid()}_{how}_{time.monotonic_ns()}.json"
+        with open(os.path.join(out_dir, name), "w") as f:
+            json.dump(rec, f, default=str)
+
+    real_replace, real_kill = elastic._replace_image, os.kill
+
+    def replace_image(*a, **kw):
+        dump("exec")
+        real_replace(*a, **kw)
+
+    def kill(pid, sig):
+        if pid == os.getpid() and sig == signal.SIGKILL:
+            # an injected host loss: the blackout starts now
+            with open(os.path.join(out_dir, f"kill_g{gen}_r{rank}.json"), "w") as f:
+                json.dump({"t": time.monotonic()}, f)
+        real_kill(pid, sig)
+
+    ptr.ShardedTrainer.train = train
+    ptr.ShardedTrainer._check_stop = check_stop
+    elastic._replace_image = replace_image
+    os.kill = kill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if opts[:1] == ["--wait"]:
+        while not os.path.exists(opts[1]):
+            time.sleep(0.005)
+    rc = cli.main(cli_argv)
+    dump("exit")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
+def el_dumps(out_dir):
+    """The ranks' records of leaving a generation (not the kill clocks)."""
+    rows = []
+    for name in sorted(os.listdir(out_dir)):
+        if not name.startswith("g"):
+            continue
+        with open(os.path.join(out_dir, name)) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def el_check_launches(tag, dumps, backend, layout):
+    """Every rank of every generation that trained: launches exactly its
+    steps of the route plus one capture's warm-up, one capture, no nvcc
+    after generation 0. Returns {gen: [launches of rank 0..]}."""
+    per_gen = {}
+    for d in dumps:
+        if not d["boundaries"]:
+            continue  # a parked rejoiner's image: it trained nothing
+        steps = d["boundaries"][-1][1] - d["start_step"]
+        want = expected_launches(backend, layout, steps, warmups=1)
+        if d["launches"] != want:
+            fail(f"elastic {tag}: gen {d['gen']} rank {d['rank']} launches "
+                 f"{d['launches']} != {want} ({steps} steps)")
+        if d["captures"] != 1:
+            fail(f"elastic {tag}: gen {d['gen']} rank {d['rank']} captures "
+                 f"{d['captures']}")
+        if d["gen"] >= 1 and d["nvcc_runs"]:
+            fail(f"elastic {tag}: gen {d['gen']} ran nvcc {d['nvcc_runs']}")
+        per_gen.setdefault(d["gen"], {})[d["rank"]] = {
+            "steps": steps, "fused_grad_core": d["launches"].get("fused_grad_core")}
+    return per_gen
+
+
+def el_words_per_sec(dumps):
+    """Each generation's fleet words/sec between its first and last
+    boundary (the sum of its ranks' local rates)."""
+    out = {}
+    for d in dumps:
+        b = d["boundaries"]
+        if len(b) < 2:
+            continue
+        (t0, _, w0), (t1, _, w1) = b[0], b[-1]
+        out.setdefault(d["gen"], 0.0)
+        out[d["gen"]] += (w1 - w0) / max(t1 - t0, 1e-9)
+    return out
+
+
+#: each leg's generations g >= 1 and the launch ranks (shards) of their
+#: members in new-rank order; its worlds and triggers by generation; the
+#: counters its rank-0 metrics must show
+EL_PLANS = {"a": [(1, [0, 1]), (2, [0, 1, 2])], "b": [(1, [1, 2])],
+            "c": [(1, [0, 1]), (2, [0, 1, 2])]}
+EL_WANT = {"a": ([3, 2, 3], ["launch", "failure", "rejoin"], ("remesh", "peer_rejoin")),
+           "b": ([3, 2], ["launch", "failure"], ("rendezvous_election",)),
+           "c": ([3, 2, 3], ["launch", "policy", "policy"],
+                 ("remesh", "policy_remesh", "peer_rejoin"))}
+
+
+def el_start_references(leg, name, prefix, env, ckpt_every=EL_CKPT):
+    """One fresh fleet a generation g >= 1 of the leg (el_reference):
+    resumed from its snapshot, to the end for the last generation, else
+    stopped at the next snapshot's step."""
+    gens = sorted({e["gen"] for e in leg.events("generation_start")})
+    refs = []
+    for g, members in EL_PLANS[name]:
+        last = g == gens[-1]
+        stop = None if last else el_snapshot_step(leg.ck, g + 1)
+        kids, ck, vec = el_reference(
+            leg.tmp, f"ref{leg.tag}{g}", prefix, leg.flags,
+            [leg.shards[m] for m in members], f"{leg.ck}.elastic_g{g}",
+            stop_at=stop, env=env, ckpt_every=ckpt_every)
+        refs.append((g, last, kids, ck, vec))
+    return refs
+
+
+def el_check_references(leg, name, refs):
+    """Each generation bitwise its fresh resume: the last one's final
+    checkpoint and vectors, an earlier one's checkpoint at the step the
+    next generation's snapshot holds."""
+    same_by_gen = {}
+    for g, last, kids, ck, vec in refs:
+        rcs, _ = mp_finish(kids, f"elastic reference {name} gen {g}", timeout=300.0)
+        for k in kids:
+            el_kill_group(k)
+        want = [0] * len(kids) if last else [75] * len(kids)
+        if rcs != want:
+            fail(f"elastic reference {name} gen {g}: exits {rcs} (want {want})")
+        if last:
+            same = (npz_bitwise(ck, leg.ck)
+                    and open(vec, "rb").read() == open(leg.out, "rb").read())
+        else:
+            same = npz_bitwise(ck, f"{leg.ck}.elastic_g{g + 1}")
+        if not same:
+            fail(f"elastic {name}: generation {g} != a fresh fleet resumed from its "
+                 "snapshot (bitwise)")
+        same_by_gen[g] = same
+    return same_by_gen
+
+
+def el_check_manifest(leg, name):
+    """The rank-0 manifest's generations (worlds, triggers), its
+    elastic_generation and clean end, the remesh and election records,
+    and the counters fired in the metrics log."""
+    man = leg.manifest()
+    starts = leg.events("generation_start")
+    worlds = [e["world"] for e in starts]
+    triggers = [e["trigger"] for e in starts]
+    want_w, want_t, want_fired = EL_WANT[name]
+    if worlds != want_w or triggers != want_t \
+            or man.get("elastic_generation") != len(want_w) - 1 \
+            or man.get("shutdown") != "clean":
+        fail(f"elastic {name}: manifest generations {worlds} {triggers}, "
+             f"elastic_generation {man.get('elastic_generation')}, "
+             f"shutdown {man.get('shutdown')}")
+    with open(os.path.join(leg.mdir, "metrics.jsonl")) as f:
+        evs = [json.loads(x).get("event") for x in f]
+    fired = {k: evs.count(k) for k in ("remesh", "peer_rejoin",
+                                       "rendezvous_election", "policy_remesh")}
+    if not all(fired[k] for k in want_fired):
+        fail(f"elastic {name}: counters {fired}")
+    if name == "b":
+        el = leg.events("rendezvous_election")
+        if not el or el[-1]["elected_rank"] != 1:
+            fail(f"elastic b: election events {el}")
+    if name == "c":
+        rem = leg.events("remesh")
+        if [e["kind"] for e in rem] != ["policy_shrink", "grow"] \
+                or rem[0]["victim"] != 2:
+            fail(f"elastic c: remesh events {rem}")
+    return worlds, triggers, fired
+
+
+def phase_elastic(dev, vocab, corpus, card, tmp):
+    """The elastic drills on the one card (phase 16 of the module
+    docstring); no process it started outlives it."""
+    try:
+        return el_phase(dev, vocab, corpus, card, tmp)
+    finally:
+        for k in EL_KIDS:
+            el_kill_group(k)
+            if k.poll() is None:
+                k.kill()
+                k.wait()
+
+
+def el_phase(dev, vocab, corpus, card, tmp):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the children share the card
+    t_phase = time.perf_counter()
+    vocab.save(os.path.join(tmp, "vocab.txt"))
+    words = np.asarray(vocab.words)
+    shards = []
+    for p in range(EL_PROCS):
+        flat = corpus.flat[p * EL_ROWS * L:(p + 1) * EL_ROWS * L]
+        path = os.path.join(tmp, f"el_shard{p}.txt")
+        with open(path, "w") as fh:
+            fh.write(" ".join(words[flat].tolist()))
+        shards.append(path)
+    flags = ["-read-vocab", os.path.join(tmp, "vocab.txt"), "-binary", "1",
+             "-size", str(D), "-window", str(W), "-negative", str(K),
+             "--batch-rows", str(B), "--max-sentence-len",
+             str(L), "--shared-negatives", str(KP), "--band-backend", "pallas_fused",
+             "--table-layout", "unified", "--chunk-steps", str(EL_EVERY),
+             "--dp-sync-every", str(EL_EVERY), "-subsample", "0", "--quiet"]
+    env = {"OMP_NUM_THREADS": "2"}
+    row = {"card": card, "procs": EL_PROCS, "dp_sync_every": EL_EVERY,
+           "steps": {"a": EL_ITERS * EL_ROWS // B, "b": EL_ITERS * EL_ROWS // B,
+                     "c": EL_ITERS_C * EL_ROWS // B}}
+    legs = {}
+    for name, mode, iters, extra, drive in (
+        ("a", "shrink+grow", EL_ITERS, {2: ["--faults", f"peer_rejoin@{EL_KILL}"]},
+         el_leg_a),
+        ("b", "shrink", EL_ITERS, {0: ["--faults", f"rank0_dead@{EL_KILL}"]}, el_leg_b),
+        ("c", "shrink+grow", EL_ITERS_C,
+         {p: ["--elastic-policy", EL_POLICY, "--signal-window", str(EL_CKPT)]
+          + (["--faults", EL_STALLS] if p == 2 else []) for p in range(EL_PROCS)},
+         el_leg_c),
+    ):
+        out = os.path.join(tmp, f"dumps_{name}")
+        os.makedirs(out)
+        prefix = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--el-child",
+                  out, "--"]
+        leg = ElasticLeg(tmp, name, prefix, flags + ["-iter", str(iters)], shards,
+                         mode, extra, env, card=True)
+        t0 = time.perf_counter()
+        try:
+            info = drive(leg)
+            rcs = leg.finish(dead=(0,) if name == "b" else ())
+        finally:
+            leg.stop()
+        live = [r for i, r in enumerate(rcs) if not (name == "b" and i == 0)]
+        if any(r != 0 for r in live):
+            fail(f"elastic {name}: exits {rcs} (75/76 or worse on the elastic path): "
+                 f"{leg.tail(0)}{leg.tail(1)}")
+        legs[name] = {"leg": leg, "info": info, "rcs": rcs, "out": out,
+                      "seconds": time.perf_counter() - t0}
+        log(f"  elastic leg {name}: exits {rcs} in {legs[name]['seconds']:.1f} s")
+
+    # every generation's export against a fresh fleet of its shape resumed
+    # from its snapshot and fed the same global steps, all at once
+    pre = [sys.executable, "-m", "word2vec_tpu_torch.cli"]
+    refs = {name: el_start_references(st["leg"], name, pre, env)
+            for name, st in legs.items()}
+    t_ref = time.perf_counter()
+    for name, st in legs.items():
+        st["bitwise"] = el_check_references(st["leg"], name, refs[name])
+    ref_s = time.perf_counter() - t_ref
+
+    row["legs"] = {}
+    for name, st in legs.items():
+        leg = st["leg"]
+        worlds, triggers, fired = el_check_manifest(leg, name)
+        dumps = el_dumps(st["out"])
+        counts = el_check_launches(name, dumps, "pallas_fused", "unified")
+        rec = [d["recorded_step"] for d in dumps if d["recorded_step"]]
+        if not rec:
+            fail(f"elastic {name}: no recorded step after a remesh")
+        trans = el_transitions(leg, st["info"].get("t_kill"))
+        for t in trans:
+            if t["nvcc_runs"] or t["inherited_sockets"]:
+                fail(f"elastic {name}: generation {t['gen']}: nvcc {t['nvcc_runs']}, "
+                     f"inherited sockets {t['inherited_sockets']}")
+        wps = el_words_per_sec(dumps)
+        row["legs"][name] = {
+            "exits": st["rcs"], "seconds": st["seconds"],
+            "worlds": worlds, "triggers": triggers,
+            "snapshots": {g: el_snapshot_step(leg.ck, g) for g in range(1, len(worlds))},
+            "bitwise_fresh_resume": st["bitwise"],
+            "launches": counts, "counters": fired,
+            "recorded_step": rec[0],
+            "transitions": trans,
+            "words_per_sec": wps,
+            "card_bytes_before_kill": st["info"].get("mem_before_kill"),
+        }
+        log(f"  elastic {name} ({card}): worlds {worlds}, triggers {triggers}; "
+            f"every generation bitwise its fresh resume; launches exact; "
+            f"words/sec by generation {wps}")
+        for t in trans:
+            log(f"    gen {t['gen']} blackout {t['blackout_s']:.3f} s: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in t["parts_s"].items()))
+    row["references_s"] = ref_s
+    row["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"elastic_phase": row}, default=str))
+
+
 def manifest_of(mdir):
     with open(os.path.join(mdir, "manifest.json")) as f:
         return json.load(f)
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--el-child"]:
+        # one rank of a phase-16 fleet: no CUDA call before its CLI runs
+        # (a rejoiner announces before it touches the card)
+        return el_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -6008,6 +6707,12 @@ def main() -> int:
             prefix="smoke_mp_", dir=os.path.join(HERE, "build")
         ) as tmp_mp:
             phase_multiproc(dev, vocab, corpus, card, tmp_mp)
+
+        log(f"[16 elastic] (at {time.perf_counter() - t0:.1f} s)")
+        with tempfile.TemporaryDirectory(
+            prefix="smoke_el_", dir=os.path.join(HERE, "build")
+        ) as tmp_el:
+            phase_elastic(dev, vocab, corpus, card, tmp_el)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -300,8 +300,9 @@ def test_cli_resumes_a_jax_checkpoint(tmp_path, zipf_file, capsys):
     """A checkpoint written by the JAX package (with the JAX CLI's runtime
     wiring in its config) resumes through the port's CLI: the writer line,
     the telemetry wiring carried on (health_metrics, quality_probe_every),
-    the reset of the wiring of layers still unported (elastic), and a run
-    that continues from its step."""
+    elasticity replaced by the flag (runtime wiring: the --elastic flag is
+    authoritative on resume, as in the JAX CLI), and a run that continues
+    from its step."""
     from word2vec_tpu.data.corpus import load_corpus as j_load
 
     jvocab, _ = j_load(zipf_file, min_count=1)
@@ -322,8 +323,7 @@ def test_cli_resumes_a_jax_checkpoint(tmp_path, zipf_file, capsys):
     assert rc == 0
     err = capsys.readouterr().err
     assert "checkpoint written by word2vec_tpu;" in err
-    assert "resetting config fields of layers this package does not have: " \
-        "['elastic']" in err
+    assert "resetting config fields" not in err  # no unported layer left
     state, cfg, _ = ck.load_checkpoint(out)
     assert state.step > 3 and cfg.word_dim == 16
     assert cfg.health_metrics and cfg.quality_probe_every == 100

@@ -4,8 +4,9 @@ tests/test_cli.py's cases: help on no args, the validation errors, train
 (with the ignored-flag notice), --export-side and its guard, the 20-pair
 fixture through --eval-ws353, int8 export; the JAX CLI and the port CLI on
 one corpus and one set of flags writing the same vocab.txt and an equal
-config.json (auto geometry included); a flag of an unported layer exiting
-2; --backend gpu raising without a card."""
+config.json (auto geometry included); the elastic flags' checks, rc and
+messages, and --prng / --compile-cache / one-process --elastic, equal to
+the JAX CLI's; --backend gpu raising without a card."""
 
 import json
 import os
@@ -59,13 +60,78 @@ def test_validation_errors_mirror_reference(capsys):
     assert "--checkpoint-keep must be >= 0" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--elastic", "shrink"], ["--compile-cache", "d"],
-                                  ["--rejoin-window", "3"], ["--prng", "rbg"]])
-def test_flags_of_unported_layers_exit_2(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        run(["-train", "x", "-negative", "5"] + flag)
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+def _error_lines(text):
+    return [ln for ln in text.splitlines() if ln.startswith(("error:", "warning:"))]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--elastic", "shrink"],
+    ["--elastic", "shrink+grow", "--sync-deadline", "5"],
+    ["--elastic", "shrink", "--sync-deadline", "5", "--checkpoint-dir", "ck"],
+    ["--elastic-policy", "throughput_wps<0.5:for=2"],
+    ["--elastic", "shrink", "--sync-deadline", "5", "--checkpoint-dir", "ck",
+     "--checkpoint-every", "4", "--elastic-policy", "nope>>1"],
+    ["--elastic", "shrink", "--elastic-policy", "throughput_wps<0.5:act=explode"],
+    ["--rejoin-window", "-1"],
+    ["--elastic", "grow"],
+    ["--prng", "mt19937"],
+])
+def test_elastic_flag_checks_equal_to_jax(flags, corpus_file, capsys):
+    """The elastic flags' validation, rc and messages the JAX CLI's
+    (tests/test_elastic.py:609-653): exit 1 before the corpus scan, or
+    argparse's exit 2 for a choice that does not exist."""
+    from word2vec_tpu.cli import main as jax_run
+
+    argv = ["-train", corpus_file, "-negative", "3", "--backend", "cpu"] + flags
+    got = []
+    for main in (jax_run, run):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+        err = capsys.readouterr().err
+        # argparse's line after the program name (the two CLIs' names differ)
+        got.append((rc, _error_lines(err) if rc == 1 else
+                    err.splitlines()[-1].partition(": error: ")[2]))
+    assert got[1] == got[0] and got[1][0] in (1, 2)
+
+
+def test_elastic_prng_and_compile_cache_one_process_equal_to_jax(tmp_path, corpus_file,
+                                                                 capsys):
+    """Without the multi-process contract --elastic warns and trains
+    (exit 0), --prng rbg and --compile-cache are accepted; the manifest's
+    elastic keys and the checkpoint's prng_impl are JAX's; a resume with
+    another --prng warns as the JAX CLI does and keeps the checkpoint's."""
+    from word2vec_tpu.cli import main as jax_run
+
+    got = {}
+    for pkg, main in (("j", jax_run), ("t", run)):
+        ck, m = str(tmp_path / f"{pkg}ck"), str(tmp_path / f"{pkg}m")
+        base = ["-train", corpus_file, "-negative", "3", "-min-count", "1", "-size",
+                "8", "-output", "", "-subsample", "0", "--backend", "cpu",
+                "--batch-rows", "4", "--max-sentence-len", "32",
+                "--checkpoint-dir", ck, "--checkpoint-every", "50"]
+        assert main(base + ["--elastic", "shrink+grow", "--sync-deadline", "5",
+                            "--prng", "rbg", "--compile-cache", str(tmp_path / "cc"),
+                            "--rejoin-window", "3", "--metrics-dir", m,
+                            "--quality-probe-every", "0", "-iter", "1"]) == 0
+        warned = [ln for ln in _error_lines(capsys.readouterr().err)
+                  if "--elastic" in ln]
+        with open(os.path.join(m, "manifest.json")) as f:
+            man = json.load(f)
+        with open(os.path.join(ck, "config.json")) as f:
+            prng = json.load(f)["prng_impl"]
+        assert main(base + ["--resume", ck, "--prng", "threefry", "-iter", "1",
+                            "--quiet"]) == 0
+        said = [ln for ln in capsys.readouterr().err.splitlines()
+                if ln.startswith("resume: checkpoint pins")]
+        got[pkg] = (warned, {k: man[k] for k in ("elastic", "elastic_policy",
+                                                 "elastic_generation", "compile_cache")},
+                    prng, said)
+    assert got["t"] == got["j"]
+    assert got["t"][1] == {"elastic": "shrink+grow", "elastic_policy": None,
+                           "elastic_generation": 0, "compile_cache": None}
+    assert got["t"][2] == "rbg" and len(got["t"][3]) == 1
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device exists")

@@ -991,3 +991,58 @@ def test_assemble_local_replica_of_a_tp2_replica(cuda, layout):
     got = assemble_local_replica(reps)["t"]
     assert got.is_cuda and torch.equal(_bits(got.cpu()), _bits(table))
     assert all(got.data_ptr() != s["t"].data_ptr() for s in reps[0])
+
+
+@pytest.mark.parametrize("layout", ["split", "unified"])
+def test_remesh_dp3_2_3_on_one_card(cuda, layout, tmp_path):
+    """ShardedTrainer.remesh on the card: dp 3 -> 2 -> 3, every replica on
+    the one card, each leg continued from a checkpoint of the last:
+    every parameter bitwise a fresh trainer of the new shape resumed from
+    the same checkpoint, and no captured graph of an old mesh left behind
+    (the card memory the trainer holds back to its level once the old
+    trainer and the fresh ones are gone)."""
+    import dataclasses
+
+    from word2vec_tpu_torch import TrainState, Word2VecConfig
+    from word2vec_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from word2vec_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from word2vec_tpu_torch.tune.planner import free_probe_residue
+
+    vocab, corpus = _small_corpus()
+    backend = "pallas_fused" if layout == "unified" else "xla"
+    cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=4,
+                         max_sentence_len=30, band_chunk=10, shared_negatives=8,
+                         table_layout=layout, band_backend=backend, iters=1,
+                         dp_sync_every=2, chunk_steps=2, resident="off")
+
+    def mesh(dp):
+        return make_mesh(dp, devices=[cuda] * dp)
+
+    def held():
+        free_probe_residue(cuda)  # unreferenced blocks and cuBLAS workspaces
+        return torch.cuda.memory_allocated(cuda)
+
+    base = held()
+    tr = ShardedTrainer(cfg, vocab, corpus, mesh=mesh(3))
+    state, _ = tr.train(log_every=0)
+    at_dp3 = held()  # three replicas and their captured graphs
+    for leg, dp in enumerate((2, 3), start=2):
+        ck = str(tmp_path / f"ck{leg}")
+        save_checkpoint(ck, TrainState(params=tr.export_params(state), step=state.step,
+                                       words_done=state.words_done, epoch=state.epoch),
+                        tr.config, vocab)
+        tr.config = dataclasses.replace(cfg, iters=leg)
+        tr.remesh(mesh=mesh(dp), state=state, checkpoint_dir=ck)
+        assert tr.dp == dp and len(tr._replicas) == dp and not tr._runners
+        state, _ = tr.train(state=state, log_every=0)
+        fresh = ShardedTrainer(tr.config, vocab, corpus, mesh=mesh(dp))
+        s2, _, _ = load_checkpoint(ck)
+        fresh.import_params(s2.params, s2)
+        s2, _ = fresh.train(state=s2, log_every=0)
+        assert s2.step == state.step
+        assert _same(tr.export_params(state), fresh.export_params(s2))
+        del fresh, s2
+    # back at dp 3: what the first dp-3 run held, no graph of dp 2 left
+    assert held() == at_dp3
+    del tr, state
+    assert held() == base

@@ -54,10 +54,6 @@ from word2vec_tpu_torch.resilience import shutdown as tshutdown  # noqa: E402
 #: port's harvest rows carry none (obs/harvest.py)
 UNPORTED_PROM = ("w2v_cost_harvest_flops", "w2v_cost_harvest_bytes",
                  "w2v_cost_harvest_temp_bytes", "w2v_cost_harvest_code_bytes")
-#: manifest keys of layers the port does not have yet (elasticity, the
-#: compile cache)
-UNPORTED_MANIFEST = {"compile_cache", "elastic", "elastic_generation",
-                     "elastic_policy"}
 STEPS = 24  # the corpus's steps per epoch at 4 x 32
 
 
@@ -131,7 +127,7 @@ def test_telemetry_run_matches_jax(work, capsys):
     assert _prom_names(tm / "metrics.prom") == jnames
     jman = json.load(open(jm / "manifest.json"))
     tman = json.load(open(tm / "manifest.json"))
-    assert set(tman) == set(jman) - UNPORTED_MANIFEST
+    assert set(tman) == set(jman)
     assert set(tman) == set(chip_smoke.TEL_MANIFEST_KEYS)  # phase 9's copy
     assert tman["shutdown"] == jman["shutdown"] == "clean"
     assert tman["final_step"] == jman["final_step"] == STEPS

@@ -20,10 +20,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+#: the operator's kernel cache: a directory here overrides the default
+#: (and the warm-restart cache of tune/compile_cache.py never overrides it)
+ENV_BUILD_DIR = "W2V_KERNEL_BUILD_DIR"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+BUILD_DIR = Path(os.environ.get(ENV_BUILD_DIR) or DEFAULT_BUILD_DIR)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -76,6 +80,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 #: nvcc's -Xptxas -v report per library (registers, shared memory, spills)
 PTXAS_REPORTS: Dict[str, str] = {}
+#: the sources this process ran nvcc for (a cache hit runs none)
+NVCC_RUNS: List[str] = []
 
 
 def _nvcc() -> str:
@@ -114,6 +120,7 @@ def _start(name: str) -> Optional[subprocess.Popen]:
     )
     proc.w2v_tmp = tmp  # type: ignore[attr-defined]
     proc.w2v_out = out  # type: ignore[attr-defined]
+    NVCC_RUNS.append(name)
     return proc
 
 
@@ -128,6 +135,19 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
         )
     PTXAS_REPORTS[name] = stderr + stdout
     os.replace(proc.w2v_tmp, proc.w2v_out)  # atomic: no half-written .so
+
+
+def library_names() -> List[str]:
+    """The current sources' library file names (source + header hash)."""
+    return [_target(p.stem).name for p in sorted(CSRC.glob("*.cu"))]
+
+
+def set_build_dir(path) -> Path:
+    """Point the library lookup (and any build) at `path`; libraries
+    already loaded in this process stay loaded. Returns the old dir."""
+    global BUILD_DIR
+    old, BUILD_DIR = BUILD_DIR, Path(path)
+    return old
 
 
 def build_all() -> None:

@@ -94,8 +94,23 @@ vocabulary, the vectors, the checkpoints and the metrics directory.
 becomes a SyncTimeout, and the survivors checkpoint where safe and exit 75
 (one process: exit 1, there is no peer).
 
-Flags of layers the port does not have yet (--elastic*, --compile-cache,
---prng) are not defined: argparse rejects them.
+--elastic shrink|shrink+grow makes such a fleet heal itself instead
+(resilience/elastic.py; needs --sync-deadline, --checkpoint-dir and
+--checkpoint-every): on a SyncTimeout the survivors agree on membership at
+the elastic rendezvous (W2V_ELASTIC_COORD, hosted by rank 0; the lowest
+surviving rank is elected when rank 0 is the one lost), snapshot the
+newest verified checkpoint to <dir>.elastic_g<g> and exec in place into
+generation g at N-1 processes (--dp rescaled, --resume the snapshot, the
+generation's store on port0 + g hosted by the store shepherd,
+parallel/coordservice.py); shrink+grow also admits a restarted host (it
+announces before it joins the group or touches the card) at the next sync
+boundary. --elastic-policy evicts a straggler and re-admits it on signal
+rules (resilience/policy.py), --rejoin-window bounds a parked rejoiner's
+re-announces, and --compile-cache DIR lets an exec'd generation load its
+kernel libraries from DIR/<topology key> (tune/compile_cache.py). The
+manifest's elastic_generation and mesh_events follow the fleet across the
+execs. --prng is accepted and persisted (config.prng_impl, as in the JAX
+CLI), but the port's draws are its own whatever the name (ROADMAP C5).
 """
 
 from __future__ import annotations
@@ -108,15 +123,6 @@ import os
 import sys
 import time
 from typing import List, Optional
-
-#: config fields that are runtime wiring of layers the port does not have
-#: (elasticity); a resumed checkpoint of the JAX package may carry them on,
-#: and the resume resets them to these values
-_UNPORTED_WIRING = {
-    "elastic": "off",
-    "elastic_policy": "",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -157,6 +163,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
                    help="gpu (default): the CUDA device, raising when there "
                         "is none; cpu: the kernels' plain PyTorch versions")
+    p.add_argument("--prng", choices=["threefry", "rbg"], default="threefry",
+                   help="the JAX package's PRNG impl name for the draw "
+                        "streams, persisted in checkpoints "
+                        "(config.prng_impl): a resumed run keeps the "
+                        "checkpoint's impl and warns if this flag differs. "
+                        "The port draws from torch's generator whatever the "
+                        "name (ROADMAP C5)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel mesh axis: replicas, one a visible "
                         "card (--backend cpu: on the CPU). Replicas on "
@@ -344,7 +357,57 @@ def build_parser() -> argparse.ArgumentParser:
                         "turns the infinite collective hang into a "
                         "coordinated abort — survivors checkpoint where "
                         "safe and exit 75 (EXIT_PREEMPTED) for requeue "
-                        "with --resume")
+                        "with --resume — or, with --elastic, into a "
+                        "shrink-remesh that keeps training")
+    p.add_argument("--elastic", choices=["off", "shrink", "shrink+grow"],
+                   default="off",
+                   help="elastic multi-host training "
+                        "(resilience/elastic.py): off = a dead peer aborts "
+                        "the fleet to requeue (exit 75/76); shrink = on "
+                        "SyncTimeout the survivors agree on membership "
+                        "through the elastic rendezvous (W2V_ELASTIC_COORD; "
+                        "hosted by rank 0), re-form the fleet at N-1 in "
+                        "place, re-shard from the last integrity-verified "
+                        "checkpoint, and keep training — no scheduler "
+                        "round-trip; shrink+grow additionally admits a "
+                        "restarted host back at the next sync boundary. "
+                        "Requires --sync-deadline and --checkpoint-dir/"
+                        "--checkpoint-every (validated); single-process "
+                        "runs ignore it with a warning")
+    p.add_argument("--elastic-policy", metavar="RULES", default="",
+                   help="signal-driven autoscale policy "
+                        "(resilience/policy.py; needs --elastic): "
+                        "comma-separated "
+                        "'<signal><op><thr>[:for=N][:act=shrink|grow]' "
+                        "clauses over the derived signals (same clause "
+                        "core as --slo), e.g. "
+                        "'throughput_wps<0.6*baseline:for=2:act=shrink,"
+                        "throughput_wps>0.8*baseline:for=2:act=grow,"
+                        "cooldown=3'. A sustained shrink breach evicts "
+                        "the attributed straggler at the next sync "
+                        "boundary (trigger=policy, zero failures); a "
+                        "sustained grow breach opens the admission gate "
+                        "for parked rejoiners. Global options: cooldown=N "
+                        "windows per fresh generation, min_world=/"
+                        "max_world= bounds. Implies the signal plane on")
+    p.add_argument("--rejoin-window", type=int, default=0, metavar="N",
+                   help="rejoin re-announce bound (resilience/elastic.py; "
+                        "0 = the default 6): how many times a parked "
+                        "rejoiner re-announces after the rendezvous drops "
+                        "its connection (one generation turnover each) "
+                        "before giving up — the exhaustion error prints "
+                        "the total bounded wait N implies")
+    p.add_argument("--compile-cache", metavar="DIR", default="",
+                   help="warm-restart kernel cache root "
+                        "(tune/compile_cache.py): exec'd elastic "
+                        "generations (W2V_ELASTIC_GEN > 0) load the kernel "
+                        "libraries from DIR/<topology-plan-key>, seeded "
+                        "from the default build directory, so a generation "
+                        "switch runs no nvcc. FENCED to next-generation "
+                        "processes only: the launch process (gen 0) and "
+                        "every non-elastic run use the default build "
+                        "directory, and an operator-set "
+                        "W2V_KERNEL_BUILD_DIR is never overridden")
     p.add_argument("--divergence-budget", type=int, default=8,
                    help="consecutive non-finite-loss steps before the run "
                         "aborts with a DivergenceError (exit 2) instead of "
@@ -494,13 +557,108 @@ def _flag_diffs(parser, args, argv, flag_kwargs, ck_cfg) -> List[str]:
     return sorted(
         f.name
         for f in dataclasses.fields(flag_cfg)
-        if f.name not in _UNPORTED_WIRING
+        # prng_impl warned separately; elastic and its policy are runtime
+        # wiring the flag overrides on resume (never ignored)
+        if f.name not in ("prng_impl", "elastic", "elastic_policy")
         and user_set(f.name)
         and flag_value(f.name) != getattr(ck_cfg, f.name)
     )
 
 
+def _elastic_mesh_events(manifest_path: str, events, gen: int,
+                         marks: dict) -> list:
+    """An elastic generation's mesh_events: the prior generations' rows
+    (they survive the exec in the manifest this one rewrites), the
+    election the generation we exec'd from ran, and this generation's
+    start with where it came from (the deciding rendezvous, the trigger)
+    and the clock marks of its start-up: the parts of the blackout this
+    process saw, from the old image's handoff (W2V_ELASTIC_HANDOFF: the
+    failure's clock, the round and the snapshot) to the trainer being
+    ready."""
+    import json
+
+    from .parallel import multihost
+
+    prior = []
+    if os.path.exists(manifest_path):
+        try:
+            with open(manifest_path) as f:
+                prior = json.load(f).get("mesh_events") or []
+        except (OSError, ValueError):
+            prior = []
+    start = dict((events or [{}])[0])
+    start.update({
+        "event": "generation_start", "gen": gen,
+        "rendezvous": os.environ.get(multihost.ENV_ELASTIC_COORD),
+        "trigger": (
+            os.environ.get(multihost.ENV_ELASTIC_TRIGGER)
+            or ("launch" if gen == 0 else None)
+        ),
+    })
+    exec_t = os.environ.get("W2V_ELASTIC_EXEC_T")
+    start["startup_wall_s"] = (
+        round(time.monotonic() - float(exec_t), 3)
+        if exec_t and gen > 0 else None
+    )
+    if gen > 0:
+        try:
+            handoff = json.loads(os.environ.get("W2V_ELASTIC_HANDOFF") or "{}")
+        except ValueError:
+            handoff = {}
+        start["startup"] = {
+            **{k: v for k, v in marks.items()},
+            "exec_t": float(exec_t) if exec_t else None,
+            **multihost.init_stats(),
+            "handoff": handoff,
+        }
+    election = None
+    elected_env = os.environ.get("W2V_ELASTIC_ELECTED")
+    if elected_env:
+        er, _, ea = elected_env.partition(":")
+        try:
+            election = {"elected_rank": int(er), "rendezvous": ea}
+        except ValueError:
+            election = None
+    return list(prior) + ([{
+        "event": "rendezvous_election", "gen": gen, **election,
+    }] if election else []) + [start]
+
+
+def _first_boundary_hook(trainer, stop_check, manifest_path: str, gen: int,
+                         marks: dict, device):
+    """stop_check, recording once, at the first dispatch boundary of an
+    exec'd generation, the clock, the step, the capture's seconds, the
+    kernel builds this process ran (none is the contract: the libraries
+    are cached) and the card memory this process holds."""
+    seen = []
+
+    def check(step: int):
+        if not seen:
+            seen.append(step)
+            from . import _build
+            from .obs.manifest import append_manifest_event
+
+            rec = {
+                "event": "generation_first_boundary", "gen": gen,
+                "t": time.monotonic(), "step": step,
+                "train_start_t": marks.get("train"),
+                "capture_s": round(float(trainer.capture_s), 6),
+                "nvcc_runs": list(_build.NVCC_RUNS),
+            }
+            if device.type == "cuda":
+                import torch
+
+                rec["memory_allocated"] = torch.cuda.memory_allocated(device)
+                rec["memory_reserved"] = torch.cuda.memory_reserved(device)
+            append_manifest_event(manifest_path, "mesh_events", rec)
+        return stop_check(step)
+
+    return check
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    #: the generation start-up's clock marks (the elastic blackout's parts)
+    marks = {"main": time.monotonic()}
     argv = sys.argv[1:] if argv is None else argv
     parser = build_parser()
     if not argv:
@@ -536,6 +694,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .utils.logging import jsonl_logger, progress_logger, tensorboard_logger
     from .utils.profiling import trace
 
+    marks["imports"] = time.monotonic()
     # The fault plan and the resilience knobs are validated before any
     # expensive work (a chaos run with a typo'd spec must fail in
     # milliseconds, not after the corpus scan), in the JAX CLI's order.
@@ -608,12 +767,92 @@ def main(argv: Optional[List[str]] = None) -> int:
             file=sys.stderr,
         )
         return 1
+    # Elastic mode: validated and connected BEFORE the process group and
+    # the first card use — a rejoining host must be parked at the
+    # rendezvous, holding no context on the card, instead of hanging on a
+    # store the fleet has already moved past.
+    elastic_ctl = None
+    if args.rejoin_window < 0:
+        print("error: --rejoin-window must be >= 0", file=sys.stderr)
+        return 1
+    if args.elastic_policy and args.elastic == "off":
+        print(
+            "error: --elastic-policy requires --elastic shrink or "
+            "shrink+grow: the policy actuates through the elastic "
+            "rendezvous/remesh machinery",
+            file=sys.stderr,
+        )
+        return 1
+    if args.elastic_policy:
+        # fail-in-milliseconds: a typo'd policy spec dies before the
+        # corpus scan (clause + offset in the message)
+        from .resilience.policy import PolicyError, parse_policy
+
+        try:
+            parse_policy(args.elastic_policy)
+        except PolicyError as e:
+            print(f"error: bad --elastic-policy spec: {e}", file=sys.stderr)
+            return 1
+    if args.elastic != "off":
+        if args.sync_deadline <= 0:
+            print(
+                "error: --elastic requires --sync-deadline > 0: peer loss "
+                "is detected by the deadline-bounded collectives, and "
+                "without a deadline a dead peer is an unbounded hang, not "
+                "a recoverable SyncTimeout",
+                file=sys.stderr,
+            )
+            return 1
+        if not (args.checkpoint_dir and args.checkpoint_every):
+            print(
+                "error: --elastic requires --checkpoint-dir and "
+                "--checkpoint-every (on a filesystem every host shares): "
+                "survivors re-shard from the last integrity-verified "
+                "checkpoint, and without one there is no agreed state to "
+                "re-form from",
+                file=sys.stderr,
+            )
+            return 1
+        from .resilience.elastic import (
+            ElasticController, ElasticError, inherited_sockets,
+        )
+
+        # sockets of an old image would mean the exec leaked its group
+        marks["inherited_sockets"] = inherited_sockets()
+        elastic_ctl = ElasticController.from_env(
+            mode=args.elastic, argv=list(argv), dp=args.dp,
+            ckpt_dir=args.checkpoint_dir, sync_deadline=args.sync_deadline,
+            step_deadline=args.step_deadline,
+            max_reannounce=args.rejoin_window,
+        )
+        if elastic_ctl is None:
+            if not args.quiet:
+                print(
+                    "warning: --elastic set but the W2V_COORDINATOR/"
+                    "W2V_NUM_PROCS multi-process contract is not "
+                    "configured; a single-process run has no fleet to "
+                    "shrink or grow — continuing non-elastic",
+                    file=sys.stderr,
+                )
+        else:
+            try:
+                # rank 0 binds the rendezvous; other ranks hello — and an
+                # admitted rejoiner EXECS into the grown generation here
+                elastic_ctl.startup()
+            except ElasticError as e:
+                print(f"error: elastic startup: {e}", file=sys.stderr)
+                return 1
+    marks["elastic_startup"] = time.monotonic()
     from .parallel import multihost
 
     if args.multihost:
-        # joins the process group before any card use on every process
+        # joins the process group before any card use on every process;
+        # an elastic fleet's store is hosted by the shepherd rank 0 starts
         try:
-            joined = multihost.initialize_from_env()
+            joined = (
+                multihost.initialize_from_env(elastic=True)
+                if elastic_ctl is not None else multihost.initialize_from_env()
+            )
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
@@ -623,6 +862,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "not configured; continuing single-process",
                 file=sys.stderr,
             )
+    marks["group"] = time.monotonic()
     procs = multihost.process_count()
     # In multi-host mode only process 0 writes shared artifacts (vectors,
     # vocab, checkpoints, the metrics dir): every process reaching the
@@ -675,17 +915,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "reproduced in torch)",
                 file=sys.stderr,
             )
-        wiring = {
-            k: v for k, v in _UNPORTED_WIRING.items()
-            if getattr(ck_cfg, k) != v
-        }
-        if wiring:
-            print(
-                "resume: resetting config fields of layers this package "
-                f"does not have: {sorted(wiring)}",
-                file=sys.stderr,
-            )
-            ck_cfg = dataclasses.replace(ck_cfg, **wiring)
+    marks["checkpoint_load"] = time.monotonic()
 
     # validation mirrors main.cpp:164-181 (raised by Word2VecConfig)
     alpha = args.alpha
@@ -739,12 +969,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         ),
         divergence_budget=args.divergence_budget,
         quality_probe_every=q_every,
+        prng_impl=args.prng,
+        elastic=args.elastic,
+        elastic_policy=args.elastic_policy,
     )
     try:
         cfg = ck_cfg if ck_cfg is not None else Word2VecConfig(**flag_kwargs)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if cfg.elastic != args.elastic or cfg.elastic_policy != args.elastic_policy:
+        # elasticity (and its policy) is runtime wiring, like
+        # --sync-deadline: the flag is authoritative on resume (a
+        # checkpoint from a non-elastic generation must not pin recovery
+        # off — every elastic generation IS such a resume)
+        cfg = dataclasses.replace(
+            cfg, elastic=args.elastic, elastic_policy=args.elastic_policy
+        )
 
     if args.export_side == "output" and cfg.use_hs:
         # fail BEFORE training, on the EFFECTIVE config
@@ -752,6 +993,24 @@ def main(argv: Optional[List[str]] = None) -> int:
               "(the hs output table holds internal nodes, not word rows)",
               file=sys.stderr)
         return 1
+
+    if ck_cfg is not None and args.prng != ck_cfg.prng_impl:
+        # unconditional (even under --quiet): silently switching the draw
+        # streams mid-run is exactly the hazard the persisted field prevents
+        print(
+            f"resume: checkpoint pins prng_impl={ck_cfg.prng_impl!r}; "
+            f"ignoring --prng {args.prng} (the draw streams stay on the "
+            f"checkpoint's impl)",
+            file=sys.stderr,
+        )
+    typed_prng = any(t == "--prng" or t.startswith("--prng=") for t in argv)
+    if (typed_prng or cfg.prng_impl != "threefry") and not args.quiet:
+        print(
+            f"prng: prng_impl={cfg.prng_impl!r} is recorded in the config "
+            "and the checkpoints; the port's draws come from torch's "
+            "generator whatever the name (ROADMAP C5)",
+            file=sys.stderr,
+        )
 
     if not args.train:
         print("error: -train <file> is required", file=sys.stderr)
@@ -941,6 +1200,7 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"({time.perf_counter() - t0:.1f}s, "
               f"{native.implementation()} data layer)")
     corpus = PackedCorpus.from_flat(flat, cfg.max_sentence_len)
+    marks["corpus"] = time.monotonic()
     if args.save_vocab and is_primary:
         vocab.save(args.save_vocab)  # Word2Vec.cpp:171-177
 
@@ -1000,6 +1260,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.tensorboard:
         hub.add(tensorboard_logger(args.tensorboard))
     log_fn = hub if hub.sinks else None
+    if elastic_ctl is not None:
+        # the rendezvous decisions and announces land on the run's sinks
+        elastic_ctl.log_fn = log_fn
+        if elastic_ctl.server is not None:
+            elastic_ctl.server.log_fn = log_fn
 
     mesh_size = args.dp * args.tp * args.sp
     sharded = mesh_size > 1
@@ -1028,6 +1293,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     manifest_path = (
         os.path.join(metrics_dir, "manifest.json") if metrics_dir else None
     )
+    if state is not None and sharded and elastic_ctl is not None and not streaming:
+        # an elastic generation's resume: the snapshot's unreplicated
+        # tables into the replicas now (train() would do the same copy),
+        # so the blackout's parts are named before the first dispatch
+        trainer.import_params(state.params, state)
+    marks["trainer"] = time.monotonic()
+
+    elastic_gen = int(os.environ.get(multihost.ENV_ELASTIC_GEN, "0") or 0)
+    # Warm-restart kernel cache: ONLY an exec'd next-generation elastic
+    # process may point the kernel-library lookup at the per-(topology,
+    # plan) directory (enable_warm_cache refuses for gen 0 and for an
+    # operator-set W2V_KERNEL_BUILD_DIR). Enabled after plan resolution
+    # (the plan is part of the key) and before the first kernel launch.
+    warm_cache_dir = None
+    if args.compile_cache:
+        from .tune.compile_cache import enable_warm_cache, topology_key
+
+        warm_cache_dir = enable_warm_cache(
+            args.compile_cache,
+            topology_key(
+                procs, args.dp, args.tp, args.sp, trainer.config,
+                plan_key=getattr(trainer.plan_resolution, "key", None),
+            ),
+            elastic_gen,
+        )
+        if warm_cache_dir and not args.quiet:
+            print(
+                f"compile cache: generation {elastic_gen} warm-restarts "
+                f"from {warm_cache_dir}"
+            )
 
     # Device telemetry (obs/devmem.py, obs/harvest.py, obs/profiler.py), on
     # for the runs the signal plane covers: the memory ledger (per-phase
@@ -1076,6 +1371,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             "resumed_from": args.resume or None,
             "kernel_decision": trainer.kernel_decision,
             "mesh_size": mesh_size,
+            "elastic": args.elastic,
+            "elastic_policy": args.elastic_policy or None,
+            "elastic_generation": elastic_gen,
+            "compile_cache": warm_cache_dir,
             # the memory view at run start; the end-of-run update
             # rewrites it with the full per-phase ledger
             "device_memory": (
@@ -1106,6 +1405,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "collective_backend": topo.get("table_backend"),
                 })
                 extra["mesh_events"][0]["topology"] = topo
+        if elastic_ctl is not None:
+            extra["mesh_events"] = _elastic_mesh_events(
+                manifest_path, extra.get("mesh_events"), elastic_gen, marks,
+            )
         if streaming:
             # the data plane: corpus_tokens is the bootstrap segment, and
             # this block the stream's shape and where it resumed
@@ -1124,7 +1427,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         # the mesh gauges (obs/export.GAUGE_EVENTS), as the JAX CLI logs
         # them: the processes and the dp*sp*tp devices
         log_fn({"event": "mesh", "mesh_size": mesh_size,
-                "mesh_processes": procs, "elastic_generation": 0})
+                "mesh_processes": procs, "elastic_generation": elastic_gen})
+        elected_env = os.environ.get("W2V_ELASTIC_ELECTED")
+        if elected_env and elastic_gen > 0:
+            # the generation we exec'd FROM ran the rendezvous election;
+            # count it here, where this process has its metrics sinks
+            # (w2v_rendezvous_elections_total, present from zero)
+            er, _, ea = elected_env.partition(":")
+            log_fn({
+                "event": "rendezvous_election", "gen": elastic_gen,
+                "elected_rank": er, "rendezvous": ea,
+            })
 
     def save_ckpt(s) -> None:
         t = time.perf_counter()
@@ -1195,7 +1508,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the derived-signal plane (obs/signals.py): on for instrumented runs
     # and whenever SLO rules are set; a hub sink, so the probe's gauge
     # records feed quality_planted
-    if slo_rules or metrics_dir or args.prom_textfile:
+    if slo_rules or metrics_dir or args.prom_textfile or args.elastic_policy:
         sig_window = args.signal_window or 50
         sig_engine = SignalEngine(
             window=sig_window,
@@ -1273,20 +1586,93 @@ def main(argv: Optional[List[str]] = None) -> int:
     # timeline in the metrics dir. flush_fn counts the stall in the
     # Prometheus sink and closes the sinks: the fire path os._exits,
     # skipping every atexit hook.
-    if args.step_deadline:
-        from .resilience.watchdog import StepWatchdog
+    from .resilience import watchdog as watchdog_mod
 
+    if args.step_deadline:
         def _stall_flush(rec):
             hub({"event": "stalled", "step": rec.get("step")})
-            hub.close()
+            if elastic_ctl is None:
+                # the elastic path keeps the sinks open for the remesh
+                # records (the jsonl sink is line-buffered and the prom
+                # textfile rewrites per record: the exec loses nothing)
+                hub.close()
 
-        trainer.watchdog = StepWatchdog(
+        # Elastic shrink detection, leg 2: a dead peer that wedges the
+        # dispatch itself (a collective inside it that never returns) is
+        # seen only by the step watchdog. With --elastic its fire path
+        # attempts the shrink-remesh FROM THE MONITOR THREAD (execve
+        # replaces the whole process, the wedged main thread included) and
+        # shoots EXIT_STALLED only when the rendezvous fails.
+        elastic_on_fire = None
+        if elastic_ctl is not None:
+            def elastic_on_fire(rec):
+                try:
+                    elastic_ctl.remesh_and_exec(
+                        "shrink", rec.get("step"),
+                        manifest_path=manifest_path, hub=hub,
+                        flight=trainer.flight, metrics_dir=metrics_dir,
+                    )
+                except Exception as e:  # noqa: BLE001 — fall through to 76
+                    print(f"elastic: stall recovery failed: {e}",
+                          file=sys.stderr)
+                os._exit(watchdog_mod.EXIT_STALLED)
+
+        trainer.watchdog = watchdog_mod.StepWatchdog(
             deadline=args.step_deadline,
             phases=trainer.phases,
             metrics_dir=metrics_dir,
             manifest_path=manifest_path,
             flight=trainer.flight,
             flush_fn=_stall_flush,
+            on_fire=elastic_on_fire,
+        )
+    elif elastic_ctl is not None and not args.quiet:
+        print(
+            "warning: --elastic without --step-deadline: a dead peer that "
+            "wedges the step dispatch itself is only detected by the step "
+            "watchdog — set --step-deadline to bound that leg",
+            file=sys.stderr,
+        )
+    if elastic_ctl is not None and args.elastic == "shrink+grow":
+        # the grow channel: rank 0's pending-rejoin poll rides the
+        # PeerAgreement heartbeat row install_shutdown wires below, so the
+        # whole fleet admits a rejoiner at the same sync boundary
+        trainer.elastic_poll = elastic_ctl.grow_pending
+    # Elastic policy (resilience/policy.py): the control loop over the
+    # signal plane. Only the rendezvous-hosting rank evaluates and
+    # requests; every other rank reads the verdict from the heartbeat
+    # rows. Wired BEFORE install_shutdown so PeerAgreement carries both
+    # the policy column and the (now policy-gated) grow column.
+    elastic_policy = None
+    if args.elastic_policy and elastic_ctl is not None:
+        from .resilience.policy import parse_policy
+
+        if elastic_ctl.server is not None:
+            elastic_policy = parse_policy(args.elastic_policy)
+            elastic_policy.world = procs
+            elastic_policy.log_fn = log_fn
+            if trainer.signals is not None:
+                elastic_policy.attach(trainer.signals.bus)
+            trainer.policy_poll = elastic_policy.poll
+            if trainer.elastic_poll is not None:
+                grow_src = trainer.elastic_poll
+                trainer.elastic_poll = lambda: (
+                    grow_src() if elastic_policy.grow_gate() else 0.0
+                )
+            if not args.quiet:
+                print(
+                    f"elastic policy: {len(elastic_policy.rules)} rule(s), "
+                    f"cooldown {elastic_policy.cooldown} windows, world "
+                    f"[{elastic_policy.min_world}, "
+                    f"{elastic_policy.max_world or 'unbounded'}]: "
+                    f"{[str(r) for r in elastic_policy.rules]}"
+                )
+    elif args.elastic_policy and elastic_ctl is None and not args.quiet:
+        print(
+            "warning: --elastic-policy set but no elastic fleet is "
+            "configured; a single-process run has nothing to shrink or "
+            "grow — the policy is inert",
+            file=sys.stderr,
         )
 
     # Preemption-safe shutdown: SIGTERM/SIGINT request a cooperative stop at
@@ -1294,11 +1680,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     # EXIT_PREEMPTED so a scheduler can requeue with --resume.
     handler = ShutdownHandler().install()
     trainer.install_shutdown(handler)
+    if elastic_ctl is not None and manifest_path and elastic_gen > 0:
+        # the blackout's end: this generation's first dispatch boundary
+        # (after the capture and the first chunk), on the manifest
+        trainer.stop_check = _first_boundary_hook(
+            trainer, trainer.stop_check, manifest_path, elastic_gen,
+            marks, device,
+        )
     # The process-wide collective deadline (--sync-deadline): bounds the
     # multihost agree/heartbeat, the replica sync and the metrics drain.
     # Restored in the finally below: main() runs in process under tests.
-    from .resilience import watchdog as watchdog_mod
-
     prev_sync_deadline = watchdog_mod.set_sync_deadline(
         args.sync_deadline or None
     )
@@ -1368,6 +1759,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     profile_ctx = (
         trace(args.profile) if args.profile else contextlib.nullcontext()
     )
+    from .resilience.elastic import GrowRequested, PolicyShrinkRequested
+
+    if elastic_ctl is not None:
+        # from here on, a hello claiming membership of this generation is a
+        # crashed member coming back, not a late starter
+        elastic_ctl.mark_running()
+    marks["train"] = time.monotonic()
     try:
         with profile_ctx:
             try:
@@ -1395,7 +1793,107 @@ def main(argv: Optional[List[str]] = None) -> int:
                         args.sync_deadline or 0.0,
                     ) from e
                 raise
+    except GrowRequested as e:
+        # Elastic grow: a restarted host waits at the rendezvous, and every
+        # fleet member raised this at the SAME sync boundary (the verdict
+        # rides one allgather). The fleet is intact, so write a collective
+        # checkpoint (the admission snapshot's source), then re-form at
+        # N+rejoiners. remesh_and_exec replaces the process image; it only
+        # RETURNS on failure, and then the run requeues like a preemption
+        # (the checkpoint just landed, nothing is lost).
+        detect_t = time.monotonic()
+        print(f"elastic: {e}", file=sys.stderr)
+        last = trainer.last_state
+        grow_saved = False
+        if last is not None:
+            try:
+                save_ckpt(last)  # collective: every rank enters
+                grow_saved = True
+            except Exception as ce:  # noqa: BLE001 — degrade to last periodic
+                print(
+                    f"warning: grow-boundary checkpoint failed ({ce}); the "
+                    "generation snapshot falls back to the last periodic "
+                    "checkpoint",
+                    file=sys.stderr,
+                )
+        if elastic_ctl is not None:
+            elastic_ctl.remesh_and_exec(
+                "grow", getattr(last, "step", None),
+                manifest_path=manifest_path, hub=hub,
+                flight=trainer.flight, metrics_dir=metrics_dir,
+                # a policy-gated admission is a policy decision; the plain
+                # waiter-pending admission is a rejoin
+                trigger="policy" if args.elastic_policy else "rejoin",
+                detect_t=detect_t,
+            )
+        # unreachable after a successful exec: this is the failure path
+        if manifest_path:
+            update_manifest(manifest_path, {
+                "shutdown": "elastic_failed",
+                "grow_checkpoint": grow_saved,
+            })
+        dump_flight("elastic_failed", failure_step=getattr(last, "step", None))
+        export_trace()
+        hub.close()
+        return EXIT_PREEMPTED
+    except PolicyShrinkRequested as e:
+        # Elastic policy shrink: the rendezvous host's policy latched an
+        # eviction and every rank read the same heartbeat row, so the
+        # whole fleet lands here at one sync boundary with ZERO failures.
+        # Write the collective checkpoint (the generation snapshot's
+        # source), then split: the victim leaves (announce-only exec in
+        # shrink+grow, a clean exit 0 in shrink), the survivors join a
+        # policy_shrink round that closes at world-1.
+        detect_t = time.monotonic()
+        print(f"elastic: {e}", file=sys.stderr)
+        last = trainer.last_state
+        if last is not None:
+            try:
+                save_ckpt(last)  # collective: every rank enters
+            except Exception as ce:  # noqa: BLE001 — degrade to last periodic
+                print(
+                    f"warning: policy-shrink checkpoint failed ({ce}); the "
+                    "generation snapshot falls back to the last periodic "
+                    "checkpoint",
+                    file=sys.stderr,
+                )
+        if elastic_ctl is not None and multihost.process_index() == e.victim:
+            # the evicted host: record how this run ended, then leave
+            if manifest_path:
+                update_manifest(manifest_path, {
+                    "shutdown": "policy_evicted",
+                    "policy_evict": {"step": e.step, "victim": e.victim},
+                })
+            dump_flight("policy_evicted", failure_step=e.step)
+            export_trace()
+            hub({"event": "policy_evicted", "step": e.step})
+            if args.elastic == "shrink+grow":
+                hub.close()
+                elastic_ctl.exec_announce()  # never returns: parks + rejoins
+            print(
+                f"policy shrink: this host (rank {e.victim}) was evicted "
+                "at a sync boundary; exiting 0 (shrink mode does not "
+                "readmit)",
+                file=sys.stderr,
+            )
+            hub.close()
+            return 0
+        if elastic_ctl is not None:
+            elastic_ctl.remesh_and_exec(
+                "policy_shrink", e.step,
+                manifest_path=manifest_path, hub=hub,
+                flight=trainer.flight, metrics_dir=metrics_dir,
+                trigger="policy", victim=e.victim, detect_t=detect_t,
+            )
+        # unreachable after a successful exec: this is the failure path
+        if manifest_path:
+            update_manifest(manifest_path, {"shutdown": "elastic_failed"})
+        dump_flight("elastic_failed", failure_step=getattr(last, "step", None))
+        export_trace()
+        hub.close()
+        return EXIT_PREEMPTED
     except watchdog_mod.SyncTimeout as e:
+        detect_t = time.monotonic()
         if procs <= 1:
             # a SyncTimeout with no peers (an injected sync_timeout fault,
             # or a --sync-deadline bounding a local operation that wedged)
@@ -1420,6 +1918,23 @@ def main(argv: Optional[List[str]] = None) -> int:
             export_trace()
             hub.close()
             return 1
+        if elastic_ctl is not None:
+            # Elastic shrink: survivors re-form at N-1 instead of aborting.
+            # remesh_and_exec replaces the process image on success; on
+            # failure (rendezvous unreachable, declared late, no verified
+            # checkpoint, no quorum) it returns and the run falls through
+            # to the abort-to-requeue below: elasticity degrades, never
+            # regresses.
+            print(
+                f"elastic: {e}; attempting shrink-remesh instead of abort",
+                file=sys.stderr,
+            )
+            elastic_ctl.remesh_and_exec(
+                "shrink", getattr(trainer.last_state, "step", None),
+                manifest_path=manifest_path, hub=hub,
+                flight=trainer.flight, metrics_dir=metrics_dir,
+                detect_t=detect_t,
+            )
         # Coordinated abort-to-requeue: a peer died or wedged and a bounded
         # collective timed out (or failed) on THIS process. Every survivor
         # takes this same path, so nobody is stranded. Checkpoint where

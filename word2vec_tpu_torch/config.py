@@ -3,8 +3,7 @@
 A copy of word2vec_tpu/config.py with the same defaults and validation, so
 one config means the same step in both packages (`band_backend` keeps its
 four values; in the port 'pallas_fused' names the hand-written CUDA
-kernels of ops/fused_step.py). The one difference: a non-empty
-`elastic_policy` is refused, since the port has no elastic layer yet.
+kernels of ops/fused_step.py).
 
 Mirrors every hyperparameter knob of the reference implementation
 (reference: Word2Vec.h:32-46 public members, defaults at Word2Vec.h:64-66 and
@@ -418,9 +417,9 @@ class Word2VecConfig:
     #                   requeue (exit 75/76; scheduler restarts the fleet).
     #   "shrink"      — on SyncTimeout the survivors agree on the live
     #                   membership through the elastic rendezvous, re-form
-    #                   the runtime at N-1 (ShardedTrainer.remesh inside an
-    #                   in-place exec — the jax coordination service cannot
-    #                   drop a live member), re-shard from the last
+    #                   the process group at N-1 (an in-place exec: a
+    #                   gloo group cannot drop a live member), re-shard
+    #                   from the last
     #                   integrity-verified checkpoint, and keep training —
     #                   no scheduler round-trip, no 75/76.
     #   "shrink+grow" — additionally admit a restarted host back at the
@@ -668,13 +667,14 @@ class Word2VecConfig:
                 f"got {self.elastic!r}"
             )
         if self.elastic_policy:
-            # the JAX package parses the policy here (resilience/policy.py);
-            # the port has no elastic layer yet, so a policy cannot mean
-            # anything and is refused at construction rather than ignored
-            raise ValueError(
-                "elastic_policy needs the elastic multi-host layer, which "
-                "the PyTorch port does not have yet"
-            )
+            # parsed (and so validated) at construction: a typo'd policy
+            # dies here with the clause + offset, not at the first window
+            from .resilience.policy import PolicyError, parse_policy
+
+            try:
+                parse_policy(self.elastic_policy)
+            except PolicyError as e:
+                raise ValueError(f"bad elastic_policy: {e}") from None
         if self.batch_rows % self.micro_steps != 0:
             raise ValueError(
                 f"batch_rows {self.batch_rows} must be divisible by "

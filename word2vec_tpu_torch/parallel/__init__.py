@@ -3,12 +3,15 @@ the replica sync (mean and delta) and ShardedTrainer, in one process or,
 on the data axis, across several on torch.distributed (port of
 word2vec_tpu/parallel/; see mesh.py, trainer.py, multihost.py and
 ops/shards.py). The tests run meshes up to (2, 2, 2) and tp 4 on the CPU,
-and two gloo processes; chip_smoke.py runs them with every shard on one
-card, and two processes sharing it."""
+and two and three gloo processes (an elastic fleet re-forming through
+ShardedTrainer's remesh counterpart, an exec: resilience/elastic.py, with
+its store hosted by coordservice.py); chip_smoke.py runs them with every
+shard on one card, and two and three processes sharing it."""
 
 from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, make_mesh
 from .multihost import (
     DistConfig,
+    generation_env,
     global_agree_max,
     global_agree_min,
     global_agree_sum,
@@ -41,6 +44,7 @@ __all__ = [
     "ShardedTrainer",
     "assemble_local_replica",
     "concat_shards",
+    "generation_env",
     "global_agree_max",
     "global_agree_min",
     "global_agree_sum",

@@ -41,10 +41,38 @@ a sync deadline installed a dead peer raises SyncTimeout instead of
 hanging the fleet, and an error out of the distributed runtime is raised
 as torch.distributed.DistBackendError, which is_peer_failure recognises.
 
+Elastic fleets (resilience/elastic.py; CLI --elastic) re-form the group
+in a new GENERATION after a shrink or a grow: the same processes exec'd
+in place, each generation with its own store. The contract gains the JAX
+package's names:
+
+  W2V_ELASTIC_COORD   host:port of the elastic rendezvous (hosted by the
+                      current rank 0's process; defaults to the gen-0
+                      coordinator host at port + 1000); moves to the
+                      lowest surviving rank's standby address when rank 0
+                      dies and the survivors elect a new host
+  W2V_ELASTIC_PEERS   comma list of per-rank standby rendezvous addresses
+                      (entry r = where rank r would host the rendezvous if
+                      elected; entry 0 == W2V_ELASTIC_COORD); defaults to
+                      the elastic host at port + rank
+  W2V_ELASTIC_GEN     the current generation (0 = the launch topology)
+  W2V_ELASTIC_PORT0   the gen-0 coordinator port: generation g's store
+                      listens on port0 + g, so a re-formed fleet never
+                      joins a half-dead predecessor's store
+  W2V_ELASTIC_TRIGGER what decided the current generation (failure |
+                      policy | rejoin), recorded in the generation_start
+                      mesh event
+
+An elastic fleet's store does not live inside rank 0: rank 0 starts the
+store shepherd (parallel/coordservice.py), a small process that hosts the
+generation's TCPStore and outlives rank 0's death or exec, and every rank,
+rank 0 included, joins it as a client (`initialize_from_env(elastic=True)`).
+The shepherd stamps the store with its generation, and a rank that finds
+another generation's stamp behind the address refuses to join it.
+
 One process: `initialize_from_env` is a no-op without the contract,
 `process_count()` is 1, `make_global_mesh` is make_mesh and every
-agreement is the identity. The elastic names (W2V_ELASTIC_*) and
-generation_env come with elastic training (ROADMAP A10e).
+agreement is the identity.
 """
 
 from __future__ import annotations
@@ -66,11 +94,39 @@ from .mesh import Mesh, make_mesh
 ENV_COORDINATOR = "W2V_COORDINATOR"
 ENV_NUM_PROCS = "W2V_NUM_PROCS"
 ENV_PROC_ID = "W2V_PROC_ID"
+ENV_ELASTIC_COORD = "W2V_ELASTIC_COORD"
+ENV_ELASTIC_PEERS = "W2V_ELASTIC_PEERS"
+ENV_ELASTIC_GEN = "W2V_ELASTIC_GEN"
+ENV_ELASTIC_PORT0 = "W2V_ELASTIC_PORT0"
+ENV_ELASTIC_TRIGGER = "W2V_ELASTIC_TRIGGER"
 
 #: how long init_process_group waits for every rank to arrive
 INIT_TIMEOUT_S = 300.0
+#: the store key the shepherd stamps with its generation
+GEN_KEY = "w2v_elastic_gen"
+
+
+def generation_env(coordinator: str, num_processes: int, process_id: int,
+                   gen: int) -> dict:
+    """The W2V_* environment a re-formed generation launches under: the
+    one place the elastic exec spells the contract, so it can never drift
+    from the names initialize_from_env reads."""
+    return {
+        ENV_COORDINATOR: coordinator,
+        ENV_NUM_PROCS: str(int(num_processes)),
+        ENV_PROC_ID: str(int(process_id)),
+        ENV_ELASTIC_GEN: str(int(gen)),
+    }
 
 _initialized = False
+#: the store shepherd (its Popen, or an adopted leash descriptor), held for
+#: the life of this process: dropping it would close our end of the leash
+#: pipe and start the shepherd's linger countdown mid-run (the exec or
+#: death close is the intended one)
+_coordservice = None
+#: how this process joined its group: seconds waiting for the store and
+#: in init_process_group, and the generation (init_stats())
+_INIT_STATS: Dict = {}
 #: the table-collective decision (topology()), made once
 _topology: Optional[Dict] = None
 _nccl_group = None
@@ -120,13 +176,121 @@ def _dist():
     return dist
 
 
-def initialize_from_env(env=os.environ) -> bool:
+def _start_shepherd(port, num_processes: int, gen: int):
+    """The store shepherd (parallel/coordservice.py) of generation `gen`
+    as a subprocess holding our stdin pipe as its liveness leash; it
+    prints `ready` on its stdout once the store is bound."""
+    import subprocess
+
+    global _coordservice
+    _coordservice = subprocess.Popen(
+        [sys.executable, "-m", "word2vec_tpu_torch.parallel.coordservice",
+         "--port", str(port), "--procs", str(num_processes), "--gen", str(gen)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+    )  # held for the life of this process: a GC'd Popen closes the leash
+    return _coordservice
+
+
+def _await_ready(ready_fd: int, port) -> None:
+    line = os.read(ready_fd, 4096).decode(errors="replace")
+    if "ready" not in line:
+        raise RuntimeError(
+            f"store shepherd failed to start on port {port} (got {line!r})"
+        )
+
+
+#: the shepherd an old image started for this process's generation before
+#: it exec'd into it: "port:gen:leash_fd:ready_fd" (prestart_shepherd)
+ENV_SHEPHERD = "W2V_ELASTIC_SHEPHERD"
+
+
+def prestart_shepherd(coordinator: str, num_processes: int, gen: int,
+                      env: Dict[str, str]) -> None:
+    """Start generation `gen`'s store shepherd from the image about to
+    exec into that generation's rank 0, so the shepherd's own start-up
+    (an interpreter and torch) runs while the new image starts. Its leash
+    and its ready line ride two inheritable pipe ends through the exec,
+    named in env[ENV_SHEPHERD]; _join_elastic adopts them."""
+    _, _, port = coordinator.rpartition(":")
+    proc = _start_shepherd(port, num_processes, gen)
+    leash, ready = proc.stdin.fileno(), proc.stdout.fileno()
+    os.set_inheritable(leash, True)
+    os.set_inheritable(ready, True)
+    env[ENV_SHEPHERD] = f"{port}:{gen}:{leash}:{ready}"
+
+
+def _adopt_shepherd(port: int, gen: int, env=os.environ) -> bool:
+    """The shepherd the old image started for this generation, when env
+    names one for this port and generation: wait for its ready line and
+    hold its leash for the life of this process."""
+    parts = env.get(ENV_SHEPHERD, "").split(":")
+    if len(parts) != 4 or parts[:2] != [str(port), str(gen)]:
+        return False
+    leash, ready = int(parts[2]), int(parts[3])
+    _await_ready(ready, port)
+    global _coordservice
+    _coordservice = leash  # never closed: the exec or death closes it
+    return True
+
+
+def _join_elastic(cfg: DistConfig, gen: int) -> None:
+    """init_process_group for an ELASTIC fleet: the store lives in the
+    shepherd, which rank 0 starts, and every rank joins it as a client.
+
+    Why: a store hosted inside rank 0 dies with it, so a survivor that
+    touches the store after rank 0's death (a new group, a late joiner)
+    meets a dead endpoint, and rank 0's exec into the next generation
+    would pull the store from under members still using it. With the store
+    out of process, rank 0's loss breaks only the gloo pairs, which the
+    bounded collectives turn into SyncTimeout (the detection path). The
+    store's generation stamp is checked: a rank never joins a store of
+    another generation that happens to listen on the port."""
+    dist = _dist()
+    host, _, port = cfg.coordinator.rpartition(":")
+    t0 = time.monotonic()
+    if cfg.process_id == 0 and _coordservice is None \
+            and not _adopt_shepherd(int(port), gen):
+        proc = _start_shepherd(port, cfg.num_processes, gen)
+        try:
+            _await_ready(proc.stdout.fileno(), port)
+        except RuntimeError:
+            proc.kill()
+            proc.wait()
+            raise
+    t1 = time.monotonic()
+    store = dist.TCPStore(
+        host, int(port), cfg.num_processes, False,
+        datetime.timedelta(seconds=INIT_TIMEOUT_S),
+    )
+    stamp = store.get(GEN_KEY).decode()
+    if stamp != str(gen):
+        raise RuntimeError(
+            f"the store at {cfg.coordinator} belongs to generation {stamp}, "
+            f"not {gen}: refusing to join another generation's fleet"
+        )
+    t2 = time.monotonic()
+    dist.init_process_group(
+        "gloo", store=store, world_size=cfg.num_processes,
+        rank=cfg.process_id,
+        timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S),
+    )
+    _INIT_STATS.update(
+        shepherd_s=t1 - t0, store_wait_s=t2 - t1,
+        group_init_s=time.monotonic() - t2,
+    )
+
+
+def initialize_from_env(env=os.environ, elastic: bool = False) -> bool:
     """Join the process group of the W2V_* contract (gloo; the table
     backend is chosen later, by make_global_mesh).
 
     Run it before the first card use on every process. Returns True when
     several processes are active (now or from an earlier call), False for
-    one process (no contract: a no-op). Idempotent."""
+    one process (no contract: a no-op). Idempotent. With `elastic` (an
+    elastic fleet, W2V_COORDINATOR a host:port), the generation's store is
+    hosted by the shepherd rank 0 starts (_join_elastic); otherwise rank
+    0 hosts it in process (init_method tcp://, or the coordinator's own
+    scheme such as file://)."""
     global _initialized
     if _initialized:
         return True
@@ -134,14 +298,29 @@ def initialize_from_env(env=os.environ) -> bool:
     if cfg is None:
         return False
     dist = _dist()
+    gen = int(env.get(ENV_ELASTIC_GEN, "0") or 0)
+    _INIT_STATS.clear()
+    _INIT_STATS["gen"] = gen
     if not dist.is_initialized():
-        dist.init_process_group(
-            "gloo", init_method=cfg.init_method,
-            world_size=cfg.num_processes, rank=cfg.process_id,
-            timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S),
-        )
+        if elastic and "://" not in cfg.coordinator:
+            _join_elastic(cfg, gen)
+        else:
+            t0 = time.monotonic()
+            dist.init_process_group(
+                "gloo", init_method=cfg.init_method,
+                world_size=cfg.num_processes, rank=cfg.process_id,
+                timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S),
+            )
+            _INIT_STATS["group_init_s"] = time.monotonic() - t0
     _initialized = True
     return True
+
+
+def init_stats() -> Dict:
+    """How this process joined its group: the generation, and the seconds
+    spent starting the shepherd, waiting for the store and in
+    init_process_group (empty before initialize_from_env)."""
+    return dict(_INIT_STATS)
 
 
 def process_count() -> int:

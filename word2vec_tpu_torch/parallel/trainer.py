@@ -82,7 +82,10 @@ cannot host a pallas_call, while here each replica's step is the
 single-device step. At tp or sp > 1 the Pallas routes are refused, as the
 JAX trainer refuses them: their kernels train whole rows of whole tables.
 
-Not in this slice: remesh (ROADMAP A10e).
+remesh() re-forms a live trainer over another mesh (the JAX trainer's
+autoscaling primitive): every runner and graph dropped, the replicas
+rebuilt, the tables carried over through export_params / import_params or
+loaded from the newest good checkpoint.
 """
 
 from __future__ import annotations
@@ -397,6 +400,108 @@ class ShardedTrainer(Trainer):
         if self.tp > 1 or self.sp > 1:
             _reject_pallas(config, mesh)
 
+    def remesh(
+        self,
+        mesh: Optional[Mesh] = None,
+        dp: int = 0,
+        tp: int = 0,
+        sp: int = 0,
+        state: Optional[TrainState] = None,
+        checkpoint_dir: Optional[str] = None,
+    ) -> "ShardedTrainer":
+        """Re-form this trainer over a new mesh, re-entrantly (the JAX
+        trainer's remesh, parallel/trainer.py:449-547).
+
+        Drops everything mesh-derived, as __init__ builds it: every runner
+        and its captured graphs, the capture pools and streams, the
+        replicas and their shards, the per-device tables, the resident
+        corpus, the sync (and the delta sync's base) and the agreed steps
+        an epoch; the new mesh is validated by the same _apply_mesh. Pass
+        `mesh`, or axis widths (`dp` / `tp` / `sp`, defaulting to the
+        current ones; the mesh is then multihost.make_global_mesh's on this
+        trainer's device type). With `state`, the live tables are exported
+        on the OLD mesh (replica-synced, export_params) and imported into
+        the new one (import_params): continuing is then bitwise what a
+        fresh trainer of the new shape does with the same tables. With
+        `checkpoint_dir`, the tables and counters come instead from the
+        newest GOOD checkpoint there (io/checkpoint.load_checkpoint: verify,
+        quarantine, .old fallback), which needs a `state` to land in
+        (ValueError otherwise). The next train() captures again.
+
+        The process set cannot change inside a live process (a gloo group
+        has no member removal): an elastic fleet re-enters through an exec
+        (resilience/elastic.py) and a fresh trainer. This is the
+        one-process operation.
+        """
+        host_params = ck_state = None
+        if checkpoint_dir is not None:
+            if state is None:
+                raise ValueError(
+                    "remesh(checkpoint_dir=...) re-shard-loads the "
+                    "checkpoint tables into a live state and needs the "
+                    "`state` to import them into — without it the loaded "
+                    "params would be silently discarded. Pass state=, or "
+                    "omit checkpoint_dir for a specs-only remesh."
+                )
+            from ..io.checkpoint import load_checkpoint
+
+            ck_state, _cfg, _vocab = load_checkpoint(checkpoint_dir)
+            host_params = ck_state.params
+        elif state is not None:
+            # synced and de-replicated on the OLD mesh; copies, so the old
+            # replicas can go
+            host_params = {k: v.clone() for k, v in self.export_params(state).items()}
+        if mesh is None:
+            mesh = multihost.make_global_mesh(
+                dp or self.dp, tp or self.tp, sp or self.sp,
+                device=self.mesh.devices[0].type,
+            )
+        old_cards = self.mesh.cards
+        self._apply_mesh(mesh, self.config)
+        self._runners.clear()
+        self._env = None
+        self._envs.clear()
+        self._replicas = None
+        self._params = None
+        self._sync_base = None
+        for dev in old_cards:
+            if dev.type == "cuda":
+                # the old graphs' pools, and the cuBLAS workspaces of their
+                # capture streams, back to the allocator
+                from ..tune.planner import free_probe_residue
+
+                free_probe_residue(dev)
+                break
+        self._tables_by_dev.clear()
+        self._resident = None
+        self._resident_cache = None
+        self._resident_ready = False
+        self._epoch_steps = None
+        self._last_sync_step = None
+        if self.mesh.devices[0] != self.device:
+            self.device = self.mesh.devices[0]
+            self.tables = DeviceTables.build(self.vocab, self.config, self.device)
+        self._build_sync()
+        if state is not None and ck_state is not None:
+            state.step = ck_state.step
+            state.words_done = ck_state.words_done
+            state.epoch = ck_state.epoch
+        if state is not None and host_params is not None:
+            self.import_params(host_params, state)
+        self._log({
+            "event": "remesh",
+            "mesh_size": self.dp * self.sp * self.tp,
+            "dp": self.dp, "sp": self.sp, "tp": self.tp,
+            "source": "checkpoint" if checkpoint_dir else (
+                "live" if state is not None else "specs-only"
+            ),
+        })
+        if self.flight is not None:
+            self.flight.ring.instant("remesh", args={
+                "dp": self.dp, "sp": self.sp, "tp": self.tp,
+            })
+        return self
+
     def _build_sync(self) -> None:
         self.sync_fn = (
             make_delta_sync(self.mesh) if self.config.sync_mode == "delta"
@@ -651,6 +756,11 @@ class ShardedTrainer(Trainer):
             ),
             log_fn=self.log_fn,
             flight=self.flight,
+            # the elastic grow and policy channels ride the heartbeat row,
+            # so the whole fleet acts at one sync boundary (cli.py wires
+            # both before calling install_shutdown)
+            elastic_fn=self.elastic_poll,
+            policy_fn=self.policy_poll,
             signals=self.signals,
             phases=self.phases,
         ).check

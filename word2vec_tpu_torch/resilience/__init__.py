@@ -13,7 +13,14 @@
   watchdog.py   — the step-deadline watchdog (stack dump + wedged phase +
                   EXIT_STALLED), bounded_call, the peer-failure classifier
                   and PeerAgreement (the multi-process stop vote with a
-                  liveness heartbeat).
+                  liveness heartbeat, and the elastic grow and policy
+                  columns).
+  elastic.py    — elastic training: the rendezvous (ElasticServer), the
+                  shrink / grow / election / policy-shrink rounds, the
+                  generation snapshot and the in-place exec
+                  (ElasticController).
+  policy.py     — the signal-driven elastic policy (ElasticPolicy,
+                  parse_policy).
 
 Submodules are imported lazily: io/checkpoint.py consults `faults` for
 its injection point, and an eager `from .supervisor import ...` here would
@@ -23,8 +30,15 @@ close an import cycle through io/checkpoint -> resilience.faults.
 from __future__ import annotations
 
 __all__ = [
+    "ElasticController",
+    "ElasticError",
+    "ElasticPolicy",
+    "ElasticServer",
     "Fault",
     "FaultPlan",
+    "GrowRequested",
+    "PolicyError",
+    "PolicyShrinkRequested",
     "PeerAgreement",
     "ShutdownHandler",
     "StepWatchdog",
@@ -35,6 +49,17 @@ __all__ = [
 ]
 
 _LAZY = {
+    "ElasticController": (
+        "word2vec_tpu_torch.resilience.elastic", "ElasticController"
+    ),
+    "ElasticError": ("word2vec_tpu_torch.resilience.elastic", "ElasticError"),
+    "ElasticServer": ("word2vec_tpu_torch.resilience.elastic", "ElasticServer"),
+    "GrowRequested": ("word2vec_tpu_torch.resilience.elastic", "GrowRequested"),
+    "PolicyShrinkRequested": (
+        "word2vec_tpu_torch.resilience.elastic", "PolicyShrinkRequested"
+    ),
+    "ElasticPolicy": ("word2vec_tpu_torch.resilience.policy", "ElasticPolicy"),
+    "PolicyError": ("word2vec_tpu_torch.resilience.policy", "PolicyError"),
     "Fault": ("word2vec_tpu_torch.resilience.faults", "Fault"),
     "FaultPlan": ("word2vec_tpu_torch.resilience.faults", "FaultPlan"),
     "ShutdownHandler": (

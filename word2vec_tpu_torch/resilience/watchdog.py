@@ -479,10 +479,17 @@ class PeerAgreement:
     surviving process. Without a deadline a dead peer still raises when
     the runtime reports it (is_peer_failure); a wedged one blocks.
 
-    The elastic and policy columns are the grow and shrink channels of
-    elastic training (ROADMAP A10e): 0 until it is ported, and nothing
-    reads them yet. `inspect()` keeps accepting 4-column rows so
-    synthetic fleets and recorded heartbeats still parse.
+    The elastic column is the GROW channel of elastic training
+    (resilience/elastic.py): the rendezvous-hosting process sets it when a
+    restarted host has announced itself, and since every process reads
+    the same allgather rows, the whole fleet raises GrowRequested at the
+    SAME sync boundary. The policy column is the SHRINK channel of the
+    elastic policy (resilience/policy.py): the rendezvous host encodes a
+    pending policy shrink as victim_rank + 1 (0 = none) and the whole
+    fleet raises PolicyShrinkRequested at the same boundary. Precedence:
+    a requested stop beats everything, a policy shrink beats a pending
+    grow. `inspect()` keeps accepting 4-column rows so synthetic fleets
+    and recorded heartbeats still parse.
     """
 
     def __init__(
@@ -494,6 +501,8 @@ class PeerAgreement:
         straggler_min_ms: float = 50.0,
         log_fn=None,
         flight=None,
+        elastic_fn: Optional[Callable[[], float]] = None,
+        policy_fn: Optional[Callable[[], float]] = None,
         signals=None,
         phases=None,
     ):
@@ -514,11 +523,22 @@ class PeerAgreement:
         #: flight recorder: every heartbeat's rows land on the timeline, so
         #: a peer-loss dump shows the fleet's last agreed state
         self.flight = flight
+        #: elastic grow channel: nonzero when THIS process wants the fleet
+        #: to grow-remesh at this boundary (the rendezvous host polls its
+        #: parked rejoiners; everyone else contributes 0 and reads the
+        #: verdict from the allgather rows)
+        self.elastic_fn = elastic_fn
+        #: elastic policy channel (resilience/policy.ElasticPolicy.poll):
+        #: victim_rank + 1 when the rendezvous host's policy decided to
+        #: shrink, 0 otherwise
+        self.policy_fn = policy_fn
         self._warned: set = set()
 
     def check(self, step: int) -> bool:
         """The trainers' stop_check: heartbeat + agreed stop verdict at the
-        cadence, False (no collective) off it."""
+        cadence, False (no collective) off it. Raises
+        PolicyShrinkRequested / GrowRequested when the fleet-agreed policy
+        / elastic column is set and no stop is pending."""
         if step % self.every != 0:
             return False
         import contextlib
@@ -530,6 +550,12 @@ class PeerAgreement:
         p50 = 0.0
         if self.step_time_fn is not None:
             p50 = float(self.step_time_fn() or 0.0)
+        grow = 0.0
+        if self.elastic_fn is not None:
+            grow = float(self.elastic_fn() or 0.0)
+        policy = 0.0
+        if self.policy_fn is not None:
+            policy = float(self.policy_fn() or 0.0)
         agree_span = (
             self.phases.span("agree") if self.phases is not None
             else contextlib.nullcontext()
@@ -540,15 +566,28 @@ class PeerAgreement:
                 1.0 if self.handler.requested else 0.0,
                 float(step),
                 p50,
-                0.0,  # elastic grow flag (A10e)
-                0.0,  # elastic policy action (A10e)
+                grow,
+                policy,
             ])
         if self.flight is not None:
             self.flight.note_heartbeat(np.asarray(rows).tolist(), step)
         if self.signals is not None:
             self.signals.note_heartbeat(np.asarray(rows).tolist(), step)
         self.inspect(rows, step)
-        return bool(rows[:, 1].max() > 0)
+        stop = bool(rows[:, 1].max() > 0)
+        if not stop and rows.shape[1] >= 6 and rows[:, 5].max() > 0:
+            # a policy shrink outranks a pending grow: the encoded value is
+            # victim_rank + 1, and every process decodes the same rows
+            from .elastic import PolicyShrinkRequested
+
+            raise PolicyShrinkRequested(
+                step=step, victim=int(rows[:, 5].max()) - 1
+            )
+        if not stop and rows.shape[1] >= 5 and rows[:, 4].max() > 0:
+            from .elastic import GrowRequested
+
+            raise GrowRequested(step=step)
+        return stop
 
     def inspect(self, rows, step: int) -> None:
         """Straggler / desync detection over one heartbeat's [P, 4..6]

@@ -89,10 +89,9 @@ every dispatch and `_finalize` after the last (the replica sync),
 `_detach_params` (train() returns one Params dict), `export_params` (what
 a checkpoint and the quality probe take) and `fill_params` (the nan
 fault); the metrics drain sums the replicas' rows when a dispatch returns
-[replicas, S] each.
-
-Not in this slice: elastic resizing (config.elastic). Configs that need
-it raise NotImplementedError.
+[replicas, S] each. `elastic_poll` and `policy_poll` are the elastic
+layer's heartbeat columns (resilience/elastic.py, resilience/policy.py),
+threaded into the multi-process stop check by install_shutdown.
 """
 
 from __future__ import annotations
@@ -170,18 +169,6 @@ class TrainReport:
     stream: Optional[Dict] = None
 
 
-def _check_slice(config: Word2VecConfig) -> None:
-    check_route(config)
-    unported = [
-        (config.elastic != "off", "elastic (resilience/elastic.py)"),
-    ]
-    names = [name for cond, name in unported if cond]
-    if names:
-        raise NotImplementedError(
-            "not in this slice of the PyTorch port: " + ", ".join(names)
-        )
-
-
 class Trainer:
     """End-to-end single-device trainer; device defaults to "cuda"."""
 
@@ -204,6 +191,17 @@ class Trainer:
     #: boundary; True ends the run cleanly with TrainReport.interrupted =
     #: "preempted". Wire via install_shutdown().
     stop_check: Optional[Callable[[int], bool]] = None
+    #: elastic grow channel (resilience/elastic.ElasticController
+    #: .grow_pending): nonzero on the rendezvous host while a restarted
+    #: host waits for admission. None in production; the CLI wires it on
+    #: rank 0 BEFORE install_shutdown, which threads it into
+    #: PeerAgreement's heartbeat row so the whole fleet admits the
+    #: rejoiner at one sync boundary (one process: unused)
+    elastic_poll = None
+    #: elastic policy channel (resilience/policy.ElasticPolicy.poll):
+    #: victim_rank + 1 when the rendezvous host's policy latched a shrink,
+    #: 0 otherwise; wired like elastic_poll
+    policy_poll = None
     #: in-training quality probe (obs/quality.QualityProbe): built from
     #: config.quality_probe_every > 0 (synthesized golds, a warn-only
     #: sentinel), or installed by a driver; None = off. Beaten from
@@ -280,7 +278,7 @@ class Trainer:
                     config, kernel=decision["selected"]
                 )
                 self._log(dict(decision))
-        _check_slice(config)
+        check_route(config)
         self.device = resolve_device(device)
         if config.autotune != "off":
             # the plan before anything shape-dependent is built: a cached
