@@ -222,9 +222,12 @@ Phases (any failure exits non-zero and prints no result line):
      kernel route), the kernels on the card vs the plain versions on the
      CPU with the same draws (f32 compute, phase 4's tolerances), and the
      band cores' bf16 bodies at the same shapes vs their plain versions
-     (phase 3's tolerances); band_core at batch scope and KP 256 refused
-     before any launch and absent from the grid (REFUSED_SHAPES, ROADMAP
-     Queue C). (b) probe_plan of the four routes' flagship plans: launches
+     (phase 3's tolerances); the card's grid of the flagship the JAX
+     package's TPU grid, nothing dropped (its size and its KP-256
+     batch-scope pallas plans, JAX_FLAGSHIP_GRID, which
+     tests/test_torch_tune.py holds equal to JAX's), and one probe of a
+     KP-256 batch-scope pallas plan completing with exact launches
+     (PROBE_WIDE). (b) probe_plan of the four routes' flagship plans: launches
      exact (the capture's warm-up step + 3 dispatches of 2 steps), the
      measured and predicted ms, the model's order of the routes beside the
      measured one. (c) the CLI with --autotune probe --plan-cache on phase
@@ -376,6 +379,18 @@ Phases (any failure exits non-zero and prints no result line):
      its first and last boundary; the card's memory (mem_get_info, all
      processes) before the kill and after each generation's first
      boundary. One elastic_phase JSON line.
+ 17. wide pools and rows: both band cores past one piece of the negative
+     pool and of the width (csrc/band_tiles.cuh). (a) At each WIDE_SHAPES
+     entry (d 300 / KP 256, d 512 / KP 64, d 1000 / KP 64 / W 10, d 1000 /
+     KP 256; L 192, 3 rows, S auto): sg and cbow, f32 and bf16 tables, bf16
+     and f32 compute, band_core in row and batch scope, within phase 3's
+     tolerances of the plain versions and two calls bitwise equal; each
+     shape at the flagship's 256 rows (sg, f32 tables, bf16 compute): ms,
+     plain ms, bound, shared memory a block (library == host copy) and
+     blocks a SM. (b) The Trainer on pallas_fused/unified and pallas/split
+     at d 1000 and on pallas at batch scope with KP 256 (phase 5's corpus,
+     V = 71,000): 6 graphed steps bitwise the eager run, 24 graphed steps
+     whose loss falls, launches exact. One wide_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -498,9 +513,13 @@ def zipf_p():
     return (1.0 / ranks) / np.sum(1.0 / ranks)
 
 
-def grad_inputs(dev, table_dtype, seed=0):
+def grad_inputs(dev, table_dtype, seed=0, d=D, kp=KP, w=W):
+    """fused_grad_core's inputs at the flagship's batch (B rows of L
+    tokens from the Zipf vocabulary, ragged), width d, KP negatives a row
+    and window w (the flagship's by default)."""
     from word2vec_tpu_torch.ops import banded
 
+    D, KP, W = d, kp, w  # the flagship's names, this call's values
     rng = np.random.default_rng(seed)
     p = zipf_p()
     toks = rng.choice(V, size=(B, L), p=p).astype(np.int32)
@@ -536,6 +555,7 @@ def grad_inputs(dev, table_dtype, seed=0):
             rng.choice(V, size=(B, KP), p=p).astype(np.int32)
         ).to(dev),
         alpha=0.025,
+        W=W,
     )
 
 
@@ -628,7 +648,8 @@ def core_inputs(inp, model, scope):
     and context slabs gathered from the two planes, raw -1-padded ids."""
     from word2vec_tpu_torch.ops import banded
 
-    emb, tokens = inp["emb"], inp["tokens"]
+    emb, tokens, W = inp["emb"], inp["tokens"], inp["W"]
+    D = emb.shape[-1]
     S = banded.resolve_chunk(L, W, 0)
     C, P = banded._geom(L, W, S)
     tok = torch.where(tokens >= 0, tokens, 0).long()
@@ -645,22 +666,23 @@ def core_inputs(inp, model, scope):
     )
 
 
-def band_flops(tok_k, keep_c, w_c, centers, is_cbow, dneg_rows):
-    """The contractions this data needs: the negative logits and d_hid at
-    KP columns per center, d_neg over `dneg_rows` positions, and the band
-    logits, the center-side and the context-side band products over the
-    masked pairs only (2 operations a multiply-add)."""
+def band_flops(tok_k, keep_c, w_c, centers, is_cbow, dneg_rows, d, kp):
+    """The contractions this data needs at width d: the negative logits
+    and d_hid at kp columns per center, d_neg over `dneg_rows` positions,
+    and the band logits, the center-side and the context-side band
+    products over the masked pairs only (2 operations a multiply-add)."""
     from word2vec_tpu_torch.ops import banded
 
     S = keep_c.shape[2]
+    W = (tok_k.shape[2] - S) // 2
     dist = torch.as_tensor(banded.band_dist(L, W, S), device=tok_k.device)
     mask = (
         (keep_c > 0)[..., None] & (tok_k >= 0)[:, :, None, :]
         & (dist <= w_c[..., None]) & (dist > 0)
     )
     pairs = int(mask.sum())
-    return 2 * D * (
-        2 * centers * KP + dneg_rows * KP + 3 * pairs
+    return 2 * d * (
+        2 * centers * kp + dneg_rows * kp + 3 * pairs
         + (centers if is_cbow else 0)
     )
 
@@ -673,6 +695,7 @@ def grad_bound(inp, cdt, is_cbow):
     emb, tok_c, tok_k, negs = inp["emb"], inp["tok_c"], inp["tok_k"], inp["negs"]
     es = emb.element_size()
     Bc, C, S = tok_c.shape
+    D, KP = emb.shape[-1], negs.shape[1]
     n_ctr = torch.unique(tok_c).numel()
     n_ctx = torch.unique(tok_k[tok_k >= 0]).numel()
     n_neg = torch.unique(negs).numel()
@@ -681,7 +704,8 @@ def grad_bound(inp, cdt, is_cbow):
         + 4 * (tok_c.numel() * 3 + tok_k.numel() + negs.numel())
         + 4 * (2 * Bc * C * S * D + 2 * Bc * C * S + Bc * KP * D + Bc * KP + 2)
     )
-    flops = band_flops(tok_k, inp["keep_c"], inp["w_c"], Bc * C * S, is_cbow, Bc * L)
+    flops = band_flops(tok_k, inp["keep_c"], inp["w_c"], Bc * C * S, is_cbow, Bc * L,
+                       D, KP)
     return bound_ms(nbytes, flops, PEAK_FLOPS[cdt])
 
 
@@ -692,12 +716,12 @@ def core_bound(args, cdt, is_cbow):
     a, bk, en, tok_c, tok_k, keep_c, w_c, negs, _ = args
     Bc, C, S, d = a.shape
     SK = bk.shape[2]
-    NB = negs.shape[0]
+    NB, KP = negs.shape
     in_bytes = sum(t.numel() * t.element_size()
                    for t in (a, bk, en, tok_c, tok_k, keep_c, w_c, negs))
     out_bytes = 4 * (Bc * C * S * d + Bc * C * SK * d + NB * KP * d
                      + Bc * C * S + Bc * C * SK + NB * KP + 2)
-    flops = band_flops(tok_k, keep_c, w_c, Bc * C * S, is_cbow, Bc * C * S)
+    flops = band_flops(tok_k, keep_c, w_c, Bc * C * S, is_cbow, Bc * C * S, d, KP)
     return bound_ms(in_bytes + out_bytes, flops, PEAK_FLOPS[cdt])
 
 
@@ -1153,15 +1177,17 @@ def flagship_corpus():
 
 
 def flagship_cfg(backend, layout, **over):
-    """The flagship trainer config on one route."""
+    """The flagship trainer config on one route (`over` replaces any of
+    its fields)."""
     from word2vec_tpu_torch import Word2VecConfig
 
-    return Word2VecConfig(
+    base = dict(
         model="sg", train_method="ns", negative=K, word_dim=D, window=W,
         batch_rows=B, max_sentence_len=L, shared_negatives=KP,
         negative_scope="row", table_layout=layout, band_backend=backend,
-        min_count=5, **over,
+        min_count=5,
     )
+    return Word2VecConfig(**{**base, **over})
 
 
 def phase_trainer(dev, vocab, corpus, backend, layout, out_dir=None):
@@ -4193,10 +4219,14 @@ GRID_SHAPES = (
     ("pallas_oa", "split", 512, 64, 32, "row"),
     ("pallas_oa", "split", B, 0, 256, "batch"),
 )
-#: grid shapes a wrapper refuses before any launch (ROADMAP Queue C): the
-#: band_core tiles of batch scope at KP 256 and d 300 exceed a block's
-#: shared memory
-REFUSED_SHAPES = (("pallas", "split", B, 0, 256, "batch"),)
+#: the JAX package's flagship band-ns grid on its TPU platform (the config
+#: of flagship_cfg("xla", "split"), V): its size and its batch-scope KP-256
+#: pallas plans; tests/test_torch_tune.py holds these equal to JAX's, and
+#: phase 12 (a) holds the card's grid to them
+JAX_FLAGSHIP_GRID = (828, 36)
+#: the probe of (a): a plan the card's grid offered only from PR 19 on
+#: (band route, layout, rows, band chunk S, KP, negative scope)
+PROBE_WIDE = ("pallas", "split", B, 0, 256, "batch")
 #: the CLI runs of (c)-(f): (band route, layout, chunk_steps); the search
 #: key of each is the configured route's
 PLAN_CLI = (("pallas_fused", "unified", 6), ("xla", "split", 1))
@@ -4219,15 +4249,16 @@ def grid_cfg(backend, layout, rows, chunk, kp, scope, cdt="bfloat16"):
     )
 
 
-def planner_shapes(dev):
+def planner_shapes(dev, vocab, corpus):
     """(a): the host copy of the band cores' shared memory against the
     library's at every (S, KP) the grid offers, the card's per-block limit
     against the planner's constant; one step of each GRID_SHAPES entry,
     card vs CPU (f32 compute, phase 4's tolerances), and the band core of
     the kernel routes at that shape with bf16 compute (the tensor-core
     bodies the grid runs) vs its plain version (phase 3's tolerances);
-    each REFUSED_SHAPES entry refused by its wrapper with no launch, and
-    absent from the planner's grid."""
+    the card's grid against the JAX package's (JAX_FLAGSHIP_GRID: nothing
+    dropped), and probe_plan of the PROBE_WIDE plan from it (batch scope
+    at KP 256 on pallas) completing with exact launches."""
     from word2vec_tpu_torch import _build
     from word2vec_tpu_torch.ops import band_core as bc
     from word2vec_tpu_torch.ops import fused_step as fs
@@ -4248,13 +4279,15 @@ def planner_shapes(dev):
         get = getattr(_build.library(lib), fn)
         for S in (118, 96, 64):
             for kp in (16, 32, 64, 256):
-                for bf in (1, 0):
-                    host = launch.core_smem_bytes(kernel, S, S + 2 * W, kp, D, W,
-                                                  bool(bf))
-                    if host != get(S, S + 2 * W, kp, D, W, bf):
-                        fail(f"{kernel} shared memory S={S} KP={kp} bf16={bf}: "
-                             f"host {host} != library {get(S, S + 2 * W, kp, D, W, bf)}")
-                    n += 1
+                for d in (D, 1000):
+                    for bf in (1, 0):
+                        host = launch.core_smem_bytes(kernel, S, S + 2 * W, kp, d,
+                                                      W, bool(bf))
+                        lib_b = get(S, S + 2 * W, kp, d, W, bf)
+                        if host != lib_b:
+                            fail(f"{kernel} shared memory S={S} KP={kp} d={d} "
+                                 f"bf16={bf}: host {host} != library {lib_b}")
+                        n += 1
     out["smem_shapes_equal"] = n
     out["smem_optin"] = optin
     rng = np.random.default_rng(12)
@@ -4291,33 +4324,32 @@ def planner_shapes(dev):
     log(f"  (a) {len(GRID_SHAPES)} grid shapes held (step card vs CPU, f32 "
         f"compute; the band cores' bf16 bodies vs plain); shared memory host "
         f"== library at {n} shapes, per-block limit {optin} B")
-    out["refused"] = []
     grid = planner.candidate_grid(flagship_cfg("xla", "split"), V,
                                   {"platform": "gpu"})
-    for backend, layout, rows, chunk, kp, scope in REFUSED_SHAPES:
-        S = resolve_chunk(L, W, chunk)
-        inp = small_core_inputs(table=torch.float32, scope=scope, model="sg",
-                                V=4000, d=D, B=rows, L=L, W=W, S=S, KP=kp)
-        args = [inp[k].to(dev) for k in CORE_ORDER]
-        before = dict(launch.LAUNCHES)
-        try:
-            bc.band_core(*args, 0.03, W=W, K=K, cdt=torch.bfloat16, is_cbow=False)
-        except ValueError as e:
-            msg = str(e)
-        else:
-            fail(f"band_core {scope} KP={kp}: not refused")
-        if launch.LAUNCHES != before or "shared memory" not in msg:
-            fail(f"band_core {scope} KP={kp}: refused after a launch or "
-                 f"for another reason: {msg}")
-        cfg = grid_cfg(backend, layout, rows, chunk, kp, scope)
-        offered = [p for p in grid if p.band_backend == backend
-                   and p.negative_scope == scope]
-        if planner.kernel_fits(cfg) or offered:
-            fail(f"the grid still offers {backend} {scope} at KP {kp}")
-        out["refused"].append({"shape": [backend, layout, rows, S, kp, scope],
-                               "why": msg})
-        log(f"  (a) refused, as ROADMAP Queue C names it: {backend} {scope} "
-            f"KP={kp} S={S}: {msg}")
+    backend, layout, rows, chunk, kp, scope = PROBE_WIDE
+    wide = [g for g in grid if g.band_backend == backend
+            and g.negative_scope == scope and g.shared_negatives == kp]
+    if (len(grid), len(wide)) != JAX_FLAGSHIP_GRID:
+        fail(f"the card's grid: {len(grid)} plans, {len(wide)} of them "
+             f"{backend} {scope} KP {kp}; the JAX package's: {JAX_FLAGSHIP_GRID}")
+    out["grid"] = {"plans": len(grid), backend + "_" + scope + "_kp256": len(wide)}
+    cfg = grid_cfg(backend, layout, rows, chunk, kp, scope)
+    plan = cfg.current_plan()
+    if plan not in grid:
+        fail(f"the card's grid does not offer {plan}")
+    rec = planner.probe_plan(cfg, plan, vocab, corpus, device=dev)
+    planner.free_probe_residue(dev)
+    want = expected_launches(backend, layout, 1 + 3 * 2)
+    if "error" in rec or rec["launches"] != want:
+        fail(f"probe {backend} {scope} KP={kp}: {rec.get('error')} launches "
+             f"{rec.get('launches')} != {want}")
+    out["probe_wide"] = {"plan": plan.to_json(),
+                         "measured_step_ms": rec["measured_step_ms"],
+                         "probe_words_per_sec": rec["probe_words_per_sec"]}
+    log(f"  (a) the card's grid == the JAX package's ({len(grid)} plans, "
+        f"{len(wide)} {backend} {scope} at KP {kp}); probe {backend} {scope} "
+        f"KP={kp} S={resolve_chunk(L, W, chunk)}: {rec['measured_step_ms']} "
+        "ms/step, launches exact")
     return out
 
 
@@ -4609,7 +4641,7 @@ def phase_planner(vocab, corpus, card, tmp):
     dev = torch.device("cuda", 0)
     kind, platform = planner.device_identity(dev)
     row = {"card": card}
-    row["a"] = planner_shapes(dev)
+    row["a"] = planner_shapes(dev, vocab, corpus)
     row["b"] = planner_incumbents(dev, vocab, corpus)
     base = tel_flags(vocab, corpus, tmp)
 
@@ -6598,6 +6630,202 @@ def manifest_of(mdir):
         return json.load(f)
 
 
+# ---------------------------------------------- phase 17: wide pools and rows
+#: (d, KP, W) of the band cores past one piece of the negative pool or of
+#: the width (csrc/band_tiles.cuh kKPc = 64, kDc = 304): batch scope's KP
+#: 256 at the flagship width, d 512 at the default KP, and d 1000 (the
+#: widest models of Mikolov et al. 2013) at W 10 and at KP 256
+WIDE_SHAPES = {
+    "d300-kp256": (300, 256, 5),
+    "d512-kp64": (512, 64, 5),
+    "d1000-kp64-w10": (1000, 64, 10),
+    "d1000-kp256": (1000, 256, 5),
+}
+WIDE_ROWS = 3   # batch rows of (a)'s checks (timed at the flagship's B)
+#: (b)'s trainer runs, (band route, layout, config overrides): the plans
+#: the JAX package's grid promotes to at d 1000, and batch scope at KP 256
+WIDE_TRAINERS = (
+    ("pallas_fused", "unified", dict(word_dim=1000)),
+    ("pallas", "split", dict(word_dim=1000)),
+    ("pallas", "split", dict(negative_scope="batch", shared_negatives=256)),
+)
+WIDE_STEPS = 24     # graphed steps whose loss must fall
+WIDE_EQ_STEPS = 6   # steps of the graphed and the eager run held bitwise
+
+
+def wide_cores(dev, card):
+    """(a): both band cores at every WIDE_SHAPES entry, L 192 and
+    WIDE_ROWS rows, S auto: sg / cbow, f32 / bf16 tables, bf16 / f32
+    compute, band_core in row and batch scope, each within phase 3's
+    tolerance of its plain version and two calls bitwise equal; then each
+    shape at the flagship's B rows (sg, f32 tables, bf16 compute; band_core
+    in row scope, and batch scope at KP 256): the kernel's ms, the plain
+    version's, the bound, the shared memory a block (library == host copy)
+    and the resident blocks a SM."""
+    from word2vec_tpu_torch import _build
+    from word2vec_tpu_torch.ops import band_core as bc
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import launch
+    from word2vec_tpu_torch.ops.banded import resolve_chunk
+
+    libs = {"fused_grad_core": _build.library("fused_step"),
+            "band_core": _build.library("band_core")}
+    smem_fn = {"fused_grad_core": "w2v_grad_core_smem_bytes",
+               "band_core": "w2v_band_core_smem_bytes"}
+    occ_fn = {"fused_grad_core": "w2v_grad_core_blocks_per_sm",
+              "band_core": "w2v_band_core_blocks_per_sm"}
+    rows = []
+    n_checked = 0
+    for shape, (d, kp, w) in WIDE_SHAPES.items():
+        S = resolve_chunk(L, w, 0)
+        geo = dict(V=4000, d=d, B=WIDE_ROWS, L=L, W=w, S=S, KP=kp)
+        for cdt in (torch.bfloat16, torch.float32):
+            for model in ("sg", "cbow"):
+                for table in (torch.float32, torch.bfloat16):
+                    tag = (f"{shape} {model} {str(table)[6:]} tables "
+                           f"cdt={str(cdt)[6:]}")
+                    inp = small_grad_inputs(table=table, **geo)
+                    args = [inp[k].to(dev) for k in GRAD_ORDER]
+                    kw = dict(W=w, K=K, L=L, cdt=cdt, is_cbow=model == "cbow")
+                    got = fs.fused_grad_core(*args, 0.03, **kw)
+                    again = fs.fused_grad_core(*args, 0.03, **kw)
+                    ref = fs.fused_grad_core_plain(*args, 0.03, **kw)
+                    torch.cuda.synchronize()
+                    check_outputs(f"fused_grad_core {tag}", GRAD_NAMES, got, ref,
+                                  cdt, quiet=True)
+                    if not same_bits(got, again):
+                        fail(f"fused_grad_core {tag}: two calls differ (bitwise)")
+                    n_checked += 1
+                    for scope in ("row", "batch"):
+                        inp = small_core_inputs(table=table, scope=scope,
+                                                model=model, **geo)
+                        args = [inp[k].to(dev) for k in CORE_ORDER]
+                        kw = dict(W=w, K=K, cdt=cdt, is_cbow=model == "cbow")
+                        got = bc.band_core(*args, 0.03, **kw)
+                        again = bc.band_core(*args, 0.03, **kw)
+                        ref = bc.band_core_plain(*args, 0.03, **kw)
+                        torch.cuda.synchronize()
+                        check_outputs(f"band_core {tag} {scope}", CORE_NAMES, got,
+                                      ref, cdt, quiet=True)
+                        if not same_bits(got, again):
+                            fail(f"band_core {tag} {scope}: two calls differ "
+                                 "(bitwise)")
+                        n_checked += 1
+        log(f"  (a) {shape} (d={d} KP={kp} W={w} S={S}, {WIDE_ROWS} rows): both "
+            "cores, sg/cbow, f32/bf16 tables, bf16/f32 compute, row/batch: "
+            "within tolerance, repeatable bitwise")
+    for shape, (d, kp, w) in WIDE_SHAPES.items():
+        S = resolve_chunk(L, w, 0)
+        inp = grad_inputs(dev, torch.float32, d=d, kp=kp, w=w)
+        gargs = tuple(inp[k] for k in GRAD_ORDER) + (inp["alpha"],)
+        kw = dict(W=w, K=K, L=L, cdt=torch.bfloat16, is_cbow=False)
+        calls = [("fused_grad_core", "row",
+                  lambda: fs.fused_grad_core(*gargs, **kw),
+                  lambda: fs.fused_grad_core_plain(*gargs, **kw),
+                  grad_bound(inp, torch.bfloat16, False))]
+        for scope in ("row", "batch") if kp > launch.CORE_KP_PIECE else ("row",):
+            cargs = core_inputs(inp, "sg", scope)
+            ckw = dict(W=w, K=K, cdt=torch.bfloat16, is_cbow=False)
+            calls.append(("band_core", scope,
+                          lambda a=cargs, k=ckw: bc.band_core(*a, **k),
+                          lambda a=cargs, k=ckw: bc.band_core_plain(*a, **k),
+                          core_bound(cargs, torch.bfloat16, False)))
+        for name, scope, call, plain_call, (bms, by) in calls:
+            smem = getattr(libs[name], smem_fn[name])(S, S + 2 * w, kp, d, w, 1)
+            host = launch.core_smem_bytes(name, S, S + 2 * w, kp, d, w, True)
+            if smem != host:
+                fail(f"{name} {shape}: shared memory library {smem} != host {host}")
+            per_sm = getattr(libs[name], occ_fn[name])(S, S + 2 * w, kp, d, w, 0, 1, 0)
+            if per_sm < 1:
+                fail(f"{name} {shape}: occupancy {per_sm}")
+            ms = cuda_ms(call, reps=10)
+            plain = cuda_ms(plain_call, reps=2, warmup=1)
+            rows.append({"shape": shape, "d": d, "KP": kp, "W": w, "S": S,
+                         "kernel": name, "scope": scope, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                         "smem_bytes": smem, "blocks_per_sm": per_sm})
+            log(f"  (a) {name} {shape} {scope}, B={B}: {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {bms:.4f} ms ({by}); {smem} B shared "
+                f"memory a block, {per_sm} block(s) a SM ({card})")
+        del inp, gargs, calls
+        torch.cuda.empty_cache()
+    return {"checked": n_checked, "timed": rows}
+
+
+def wide_trainers(dev, vocab, corpus, card):
+    """(b): the Trainer at each WIDE_TRAINERS plan on phase 5's corpus (V =
+    71,000): WIDE_EQ_STEPS graphed steps bitwise equal to as many eager
+    ones, then WIDE_STEPS graphed steps whose loss falls, each run's
+    launches exact (counts set to 0 just before it, read just after)."""
+    import gc
+
+    from word2vec_tpu_torch import Trainer
+    from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+
+    rows = []
+    for backend, layout, over in WIDE_TRAINERS:
+        cfg = flagship_cfg(backend, layout, **over)
+        tag = (f"{backend}/{layout} d={cfg.word_dim} KP={cfg.shared_negatives} "
+               f"{cfg.negative_scope}")
+
+        def counted(tr, steps, what, **kw):
+            reset_launch_counts()
+            state, rep = tr.train(log_every=0, max_steps=steps, **kw)
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            want = expected_launches(backend, layout, steps)
+            if counts != want:
+                fail(f"wide trainer {tag} {what}: launch counts {counts} != {want}")
+            if rep.steps != steps or not np.isfinite(rep.final_loss):
+                fail(f"wide trainer {tag} {what}: {rep.steps} steps, loss "
+                     f"{rep.final_loss}")
+            return state, rep
+
+        eager = Trainer(cfg, vocab, corpus)
+        eager.graphs = False
+        ref, _ = counted(eager, WIDE_EQ_STEPS, "eager")
+        del eager
+        g = Trainer(cfg, vocab, corpus)
+        g.train(log_every=0, max_steps=3)  # captures the step
+        six, _ = counted(g, WIDE_EQ_STEPS, "graphed")
+        same = same_params(six.params, ref.params)
+        if not same:
+            fail(f"wide trainer {tag}: graphed != eager over {WIDE_EQ_STEPS} "
+                 "steps (bitwise)")
+        del six, ref
+        reset_launch_counts()
+        state, rep = g.train(log_every=4, max_steps=WIDE_STEPS)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        hist = rep.loss_history
+        if counts != expected_launches(backend, layout, WIDE_STEPS):
+            fail(f"wide trainer {tag}: launch counts {counts}")
+        if not (hist and all(np.isfinite(hist)) and hist[-1] < hist[0]):
+            fail(f"wide trainer {tag}: loss did not fall: {hist}")
+        rows.append({"run": tag, "graphed_eq_eager": same,
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "loss_first": hist[0], "loss_last": hist[-1],
+                     "words_per_sec": rep.words_per_sec})
+        log(f"  (b) trainer {tag}: {WIDE_EQ_STEPS} graphed steps == eager "
+            f"(bitwise); {WIDE_STEPS} graphed steps, launches exact "
+            f"{rows[-1]['launches']}, loss {hist[0]:.4f} -> {hist[-1]:.4f}, "
+            f"{rep.words_per_sec:.1f} words/sec ({card})")
+        del g, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wide(dev, vocab, corpus, card):
+    """Both band cores past one piece of the negative pool and of the
+    width (phase 17 of the module docstring); one `wide_phase` line."""
+    t_phase = time.perf_counter()
+    row = {"card": card, "a": wide_cores(dev, card)}
+    row["b"] = wide_trainers(dev, vocab, corpus, card)
+    row["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"wide_phase": row}))
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--el-child"]:
         # one rank of a phase-16 fleet: no CUDA call before its CLI runs
@@ -6713,6 +6941,9 @@ def main() -> int:
             prefix="smoke_el_", dir=os.path.join(HERE, "build")
         ) as tmp_el:
             phase_elastic(dev, vocab, corpus, card, tmp_el)
+
+    log(f"[17 wide pools and rows] (at {time.perf_counter() - t0:.1f} s)")
+    phase_wide(dev, vocab, corpus, card)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

@@ -26,13 +26,21 @@ them in torch, chunk by chunk as one CTA walks its batch row:
     carried to the next chunk) and band_core's batch-scope row partials
     reduced in row order.
 
+  * the pieces: the tiles hold at most kKPc negative rows and kDc
+    columns (read from the .cuh, or cut smaller for a test), the negative
+    pool and the width walked piece by piece in the kernels' order (the
+    logits summed over width pieces in one accumulator, d_hid carried over
+    the negative pieces, the overhang of the fused kernel waiting in the
+    next chunk's rows).
+
 Each emulation is held against the plain version (fused_grad_core_plain,
 band_core_plain) at chip_smoke.TOL for bf16 compute (gradients 2e-2 of
 max|plain|, losses 1e-4, n_ctx / ctx_w exact) over odd shapes: d in
 {7, 64, 300}, KP in {8, 64, 100}, W in {1, 5}, S not a multiple of 16,
-L not a multiple of S, ragged rows, sg / cbow, row / batch scope; and at
-one small shape each against the JAX package's Pallas kernel run by the
-Pallas interpreter.
+L not a multiple of S, ragged rows, sg / cbow, row / batch scope; at d 48
+and KP 40 in pieces of 16; and at one small shape each, in one piece and in
+pieces, against the JAX package's Pallas kernel run by the Pallas
+interpreter.
 """
 
 import re
@@ -70,6 +78,8 @@ def const(name: str) -> int:
 
 
 MMA_M, MMA_N, MMA_K = const("kMmaM"), const("kMmaN"), const("kMmaK")
+# the pieces the tiles hold: negative rows and columns
+KPC, DC = const("kKPc"), const("kDc")
 F32, BF16 = torch.float32, torch.bfloat16
 
 
@@ -97,15 +107,30 @@ def mma(a, b, kvalid=None, acc=None):
     return acc
 
 
-def chunk(ctr, bk, E, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
-          cbow_mean, kvalid):
-    """One chunk of one row: ctr [S, d] center rows (cbow: out plane), bk
-    [SK, d] context rows (zero at invalid slots), E the staged negative
-    tile. Returns the chunk's outputs before the cross-chunk sums."""
+def pieces(n: int, piece: int):
+    """(offset, length) of each piece of n cut in pieces of `piece`, the
+    last ragged (band_tiles.cuh piece_len)."""
+    return [(i, min(piece, n - i)) for i in range(0, n, piece)]
+
+
+def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
+          cbow_mean, kvalid, kpc, dc):
+    """One chunk of one row, walked piece by piece as the kernels walk it:
+    ctr [S, d] center rows (cbow: out plane), bk [SK, d] context rows
+    (zero at invalid slots), en [KP, d] the row's negative rows; the tiles
+    hold at most kpc negative rows and dc columns. Returns the chunk's
+    outputs before the cross-chunk sums.
+
+    The order of the sums that cross pieces (csrc/band_tiles.cuh): the
+    negative and band logits sum the width pieces in one accumulator;
+    d_hid's accumulator carries over the negative pieces (through device
+    memory in the kernels, exact), the last piece continued with the sg
+    band product; d_neg and w_neg_sum sum the S positions inside one piece."""
     S, d = ctr.shape
     SK = bk.shape[0]
     KP = negs.numel()
-    SP, DP = up(S, MMA_M), up(d, MMA_K)
+    SP = up(S, MMA_M)
+    dps, kps = pieces(d, dc), pieces(KP, kpc)
     s = torch.arange(S)[:, None]
     k = torch.arange(SK)[None, :]
     dist = (s + W - k).abs()
@@ -118,78 +143,100 @@ def chunk(ctr, bk, E, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
     k_i = torch.where(nctx > 0, float(K), 0.0) if is_cbow else nctx * K
     wn = (k_i / KP)[:, None] * (1.0 - torch.clamp(center_hit + ctx_hit, 0.0, 1.0))
 
-    # the band side's tiles: the band matrix of slot weights [SP x SKP]
-    # and the context rows [SKP x DP], zero-padded like the staged tiles
+    # the band side: the band matrix of slot weights [SP x SKP] and the
+    # context rows, a width piece at a time [SKP x DPq], zero-padded like
+    # the staged tiles
     SKP = up(SK, MMA_K)
-    BK = torch.zeros((SKP, DP))
-    BK[:SK, :d] = bf(bk)
 
     def band(w):
         t = torch.zeros((SP, SKP))
         t[:S, :SK] = bf(w)
         return t
 
-    A = torch.zeros((SP, DP))
+    def tile(x, rows, q):
+        """Width piece q of x [n, d] as a zero-padded bf16 tile [rows x DPq]."""
+        o, n = dps[q]
+        t = torch.zeros((rows, up(n, MMA_K)))
+        t[:x.shape[0], :n] = bf(x[:, o:o + n])
+        return t
+
+    def e_tile(p, q):
+        j0, m = kps[p]
+        return tile(en[j0:j0 + m], up(m, 2 * MMA_N), q)
+
     if is_cbow:
-        h = mma(band(mask), BK)[:S, :d]
+        h = torch.cat([mma(band(mask), tile(bk, SKP, q))[:S, :n]
+                       for q, (_, n) in enumerate(dps)], dim=1)
         if cbow_mean:
             h = h / torch.clamp_min(nctx, 1.0)[:, None]
-        A[:S, :d] = bf(h)
+        src = h
     else:
-        A[:S, :d] = bf(ctr)
-    nlog = mma(A, E.T)[:S, :KP]
-    gn = (0.0 - torch.sigmoid(nlog)) * wn * alpha
-    neg = torch.sum(wn * (F.logsigmoid(nlog) - nlog))
-    G = torch.zeros((SP, E.shape[0]))
-    G[:S, :KP] = bf(gn)
+        src = ctr
 
-    # band side: gp in the [S, SK] band (sg) or per center (cbow)
+    # positive logits: the sg band over the width pieces, or the cbow center
     if not is_cbow:
-        plog = mma(A, BK.T)[:S, :SK]
+        acc = torch.zeros((SP, SKP))
+        for q in range(len(dps)):
+            acc = mma(tile(src, SP, q), tile(bk, SKP, q).T, acc=acc)
+        plog = acc[:S, :SK]
         gp = torch.where(mask != 0, (1.0 - torch.sigmoid(plog)) * mask * alpha,
                          torch.zeros(()))
         pos = torch.sum(torch.where(mask != 0, mask * F.logsigmoid(plog),
                                     torch.zeros(())))
     else:
-        plog_c = torch.sum(A[:S, :d] * bf(ctr), dim=1)
+        plog_c = torch.sum(bf(h) * bf(ctr), dim=1)
         active = (nctx > 0).float()
         gpc = (1.0 - torch.sigmoid(plog_c)) * active * alpha
         pos = torch.sum(active * F.logsigmoid(plog_c))
 
-    dneg = mma(G.T, A, kvalid)[:KP, :d]
-    d_hid = mma(G, E)                                              # [SP, DP]
-    # the context sums on the tensor cores: the band matrix [SK x SP]
-    # (slot k, center s) against A, k-slice by k-slice over s
+    # the negative pool, piece by piece
+    dneg = torch.zeros((KP, d))
+    wsum = torch.zeros(KP)
+    neg = torch.zeros(())
+    part = [None] * len(dps)  # d_hid's accumulator per width piece
+    for p, (j0, m) in enumerate(kps):
+        acc = torch.zeros((SP, up(m, 2 * MMA_N)))
+        for q in range(len(dps)):
+            acc = mma(tile(src, SP, q), e_tile(p, q).T, acc=acc)
+        nlog = acc[:S, :m]
+        wn_p = wn[:, j0:j0 + m]
+        gn = (0.0 - torch.sigmoid(nlog)) * wn_p * alpha
+        neg = neg + torch.sum(wn_p * (F.logsigmoid(nlog) - nlog))
+        G = torch.zeros((SP, up(m, 2 * MMA_N)))
+        G[:S, :m] = bf(gn)
+        for q, (o, n) in enumerate(dps):
+            dneg[j0:j0 + m, o:o + n] = mma(G.T, tile(src, SP, q), kvalid)[:m, :n]
+            part[q] = mma(G, e_tile(p, q), acc=part[q])
+        wsum[j0:j0 + m] = wn_p[:kvalid].sum(0)
+
+    # d_ctr and the context sums per width piece: the band matrix
+    # [SK x SP] (slot k, center s) against A, k-slice by k-slice over s
+    d_ctr = torch.zeros((S, d))
+    y = torch.zeros((SK, d))
     band_t = torch.zeros((SK, SP))
-    if not is_cbow:
-        # the band product continues d_hid's accumulator
-        d_ctr = mma(band(gp), BK, acc=d_hid)[:S, :d]
-        band_t[:, :S] = bf(gp).T
-    else:
-        d_ctr = gpc[:, None] * h
-        dh2 = d_hid[:S, :d] + gpc[:, None] * ctr
-        if cbow_mean:
-            dh2 = dh2 / torch.clamp_min(nctx, 1.0)[:, None]
-        A[:S, :d] = bf(dh2)
-        band_t[:, :S] = bf(mask).T
-    y = mma(band_t, A)[:, :d]                                      # [SK, d]
-    wsum = wn[:kvalid].sum(0)
+    band_t[:, :S] = bf(mask).T if is_cbow else bf(gp).T
+    for q, (o, n) in enumerate(dps):
+        if not is_cbow:
+            # the band product continues d_hid's accumulator
+            d_ctr[:, o:o + n] = mma(band(gp), tile(bk, SKP, q), acc=part[q])[:S, :n]
+            A = tile(src, SP, q)
+        else:
+            d_ctr[:, o:o + n] = gpc[:, None] * h[:, o:o + n]
+            dh2 = part[q][:S, :n] + gpc[:, None] * ctr[:, o:o + n]
+            if cbow_mean:
+                dh2 = dh2 / torch.clamp_min(nctx, 1.0)[:, None]
+            A = torch.zeros((SP, up(n, MMA_K)))
+            A[:S, :n] = bf(dh2)
+        y[:, o:o + n] = mma(band_t, A)[:, :n]
     return dict(nctx=nctx, cwy=cwy, d_ctr=d_ctr, y=y, dneg=dneg, wsum=wsum,
                 pos=pos, neg=neg)
 
 
-def stage_negs(en):
-    KP, d = en.shape
-    E = torch.zeros((up(KP, 2 * MMA_N), up(d, MMA_K)))
-    E[:KP, :d] = bf(en.float())
-    return E
-
-
 def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
-                      is_cbow, cbow_mean=True):
-    """csrc/fused_step.cu grad_core_tc_kernel, one row at a time."""
+                      is_cbow, cbow_mean=True, kpc=KPC, dc=DC):
+    """csrc/fused_step.cu grad_core_tc_kernel, one row at a time, the tiles
+    kpc negative rows and dc columns wide."""
     B, C, S = tok_c.shape
-    SK = tok_k.shape[2]
     d = emb.shape[-1]
     KP = negs.shape[1]
     ctr_p, ctx_p = (1, 0) if is_cbow else (0, 1)
@@ -202,40 +249,45 @@ def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
     w_neg_sum = torch.zeros((B, KP))
     pos = neg = torch.zeros(())
     for b in range(B):
-        E = stage_negs(e32[negs[b].long(), 1])
-        tail = cw_tail = None
+        en = e32[negs[b].long(), 1]
         for c in range(C):
             tokk = tok_k[b, c]
             bk = torch.where((tokk >= 0)[:, None],
                              e32[tokk.clamp_min(0).long(), ctx_p], torch.zeros(()))
             s_end = min(S, L - c * S)
-            o = chunk(e32[tok_c[b, c].long(), ctr_p], bk, E, tok_c[b, c], tokk,
+            o = chunk(e32[tok_c[b, c].long(), ctr_p], bk, en, tok_c[b, c], tokk,
                       keep_c[b, c], w_c[b, c], negs[b], alpha, W=W, K=K,
-                      is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=s_end)
+                      is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=s_end,
+                      kpc=kpc, dc=dc)
             n_ctx[b, c] = o["nctx"]
             d_ctr[b, c] = o["d_ctr"]
             d_neg[b] = o["dneg"] if c == 0 else d_neg[b] + o["dneg"]
             w_neg_sum[b] = w_neg_sum[b] + o["wsum"]
             pos, neg = pos + o["pos"], neg + o["neg"]
-            # the overlap hand-off in token order
+            # the overlap hand-off in token order: the right overhang of
+            # chunk c waits in the first W rows of chunk c + 1
             y, cw = o["y"], o["cwy"]
             if c > 0:
                 d_ctx[b, c - 1, S - W:] += y[:W]
                 ctx_w[b, c - 1, S - W:] += cw[:W]
+                left, cw_left = d_ctx[b, c, :W].clone(), ctx_w[b, c, :W].clone()
             d_ctx[b, c] = y[W:S + W]
             ctx_w[b, c] = cw[W:S + W]
             if c > 0:
-                d_ctx[b, c, :W] = y[W:2 * W] + tail
-                ctx_w[b, c, :W] = cw[W:2 * W] + cw_tail
-            tail, cw_tail = y[S + W:], cw[S + W:]
+                d_ctx[b, c, :W] = y[W:2 * W] + left
+                ctx_w[b, c, :W] = cw[W:2 * W] + cw_left
+            if c + 1 < C:
+                d_ctx[b, c + 1, :W] = y[S + W:]
+                ctx_w[b, c + 1, :W] = cw[S + W:]
     losses = torch.stack([-pos, -neg]).reshape(1, 2)
     return d_ctr, d_ctx, n_ctx, ctx_w, d_neg, w_neg_sum, losses
 
 
 def emulate_band_core(a, bk, en, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W,
-                      K, is_cbow, cbow_mean=True):
-    """csrc/band_core.cu band_core_tc_kernel, one row at a time; under
-    batch scope the per-row partials reduced in row order."""
+                      K, is_cbow, cbow_mean=True, kpc=KPC, dc=DC):
+    """csrc/band_core.cu band_core_tc_kernel, one row at a time, the tiles
+    kpc negative rows and dc columns wide; under batch scope the per-row
+    partials reduced in row order."""
     B, C, S, d = a.shape
     SK = bk.shape[2]
     NB, KP = negs.shape
@@ -248,11 +300,11 @@ def emulate_band_core(a, bk, en, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W,
     loss_row = torch.zeros((B, 2))
     for b in range(B):
         nb = b if NB == B else 0
-        E = stage_negs(en[nb])
         for c in range(C):
-            o = chunk(a[b, c].float(), bk[b, c].float(), E, tok_c[b, c],
+            o = chunk(a[b, c].float(), bk[b, c].float(), en[nb].float(), tok_c[b, c],
                       tok_k[b, c], keep_c[b, c], w_c[b, c], negs[nb], alpha,
-                      W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=None)
+                      W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=S,
+                      kpc=kpc, dc=dc)
             n_ctx[b, c], ctx_w[b, c] = o["nctx"], o["cwy"]
             d_h[b, c], d_ctx[b, c] = o["d_ctr"], o["y"]
             dneg_row[b] = o["dneg"] if c == 0 else dneg_row[b] + o["dneg"]
@@ -371,6 +423,125 @@ def test_band_core_tiling_matches_jax_kernel(scope):
     ref = j_band_core(*jargs, jnp.float32(0.03), W=W, K=3, cdt=jnp.bfloat16,
                       is_cbow=False, cbow_mean=True, interpret=True)
     assert_close(CORE_NAMES, got, ref, TOL[BF16])
+
+
+# ------------------------------------------------------------- pieces
+# d 48 and KP 40 walked in pieces of 16: three width pieces and three
+# negative pieces, the last of those ragged (16, 16, 8); S not a multiple
+# of 16, L not a multiple of S, ragged rows (d, KP, W, S, L, B)
+PIECES = dict(kpc=16, dc=16)
+PIECE_SHAPE = (48, 40, 3, 13, 30, 2)
+
+
+@pytest.mark.parametrize("table", [F32, BF16], ids=["f32tab", "bf16tab"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_grad_core_pieces_match_plain(model, table):
+    d, KP, W, S, L, B = PIECE_SHAPE
+    inp = grad_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=table, seed=7)
+    args = [inp[k] for k in GRAD_ORDER]
+    kw = dict(W=W, K=5, L=L, is_cbow=model == "cbow")
+    got = emulate_grad_core(*args, 0.03, **kw, **PIECES)
+    ref = fs.fused_grad_core_plain(*args, 0.03, cdt=BF16, **kw)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+    assert float(ref[4][:, 32:].abs().max()) > 1e-4  # the ragged piece's d_neg
+
+
+@pytest.mark.parametrize("scope", ["row", "batch"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_band_core_pieces_match_plain(model, scope):
+    d, KP, W, S, L, B = PIECE_SHAPE
+    inp = core_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope=scope, model=model, seed=8)
+    args = [inp[k] for k in CORE_ORDER]
+    kw = dict(W=W, K=5, is_cbow=model == "cbow")
+    got = emulate_band_core(*args, 0.03, **kw, **PIECES)
+    ref = bc.band_core_plain(*args, 0.03, cdt=BF16, **kw)
+    assert_close(CORE_NAMES, got, ref, TOL[BF16])
+    assert bool((got[1][inp["tok_k"] < 0] == 0).all())  # slab zeros
+
+
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_grad_core_pieces_match_jax_kernel(model):
+    d, KP, W, S, L, B = PIECE_SHAPE
+    inp = grad_inputs(V=60, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32, seed=9)
+    got = emulate_grad_core(*[inp[k] for k in GRAD_ORDER], 0.03, W=W, K=3, L=L,
+                            is_cbow=model == "cbow", **PIECES)
+    jargs = [_jax(inp["emb"], jnp.float32)] + [
+        jnp.asarray(inp[k].numpy()) for k in GRAD_ORDER[1:]]
+    ref = j_grad_core(*jargs, jnp.float32(0.03), W=W, K=3, L=L, cdt=jnp.bfloat16,
+                      is_cbow=model == "cbow", cbow_mean=True, interpret=True)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+
+
+@pytest.mark.parametrize("scope", ["row", "batch"])
+def test_band_core_pieces_match_jax_kernel(scope):
+    d, KP, W, S, L, B = PIECE_SHAPE
+    inp = core_inputs(V=60, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope=scope, model="cbow", seed=10)
+    got = emulate_band_core(*[inp[k] for k in CORE_ORDER], 0.03, W=W, K=3,
+                            is_cbow=True, **PIECES)
+    jargs = [_jax(inp[k], jnp.float32) for k in ("a", "bk", "en")] + [
+        jnp.asarray(inp[k].numpy()) for k in CORE_ORDER[3:]]
+    ref = j_band_core(*jargs, jnp.float32(0.03), W=W, K=3, cdt=jnp.bfloat16,
+                      is_cbow=True, cbow_mean=True, interpret=True)
+    assert_close(CORE_NAMES, got, ref, TOL[BF16])
+
+
+@pytest.mark.parametrize("route", [("pallas", "split"), ("pallas_fused", "unified")],
+                         ids=["pallas", "pallas_fused"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_step_in_pieces_matches_jax(route, model, monkeypatch):
+    """Two steps of a kernel route whose KP (40) and d (48) each span three
+    pieces of the emulation (pieces of 16), the port's band core replaced
+    by its emulation, against the JAX step (its Pallas kernel in interpret
+    mode) from the same params and draws (tests/torch_parity.py; two steps,
+    so that the zero-initialized out table has moved before the second, and
+    the negative rows reach d_hid): every table's update within TOL[bf16] of max|update| (bf16 compute: a
+    gradient weight on a rounding boundary may round one ulp apart), the
+    loss within 1e-4, the pair count within 1e-6 (as tests/torch_parity.py)."""
+    import torch_parity as tp_
+    from word2vec_tpu.config import Word2VecConfig as JConfig
+    from word2vec_tpu.models.params import init_params as j_init
+    from word2vec_tpu_torch.ops import band_step
+
+    calls = []
+
+    def grad_core(*a, cdt, **k):
+        calls.append("fused_grad_core")
+        return emulate_grad_core(*a, **k, **PIECES)
+
+    def band_core(*a, cdt, **k):
+        calls.append("band_core")
+        return emulate_band_core(*a, **k, **PIECES)
+
+    monkeypatch.setattr(fs, "fused_grad_core_plain", grad_core)
+    monkeypatch.setattr(bc, "band_core_plain", band_core)
+    monkeypatch.setattr(band_step, "_cast_update", tp_.jax_grid_cast)
+    kw = tp_.kw(model=model, band_backend=route[0], table_layout=route[1],
+                word_dim=48, shared_negatives=40, compute_dtype="bfloat16")
+    start = j_init(JConfig(**kw), tp_.V, jax.random.key(1))
+    jp, jm, tp, tm = tp_.run(kw, 2)
+    assert calls == 2 * ["band_core" if route[0] == "pallas" else "fused_grad_core"]
+    for k in tp:
+        s = np.asarray(start[k], np.float32)
+        ref = np.asarray(jp[k], np.float32) - s
+        got = tp[k].float().numpy() - s
+        assert np.abs(got - ref).max() <= TOL[BF16] * np.abs(ref).max(), k
+    np.testing.assert_allclose(float(tm["pairs"]), float(jm["pairs"]), rtol=1e-6)
+    np.testing.assert_allclose(float(tm["loss_sum"]), float(jm["loss_sum"]),
+                               rtol=1e-4)
+
+
+def test_pieces_match_the_host_copy():
+    """The pieces the tiles hold are the header's constants, multiples of
+    the mma tile, the flagship one piece of each; the host's shared-memory
+    formula reads the same numbers."""
+    from word2vec_tpu_torch.ops import launch
+
+    assert (launch.CORE_KP_PIECE, launch.CORE_D_PIECE) == (KPC, DC)
+    assert KPC % (2 * MMA_N) == 0 and DC % MMA_K == 0
+    assert KPC >= 64 and DC >= up(300, MMA_K)
+    assert launch._CORE_WARPS == const("kThreads") // 32
 
 
 def test_phase_record_needs_the_card():

@@ -20,7 +20,8 @@ max|err| <= 1e-5 * max|plain| per output (sums in another order, FMA
 contraction), n_ctx / ctx_w exact; with bf16 compute (their tensor-core
 bodies) at chip_smoke.ODD_SHAPES within chip_smoke.TOL (2e-2: a gradient
 weight on a bf16 rounding boundary may round one ulp apart), masks exact,
-and two calls bitwise equal.
+and two calls bitwise equal; past one piece of the negative pool or of the
+width (KP 256 at batch scope, d 1000) likewise, in both compute types.
 """
 
 import numpy as np
@@ -638,23 +639,53 @@ def test_probe_search_leaves_no_device_memory(cuda, tmp_path):
     assert rep.steps > 0 and np.isfinite(rep.final_loss)
 
 
-def test_band_core_refuses_a_shape_over_shared_memory(cuda):
-    """band_core at batch scope and KP 256 with d 300 needs more shared
-    memory a block than the card has: refused before any launch, the
-    host copy of the size equal to the library's."""
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(300, 256, 5, "batch", 0), (1000, 64, 10, "row", 0),
+                                   (512, 128, 5, "row", 160), (304, 64, 5, "batch", 173)],
+                         ids=["d300-kp256-batch", "d1000-kp64-w10", "d512-kp128-s160",
+                              "d304-kp64-s173"])
+def test_band_cores_take_wide_pools_and_rows(cuda, shape, cdt):
+    """KP 256 at batch scope with d 300, d 1000 at KP 64, and explicit
+    chunks past 128 (S 160 with two width and two negative pieces: the
+    logits' blocks in two rounds a warp; S 173, the largest chunk one block
+    holds at W 5): both band cores walk the negative pool and the width in
+    pieces and hold their plain versions (phase 3's tolerances, two calls
+    bitwise equal); the host copy of each core's shared memory equals the
+    library's, and it is the flagship's past one piece."""
     from word2vec_tpu_torch import _build
 
-    get = _build.library("band_core").w2v_band_core_smem_bytes
-    for kp in (64, 256):
-        assert launch.core_smem_bytes("band_core", 118, 128, kp, 300, 5, True) == (
-            get(118, 128, kp, 300, 5, 1))
-    inp = small_core_inputs(V=200, d=300, B=2, L=192, W=5, S=118, KP=256,
-                            table=torch.float32, scope="batch", model="sg")
+    d, kp, w, scope, chunk = shape
+    S = banded.resolve_chunk(192, w, chunk)
+    bf = int(cdt == torch.bfloat16)
+    for kernel, lib, fn in (("fused_grad_core", "fused_step", "w2v_grad_core_smem_bytes"),
+                            ("band_core", "band_core", "w2v_band_core_smem_bytes")):
+        get = getattr(_build.library(lib), fn)
+        host = launch.core_smem_bytes(kernel, S, S + 2 * w, kp, d, w, bool(bf))
+        assert host == get(S, S + 2 * w, kp, d, w, bf)
+        assert host == launch.core_smem_bytes(
+            kernel, S, S + 2 * w, launch.CORE_KP_PIECE, launch.CORE_D_PIECE, w, bool(bf))
+    inp = small_grad_inputs(V=200, d=d, B=2, L=192, W=w, S=S, KP=kp,
+                            table=torch.float32)
+    args = [inp[k].to(cuda) for k in GRAD_ORDER]
+    kw = dict(W=w, K=K, L=192, cdt=cdt, is_cbow=False)
+    got = fs.fused_grad_core(*args, 0.03, **kw)
+    again = fs.fused_grad_core(*args, 0.03, **kw)
+    ref = fs.fused_grad_core_plain(*args, 0.03, **kw)
+    torch.cuda.synchronize()
+    _hold(GRAD_NAMES, got, ref, TOL[cdt])
+    assert all(torch.equal(_bits(g), _bits(a)) for g, a in zip(got, again))
+    inp = small_core_inputs(V=200, d=d, B=2, L=192, W=w, S=S, KP=kp,
+                            table=torch.float32, scope=scope, model="sg")
     args = [inp[k].to(cuda) for k in CORE_ORDER]
-    before = dict(launch.LAUNCHES)
-    with pytest.raises(ValueError, match="shared memory"):
-        bc.band_core(*args, 0.03, W=5, K=3, cdt=torch.bfloat16, is_cbow=False)
-    assert launch.LAUNCHES == before
+    kw = dict(W=w, K=K, cdt=cdt, is_cbow=False)
+    before = launch.LAUNCHES["band_core"]
+    got = bc.band_core(*args, 0.03, **kw)
+    again = bc.band_core(*args, 0.03, **kw)
+    ref = bc.band_core_plain(*args, 0.03, **kw)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["band_core"] == before + 2
+    _hold(CORE_NAMES, got, ref, TOL[cdt])
+    assert all(torch.equal(_bits(g), _bits(a)) for g, a in zip(got, again))
 
 
 # ------------------------------------------- data parallelism (A8a)

@@ -2,8 +2,7 @@
 (word2vec_tpu/tune/), on the CPU.
 
 Exact: plan keys, fingerprints, kernel routes, candidate grids (the port's
-"gpu" grid against JAX's "tpu" grid, less the band_core shapes the port
-refuses for a block's shared memory: ROADMAP Queue C; CPU against CPU),
+"gpu" grid against JAX's "tpu" grid, with no departure; CPU against CPU),
 predict() on the CPU with the JAX module's anchors patched into the port
 module, cost_calibrate / apply_calibration / attribution_rows on one
 estimate and summary (perturbed anchors included), and cache files
@@ -96,14 +95,6 @@ def test_plan_key_equal_jax(args):
     assert tcache.SCHEMA == jcache.SCHEMA
 
 
-def _refused(plan_json) -> bool:
-    """A kernel candidate whose band core exceeds a block's shared memory
-    on the card (the departure of ROADMAP Queue C)."""
-    return not tplanner.kernel_fits(
-        Word2VecConfig(**CONFIGS["flagship-ns"]).apply_plan(
-            tplanner.TunePlan.from_json(plan_json)))
-
-
 @pytest.mark.parametrize("case", ["flagship-ns", "flagship-ns-unified-fused",
                                   "flagship-ns-batch-bf16", "flagship-hs",
                                   "flagship-pair", "tiny"])
@@ -113,29 +104,67 @@ def test_candidate_grid_equal_jax(case, platforms):
     vocab = 60 if case == "tiny" else VOCAB
     ours = _plans(tplanner.candidate_grid(t, vocab, {"platform": platforms[0]}))
     theirs = _plans(jplanner.candidate_grid(j, vocab, {"platform": platforms[1]}))
-    if platforms[0] == "gpu" and case != "tiny":
-        dropped = [p for p in theirs if _refused(p)]
-        theirs = [p for p in theirs if not _refused(p)]
-        # the only departure: the band cores at KP 256 (batch scope's width
-        # on pallas, or a configured KP 256 on pallas and pallas_fused)
-        assert all(p["shared_negatives"] == 256
-                   and p["band_backend"] in ("pallas", "pallas_fused")
-                   for p in dropped)
-        if tplanner.kernel_route(t) == "band-ns" and not t.fused_tables:
-            assert dropped
     assert ours == theirs
 
 
+def test_card_grid_record_equals_jax():
+    """chip_smoke.py phase 12 (a) holds the card's flagship grid to
+    JAX_FLAGSHIP_GRID: the size of the JAX package's TPU grid of the same
+    config and its KP-256 batch-scope pallas plans, the card's grid equal
+    to it plan by plan, and PROBE_WIDE's plan among them."""
+    import chip_smoke as cs
+
+    cfg = cs.flagship_cfg("xla", "split")
+    names = {f.name for f in dataclasses.fields(JConfig)}
+    jcfg = JConfig(**{k: v for k, v in dataclasses.asdict(cfg).items() if k in names})
+    theirs = jplanner.candidate_grid(jcfg, cs.V, {"platform": "tpu"})
+    ours = tplanner.candidate_grid(cfg, cs.V, {"platform": "gpu"})
+    assert _plans(ours) == _plans(theirs)
+    backend, layout, rows, chunk, kp, scope = cs.PROBE_WIDE
+    wide = [p for p in theirs if p.band_backend == backend
+            and p.negative_scope == scope and p.shared_negatives == kp]
+    assert (len(theirs), len(wide)) == cs.JAX_FLAGSHIP_GRID
+    assert cs.grid_cfg(*cs.PROBE_WIDE).current_plan() in ours
+
+
 def test_band_core_shared_memory_pins_the_refusal():
-    # the flagship tile budget band_core.cu documents, and the grid's shapes
-    assert core_smem_bytes("band_core", 118, 128, 64, 300, 5, True) == 177_664
-    assert core_smem_bytes("band_core", 118, 128, 256, 300, 5, True) > 232_448
-    fits = {kp: tplanner.kernel_fits(Word2VecConfig(
-        **dict(FLAGSHIP, band_backend="pallas", negative_scope="batch",
-               shared_negatives=kp))) for kp in (16, 64, 256)}
-    assert fits == {16: True, 64: True, 256: False}
-    assert tplanner.kernel_fits(Word2VecConfig(
-        **dict(FLAGSHIP, band_backend="pallas_fused", table_layout="unified")))
+    """The band cores' shared memory a block (the host copy of the
+    libraries' sizes): past one piece of the negative pool and of the width
+    it no longer grows with KP or d, and it fits one block at every d and
+    KP up to 1024 and every W up to 10 at the auto S and at the planner's
+    chunks; what is still refused is a chunk S past max_core_chunk (C8's
+    residue, ROADMAP Queue C), at any d and KP."""
+    from word2vec_tpu_torch.ops.banded import resolve_chunk
+    from word2vec_tpu_torch.ops.launch import (
+        CORE_D_PIECE, CORE_KP_PIECE, SMEM_PER_BLOCK, max_core_chunk)
+
+    # the flagship tile budgets the two kernels' source notes document
+    assert core_smem_bytes("fused_grad_core", 118, 128, 64, 300, 5, True) == 177_448
+    assert core_smem_bytes("band_core", 118, 128, 64, 300, 5, True) == 177_408
+    L = FLAGSHIP["max_sentence_len"]
+    for kernel in ("fused_grad_core", "band_core"):
+        for bf16 in (True, False):
+            for W in range(1, 11):
+                autos = resolve_chunk(L, W, 0)
+                chunks = {autos, resolve_chunk(L, W, max(2 * W, L // 2)),
+                          resolve_chunk(L, W, max(2 * W, L // 3))}
+                for S in chunks:
+                    size = {(d, kp): core_smem_bytes(kernel, S, S + 2 * W, kp, d,
+                                                     W, bf16)
+                            for d, kp in ((CORE_D_PIECE, CORE_KP_PIECE),
+                                          (1000, 256), (1024, 1024))}
+                    assert len(set(size.values())) == 1, (kernel, bf16, W, S)
+                    for d in range(1, 1025):
+                        for kp in (1, 16, 17, 63, 64, 65, 100, 256, 1024):
+                            assert core_smem_bytes(kernel, S, S + 2 * W, kp, d, W,
+                                                   bf16) <= SMEM_PER_BLOCK
+            # the residue: the largest chunk at the flagship's W, refused one
+            # past it whatever d and KP
+            top = max_core_chunk(kernel, 1024, 1024, 5, bf16)
+            assert top == (173 if bf16 else 397)
+            assert top == max_core_chunk(kernel, CORE_KP_PIECE, CORE_D_PIECE, 5, bf16)
+            assert core_smem_bytes(kernel, top + 1, top + 11, CORE_KP_PIECE,
+                                   CORE_D_PIECE, 5, bf16) > SMEM_PER_BLOCK
 
 
 # ------------------------------------------------------- the cost model

@@ -48,6 +48,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "w2v_slab_scatter": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "w2v_scatter_stage_terms": (_I, []),
         "w2v_grad_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),
+        "w2v_grad_core_blocks_per_sm": (_I, [_I, _I, _I, _I, _I, _I, _I, _I]),
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
     "overlap": {
@@ -62,6 +63,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),
         "w2v_band_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),
+        "w2v_band_core_blocks_per_sm": (_I, [_I, _I, _I, _I, _I, _I, _I, _I]),
         "w2v_error_string": (ctypes.c_char_p, [_I]),
     },
     "row_sum": {

@@ -22,14 +22,19 @@
 // C chunks: the TPU kernel accumulates d_neg, w_neg_sum and the losses
 // across its sequential (B, C) grid, which GPU blocks (no order, no carry)
 // cannot do. With bf16 compute (the default) each chunk's dense operands
-// are staged in shared memory once, rounded once to bf16:
+// are staged in shared memory, rounded once to bf16, one piece of at most
+// kKPc = 64 negative rows and kDc = 304 columns at a time:
 //   A [SP x lda]   the center rows a (sg) or the cbow projection h,
 //                  zero-padded to SP = 128 x 304 (+8 columns: ldmatrix
 //                  rows on distinct banks)   128 x 312 x 2 B = 79,872 B
-//   E [KPP x lda]  the KP negative rows, once per row  64 x 312 x 2 B = 39,936 B
+//   E [KPP x lda]  the negative rows (once per row in one piece)
+//                                           64 x 312 x 2 B = 39,936 B
 //   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
-//   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KP]
-//   (30,208 B), ...                         total at the flagship 177,664 B
+//   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KPc]
+//   (30,208 B), ...                         total at the flagship 177,408 B
+// and no more at any wider KP or d: the flagship is one piece of each, and
+// a wider pool or row is walked piece by piece (band_tiles.cuh states the
+// order of every sum that crosses pieces: that of one unpieced product).
 // The slabs bk (another 80 KB, over the 227 KB a block has) stay in L1/L2.
 // Every product runs on the tensor cores (mma.sync.m16n8k16, f32
 // accumulate): nlog = A E^T, d_neg = G^T A and d_hid = G E from the tiles;
@@ -46,14 +51,17 @@
 //     per-row partials reduced the same way;
 //   * the negative weights compare the raw, -1-padded center ids; cbow's
 //     d_h = gp h uses the unrounded f32 projection, its d_hid2 goes back
-//     into A, rounded once, for the context sums; the cbow center logit is
-//     an f32 multiply and row sum of cdt-rounded operands
+//     into A, rounded once, for the context sums (d_hid's running sum over
+//     negative pieces waits in a workspace); the cbow center logit is an
+//     f32 multiply and row sum of cdt-rounded operands
 //     (pallas_band.py:175-179).
 // With f32 compute the products stay exact f32 multiply-adds on the CUDA
 // cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
-// fit): band_core_f32_kernel keeps the first port's body. Both bodies take
-// an optional per-phase clock64() record (PhaseClock). A shape whose tiles
-// exceed the block's shared memory fails its launch (the wrapper raises).
+// fit): band_core_f32_kernel keeps the first port's body (the negative rows
+// through L1/L2), the negative pool in pieces of kKPc. Both bodies take an
+// optional per-phase clock64() record (PhaseClock). A chunk S whose tiles
+// exceed the block's shared memory fails its launch (the wrapper raises
+// first).
 //
 // Plain C interface (bound with ctypes); every entry point returns the
 // cudaError_t of its launches.
@@ -91,21 +99,23 @@ struct BandArgs {
 };
 
 // shared memory of the f32-compute body, in 4-byte words, in
-// band_core_f32_kernel's order
-inline size_t band_smem_words(int S, int SK, int KP, int d, int W) {
+// band_core_f32_kernel's order: one negative piece (at most kKPc rows) at
+// a time, nothing that grows with d
+inline size_t band_smem_words(int S, int SK, int KP, int W) {
   const int NB = 2 * W + 1;
+  const int KPc = KP < kKPc ? KP : kKPc;
   return (size_t)S * 4          // tok_c, keep, w, n_ctx
          + (size_t)SK * 2       // tok_k, cwy
-         + (size_t)KP * 2       // negs, wsum
+         + (size_t)KPc          // the piece's negative ids
          + (size_t)S * NB       // band-compressed gp (sg)
          + (size_t)S            // gp per center (cbow)
-         + (size_t)S * KP * 2   // gn, w_neg
-         + (size_t)KP * d       // negative rows
+         + (size_t)S * KPc * 2  // gn, w_neg of the piece
          + (size_t)2 * kWarps;  // loss block reduction
 }
 
 // f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
-// would not fit), the design of the first port
+// would not fit), the design of the first port; the negative rows are read
+// through L1/L2, the negative pool walked in pieces of kKPc
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     band_core_f32_kernel(const BandArgs p) {
@@ -117,6 +127,7 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int C = p.C, S = p.S, SK = p.SK, KP = p.KP, d = p.d, W = p.W;
   const int NB = 2 * W + 1;
+  const int KPc = KP < kKPc ? KP : kKPc, nK = pieces(KP, kKPc);
   const int nb = p.neg_shared ? 0 : b;
   const T* A = static_cast<const T*>(p.a);
   const T* BK = static_cast<const T*>(p.bk);
@@ -130,13 +141,11 @@ __global__ void __launch_bounds__(kThreads)
   int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
   float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
   int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
-  float* s_wsum = reinterpret_cast<float*>(s_negs + KP);
-  float* s_gpb = s_wsum + KP;
+  float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
   float* s_gpc = s_gpb + (size_t)S * NB;
   float* s_gn = s_gpc + S;
-  float* s_wn = s_gn + (size_t)S * KP;
-  float* s_en = s_wn + (size_t)S * KP;
-  float* s_red = s_en + (size_t)KP * d;
+  float* s_wn = s_gn + (size_t)S * KPc;
+  float* s_red = s_wn + (size_t)S * KPc;
 
   // the band mask (pallas_band.py:113-122): keep_s & valid_k & 0 < dist <= w_s
   const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, p.K, KP};
@@ -144,16 +153,15 @@ __global__ void __launch_bounds__(kThreads)
   PhaseClock clk(p.phase_rec);
   float* h_ws = p.h_ws + (size_t)b * S * d;
   float* dh_ws = p.dh_ws + (size_t)b * S * d;
+  auto load_negs = [&](int q) {
+    for (int j = tid; j < piece_len(KP, kKPc, q); j += kThreads)
+      s_negs[j] = p.negs[(size_t)nb * KP + q * kKPc + j];
+  };
 
   float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
   float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
 
-  // once per row: the KP negative rows
-  for (int j = tid; j < KP; j += kThreads) {
-    s_negs[j] = p.negs[(size_t)nb * KP + j];
-    s_wsum[j] = 0.f;
-  }
-  for (int i = tid; i < KP * d; i += kThreads) s_en[i] = to_f(EN[i]);
+  load_negs(0);  // once per row when the pool is one piece
 
   for (int c = 0; c < C; ++c) {
     __syncthreads();  // the previous chunk is done with the tiles
@@ -189,13 +197,6 @@ __global__ void __launch_bounds__(kThreads)
       p.ctx_w[bc * SK + k] = cw;
     }
     __syncthreads();
-
-    // ---- negative weights (collision masks, pallas_band.py:144-154):
-    // center_hit compares the raw, -1-padded center ids
-    for (int i = tid; i < S * KP; i += kThreads) {
-      const int s = i / KP, j = i - s * KP;
-      s_wn[i] = band.neg_weight<false, CBOW>(s, j);
-    }
     if constexpr (CBOW) {
       // projection h = mask @ bk (divided by n_ctx under cbow_mean)
       for (int i = tid; i < S * d; i += kThreads) {
@@ -208,23 +209,10 @@ __global__ void __launch_bounds__(kThreads)
         if (p.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
         h_ws[i] = acc;
       }
+      __syncthreads();
     }
-    __syncthreads();
     clk.mark(kPhaseMasks);
 
-    // ---- negative logits and gradient weights, one warp per (s, j)
-    for (int q = warp; q < S * KP; q += kWarps) {
-      const int s = q / KP, j = q - s * KP;
-      float part = 0.f;
-      for (int e = lane; e < d; e += 32)
-        part += h_val(s, e) * s_en[(size_t)j * d + e];
-      const float nlog = warp_sum(part);
-      if (lane == 0) {
-        const float wn = s_wn[q];
-        s_gn[q] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
-        neg_acc += wn * (log_sigmoid(nlog) - nlog);
-      }
-    }
     // ---- positive side
     if constexpr (!CBOW) {
       // band logits over the band only, one warp per (s, k)
@@ -259,34 +247,89 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    __syncthreads();
     clk.mark(kPhaseLogits);
 
-    // ---- center-side rows: d_hid = gn @ en, plus the band product (sg);
-    // the center's out-row update and the hidden grad (cbow)
-    for (int i = tid; i < S * d; i += kThreads) {
-      const int s = i / d, e = i - s * d;
-      float dh = 0.f;
-      for (int j = 0; j < KP; ++j)
-        dh += s_gn[s * KP + j] * s_en[(size_t)j * d + e];
-      if constexpr (!CBOW) {
-        float dp = 0.f;
-        for (int t = 0; t < NB; ++t) {
-          const float g = s_gpb[s * NB + t];
-          if (g != 0.f) dp += g * to_f(bk[(size_t)(s + t) * d + e]);
-        }
-        p.d_h[bc * S * d + i] = dh + dp;
-      } else {
-        const float gp = s_gpc[s];
-        p.d_h[bc * S * d + i] = gp * h_ws[i];
-        float dh2 = dh + gp * to_f(a[i]);
-        // second divide (Word2Vec.cpp:313-315, pallas_band.py:184-185)
-        if (p.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
-        dh_ws[i] = dh2;
+    // ---- the negative pool, piece by piece
+    for (int q = 0; q < nK; ++q) {
+      const int KPp = piece_len(KP, kKPc, q), j0 = q * kKPc;
+      const bool last = q == nK - 1;
+      const T* en = EN + (size_t)j0 * d;
+      if (nK > 1) {
+        __syncthreads();  // the previous piece is done with the ids
+        load_negs(q);
+        __syncthreads();
       }
+      // negative weights (collision masks, pallas_band.py:144-154):
+      // center_hit compares the raw, -1-padded center ids
+      for (int i = tid; i < S * KPp; i += kThreads) {
+        const int s = i / KPp, j = i - s * KPp;
+        s_wn[i] = band.neg_weight<false, CBOW>(s, j);
+      }
+      __syncthreads();
+      clk.mark(kPhaseMasks);
+
+      // negative logits and gradient weights, one warp per (s, j)
+      for (int r = warp; r < S * KPp; r += kWarps) {
+        const int s = r / KPp, j = r - s * KPp;
+        float part = 0.f;
+        for (int e = lane; e < d; e += 32)
+          part += h_val(s, e) * to_f(en[(size_t)j * d + e]);
+        const float nlog = warp_sum(part);
+        if (lane == 0) {
+          const float wn = s_wn[r];
+          s_gn[r] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
+          neg_acc += wn * (log_sigmoid(nlog) - nlog);
+        }
+      }
+      __syncthreads();
+      clk.mark(kPhaseLogits);
+
+      // center-side rows: d_hid = gn @ en over the pieces, each value's
+      // running sum kept in d_h (sg) or dh_ws (cbow) between pieces, then
+      // the band product (sg); the center's out-row update and the hidden
+      // grad (cbow)
+      for (int i = tid; i < S * d; i += kThreads) {
+        const int s = i / d, e = i - s * d;
+        float* part = CBOW ? dh_ws + i : p.d_h + bc * S * d + i;
+        float dh = q == 0 ? 0.f : *part;
+        for (int j = 0; j < KPp; ++j)
+          dh += s_gn[s * KPp + j] * to_f(en[(size_t)j * d + e]);
+        if (!last) {
+          *part = dh;
+        } else if constexpr (!CBOW) {
+          float dp = 0.f;
+          for (int t = 0; t < NB; ++t) {
+            const float g = s_gpb[s * NB + t];
+            if (g != 0.f) dp += g * to_f(bk[(size_t)(s + t) * d + e]);
+          }
+          p.d_h[bc * S * d + i] = dh + dp;
+        } else {
+          const float gp = s_gpc[s];
+          p.d_h[bc * S * d + i] = gp * h_ws[i];
+          float dh2 = dh + gp * to_f(a[i]);
+          // second divide (Word2Vec.cpp:313-315, pallas_band.py:184-185)
+          if (p.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
+          dh_ws[i] = dh2;
+        }
+      }
+      // d_neg: this chunk's contraction over its S positions, then added
+      // to the sum over the earlier chunks by the same thread
+      float* dneg = p.dneg_row + ((size_t)b * KP + j0) * d;
+      for (int i = tid; i < KPp * d; i += kThreads) {
+        const int j = i / d, e = i - j * d;
+        float part = 0.f;
+        for (int s = 0; s < S; ++s) part += s_gn[s * KPp + j] * h_val(s, e);
+        dneg[i] = c == 0 ? part : dneg[i] + part;
+      }
+      float* wsum = p.wsum_row + (size_t)b * KP + j0;
+      for (int j = tid; j < KPp; j += kThreads) {
+        float part = 0.f;
+        for (int s = 0; s < S; ++s) part += s_wn[s * KPp + j];
+        wsum[j] = (c == 0 ? 0.f : wsum[j]) + part;
+      }
+      __syncthreads();
+      clk.mark(kPhaseCenter);
     }
-    __syncthreads();
-    clk.mark(kPhaseCenter);
 
     // ---- slab-space context grads: slot k sums the centers s in
     // [k-2W, k] that see it (zero at invalid slots: their mask column is 0)
@@ -305,49 +348,32 @@ __global__ void __launch_bounds__(kThreads)
       }
       p.d_ctx[bc * SK * d + i] = y;
     }
-    // (no barrier: the d_neg loop below overlaps this one; the record
-    // counts both as kPhaseNeg)
-
-    // ---- d_neg: this chunk's contraction over its S positions, then
-    // added to the sum over the earlier chunks by the same thread
-    float* dneg = p.dneg_row + (size_t)b * KP * d;
-    for (int i = tid; i < KP * d; i += kThreads) {
-      const int j = i / d, e = i - j * d;
-      float part = 0.f;
-      for (int s = 0; s < S; ++s)
-        part += s_gn[s * KP + j] * h_val(s, e);
-      dneg[i] = c == 0 ? part : dneg[i] + part;
-    }
-    for (int j = tid; j < KP; j += kThreads) {
-      float part = 0.f;
-      for (int s = 0; s < S; ++s) part += s_wn[s * KP + j];
-      s_wsum[j] += part;
-    }
     __syncthreads();
-    clk.mark(kPhaseNeg);
+    clk.mark(kPhaseContext);
   }
-  for (int j = tid; j < KP; j += kThreads)
-    p.wsum_row[(size_t)b * KP + j] = s_wsum[j];
-
   block_losses(pos_acc, neg_acc, s_red, p.loss_part + (size_t)b * 2);
   clk.mark(kPhaseTail);
 }
 
 // shared memory of the tensor-core body, in bytes: the bf16 tiles
-// (TileLayout) and then, in 4-byte words, in band_core_tc_kernel's order
+// (TileLayout, one piece) and then, in 4-byte words, in
+// band_core_tc_kernel's order; nothing grows with KP or d past one piece
 inline size_t band_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
   const int NB = 2 * W + 1;
+  const int KPc = KP < kKPc ? KP : kKPc;
   const size_t words = (size_t)S * 4          // tok_c, keep, w, n_ctx
                        + (size_t)SK * 2       // tok_k, cwy
-                       + (size_t)KP * 2       // negs, wsum
+                       + (size_t)KPc          // the piece's negative ids
                        + (size_t)S * NB       // band-compressed gp (sg)
                        + (size_t)S            // gp per center (cbow)
-                       + (size_t)S * KP       // w_neg
+                       + (size_t)S * KPc      // w_neg of the piece
                        + (size_t)2 * kWarps;  // loss block reduction
   return TileLayout(S, KP, d).bf16_bytes() + words * sizeof(float);
 }
 
-// bf16 compute: the three dense products on the tensor cores
+// bf16 compute: the three dense products on the tensor cores, the
+// negative pool in pieces of kKPc rows and the width in pieces of kDc
+// columns (band_tiles.cuh says how the sums cross the pieces)
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads, 1)
     band_core_tc_kernel(const BandArgs p) {
@@ -357,6 +383,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int C = p.C, S = p.S, SK = p.SK, KP = p.KP, d = p.d, W = p.W;
   const int NB = 2 * W + 1;
+  const int nK = pieces(KP, kKPc), nD = pieces(d, kDc);
+  const int KPc = KP < kKPc ? KP : kKPc;
   const int nb = p.neg_shared ? 0 : b;
   const T* A = static_cast<const T*>(p.a);
   const T* BK = static_cast<const T*>(p.bk);
@@ -375,42 +403,78 @@ __global__ void __launch_bounds__(kThreads, 1)
   int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
   float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
   int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
-  float* s_wsum = reinterpret_cast<float*>(s_negs + KP);
-  float* s_gpb = s_wsum + KP;
+  float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
   float* s_gpc = s_gpb + (size_t)S * NB;
   float* s_wn = s_gpc + S;
-  float* s_red = s_wn + (size_t)S * KP;
+  float* s_red = s_wn + (size_t)S * KPc;
 
   const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, p.K, KP};
   PhaseClock clk(p.phase_rec);
   float* h_ws = p.h_ws + (size_t)b * S * d;
+  float* dh_ws = p.dh_ws + (size_t)b * S * d;
+  const T* a = A;    // this chunk's center rows and slabs
+  const T* bk = BK;
+  auto a_row = [&](int s) { return a + (size_t)s * d; };
+  auto bk_row = [&](int k) { return bk + (size_t)k * d; };
+
+  // the pieces staged in the tiles: A's width piece, E's (r, q) as
+  // r * nD + q (-1: none); every thread tracks them alike
+  int a_at = -1, e_at = -1;
+  auto stage_a = [&](int q) {
+    const int dq = piece_len(d, kDc, q), off = q * kDc;
+    if constexpr (CBOW) {
+      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
+                 [&](int s) { return h_ws + (size_t)s * d + off; });
+    } else {
+      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
+                 [&](int s) { return a_row(s) + off; });
+    }
+    a_at = q;
+  };
+  auto stage_e = [&](int r, int q) {
+    const int KPp = piece_len(KP, kKPc, r), dq = piece_len(d, kDc, q);
+    stage_rows(sE, tl.lda, round_up(KPp, 2 * kMmaN), round_up(dq, kMmaK), KPp, dq,
+               [&](int j) { return EN + (size_t)(r * kKPc + j) * d + q * kDc; });
+    e_at = r * nD + q;
+  };
+  // piece q of A (and piece (r, q) of E unless r < 0) in the tiles
+  auto load = [&](int r, int q) {
+    const bool na = a_at != q, ne = r >= 0 && e_at != r * nD + q;
+    if (!na && !ne) return;
+    __syncthreads();  // everyone is done with the tiles
+    if (na) stage_a(q);
+    if (ne) stage_e(r, q);
+    __syncthreads();
+  };
+  auto load_negs = [&](int r) {
+    for (int j = tid; j < piece_len(KP, kKPc, r); j += kThreads)
+      s_negs[j] = p.negs[(size_t)nb * KP + r * kKPc + j];
+  };
 
   float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
   float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
 
-  // once per row: the KP negative rows, bf16 in E
-  for (int j = tid; j < KP; j += kThreads) {
-    s_negs[j] = p.negs[(size_t)nb * KP + j];
-    s_wsum[j] = 0.f;
-  }
-  stage_rows(sE, tl.lda, tl.KPP, tl.DP, KP, d,
-             [&](int j) { return EN + (size_t)j * d; });
+  // once per row: the first negative piece, bf16 in E (the only one when
+  // the pool and the row are one piece each)
+  load_negs(0);
+  stage_e(0, 0);
 
   for (int c = 0; c < C; ++c) {
     __syncthreads();  // the previous chunk is done with the tiles
     const size_t bc = (size_t)b * C + c;
-    const T* a = A + bc * S * d;
-    const T* bk = BK + bc * SK * d;
-    auto a_row = [&](int s) { return a + (size_t)s * d; };
-    auto bk_row = [&](int k) { return bk + (size_t)k * d; };
+    a = A + bc * S * d;
+    bk = BK + bc * SK * d;
     for (int s = tid; s < S; s += kThreads) {
       s_tokc[s] = p.tok_c[bc * S + s];
       s_keep[s] = p.keep_c[bc * S + s];
       s_w[s] = p.w_c[bc * S + s];
     }
     for (int k = tid; k < SK; k += kThreads) s_tokk[k] = p.tok_k[bc * SK + k];
-    // sg: A holds the center rows; cbow: the projection fills its [S x d]
-    stage_rows(sA, tl.lda, tl.SP, tl.DP, CBOW ? 0 : S, d, a_row);
+    // sg: A holds the center rows (the first width piece); cbow: zeros
+    // that the projection fills
+    stage_rows(sA, tl.lda, tl.SP, round_up(piece_len(d, kDc, 0), kMmaK),
+               CBOW ? 0 : S, piece_len(d, kDc, 0), a_row);
+    a_at = CBOW ? -1 : 0;
     __syncthreads();
     clk.mark(kPhaseRows);
 
@@ -427,89 +491,126 @@ __global__ void __launch_bounds__(kThreads, 1)
       p.ctx_w[bc * SK + k] = cw;
     }
     __syncthreads();
-    // ---- negative weights (collision masks, pallas_band.py:144-154):
-    // center_hit compares the raw, -1-padded center ids
-    for (int i = tid; i < S * KP; i += kThreads) {
-      const int s = i / KP, j = i - s * KP;
-      s_wn[i] = band.neg_weight<true, CBOW>(s, j);
+    if constexpr (CBOW) {
+      projection(band, tl, d, p.cbow_mean != 0, h_ws, sA, bk_row);
+      if (nD == 1) a_at = 0;
+      __syncthreads();
     }
-    if constexpr (CBOW) projection(band, tl, d, p.cbow_mean != 0, h_ws, sA, bk_row);
-    __syncthreads();
     clk.mark(kPhaseMasks);
 
-    // ---- negative logits and weights (tensor cores), positive logits
-    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, alpha);
-    if constexpr (!CBOW) {
-      pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb, bk_row);
-    } else {
-      pos_acc += center_logits(band, sA, tl.lda, d, alpha, s_gpc, a_row);
-    }
-    __syncthreads();
-    clk.mark(kPhaseLogits);
-
-    // ---- d_neg: this chunk's contraction over its S positions (tensor
-    // cores), then added to the sum over the earlier chunks by the thread
-    // that owns the output; w_neg_sum likewise
-    float* dneg = p.dneg_row + (size_t)b * KP * d;
-    tile_pass<true, true>(tl.KPP, tl.DP, tl.SP, tl.SP, sG, tl.ldg, sA, tl.lda,
-                          [&](int j, const int (&col)[4], const float (&v)[4]) {
-                            add_row(dneg, d, j, KP, col, v, c > 0);
-                          });
-    for (int j = tid; j < KP; j += kThreads) {
-      float part = 0.f;
-      for (int s = 0; s < S; ++s) part += s_wn[s * KP + j];
-      s_wsum[j] += part;
-    }
-    __syncthreads();
-    clk.mark(kPhaseNeg);
-
-    // ---- center-side rows: d_hid = gn @ en (tensor cores), plus the band
-    // product (sg); the center's out-row update and d_hid2 (cbow, into A)
     float* dh_out = p.d_h + bc * S * d;
-    if constexpr (!CBOW) {
-      // d_ctr = d_hid + gp bk: both products into one accumulator block
-      auto w = [&](int s, int k) -> float {
-        return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
-      };
-      block_pass(
-          tl.SP, tl.DP,
-          [&](float (&acc)[2][4], int m0, int n0) {
-            warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
-                                        tl.KPP, tl.KPP);
-            band_rows_mma(acc, m0, n0, 2 * W, SK, d, w, bk_row);
-          },
-          [&](int s, const int (&col)[4], const float (&v)[4]) {
-            if (s >= S) return;
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-              if (col[u] < d) dh_out[(size_t)s * d + col[u]] = v[u];
-          });
-    } else {
-      tile_pass<false, true>(
-          tl.SP, tl.DP, tl.KPP, tl.KPP, sG, tl.ldg, sE, tl.lda,
-          [&](int s, const int (&col)[4], const float (&dh)[4]) {
-            if (s >= S) return;
-            cbow_center_row(s, col, dh, s_gpc[s], p.cbow_mean != 0, s_nctx[s],
-                            a_row(s), h_ws, dh_out, d, sA, tl.lda);
-          });
-    }
-    __syncthreads();
-    clk.mark(kPhaseCenter);
-
-    // ---- slab-space context grads: slot k sums the centers s in
-    // [k-2W, k] that see it (zero at invalid slots: their mask column is 0)
     float* dctx = p.d_ctx + bc * SK * d;
-    context_tiles<CBOW>(band, s_gpb, sA, tl.lda, SK, tl.DP,
-                        [&](int k, const int (&col)[4], const float (&y)[4]) {
+    for (int r = 0; r < nK; ++r) {
+      const int KPp = piece_len(KP, kKPc, r), KPPp = round_up(KPp, 2 * kMmaN);
+      const int j0 = r * kKPc;
+      const bool last = r == nK - 1;
+      if (nK > 1) {
+        __syncthreads();  // the previous piece is done with the ids
+        load_negs(r);
+        __syncthreads();
+      }
+      // ---- negative weights (collision masks, pallas_band.py:144-154):
+      // center_hit compares the raw, -1-padded center ids
+      for (int i = tid; i < S * KPp; i += kThreads) {
+        const int s = i / KPp, j = i - s * KPp;
+        s_wn[i] = band.neg_weight<true, CBOW>(s, j);
+      }
+      __syncthreads();
+      clk.mark(kPhaseMasks);
+
+      // ---- positive logits: the sg band (tensor cores) or the cbow
+      // center, beside the first piece's negative logits (they overlap
+      // better there than beside the weights: 1.3% on the flagship, where
+      // grad_core measured the other way; PERF.md §6 PR 19)
+      if (r == 0) {
+        if constexpr (!CBOW) {
+          pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb,
+                                 [&](int q) { load(-1, q); }, bk_row);
+        } else {
+          pos_acc += center_logits(band, h_ws, d, alpha, s_gpc, a_row);
+        }
+      }
+      // ---- negative logits and weights (tensor cores), over the width
+      neg_acc += neg_logits(tl, d, [&](int q) { load(r, q); }, sA, sE, sG, s_wn,
+                            S, KPp, alpha);
+      __syncthreads();
+      clk.mark(kPhaseLogits);
+      // ---- w_neg_sum: this chunk's sum, added to the earlier chunks' by
+      // the thread that owns the output
+      float* wsum = p.wsum_row + (size_t)b * KP + j0;
+      for (int j = tid; j < KPp; j += kThreads) {
+        float part = 0.f;
+        for (int s = 0; s < S; ++s) part += s_wn[s * KPp + j];
+        wsum[j] = (c == 0 ? 0.f : wsum[j]) + part;
+      }
+
+      for (int q = 0; q < nD; ++q) {
+        const int dq = piece_len(d, kDc, q), DPq = round_up(dq, kMmaK);
+        const int off = q * kDc;
+        load(r, q);
+        // ---- d_neg: this chunk's contraction over its S positions (tensor
+        // cores), then added to the sum over the earlier chunks by the
+        // thread that owns the output
+        float* dneg = p.dneg_row + ((size_t)b * KP + j0) * d + off;
+        tile_pass<true, true>(KPPp, DPq, tl.SP, tl.SP, sG, tl.ldg, sA, tl.lda,
+                              [&](int j, const int (&col)[4], const float (&v)[4]) {
+                                add_row(dneg, d, dq, j, KPp, col, v, c > 0);
+                              });
+        __syncthreads();
+        clk.mark(kPhaseNeg);
+
+        // ---- center-side rows: d_hid = gn @ en (tensor cores), its
+        // running sum over the pieces in d_h (sg) or dh_ws (cbow); after
+        // the last piece the band product (sg) or the center's out-row
+        // update and d_hid2 (cbow, into A)
+        float* part = (CBOW ? dh_ws : dh_out) + off;
+        auto partial = [&](int s, int e) -> float {
+          return (s < S && e < dq) ? part[(size_t)s * d + e] : 0.f;
+        };
+        auto w = [&](int s, int k) -> float {
+          return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+        };
+        block_pass(
+            tl.SP, DPq,
+            [&](float (&acc)[2][4], int m0, int n0) {
+              if (r > 0) load_block(acc, m0, n0, partial);
+              warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
+                                          KPPp, KPPp);
+              if (!CBOW && last)
+                band_rows_mma(acc, m0, n0, 2 * W, SK, dq, w,
+                              [&](int k) { return bk_row(k) + off; });
+            },
+            [&](int s, const int (&col)[4], const float (&v)[4]) {
+              if (s >= S) return;
+              if (CBOW && last) {
+                cbow_center_row(s, col, v, s_gpc[s], p.cbow_mean != 0, s_nctx[s],
+                                a_row(s) + off, h_ws + off, dh_out + off, d, dq,
+                                sA, tl.lda);
+                return;
+              }
 #pragma unroll
-                          for (int v = 0; v < 4; ++v)
-                            if (k < SK && col[v] < d) dctx[(size_t)k * d + col[v]] = y[v];
-                        });
-    __syncthreads();
-    clk.mark(kPhaseContext);
+              for (int u = 0; u < 4; ++u)
+                if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
+            });
+        if (CBOW && last) a_at = -1;  // A holds d_hid2 now
+        __syncthreads();
+        clk.mark(kPhaseCenter);
+        if (!last) continue;
+
+        // ---- slab-space context grads: slot k sums the centers s in
+        // [k-2W, k] that see it (zero at invalid slots: their mask column is 0)
+        context_tiles<CBOW>(band, s_gpb, sA, tl.lda, SK, DPq,
+                            [&](int k, const int (&col)[4], const float (&y)[4]) {
+#pragma unroll
+                              for (int v = 0; v < 4; ++v)
+                                if (k < SK && col[v] < dq)
+                                  dctx[(size_t)k * d + off + col[v]] = y[v];
+                            });
+        __syncthreads();
+        clk.mark(kPhaseContext);
+      }
+    }
   }
-  for (int j = tid; j < KP; j += kThreads)
-    p.wsum_row[(size_t)b * KP + j] = s_wsum[j];
   block_losses(pos_acc, neg_acc, s_red, p.loss_part + (size_t)b * 2);
   clk.mark(kPhaseTail);
 }
@@ -542,6 +643,16 @@ cudaError_t launch_band_model(const BandArgs& p, int B, size_t smem, bool tc,
                  : launch_band<T, false>(p, B, smem, tc, st);
 }
 
+// resident blocks a SM of the body a launch at this shared memory runs
+template <typename T, bool CBOW>
+cudaError_t band_occupancy(int* n, size_t smem, bool tc) {
+  auto kern = tc ? &band_core_tc_kernel<T, CBOW> : &band_core_f32_kernel<T, CBOW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kern, kThreads, smem);
+}
+
 cudaError_t reduce_rows(const float* part, float* out, int B, int n,
                         cudaStream_t st) {
   rows_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
@@ -556,11 +667,29 @@ extern "C" {
 size_t w2v_band_core_smem_bytes(int S, int SK, int KP, int d, int W,
                                 int cdt_bf16) {
   return cdt_bf16 ? band_tc_smem_bytes(S, SK, KP, d, W)
-                  : band_smem_words(S, SK, KP, d, W) * sizeof(float);
+                  : band_smem_words(S, SK, KP, W) * sizeof(float);
 }
 
 const char* w2v_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// blocks of band_core resident on one SM at this shape (the occupancy
+// calculator's answer), or minus the CUDA error
+int w2v_band_core_blocks_per_sm(int S, int SK, int KP, int d, int W,
+                                int table_bf16, int cdt_bf16, int is_cbow) {
+  const size_t smem = w2v_band_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
+  const bool tc = cdt_bf16 != 0;
+  int n = 0;
+  cudaError_t err;
+  if (table_bf16) {
+    err = is_cbow ? band_occupancy<__nv_bfloat16, true>(&n, smem, tc)
+                  : band_occupancy<__nv_bfloat16, false>(&n, smem, tc);
+  } else {
+    err = is_cbow ? band_occupancy<float, true>(&n, smem, tc)
+                  : band_occupancy<float, false>(&n, smem, tc);
+  }
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // Row scope (neg_shared = 0): dneg_row/wsum_row are the d_neg [B, KP, d]

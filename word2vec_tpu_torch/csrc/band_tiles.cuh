@@ -9,17 +9,41 @@
 //     astype(cdt)) and the stable sigmoid / log-sigmoid;
 //   * the bf16 shared-memory layout of a chunk's dense operands
 //     (TileLayout): the center rows or cbow projection A [SP x lda], the
-//     KP negative rows E [KPP x lda] and the negative gradient weights
+//     negative rows E [KPP x lda] and the negative gradient weights
 //     G [SP x ldg], zero-padded to the mma tile (S, KP and d rounded up
 //     to 16) plus kRowPad columns, so the eight row addresses of one
 //     ldmatrix fall on eight distinct bank groups;
+//   * the pieces: the tiles hold at most kKPc negative rows and kDc
+//     columns, so a block's shared memory stops growing with KP and d
+//     past one piece. A wider pool or row is walked piece by piece
+//     (piece_pass, and the kernels' loops over p and q), and the sums
+//     that cross pieces keep the order of one unpieced product:
+//       - the negative logits A E^T and the sg band logits A bk^T sum
+//         over the width pieces q = 0, 1, ... in one register accumulator
+//         per output block (piece_pass), k-slice after k-slice, exactly
+//         as one product over the whole width does;
+//       - d_hid = G E sums over the negative pieces p = 0, 1, ...: the
+//         f32 accumulator of each output value goes to device memory (the
+//         output row itself, or cbow's d_hid workspace) after piece p and
+//         is loaded again, by the thread that owns the value, before
+//         piece p + 1; the last piece continues it with the sg band
+//         product. f32 stores and loads are exact, so this is the
+//         unpieced order too;
+//       - d_neg = G^T A and w_neg_sum sum over the chunk's S positions
+//         inside one piece (p, q); the pieces only cut which outputs a
+//         pass writes; the sum over chunks stays in the output, in chunk
+//         order, by the thread that owns each value;
+//       - the loss partials add piece after piece in each thread, then
+//         the block sum in warp order (block_losses).
+//     No atomics anywhere: two calls are bitwise equal;
 //   * the tensor-core tile products (ldmatrix + mma.sync.m16n8k16, bf16
 //     operands, f32 accumulate, one [16 x 16] output block per warp task,
 //     every output value owned by one thread):
 //       - tile_pass: both operands from the staged tiles, either one
 //         stored transposed, the depth cut at `kvalid` in the registers
-//         (d_neg's sum over exactly the row's first L positions): the
-//         negative logits A E^T, d_hid = G E, d_neg = G^T A;
+//         (d_neg's sum over exactly the row's first L positions): d_hid =
+//         G E, d_neg = G^T A; piece_pass, its depth in width pieces: the
+//         negative logits A E^T;
 //       - the band side, whose context rows bk do not fit in shared memory
 //         beside the tiles and are read from L1/L2 straight into mma
 //         operands: the sg band logits A bk^T (rows_bk_mma), the band
@@ -50,6 +74,13 @@ constexpr int kMmaK = 16;
 // bf16 columns added to every staged row (16 bytes): a row stride of
 // 16 (mod 128) bytes puts the 8 rows of an ldmatrix on distinct banks
 constexpr int kRowPad = 8;
+// the pieces the tiles hold: negative rows a piece (a multiple of 16) and
+// columns a piece (a multiple of kMmaK); the flagship (KP 64, d 300) is
+// one piece of each
+constexpr int kKPc = 64;
+constexpr int kDc = 304;
+// [16 x 16] output blocks a warp holds at once across the width pieces
+constexpr int kSlots = 2;
 
 // phases of the cycle record, in the order a chunk runs them in the
 // tensor-core kernels; the f32-compute bodies record the same names
@@ -108,8 +139,8 @@ struct Band {
   const float* w;      // [S] shrunk window
   const float* nctx;   // [S] mask row sums, once computed
   const int* tokk;     // [SK] slab ids, -1 outside the row
-  const int* negs;     // [KP]
-  int S, W, K, KP;
+  const int* negs;     // [KPp] the ids of the negative piece in hand
+  int S, W, K, KP;     // KP: the whole pool (the weights' divisor)
 
   // keep_s & valid_k & 0 < |s + W - k| <= w_s
   __device__ __forceinline__ float mask(int s, int k) const {
@@ -148,16 +179,26 @@ struct Band {
   }
 };
 
+// the length of piece i, and the count of pieces, of n cut in pieces of
+// `piece` (the last one ragged)
+__host__ __device__ inline int piece_len(int n, int piece, int i) {
+  return n - i * piece < piece ? n - i * piece : piece;
+}
+__host__ __device__ inline int pieces(int n, int piece) {
+  return (n + piece - 1) / piece;
+}
+
 // The bf16 tiles of the tensor-core bodies, at the head of dynamic shared
-// memory: A [SP][lda], E [KPP][lda], G [SP][ldg]; f32 words follow.
+// memory: A [SP][lda], E [KPP][lda], G [SP][ldg], one piece wide (at most
+// kDc columns, kKPc negative rows); f32 words follow.
 struct TileLayout {
   int SP, DP, KPP, lda, ldg;
   __host__ __device__ TileLayout(int S, int KP, int d)
       : SP(round_up(S, kMmaM)),
-        DP(round_up(d, kMmaK)),
-        KPP(round_up(KP, 2 * kMmaN)),
-        lda(round_up(d, kMmaK) + kRowPad),
-        ldg(round_up(KP, 2 * kMmaN) + kRowPad) {}
+        DP(round_up(d < kDc ? d : kDc, kMmaK)),
+        KPP(round_up(KP < kKPc ? KP : kKPc, 2 * kMmaN)),
+        lda(DP + kRowPad),
+        ldg(KPP + kRowPad) {}
   __host__ __device__ size_t a_elems() const { return (size_t)SP * lda; }
   __host__ __device__ size_t e_elems() const { return (size_t)KPP * lda; }
   __host__ __device__ size_t g_elems() const { return (size_t)SP * ldg; }
@@ -283,6 +324,55 @@ __device__ __forceinline__ void tile_pass(int M, int N, int K, int kvalid,
       f);
 }
 
+// An [M x N] output (M, N multiples of 16) whose depth is cut in nq
+// pieces: for each piece q, stage(q) (a block-wide call that may restage
+// the tiles between barriers), then fill(acc, m0, n0, q) adds piece q's
+// products into the block at (m0, n0); after the last piece, f(row, col,
+// val) as in for_each_row. A warp holds kSlots blocks at once (tasks
+// t = warp + kWarps i, as block_pass assigns them), in rounds when there
+// are more, so every block sums its whole depth in one accumulator,
+// piece after piece: the order of one product over the whole depth.
+template <typename Stage, typename Fill, typename F>
+__device__ __forceinline__ void piece_pass(int M, int N, int nq, Stage&& stage,
+                                           Fill&& fill, F&& f) {
+  const int nn = N / (2 * kMmaN);
+  const int tasks = (M / kMmaM) * nn;
+  const int warp = threadIdx.x >> 5;
+  for (int t0 = 0; t0 < tasks; t0 += kSlots * kWarps) {
+    float acc[kSlots][2][4] = {};
+    for (int q = 0; q < nq; ++q) {
+      stage(q);
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        const int t = t0 + warp + kWarps * i;
+        if (t < tasks) fill(acc[i], t / nn * kMmaM, t % nn * (2 * kMmaN), q);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int t = t0 + warp + kWarps * i;
+      if (t < tasks) for_each_row(acc[i], t / nn * kMmaM, t % nn * (2 * kMmaN), f);
+    }
+  }
+}
+
+// acc = g(row, col) at this lane's places of the [16 x 16] block at
+// (m0, n0), the layout for_each_row reads (a partial sum read back)
+template <typename G>
+__device__ __forceinline__ void load_block(float (&acc)[2][4], int m0, int n0,
+                                           G&& g) {
+  const int lane = threadIdx.x & 31;
+  const int r = m0 + (lane >> 2), c = n0 + 2 * (lane & 3);
+  acc[0][0] = g(r, c);
+  acc[0][1] = g(r, c + 1);
+  acc[1][0] = g(r, c + 8);
+  acc[1][1] = g(r, c + 9);
+  acc[0][2] = g(r + 8, c);
+  acc[0][3] = g(r + 8, c + 1);
+  acc[1][2] = g(r + 8, c + 8);
+  acc[1][3] = g(r + 8, c + 9);
+}
+
 // ------------------------------------------------ a chunk's band side
 // The context rows bk do not fit in shared memory beside the tiles: the
 // band products read them from L1/L2 straight into mma B operands (k, e),
@@ -372,25 +462,33 @@ __device__ __forceinline__ void rows_bk_mma(float (&acc)[2][4],
   }
 }
 
-// G[s][j] = rc(-sigmoid(nlog) * w_neg * alpha) for the [SP x KPP] tile of
-// nlog = A E^T (zero in the padding); returns this thread's part of
-// sum w_neg * (log_sigmoid(nlog) - nlog)
-__device__ __forceinline__ float neg_logits(const TileLayout& tl,
+// nlog = A E^T for the negative piece of KPp rows staged in E, summed
+// over the nq width pieces of d (load_a_e(q) stages piece q of A and E),
+// then G[s][j] = rc(-sigmoid(nlog) * w_neg * alpha) for the [SP x KPPp]
+// tile (zero in the padding; w_neg [S x KPp]); returns this thread's part
+// of sum w_neg * (log_sigmoid(nlog) - nlog)
+template <typename Load>
+__device__ __forceinline__ float neg_logits(const TileLayout& tl, int d,
+                                            Load&& load_a_e,
                                             const __nv_bfloat16* sA,
                                             const __nv_bfloat16* sE,
                                             __nv_bfloat16* sG,
-                                            const float* s_wn, int S, int KP,
+                                            const float* s_wn, int S, int KPp,
                                             float alpha) {
   float neg_acc = 0.f;
-  tile_pass<false, false>(
-      tl.SP, tl.KPP, tl.DP, tl.DP, sA, tl.lda, sE, tl.lda,
+  piece_pass(
+      tl.SP, round_up(KPp, 2 * kMmaN), pieces(d, kDc), load_a_e,
+      [&](float (&acc)[2][4], int m0, int n0, int q) {
+        const int DPq = round_up(piece_len(d, kDc, q), kMmaK);
+        warp_mma_16x16<false, false>(acc, sA, tl.lda, m0, sE, tl.lda, n0, DPq, DPq);
+      },
       [&](int s, const int (&col)[4], const float (&nlog)[4]) {
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
           const int j = col[v];
           float g = 0.f;
-          if (s < S && j < KP) {
-            const float wn = s_wn[s * KP + j];
+          if (s < S && j < KPp) {
+            const float wn = s_wn[s * KPp + j];
             g = (0.f - sigmoid_stable(nlog[v])) * wn * alpha;
             neg_acc += wn * (log_sigmoid(nlog[v]) - nlog[v]);
           }
@@ -401,22 +499,28 @@ __device__ __forceinline__ float neg_logits(const TileLayout& tl,
 }
 
 // sg band logits plog = A bk^T on the tensor cores, over the [16 x 16]
-// blocks that hold a row block's band; s_gpb[s][t] = (1 - sigmoid(plog)) *
+// blocks that hold a row block's band, summed over the width pieces
+// (load_a(q) stages piece q of A); s_gpb[s][t] = (1 - sigmoid(plog)) *
 // m * alpha for the slot k = s + t, 0 where masked. Returns this thread's
 // part of sum m * log_sigmoid(plog).
-template <typename RowFn>
+template <typename Load, typename RowFn>
 __device__ __forceinline__ float band_logits(const Band& band,
                                              const TileLayout& tl,
                                              const __nv_bfloat16* sA, int d,
                                              float alpha, float* s_gpb,
-                                             RowFn bk_row) {
+                                             Load&& load_a, RowFn bk_row) {
   const int W2 = 2 * band.W, NB = W2 + 1, SK = band.S + W2;
   const int nb = round_up(kMmaM + W2, 2 * kMmaN) / (2 * kMmaN);
   float pos_acc = 0.f;
-  block_pass(
-      tl.SP, nb * 2 * kMmaN,
-      [&](float (&acc)[2][4], int m0, int n0) {
-        rows_bk_mma(acc, sA, tl.lda, m0, m0 + n0, tl.DP, SK, d, bk_row);
+  piece_pass(
+      tl.SP, nb * 2 * kMmaN, pieces(d, kDc), load_a,
+      [&](float (&acc)[2][4], int m0, int n0, int q) {
+        const int dq = piece_len(d, kDc, q), off = q * kDc;
+        rows_bk_mma(acc, sA, tl.lda, m0, m0 + n0, round_up(dq, kMmaK), SK, dq,
+                    [&](int k) {
+                      const auto* r = bk_row(k);
+                      return r != nullptr ? r + off : r;
+                    });
       },
       [&](int s, const int (&col)[4], const float (&plog)[4]) {
         const int m0 = s / kMmaM * kMmaM;  // slots are offset by the row block
@@ -437,41 +541,51 @@ __device__ __forceinline__ float band_logits(const Band& band,
 }
 
 // cbow projection h = mask @ bk on the tensor cores (divided by n_ctx
-// under cbow_mean): f32 into h_ws [S x d] (d_ctr = gp h reads it
-// unrounded), rounded once into A for the negative products
+// under cbow_mean), piece by piece of the width: f32 into h_ws [S x d]
+// (d_ctr = gp h reads it unrounded), and, when the row is one piece,
+// rounded once into A for the negative products (else the pieces are
+// staged from h_ws, rounded the same way)
 template <typename RowFn>
 __device__ __forceinline__ void projection(const Band& band,
                                            const TileLayout& tl, int d,
                                            bool mean, float* h_ws,
                                            __nv_bfloat16* sA, RowFn bk_row) {
   const int W2 = 2 * band.W, SK = band.S + W2;
+  const int nq = pieces(d, kDc);
   auto w = [&](int s, int k) -> float {
     return (s < band.S && k - s >= 0 && k - s <= W2) ? band.mask(s, k) : 0.f;
   };
-  block_pass(
-      tl.SP, tl.DP,
-      [&](float (&acc)[2][4], int m0, int n0) {
-        band_rows_mma(acc, m0, n0, W2, SK, d, w, bk_row);
-      },
-      [&](int s, const int (&col)[4], const float (&acc)[4]) {
-        if (s >= band.S) return;
+  for (int q = 0; q < nq; ++q) {
+    const int dq = piece_len(d, kDc, q), off = q * kDc;
+    block_pass(
+        tl.SP, round_up(dq, kMmaK),
+        [&](float (&acc)[2][4], int m0, int n0) {
+          band_rows_mma(acc, m0, n0, W2, SK, dq, w, [&](int k) {
+            const auto* r = bk_row(k);
+            return r != nullptr ? r + off : r;
+          });
+        },
+        [&](int s, const int (&col)[4], const float (&acc)[4]) {
+          if (s >= band.S) return;
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          if (col[v] >= d) continue;
-          const float h = mean ? acc[v] / fmaxf(band.nctx[s], 1.f) : acc[v];
-          h_ws[(size_t)s * d + col[v]] = h;
-          sA[(size_t)s * tl.lda + col[v]] = __float2bfloat16_rn(h);
-        }
-      });
+          for (int v = 0; v < 4; ++v) {
+            if (col[v] >= dq) continue;
+            const float h = mean ? acc[v] / fmaxf(band.nctx[s], 1.f) : acc[v];
+            h_ws[(size_t)s * d + off + col[v]] = h;
+            if (nq == 1) sA[(size_t)s * tl.lda + col[v]] = __float2bfloat16_rn(h);
+          }
+        });
+  }
 }
 
-// cbow center logit: an f32 multiply and row sum of rc(h) (the staged A)
-// and rc(a), one warp per center (pallas_step.py:239-254); s_gpc[s] =
-// (1 - sigmoid) * active * alpha. Returns this thread's loss part.
+// cbow center logit: an f32 multiply and row sum of rc(h) (h_ws rounded
+// as A stages it) and rc(a), one warp per center over the whole width
+// (pallas_step.py:239-254); s_gpc[s] = (1 - sigmoid) * active * alpha.
+// Returns this thread's loss part.
 template <typename RowFn>
 __device__ __forceinline__ float center_logits(const Band& band,
-                                               const __nv_bfloat16* sA, int lda,
-                                               int d, float alpha, float* s_gpc,
+                                               const float* h_ws, int d,
+                                               float alpha, float* s_gpc,
                                                RowFn a_row) {
   const int lane = threadIdx.x & 31;
   float pos_acc = 0.f;
@@ -483,7 +597,7 @@ __device__ __forceinline__ float center_logits(const Band& band,
 #pragma unroll
       for (int v = 0; v < kCols; ++v) {
         const int e = e0 + 32 * v;
-        x[v] = e < d ? __bfloat162float(sA[(size_t)s * lda + e]) : 0.f;
+        x[v] = e < d ? rc<true>(h_ws[(size_t)s * d + e]) : 0.f;
         y[v] = e < d ? to_f(a[e]) : 0.f;
       }
 #pragma unroll
@@ -500,39 +614,40 @@ __device__ __forceinline__ float center_logits(const Band& band,
 }
 
 // out[j][col[v]] = val[v] (add: out += val, the old values loaded first)
-// for j < rows and the columns < d
-__device__ __forceinline__ void add_row(float* out, int d, int j, int rows,
-                                        const int (&col)[4],
+// for j < rows and the columns < n; rows ld apart
+__device__ __forceinline__ void add_row(float* out, int ld, int n, int j,
+                                        int rows, const int (&col)[4],
                                         const float (&val)[4], bool add) {
   if (j >= rows) return;
-  float* o = out + (size_t)j * d;
+  float* o = out + (size_t)j * ld;
   float old[4];
 #pragma unroll
-  for (int v = 0; v < 4; ++v) old[v] = (add && col[v] < d) ? o[col[v]] : 0.f;
+  for (int v = 0; v < 4; ++v) old[v] = (add && col[v] < n) ? o[col[v]] : 0.f;
 #pragma unroll
   for (int v = 0; v < 4; ++v)
-    if (col[v] < d) o[col[v]] = add ? old[v] + val[v] : val[v];
+    if (col[v] < n) o[col[v]] = add ? old[v] + val[v] : val[v];
 }
 
-// cbow center s at the four columns col (those < d), from d_hid: the
-// center update out = gp h (the unrounded f32 projection in h_ws) and
-// d_hid2 = d_hid + gp a (divided by n_ctx under cbow_mean), rounded once
-// into A for the context sums
+// cbow center s at the four columns col (those < n) of a width piece,
+// from d_hid: the center update out = gp h (the unrounded f32 projection
+// in h_ws) and d_hid2 = d_hid + gp a (divided by n_ctx under cbow_mean),
+// rounded once into A for the context sums; a, h_ws and out point at the
+// piece's first column, rows of h_ws and out ld apart
 template <typename T>
 __device__ __forceinline__ void cbow_center_row(
     int s, const int (&col)[4], const float (&dh)[4], float gp, bool mean,
-    float nctx, const T* a, const float* h_ws, float* out, int d,
+    float nctx, const T* a, const float* h_ws, float* out, int ld, int n,
     __nv_bfloat16* sA, int lda) {
   float h[4], x[4];
 #pragma unroll
   for (int v = 0; v < 4; ++v) {
-    h[v] = col[v] < d ? h_ws[(size_t)s * d + col[v]] : 0.f;
-    x[v] = col[v] < d ? to_f(a[col[v]]) : 0.f;
+    h[v] = col[v] < n ? h_ws[(size_t)s * ld + col[v]] : 0.f;
+    x[v] = col[v] < n ? to_f(a[col[v]]) : 0.f;
   }
 #pragma unroll
   for (int v = 0; v < 4; ++v) {
-    if (col[v] >= d) continue;
-    out[(size_t)s * d + col[v]] = gp * h[v];
+    if (col[v] >= n) continue;
+    out[(size_t)s * ld + col[v]] = gp * h[v];
     float dh2 = dh[v] + gp * x[v];
     if (mean) dh2 = dh2 / fmaxf(nctx, 1.f);
     sA[(size_t)s * lda + col[v]] = __float2bfloat16_rn(dh2);

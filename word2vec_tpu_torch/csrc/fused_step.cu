@@ -20,15 +20,19 @@
 // The design. One CTA of 512 threads per batch row loops over its C chunks
 // (the TPU's sequential grid dimension; nothing carries between blocks).
 // With bf16 compute (the default) each chunk's dense operands are staged
-// in shared memory once, rounded once to bf16 (csrc/band_tiles.cuh):
+// in shared memory, rounded once to bf16 (csrc/band_tiles.cuh), one piece
+// of at most kKPc = 64 negative rows and kDc = 304 columns at a time:
 //   A [SP x lda]   center rows (sg) or the cbow projection h, zero-padded
 //                  to SP = 128 rows x 304 columns (+8: ldmatrix rows on
 //                  distinct banks)          128 x 312 x 2 B =  79,872 B
-//   E [KPP x lda]  the KP negative rows, once per row  64 x 312 x 2 B = 39,936 B
+//   E [KPP x lda]  the negative rows (once per row in one piece)
+//                                           64 x 312 x 2 B = 39,936 B
 //   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
-//   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KP]
-//   (30,208 B), the W-row right overhang (2 buffers, 12,000 B), ...
-//                                           total at the flagship 189,704 B
+//   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KPc]
+//   (30,208 B), ...                         total at the flagship 177,448 B
+// and no more at any wider KP or d: the flagship is one piece of each, and
+// a wider pool or row is walked piece by piece (band_tiles.cuh states the
+// order of every sum that crosses pieces: that of one unpieced product).
 // The context rows bk (another 80 KB, over the 227 KB a block has) stay in
 // L1/L2. Every product runs on the tensor cores (mma.sync.m16n8k16, f32
 // accumulate): nlog = A E^T, d_neg = G^T A and d_hid = G E from the tiles;
@@ -42,20 +46,23 @@
 //     part is added to the row's sum by the thread that owns the output;
 //   * the token-order overlap-add replaces the TPU's one-chunk lag: chunk c
 //     writes its own rows of d_ctx and adds its left overhang into the last
-//     W rows of chunk c-1, which the same block wrote before a barrier;
-//     each output sums exactly the <= 2 slab slots banded._overlap_add sums;
+//     W rows of chunk c-1, which the same block wrote before a barrier; its
+//     right overhang waits in the first W rows of chunk c+1 (device memory,
+//     not shared: it would grow with d); each output sums exactly the <= 2
+//     slab slots banded._overlap_add sums;
 //   * cbow's d_ctr = gp h uses the unrounded f32 projection (kept in a
 //     global workspace), its d_hid2 goes back into A, rounded once, for the
-//     context sums; the center logit is an f32 multiply and row sum;
+//     context sums (d_hid's running sum over negative pieces waits in a
+//     second workspace); the center logit is an f32 multiply and row sum;
 //   * the losses leave as per-row partials [B, 2] that a second kernel
 //     reduces in a fixed order.
 // With f32 compute the products stay exact f32 multiply-adds on the CUDA
 // cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
-// fit): grad_core_f32_kernel keeps the first port's body (negative rows in
-// shared memory, table rows through L2, warp-reduced dot products). Both
-// bodies take an optional per-phase clock64() record (PhaseClock). A shape
-// whose tiles exceed the block's shared memory fails its launch (the
-// wrapper raises).
+// fit): grad_core_f32_kernel keeps the first port's body (table and
+// negative rows through L1/L2, warp-reduced dot products), the negative
+// pool in pieces of kKPc. Both bodies take an optional per-phase clock64()
+// record (PhaseClock). A chunk S whose tiles exceed the block's shared
+// memory fails its launch (the wrapper raises first).
 //
 // The slab scatter is a segmented, ordered pass: each cell receives its
 // run's terms in sorted order and rounds to the table type after every
@@ -122,23 +129,29 @@ struct GradArgs {
 };
 
 // shared memory of the f32-compute body, in 4-byte words (ints and
-// floats), in the order grad_core_f32_kernel lays it out
-inline size_t grad_smem_words(int S, int SK, int KP, int d, int W) {
+// floats), in the order grad_core_f32_kernel lays it out: one negative
+// piece (at most kKPc rows) at a time, nothing that grows with d
+inline size_t grad_smem_words(int S, int SK, int KP, int W) {
   const int NB = 2 * W + 1;
+  const int KPc = KP < kKPc ? KP : kKPc;
   return (size_t)S * 4          // tok_c, keep, w, n_ctx
          + (size_t)SK * 2       // tok_k, cwy
-         + (size_t)KP * 2       // negs, wsum
+         + (size_t)KPc          // the piece's negative ids
          + (size_t)S * NB       // band-compressed gp (sg)
          + (size_t)S            // gp per center (cbow)
-         + (size_t)S * KP * 2   // gn, w_neg
-         + (size_t)KP * d       // negative rows
-         + (size_t)2 * W * d    // context-grad right overhang, 2 buffers
+         + (size_t)S * KPc * 2  // gn, w_neg of the piece
          + (size_t)2 * W        // ctx_w right overhang, 2 buffers
          + (size_t)2 * kWarps;  // loss block reduction
 }
 
+// The right overhang of the context gradient (slab slots [S+W, S+2W) of
+// chunk c, W rows) waits in d_ctx itself, in the first W rows of chunk
+// c + 1, which that chunk's pass then adds its own slots to (y + left,
+// as the Pallas kernel's lagged add): nothing of it stays in shared memory.
+
 // f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
-// would not fit), the design of the first port
+// would not fit), the design of the first port; the negative rows are read
+// through L1/L2, the negative pool walked in pieces of kKPc
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     grad_core_f32_kernel(const GradArgs a) {
@@ -150,6 +163,7 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int C = a.C, S = a.S, SK = a.SK, KP = a.KP, d = a.d, W = a.W;
   const int NB = 2 * W + 1;
+  const int KPc = KP < kKPc ? KP : kKPc, nK = pieces(KP, kKPc);
   const size_t rs = (size_t)2 * d;  // slab row stride
   // sg scores emb_in centers against emb_out contexts; cbow swaps them;
   // negatives always live on the out plane (pallas_step.py:160-164)
@@ -165,14 +179,11 @@ __global__ void __launch_bounds__(kThreads)
   int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
   float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
   int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
-  float* s_wsum = reinterpret_cast<float*>(s_negs + KP);
-  float* s_gpb = s_wsum + KP;
+  float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
   float* s_gpc = s_gpb + (size_t)S * NB;
   float* s_gn = s_gpc + S;
-  float* s_wn = s_gn + (size_t)S * KP;
-  float* s_en = s_wn + (size_t)S * KP;
-  float* s_tail = s_en + (size_t)KP * d;
-  float* s_cwtail = s_tail + (size_t)2 * W * d;
+  float* s_wn = s_gn + (size_t)S * KPc;
+  float* s_cwtail = s_wn + (size_t)S * KPc;
   float* s_red = s_cwtail + 2 * W;
 
   // the band mask (banded.band_mask semantics, pallas_step.py:185-194)
@@ -187,6 +198,10 @@ __global__ void __launch_bounds__(kThreads)
   auto bk_row = [&](int k, int e) -> float {
     return to_f(emb[(size_t)s_tokk[k] * rs + (size_t)ctx_plane * d + e]);
   };
+  // negative row j of the staged piece (out plane)
+  auto en_row = [&](int j, int e) -> float {
+    return to_f(emb[(size_t)s_negs[j] * rs + d + e]);
+  };
   float* h_ws = a.h_ws + (size_t)b * S * d;
   float* dh_ws = a.dh_ws + (size_t)b * S * d;
   auto h_val = [&](int s, int e) -> float {
@@ -196,20 +211,16 @@ __global__ void __launch_bounds__(kThreads)
       return a_row(s, e);
     }
   };
+  // the negative ids of piece p
+  auto load_negs = [&](int p) {
+    for (int j = tid; j < piece_len(KP, kKPc, p); j += kThreads)
+      s_negs[j] = a.negs[(size_t)b * KP + p * kKPc + j];
+  };
 
   float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
   float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
 
-  // once per row: the KP negative rows (out plane)
-  for (int j = tid; j < KP; j += kThreads) {
-    s_negs[j] = a.negs[(size_t)b * KP + j];
-    s_wsum[j] = 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < KP * d; i += kThreads) {
-    const int j = i / d, e = i - j * d;
-    s_en[i] = to_f(emb[(size_t)s_negs[j] * rs + d + e]);
-  }
+  load_negs(0);  // once per row when the pool is one piece
 
   for (int c = 0; c < C; ++c) {
     __syncthreads();  // the previous chunk is done with the tiles
@@ -231,12 +242,6 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int k = tid; k < SK; k += kThreads) s_cwy[k] = band.col_sum(k);
     __syncthreads();
-
-    // ---- negative weights (collision masks, pallas_step.py:213-223)
-    for (int i = tid; i < S * KP; i += kThreads) {
-      const int s = i / KP, j = i - s * KP;
-      s_wn[i] = band.neg_weight<false, CBOW>(s, j);
-    }
     if constexpr (CBOW) {
       // projection h = mask @ bk_rows (divided by n_ctx under cbow_mean)
       for (int i = tid; i < S * d; i += kThreads) {
@@ -249,23 +254,10 @@ __global__ void __launch_bounds__(kThreads)
         if (a.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
         h_ws[i] = acc;
       }
+      __syncthreads();
     }
-    __syncthreads();
     clk.mark(kPhaseMasks);
 
-    // ---- negative logits and gradient weights, one warp per (s, j)
-    for (int p = warp; p < S * KP; p += kWarps) {
-      const int s = p / KP, j = p - s * KP;
-      float part = 0.f;
-      for (int e = lane; e < d; e += 32)
-        part += h_val(s, e) * s_en[(size_t)j * d + e];
-      const float nlog = warp_sum(part);
-      if (lane == 0) {
-        const float wn = s_wn[p];
-        s_gn[p] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
-        neg_acc += wn * (log_sigmoid(nlog) - nlog);
-      }
-    }
     // ---- positive side
     if constexpr (!CBOW) {
       // band logits over the band only, one warp per (s, k)
@@ -299,40 +291,91 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    __syncthreads();
     clk.mark(kPhaseLogits);
 
-    // ---- center-side rows: d_hid = gn @ en, plus the band product
-    for (int i = tid; i < S * d; i += kThreads) {
-      const int s = i / d, e = i - s * d;
-      float dh = 0.f;
-      for (int j = 0; j < KP; ++j)
-        dh += s_gn[s * KP + j] * s_en[(size_t)j * d + e];
-      if constexpr (!CBOW) {
-        float dp = 0.f;
-        for (int t = 0; t < NB; ++t) {
-          const float g = s_gpb[s * NB + t];
-          if (g != 0.f) dp += g * bk_row(s + t, e);
-        }
-        a.d_ctr[bc * S * d + i] = dh + dp;
-      } else {
-        const float gp = s_gpc[s];
-        a.d_ctr[bc * S * d + i] = gp * h_ws[i];
-        float dh2 = dh + gp * a_row(s, e);
-        // second divide (Word2Vec.cpp:313-315, pallas_step.py:259-260)
-        if (a.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
-        dh_ws[i] = dh2;
+    // ---- the negative pool, piece by piece
+    const int s_end = min(S, a.L - c * S);
+    for (int p = 0; p < nK; ++p) {
+      const int KPp = piece_len(KP, kKPc, p), j0 = p * kKPc;
+      const bool last = p == nK - 1;
+      if (nK > 1) {
+        __syncthreads();  // the previous piece is done with the ids
+        load_negs(p);
+        __syncthreads();
       }
+      // negative weights (collision masks, pallas_step.py:213-223)
+      for (int i = tid; i < S * KPp; i += kThreads) {
+        const int s = i / KPp, j = i - s * KPp;
+        s_wn[i] = band.neg_weight<false, CBOW>(s, j);
+      }
+      __syncthreads();
+      clk.mark(kPhaseMasks);
+
+      // negative logits and gradient weights, one warp per (s, j)
+      for (int q = warp; q < S * KPp; q += kWarps) {
+        const int s = q / KPp, j = q - s * KPp;
+        float part = 0.f;
+        for (int e = lane; e < d; e += 32) part += h_val(s, e) * en_row(j, e);
+        const float nlog = warp_sum(part);
+        if (lane == 0) {
+          const float wn = s_wn[q];
+          s_gn[q] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
+          neg_acc += wn * (log_sigmoid(nlog) - nlog);
+        }
+      }
+      __syncthreads();
+      clk.mark(kPhaseLogits);
+
+      // center-side rows: d_hid = gn @ en over the pieces, each value's
+      // running sum kept in d_ctr (sg) or dh_ws (cbow) between pieces,
+      // then the band product (sg) or the center update and d_hid2 (cbow)
+      for (int i = tid; i < S * d; i += kThreads) {
+        const int s = i / d, e = i - s * d;
+        float* part = CBOW ? dh_ws + i : a.d_ctr + bc * S * d + i;
+        float dh = p == 0 ? 0.f : *part;
+        for (int j = 0; j < KPp; ++j) dh += s_gn[s * KPp + j] * en_row(j, e);
+        if (!last) {
+          *part = dh;
+        } else if constexpr (!CBOW) {
+          float dp = 0.f;
+          for (int t = 0; t < NB; ++t) {
+            const float g = s_gpb[s * NB + t];
+            if (g != 0.f) dp += g * bk_row(s + t, e);
+          }
+          a.d_ctr[bc * S * d + i] = dh + dp;
+        } else {
+          const float gp = s_gpc[s];
+          a.d_ctr[bc * S * d + i] = gp * h_ws[i];
+          float dh2 = dh + gp * a_row(s, e);
+          // second divide (Word2Vec.cpp:313-315, pallas_step.py:259-260)
+          if (a.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
+          dh_ws[i] = dh2;
+        }
+      }
+      // d_neg = gn^T h and w_neg_sum over the row's first L positions,
+      // continued from the previous chunk by the same thread
+      float* dneg = a.d_neg + ((size_t)b * KP + j0) * d;
+      for (int i = tid; i < KPp * d; i += kThreads) {
+        const int j = i / d, e = i - j * d;
+        float acc = c == 0 ? 0.f : dneg[i];
+        for (int s = 0; s < s_end; ++s) acc += s_gn[s * KPp + j] * h_val(s, e);
+        dneg[i] = acc;
+      }
+      float* wsum = a.w_neg_sum + (size_t)b * KP + j0;
+      for (int j = tid; j < KPp; j += kThreads) {
+        float acc = c == 0 ? 0.f : wsum[j];
+        for (int s = 0; s < s_end; ++s) acc += s_wn[s * KPp + j];
+        wsum[j] = acc;
+      }
+      __syncthreads();
+      clk.mark(kPhaseCenter);
     }
-    __syncthreads();
-    clk.mark(kPhaseCenter);
 
     // ---- slab-space context grads, overlap-added straight into token
     // order: slots [W, S+W) are this chunk's rows (plus the previous
-    // chunk's right overhang in the first W), slots [0, W) add into the
-    // previous chunk's last W rows, slots [S+W, S+2W) wait for the next
-    float* tail_new = s_tail + (size_t)(c & 1) * W * d;
-    const float* tail_old = s_tail + (size_t)((c + 1) & 1) * W * d;
+    // chunk's right overhang, waiting in the first W), slots [0, W) add
+    // into the previous chunk's last W rows, slots [S+W, S+2W) wait in
+    // the next chunk's first W rows
     for (int i = tid; i < SK * d; i += kThreads) {
       const int k = i / d, e = i - k * d;
       const int lo = max(0, k - 2 * W), hi = min(S - 1, k);
@@ -349,11 +392,11 @@ __global__ void __launch_bounds__(kThreads)
       if (k < W) {
         if (c > 0) a.d_ctx[((bc - 1) * S + (S - W + k)) * d + e] += y;
       } else if (k < S + W) {
-        const int s = k - W;
-        const float left = (s < W && c > 0) ? tail_old[(size_t)s * d + e] : 0.f;
-        a.d_ctx[(bc * S + s) * d + e] = y + left;
-      } else {
-        tail_new[(size_t)(k - S - W) * d + e] = y;
+        float* o = a.d_ctx + (bc * S + (k - W)) * d + e;
+        const float left = (k - W < W && c > 0) ? *o : 0.f;
+        *o = y + left;
+      } else if (c + 1 < C) {
+        a.d_ctx[((bc + 1) * S + (k - S - W)) * d + e] = y;
       }
     }
     for (int k = tid; k < SK; k += kThreads) {
@@ -369,51 +412,33 @@ __global__ void __launch_bounds__(kThreads)
         s_cwtail[(c & 1) * W + (k - S - W)] = y;
       }
     }
-    // (no barrier: the d_neg loop below overlaps this one; the record
-    // counts both as kPhaseNeg)
-
-    // ---- d_neg = gn^T h and w_neg_sum over the row's first L positions,
-    // continued from the previous chunk by the same thread
-    const int s_end = min(S, a.L - c * S);
-    for (int i = tid; i < KP * d; i += kThreads) {
-      const int j = i / d, e = i - j * d;
-      float acc = c == 0 ? 0.f : a.d_neg[(size_t)b * KP * d + i];
-      for (int s = 0; s < s_end; ++s)
-        acc += s_gn[s * KP + j] * h_val(s, e);
-      a.d_neg[(size_t)b * KP * d + i] = acc;
-    }
-    for (int j = tid; j < KP; j += kThreads) {
-      float acc = s_wsum[j];
-      for (int s = 0; s < s_end; ++s) acc += s_wn[s * KP + j];
-      s_wsum[j] = acc;
-    }
     __syncthreads();
-    clk.mark(kPhaseNeg);
+    clk.mark(kPhaseContext);
   }
-  for (int j = tid; j < KP; j += kThreads)
-    a.w_neg_sum[(size_t)b * KP + j] = s_wsum[j];
-
   block_losses(pos_acc, neg_acc, s_red, a.loss_part + (size_t)b * 2);
   clk.mark(kPhaseTail);
 }
 
 // shared memory of the tensor-core body, in bytes: the bf16 tiles
-// (TileLayout) and then, in 4-byte words, in grad_core_tc_kernel's order
+// (TileLayout, one piece) and then, in 4-byte words, in
+// grad_core_tc_kernel's order; nothing grows with KP or d past one piece
 inline size_t grad_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
   const int NB = 2 * W + 1;
+  const int KPc = KP < kKPc ? KP : kKPc;
   const size_t words = (size_t)S * 4          // tok_c, keep, w, n_ctx
                        + (size_t)SK * 2       // tok_k, cwy
-                       + (size_t)KP * 2       // negs, wsum
+                       + (size_t)KPc          // the piece's negative ids
                        + (size_t)S * NB       // band-compressed gp (sg)
                        + (size_t)S            // gp per center (cbow)
-                       + (size_t)S * KP       // w_neg
-                       + (size_t)2 * W * d    // context-grad right overhang, 2 buffers
+                       + (size_t)S * KPc      // w_neg of the piece
                        + (size_t)2 * W        // ctx_w right overhang, 2 buffers
                        + (size_t)2 * kWarps;  // loss block reduction
   return TileLayout(S, KP, d).bf16_bytes() + words * sizeof(float);
 }
 
-// bf16 compute: the three dense products on the tensor cores
+// bf16 compute: the three dense products on the tensor cores, the
+// negative pool in pieces of kKPc rows and the width in pieces of kDc
+// columns (band_tiles.cuh says how the sums cross the pieces)
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_core_tc_kernel(const GradArgs a) {
@@ -423,6 +448,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int C = a.C, S = a.S, SK = a.SK, KP = a.KP, d = a.d, W = a.W;
   const int NB = 2 * W + 1;
+  const int nK = pieces(KP, kKPc), nD = pieces(d, kDc);
   const size_t rs = (size_t)2 * d;  // slab row stride
   // sg scores emb_in centers against emb_out contexts; cbow swaps them;
   // negatives always live on the out plane (pallas_step.py:160-164)
@@ -443,12 +469,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
   float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
   int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
-  float* s_wsum = reinterpret_cast<float*>(s_negs + KP);
-  float* s_gpb = s_wsum + KP;
+  const int KPc = KP < kKPc ? KP : kKPc;
+  float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
   float* s_gpc = s_gpb + (size_t)S * NB;
   float* s_wn = s_gpc + S;
-  float* s_tail = s_wn + (size_t)S * KP;
-  float* s_cwtail = s_tail + (size_t)2 * W * d;
+  float* s_cwtail = s_wn + (size_t)S * KPc;
   float* s_red = s_cwtail + 2 * W;
 
   const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, a.K, KP};
@@ -461,18 +486,50 @@ __global__ void __launch_bounds__(kThreads, 1)
                           : nullptr;
   };
   float* h_ws = a.h_ws + (size_t)b * S * d;
+  float* dh_ws = a.dh_ws + (size_t)b * S * d;
+
+  // the pieces staged in the tiles: A's width piece, E's (p, q) as
+  // p * nD + q (-1: none); every thread tracks them alike
+  int a_at = -1, e_at = -1;
+  auto stage_a = [&](int q) {
+    const int dq = piece_len(d, kDc, q), off = q * kDc;
+    if constexpr (CBOW) {
+      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
+                 [&](int s) { return h_ws + (size_t)s * d + off; });
+    } else {
+      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
+                 [&](int s) { return a_row(s) + off; });
+    }
+    a_at = q;
+  };
+  auto stage_e = [&](int p, int q) {
+    const int KPp = piece_len(KP, kKPc, p), dq = piece_len(d, kDc, q);
+    stage_rows(sE, tl.lda, round_up(KPp, 2 * kMmaN), round_up(dq, kMmaK), KPp, dq,
+               [&](int j) { return emb + (size_t)s_negs[j] * rs + d + q * kDc; });
+    e_at = p * nD + q;
+  };
+  // piece q of A (and piece (p, q) of E unless p < 0) in the tiles
+  auto load = [&](int p, int q) {
+    const bool na = a_at != q, ne = p >= 0 && e_at != p * nD + q;
+    if (!na && !ne) return;
+    __syncthreads();  // everyone is done with the tiles
+    if (na) stage_a(q);
+    if (ne) stage_e(p, q);
+    __syncthreads();
+  };
+  auto load_negs = [&](int p) {
+    for (int j = tid; j < piece_len(KP, kKPc, p); j += kThreads)
+      s_negs[j] = a.negs[(size_t)b * KP + p * kKPc + j];
+  };
 
   float pos_acc = 0.f;  // sum of mask * log_sigmoid(plog)
   float neg_acc = 0.f;  // sum of w_neg * (log_sigmoid(nlog) - nlog)
 
-  // once per row: the KP negative rows (out plane), bf16 in E
-  for (int j = tid; j < KP; j += kThreads) {
-    s_negs[j] = a.negs[(size_t)b * KP + j];
-    s_wsum[j] = 0.f;
-  }
+  // once per row: the first negative piece (out plane), bf16 in E (the
+  // only one when the pool and the row are one piece each)
+  load_negs(0);
   __syncthreads();
-  stage_rows(sE, tl.lda, tl.KPP, tl.DP, KP, d,
-             [&](int j) { return emb + (size_t)s_negs[j] * rs + d; });
+  stage_e(0, 0);
 
   for (int c = 0; c < C; ++c) {
     __syncthreads();  // the previous chunk is done with the tiles
@@ -483,10 +540,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       s_w[s] = a.w_c[bc * S + s];
     }
     for (int k = tid; k < SK; k += kThreads) s_tokk[k] = a.tok_k[bc * SK + k];
-    // sg: A holds the center rows; cbow: the projection fills its [S x d]
-    stage_rows(sA, tl.lda, tl.SP, tl.DP, CBOW ? 0 : S, d, [&](int s) {
-      return emb + (size_t)a.tok_c[bc * S + s] * rs + (size_t)ctr_plane * d;
-    });
+    // sg: A holds the center rows (the first width piece); cbow: zeros
+    // that the projection fills
+    stage_rows(sA, tl.lda, tl.SP, round_up(piece_len(d, kDc, 0), kMmaK),
+               CBOW ? 0 : S, piece_len(d, kDc, 0), [&](int s) {
+                 return emb + (size_t)a.tok_c[bc * S + s] * rs + (size_t)ctr_plane * d;
+               });
+    a_at = CBOW ? -1 : 0;
     __syncthreads();
     clk.mark(kPhaseRows);
 
@@ -498,100 +558,139 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     for (int k = tid; k < SK; k += kThreads) s_cwy[k] = band.col_sum(k);
     __syncthreads();
-    // ---- negative weights (collision masks, pallas_step.py:213-223)
-    for (int i = tid; i < S * KP; i += kThreads) {
-      const int s = i / KP, j = i - s * KP;
-      s_wn[i] = band.neg_weight<true, CBOW>(s, j);
+    if constexpr (CBOW) {
+      projection(band, tl, d, a.cbow_mean != 0, h_ws, sA, bk_row);
+      if (nD == 1) a_at = 0;
+      __syncthreads();
     }
-    if constexpr (CBOW) projection(band, tl, d, a.cbow_mean != 0, h_ws, sA, bk_row);
-    __syncthreads();
     clk.mark(kPhaseMasks);
 
-    // ---- negative logits and weights (tensor cores), positive logits
-    neg_acc += neg_logits(tl, sA, sE, sG, s_wn, S, KP, alpha);
+    // ---- positive logits: the sg band (tensor cores) or the cbow center,
+    // beside the first piece's negative weights (1.3% faster on the
+    // flagship than beside its negative logits, where band_core measured
+    // the other way; PERF.md §6 PR 19)
     if constexpr (!CBOW) {
-      pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb, bk_row);
+      pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb,
+                             [&](int q) { load(-1, q); }, bk_row);
     } else {
-      pos_acc += center_logits(band, sA, tl.lda, d, alpha, s_gpc, a_row);
+      pos_acc += center_logits(band, h_ws, d, alpha, s_gpc, a_row);
     }
-    __syncthreads();
-    clk.mark(kPhaseLogits);
 
-    // ---- d_neg += gn^T h over the row's first L positions (gn past them
-    // is cut in the registers), w_neg_sum likewise, each output owned by
-    // one thread and continued chunk by chunk
     const int s_end = min(S, a.L - c * S);
-    float* dneg = a.d_neg + (size_t)b * KP * d;
-    tile_pass<true, true>(tl.KPP, tl.DP, tl.SP, s_end, sG, tl.ldg, sA, tl.lda,
-                          [&](int j, const int (&col)[4], const float (&v)[4]) {
-                            add_row(dneg, d, j, KP, col, v, c > 0);
-                          });
-    for (int j = tid; j < KP; j += kThreads) {
-      float acc = s_wsum[j];
-      for (int s = 0; s < s_end; ++s) acc += s_wn[s * KP + j];
-      s_wsum[j] = acc;
-    }
-    __syncthreads();
-    clk.mark(kPhaseNeg);
-
-    // ---- center-side rows: d_hid = gn @ en (tensor cores), plus the band
-    // product (sg) or the center update and d_hid2 (cbow, into A)
     float* dctr = a.d_ctr + bc * S * d;
-    if constexpr (!CBOW) {
-      // d_ctr = d_hid + gp bk: both products into one accumulator block
-      auto w = [&](int s, int k) -> float {
-        return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
-      };
-      block_pass(
-          tl.SP, tl.DP,
-          [&](float (&acc)[2][4], int m0, int n0) {
-            warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
-                                        tl.KPP, tl.KPP);
-            band_rows_mma(acc, m0, n0, 2 * W, SK, d, w, bk_row);
-          },
-          [&](int s, const int (&col)[4], const float (&v)[4]) {
-            if (s >= S) return;
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-              if (col[u] < d) dctr[(size_t)s * d + col[u]] = v[u];
-          });
-    } else {
-      tile_pass<false, true>(
-          tl.SP, tl.DP, tl.KPP, tl.KPP, sG, tl.ldg, sE, tl.lda,
-          [&](int s, const int (&col)[4], const float (&dh)[4]) {
-            if (s >= S) return;
-            cbow_center_row(s, col, dh, s_gpc[s], a.cbow_mean != 0, s_nctx[s],
-                            a_row(s), h_ws, dctr, d, sA, tl.lda);
-          });
-    }
-    __syncthreads();
-    clk.mark(kPhaseCenter);
+    for (int p = 0; p < nK; ++p) {
+      const int KPp = piece_len(KP, kKPc, p), KPPp = round_up(KPp, 2 * kMmaN);
+      const int j0 = p * kKPc;
+      const bool last = p == nK - 1;
+      if (nK > 1) {
+        __syncthreads();  // the previous piece is done with the ids
+        load_negs(p);
+        __syncthreads();
+      }
+      // ---- negative weights (collision masks, pallas_step.py:213-223)
+      for (int i = tid; i < S * KPp; i += kThreads) {
+        const int s = i / KPp, j = i - s * KPp;
+        s_wn[i] = band.neg_weight<true, CBOW>(s, j);
+      }
+      __syncthreads();
+      clk.mark(kPhaseMasks);
 
-    // ---- slab-space context grads, overlap-added straight into token
-    // order: slots [W, S+W) are this chunk's rows (plus the previous
-    // chunk's right overhang in the first W), slots [0, W) add into the
-    // previous chunk's last W rows, slots [S+W, S+2W) wait for the next
-    float* tail_new = s_tail + (size_t)(c & 1) * W * d;
-    const float* tail_old = s_tail + (size_t)((c + 1) & 1) * W * d;
-    context_tiles<CBOW>(
-        band, s_gpb, sA, tl.lda, SK, tl.DP,
-        [&](int k, const int (&col)[4], const float (&y)[4]) {
+      // ---- negative logits and weights (tensor cores), over the width
+      neg_acc += neg_logits(tl, d, [&](int q) { load(p, q); }, sA, sE, sG, s_wn,
+                            S, KPp, alpha);
+      __syncthreads();
+      clk.mark(kPhaseLogits);
+      // ---- w_neg_sum over the row's first L positions, continued from
+      // the previous chunk by the same thread
+      float* wsum = a.w_neg_sum + (size_t)b * KP + j0;
+      for (int j = tid; j < KPp; j += kThreads) {
+        float acc = c == 0 ? 0.f : wsum[j];
+        for (int s = 0; s < s_end; ++s) acc += s_wn[s * KPp + j];
+        wsum[j] = acc;
+      }
+
+      for (int q = 0; q < nD; ++q) {
+        const int dq = piece_len(d, kDc, q), DPq = round_up(dq, kMmaK);
+        const int off = q * kDc;
+        load(p, q);
+        // ---- d_neg += gn^T h over the row's first L positions (gn past
+        // them is cut in the registers), each output owned by one thread
+        // and continued chunk by chunk
+        float* dneg = a.d_neg + ((size_t)b * KP + j0) * d + off;
+        tile_pass<true, true>(KPPp, DPq, tl.SP, s_end, sG, tl.ldg, sA, tl.lda,
+                              [&](int j, const int (&col)[4], const float (&v)[4]) {
+                                add_row(dneg, d, dq, j, KPp, col, v, c > 0);
+                              });
+        __syncthreads();
+        clk.mark(kPhaseNeg);
+
+        // ---- center-side rows: d_hid = gn @ en (tensor cores), its
+        // running sum over the pieces in d_ctr (sg) or dh_ws (cbow); after
+        // the last piece the band product (sg) or the center update and
+        // d_hid2 (cbow, into A)
+        float* part = (CBOW ? dh_ws : dctr) + off;
+        auto partial = [&](int s, int e) -> float {
+          return (s < S && e < dq) ? part[(size_t)s * d + e] : 0.f;
+        };
+        auto w = [&](int s, int k) -> float {
+          return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+        };
+        block_pass(
+            tl.SP, DPq,
+            [&](float (&acc)[2][4], int m0, int n0) {
+              if (p > 0) load_block(acc, m0, n0, partial);
+              warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
+                                          KPPp, KPPp);
+              if (!CBOW && last)
+                band_rows_mma(acc, m0, n0, 2 * W, SK, dq, w, [&](int k) {
+                  const T* r = bk_row(k);
+                  return r != nullptr ? r + off : r;
+                });
+            },
+            [&](int s, const int (&col)[4], const float (&v)[4]) {
+              if (s >= S) return;
+              if (CBOW && last) {
+                cbow_center_row(s, col, v, s_gpc[s], a.cbow_mean != 0, s_nctx[s],
+                                a_row(s) + off, h_ws + off, dctr + off, d, dq, sA,
+                                tl.lda);
+                return;
+              }
 #pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int e = col[v];
-            if (k >= SK || e >= d) continue;
-            if (k < W) {
-              if (c > 0) a.d_ctx[((bc - 1) * S + (S - W + k)) * d + e] += y[v];
-            } else if (k < S + W) {
-              const int s = k - W;
-              const float left =
-                  (s < W && c > 0) ? tail_old[(size_t)s * d + e] : 0.f;
-              a.d_ctx[(bc * S + s) * d + e] = y[v] + left;
-            } else {
-              tail_new[(size_t)(k - S - W) * d + e] = y[v];
-            }
-          }
-        });
+              for (int u = 0; u < 4; ++u)
+                if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
+            });
+        if (CBOW && last) a_at = -1;  // A holds d_hid2 now
+        __syncthreads();
+        clk.mark(kPhaseCenter);
+        if (!last) continue;
+
+        // ---- slab-space context grads, overlap-added straight into token
+        // order: slots [W, S+W) are this chunk's rows (plus the previous
+        // chunk's right overhang, waiting in the first W), slots [0, W) add
+        // into the previous chunk's last W rows, slots [S+W, S+2W) wait in
+        // the next chunk's first W rows
+        context_tiles<CBOW>(
+            band, s_gpb, sA, tl.lda, SK, DPq,
+            [&](int k, const int (&col)[4], const float (&y)[4]) {
+#pragma unroll
+              for (int v = 0; v < 4; ++v) {
+                const int e = off + col[v];
+                if (k >= SK || col[v] >= dq) continue;
+                if (k < W) {
+                  if (c > 0) a.d_ctx[((bc - 1) * S + (S - W + k)) * d + e] += y[v];
+                } else if (k < S + W) {
+                  float* o = a.d_ctx + (bc * S + (k - W)) * d + e;
+                  const float left = (k - W < W && c > 0) ? *o : 0.f;
+                  *o = y[v] + left;
+                } else if (c + 1 < C) {
+                  a.d_ctx[((bc + 1) * S + (k - S - W)) * d + e] = y[v];
+                }
+              }
+            });
+        __syncthreads();
+        clk.mark(kPhaseContext);
+      }
+    }
     for (int k = tid; k < SK; k += kThreads) {
       const float y = s_cwy[k];
       if (k < W) {
@@ -605,11 +704,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         s_cwtail[(c & 1) * W + (k - S - W)] = y;
       }
     }
-    __syncthreads();
-    clk.mark(kPhaseContext);
   }
-  for (int j = tid; j < KP; j += kThreads)
-    a.w_neg_sum[(size_t)b * KP + j] = s_wsum[j];
   block_losses(pos_acc, neg_acc, s_red, a.loss_part + (size_t)b * 2);
   clk.mark(kPhaseTail);
 }
@@ -839,6 +934,16 @@ cudaError_t launch_grad_model(const GradArgs& a, int B, size_t smem, bool tc,
                  : launch_grad<T, false>(a, B, smem, tc, st);
 }
 
+// resident blocks a SM of the body a launch at this shared memory runs
+template <typename T, bool CBOW>
+cudaError_t grad_occupancy(int* n, size_t smem, bool tc) {
+  auto kern = tc ? &grad_core_tc_kernel<T, CBOW> : &grad_core_f32_kernel<T, CBOW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kern, kThreads, smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -847,11 +952,29 @@ extern "C" {
 size_t w2v_grad_core_smem_bytes(int S, int SK, int KP, int d, int W,
                                 int cdt_bf16) {
   return cdt_bf16 ? grad_tc_smem_bytes(S, SK, KP, d, W)
-                  : grad_smem_words(S, SK, KP, d, W) * sizeof(float);
+                  : grad_smem_words(S, SK, KP, W) * sizeof(float);
 }
 
 const char* w2v_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// blocks of fused_grad_core resident on one SM at this shape (the
+// occupancy calculator's answer), or minus the CUDA error
+int w2v_grad_core_blocks_per_sm(int S, int SK, int KP, int d, int W,
+                                int table_bf16, int cdt_bf16, int is_cbow) {
+  const size_t smem = w2v_grad_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
+  const bool tc = cdt_bf16 != 0;
+  int n = 0;
+  cudaError_t err;
+  if (table_bf16) {
+    err = is_cbow ? grad_occupancy<__nv_bfloat16, true>(&n, smem, tc)
+                  : grad_occupancy<__nv_bfloat16, false>(&n, smem, tc);
+  } else {
+    err = is_cbow ? grad_occupancy<float, true>(&n, smem, tc)
+                  : grad_occupancy<float, false>(&n, smem, tc);
+  }
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 int w2v_fused_grad_core(const void* emb, int table_bf16, const int* tok_c,

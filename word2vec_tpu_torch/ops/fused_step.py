@@ -226,11 +226,12 @@ def fused_grad_core(
     w_neg_sum = torch.empty((B, KP), **f32)
     loss_part = torch.empty((B, 2), **f32)
     losses = torch.empty((1, 2), **f32)
-    # cbow workspaces: the f32 projection; d_hid2 only for the f32-compute
-    # body (the tensor-core body keeps it in shared memory)
+    # cbow workspaces: the f32 projection, and d_hid (the f32-compute
+    # body's d_hid2; the tensor-core body's running sum over negative
+    # pieces, which keeps d_hid2 itself in shared memory)
     ws_shape = (B, S, d) if is_cbow else (0,)
     h_ws = torch.empty(ws_shape, **f32)
-    dh_ws = torch.empty(ws_shape if cdt == torch.float32 else (0,), **f32)
+    dh_ws = torch.empty(ws_shape, **f32)
 
     lib = _build.library("fused_step")
     with torch.cuda.device(dev):

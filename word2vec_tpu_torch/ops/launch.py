@@ -53,6 +53,11 @@ def phase_record(name: str, phase_cycles, rows: int, dev) -> int:
 SMEM_PER_BLOCK = 232_448
 #: warps of a band-core block (csrc/band_tiles.cuh kThreads / 32)
 _CORE_WARPS = 16
+#: the band cores' pieces (csrc/band_tiles.cuh kKPc, kDc): negative rows
+#: and columns the tiles hold at once; a wider pool or row is walked in
+#: pieces, so a block's shared memory stops growing with KP and d past them
+CORE_KP_PIECE = 64
+CORE_D_PIECE = 304
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,20 +71,32 @@ def core_smem_bytes(
     copy of w2v_grad_core_smem_bytes (kernel "fused_grad_core",
     csrc/fused_step.cu) and w2v_band_core_smem_bytes ("band_core",
     csrc/band_core.cu), for bf16 compute (the tensor-core body: the bf16
-    tiles of band_tiles.cuh's TileLayout, then f32 words) or f32 compute.
-    The card run holds it equal to the library's (chip_smoke.py phase 12)."""
+    tiles of band_tiles.cuh's TileLayout, one piece wide, then f32 words)
+    or f32 compute. Past one piece it depends on S and W only. The card run
+    holds it equal to the library's (chip_smoke.py phase 12)."""
     NB = 2 * W + 1
-    words = S * 4 + SK * 2 + KP * 2 + S * NB + S + 2 * _CORE_WARPS
+    KPc = min(KP, CORE_KP_PIECE)
+    words = S * 4 + SK * 2 + KPc + S * NB + S + 2 * _CORE_WARPS
     if kernel == "fused_grad_core":
-        words += 2 * W * d + 2 * W  # the right overhang, two buffers
+        words += 2 * W  # ctx_w's right overhang, two buffers
     elif kernel != "band_core":
         raise ValueError(f"no band core named {kernel!r}")
     if not bf16:
-        return 4 * (words + S * KP * 2 + KP * d)
-    SP, KPP = _round_up(S, 16), _round_up(KP, 16)
-    lda, ldg = _round_up(d, 16) + 8, KPP + 8
+        return 4 * (words + S * KPc * 2)
+    SP, KPP = _round_up(S, 16), _round_up(KPc, 16)
+    lda, ldg = _round_up(min(d, CORE_D_PIECE), 16) + 8, KPP + 8
     tiles = 2 * (SP * lda + KPP * lda + SP * ldg)
-    return tiles + 4 * (words + S * KP)
+    return tiles + 4 * (words + S * KPc)
+
+
+def max_core_chunk(kernel: str, KP: int, d: int, W: int, bf16: bool) -> int:
+    """The largest chunk S whose band core fits one block's shared memory
+    (SMEM_PER_BLOCK) at this KP, d and W: past one piece of each, a bound
+    on S alone (ROADMAP Queue C, C8's residue)."""
+    S = 2 * W
+    while core_smem_bytes(kernel, S + 1, S + 1 + 2 * W, KP, d, W, bf16) <= SMEM_PER_BLOCK:
+        S += 1
+    return S
 
 
 def check_smem(name: str, smem: int, dev: torch.device) -> None:

@@ -174,29 +174,6 @@ class PlanResolution:
         }
 
 
-def kernel_fits(config: Word2VecConfig) -> bool:
-    """False when the band core of the config's route needs more shared
-    memory a block than the card offers (ops/launch.core_smem_bytes): its
-    wrapper refuses the shape before any launch, so the grid on the card
-    drops the candidate (ROADMAP Queue C: batch scope at KP 256 with
-    d 300 on pallas)."""
-    kernel = {"pallas": "band_core", "pallas_fused": "fused_grad_core"}.get(
-        config.band_backend
-    )
-    if kernel is None:
-        return True
-    from ..ops.banded import resolve_chunk
-    from ..ops.launch import SMEM_PER_BLOCK, core_smem_bytes
-
-    W = config.window
-    S = resolve_chunk(config.max_sentence_len, W, config.band_chunk)
-    smem = core_smem_bytes(
-        kernel, S, S + 2 * W, config.shared_negatives, config.word_dim, W,
-        config.compute_dtype == "bfloat16",
-    )
-    return smem <= SMEM_PER_BLOCK
-
-
 def candidate_grid(
     config: Word2VecConfig,
     vocab_size: int,
@@ -212,8 +189,7 @@ def candidate_grid(
     the table-layout candidates are trajectory-identical and the bf16+SR
     candidate is margin-neutral. A candidate the config rules reject
     (pallas+hs, batch-scope+pair, unified+pallas, ...) is dropped by
-    apply_plan's validation; on the card, so is a kernel candidate whose
-    band core does not fit a block's shared memory (kernel_fits).
+    apply_plan's validation.
     """
     c = constraints or {}
     base = config.current_plan()
@@ -312,8 +288,6 @@ def candidate_grid(
             from ..ops.banded import resolve_chunk
 
             if resolve_chunk(L, applied.window, applied.band_chunk) == 0:
-                continue
-            if on_card and not kernel_fits(applied):
                 continue
         out.append(plan)
     return out
