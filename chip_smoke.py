@@ -22,7 +22,9 @@ Phases (any failure exits non-zero and prints no result line):
      then the run list (exact), the scatter and the row sum on adversarial
      id sets at flagship width (one run, all distinct, a -1 prefix, runs
      around every threshold and stage size, a batch padded to row 0),
-     bitwise and across two runs.
+     bitwise and across two runs. Last, one flagship_core_digests JSON
+     line: a digest of each band core's flagship outputs (core_digests),
+     which two builds print alike when their cores agree bitwise.
   4. the slice: one step on a small input per route (pallas_fused,
      xla, pallas_oa and pallas on split tables, xla on the unified slab),
      kernels on the card vs the plain versions on the CPU with the same
@@ -227,7 +229,9 @@ Phases (any failure exits non-zero and prints no result line):
      batch-scope pallas plans, JAX_FLAGSHIP_GRID, which
      tests/test_torch_tune.py holds equal to JAX's), and one probe of a
      KP-256 batch-scope pallas plan completing with exact launches
-     (PROBE_WIDE). (b) probe_plan of the four routes' flagship plans: launches
+     (PROBE_WIDE); the host copy equal to the library's at chunks past one
+     center piece too (S 174, 256, 500, 4096; W 5 and 10). (b) probe_plan
+     of the four routes' flagship plans: launches
      exact (the capture's warm-up step + 3 dispatches of 2 steps), the
      measured and predicted ms, the model's order of the routes beside the
      measured one. (c) the CLI with --autotune probe --plan-cache on phase
@@ -391,6 +395,22 @@ Phases (any failure exits non-zero and prints no result line):
      at d 1000 and on pallas at batch scope with KP 256 (phase 5's corpus,
      V = 71,000): 6 graphed steps bitwise the eager run, 24 graphed steps
      whose loss falls, launches exact. One wide_phase JSON line.
+ 18. long chunks: both band cores past one center piece
+     (csrc/band_tiles.cuh kSc = 128, the chunk walked in pieces with their
+     2W halo). (a) At each LONG_SHAPES entry (S 174 at L 348; S 333 and
+     500 at L 1000, the C word2vec's sentence cut; S 500 at W 10; S 500 at
+     d 1000 / KP 256; 3 rows): sg and cbow, f32 and bf16 tables, bf16 and
+     f32 compute, band_core in row and batch scope, within phase 3's
+     tolerance of the plain version and two calls bitwise equal; then each
+     shape at 256 rows beside the auto S of the same L, widths and window:
+     ms, plain ms, the bound, the shared memory a block (library == host
+     copy, the same at every S past one piece) and blocks a SM. (b) The
+     Trainer on pallas_fused/unified and pallas/split at max_sentence_len
+     1000 and band_chunk 500 over phase 5's vocabulary in rows of 1000
+     tokens: 6 graphed steps bitwise the eager run, 24 graphed steps whose
+     loss falls, launches exact. (c) probe_plan of that pallas_fused plan
+     from the card's grid: no error record, launches exact. One
+     long_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -513,13 +533,14 @@ def zipf_p():
     return (1.0 / ranks) / np.sum(1.0 / ranks)
 
 
-def grad_inputs(dev, table_dtype, seed=0, d=D, kp=KP, w=W):
-    """fused_grad_core's inputs at the flagship's batch (B rows of L
-    tokens from the Zipf vocabulary, ragged), width d, KP negatives a row
-    and window w (the flagship's by default)."""
+def grad_inputs(dev, table_dtype, seed=0, d=D, kp=KP, w=W, l=L):
+    """fused_grad_core's inputs at the flagship's batch (B rows of l
+    tokens from the Zipf vocabulary, ragged, in chunks of the auto S),
+    width d, KP negatives a row and window w (the flagship's by default);
+    rechunk cuts them at another S."""
     from word2vec_tpu_torch.ops import banded
 
-    D, KP, W = d, kp, w  # the flagship's names, this call's values
+    D, KP, W, L = d, kp, w, l  # the flagship's names, this call's values
     rng = np.random.default_rng(seed)
     p = zipf_p()
     toks = rng.choice(V, size=(B, L), p=p).astype(np.int32)
@@ -556,7 +577,28 @@ def grad_inputs(dev, table_dtype, seed=0, d=D, kp=KP, w=W):
         ).to(dev),
         alpha=0.025,
         W=W,
+        L=L,
     )
+
+
+def rechunk(inp, s):
+    """grad_inputs' dict at band chunk s (0: auto): the same rows, table,
+    gates and negatives, chunked anew."""
+    from word2vec_tpu_torch.ops import banded
+
+    tokens, W, L_ = inp["tokens"], inp["W"], inp["L"]
+    Bn, C0, S0 = inp["tok_c"].shape
+    S = banded.resolve_chunk(L_, W, s)
+    C, _ = banded._geom(L_, W, S)
+    pad = torch.nn.functional.pad
+
+    def chunked(x):
+        return pad(x.reshape(Bn, C0 * S0)[:, :L_], (0, C * S - L_)).reshape(
+            Bn, C, S).contiguous()
+
+    return dict(inp, tok_c=chunked(inp["tok_c"]), keep_c=chunked(inp["keep_c"]),
+                w_c=chunked(inp["w_c"]),
+                tok_k=banded.slab_token_ids(tokens, W, S).contiguous())
 
 
 # odd shapes of the band cores' tiling (d, KP, W, S, L, B): S never a
@@ -648,10 +690,10 @@ def core_inputs(inp, model, scope):
     and context slabs gathered from the two planes, raw -1-padded ids."""
     from word2vec_tpu_torch.ops import banded
 
-    emb, tokens, W = inp["emb"], inp["tokens"], inp["W"]
+    emb, tokens, W, L = inp["emb"], inp["tokens"], inp["W"], inp["L"]
     D = emb.shape[-1]
-    S = banded.resolve_chunk(L, W, 0)
-    C, P = banded._geom(L, W, S)
+    B, C, S = inp["tok_c"].shape
+    _, P = banded._geom(L, W, S)
     tok = torch.where(tokens >= 0, tokens, 0).long()
     ctr, ctx = (1, 0) if model == "cbow" else (0, 1)
     negs = inp["negs"] if scope == "row" else inp["negs"][:1]
@@ -704,8 +746,8 @@ def grad_bound(inp, cdt, is_cbow):
         + 4 * (tok_c.numel() * 3 + tok_k.numel() + negs.numel())
         + 4 * (2 * Bc * C * S * D + 2 * Bc * C * S + Bc * KP * D + Bc * KP + 2)
     )
-    flops = band_flops(tok_k, inp["keep_c"], inp["w_c"], Bc * C * S, is_cbow, Bc * L,
-                       D, KP)
+    flops = band_flops(tok_k, inp["keep_c"], inp["w_c"], Bc * C * S, is_cbow,
+                       Bc * inp["L"], D, KP)
     return bound_ms(nbytes, flops, PEAK_FLOPS[cdt])
 
 
@@ -967,11 +1009,43 @@ def phase_kernels(dev):
     if not (same and again):
         fail("ordered_row_sum: kernel != plain or not repeatable (bitwise)")
     phase_ordered_sets(dev)
+    log(json.dumps({"flagship_core_digests": core_digests(dev)}))
     return errs
 
 
 def same_bits(xs, ys) -> bool:
     return all(torch.equal(bits(x), bits(y)) for x, y in zip(xs, ys))
+
+
+def core_digests(dev) -> dict:
+    """The first 16 hex digits of the sha256 of both band cores' outputs
+    at the flagship inputs (phase 3's calls: sg / cbow, bf16 / f32
+    compute, band_core in row and batch scope). The cores are bitwise
+    repeatable, so two builds whose cores agree bitwise print the same
+    digests."""
+    import hashlib
+
+    from word2vec_tpu_torch.ops import band_core as bc
+    from word2vec_tpu_torch.ops import fused_step as fs
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(bits(t.contiguous()).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    inp = grad_inputs(dev, torch.float32)
+    gargs = tuple(inp[k] for k in GRAD_ORDER) + (inp["alpha"],)
+    out = {}
+    for model in ("sg", "cbow"):
+        for cdt in (torch.bfloat16, torch.float32):
+            kw = dict(W=W, K=K, cdt=cdt, is_cbow=model == "cbow", cbow_mean=True)
+            tag = f"{model} {str(cdt)[6:]}"
+            out[f"fused_grad_core {tag}"] = digest(fs.fused_grad_core(*gargs, L=L, **kw))
+            for scope in ("row", "batch"):
+                out[f"band_core {tag} {scope}"] = digest(
+                    bc.band_core(*core_inputs(inp, model, scope), **kw))
+    return out
 
 
 def phase_odd_shapes(dev):
@@ -4277,17 +4351,20 @@ def planner_shapes(dev, vocab, corpus):
                              "w2v_grad_core_smem_bytes"),
                             ("band_core", "band_core", "w2v_band_core_smem_bytes")):
         get = getattr(_build.library(lib), fn)
-        for S in (118, 96, 64):
+        # the grid's chunks, and chunks past one center piece (phase 18)
+        for S in (118, 96, 64, 174, 256, 500, 4096):
             for kp in (16, 32, 64, 256):
                 for d in (D, 1000):
                     for bf in (1, 0):
-                        host = launch.core_smem_bytes(kernel, S, S + 2 * W, kp, d,
-                                                      W, bool(bf))
-                        lib_b = get(S, S + 2 * W, kp, d, W, bf)
-                        if host != lib_b:
-                            fail(f"{kernel} shared memory S={S} KP={kp} d={d} "
-                                 f"bf16={bf}: host {host} != library {lib_b}")
-                        n += 1
+                        for w in (W, 10):
+                            host = launch.core_smem_bytes(kernel, S, S + 2 * w, kp,
+                                                          d, w, bool(bf))
+                            lib_b = get(S, S + 2 * w, kp, d, w, bf)
+                            if host != lib_b:
+                                fail(f"{kernel} shared memory S={S} KP={kp} d={d} "
+                                     f"W={w} bf16={bf}: host {host} != library "
+                                     f"{lib_b}")
+                            n += 1
     out["smem_shapes_equal"] = n
     out["smem_optin"] = optin
     rng = np.random.default_rng(12)
@@ -6752,21 +6829,22 @@ def wide_cores(dev, card):
     return {"checked": n_checked, "timed": rows}
 
 
-def wide_trainers(dev, vocab, corpus, card):
-    """(b): the Trainer at each WIDE_TRAINERS plan on phase 5's corpus (V =
-    71,000): WIDE_EQ_STEPS graphed steps bitwise equal to as many eager
-    ones, then WIDE_STEPS graphed steps whose loss falls, each run's
-    launches exact (counts set to 0 just before it, read just after)."""
+def wide_trainers(dev, vocab, corpus, card, runs=WIDE_TRAINERS):
+    """(b): the Trainer at each plan of `runs` (phase 17: WIDE_TRAINERS on
+    phase 5's corpus, V = 71,000; phase 18: LONG_TRAINERS on long_corpus):
+    WIDE_EQ_STEPS graphed steps bitwise equal to as many eager ones, then
+    WIDE_STEPS graphed steps whose loss falls, each run's launches exact
+    (counts set to 0 just before it, read just after)."""
     import gc
 
     from word2vec_tpu_torch import Trainer
     from word2vec_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
 
     rows = []
-    for backend, layout, over in WIDE_TRAINERS:
+    for backend, layout, over in runs:
         cfg = flagship_cfg(backend, layout, **over)
         tag = (f"{backend}/{layout} d={cfg.word_dim} KP={cfg.shared_negatives} "
-               f"{cfg.negative_scope}")
+               f"{cfg.negative_scope} L={cfg.max_sentence_len} S={cfg.band_chunk}")
 
         def counted(tr, steps, what, **kw):
             reset_launch_counts()
@@ -6824,6 +6902,185 @@ def phase_wide(dev, vocab, corpus, card):
     row["b"] = wide_trainers(dev, vocab, corpus, card)
     row["seconds"] = time.perf_counter() - t_phase
     log(json.dumps({"wide_phase": row}))
+
+
+# ------------------------------------------------------- 18 long chunks
+#: (d, KP, W, S, L) of the band cores past one center piece
+#: (csrc/band_tiles.cuh kSc = 128): S 174 at L 348 (the planner's L/2
+#: there, and the first chunk a block refused before the chunk was walked
+#: in center pieces), S 333 and 500 at L 1000, the C word2vec's sentence
+#: cut (the planner's L/3 and L/2; S 333 leaves a one-center last chunk),
+#: S 500 at W 10, and S 500 at d 1000 / KP 256, where the chunk, the pool
+#: and the width are all in pieces
+LONG_L = 1000
+LONG_SHAPES = {
+    "s174-l348": (300, 64, 5, 174, 348),
+    "s333-l1000": (300, 64, 5, 333, LONG_L),
+    "s500-l1000": (300, 64, 5, 500, LONG_L),
+    "w10-s500-l1000": (300, 64, 10, 500, LONG_L),
+    "d1000-kp256-s500-l1000": (1000, 256, 5, 500, LONG_L),
+}
+#: (b)'s trainer runs at max_sentence_len LONG_L, band_chunk L/2, over
+#: long_corpus's 8 batches an epoch (4 epochs hold WIDE_STEPS)
+LONG_TRAINERS = tuple(
+    (backend, layout, dict(max_sentence_len=LONG_L, band_chunk=LONG_L // 2, iters=4))
+    for backend, layout in (("pallas_fused", "unified"), ("pallas", "split")))
+
+
+def long_cores(dev, card):
+    """(a): both band cores at every LONG_SHAPES entry and WIDE_ROWS rows:
+    sg / cbow, f32 / bf16 tables, bf16 / f32 compute, band_core in row and
+    batch scope, each within phase 3's tolerance of its plain version and
+    two calls bitwise equal; then each shape at the flagship's B rows (sg,
+    f32 tables, bf16 compute; band_core in row scope, and batch scope at KP
+    256) beside the auto S of the same L, widths and window: the kernel's
+    ms, the plain version's, the bound, the shared memory a block (library
+    == host copy, the same at every S past one center piece) and the
+    resident blocks a SM."""
+    from word2vec_tpu_torch import _build
+    from word2vec_tpu_torch.ops import band_core as bc
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import launch
+    from word2vec_tpu_torch.ops.banded import resolve_chunk
+
+    libs = {"fused_grad_core": (_build.library("fused_step"), "grad"),
+            "band_core": (_build.library("band_core"), "band")}
+    n_checked = 0
+    for shape, (d, kp, w, S, Ll) in LONG_SHAPES.items():
+        geo = dict(V=4000, d=d, B=WIDE_ROWS, L=Ll, W=w, S=S, KP=kp)
+        for cdt in (torch.bfloat16, torch.float32):
+            for model in ("sg", "cbow"):
+                for table in (torch.float32, torch.bfloat16):
+                    tag = (f"{shape} {model} {str(table)[6:]} tables "
+                           f"cdt={str(cdt)[6:]}")
+                    inp = small_grad_inputs(table=table, **geo)
+                    args = [inp[k].to(dev) for k in GRAD_ORDER]
+                    kw = dict(W=w, K=K, L=Ll, cdt=cdt, is_cbow=model == "cbow")
+                    calls = [("fused_grad_core", fs.fused_grad_core,
+                              fs.fused_grad_core_plain, args, kw, GRAD_NAMES)]
+                    for scope in ("row", "batch"):
+                        inp = small_core_inputs(table=table, scope=scope,
+                                                model=model, **geo)
+                        cargs = [inp[k].to(dev) for k in CORE_ORDER]
+                        ckw = dict(W=w, K=K, cdt=cdt, is_cbow=model == "cbow")
+                        calls.append((f"band_core {scope}", bc.band_core,
+                                      bc.band_core_plain, cargs, ckw, CORE_NAMES))
+                    for name, call, plain, a, k, names in calls:
+                        got = call(*a, 0.03, **k)
+                        again = call(*a, 0.03, **k)
+                        ref = plain(*a, 0.03, **k)
+                        torch.cuda.synchronize()
+                        check_outputs(f"{name} {tag}", names, got, ref, cdt, quiet=True)
+                        if not same_bits(got, again):
+                            fail(f"{name} {tag}: two calls differ (bitwise)")
+                        n_checked += 1
+        log(f"  (a) {shape} (d={d} KP={kp} W={w} S={S}, L={Ll}, {WIDE_ROWS} "
+            "rows): both cores, sg/cbow, f32/bf16 tables, bf16/f32 compute, "
+            "row/batch: within tolerance, repeatable bitwise")
+    rows = []
+    for group in sorted({v[:3] + v[4:] for v in LONG_SHAPES.values()}):
+        d, kp, w, Ll = group
+        base = grad_inputs(dev, torch.float32, d=d, kp=kp, w=w, l=Ll)
+        auto = resolve_chunk(Ll, w, 0)
+        runs = [(f"d{d}-kp{kp}-w{w}-l{Ll}-auto", auto)] + [
+            (shape, v[3]) for shape, v in LONG_SHAPES.items()
+            if v[:3] + v[4:] == group]
+        auto_ms = {}
+        for shape, S in runs:
+            inp = rechunk(base, S)
+            gargs = tuple(inp[k] for k in GRAD_ORDER) + (inp["alpha"],)
+            kw = dict(W=w, K=K, L=Ll, cdt=torch.bfloat16, is_cbow=False)
+            calls = [("fused_grad_core", "row",
+                      lambda: fs.fused_grad_core(*gargs, **kw),
+                      lambda: fs.fused_grad_core_plain(*gargs, **kw),
+                      grad_bound(inp, torch.bfloat16, False))]
+            for scope in ("row", "batch") if kp > launch.CORE_KP_PIECE else ("row",):
+                cargs = core_inputs(inp, "sg", scope)
+                ckw = dict(W=w, K=K, cdt=torch.bfloat16, is_cbow=False)
+                calls.append(("band_core", scope,
+                              lambda a=cargs, k=ckw: bc.band_core(*a, **k),
+                              lambda a=cargs, k=ckw: bc.band_core_plain(*a, **k),
+                              core_bound(cargs, torch.bfloat16, False)))
+            for name, scope, call, plain_call, (bms, by) in calls:
+                lib, short = libs[name]
+                smem = getattr(lib, f"w2v_{short}_core_smem_bytes")(S, S + 2 * w, kp,
+                                                                    d, w, 1)
+                host = launch.core_smem_bytes(name, S, S + 2 * w, kp, d, w, True)
+                piece = launch.core_smem_bytes(name, launch.CORE_S_PIECE,
+                                               launch.CORE_S_PIECE + 2 * w, kp, d, w,
+                                               True)
+                if smem != host or (S > launch.CORE_S_PIECE and host != piece):
+                    fail(f"{name} {shape}: shared memory library {smem}, host "
+                         f"{host}, one center piece {piece}")
+                per_sm = getattr(lib, f"w2v_{short}_core_blocks_per_sm")(
+                    S, S + 2 * w, kp, d, w, 0, 1, 0)
+                if per_sm < 1:
+                    fail(f"{name} {shape}: occupancy {per_sm}")
+                ms = cuda_ms(call, reps=10)
+                plain = cuda_ms(plain_call, reps=2, warmup=1)
+                ratio = ms / auto_ms.setdefault((name, scope), ms)
+                rows.append({"shape": shape, "d": d, "KP": kp, "W": w, "S": S,
+                             "L": Ll, "kernel": name, "scope": scope, "ms": ms,
+                             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                             "smem_bytes": smem, "blocks_per_sm": per_sm,
+                             "vs_auto_s": ratio})
+                log(f"  (a) {name} {shape} (S={S}) {scope}, B={B}, L={Ll}: "
+                    f"{ms:.4f} ms ({ratio:.3f}x the auto S), plain {plain:.4f} ms, "
+                    f"bound {bms:.4f} ms ({by}); {smem} B shared memory a block, "
+                    f"{per_sm} block(s) a SM ({card})")
+            del inp, gargs, calls
+        del base
+        torch.cuda.empty_cache()
+    return {"checked": n_checked, "timed": rows}
+
+
+def long_corpus(vocab):
+    """Phase 5's vocabulary in rows of LONG_L tokens: 8 batches an epoch."""
+    from word2vec_tpu_torch import PackedCorpus
+    from word2vec_tpu_torch.utils.synthetic import zipf_corpus_ids
+
+    return PackedCorpus.pack(
+        zipf_corpus_ids(vocab, 8 * B * LONG_L, seed=17, sentence_len=LONG_L), LONG_L)
+
+
+def long_probe(dev, vocab, corpus):
+    """(c): probe_plan (what --autotune probe times) of the card grid's
+    L/2 plan at max_sentence_len LONG_L on pallas_fused/unified: no error
+    record, launches exact (the capture's warm-up step + 3 dispatches of 2
+    steps)."""
+    from word2vec_tpu_torch.tune import planner
+
+    cfg = flagship_cfg("pallas_fused", "unified", max_sentence_len=LONG_L,
+                       band_chunk=LONG_L // 2)
+    plan = cfg.current_plan()
+    if plan not in planner.candidate_grid(cfg, V, {"platform": "gpu"}):
+        fail(f"the card's grid at L {LONG_L} does not offer {plan}")
+    rec = planner.probe_plan(cfg, plan, vocab, corpus, device=dev)
+    planner.free_probe_residue(dev)
+    want = expected_launches("pallas_fused", "unified", 1 + 3 * 2)
+    if "error" in rec or rec["launches"] != want:
+        fail(f"probe pallas_fused L={LONG_L} S={LONG_L // 2}: {rec.get('error')} "
+             f"launches {rec.get('launches')} != {want}")
+    log(f"  (c) probe pallas_fused/unified L={LONG_L} S={LONG_L // 2}: "
+        f"{rec['measured_step_ms']} ms/step, no error record, launches exact")
+    return {"plan": plan.to_json(), "measured_step_ms": rec["measured_step_ms"],
+            "probe_words_per_sec": rec["probe_words_per_sec"]}
+
+
+def phase_long(dev, vocab, card):
+    """Both band cores past one center piece (phase 18 of the module
+    docstring); one `long_phase` line."""
+    import gc
+
+    t_phase = time.perf_counter()
+    row = {"card": card, "a": long_cores(dev, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    corpus = long_corpus(vocab)
+    row["b"] = wide_trainers(dev, vocab, corpus, card, LONG_TRAINERS)
+    row["c"] = long_probe(dev, vocab, corpus)
+    row["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"long_phase": row}))
 
 
 def main() -> int:
@@ -6944,6 +7201,9 @@ def main() -> int:
 
     log(f"[17 wide pools and rows] (at {time.perf_counter() - t0:.1f} s)")
     phase_wide(dev, vocab, corpus, card)
+
+    log(f"[18 long chunks] (at {time.perf_counter() - t0:.1f} s)")
+    phase_long(dev, vocab, card)
     check_no_jax()
     log(f"  (the whole smoke {time.perf_counter() - t0:.1f} s)")
 

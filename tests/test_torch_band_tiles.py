@@ -26,19 +26,21 @@ them in torch, chunk by chunk as one CTA walks its batch row:
     carried to the next chunk) and band_core's batch-scope row partials
     reduced in row order.
 
-  * the pieces: the tiles hold at most kKPc negative rows and kDc
-    columns (read from the .cuh, or cut smaller for a test), the negative
-    pool and the width walked piece by piece in the kernels' order (the
-    logits summed over width pieces in one accumulator, d_hid carried over
-    the negative pieces, the overhang of the fused kernel waiting in the
-    next chunk's rows).
+  * the pieces: the tiles hold at most kSc centers, kKPc negative rows
+    and kDc columns (read from the .cuh, or cut smaller for a test), the
+    chunk, the negative pool and the width walked piece by piece in the
+    kernels' order (the logits summed over width pieces in one
+    accumulator, d_hid carried over the negative pieces, d_neg's and the
+    context sums' accumulators carried from one center piece to the next,
+    the overhang of the fused kernel waiting in the next chunk's rows).
 
 Each emulation is held against the plain version (fused_grad_core_plain,
 band_core_plain) at chip_smoke.TOL for bf16 compute (gradients 2e-2 of
 max|plain|, losses 1e-4, n_ctx / ctx_w exact) over odd shapes: d in
 {7, 64, 300}, KP in {8, 64, 100}, W in {1, 5}, S not a multiple of 16,
 L not a multiple of S, ragged rows, sg / cbow, row / batch scope; at d 48
-and KP 40 in pieces of 16; and at one small shape each, in one piece and in
+and KP 40 in pieces of 16; at chunks of two or three center pieces of 16
+or 32 (CENTER_SHAPES); and at one small shape each, in one piece and in
 pieces, against the JAX package's Pallas kernel run by the Pallas
 interpreter.
 """
@@ -78,8 +80,8 @@ def const(name: str) -> int:
 
 
 MMA_M, MMA_N, MMA_K = const("kMmaM"), const("kMmaN"), const("kMmaK")
-# the pieces the tiles hold: negative rows and columns
-KPC, DC = const("kKPc"), const("kDc")
+# the pieces the tiles hold: centers, negative rows and columns
+SC, KPC, DC = const("kSc"), const("kKPc"), const("kDc")
 F32, BF16 = torch.float32, torch.bfloat16
 
 
@@ -96,15 +98,21 @@ def mma(a, b, kvalid=None, acc=None):
     """a [M, K] @ b [K, N] as the mma.sync loop forms it: k-slice by
     k-slice, each slice's exact bf16 products summed into the f32
     accumulator (`acc`, zero by default); depth >= kvalid contributes
-    nothing."""
+    nothing. Each [16 x 16] slice of `a` is its own product (the mma
+    tile), so a row's sums do not depend on how many rows `a` holds (a
+    center piece's or a whole chunk's)."""
     if acc is None:
         acc = torch.zeros((a.shape[0], b.shape[1]), dtype=F32)
-    for k0 in range(0, a.shape[1], MMA_K):
-        sl = a[:, k0:k0 + MMA_K].clone()
-        if kvalid is not None and k0 + MMA_K > kvalid:
-            sl[:, max(0, kvalid - k0):] = 0.0
-        acc = acc + sl @ b[k0:k0 + MMA_K]
-    return acc
+    out = []
+    for m0 in range(0, a.shape[0], MMA_M):
+        blk = acc[m0:m0 + MMA_M]
+        for k0 in range(0, a.shape[1], MMA_K):
+            sl = a[m0:m0 + MMA_M, k0:k0 + MMA_K].clone()
+            if kvalid is not None and k0 + MMA_K > kvalid:
+                sl[:, max(0, kvalid - k0):] = 0.0
+            blk = blk + sl @ b[k0:k0 + MMA_K]
+        out.append(blk)
+    return torch.cat(out)
 
 
 def pieces(n: int, piece: int):
@@ -113,19 +121,39 @@ def pieces(n: int, piece: int):
     return [(i, min(piece, n - i)) for i in range(0, n, piece)]
 
 
+def ew(f, x):
+    """f(x) elementwise, every value through torch's vectorized loop (the
+    input padded to whole vectors): torch's CPU sigmoid and log-sigmoid
+    round a value in the ragged tail of a tensor differently, so without
+    the padding a center's result would depend on how many centers its
+    piece holds."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    padded = torch.zeros(up(n, 64) + 64, dtype=flat.dtype)
+    padded[:n] = flat
+    return f(padded)[:n].reshape(x.shape)
+
+
 def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
-          cbow_mean, kvalid, kpc, dc):
-    """One chunk of one row, walked piece by piece as the kernels walk it:
-    ctr [S, d] center rows (cbow: out plane), bk [SK, d] context rows
-    (zero at invalid slots), en [KP, d] the row's negative rows; the tiles
-    hold at most kpc negative rows and dc columns. Returns the chunk's
-    outputs before the cross-chunk sums.
+          cbow_mean, kvalid, kpc, dc, dneg0=None, wsum0=None, y0=None):
+    """One center piece of one chunk of one row, walked piece by piece of
+    the pool and the width as the kernels walk it: ctr [S, d] the piece's
+    center rows (cbow: out plane), bk [SK, d] its context rows (zero at
+    invalid slots), en [KP, d] the row's negative rows; the tiles hold at
+    most kpc negative rows and dc columns. Returns the piece's outputs
+    before the cross-chunk sums: y and cwy over its S + 2W slots, dneg and
+    wsum continuing dneg0 / wsum0 (the chunk's sums over the earlier
+    pieces), y continuing y0 (the sums the previous piece carried over its
+    first rows).
 
     The order of the sums that cross pieces (csrc/band_tiles.cuh): the
     negative and band logits sum the width pieces in one accumulator;
     d_hid's accumulator carries over the negative pieces (through device
     memory in the kernels, exact), the last piece continued with the sg
-    band product; d_neg and w_neg_sum sum the S positions inside one piece."""
+    band product; d_neg and w_neg_sum sum the S positions inside one
+    negative and width piece, the chunk's accumulator carried from one
+    center piece to the next; so are the context sums of the slots two
+    center pieces share."""
     S, d = ctr.shape
     SK = bk.shape[0]
     KP = negs.numel()
@@ -179,19 +207,19 @@ def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
         for q in range(len(dps)):
             acc = mma(tile(src, SP, q), tile(bk, SKP, q).T, acc=acc)
         plog = acc[:S, :SK]
-        gp = torch.where(mask != 0, (1.0 - torch.sigmoid(plog)) * mask * alpha,
+        gp = torch.where(mask != 0, (1.0 - ew(torch.sigmoid, plog)) * mask * alpha,
                          torch.zeros(()))
-        pos = torch.sum(torch.where(mask != 0, mask * F.logsigmoid(plog),
+        pos = torch.sum(torch.where(mask != 0, mask * ew(F.logsigmoid, plog),
                                     torch.zeros(())))
     else:
         plog_c = torch.sum(bf(h) * bf(ctr), dim=1)
         active = (nctx > 0).float()
-        gpc = (1.0 - torch.sigmoid(plog_c)) * active * alpha
-        pos = torch.sum(active * F.logsigmoid(plog_c))
+        gpc = (1.0 - ew(torch.sigmoid, plog_c)) * active * alpha
+        pos = torch.sum(active * ew(F.logsigmoid, plog_c))
 
     # the negative pool, piece by piece
-    dneg = torch.zeros((KP, d))
-    wsum = torch.zeros(KP)
+    dneg = torch.zeros((KP, d)) if dneg0 is None else dneg0.clone()
+    wsum = torch.zeros(KP) if wsum0 is None else wsum0.clone()
     neg = torch.zeros(())
     part = [None] * len(dps)  # d_hid's accumulator per width piece
     for p, (j0, m) in enumerate(kps):
@@ -200,14 +228,16 @@ def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
             acc = mma(tile(src, SP, q), e_tile(p, q).T, acc=acc)
         nlog = acc[:S, :m]
         wn_p = wn[:, j0:j0 + m]
-        gn = (0.0 - torch.sigmoid(nlog)) * wn_p * alpha
-        neg = neg + torch.sum(wn_p * (F.logsigmoid(nlog) - nlog))
+        gn = (0.0 - ew(torch.sigmoid, nlog)) * wn_p * alpha
+        neg = neg + torch.sum(wn_p * (ew(F.logsigmoid, nlog) - nlog))
         G = torch.zeros((SP, up(m, 2 * MMA_N)))
         G[:S, :m] = bf(gn)
         for q, (o, n) in enumerate(dps):
-            dneg[j0:j0 + m, o:o + n] = mma(G.T, tile(src, SP, q), kvalid)[:m, :n]
+            acc = torch.zeros((up(m, 2 * MMA_N), up(n, MMA_K)))
+            acc[:m, :n] = dneg[j0:j0 + m, o:o + n]
+            dneg[j0:j0 + m, o:o + n] = mma(G.T, tile(src, SP, q), kvalid, acc)[:m, :n]
             part[q] = mma(G, e_tile(p, q), acc=part[q])
-        wsum[j0:j0 + m] = wn_p[:kvalid].sum(0)
+        wsum[j0:j0 + m] = wsum[j0:j0 + m] + wn_p[:kvalid].sum(0)
 
     # d_ctr and the context sums per width piece: the band matrix
     # [SK x SP] (slot k, center s) against A, k-slice by k-slice over s
@@ -227,15 +257,50 @@ def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
                 dh2 = dh2 / torch.clamp_min(nctx, 1.0)[:, None]
             A = torch.zeros((SP, up(n, MMA_K)))
             A[:S, :n] = bf(dh2)
-        y[:, o:o + n] = mma(band_t, A)[:, :n]
+        acc = torch.zeros((SK, up(n, MMA_K)))
+        if y0 is not None:
+            acc[:y0.shape[0], :n] = y0[:, o:o + n]
+        y[:, o:o + n] = mma(band_t, A, acc=acc)[:, :n]
     return dict(nctx=nctx, cwy=cwy, d_ctr=d_ctr, y=y, dneg=dneg, wsum=wsum,
                 pos=pos, neg=neg)
 
 
+def center_pieces(ctr, bk, tokc, tokk, keep, w, *, W, sc, kvalid, call):
+    """One chunk walked in center pieces of at most sc centers, as both
+    kernels walk it: piece i gets its Sp centers (from s0 = i sc) and the
+    Sp + 2W slots their band reaches, its positions inside the row's first
+    L (kvalid, the chunk's), and what the previous piece handed on: the
+    chunk's d_neg and w_neg_sum so far and the context sums of the slots
+    the two pieces share (the next piece's first 2W slots). `call(ctr, bk,
+    tokc, tokk, keep, w, kvalid, dneg0, wsum0, y0)` runs one piece (chunk).
+    Returns the chunk's outputs: n_ctx and d_ctr by center, y and cwy over
+    its slab slots (each slot's sum whole), dneg, wsum and the losses."""
+    S = ctr.shape[0]
+    SK = S + 2 * W
+    out = dict(nctx=torch.zeros(S), d_ctr=torch.zeros((S, ctr.shape[1])),
+               y=torch.zeros((SK, ctr.shape[1])), cwy=torch.zeros(SK),
+               pos=torch.zeros(()), neg=torch.zeros(()))
+    dneg = wsum = carry = None
+    for s0, Sp in pieces(S, sc):
+        cen, slots = slice(s0, s0 + Sp), slice(s0, s0 + Sp + 2 * W)
+        o = call(ctr[cen], bk[slots], tokc[cen], tokk[slots], keep[cen], w[cen],
+                 min(Sp, max(0, kvalid - s0)), dneg, wsum, carry)
+        out["nctx"][cen], out["d_ctr"][cen] = o["nctx"], o["d_ctr"]
+        out["cwy"][slots] += o["cwy"]  # 0/1 column sums: exact in any order
+        out["pos"], out["neg"] = out["pos"] + o["pos"], out["neg"] + o["neg"]
+        dneg, wsum = o["dneg"], o["wsum"]
+        # a slot the next piece reaches too leaves as its accumulator
+        whole = Sp if s0 + Sp < S else Sp + 2 * W
+        out["y"][s0:s0 + whole] = o["y"][:whole]
+        carry = o["y"][whole:]
+    out["dneg"], out["wsum"] = dneg, wsum
+    return out
+
+
 def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
-                      is_cbow, cbow_mean=True, kpc=KPC, dc=DC):
+                      is_cbow, cbow_mean=True, sc=SC, kpc=KPC, dc=DC):
     """csrc/fused_step.cu grad_core_tc_kernel, one row at a time, the tiles
-    kpc negative rows and dc columns wide."""
+    sc centers, kpc negative rows and dc columns wide."""
     B, C, S = tok_c.shape
     d = emb.shape[-1]
     KP = negs.shape[1]
@@ -254,11 +319,16 @@ def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
             tokk = tok_k[b, c]
             bk = torch.where((tokk >= 0)[:, None],
                              e32[tokk.clamp_min(0).long(), ctx_p], torch.zeros(()))
-            s_end = min(S, L - c * S)
-            o = chunk(e32[tok_c[b, c].long(), ctr_p], bk, en, tok_c[b, c], tokk,
-                      keep_c[b, c], w_c[b, c], negs[b], alpha, W=W, K=K,
-                      is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=s_end,
-                      kpc=kpc, dc=dc)
+
+            def piece(ctr, bk, tokc, tokk, keep, w, kvalid, dneg0, wsum0, y0):
+                return chunk(ctr, bk, en, tokc, tokk, keep, w, negs[b], alpha,
+                             W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean,
+                             kvalid=kvalid, kpc=kpc, dc=dc, dneg0=dneg0,
+                             wsum0=wsum0, y0=y0)
+
+            o = center_pieces(e32[tok_c[b, c].long(), ctr_p], bk, tok_c[b, c], tokk,
+                              keep_c[b, c], w_c[b, c], W=W, sc=sc,
+                              kvalid=min(S, L - c * S), call=piece)
             n_ctx[b, c] = o["nctx"]
             d_ctr[b, c] = o["d_ctr"]
             d_neg[b] = o["dneg"] if c == 0 else d_neg[b] + o["dneg"]
@@ -284,10 +354,10 @@ def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
 
 
 def emulate_band_core(a, bk, en, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W,
-                      K, is_cbow, cbow_mean=True, kpc=KPC, dc=DC):
+                      K, is_cbow, cbow_mean=True, sc=SC, kpc=KPC, dc=DC):
     """csrc/band_core.cu band_core_tc_kernel, one row at a time, the tiles
-    kpc negative rows and dc columns wide; under batch scope the per-row
-    partials reduced in row order."""
+    sc centers, kpc negative rows and dc columns wide; under batch scope
+    the per-row partials reduced in row order."""
     B, C, S, d = a.shape
     SK = bk.shape[2]
     NB, KP = negs.shape
@@ -300,11 +370,16 @@ def emulate_band_core(a, bk, en, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W,
     loss_row = torch.zeros((B, 2))
     for b in range(B):
         nb = b if NB == B else 0
+        def piece(ctr, bk, tokc, tokk, keep, w, kvalid, dneg0, wsum0, y0):
+            return chunk(ctr, bk, en[nb].float(), tokc, tokk, keep, w, negs[nb],
+                         alpha, W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean,
+                         kvalid=up(ctr.shape[0], MMA_M), kpc=kpc, dc=dc,
+                         dneg0=dneg0, wsum0=wsum0, y0=y0)
+
         for c in range(C):
-            o = chunk(a[b, c].float(), bk[b, c].float(), en[nb].float(), tok_c[b, c],
-                      tok_k[b, c], keep_c[b, c], w_c[b, c], negs[nb], alpha,
-                      W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean, kvalid=S,
-                      kpc=kpc, dc=dc)
+            o = center_pieces(a[b, c].float(), bk[b, c].float(), tok_c[b, c],
+                              tok_k[b, c], keep_c[b, c], w_c[b, c], W=W, sc=sc,
+                              kvalid=S, call=piece)
             n_ctx[b, c], ctx_w[b, c] = o["nctx"], o["cwy"]
             d_h[b, c], d_ctx[b, c] = o["d_ctr"], o["y"]
             dneg_row[b] = o["dneg"] if c == 0 else dneg_row[b] + o["dneg"]
@@ -492,7 +567,9 @@ def test_band_core_pieces_match_jax_kernel(scope):
 @pytest.mark.parametrize("model", ["sg", "cbow"])
 def test_step_in_pieces_matches_jax(route, model, monkeypatch):
     """Two steps of a kernel route whose KP (40) and d (48) each span three
-    pieces of the emulation (pieces of 16), the port's band core replaced
+    pieces of the emulation (pieces of 16), and whose chunks (band_chunk 27
+    at L 40: two chunks, the second partial) span two center pieces of 16
+    (16 and a ragged 11), the port's band core replaced
     by its emulation, against the JAX step (its Pallas kernel in interpret
     mode) from the same params and draws (tests/torch_parity.py; two steps,
     so that the zero-initialized out table has moved before the second, and
@@ -508,17 +585,18 @@ def test_step_in_pieces_matches_jax(route, model, monkeypatch):
 
     def grad_core(*a, cdt, **k):
         calls.append("fused_grad_core")
-        return emulate_grad_core(*a, **k, **PIECES)
+        return emulate_grad_core(*a, **k, **CENTER_PIECES)
 
     def band_core(*a, cdt, **k):
         calls.append("band_core")
-        return emulate_band_core(*a, **k, **PIECES)
+        return emulate_band_core(*a, **k, **CENTER_PIECES)
 
     monkeypatch.setattr(fs, "fused_grad_core_plain", grad_core)
     monkeypatch.setattr(bc, "band_core_plain", band_core)
     monkeypatch.setattr(band_step, "_cast_update", tp_.jax_grid_cast)
     kw = tp_.kw(model=model, band_backend=route[0], table_layout=route[1],
-                word_dim=48, shared_negatives=40, compute_dtype="bfloat16")
+                word_dim=48, shared_negatives=40, band_chunk=27,
+                compute_dtype="bfloat16")
     start = j_init(JConfig(**kw), tp_.V, jax.random.key(1))
     jp, jm, tp, tm = tp_.run(kw, 2)
     assert calls == 2 * ["band_core" if route[0] == "pallas" else "fused_grad_core"]
@@ -532,16 +610,113 @@ def test_step_in_pieces_matches_jax(route, model, monkeypatch):
                                rtol=1e-4)
 
 
+# ------------------------------------------------------ center pieces
+# chunks of three to five center pieces of 16 with their 2W-slot halo (d,
+# KP, W, S, L, B): d 48 and KP 40 in pieces of 16 too (PIECES), S not a
+# multiple of 16 (a ragged last piece), L not a multiple of S (a partial
+# last chunk), ragged rows; W 1 and W 5, whose 10 shared slots fall in one
+# [16 x 16] block of the next piece
+CENTER_PIECES = dict(sc=16, **PIECES)
+CENTER_SHAPES = {
+    "w1-s50": (48, 40, 1, 50, 130, 3),
+    "w5-s70": (48, 40, 5, 70, 150, 2),
+}
+
+
+def assert_unpieced_order(names, pieced, whole):
+    """Every output but the losses bitwise the unpieced walk's (the
+    losses' per-thread partial sums follow the pieces: band_tiles.cuh)."""
+    for name, x, y in zip(names, pieced, whole):
+        if name != "losses":
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(CENTER_SHAPES))
+def test_grad_core_center_pieces_match_plain(shape, model):
+    """The fused core with each chunk in center pieces of 16 (and the pool
+    and the width in pieces of 16) holds the plain version at TOL[bf16], and
+    is bitwise the same walk with the chunk in one center piece."""
+    d, KP, W, S, L, B = CENTER_SHAPES[shape]
+    table = BF16 if model == "cbow" else F32
+    inp = grad_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=table, seed=11)
+    args = [inp[k] for k in GRAD_ORDER]
+    kw = dict(W=W, K=5, L=L, is_cbow=model == "cbow")
+    got = emulate_grad_core(*args, 0.03, **kw, **CENTER_PIECES)
+    ref = fs.fused_grad_core_plain(*args, 0.03, cdt=BF16, **kw)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+    whole = emulate_grad_core(*args, 0.03, **kw, **dict(CENTER_PIECES, sc=up(S, MMA_M)))
+    assert_unpieced_order(GRAD_NAMES, got, whole)
+
+
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(CENTER_SHAPES))
+def test_band_core_center_pieces_match_plain(shape, model):
+    """band_core likewise (row scope at W 1, batch scope at W 5): the slab
+    slots two center pieces share continue their sums in the output rows."""
+    d, KP, W, S, L, B = CENTER_SHAPES[shape]
+    scope = "row" if W == 1 else "batch"
+    inp = core_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope=scope, model=model, seed=12)
+    args = [inp[k] for k in CORE_ORDER]
+    kw = dict(W=W, K=5, is_cbow=model == "cbow")
+    got = emulate_band_core(*args, 0.03, **kw, **CENTER_PIECES)
+    ref = bc.band_core_plain(*args, 0.03, cdt=BF16, **kw)
+    assert_close(CORE_NAMES, got, ref, TOL[BF16])
+    assert bool((got[1][inp["tok_k"] < 0] == 0).all())  # slab zeros
+    whole = emulate_band_core(*args, 0.03, **kw, **dict(CENTER_PIECES, sc=up(S, MMA_M)))
+    assert_unpieced_order(CORE_NAMES, got, whole)
+
+
+def test_grad_core_center_pieces_match_jax_kernel():
+    d, KP, W, S, L, B = CENTER_SHAPES["w1-s50"]
+    inp = grad_inputs(V=60, d=d, B=2, L=L, W=W, S=S, KP=KP, table=F32, seed=14)
+    got = emulate_grad_core(*[inp[k] for k in GRAD_ORDER], 0.03, W=W, K=3, L=L,
+                            is_cbow=False, **CENTER_PIECES)
+    jargs = [_jax(inp["emb"], jnp.float32)] + [
+        jnp.asarray(inp[k].numpy()) for k in GRAD_ORDER[1:]]
+    ref = j_grad_core(*jargs, jnp.float32(0.03), W=W, K=3, L=L, cdt=jnp.bfloat16,
+                      is_cbow=False, cbow_mean=True, interpret=True)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+
+
+def test_band_core_center_pieces_match_jax_kernel():
+    d, KP, W, S, L, B = CENTER_SHAPES["w5-s70"]
+    inp = core_inputs(V=60, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope="row", model="cbow", seed=15)
+    got = emulate_band_core(*[inp[k] for k in CORE_ORDER], 0.03, W=W, K=3,
+                            is_cbow=True, **CENTER_PIECES)
+    jargs = [_jax(inp[k], jnp.float32) for k in ("a", "bk", "en")] + [
+        jnp.asarray(inp[k].numpy()) for k in CORE_ORDER[3:]]
+    ref = j_band_core(*jargs, jnp.float32(0.03), W=W, K=3, cdt=jnp.bfloat16,
+                      is_cbow=True, cbow_mean=True, interpret=True)
+    assert_close(CORE_NAMES, got, ref, TOL[BF16])
+
+
 def test_pieces_match_the_host_copy():
     """The pieces the tiles hold are the header's constants, multiples of
-    the mma tile, the flagship one piece of each; the host's shared-memory
-    formula reads the same numbers."""
+    the mma tile, the flagship and every auto chunk (S <= 126,
+    word2vec_tpu/ops/banded.py resolve_chunk) one piece of each; the
+    host's shared-memory formula and workspaces read the same numbers."""
     from word2vec_tpu_torch.ops import launch
 
-    assert (launch.CORE_KP_PIECE, launch.CORE_D_PIECE) == (KPC, DC)
-    assert KPC % (2 * MMA_N) == 0 and DC % MMA_K == 0
-    assert KPC >= 64 and DC >= up(300, MMA_K)
+    assert (launch.CORE_S_PIECE, launch.CORE_KP_PIECE, launch.CORE_D_PIECE) == (
+        SC, KPC, DC)
+    assert SC % MMA_M == 0 and KPC % (2 * MMA_N) == 0 and DC % MMA_K == 0
+    assert SC >= 126 and KPC >= 64 and DC >= up(300, MMA_K)
     assert launch._CORE_WARPS == const("kThreads") // 32
+    assert "round_up(2 * W, kMmaM)" in HEADER  # carry_rows
+    for kernel in ("fused_grad_core", "band_core"):
+        for S, bf16 in ((SC, True), (SC + 1, True), (SC + 1, False)):
+            ws = launch.core_workspaces(kernel, 3, S, 40, 7, 5, bf16, "cpu")
+            shapes = [tuple(t.shape) for t in ws]
+            if S == SC:
+                assert shapes == [(0,), (0,)]
+            elif kernel == "fused_grad_core":
+                dneg = (3, 40, 7) if bf16 else (0,)  # f32 body: d_neg in place
+                assert shapes == [dneg, (3, 2, up(10, MMA_M), 7)]
+            else:
+                assert shapes == [(3, 40, 7), (3, 40)]
 
 
 def test_phase_record_needs_the_card():

@@ -640,22 +640,45 @@ def test_probe_search_leaves_no_device_memory(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(300, 256, 5, "batch", 0), (1000, 64, 10, "row", 0),
-                                   (512, 128, 5, "row", 160), (304, 64, 5, "batch", 173)],
+@pytest.mark.parametrize("shape", [(300, 256, 5, "batch", 0, 192), (1000, 64, 10, "row", 0, 192),
+                                   (512, 128, 5, "row", 160, 192),
+                                   (304, 64, 5, "batch", 173, 192),
+                                   (300, 64, 5, "row", 174, 348),
+                                   (300, 64, 5, "batch", 333, 1000),
+                                   (300, 64, 5, "row", 500, 1000),
+                                   (1000, 256, 5, "batch", 500, 1000)],
                          ids=["d300-kp256-batch", "d1000-kp64-w10", "d512-kp128-s160",
-                              "d304-kp64-s173"])
+                              "d304-kp64-s173", "d300-kp64-s174-l348",
+                              "d300-kp64-s333-l1000", "d300-kp64-s500-l1000",
+                              "d1000-kp256-s500-l1000"])
 def test_band_cores_take_wide_pools_and_rows(cuda, shape, cdt):
     """KP 256 at batch scope with d 300, d 1000 at KP 64, and explicit
-    chunks past 128 (S 160 with two width and two negative pieces: the
-    logits' blocks in two rounds a warp; S 173, the largest chunk one block
-    holds at W 5): both band cores walk the negative pool and the width in
-    pieces and hold their plain versions (phase 3's tolerances, two calls
-    bitwise equal); the host copy of each core's shared memory equals the
-    library's, and it is the flagship's past one piece."""
+    chunks past one center piece of 128 (S 160 with two width and two
+    negative pieces: the logits' blocks in two rounds a warp; S 173 and 174,
+    the last of which a block refused before the chunk was walked in center
+    pieces; S 333 and 500 at L 1000, the C word2vec's sentence length, S 333
+    leaving a one-center last chunk; S 500 at d 1000 and KP 256, the chunk,
+    the pool and the width all in pieces): both band cores hold their plain
+    versions (phase 3's tolerances, two calls bitwise equal); the host copy
+    of each core's shared memory equals the library's, and it is the same
+    past one piece of the pool, the width and the chunk."""
+    _hold_wide_cores(cuda, shape, cdt)
+
+
+def test_f32_band_cores_carry_a_halo_slot_across_three_pieces(cuda):
+    """f32 compute at W 70 and S 300 (pieces of 128, 128 and 44 centers):
+    2W = 140 exceeds a center piece, so the context sum of one slab slot
+    is handed from the first piece through the middle one to the last
+    (the f32 bodies' reach past one piece, band_tiles.cuh); both band cores
+    hold their plain versions as above."""
+    _hold_wide_cores(cuda, (128, 64, 70, "row", 300, 600), torch.float32)
+
+
+def _hold_wide_cores(cuda, shape, cdt):
     from word2vec_tpu_torch import _build
 
-    d, kp, w, scope, chunk = shape
-    S = banded.resolve_chunk(192, w, chunk)
+    d, kp, w, scope, chunk, L_ = shape
+    S = banded.resolve_chunk(L_, w, chunk)
     bf = int(cdt == torch.bfloat16)
     for kernel, lib, fn in (("fused_grad_core", "fused_step", "w2v_grad_core_smem_bytes"),
                             ("band_core", "band_core", "w2v_band_core_smem_bytes")):
@@ -664,17 +687,19 @@ def test_band_cores_take_wide_pools_and_rows(cuda, shape, cdt):
         assert host == get(S, S + 2 * w, kp, d, w, bf)
         assert host == launch.core_smem_bytes(
             kernel, S, S + 2 * w, launch.CORE_KP_PIECE, launch.CORE_D_PIECE, w, bool(bf))
-    inp = small_grad_inputs(V=200, d=d, B=2, L=192, W=w, S=S, KP=kp,
+        Sc = min(S, launch.CORE_S_PIECE)
+        assert host == launch.core_smem_bytes(kernel, Sc, Sc + 2 * w, kp, d, w, bool(bf))
+    inp = small_grad_inputs(V=200, d=d, B=2, L=L_, W=w, S=S, KP=kp,
                             table=torch.float32)
     args = [inp[k].to(cuda) for k in GRAD_ORDER]
-    kw = dict(W=w, K=K, L=192, cdt=cdt, is_cbow=False)
+    kw = dict(W=w, K=K, L=L_, cdt=cdt, is_cbow=False)
     got = fs.fused_grad_core(*args, 0.03, **kw)
     again = fs.fused_grad_core(*args, 0.03, **kw)
     ref = fs.fused_grad_core_plain(*args, 0.03, **kw)
     torch.cuda.synchronize()
     _hold(GRAD_NAMES, got, ref, TOL[cdt])
     assert all(torch.equal(_bits(g), _bits(a)) for g, a in zip(got, again))
-    inp = small_core_inputs(V=200, d=d, B=2, L=192, W=w, S=S, KP=kp,
+    inp = small_core_inputs(V=200, d=d, B=2, L=L_, W=w, S=S, KP=kp,
                             table=torch.float32, scope=scope, model="sg")
     args = [inp[k].to(cuda) for k in CORE_ORDER]
     kw = dict(W=w, K=K, cdt=cdt, is_cbow=False)

@@ -129,42 +129,68 @@ def test_card_grid_record_equals_jax():
 
 def test_band_core_shared_memory_pins_the_refusal():
     """The band cores' shared memory a block (the host copy of the
-    libraries' sizes): past one piece of the negative pool and of the width
-    it no longer grows with KP or d, and it fits one block at every d and
-    KP up to 1024 and every W up to 10 at the auto S and at the planner's
-    chunks; what is still refused is a chunk S past max_core_chunk (C8's
-    residue, ROADMAP Queue C), at any d and KP."""
+    libraries' sizes) pins that no chunk is refused any more: past one
+    center piece (CORE_S_PIECE) it no longer grows with S, as past one piece
+    of the negative pool and of the width it no longer grows with KP or d;
+    it fits one block at every S up to 1000, every d up to 1024, the nine
+    KP and every W up to 10, in both compute types; and no band-core plan of
+    the card's grid at L 348 and L 1000 (the flagship, and d 200) exceeds a
+    block. What a block still bounds is the window: one center piece with
+    its 2W halo fits up to W 54 with bf16 compute, 154 / 156 with f32
+    (csrc/band_tiles.cuh)."""
     from word2vec_tpu_torch.ops.banded import resolve_chunk
     from word2vec_tpu_torch.ops.launch import (
-        CORE_D_PIECE, CORE_KP_PIECE, SMEM_PER_BLOCK, max_core_chunk)
+        CORE_D_PIECE, CORE_KP_PIECE, CORE_S_PIECE, SMEM_PER_BLOCK)
 
-    # the flagship tile budgets the two kernels' source notes document
+    # the flagship tile budgets the two kernels' source notes document,
+    # and a chunk past one center piece at W 5
     assert core_smem_bytes("fused_grad_core", 118, 128, 64, 300, 5, True) == 177_448
     assert core_smem_bytes("band_core", 118, 128, 64, 300, 5, True) == 177_408
-    L = FLAGSHIP["max_sentence_len"]
+    assert core_smem_bytes("fused_grad_core", 500, 510, 64, 300, 5, True) == 180_728
+    assert core_smem_bytes("band_core", 500, 510, 64, 300, 5, True) == 180_688
+    kps = (1, 16, 17, 63, 64, 65, 100, 256, 1024)
+    widest = {}
     for kernel in ("fused_grad_core", "band_core"):
         for bf16 in (True, False):
             for W in range(1, 11):
-                autos = resolve_chunk(L, W, 0)
-                chunks = {autos, resolve_chunk(L, W, max(2 * W, L // 2)),
-                          resolve_chunk(L, W, max(2 * W, L // 3))}
-                for S in chunks:
-                    size = {(d, kp): core_smem_bytes(kernel, S, S + 2 * W, kp, d,
-                                                     W, bf16)
-                            for d, kp in ((CORE_D_PIECE, CORE_KP_PIECE),
-                                          (1000, 256), (1024, 1024))}
-                    assert len(set(size.values())) == 1, (kernel, bf16, W, S)
+                piece = core_smem_bytes(kernel, CORE_S_PIECE, CORE_S_PIECE + 2 * W,
+                                        CORE_KP_PIECE, CORE_D_PIECE, W, bf16)
+                assert piece <= SMEM_PER_BLOCK, (kernel, bf16, W)
+                for S in range(CORE_S_PIECE, 1001):
+                    for d, kp in ((CORE_D_PIECE, CORE_KP_PIECE), (1024, 1024)):
+                        assert core_smem_bytes(kernel, S, S + 2 * W, kp, d, W,
+                                               bf16) == piece, (kernel, bf16, W, S)
+                for S in (2 * W, 118, CORE_S_PIECE, 1000):
                     for d in range(1, 1025):
-                        for kp in (1, 16, 17, 63, 64, 65, 100, 256, 1024):
+                        for kp in kps:
                             assert core_smem_bytes(kernel, S, S + 2 * W, kp, d, W,
                                                    bf16) <= SMEM_PER_BLOCK
-            # the residue: the largest chunk at the flagship's W, refused one
-            # past it whatever d and KP
-            top = max_core_chunk(kernel, 1024, 1024, 5, bf16)
-            assert top == (173 if bf16 else 397)
-            assert top == max_core_chunk(kernel, CORE_KP_PIECE, CORE_D_PIECE, 5, bf16)
-            assert core_smem_bytes(kernel, top + 1, top + 11, CORE_KP_PIECE,
-                                   CORE_D_PIECE, 5, bf16) > SMEM_PER_BLOCK
+            # the window bound (ROADMAP Queue C, C8w, an open refusal): the
+            # widest W whose center piece fits a block at any S, d and KP
+            W = 1
+            while core_smem_bytes(kernel, 1000, 1000 + 2 * (W + 1), 1024, 1024,
+                                  W + 1, bf16) <= SMEM_PER_BLOCK:
+                W += 1
+            widest[kernel, bf16] = W
+    assert widest == {("fused_grad_core", True): 54, ("fused_grad_core", False): 154,
+                      ("band_core", True): 54, ("band_core", False): 156}
+    # the card's grid at the reference's sentence length (L 1000) and at
+    # L 348 (its L/2 chunk is 174): every pallas / pallas_fused plan fits
+    kernel_of = {"pallas": "band_core", "pallas_fused": "fused_grad_core"}
+    chunks = set()
+    for L, d in ((348, 300), (1000, 300), (1000, 200)):
+        _, t = both("flagship-ns", max_sentence_len=L, word_dim=d)
+        plans = [p for p in tplanner.candidate_grid(t, VOCAB, {"platform": "gpu"})
+                 if p.band_backend in kernel_of]
+        assert plans
+        for p in plans:
+            S = resolve_chunk(L, t.window, p.band_chunk)
+            chunks.add(S)
+            for bf16 in (True, False):
+                assert core_smem_bytes(kernel_of[p.band_backend], S, S + 2 * t.window,
+                                       p.shared_negatives, d, t.window,
+                                       bf16) <= SMEM_PER_BLOCK, (L, d, p)
+    assert {174, 333, 500} <= chunks
 
 
 # ------------------------------------------------------- the cost model

@@ -42,7 +42,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "w2v_fused_grad_core": (
             _I,
             [_P, _I, _P, _P, _P, _P, _P, _P,
-             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),
         "w2v_slab_scatter": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
@@ -59,7 +59,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "w2v_band_core": (
             _I,
             [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),
         "w2v_band_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),

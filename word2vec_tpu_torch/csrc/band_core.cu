@@ -23,7 +23,8 @@
 // across its sequential (B, C) grid, which GPU blocks (no order, no carry)
 // cannot do. With bf16 compute (the default) each chunk's dense operands
 // are staged in shared memory, rounded once to bf16, one piece of at most
-// kKPc = 64 negative rows and kDc = 304 columns at a time:
+// kSc = 128 centers, kKPc = 64 negative rows and kDc = 304 columns at a
+// time:
 //   A [SP x lda]   the center rows a (sg) or the cbow projection h,
 //                  zero-padded to SP = 128 x 304 (+8 columns: ldmatrix
 //                  rows on distinct banks)   128 x 312 x 2 B = 79,872 B
@@ -32,9 +33,11 @@
 //   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
 //   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KPc]
 //   (30,208 B), ...                         total at the flagship 177,408 B
-// and no more at any wider KP or d: the flagship is one piece of each, and
-// a wider pool or row is walked piece by piece (band_tiles.cuh states the
-// order of every sum that crosses pieces: that of one unpieced product).
+// and no more at any longer S (180,688 B at W 5), wider KP or d: the
+// flagship is one piece of each, and a longer chunk, a wider pool or row
+// is walked piece by piece (band_tiles.cuh states the order of every sum
+// that crosses pieces: that of one unpieced product; the slab slots two
+// center pieces share continue their sums in the output rows).
 // The slabs bk (another 80 KB, over the 227 KB a block has) stay in L1/L2.
 // Every product runs on the tensor cores (mma.sync.m16n8k16, f32
 // accumulate): nlog = A E^T, d_neg = G^T A and d_hid = G E from the tiles;
@@ -58,9 +61,11 @@
 // With f32 compute the products stay exact f32 multiply-adds on the CUDA
 // cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
 // fit): band_core_f32_kernel keeps the first port's body (the negative rows
-// through L1/L2), the negative pool in pieces of kKPc. Both bodies take an
-// optional per-phase clock64() record (PhaseClock). A chunk S whose tiles
-// exceed the block's shared memory fails its launch (the wrapper raises
+// through L1/L2), the chunk in center pieces of kSc and the negative pool
+// in pieces of kKPc. Both bodies take an optional per-phase clock64()
+// record (PhaseClock). What a block's shared memory still bounds is the
+// window W (a piece's band logits, kSc x (2W + 1) words): W <= 54 with
+// bf16 compute, 156 with f32; a launch past it fails (the wrapper raises
 // first).
 //
 // Plain C interface (bound with ctypes); every entry point returns the
@@ -94,28 +99,59 @@ struct BandArgs {
   float* loss_part;      // [B, 2]
   float* h_ws;           // [B, S, d] cbow only: this chunk's projection
   float* dh_ws;          // [B, S, d] cbow only: this chunk's hidden grad
+  float* dneg_ws;        // [B, KP, d] S > kSc only: a chunk's d_neg so far
+  float* wsum_ws;        // [B, KP] S > kSc only: a chunk's w_neg_sum so far
   int C, S, SK, KP, d, W, K, neg_shared, cbow_mean;
   long long* phase_rec;  // null, or [B, kPhases] cycles (PhaseClock)
 };
 
 // shared memory of the f32-compute body, in 4-byte words, in
-// band_core_f32_kernel's order: one negative piece (at most kKPc rows) at
-// a time, nothing that grows with d
-inline size_t band_smem_words(int S, int SK, int KP, int W) {
+// band_core_f32_kernel's order: one center piece (at most kSc) and one
+// negative piece (at most kKPc rows) at a time, nothing that grows with
+// S, KP or d past them
+inline size_t band_smem_words(int S, int KP, int W) {
   const int NB = 2 * W + 1;
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc;
-  return (size_t)S * 4          // tok_c, keep, w, n_ctx
-         + (size_t)SK * 2       // tok_k, cwy
-         + (size_t)KPc          // the piece's negative ids
-         + (size_t)S * NB       // band-compressed gp (sg)
-         + (size_t)S            // gp per center (cbow)
-         + (size_t)S * KPc * 2  // gn, w_neg of the piece
-         + (size_t)2 * kWarps;  // loss block reduction
+  return (size_t)Sc * 4          // tok_c, keep, w, n_ctx
+         + (size_t)SKc * 2       // tok_k, cwy
+         + (size_t)KPc           // the piece's negative ids
+         + (size_t)Sc * NB       // band-compressed gp (sg)
+         + (size_t)Sc            // gp per center (cbow)
+         + (size_t)Sc * KPc * 2  // gn, w_neg of the piece
+         + (size_t)2 * kWarps;   // loss block reduction
+}
+
+// A chunk's sum over its positions that crosses center pieces (d_neg,
+// w_neg_sum): the piece's part `v` continues the chunk's sum so far (in
+// the workspace `part` after the first piece), goes back there while a
+// piece follows, and after the last one is added to the earlier chunks'
+// sum in the output (c > 0) by the thread that owns the value
+__device__ __forceinline__ float chunk_sum_in(const float* part, size_t x,
+                                              int i) {
+  return i > 0 ? part[x] : 0.f;
+}
+__device__ __forceinline__ void chunk_sum_out(float* out, float* part,
+                                              size_t x, float v, int c,
+                                              bool more) {
+  if (more) {
+    part[x] = v;
+  } else {
+    out[x] = c == 0 ? v : out[x] + v;
+  }
+}
+
+// slab column sums (ctx_w) of the piece's slots into the chunk's slab row:
+// a slot an earlier piece reached too adds its part (0/1 sums: exact)
+__device__ __forceinline__ void slab_cw(float* ctx_w, int k, float cw,
+                                        bool cont) {
+  ctx_w[k] = cont ? ctx_w[k] + cw : cw;
 }
 
 // f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
 // would not fit), the design of the first port; the negative rows are read
-// through L1/L2, the negative pool walked in pieces of kKPc
+// through L1/L2, the chunk walked in center pieces of kSc and the negative
+// pool in pieces of kKPc
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     band_core_f32_kernel(const BandArgs p) {
@@ -128,6 +164,7 @@ __global__ void __launch_bounds__(kThreads)
   const int C = p.C, S = p.S, SK = p.SK, KP = p.KP, d = p.d, W = p.W;
   const int NB = 2 * W + 1;
   const int KPc = KP < kKPc ? KP : kKPc, nK = pieces(KP, kKPc);
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W, nS = pieces(S, kSc);
   const int nb = p.neg_shared ? 0 : b;
   const T* A = static_cast<const T*>(p.a);
   const T* BK = static_cast<const T*>(p.bk);
@@ -135,21 +172,18 @@ __global__ void __launch_bounds__(kThreads)
 
   extern __shared__ float smem[];
   int* s_tokc = reinterpret_cast<int*>(smem);
-  float* s_keep = smem + S;
-  float* s_w = s_keep + S;
-  float* s_nctx = s_w + S;
-  int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
+  float* s_keep = smem + Sc;
+  float* s_w = s_keep + Sc;
+  float* s_nctx = s_w + Sc;
+  int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
+  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)S * NB;
-  float* s_gn = s_gpc + S;
-  float* s_wn = s_gn + (size_t)S * KPc;
-  float* s_red = s_wn + (size_t)S * KPc;
+  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_gn = s_gpc + Sc;
+  float* s_wn = s_gn + (size_t)Sc * KPc;
+  float* s_red = s_wn + (size_t)Sc * KPc;
 
-  // the band mask (pallas_band.py:113-122): keep_s & valid_k & 0 < dist <= w_s
-  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, p.K, KP};
-  auto mask = [&](int s, int k) -> float { return band.mask(s, k); };
   PhaseClock clk(p.phase_rec);
   float* h_ws = p.h_ws + (size_t)b * S * d;
   float* dh_ws = p.dh_ws + (size_t)b * S * d;
@@ -164,192 +198,207 @@ __global__ void __launch_bounds__(kThreads)
   load_negs(0);  // once per row when the pool is one piece
 
   for (int c = 0; c < C; ++c) {
-    __syncthreads();  // the previous chunk is done with the tiles
     const size_t bc = (size_t)b * C + c;
-    const T* a = A + bc * S * d;
-    const T* bk = BK + bc * SK * d;
-    auto h_val = [&](int s, int e) -> float {
-      if constexpr (CBOW) {
-        return h_ws[(size_t)s * d + e];
-      } else {
-        return to_f(a[(size_t)s * d + e]);
-      }
-    };
-    for (int s = tid; s < S; s += kThreads) {
-      s_tokc[s] = p.tok_c[bc * S + s];
-      s_keep[s] = p.keep_c[bc * S + s];
-      s_w[s] = p.w_c[bc * S + s];
-    }
-    for (int k = tid; k < SK; k += kThreads) s_tokk[k] = p.tok_k[bc * SK + k];
-    __syncthreads();
-    clk.mark(kPhaseRows);
-
-    // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
-    // exact in any order
-    for (int s = tid; s < S; s += kThreads) {
-      const float n = band.row_sum(s);
-      s_nctx[s] = n;
-      p.n_ctx[bc * S + s] = n;
-    }
-    for (int k = tid; k < SK; k += kThreads) {
-      const float cw = band.col_sum(k);
-      s_cwy[k] = cw;
-      p.ctx_w[bc * SK + k] = cw;
-    }
-    __syncthreads();
-    if constexpr (CBOW) {
-      // projection h = mask @ bk (divided by n_ctx under cbow_mean)
-      for (int i = tid; i < S * d; i += kThreads) {
-        const int s = i / d, e = i - s * d;
-        float acc = 0.f;
-        for (int k = s; k <= s + 2 * W; ++k) {
-          const float m = mask(s, k);
-          if (m != 0.f) acc += m * to_f(bk[(size_t)k * d + e]);
+    for (int i = 0; i < nS; ++i) {
+      // center piece i: centers [s0, s0 + Sp) and their slots [s0, s0 + SKp)
+      const int s0 = i * kSc, Sp = piece_len(S, kSc, i), SKp = Sp + 2 * W;
+      const bool more = i + 1 < nS;
+      const size_t cs = bc * S + s0, ck = bc * SK + s0;
+      const T* a = A + cs * d;
+      const T* bk = BK + ck * d;
+      float* hp = h_ws + (size_t)s0 * d;
+      float* dhp = dh_ws + (size_t)s0 * d;
+      float* dh_out = p.d_h + cs * d;
+      float* dctx = p.d_ctx + ck * d;
+      auto h_val = [&](int s, int e) -> float {
+        if constexpr (CBOW) {
+          return hp[(size_t)s * d + e];
+        } else {
+          return to_f(a[(size_t)s * d + e]);
         }
-        if (p.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
-        h_ws[i] = acc;
+      };
+      __syncthreads();  // the previous piece is done with shared memory
+      for (int s = tid; s < Sp; s += kThreads) {
+        s_tokc[s] = p.tok_c[cs + s];
+        s_keep[s] = p.keep_c[cs + s];
+        s_w[s] = p.w_c[cs + s];
+      }
+      for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = p.tok_k[ck + k];
+      __syncthreads();
+      clk.mark(kPhaseRows);
+      // the band mask (pallas_band.py:113-122): keep_s & valid_k & 0 < dist <= w_s
+      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, p.K, KP};
+
+      // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
+      // exact in any order
+      for (int s = tid; s < Sp; s += kThreads) {
+        const float n = band.row_sum(s);
+        s_nctx[s] = n;
+        p.n_ctx[cs + s] = n;
+      }
+      for (int k = tid; k < SKp; k += kThreads) {
+        const float cw = band.col_sum(k);
+        s_cwy[k] = cw;
+        slab_cw(p.ctx_w + ck, k, cw, i > 0 && k < 2 * W);
       }
       __syncthreads();
-    }
-    clk.mark(kPhaseMasks);
-
-    // ---- positive side
-    if constexpr (!CBOW) {
-      // band logits over the band only, one warp per (s, k)
-      for (int q = warp; q < S * NB; q += kWarps) {
-        const int s = q / NB, k = s + (q - s * NB);
-        const float m = mask(s, k);
-        if (m == 0.f) {
-          if (lane == 0) s_gpb[q] = 0.f;
-          continue;
+      if constexpr (CBOW) {
+        // projection h = mask @ bk (divided by n_ctx under cbow_mean)
+        for (int x = tid; x < Sp * d; x += kThreads) {
+          const int s = x / d, e = x - s * d;
+          float acc = 0.f;
+          for (int k = s; k <= s + 2 * W; ++k) {
+            const float m = band.mask(s, k);
+            if (m != 0.f) acc += m * to_f(bk[(size_t)k * d + e]);
+          }
+          if (p.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
+          hp[x] = acc;
         }
-        float part = 0.f;
-        for (int e = lane; e < d; e += 32)
-          part += to_f(a[(size_t)s * d + e]) *
-                  to_f(bk[(size_t)k * d + e]);
-        const float plog = warp_sum(part);
-        if (lane == 0) {
-          s_gpb[q] = (1.f - sigmoid_stable(plog)) * m * alpha;
-          pos_acc += m * log_sigmoid(plog);
-        }
-      }
-    } else {
-      // center logit: f32 multiply and row sum of cdt-rounded h and a
-      for (int s = warp; s < S; s += kWarps) {
-        float part = 0.f;
-        for (int e = lane; e < d; e += 32)
-          part += h_val(s, e) * to_f(a[(size_t)s * d + e]);
-        const float plog = warp_sum(part);
-        if (lane == 0) {
-          const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
-          s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * alpha;
-          pos_acc += active * log_sigmoid(plog);
-        }
-      }
-    }
-    clk.mark(kPhaseLogits);
-
-    // ---- the negative pool, piece by piece
-    for (int q = 0; q < nK; ++q) {
-      const int KPp = piece_len(KP, kKPc, q), j0 = q * kKPc;
-      const bool last = q == nK - 1;
-      const T* en = EN + (size_t)j0 * d;
-      if (nK > 1) {
-        __syncthreads();  // the previous piece is done with the ids
-        load_negs(q);
         __syncthreads();
       }
-      // negative weights (collision masks, pallas_band.py:144-154):
-      // center_hit compares the raw, -1-padded center ids
-      for (int i = tid; i < S * KPp; i += kThreads) {
-        const int s = i / KPp, j = i - s * KPp;
-        s_wn[i] = band.neg_weight<false, CBOW>(s, j);
-      }
-      __syncthreads();
       clk.mark(kPhaseMasks);
 
-      // negative logits and gradient weights, one warp per (s, j)
-      for (int r = warp; r < S * KPp; r += kWarps) {
-        const int s = r / KPp, j = r - s * KPp;
-        float part = 0.f;
-        for (int e = lane; e < d; e += 32)
-          part += h_val(s, e) * to_f(en[(size_t)j * d + e]);
-        const float nlog = warp_sum(part);
-        if (lane == 0) {
-          const float wn = s_wn[r];
-          s_gn[r] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
-          neg_acc += wn * (log_sigmoid(nlog) - nlog);
+      // ---- positive side
+      if constexpr (!CBOW) {
+        // band logits over the band only, one warp per (s, k)
+        for (int q = warp; q < Sp * NB; q += kWarps) {
+          const int s = q / NB, k = s + (q - s * NB);
+          const float m = band.mask(s, k);
+          if (m == 0.f) {
+            if (lane == 0) s_gpb[q] = 0.f;
+            continue;
+          }
+          float part = 0.f;
+          for (int e = lane; e < d; e += 32)
+            part += to_f(a[(size_t)s * d + e]) *
+                    to_f(bk[(size_t)k * d + e]);
+          const float plog = warp_sum(part);
+          if (lane == 0) {
+            s_gpb[q] = (1.f - sigmoid_stable(plog)) * m * alpha;
+            pos_acc += m * log_sigmoid(plog);
+          }
+        }
+      } else {
+        // center logit: f32 multiply and row sum of cdt-rounded h and a
+        for (int s = warp; s < Sp; s += kWarps) {
+          float part = 0.f;
+          for (int e = lane; e < d; e += 32)
+            part += h_val(s, e) * to_f(a[(size_t)s * d + e]);
+          const float plog = warp_sum(part);
+          if (lane == 0) {
+            const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
+            s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * alpha;
+            pos_acc += active * log_sigmoid(plog);
+          }
         }
       }
-      __syncthreads();
       clk.mark(kPhaseLogits);
 
-      // center-side rows: d_hid = gn @ en over the pieces, each value's
-      // running sum kept in d_h (sg) or dh_ws (cbow) between pieces, then
-      // the band product (sg); the center's out-row update and the hidden
-      // grad (cbow)
-      for (int i = tid; i < S * d; i += kThreads) {
-        const int s = i / d, e = i - s * d;
-        float* part = CBOW ? dh_ws + i : p.d_h + bc * S * d + i;
-        float dh = q == 0 ? 0.f : *part;
-        for (int j = 0; j < KPp; ++j)
-          dh += s_gn[s * KPp + j] * to_f(en[(size_t)j * d + e]);
-        if (!last) {
-          *part = dh;
-        } else if constexpr (!CBOW) {
-          float dp = 0.f;
-          for (int t = 0; t < NB; ++t) {
-            const float g = s_gpb[s * NB + t];
-            if (g != 0.f) dp += g * to_f(bk[(size_t)(s + t) * d + e]);
-          }
-          p.d_h[bc * S * d + i] = dh + dp;
-        } else {
-          const float gp = s_gpc[s];
-          p.d_h[bc * S * d + i] = gp * h_ws[i];
-          float dh2 = dh + gp * to_f(a[i]);
-          // second divide (Word2Vec.cpp:313-315, pallas_band.py:184-185)
-          if (p.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
-          dh_ws[i] = dh2;
+      // ---- the negative pool, piece by piece
+      for (int q = 0; q < nK; ++q) {
+        const int KPp = piece_len(KP, kKPc, q), j0 = q * kKPc;
+        const bool last = q == nK - 1;
+        const T* en = EN + (size_t)j0 * d;
+        if (nK > 1) {
+          __syncthreads();  // the previous piece is done with the ids
+          load_negs(q);
+          __syncthreads();
         }
+        // negative weights (collision masks, pallas_band.py:144-154):
+        // center_hit compares the raw, -1-padded center ids
+        for (int x = tid; x < Sp * KPp; x += kThreads) {
+          const int s = x / KPp, j = x - s * KPp;
+          s_wn[x] = band.neg_weight<false, CBOW>(s, j);
+        }
+        __syncthreads();
+        clk.mark(kPhaseMasks);
+
+        // negative logits and gradient weights, one warp per (s, j)
+        for (int r = warp; r < Sp * KPp; r += kWarps) {
+          const int s = r / KPp, j = r - s * KPp;
+          float part = 0.f;
+          for (int e = lane; e < d; e += 32)
+            part += h_val(s, e) * to_f(en[(size_t)j * d + e]);
+          const float nlog = warp_sum(part);
+          if (lane == 0) {
+            const float wn = s_wn[r];
+            s_gn[r] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
+            neg_acc += wn * (log_sigmoid(nlog) - nlog);
+          }
+        }
+        __syncthreads();
+        clk.mark(kPhaseLogits);
+
+        // center-side rows: d_hid = gn @ en over the pieces, each value's
+        // running sum kept in d_h (sg) or dh_ws (cbow) between pieces, then
+        // the band product (sg); the center's out-row update and the hidden
+        // grad (cbow)
+        for (int x = tid; x < Sp * d; x += kThreads) {
+          const int s = x / d, e = x - s * d;
+          float* part = CBOW ? dhp + x : dh_out + x;
+          float dh = q == 0 ? 0.f : *part;
+          for (int j = 0; j < KPp; ++j)
+            dh += s_gn[s * KPp + j] * to_f(en[(size_t)j * d + e]);
+          if (!last) {
+            *part = dh;
+          } else if constexpr (!CBOW) {
+            float dp = 0.f;
+            for (int t = 0; t < NB; ++t) {
+              const float g = s_gpb[s * NB + t];
+              if (g != 0.f) dp += g * to_f(bk[(size_t)(s + t) * d + e]);
+            }
+            dh_out[x] = dh + dp;
+          } else {
+            const float gp = s_gpc[s];
+            dh_out[x] = gp * hp[x];
+            float dh2 = dh + gp * to_f(a[x]);
+            // second divide (Word2Vec.cpp:313-315, pallas_band.py:184-185)
+            if (p.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
+            dhp[x] = dh2;
+          }
+        }
+        // d_neg: this chunk's contraction over its S positions (continued
+        // from the previous piece), then added to the sum over the earlier
+        // chunks by the same thread
+        const size_t n0 = ((size_t)b * KP + j0) * d;
+        for (int x = tid; x < KPp * d; x += kThreads) {
+          const int j = x / d, e = x - j * d;
+          float part = chunk_sum_in(p.dneg_ws, n0 + x, i);
+          for (int s = 0; s < Sp; ++s) part += s_gn[s * KPp + j] * h_val(s, e);
+          chunk_sum_out(p.dneg_row, p.dneg_ws, n0 + x, part, c, more);
+        }
+        const size_t w0 = (size_t)b * KP + j0;
+        for (int j = tid; j < KPp; j += kThreads) {
+          float part = chunk_sum_in(p.wsum_ws, w0 + j, i);
+          for (int s = 0; s < Sp; ++s) part += s_wn[s * KPp + j];
+          chunk_sum_out(p.wsum_row, p.wsum_ws, w0 + j, part, c, more);
+        }
+        __syncthreads();
+        clk.mark(kPhaseCenter);
       }
-      // d_neg: this chunk's contraction over its S positions, then added
-      // to the sum over the earlier chunks by the same thread
-      float* dneg = p.dneg_row + ((size_t)b * KP + j0) * d;
-      for (int i = tid; i < KPp * d; i += kThreads) {
-        const int j = i / d, e = i - j * d;
-        float part = 0.f;
-        for (int s = 0; s < S; ++s) part += s_gn[s * KPp + j] * h_val(s, e);
-        dneg[i] = c == 0 ? part : dneg[i] + part;
-      }
-      float* wsum = p.wsum_row + (size_t)b * KP + j0;
-      for (int j = tid; j < KPp; j += kThreads) {
-        float part = 0.f;
-        for (int s = 0; s < S; ++s) part += s_wn[s * KPp + j];
-        wsum[j] = (c == 0 ? 0.f : wsum[j]) + part;
+
+      // ---- slab-space context grads: slot k sums the centers s in
+      // [k-2W, k] that see it, in order (zero at invalid slots: their mask
+      // column is 0), continued from the previous piece's part in the
+      // output row
+      for (int x = tid; x < SKp * d; x += kThreads) {
+        const int k = x / d, e = x - k * d;
+        const int lo = max(0, k - 2 * W), hi = min(Sp - 1, k);
+        float y = (i > 0 && k < 2 * W) ? dctx[x] : 0.f;
+        for (int s = lo; s <= hi; ++s) {
+          if constexpr (!CBOW) {
+            const float g = s_gpb[s * NB + (k - s)];
+            if (g != 0.f) y += g * to_f(a[(size_t)s * d + e]);
+          } else {
+            const float m = band.mask(s, k);
+            if (m != 0.f) y += m * dhp[(size_t)s * d + e];
+          }
+        }
+        dctx[x] = y;
       }
       __syncthreads();
-      clk.mark(kPhaseCenter);
+      clk.mark(kPhaseContext);
     }
-
-    // ---- slab-space context grads: slot k sums the centers s in
-    // [k-2W, k] that see it (zero at invalid slots: their mask column is 0)
-    for (int i = tid; i < SK * d; i += kThreads) {
-      const int k = i / d, e = i - k * d;
-      const int lo = max(0, k - 2 * W), hi = min(S - 1, k);
-      float y = 0.f;
-      for (int s = lo; s <= hi; ++s) {
-        if constexpr (!CBOW) {
-          const float g = s_gpb[s * NB + (k - s)];
-          if (g != 0.f) y += g * to_f(a[(size_t)s * d + e]);
-        } else {
-          const float m = mask(s, k);
-          if (m != 0.f) y += m * dh_ws[(size_t)s * d + e];
-        }
-      }
-      p.d_ctx[bc * SK * d + i] = y;
-    }
-    __syncthreads();
-    clk.mark(kPhaseContext);
   }
   block_losses(pos_acc, neg_acc, s_red, p.loss_part + (size_t)b * 2);
   clk.mark(kPhaseTail);
@@ -357,24 +406,28 @@ __global__ void __launch_bounds__(kThreads)
 
 // shared memory of the tensor-core body, in bytes: the bf16 tiles
 // (TileLayout, one piece) and then, in 4-byte words, in
-// band_core_tc_kernel's order; nothing grows with KP or d past one piece
-inline size_t band_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
+// band_core_tc_kernel's order; nothing grows with S, KP or d past one piece
+inline size_t band_tc_smem_bytes(int S, int KP, int d, int W) {
   const int NB = 2 * W + 1;
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc;
-  const size_t words = (size_t)S * 4          // tok_c, keep, w, n_ctx
-                       + (size_t)SK * 2       // tok_k, cwy
-                       + (size_t)KPc          // the piece's negative ids
-                       + (size_t)S * NB       // band-compressed gp (sg)
-                       + (size_t)S            // gp per center (cbow)
-                       + (size_t)S * KPc      // w_neg of the piece
-                       + (size_t)2 * kWarps;  // loss block reduction
+  const size_t words = (size_t)Sc * 4          // tok_c, keep, w, n_ctx
+                       + (size_t)SKc * 2       // tok_k, cwy
+                       + (size_t)KPc           // the piece's negative ids
+                       + (size_t)Sc * NB       // band-compressed gp (sg)
+                       + (size_t)Sc            // gp per center (cbow)
+                       + (size_t)Sc * KPc      // w_neg of the piece
+                       + (size_t)2 * kWarps;   // loss block reduction
   return TileLayout(S, KP, d).bf16_bytes() + words * sizeof(float);
 }
 
-// bf16 compute: the three dense products on the tensor cores, the
-// negative pool in pieces of kKPc rows and the width in pieces of kDc
-// columns (band_tiles.cuh says how the sums cross the pieces)
-template <typename T, bool CBOW>
+// bf16 compute: the three dense products on the tensor cores, the chunk
+// in center pieces of kSc, the negative pool in pieces of kKPc rows and
+// the width in pieces of kDc columns (band_tiles.cuh says how the sums
+// cross the pieces); PIECED: S > kSc. A chunk of one piece runs an
+// instantiation without the center pieces' carries: with them compiled
+// in, the one-piece shapes read 5-19% slower (PERF.md §6)
+template <typename T, bool CBOW, bool PIECED>
 __global__ void __launch_bounds__(kThreads, 1)
     band_core_tc_kernel(const BandArgs p) {
   // read once a block: a captured graph replays the pointer, not a value
@@ -384,12 +437,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int C = p.C, S = p.S, SK = p.SK, KP = p.KP, d = p.d, W = p.W;
   const int NB = 2 * W + 1;
   const int nK = pieces(KP, kKPc), nD = pieces(d, kDc);
+  const int nS = PIECED ? pieces(S, kSc) : 1;  // one piece: no carry is compiled
   const int KPc = KP < kKPc ? KP : kKPc;
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const int nb = p.neg_shared ? 0 : b;
   const T* A = static_cast<const T*>(p.a);
   const T* BK = static_cast<const T*>(p.bk);
   const T* EN = static_cast<const T*>(p.en) + (size_t)nb * KP * d;
-  const TileLayout tl(S, KP, d);
+  const TileLayout tl(S, KP, d);  // the room: one piece of each
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -397,23 +452,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   __nv_bfloat16* sG = sE + tl.e_elems();
   float* f = reinterpret_cast<float*>(sG + tl.g_elems());
   int* s_tokc = reinterpret_cast<int*>(f);
-  float* s_keep = f + S;
-  float* s_w = s_keep + S;
-  float* s_nctx = s_w + S;
-  int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
+  float* s_keep = f + Sc;
+  float* s_w = s_keep + Sc;
+  float* s_nctx = s_w + Sc;
+  int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
+  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)S * NB;
-  float* s_wn = s_gpc + S;
-  float* s_red = s_wn + (size_t)S * KPc;
+  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_wn = s_gpc + Sc;
+  float* s_red = s_wn + (size_t)Sc * KPc;
 
-  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, p.K, KP};
   PhaseClock clk(p.phase_rec);
   float* h_ws = p.h_ws + (size_t)b * S * d;
   float* dh_ws = p.dh_ws + (size_t)b * S * d;
-  const T* a = A;    // this chunk's center rows and slabs
+  // the center piece in hand: its center rows and slabs, its rows of the
+  // cbow workspaces (by position in the chunk), its extent in the tiles
+  const T* a = A;
   const T* bk = BK;
+  float* hp = h_ws;
+  int Sp = Sc, SPp = tl.SP;
   auto a_row = [&](int s) { return a + (size_t)s * d; };
   auto bk_row = [&](int k) { return bk + (size_t)k * d; };
 
@@ -423,10 +481,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto stage_a = [&](int q) {
     const int dq = piece_len(d, kDc, q), off = q * kDc;
     if constexpr (CBOW) {
-      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
-                 [&](int s) { return h_ws + (size_t)s * d + off; });
+      stage_rows(sA, tl.lda, SPp, round_up(dq, kMmaK), Sp, dq,
+                 [&](int s) { return hp + (size_t)s * d + off; });
     } else {
-      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
+      stage_rows(sA, tl.lda, SPp, round_up(dq, kMmaK), Sp, dq,
                  [&](int s) { return a_row(s) + off; });
     }
     a_at = q;
@@ -460,154 +518,191 @@ __global__ void __launch_bounds__(kThreads, 1)
   stage_e(0, 0);
 
   for (int c = 0; c < C; ++c) {
-    __syncthreads();  // the previous chunk is done with the tiles
     const size_t bc = (size_t)b * C + c;
-    a = A + bc * S * d;
-    bk = BK + bc * SK * d;
-    for (int s = tid; s < S; s += kThreads) {
-      s_tokc[s] = p.tok_c[bc * S + s];
-      s_keep[s] = p.keep_c[bc * S + s];
-      s_w[s] = p.w_c[bc * S + s];
-    }
-    for (int k = tid; k < SK; k += kThreads) s_tokk[k] = p.tok_k[bc * SK + k];
-    // sg: A holds the center rows (the first width piece); cbow: zeros
-    // that the projection fills
-    stage_rows(sA, tl.lda, tl.SP, round_up(piece_len(d, kDc, 0), kMmaK),
-               CBOW ? 0 : S, piece_len(d, kDc, 0), a_row);
-    a_at = CBOW ? -1 : 0;
-    __syncthreads();
-    clk.mark(kPhaseRows);
-
-    // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
-    // exact in any order
-    for (int s = tid; s < S; s += kThreads) {
-      const float n = band.row_sum(s);
-      s_nctx[s] = n;
-      p.n_ctx[bc * S + s] = n;
-    }
-    for (int k = tid; k < SK; k += kThreads) {
-      const float cw = band.col_sum(k);
-      s_cwy[k] = cw;
-      p.ctx_w[bc * SK + k] = cw;
-    }
-    __syncthreads();
-    if constexpr (CBOW) {
-      projection(band, tl, d, p.cbow_mean != 0, h_ws, sA, bk_row);
-      if (nD == 1) a_at = 0;
+    float* dctx = p.d_ctx + bc * SK * d;  // the chunk's slab rows
+    for (int i = 0; i < nS; ++i) {
+      // center piece i: centers [s0, s0 + Sp) and their slots [s0, s0 + SKp)
+      const int s0 = i * kSc;
+      Sp = piece_len(S, kSc, i);
+      SPp = round_up(Sp, kMmaM);
+      const int SKp = Sp + 2 * W;
+      const bool more = i + 1 < nS;
+      const TileLayout tp(Sp, KP, d);  // the piece's extent, tl's strides
+      const size_t cs = bc * S + s0, ck = bc * SK + s0;
+      a = A + cs * d;
+      bk = BK + ck * d;
+      hp = h_ws + (size_t)s0 * d;
+      float* dhp = dh_ws + (size_t)s0 * d;
+      __syncthreads();  // the previous piece is done with the tiles
+      for (int s = tid; s < Sp; s += kThreads) {
+        s_tokc[s] = p.tok_c[cs + s];
+        s_keep[s] = p.keep_c[cs + s];
+        s_w[s] = p.w_c[cs + s];
+      }
+      for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = p.tok_k[ck + k];
+      // sg: A holds the center rows (the first width piece); cbow: zeros
+      // that the projection fills
+      stage_rows(sA, tl.lda, SPp, round_up(piece_len(d, kDc, 0), kMmaK),
+                 CBOW ? 0 : Sp, piece_len(d, kDc, 0), a_row);
+      a_at = CBOW ? -1 : 0;
       __syncthreads();
-    }
-    clk.mark(kPhaseMasks);
+      clk.mark(kPhaseRows);
+      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, p.K, KP};
 
-    float* dh_out = p.d_h + bc * S * d;
-    float* dctx = p.d_ctx + bc * SK * d;
-    for (int r = 0; r < nK; ++r) {
-      const int KPp = piece_len(KP, kKPc, r), KPPp = round_up(KPp, 2 * kMmaN);
-      const int j0 = r * kKPc;
-      const bool last = r == nK - 1;
-      if (nK > 1) {
-        __syncthreads();  // the previous piece is done with the ids
-        load_negs(r);
+      // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
+      // exact in any order
+      for (int s = tid; s < Sp; s += kThreads) {
+        const float n = band.row_sum(s);
+        s_nctx[s] = n;
+        p.n_ctx[cs + s] = n;
+      }
+      for (int k = tid; k < SKp; k += kThreads) {
+        const float cw = band.col_sum(k);
+        s_cwy[k] = cw;
+        slab_cw(p.ctx_w + ck, k, cw, i > 0 && k < 2 * W);
+      }
+      __syncthreads();
+      if constexpr (CBOW) {
+        projection(band, tp, d, p.cbow_mean != 0, hp, sA, bk_row);
+        if (nD == 1) a_at = 0;
         __syncthreads();
       }
-      // ---- negative weights (collision masks, pallas_band.py:144-154):
-      // center_hit compares the raw, -1-padded center ids
-      for (int i = tid; i < S * KPp; i += kThreads) {
-        const int s = i / KPp, j = i - s * KPp;
-        s_wn[i] = band.neg_weight<true, CBOW>(s, j);
-      }
-      __syncthreads();
       clk.mark(kPhaseMasks);
 
-      // ---- positive logits: the sg band (tensor cores) or the cbow
-      // center, beside the first piece's negative logits (they overlap
-      // better there than beside the weights: 1.3% on the flagship, where
-      // grad_core measured the other way; PERF.md §6 PR 19)
-      if (r == 0) {
-        if constexpr (!CBOW) {
-          pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb,
-                                 [&](int q) { load(-1, q); }, bk_row);
-        } else {
-          pos_acc += center_logits(band, h_ws, d, alpha, s_gpc, a_row);
+      float* dh_out = p.d_h + cs * d;
+      for (int r = 0; r < nK; ++r) {
+        const int KPp = piece_len(KP, kKPc, r), KPPp = round_up(KPp, 2 * kMmaN);
+        const int j0 = r * kKPc;
+        const bool last = r == nK - 1;
+        if (nK > 1) {
+          __syncthreads();  // the previous piece is done with the ids
+          load_negs(r);
+          __syncthreads();
         }
-      }
-      // ---- negative logits and weights (tensor cores), over the width
-      neg_acc += neg_logits(tl, d, [&](int q) { load(r, q); }, sA, sE, sG, s_wn,
-                            S, KPp, alpha);
-      __syncthreads();
-      clk.mark(kPhaseLogits);
-      // ---- w_neg_sum: this chunk's sum, added to the earlier chunks' by
-      // the thread that owns the output
-      float* wsum = p.wsum_row + (size_t)b * KP + j0;
-      for (int j = tid; j < KPp; j += kThreads) {
-        float part = 0.f;
-        for (int s = 0; s < S; ++s) part += s_wn[s * KPp + j];
-        wsum[j] = (c == 0 ? 0.f : wsum[j]) + part;
-      }
-
-      for (int q = 0; q < nD; ++q) {
-        const int dq = piece_len(d, kDc, q), DPq = round_up(dq, kMmaK);
-        const int off = q * kDc;
-        load(r, q);
-        // ---- d_neg: this chunk's contraction over its S positions (tensor
-        // cores), then added to the sum over the earlier chunks by the
-        // thread that owns the output
-        float* dneg = p.dneg_row + ((size_t)b * KP + j0) * d + off;
-        tile_pass<true, true>(KPPp, DPq, tl.SP, tl.SP, sG, tl.ldg, sA, tl.lda,
-                              [&](int j, const int (&col)[4], const float (&v)[4]) {
-                                add_row(dneg, d, dq, j, KPp, col, v, c > 0);
-                              });
+        // ---- negative weights (collision masks, pallas_band.py:144-154):
+        // center_hit compares the raw, -1-padded center ids
+        for (int x = tid; x < Sp * KPp; x += kThreads) {
+          const int s = x / KPp, j = x - s * KPp;
+          s_wn[x] = band.neg_weight<true, CBOW>(s, j);
+        }
         __syncthreads();
-        clk.mark(kPhaseNeg);
+        clk.mark(kPhaseMasks);
 
-        // ---- center-side rows: d_hid = gn @ en (tensor cores), its
-        // running sum over the pieces in d_h (sg) or dh_ws (cbow); after
-        // the last piece the band product (sg) or the center's out-row
-        // update and d_hid2 (cbow, into A)
-        float* part = (CBOW ? dh_ws : dh_out) + off;
-        auto partial = [&](int s, int e) -> float {
-          return (s < S && e < dq) ? part[(size_t)s * d + e] : 0.f;
-        };
-        auto w = [&](int s, int k) -> float {
-          return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
-        };
-        block_pass(
-            tl.SP, DPq,
-            [&](float (&acc)[2][4], int m0, int n0) {
-              if (r > 0) load_block(acc, m0, n0, partial);
-              warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
-                                          KPPp, KPPp);
-              if (!CBOW && last)
-                band_rows_mma(acc, m0, n0, 2 * W, SK, dq, w,
-                              [&](int k) { return bk_row(k) + off; });
-            },
-            [&](int s, const int (&col)[4], const float (&v)[4]) {
-              if (s >= S) return;
-              if (CBOW && last) {
-                cbow_center_row(s, col, v, s_gpc[s], p.cbow_mean != 0, s_nctx[s],
-                                a_row(s) + off, h_ws + off, dh_out + off, d, dq,
-                                sA, tl.lda);
-                return;
-              }
+        // ---- positive logits: the sg band (tensor cores) or the cbow
+        // center, beside the first piece's negative logits (they overlap
+        // better there than beside the weights: 1.3% on the flagship, where
+        // grad_core measured the other way; PERF.md §6)
+        if (r == 0) {
+          if constexpr (!CBOW) {
+            pos_acc += band_logits(band, tp, sA, d, alpha, s_gpb,
+                                   [&](int q) { load(-1, q); }, bk_row);
+          } else {
+            pos_acc += center_logits(band, hp, d, alpha, s_gpc, a_row);
+          }
+        }
+        // ---- negative logits and weights (tensor cores), over the width
+        neg_acc += neg_logits(tp, d, [&](int q) { load(r, q); }, sA, sE, sG, s_wn,
+                              Sp, KPp, alpha);
+        __syncthreads();
+        clk.mark(kPhaseLogits);
+        // ---- w_neg_sum: this chunk's sum (continued from the previous
+        // piece), added to the earlier chunks' by the thread that owns it
+        const size_t w0 = (size_t)b * KP + j0;
+        for (int j = tid; j < KPp; j += kThreads) {
+          float part = chunk_sum_in(p.wsum_ws, w0 + j, i);
+          for (int s = 0; s < Sp; ++s) part += s_wn[s * KPp + j];
+          chunk_sum_out(p.wsum_row, p.wsum_ws, w0 + j, part, c, more);
+        }
+
+        for (int q = 0; q < nD; ++q) {
+          const int dq = piece_len(d, kDc, q), DPq = round_up(dq, kMmaK);
+          const int off = q * kDc;
+          load(r, q);
+          // ---- d_neg: this chunk's contraction over its S positions (tensor
+          // cores), its accumulator handed from piece to piece through
+          // dneg_ws, then added to the sum over the earlier chunks by the
+          // thread that owns the output
+          float* dneg = p.dneg_row + ((size_t)b * KP + j0) * d + off;
+          float* dpart = p.dneg_ws + ((size_t)b * KP + j0) * d + off;
+          tile_pass<true, true>(
+              KPPp, DPq, SPp, SPp, sG, tl.ldg, sA, tl.lda,
+              [&](float (&acc)[2][4], int m0, int n0) {
+                if (i > 0)
+                  load_block(acc, m0, n0, [&](int j, int e) -> float {
+                    return (j < KPp && e < dq) ? dpart[(size_t)j * d + e] : 0.f;
+                  });
+              },
+              [&](int j, const int (&col)[4], const float (&v)[4]) {
+                if (more) {
+                  add_row(dpart, d, dq, j, KPp, col, v, false);
+                } else {
+                  add_row(dneg, d, dq, j, KPp, col, v, c > 0);
+                }
+              });
+          __syncthreads();
+          clk.mark(kPhaseNeg);
+
+          // ---- center-side rows: d_hid = gn @ en (tensor cores), its
+          // running sum over the pieces in d_h (sg) or dh_ws (cbow); after
+          // the last piece the band product (sg) or the center's out-row
+          // update and d_hid2 (cbow, into A)
+          float* part = (CBOW ? dhp : dh_out) + off;
+          auto partial = [&](int s, int e) -> float {
+            return (s < Sp && e < dq) ? part[(size_t)s * d + e] : 0.f;
+          };
+          auto w = [&](int s, int k) -> float {
+            return (s < Sp && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+          };
+          block_pass(
+              SPp, DPq,
+              [&](float (&acc)[2][4], int m0, int n0) {
+                if (r > 0) load_block(acc, m0, n0, partial);
+                warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
+                                            KPPp, KPPp);
+                if (!CBOW && last)
+                  band_rows_mma(acc, m0, n0, 2 * W, SKp, dq, w,
+                                [&](int k) { return bk_row(k) + off; });
+              },
+              [&](int s, const int (&col)[4], const float (&v)[4]) {
+                if (s >= Sp) return;
+                if (CBOW && last) {
+                  cbow_center_row(s, col, v, s_gpc[s], p.cbow_mean != 0, s_nctx[s],
+                                  a_row(s) + off, hp + off, dh_out + off, d, dq,
+                                  sA, tl.lda);
+                  return;
+                }
 #pragma unroll
-              for (int u = 0; u < 4; ++u)
-                if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
-            });
-        if (CBOW && last) a_at = -1;  // A holds d_hid2 now
-        __syncthreads();
-        clk.mark(kPhaseCenter);
-        if (!last) continue;
+                for (int u = 0; u < 4; ++u)
+                  if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
+              });
+          if (CBOW && last) a_at = -1;  // A holds d_hid2 now
+          __syncthreads();
+          clk.mark(kPhaseCenter);
+          if (!last) continue;
 
-        // ---- slab-space context grads: slot k sums the centers s in
-        // [k-2W, k] that see it (zero at invalid slots: their mask column is 0)
-        context_tiles<CBOW>(band, s_gpb, sA, tl.lda, SK, DPq,
-                            [&](int k, const int (&col)[4], const float (&y)[4]) {
+          // ---- slab-space context grads: slot k sums the centers s in
+          // [k-2W, k] that see it (zero at invalid slots: their mask column
+          // is 0); a slot the previous piece reached continues its
+          // accumulator from the output row
+          context_tiles<CBOW>(
+              band, s_gpb, sA, tl.lda, SKp, DPq,
+              [&](float (&acc)[2][4], int m0, int n0) {
+                if (i > 0 && m0 < 2 * W)
+                  load_block(acc, m0, n0, [&](int k, int e) -> float {
+                    return (s0 + k < SK && e < dq)
+                               ? dctx[(size_t)(s0 + k) * d + off + e]
+                               : 0.f;
+                  });
+              },
+              [&](int k, const int (&col)[4], const float (&y)[4]) {
 #pragma unroll
-                              for (int v = 0; v < 4; ++v)
-                                if (k < SK && col[v] < dq)
-                                  dctx[(size_t)k * d + off + col[v]] = y[v];
-                            });
-        __syncthreads();
-        clk.mark(kPhaseContext);
+                for (int v = 0; v < 4; ++v)
+                  if (s0 + k < SK && col[v] < dq)
+                    dctx[(size_t)(s0 + k) * d + off + col[v]] = y[v];
+              });
+          __syncthreads();
+          clk.mark(kPhaseContext);
+        }
       }
     }
   }
@@ -625,10 +720,19 @@ __global__ void rows_reduce_kernel(const float* part, float* out, int B,
   out[i] = acc;
 }
 
+// the body a launch of this shape runs: tensor cores (bf16 compute) or
+// f32, and on the tensor cores a chunk of one center piece or of several
+template <typename T, bool CBOW>
+auto band_core_kernel(bool tc, bool pieced) -> void (*)(BandArgs) {
+  if (!tc) return &band_core_f32_kernel<T, CBOW>;
+  return pieced ? &band_core_tc_kernel<T, CBOW, true>
+                : &band_core_tc_kernel<T, CBOW, false>;
+}
+
 template <typename T, bool CBOW>
 cudaError_t launch_band(const BandArgs& p, int B, size_t smem, bool tc,
-                        cudaStream_t st) {
-  auto kern = tc ? &band_core_tc_kernel<T, CBOW> : &band_core_f32_kernel<T, CBOW>;
+                        bool pieced, cudaStream_t st) {
+  auto kern = band_core_kernel<T, CBOW>(tc, pieced);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -638,15 +742,15 @@ cudaError_t launch_band(const BandArgs& p, int B, size_t smem, bool tc,
 
 template <typename T>
 cudaError_t launch_band_model(const BandArgs& p, int B, size_t smem, bool tc,
-                              cudaStream_t st, int is_cbow) {
-  return is_cbow ? launch_band<T, true>(p, B, smem, tc, st)
-                 : launch_band<T, false>(p, B, smem, tc, st);
+                              bool pieced, cudaStream_t st, int is_cbow) {
+  return is_cbow ? launch_band<T, true>(p, B, smem, tc, pieced, st)
+                 : launch_band<T, false>(p, B, smem, tc, pieced, st);
 }
 
 // resident blocks a SM of the body a launch at this shared memory runs
 template <typename T, bool CBOW>
-cudaError_t band_occupancy(int* n, size_t smem, bool tc) {
-  auto kern = tc ? &band_core_tc_kernel<T, CBOW> : &band_core_f32_kernel<T, CBOW>;
+cudaError_t band_occupancy(int* n, size_t smem, bool tc, bool pieced) {
+  auto kern = band_core_kernel<T, CBOW>(tc, pieced);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -666,8 +770,9 @@ extern "C" {
 // bf16 compute runs the tensor-core body, f32 compute the f32 one
 size_t w2v_band_core_smem_bytes(int S, int SK, int KP, int d, int W,
                                 int cdt_bf16) {
-  return cdt_bf16 ? band_tc_smem_bytes(S, SK, KP, d, W)
-                  : band_smem_words(S, SK, KP, W) * sizeof(float);
+  (void)SK;  // S + 2W: a piece's slots follow from its centers
+  return cdt_bf16 ? band_tc_smem_bytes(S, KP, d, W)
+                  : band_smem_words(S, KP, W) * sizeof(float);
 }
 
 const char* w2v_error_string(int err) {
@@ -679,15 +784,15 @@ const char* w2v_error_string(int err) {
 int w2v_band_core_blocks_per_sm(int S, int SK, int KP, int d, int W,
                                 int table_bf16, int cdt_bf16, int is_cbow) {
   const size_t smem = w2v_band_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0;
+  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
   int n = 0;
   cudaError_t err;
   if (table_bf16) {
-    err = is_cbow ? band_occupancy<__nv_bfloat16, true>(&n, smem, tc)
-                  : band_occupancy<__nv_bfloat16, false>(&n, smem, tc);
+    err = is_cbow ? band_occupancy<__nv_bfloat16, true>(&n, smem, tc, pieced)
+                  : band_occupancy<__nv_bfloat16, false>(&n, smem, tc, pieced);
   } else {
-    err = is_cbow ? band_occupancy<float, true>(&n, smem, tc)
-                  : band_occupancy<float, false>(&n, smem, tc);
+    err = is_cbow ? band_occupancy<float, true>(&n, smem, tc, pieced)
+                  : band_occupancy<float, false>(&n, smem, tc, pieced);
   }
   return err == cudaSuccess ? n : -(int)err;
 }
@@ -701,21 +806,22 @@ int w2v_band_core(const void* a, const void* bk, const void* en,
                   const float* alpha, float* d_h, float* d_ctx, float* n_ctx,
                   float* ctx_w, float* dneg_row, float* wsum_row,
                   float* d_neg, float* w_neg_sum, float* loss_part,
-                  float* losses, float* h_ws, float* dh_ws, int B, int C,
-                  int S, int SK, int KP, int d, int W, int K, int neg_shared,
-                  int cdt_bf16, int is_cbow, int cbow_mean,
-                  long long* phase_rec, void* stream) {
+                  float* losses, float* h_ws, float* dh_ws, float* dneg_ws,
+                  float* wsum_ws, int B, int C, int S, int SK, int KP, int d,
+                  int W, int K, int neg_shared, int cdt_bf16, int is_cbow,
+                  int cbow_mean, long long* phase_rec, void* stream) {
   BandArgs p{a,        bk,        en,     tok_c,    tok_k,     keep_c,
              w_c,      negs,      alpha,  d_h,      d_ctx,     n_ctx,
              ctx_w,    dneg_row,  wsum_row, loss_part, h_ws,    dh_ws,
-             C,        S,         SK,     KP,       d,         W,
-             K,        neg_shared, cbow_mean, phase_rec};
+             dneg_ws,  wsum_ws,   C,      S,        SK,        KP,
+             d,        W,         K,      neg_shared, cbow_mean, phase_rec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = w2v_band_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0;
+  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
   cudaError_t err =
-      table_bf16 ? launch_band_model<__nv_bfloat16>(p, B, smem, tc, st, is_cbow)
-                 : launch_band_model<float>(p, B, smem, tc, st, is_cbow);
+      table_bf16
+          ? launch_band_model<__nv_bfloat16>(p, B, smem, tc, pieced, st, is_cbow)
+          : launch_band_model<float>(p, B, smem, tc, pieced, st, is_cbow);
   if (err != cudaSuccess) return (int)err;
   if (neg_shared) {
     err = reduce_rows(dneg_row, d_neg, B, KP * d, st);

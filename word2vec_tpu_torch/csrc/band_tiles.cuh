@@ -3,7 +3,8 @@
 // (csrc/band_core.cu, the port of word2vec_tpu/ops/pallas_band.py band_core).
 //
 // Both kernels run one CTA of kThreads per batch row and walk its C chunks
-// of S centers and SK = S + 2W slab slots. What they share lives here:
+// of S centers and SK = S + 2W slab slots, each chunk in center pieces of
+// at most kSc centers (below). What they share lives here:
 //   * the band mask and the negative gradient weights (collision masks);
 //   * the operand rounding to the compute type (the Pallas `dot`'s
 //     astype(cdt)) and the stable sigmoid / log-sigmoid;
@@ -13,11 +14,15 @@
 //     G [SP x ldg], zero-padded to the mma tile (S, KP and d rounded up
 //     to 16) plus kRowPad columns, so the eight row addresses of one
 //     ldmatrix fall on eight distinct bank groups;
-//   * the pieces: the tiles hold at most kKPc negative rows and kDc
-//     columns, so a block's shared memory stops growing with KP and d
-//     past one piece. A wider pool or row is walked piece by piece
-//     (piece_pass, and the kernels' loops over p and q), and the sums
-//     that cross pieces keep the order of one unpieced product:
+//   * the pieces: the tiles hold at most kSc centers, kKPc negative rows
+//     and kDc columns, so a block's shared memory stops growing with S,
+//     KP and d past one piece. A chunk of more centers is walked in
+//     center pieces i of Sp <= kSc centers (the first at center s0 =
+//     i kSc), each with the Sp + 2W slab slots its band reaches, the 2W
+//     slots shared with the next piece included; a wider pool or row is
+//     walked piece by piece (piece_pass, and the kernels' loops over p
+//     and q). The sums that cross pieces keep the order of one unpieced
+//     product:
 //       - the negative logits A E^T and the sg band logits A bk^T sum
 //         over the width pieces q = 0, 1, ... in one register accumulator
 //         per output block (piece_pass), k-slice after k-slice, exactly
@@ -29,18 +34,40 @@
 //         piece p + 1; the last piece continues it with the sg band
 //         product. f32 stores and loads are exact, so this is the
 //         unpieced order too;
-//       - d_neg = G^T A and w_neg_sum sum over the chunk's S positions
-//         inside one piece (p, q); the pieces only cut which outputs a
-//         pass writes; the sum over chunks stays in the output, in chunk
+//       - d_neg = G^T A and w_neg_sum sum over the chunk's S positions:
+//         inside one negative and width piece (p, q), whose pieces only
+//         cut which outputs a pass writes; across the center pieces the
+//         chunk's f32 accumulator goes to device memory (a workspace: the
+//         output holds the earlier chunks' sum) after piece i and is
+//         loaded again, by the thread that owns the value, before piece
+//         i + 1 (the fused core's w_neg_sum, one running sum over the
+//         row's positions, continues in its output). Pieces are multiples
+//         of 16 centers, so the k-slices add in the order of one unpieced
+//         product; the sum over chunks stays in the output, in chunk
 //         order, by the thread that owns each value;
+//       - the context sums over centers (the slab-space d_ctx and ctx_w
+//         of band_core, the fused core's before its overlap-add): a slot
+//         that piece i + 1 reaches too (its first 2W slots, rounded up
+//         to whole [16 x 16] blocks) leaves piece i as its f32
+//         accumulator (band_core's output rows, the fused core's carry
+//         workspace) and piece i + 1 continues it (context_tiles' init)
+//         over its own depth blocks: the unpieced order again; ctx_w's
+//         0/1 column sums add piece after piece (exact in any order);
+//       - d_hid, n_ctx, the band and negative logits, cbow's projection
+//         are per center: a piece computes its own centers' whole sums;
 //       - the loss partials add piece after piece in each thread, then
-//         the block sum in warp order (block_losses).
-//     No atomics anywhere: two calls are bitwise equal;
+//         the block sum in warp order (block_losses). They are the one
+//         output that does not keep the unpieced order: which thread adds
+//         which term follows the piece's warp tasks, so the losses of one
+//         chunk in pieces of two lengths agree to rounding, not bitwise.
+//     No atomics anywhere: two calls are bitwise equal. A chunk of at
+//     most kSc centers is one center piece and runs no carry;
 //   * the tensor-core tile products (ldmatrix + mma.sync.m16n8k16, bf16
 //     operands, f32 accumulate, one [16 x 16] output block per warp task,
 //     every output value owned by one thread):
 //       - tile_pass: both operands from the staged tiles, either one
-//         stored transposed, the depth cut at `kvalid` in the registers
+//         stored transposed, the accumulator started at zero or at a
+//         carried partial sum, the depth cut at `kvalid` in the registers
 //         (d_neg's sum over exactly the row's first L positions): d_hid =
 //         G E, d_neg = G^T A; piece_pass, its depth in width pieces: the
 //         negative logits A E^T;
@@ -74,9 +101,19 @@ constexpr int kMmaK = 16;
 // bf16 columns added to every staged row (16 bytes): a row stride of
 // 16 (mod 128) bytes puts the 8 rows of an ldmatrix on distinct banks
 constexpr int kRowPad = 8;
-// the pieces the tiles hold: negative rows a piece (a multiple of 16) and
-// columns a piece (a multiple of kMmaK); the flagship (KP 64, d 300) is
-// one piece of each
+// the pieces the tiles hold: centers a piece (a multiple of kMmaM: the
+// center pieces cut the depth of d_neg and of the context sums at whole
+// k-slices), negative rows a piece (a multiple of 16) and columns a piece
+// (a multiple of kMmaK); the flagship (S 118, KP 64, d 300) and every
+// auto chunk below W 64 (S <= 126) are one piece of each. Past one piece
+// of each a block's shared memory depends on W alone (a center piece's
+// band logits, kSc x (2W + 1) words, and its 2W halo): one piece with its
+// halo fits the 232,448 B a block may use up to W 54 with bf16 compute
+// (W 154 in fused_grad_core's f32 body, 156 in band_core's); a wider
+// window is refused before any launch. kSc >= 2W with bf16 compute, so a
+// slot of the tensor-core bodies is shared by two pieces at most; past W
+// 64 the f32 bodies hand a slot's context sum on through a middle piece
+constexpr int kSc = 128;
 constexpr int kKPc = 64;
 constexpr int kDc = 304;
 // [16 x 16] output blocks a warp holds at once across the width pieces
@@ -190,11 +227,11 @@ __host__ __device__ inline int pieces(int n, int piece) {
 
 // The bf16 tiles of the tensor-core bodies, at the head of dynamic shared
 // memory: A [SP][lda], E [KPP][lda], G [SP][ldg], one piece wide (at most
-// kDc columns, kKPc negative rows); f32 words follow.
+// kSc centers, kDc columns, kKPc negative rows); f32 words follow.
 struct TileLayout {
   int SP, DP, KPP, lda, ldg;
   __host__ __device__ TileLayout(int S, int KP, int d)
-      : SP(round_up(S, kMmaM)),
+      : SP(round_up(S < kSc ? S : kSc, kMmaM)),
         DP(round_up(d < kDc ? d : kDc, kMmaK)),
         KPP(round_up(KP < kKPc ? KP : kKPc, 2 * kMmaN)),
         lda(DP + kRowPad),
@@ -206,6 +243,10 @@ struct TileLayout {
     return (a_elems() + e_elems() + g_elems()) * sizeof(__nv_bfloat16);
   }
 };
+
+// rows of a carry between center pieces of the context sums: the next
+// piece's first 2W slots, rounded up to whole [16 x 16] output blocks
+__host__ __device__ inline int carry_rows(int W) { return round_up(2 * W, kMmaM); }
 
 // ---------------------------------------------------------------- mma
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -310,15 +351,18 @@ __device__ __forceinline__ void block_pass(int M, int N, Fill&& fill, F&& f) {
 }
 
 // the block's [M x N] = A[M x K] x B[K x N] (K a multiple of kMmaK), both
-// operands in shared memory (warp_mma_16x16), f as in block_pass
-template <bool AT, bool BT, typename F>
+// operands in shared memory (warp_mma_16x16), each block's accumulator
+// started by init(acc, m0, n0) (zero, or a partial sum read back: an
+// earlier center piece's), f as in block_pass
+template <bool AT, bool BT, typename Init, typename F>
 __device__ __forceinline__ void tile_pass(int M, int N, int K, int kvalid,
                                           const __nv_bfloat16* A, int lda,
                                           const __nv_bfloat16* B, int ldb,
-                                          F&& f) {
+                                          Init&& init, F&& f) {
   block_pass(
       M, N,
       [&](float (&acc)[2][4], int m0, int n0) {
+        init(acc, m0, n0);
         warp_mma_16x16<AT, BT>(acc, A, lda, m0, B, ldb, n0, K, kvalid);
       },
       f);
@@ -660,12 +704,14 @@ __device__ __forceinline__ void cbow_center_row(
 // band; A (sg: the center rows, cbow: rc(d_hid2)) is the B operand, the
 // band matrix is built in the A-operand registers from the band weights,
 // and only the depth blocks of s that reach the row block are visited.
-// f(k, col, val) as in for_each_row.
-template <bool CBOW, typename F>
+// init(acc, m0, n0) starts each block's accumulator (zero, or what an
+// earlier center piece carried); f(k, col, val) as in for_each_row.
+template <bool CBOW, typename Init, typename F>
 __device__ __forceinline__ void context_tiles(const Band& band,
                                               const float* s_gpb,
                                               const __nv_bfloat16* sA, int lda,
-                                              int SK, int DP, F&& f) {
+                                              int SK, int DP, Init&& init,
+                                              F&& f) {
   const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
   const int S = band.S, W2 = 2 * band.W, NB = W2 + 1;
   const int kl = 2 * (lane & 3);
@@ -679,6 +725,7 @@ __device__ __forceinline__ void context_tiles(const Band& band,
     const int m0 = t / nn * kMmaM, n0 = t % nn * (2 * kMmaN);
     const int k0 = m0 + (lane >> 2), k1 = k0 + 8;
     float acc[2][4] = {};
+    init(acc, m0, n0);
     const int s_hi = min(S - 1, m0 + kMmaM - 1);
     for (int s0 = max(0, m0 - W2) / kMmaK * kMmaK; s0 <= s_hi; s0 += kMmaK) {
       const int s = s0 + kl;

@@ -21,7 +21,8 @@
 // (the TPU's sequential grid dimension; nothing carries between blocks).
 // With bf16 compute (the default) each chunk's dense operands are staged
 // in shared memory, rounded once to bf16 (csrc/band_tiles.cuh), one piece
-// of at most kKPc = 64 negative rows and kDc = 304 columns at a time:
+// of at most kSc = 128 centers, kKPc = 64 negative rows and kDc = 304
+// columns at a time:
 //   A [SP x lda]   center rows (sg) or the cbow projection h, zero-padded
 //                  to SP = 128 rows x 304 columns (+8: ldmatrix rows on
 //                  distinct banks)          128 x 312 x 2 B =  79,872 B
@@ -30,9 +31,10 @@
 //   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
 //   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KPc]
 //   (30,208 B), ...                         total at the flagship 177,448 B
-// and no more at any wider KP or d: the flagship is one piece of each, and
-// a wider pool or row is walked piece by piece (band_tiles.cuh states the
-// order of every sum that crosses pieces: that of one unpieced product).
+// and no more at any longer S (180,728 B at W 5), wider KP or d: the
+// flagship is one piece of each, and a longer chunk, a wider pool or row
+// is walked piece by piece (band_tiles.cuh states the order of every sum
+// that crosses pieces: that of one unpieced product).
 // The context rows bk (another 80 KB, over the 227 KB a block has) stay in
 // L1/L2. Every product runs on the tensor cores (mma.sync.m16n8k16, f32
 // accumulate): nlog = A E^T, d_neg = G^T A and d_hid = G E from the tiles;
@@ -49,7 +51,8 @@
 //     W rows of chunk c-1, which the same block wrote before a barrier; its
 //     right overhang waits in the first W rows of chunk c+1 (device memory,
 //     not shared: it would grow with d); each output sums exactly the <= 2
-//     slab slots banded._overlap_add sums;
+//     slab slots banded._overlap_add sums; inside a chunk the slots two
+//     center pieces share wait in a workspace until their sum is whole;
 //   * cbow's d_ctr = gp h uses the unrounded f32 projection (kept in a
 //     global workspace), its d_hid2 goes back into A, rounded once, for the
 //     context sums (d_hid's running sum over negative pieces waits in a
@@ -59,10 +62,12 @@
 // With f32 compute the products stay exact f32 multiply-adds on the CUDA
 // cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
 // fit): grad_core_f32_kernel keeps the first port's body (table and
-// negative rows through L1/L2, warp-reduced dot products), the negative
-// pool in pieces of kKPc. Both bodies take an optional per-phase clock64()
-// record (PhaseClock). A chunk S whose tiles exceed the block's shared
-// memory fails its launch (the wrapper raises first).
+// negative rows through L1/L2, warp-reduced dot products), the chunk in
+// center pieces of kSc and the negative pool in pieces of kKPc. Both
+// bodies take an optional per-phase clock64() record (PhaseClock). What a
+// block's shared memory still bounds is the window W (a piece's band
+// logits, kSc x (2W + 1) words): W <= 54 with bf16 compute, 154 with f32;
+// a launch past it fails (the wrapper raises first).
 //
 // The slab scatter is a segmented, ordered pass: each cell receives its
 // run's terms in sorted order and rounds to the table type after every
@@ -124,34 +129,85 @@ struct GradArgs {
   float* loss_part;      // [B, 2]
   float* h_ws;           // [B, S, d] cbow only: this chunk's projection
   float* dh_ws;          // [B, S, d] cbow only: this chunk's d_hid2
+  float* dneg_ws;        // [B, KP, d] S > kSc, bf16 compute only: a
+                         // chunk's d_neg so far (the f32 body keeps it in
+                         // d_neg)
+  float* ctx_ws;         // [B, 2, carry_rows(W), d] S > kSc only: the
+                         // context sums a center piece hands the next
   int C, S, SK, KP, d, W, K, L, cbow_mean;
   long long* phase_rec;  // null, or [B, kPhases] cycles (PhaseClock)
 };
 
 // shared memory of the f32-compute body, in 4-byte words (ints and
-// floats), in the order grad_core_f32_kernel lays it out: one negative
-// piece (at most kKPc rows) at a time, nothing that grows with d
-inline size_t grad_smem_words(int S, int SK, int KP, int W) {
+// floats), in the order grad_core_f32_kernel lays it out: one center piece
+// (at most kSc) and one negative piece (at most kKPc rows) at a time,
+// nothing that grows with S, KP or d past them
+inline size_t grad_smem_words(int S, int KP, int W) {
   const int NB = 2 * W + 1;
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc;
-  return (size_t)S * 4          // tok_c, keep, w, n_ctx
-         + (size_t)SK * 2       // tok_k, cwy
-         + (size_t)KPc          // the piece's negative ids
-         + (size_t)S * NB       // band-compressed gp (sg)
-         + (size_t)S            // gp per center (cbow)
-         + (size_t)S * KPc * 2  // gn, w_neg of the piece
-         + (size_t)2 * W        // ctx_w right overhang, 2 buffers
-         + (size_t)2 * kWarps;  // loss block reduction
+  return (size_t)Sc * 4          // tok_c, keep, w, n_ctx
+         + (size_t)SKc * 2       // tok_k, cwy
+         + (size_t)KPc           // the piece's negative ids
+         + (size_t)Sc * NB       // band-compressed gp (sg)
+         + (size_t)Sc            // gp per center (cbow)
+         + (size_t)Sc * KPc * 2  // gn, w_neg of the piece
+         + (size_t)2 * W         // ctx_w right overhang, 2 buffers
+         + (size_t)2 * kWarps;   // loss block reduction
 }
 
 // The right overhang of the context gradient (slab slots [S+W, S+2W) of
 // chunk c, W rows) waits in d_ctx itself, in the first W rows of chunk
 // c + 1, which that chunk's pass then adds its own slots to (y + left,
 // as the Pallas kernel's lagged add): nothing of it stays in shared memory.
+// Between the center pieces of a chunk the context sums of the slots two
+// pieces share wait in ctx_ws (the unpieced order, band_tiles.cuh), and
+// each token row is written once its slot's sum is whole.
+
+// token-order context row of chunk slot kg (the chunk's slab slot), whose
+// sum y is whole: slots [W, S+W) are the chunk's rows (plus the previous
+// chunk's right overhang, waiting in the first W), slots [0, W) add into
+// the previous chunk's last W rows, slots [S+W, S+2W) wait in the next
+// chunk's first W rows
+__device__ __forceinline__ void overlap_row(float* d_ctx, size_t bc, int c,
+                                            int C, int S, int W, int d,
+                                            int kg, int e, float y) {
+  if (kg < W) {
+    if (c > 0) d_ctx[((bc - 1) * S + (S - W + kg)) * d + e] += y;
+  } else if (kg < S + W) {
+    float* o = d_ctx + (bc * S + (kg - W)) * d + e;
+    const float left = (kg - W < W && c > 0) ? *o : 0.f;
+    *o = y + left;
+  } else if (c + 1 < C) {
+    d_ctx[((bc + 1) * S + (kg - S - W)) * d + e] = y;
+  }
+}
+
+// ctx_w of chunk slot kg into token order, as overlap_row; `cont`: an
+// earlier center piece of the chunk already added its part of this slot
+// (0/1 column sums: exact in any order); the right overhang waits in
+// s_cwtail, two buffers by chunk parity
+__device__ __forceinline__ void overlap_cw(float* ctx_w, float* s_cwtail,
+                                           size_t bc, int c, int S, int W,
+                                           int kg, float y, bool cont) {
+  if (kg < W) {
+    if (c > 0) ctx_w[(bc - 1) * S + (S - W + kg)] += y;
+  } else if (kg < S + W) {
+    const int s = kg - W;
+    float* o = ctx_w + bc * S + s;
+    const float left =
+        cont ? *o : (s < W && c > 0) ? s_cwtail[((c + 1) & 1) * W + s] : 0.f;
+    *o = y + left;
+  } else {
+    float* t = s_cwtail + (c & 1) * W + (kg - S - W);
+    *t = cont ? *t + y : y;
+  }
+}
 
 // f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
 // would not fit), the design of the first port; the negative rows are read
-// through L1/L2, the negative pool walked in pieces of kKPc
+// through L1/L2, the chunk walked in center pieces of kSc and the negative
+// pool in pieces of kKPc
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     grad_core_f32_kernel(const GradArgs a) {
@@ -164,6 +220,7 @@ __global__ void __launch_bounds__(kThreads)
   const int C = a.C, S = a.S, SK = a.SK, KP = a.KP, d = a.d, W = a.W;
   const int NB = 2 * W + 1;
   const int KPc = KP < kKPc ? KP : kKPc, nK = pieces(KP, kKPc);
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W, nS = pieces(S, kSc);
   const size_t rs = (size_t)2 * d;  // slab row stride
   // sg scores emb_in centers against emb_out contexts; cbow swaps them;
   // negatives always live on the out plane (pallas_step.py:160-164)
@@ -173,24 +230,21 @@ __global__ void __launch_bounds__(kThreads)
 
   extern __shared__ float smem[];
   int* s_tokc = reinterpret_cast<int*>(smem);
-  float* s_keep = smem + S;
-  float* s_w = s_keep + S;
-  float* s_nctx = s_w + S;
-  int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
+  float* s_keep = smem + Sc;
+  float* s_w = s_keep + Sc;
+  float* s_nctx = s_w + Sc;
+  int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
+  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)S * NB;
-  float* s_gn = s_gpc + S;
-  float* s_wn = s_gn + (size_t)S * KPc;
-  float* s_cwtail = s_wn + (size_t)S * KPc;
+  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_gn = s_gpc + Sc;
+  float* s_wn = s_gn + (size_t)Sc * KPc;
+  float* s_cwtail = s_wn + (size_t)Sc * KPc;
   float* s_red = s_cwtail + 2 * W;
 
-  // the band mask (banded.band_mask semantics, pallas_step.py:185-194)
-  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, a.K, KP};
-  auto mask = [&](int s, int k) -> float { return band.mask(s, k); };
   PhaseClock clk(a.phase_rec);
-  // center-side row (plane ctr_plane) of chunk position s
+  // center-side row (plane ctr_plane) of piece position s
   auto a_row = [&](int s, int e) -> float {
     return to_f(emb[(size_t)s_tokc[s] * rs + (size_t)ctr_plane * d + e]);
   };
@@ -202,15 +256,10 @@ __global__ void __launch_bounds__(kThreads)
   auto en_row = [&](int j, int e) -> float {
     return to_f(emb[(size_t)s_negs[j] * rs + d + e]);
   };
+  // the piece's rows of the cbow workspaces (by position in the chunk)
   float* h_ws = a.h_ws + (size_t)b * S * d;
   float* dh_ws = a.dh_ws + (size_t)b * S * d;
-  auto h_val = [&](int s, int e) -> float {
-    if constexpr (CBOW) {
-      return h_ws[(size_t)s * d + e];
-    } else {
-      return a_row(s, e);
-    }
-  };
+  float* ctx_ws = a.ctx_ws + (size_t)b * 2 * carry_rows(W) * d;
   // the negative ids of piece p
   auto load_negs = [&](int p) {
     for (int j = tid; j < piece_len(KP, kKPc, p); j += kThreads)
@@ -223,197 +272,205 @@ __global__ void __launch_bounds__(kThreads)
   load_negs(0);  // once per row when the pool is one piece
 
   for (int c = 0; c < C; ++c) {
-    __syncthreads();  // the previous chunk is done with the tiles
     const size_t bc = (size_t)b * C + c;
-    for (int s = tid; s < S; s += kThreads) {
-      s_tokc[s] = a.tok_c[bc * S + s];
-      s_keep[s] = a.keep_c[bc * S + s];
-      s_w[s] = a.w_c[bc * S + s];
-    }
-    for (int k = tid; k < SK; k += kThreads) s_tokk[k] = a.tok_k[bc * SK + k];
-    __syncthreads();
-    clk.mark(kPhaseRows);
-
-    // ---- mask row sums (n_ctx) and slab column sums (cwy)
-    for (int s = tid; s < S; s += kThreads) {
-      const float n = band.row_sum(s);
-      s_nctx[s] = n;
-      a.n_ctx[bc * S + s] = n;
-    }
-    for (int k = tid; k < SK; k += kThreads) s_cwy[k] = band.col_sum(k);
-    __syncthreads();
-    if constexpr (CBOW) {
-      // projection h = mask @ bk_rows (divided by n_ctx under cbow_mean)
-      for (int i = tid; i < S * d; i += kThreads) {
-        const int s = i / d, e = i - s * d;
-        float acc = 0.f;
-        for (int k = s; k <= s + 2 * W; ++k) {
-          const float m = mask(s, k);
-          if (m != 0.f) acc += m * bk_row(k, e);
-        }
-        if (a.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
-        h_ws[i] = acc;
+    const int s_end = min(S, a.L - c * S);  // the chunk's positions < L
+    for (int i = 0; i < nS; ++i) {
+      // center piece i: centers [s0, s0 + Sp) and their slots [s0, s0 + SKp)
+      const int s0 = i * kSc, Sp = piece_len(S, kSc, i), SKp = Sp + 2 * W;
+      const bool more = i + 1 < nS;
+      const int e_end = min(Sp, max(0, s_end - s0));  // its positions < L
+      const size_t cs = bc * S + s0;
+      float* hp = h_ws + (size_t)s0 * d;
+      float* dhp = dh_ws + (size_t)s0 * d;
+      float* dctr = a.d_ctr + cs * d;
+      // the context sums the previous piece handed on, and this piece's
+      const float* carry_in = ctx_ws + (size_t)((i + 1) & 1) * carry_rows(W) * d;
+      float* carry_out = ctx_ws + (size_t)(i & 1) * carry_rows(W) * d;
+      __syncthreads();  // the previous piece is done with shared memory
+      for (int s = tid; s < Sp; s += kThreads) {
+        s_tokc[s] = a.tok_c[cs + s];
+        s_keep[s] = a.keep_c[cs + s];
+        s_w[s] = a.w_c[cs + s];
       }
+      for (int k = tid; k < SKp; k += kThreads)
+        s_tokk[k] = a.tok_k[bc * SK + s0 + k];
       __syncthreads();
-    }
-    clk.mark(kPhaseMasks);
+      clk.mark(kPhaseRows);
+      // the band mask (banded.band_mask semantics, pallas_step.py:185-194)
+      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, a.K, KP};
+      auto h_val = [&](int s, int e) -> float {
+        if constexpr (CBOW) {
+          return hp[(size_t)s * d + e];
+        } else {
+          return a_row(s, e);
+        }
+      };
 
-    // ---- positive side
-    if constexpr (!CBOW) {
-      // band logits over the band only, one warp per (s, k)
-      for (int p = warp; p < S * NB; p += kWarps) {
-        const int s = p / NB, k = s + (p - s * NB);
-        const float m = mask(s, k);
-        if (m == 0.f) {
-          if (lane == 0) s_gpb[p] = 0.f;
-          continue;
-        }
-        float part = 0.f;
-        for (int e = lane; e < d; e += 32)
-          part += a_row(s, e) * bk_row(k, e);
-        const float plog = warp_sum(part);
-        if (lane == 0) {
-          s_gpb[p] = (1.f - sigmoid_stable(plog)) * m * alpha;
-          pos_acc += m * log_sigmoid(plog);
-        }
+      // ---- mask row sums (n_ctx) and slab column sums (cwy)
+      for (int s = tid; s < Sp; s += kThreads) {
+        const float n = band.row_sum(s);
+        s_nctx[s] = n;
+        a.n_ctx[cs + s] = n;
       }
-    } else {
-      // center logit: row-dot of h and the center's out-plane row
-      for (int s = warp; s < S; s += kWarps) {
-        float part = 0.f;
-        for (int e = lane; e < d; e += 32)
-          part += h_val(s, e) * a_row(s, e);
-        const float plog = warp_sum(part);
-        if (lane == 0) {
-          const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
-          s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * alpha;
-          pos_acc += active * log_sigmoid(plog);
+      for (int k = tid; k < SKp; k += kThreads) s_cwy[k] = band.col_sum(k);
+      __syncthreads();
+      if constexpr (CBOW) {
+        // projection h = mask @ bk_rows (divided by n_ctx under cbow_mean)
+        for (int x = tid; x < Sp * d; x += kThreads) {
+          const int s = x / d, e = x - s * d;
+          float acc = 0.f;
+          for (int k = s; k <= s + 2 * W; ++k) {
+            const float m = band.mask(s, k);
+            if (m != 0.f) acc += m * bk_row(k, e);
+          }
+          if (a.cbow_mean) acc = acc / fmaxf(s_nctx[s], 1.f);
+          hp[x] = acc;
         }
-      }
-    }
-    clk.mark(kPhaseLogits);
-
-    // ---- the negative pool, piece by piece
-    const int s_end = min(S, a.L - c * S);
-    for (int p = 0; p < nK; ++p) {
-      const int KPp = piece_len(KP, kKPc, p), j0 = p * kKPc;
-      const bool last = p == nK - 1;
-      if (nK > 1) {
-        __syncthreads();  // the previous piece is done with the ids
-        load_negs(p);
         __syncthreads();
       }
-      // negative weights (collision masks, pallas_step.py:213-223)
-      for (int i = tid; i < S * KPp; i += kThreads) {
-        const int s = i / KPp, j = i - s * KPp;
-        s_wn[i] = band.neg_weight<false, CBOW>(s, j);
-      }
-      __syncthreads();
       clk.mark(kPhaseMasks);
 
-      // negative logits and gradient weights, one warp per (s, j)
-      for (int q = warp; q < S * KPp; q += kWarps) {
-        const int s = q / KPp, j = q - s * KPp;
-        float part = 0.f;
-        for (int e = lane; e < d; e += 32) part += h_val(s, e) * en_row(j, e);
-        const float nlog = warp_sum(part);
-        if (lane == 0) {
-          const float wn = s_wn[q];
-          s_gn[q] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
-          neg_acc += wn * (log_sigmoid(nlog) - nlog);
+      // ---- positive side
+      if constexpr (!CBOW) {
+        // band logits over the band only, one warp per (s, k)
+        for (int p = warp; p < Sp * NB; p += kWarps) {
+          const int s = p / NB, k = s + (p - s * NB);
+          const float m = band.mask(s, k);
+          if (m == 0.f) {
+            if (lane == 0) s_gpb[p] = 0.f;
+            continue;
+          }
+          float part = 0.f;
+          for (int e = lane; e < d; e += 32)
+            part += a_row(s, e) * bk_row(k, e);
+          const float plog = warp_sum(part);
+          if (lane == 0) {
+            s_gpb[p] = (1.f - sigmoid_stable(plog)) * m * alpha;
+            pos_acc += m * log_sigmoid(plog);
+          }
+        }
+      } else {
+        // center logit: row-dot of h and the center's out-plane row
+        for (int s = warp; s < Sp; s += kWarps) {
+          float part = 0.f;
+          for (int e = lane; e < d; e += 32)
+            part += h_val(s, e) * a_row(s, e);
+          const float plog = warp_sum(part);
+          if (lane == 0) {
+            const float active = s_nctx[s] > 0.f ? 1.f : 0.f;
+            s_gpc[s] = (1.f - sigmoid_stable(plog)) * active * alpha;
+            pos_acc += active * log_sigmoid(plog);
+          }
         }
       }
-      __syncthreads();
       clk.mark(kPhaseLogits);
 
-      // center-side rows: d_hid = gn @ en over the pieces, each value's
-      // running sum kept in d_ctr (sg) or dh_ws (cbow) between pieces,
-      // then the band product (sg) or the center update and d_hid2 (cbow)
-      for (int i = tid; i < S * d; i += kThreads) {
-        const int s = i / d, e = i - s * d;
-        float* part = CBOW ? dh_ws + i : a.d_ctr + bc * S * d + i;
-        float dh = p == 0 ? 0.f : *part;
-        for (int j = 0; j < KPp; ++j) dh += s_gn[s * KPp + j] * en_row(j, e);
-        if (!last) {
-          *part = dh;
-        } else if constexpr (!CBOW) {
-          float dp = 0.f;
-          for (int t = 0; t < NB; ++t) {
-            const float g = s_gpb[s * NB + t];
-            if (g != 0.f) dp += g * bk_row(s + t, e);
-          }
-          a.d_ctr[bc * S * d + i] = dh + dp;
-        } else {
-          const float gp = s_gpc[s];
-          a.d_ctr[bc * S * d + i] = gp * h_ws[i];
-          float dh2 = dh + gp * a_row(s, e);
-          // second divide (Word2Vec.cpp:313-315, pallas_step.py:259-260)
-          if (a.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
-          dh_ws[i] = dh2;
+      // ---- the negative pool, piece by piece
+      for (int p = 0; p < nK; ++p) {
+        const int KPp = piece_len(KP, kKPc, p), j0 = p * kKPc;
+        const bool last = p == nK - 1;
+        if (nK > 1) {
+          __syncthreads();  // the previous piece is done with the ids
+          load_negs(p);
+          __syncthreads();
         }
-      }
-      // d_neg = gn^T h and w_neg_sum over the row's first L positions,
-      // continued from the previous chunk by the same thread
-      float* dneg = a.d_neg + ((size_t)b * KP + j0) * d;
-      for (int i = tid; i < KPp * d; i += kThreads) {
-        const int j = i / d, e = i - j * d;
-        float acc = c == 0 ? 0.f : dneg[i];
-        for (int s = 0; s < s_end; ++s) acc += s_gn[s * KPp + j] * h_val(s, e);
-        dneg[i] = acc;
-      }
-      float* wsum = a.w_neg_sum + (size_t)b * KP + j0;
-      for (int j = tid; j < KPp; j += kThreads) {
-        float acc = c == 0 ? 0.f : wsum[j];
-        for (int s = 0; s < s_end; ++s) acc += s_wn[s * KPp + j];
-        wsum[j] = acc;
-      }
-      __syncthreads();
-      clk.mark(kPhaseCenter);
-    }
+        // negative weights (collision masks, pallas_step.py:213-223)
+        for (int x = tid; x < Sp * KPp; x += kThreads) {
+          const int s = x / KPp, j = x - s * KPp;
+          s_wn[x] = band.neg_weight<false, CBOW>(s, j);
+        }
+        __syncthreads();
+        clk.mark(kPhaseMasks);
 
-    // ---- slab-space context grads, overlap-added straight into token
-    // order: slots [W, S+W) are this chunk's rows (plus the previous
-    // chunk's right overhang, waiting in the first W), slots [0, W) add
-    // into the previous chunk's last W rows, slots [S+W, S+2W) wait in
-    // the next chunk's first W rows
-    for (int i = tid; i < SK * d; i += kThreads) {
-      const int k = i / d, e = i - k * d;
-      const int lo = max(0, k - 2 * W), hi = min(S - 1, k);
-      float y = 0.f;
-      for (int s = lo; s <= hi; ++s) {
-        if constexpr (!CBOW) {
-          const float g = s_gpb[s * NB + (k - s)];
-          if (g != 0.f) y += g * a_row(s, e);
+        // negative logits and gradient weights, one warp per (s, j)
+        for (int q = warp; q < Sp * KPp; q += kWarps) {
+          const int s = q / KPp, j = q - s * KPp;
+          float part = 0.f;
+          for (int e = lane; e < d; e += 32) part += h_val(s, e) * en_row(j, e);
+          const float nlog = warp_sum(part);
+          if (lane == 0) {
+            const float wn = s_wn[q];
+            s_gn[q] = (0.f - sigmoid_stable(nlog)) * wn * alpha;
+            neg_acc += wn * (log_sigmoid(nlog) - nlog);
+          }
+        }
+        __syncthreads();
+        clk.mark(kPhaseLogits);
+
+        // center-side rows: d_hid = gn @ en over the pieces, each value's
+        // running sum kept in d_ctr (sg) or dh_ws (cbow) between pieces,
+        // then the band product (sg) or the center update and d_hid2 (cbow)
+        for (int x = tid; x < Sp * d; x += kThreads) {
+          const int s = x / d, e = x - s * d;
+          float* part = CBOW ? dhp + x : dctr + x;
+          float dh = p == 0 ? 0.f : *part;
+          for (int j = 0; j < KPp; ++j) dh += s_gn[s * KPp + j] * en_row(j, e);
+          if (!last) {
+            *part = dh;
+          } else if constexpr (!CBOW) {
+            float dp = 0.f;
+            for (int t = 0; t < NB; ++t) {
+              const float g = s_gpb[s * NB + t];
+              if (g != 0.f) dp += g * bk_row(s + t, e);
+            }
+            dctr[x] = dh + dp;
+          } else {
+            const float gp = s_gpc[s];
+            dctr[x] = gp * hp[x];
+            float dh2 = dh + gp * a_row(s, e);
+            // second divide (Word2Vec.cpp:313-315, pallas_step.py:259-260)
+            if (a.cbow_mean) dh2 = dh2 / fmaxf(s_nctx[s], 1.f);
+            dhp[x] = dh2;
+          }
+        }
+        // d_neg = gn^T h and w_neg_sum over the row's first L positions,
+        // continued from the previous piece and chunk by the same thread
+        const bool cont = c > 0 || i > 0;
+        float* dneg = a.d_neg + ((size_t)b * KP + j0) * d;
+        for (int x = tid; x < KPp * d; x += kThreads) {
+          const int j = x / d, e = x - j * d;
+          float acc = cont ? dneg[x] : 0.f;
+          for (int s = 0; s < e_end; ++s) acc += s_gn[s * KPp + j] * h_val(s, e);
+          dneg[x] = acc;
+        }
+        float* wsum = a.w_neg_sum + (size_t)b * KP + j0;
+        for (int j = tid; j < KPp; j += kThreads) {
+          float acc = cont ? wsum[j] : 0.f;
+          for (int s = 0; s < e_end; ++s) acc += s_wn[s * KPp + j];
+          wsum[j] = acc;
+        }
+        __syncthreads();
+        clk.mark(kPhaseCenter);
+      }
+
+      // ---- slab-space context grads (each slot's sum over the centers
+      // s in [k-2W, k], in order, continued from the previous piece's
+      // carry), overlap-added straight into token order once whole
+      for (int x = tid; x < SKp * d; x += kThreads) {
+        const int k = x / d, e = x - k * d;
+        const int lo = max(0, k - 2 * W), hi = min(Sp - 1, k);
+        float y = (i > 0 && k < 2 * W) ? carry_in[(size_t)k * d + e] : 0.f;
+        for (int s = lo; s <= hi; ++s) {
+          if constexpr (!CBOW) {
+            const float g = s_gpb[s * NB + (k - s)];
+            if (g != 0.f) y += g * a_row(s, e);
+          } else {
+            const float m = band.mask(s, k);
+            if (m != 0.f) y += m * dhp[(size_t)s * d + e];
+          }
+        }
+        if (more && k >= Sp) {
+          carry_out[(size_t)(k - Sp) * d + e] = y;
         } else {
-          const float m = mask(s, k);
-          if (m != 0.f) y += m * dh_ws[(size_t)s * d + e];
+          overlap_row(a.d_ctx, bc, c, C, S, W, d, s0 + k, e, y);
         }
       }
-      if (k < W) {
-        if (c > 0) a.d_ctx[((bc - 1) * S + (S - W + k)) * d + e] += y;
-      } else if (k < S + W) {
-        float* o = a.d_ctx + (bc * S + (k - W)) * d + e;
-        const float left = (k - W < W && c > 0) ? *o : 0.f;
-        *o = y + left;
-      } else if (c + 1 < C) {
-        a.d_ctx[((bc + 1) * S + (k - S - W)) * d + e] = y;
-      }
+      for (int k = tid; k < SKp; k += kThreads)
+        overlap_cw(a.ctx_w, s_cwtail, bc, c, S, W, s0 + k, s_cwy[k],
+                   i > 0 && k < 2 * W);
+      __syncthreads();
+      clk.mark(kPhaseContext);
     }
-    for (int k = tid; k < SK; k += kThreads) {
-      const float y = s_cwy[k];
-      if (k < W) {
-        if (c > 0) a.ctx_w[(bc - 1) * S + (S - W + k)] += y;
-      } else if (k < S + W) {
-        const int s = k - W;
-        const float left =
-            (s < W && c > 0) ? s_cwtail[((c + 1) & 1) * W + s] : 0.f;
-        a.ctx_w[bc * S + s] = y + left;
-      } else {
-        s_cwtail[(c & 1) * W + (k - S - W)] = y;
-      }
-    }
-    __syncthreads();
-    clk.mark(kPhaseContext);
   }
   block_losses(pos_acc, neg_acc, s_red, a.loss_part + (size_t)b * 2);
   clk.mark(kPhaseTail);
@@ -421,25 +478,29 @@ __global__ void __launch_bounds__(kThreads)
 
 // shared memory of the tensor-core body, in bytes: the bf16 tiles
 // (TileLayout, one piece) and then, in 4-byte words, in
-// grad_core_tc_kernel's order; nothing grows with KP or d past one piece
-inline size_t grad_tc_smem_bytes(int S, int SK, int KP, int d, int W) {
+// grad_core_tc_kernel's order; nothing grows with S, KP or d past one piece
+inline size_t grad_tc_smem_bytes(int S, int KP, int d, int W) {
   const int NB = 2 * W + 1;
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc;
-  const size_t words = (size_t)S * 4          // tok_c, keep, w, n_ctx
-                       + (size_t)SK * 2       // tok_k, cwy
-                       + (size_t)KPc          // the piece's negative ids
-                       + (size_t)S * NB       // band-compressed gp (sg)
-                       + (size_t)S            // gp per center (cbow)
-                       + (size_t)S * KPc      // w_neg of the piece
-                       + (size_t)2 * W        // ctx_w right overhang, 2 buffers
-                       + (size_t)2 * kWarps;  // loss block reduction
+  const size_t words = (size_t)Sc * 4          // tok_c, keep, w, n_ctx
+                       + (size_t)SKc * 2       // tok_k, cwy
+                       + (size_t)KPc           // the piece's negative ids
+                       + (size_t)Sc * NB       // band-compressed gp (sg)
+                       + (size_t)Sc            // gp per center (cbow)
+                       + (size_t)Sc * KPc      // w_neg of the piece
+                       + (size_t)2 * W         // ctx_w right overhang, 2 buffers
+                       + (size_t)2 * kWarps;   // loss block reduction
   return TileLayout(S, KP, d).bf16_bytes() + words * sizeof(float);
 }
 
-// bf16 compute: the three dense products on the tensor cores, the
-// negative pool in pieces of kKPc rows and the width in pieces of kDc
-// columns (band_tiles.cuh says how the sums cross the pieces)
-template <typename T, bool CBOW>
+// bf16 compute: the three dense products on the tensor cores, the chunk
+// in center pieces of kSc, the negative pool in pieces of kKPc rows and
+// the width in pieces of kDc columns (band_tiles.cuh says how the sums
+// cross the pieces); PIECED: S > kSc. A chunk of one piece runs an
+// instantiation without the center pieces' carries: with them compiled
+// in, the one-piece shapes read 5-19% slower (PERF.md §6)
+template <typename T, bool CBOW, bool PIECED>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_core_tc_kernel(const GradArgs a) {
   // read once a block: a captured graph replays the pointer, not a value
@@ -449,13 +510,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int C = a.C, S = a.S, SK = a.SK, KP = a.KP, d = a.d, W = a.W;
   const int NB = 2 * W + 1;
   const int nK = pieces(KP, kKPc), nD = pieces(d, kDc);
+  const int nS = PIECED ? pieces(S, kSc) : 1;  // one piece: no carry is compiled
+  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const size_t rs = (size_t)2 * d;  // slab row stride
   // sg scores emb_in centers against emb_out contexts; cbow swaps them;
   // negatives always live on the out plane (pallas_step.py:160-164)
   const int ctr_plane = CBOW ? 1 : 0;
   const int ctx_plane = CBOW ? 0 : 1;
   const T* emb = static_cast<const T*>(a.emb);
-  const TileLayout tl(S, KP, d);
+  const TileLayout tl(S, KP, d);  // the room: one piece of each
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -463,23 +526,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   __nv_bfloat16* sG = sE + tl.e_elems();
   float* f = reinterpret_cast<float*>(sG + tl.g_elems());
   int* s_tokc = reinterpret_cast<int*>(f);
-  float* s_keep = f + S;
-  float* s_w = s_keep + S;
-  float* s_nctx = s_w + S;
-  int* s_tokk = reinterpret_cast<int*>(s_nctx + S);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SK);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SK);
+  float* s_keep = f + Sc;
+  float* s_w = s_keep + Sc;
+  float* s_nctx = s_w + Sc;
+  int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
+  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
   const int KPc = KP < kKPc ? KP : kKPc;
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)S * NB;
-  float* s_wn = s_gpc + S;
-  float* s_cwtail = s_wn + (size_t)S * KPc;
+  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_wn = s_gpc + Sc;
+  float* s_cwtail = s_wn + (size_t)Sc * KPc;
   float* s_red = s_cwtail + 2 * W;
 
-  const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, S, W, a.K, KP};
   PhaseClock clk(a.phase_rec);
-  // table rows: center side (plane ctr_plane) of chunk position s, context
-  // side of slab slot k (null outside the row)
+  // table rows: center side (plane ctr_plane) of piece position s, context
+  // side of piece slot k (null outside the row)
   auto a_row = [&](int s) { return emb + (size_t)s_tokc[s] * rs + (size_t)ctr_plane * d; };
   auto bk_row = [&](int k) -> const T* {
     return s_tokk[k] >= 0 ? emb + (size_t)s_tokk[k] * rs + (size_t)ctx_plane * d
@@ -487,6 +549,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   float* h_ws = a.h_ws + (size_t)b * S * d;
   float* dh_ws = a.dh_ws + (size_t)b * S * d;
+  float* ctx_ws = a.ctx_ws + (size_t)b * 2 * carry_rows(W) * d;
+  // the center piece in hand: its rows of the cbow workspaces (by
+  // position in the chunk) and its extent in the tiles
+  float* hp = h_ws;
+  int Sp = Sc, SPp = tl.SP;
 
   // the pieces staged in the tiles: A's width piece, E's (p, q) as
   // p * nD + q (-1: none); every thread tracks them alike
@@ -494,10 +561,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto stage_a = [&](int q) {
     const int dq = piece_len(d, kDc, q), off = q * kDc;
     if constexpr (CBOW) {
-      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
-                 [&](int s) { return h_ws + (size_t)s * d + off; });
+      stage_rows(sA, tl.lda, SPp, round_up(dq, kMmaK), Sp, dq,
+                 [&](int s) { return hp + (size_t)s * d + off; });
     } else {
-      stage_rows(sA, tl.lda, tl.SP, round_up(dq, kMmaK), S, dq,
+      stage_rows(sA, tl.lda, SPp, round_up(dq, kMmaK), Sp, dq,
                  [&](int s) { return a_row(s) + off; });
     }
     a_at = q;
@@ -532,177 +599,199 @@ __global__ void __launch_bounds__(kThreads, 1)
   stage_e(0, 0);
 
   for (int c = 0; c < C; ++c) {
-    __syncthreads();  // the previous chunk is done with the tiles
     const size_t bc = (size_t)b * C + c;
-    for (int s = tid; s < S; s += kThreads) {
-      s_tokc[s] = a.tok_c[bc * S + s];
-      s_keep[s] = a.keep_c[bc * S + s];
-      s_w[s] = a.w_c[bc * S + s];
-    }
-    for (int k = tid; k < SK; k += kThreads) s_tokk[k] = a.tok_k[bc * SK + k];
-    // sg: A holds the center rows (the first width piece); cbow: zeros
-    // that the projection fills
-    stage_rows(sA, tl.lda, tl.SP, round_up(piece_len(d, kDc, 0), kMmaK),
-               CBOW ? 0 : S, piece_len(d, kDc, 0), [&](int s) {
-                 return emb + (size_t)a.tok_c[bc * S + s] * rs + (size_t)ctr_plane * d;
-               });
-    a_at = CBOW ? -1 : 0;
-    __syncthreads();
-    clk.mark(kPhaseRows);
-
-    // ---- mask row sums (n_ctx) and slab column sums (cwy)
-    for (int s = tid; s < S; s += kThreads) {
-      const float n = band.row_sum(s);
-      s_nctx[s] = n;
-      a.n_ctx[bc * S + s] = n;
-    }
-    for (int k = tid; k < SK; k += kThreads) s_cwy[k] = band.col_sum(k);
-    __syncthreads();
-    if constexpr (CBOW) {
-      projection(band, tl, d, a.cbow_mean != 0, h_ws, sA, bk_row);
-      if (nD == 1) a_at = 0;
+    const int s_end = min(S, a.L - c * S);  // the chunk's positions < L
+    for (int i = 0; i < nS; ++i) {
+      // center piece i: centers [s0, s0 + Sp) and their slots [s0, s0 + SKp)
+      const int s0 = i * kSc;
+      Sp = piece_len(S, kSc, i);
+      SPp = round_up(Sp, kMmaM);
+      const int SKp = Sp + 2 * W;
+      const bool more = i + 1 < nS;
+      const int e_end = min(Sp, max(0, s_end - s0));  // its positions < L
+      const TileLayout tp(Sp, KP, d);  // the piece's extent, tl's strides
+      const size_t cs = bc * S + s0;
+      hp = h_ws + (size_t)s0 * d;
+      float* dhp = dh_ws + (size_t)s0 * d;
+      float* dctr = a.d_ctr + cs * d;
+      // the context sums the previous piece handed on, and this piece's
+      const float* carry_in = ctx_ws + (size_t)((i + 1) & 1) * carry_rows(W) * d;
+      float* carry_out = ctx_ws + (size_t)(i & 1) * carry_rows(W) * d;
+      __syncthreads();  // the previous piece is done with the tiles
+      for (int s = tid; s < Sp; s += kThreads) {
+        s_tokc[s] = a.tok_c[cs + s];
+        s_keep[s] = a.keep_c[cs + s];
+        s_w[s] = a.w_c[cs + s];
+      }
+      for (int k = tid; k < SKp; k += kThreads)
+        s_tokk[k] = a.tok_k[bc * SK + s0 + k];
+      // sg: A holds the center rows (the first width piece); cbow: zeros
+      // that the projection fills
+      stage_rows(sA, tl.lda, SPp, round_up(piece_len(d, kDc, 0), kMmaK),
+                 CBOW ? 0 : Sp, piece_len(d, kDc, 0), [&](int s) {
+                   return emb + (size_t)a.tok_c[cs + s] * rs + (size_t)ctr_plane * d;
+                 });
+      a_at = CBOW ? -1 : 0;
       __syncthreads();
-    }
-    clk.mark(kPhaseMasks);
+      clk.mark(kPhaseRows);
+      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, a.K, KP};
 
-    // ---- positive logits: the sg band (tensor cores) or the cbow center,
-    // beside the first piece's negative weights (1.3% faster on the
-    // flagship than beside its negative logits, where band_core measured
-    // the other way; PERF.md §6 PR 19)
-    if constexpr (!CBOW) {
-      pos_acc += band_logits(band, tl, sA, d, alpha, s_gpb,
-                             [&](int q) { load(-1, q); }, bk_row);
-    } else {
-      pos_acc += center_logits(band, h_ws, d, alpha, s_gpc, a_row);
-    }
-
-    const int s_end = min(S, a.L - c * S);
-    float* dctr = a.d_ctr + bc * S * d;
-    for (int p = 0; p < nK; ++p) {
-      const int KPp = piece_len(KP, kKPc, p), KPPp = round_up(KPp, 2 * kMmaN);
-      const int j0 = p * kKPc;
-      const bool last = p == nK - 1;
-      if (nK > 1) {
-        __syncthreads();  // the previous piece is done with the ids
-        load_negs(p);
+      // ---- mask row sums (n_ctx) and slab column sums (cwy)
+      for (int s = tid; s < Sp; s += kThreads) {
+        const float n = band.row_sum(s);
+        s_nctx[s] = n;
+        a.n_ctx[cs + s] = n;
+      }
+      for (int k = tid; k < SKp; k += kThreads) s_cwy[k] = band.col_sum(k);
+      __syncthreads();
+      if constexpr (CBOW) {
+        projection(band, tp, d, a.cbow_mean != 0, hp, sA, bk_row);
+        if (nD == 1) a_at = 0;
         __syncthreads();
       }
-      // ---- negative weights (collision masks, pallas_step.py:213-223)
-      for (int i = tid; i < S * KPp; i += kThreads) {
-        const int s = i / KPp, j = i - s * KPp;
-        s_wn[i] = band.neg_weight<true, CBOW>(s, j);
-      }
-      __syncthreads();
       clk.mark(kPhaseMasks);
 
-      // ---- negative logits and weights (tensor cores), over the width
-      neg_acc += neg_logits(tl, d, [&](int q) { load(p, q); }, sA, sE, sG, s_wn,
-                            S, KPp, alpha);
-      __syncthreads();
-      clk.mark(kPhaseLogits);
-      // ---- w_neg_sum over the row's first L positions, continued from
-      // the previous chunk by the same thread
-      float* wsum = a.w_neg_sum + (size_t)b * KP + j0;
-      for (int j = tid; j < KPp; j += kThreads) {
-        float acc = c == 0 ? 0.f : wsum[j];
-        for (int s = 0; s < s_end; ++s) acc += s_wn[s * KPp + j];
-        wsum[j] = acc;
-      }
-
-      for (int q = 0; q < nD; ++q) {
-        const int dq = piece_len(d, kDc, q), DPq = round_up(dq, kMmaK);
-        const int off = q * kDc;
-        load(p, q);
-        // ---- d_neg += gn^T h over the row's first L positions (gn past
-        // them is cut in the registers), each output owned by one thread
-        // and continued chunk by chunk
-        float* dneg = a.d_neg + ((size_t)b * KP + j0) * d + off;
-        tile_pass<true, true>(KPPp, DPq, tl.SP, s_end, sG, tl.ldg, sA, tl.lda,
-                              [&](int j, const int (&col)[4], const float (&v)[4]) {
-                                add_row(dneg, d, dq, j, KPp, col, v, c > 0);
-                              });
-        __syncthreads();
-        clk.mark(kPhaseNeg);
-
-        // ---- center-side rows: d_hid = gn @ en (tensor cores), its
-        // running sum over the pieces in d_ctr (sg) or dh_ws (cbow); after
-        // the last piece the band product (sg) or the center update and
-        // d_hid2 (cbow, into A)
-        float* part = (CBOW ? dh_ws : dctr) + off;
-        auto partial = [&](int s, int e) -> float {
-          return (s < S && e < dq) ? part[(size_t)s * d + e] : 0.f;
-        };
-        auto w = [&](int s, int k) -> float {
-          return (s < S && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
-        };
-        block_pass(
-            tl.SP, DPq,
-            [&](float (&acc)[2][4], int m0, int n0) {
-              if (p > 0) load_block(acc, m0, n0, partial);
-              warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
-                                          KPPp, KPPp);
-              if (!CBOW && last)
-                band_rows_mma(acc, m0, n0, 2 * W, SK, dq, w, [&](int k) {
-                  const T* r = bk_row(k);
-                  return r != nullptr ? r + off : r;
-                });
-            },
-            [&](int s, const int (&col)[4], const float (&v)[4]) {
-              if (s >= S) return;
-              if (CBOW && last) {
-                cbow_center_row(s, col, v, s_gpc[s], a.cbow_mean != 0, s_nctx[s],
-                                a_row(s) + off, h_ws + off, dctr + off, d, dq, sA,
-                                tl.lda);
-                return;
-              }
-#pragma unroll
-              for (int u = 0; u < 4; ++u)
-                if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
-            });
-        if (CBOW && last) a_at = -1;  // A holds d_hid2 now
-        __syncthreads();
-        clk.mark(kPhaseCenter);
-        if (!last) continue;
-
-        // ---- slab-space context grads, overlap-added straight into token
-        // order: slots [W, S+W) are this chunk's rows (plus the previous
-        // chunk's right overhang, waiting in the first W), slots [0, W) add
-        // into the previous chunk's last W rows, slots [S+W, S+2W) wait in
-        // the next chunk's first W rows
-        context_tiles<CBOW>(
-            band, s_gpb, sA, tl.lda, SK, DPq,
-            [&](int k, const int (&col)[4], const float (&y)[4]) {
-#pragma unroll
-              for (int v = 0; v < 4; ++v) {
-                const int e = off + col[v];
-                if (k >= SK || col[v] >= dq) continue;
-                if (k < W) {
-                  if (c > 0) a.d_ctx[((bc - 1) * S + (S - W + k)) * d + e] += y[v];
-                } else if (k < S + W) {
-                  float* o = a.d_ctx + (bc * S + (k - W)) * d + e;
-                  const float left = (k - W < W && c > 0) ? *o : 0.f;
-                  *o = y[v] + left;
-                } else if (c + 1 < C) {
-                  a.d_ctx[((bc + 1) * S + (k - S - W)) * d + e] = y[v];
-                }
-              }
-            });
-        __syncthreads();
-        clk.mark(kPhaseContext);
-      }
-    }
-    for (int k = tid; k < SK; k += kThreads) {
-      const float y = s_cwy[k];
-      if (k < W) {
-        if (c > 0) a.ctx_w[(bc - 1) * S + (S - W + k)] += y;
-      } else if (k < S + W) {
-        const int s = k - W;
-        const float left =
-            (s < W && c > 0) ? s_cwtail[((c + 1) & 1) * W + s] : 0.f;
-        a.ctx_w[bc * S + s] = y + left;
+      // ---- positive logits: the sg band (tensor cores) or the cbow
+      // center, beside the first piece's negative weights (1.3% faster on
+      // the flagship than beside its negative logits, where band_core
+      // measured the other way; PERF.md §6)
+      if constexpr (!CBOW) {
+        pos_acc += band_logits(band, tp, sA, d, alpha, s_gpb,
+                               [&](int q) { load(-1, q); }, bk_row);
       } else {
-        s_cwtail[(c & 1) * W + (k - S - W)] = y;
+        pos_acc += center_logits(band, hp, d, alpha, s_gpc, a_row);
       }
+
+      for (int p = 0; p < nK; ++p) {
+        const int KPp = piece_len(KP, kKPc, p), KPPp = round_up(KPp, 2 * kMmaN);
+        const int j0 = p * kKPc;
+        const bool last = p == nK - 1;
+        if (nK > 1) {
+          __syncthreads();  // the previous piece is done with the ids
+          load_negs(p);
+          __syncthreads();
+        }
+        // ---- negative weights (collision masks, pallas_step.py:213-223)
+        for (int x = tid; x < Sp * KPp; x += kThreads) {
+          const int s = x / KPp, j = x - s * KPp;
+          s_wn[x] = band.neg_weight<true, CBOW>(s, j);
+        }
+        __syncthreads();
+        clk.mark(kPhaseMasks);
+
+        // ---- negative logits and weights (tensor cores), over the width
+        neg_acc += neg_logits(tp, d, [&](int q) { load(p, q); }, sA, sE, sG, s_wn,
+                              Sp, KPp, alpha);
+        __syncthreads();
+        clk.mark(kPhaseLogits);
+        // ---- w_neg_sum over the row's first L positions, continued from
+        // the previous piece and chunk by the same thread
+        float* wsum = a.w_neg_sum + (size_t)b * KP + j0;
+        for (int j = tid; j < KPp; j += kThreads) {
+          float acc = (c > 0 || i > 0) ? wsum[j] : 0.f;
+          for (int s = 0; s < e_end; ++s) acc += s_wn[s * KPp + j];
+          wsum[j] = acc;
+        }
+
+        for (int q = 0; q < nD; ++q) {
+          const int dq = piece_len(d, kDc, q), DPq = round_up(dq, kMmaK);
+          const int off = q * kDc;
+          load(p, q);
+          // ---- d_neg += gn^T h over the row's first L positions (gn past
+          // them is cut in the registers), each output owned by one thread:
+          // the chunk's product, its accumulator handed from piece to piece
+          // through dneg_ws, then added to the earlier chunks' sum
+          float* dneg = a.d_neg + ((size_t)b * KP + j0) * d + off;
+          float* dpart = a.dneg_ws + ((size_t)b * KP + j0) * d + off;
+          tile_pass<true, true>(
+              KPPp, DPq, SPp, e_end, sG, tl.ldg, sA, tl.lda,
+              [&](float (&acc)[2][4], int m0, int n0) {
+                if (i > 0)
+                  load_block(acc, m0, n0, [&](int j, int e) -> float {
+                    return (j < KPp && e < dq) ? dpart[(size_t)j * d + e] : 0.f;
+                  });
+              },
+              [&](int j, const int (&col)[4], const float (&v)[4]) {
+                if (more) {
+                  add_row(dpart, d, dq, j, KPp, col, v, false);
+                } else {
+                  add_row(dneg, d, dq, j, KPp, col, v, c > 0);
+                }
+              });
+          __syncthreads();
+          clk.mark(kPhaseNeg);
+
+          // ---- center-side rows: d_hid = gn @ en (tensor cores), its
+          // running sum over the pieces in d_ctr (sg) or dh_ws (cbow); after
+          // the last piece the band product (sg) or the center update and
+          // d_hid2 (cbow, into A)
+          float* part = (CBOW ? dhp : dctr) + off;
+          auto partial = [&](int s, int e) -> float {
+            return (s < Sp && e < dq) ? part[(size_t)s * d + e] : 0.f;
+          };
+          auto w = [&](int s, int k) -> float {
+            return (s < Sp && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+          };
+          block_pass(
+              SPp, DPq,
+              [&](float (&acc)[2][4], int m0, int n0) {
+                if (p > 0) load_block(acc, m0, n0, partial);
+                warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
+                                            KPPp, KPPp);
+                if (!CBOW && last)
+                  band_rows_mma(acc, m0, n0, 2 * W, SKp, dq, w, [&](int k) {
+                    const T* r = bk_row(k);
+                    return r != nullptr ? r + off : r;
+                  });
+              },
+              [&](int s, const int (&col)[4], const float (&v)[4]) {
+                if (s >= Sp) return;
+                if (CBOW && last) {
+                  cbow_center_row(s, col, v, s_gpc[s], a.cbow_mean != 0, s_nctx[s],
+                                  a_row(s) + off, hp + off, dctr + off, d, dq, sA,
+                                  tl.lda);
+                  return;
+                }
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                  if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
+              });
+          if (CBOW && last) a_at = -1;  // A holds d_hid2 now
+          __syncthreads();
+          clk.mark(kPhaseCenter);
+          if (!last) continue;
+
+          // ---- slab-space context grads: a slot the next piece reaches
+          // too leaves as its accumulator (carry_out) and the next piece
+          // continues it (carry_in); whole sums go straight into token
+          // order (overlap_row)
+          context_tiles<CBOW>(
+              band, s_gpb, sA, tl.lda, SKp, DPq,
+              [&](float (&acc)[2][4], int m0, int n0) {
+                if (i > 0 && m0 < 2 * W)
+                  load_block(acc, m0, n0, [&](int k, int e) -> float {
+                    return e < dq ? carry_in[(size_t)k * d + off + e] : 0.f;
+                  });
+              },
+              [&](int k, const int (&col)[4], const float (&y)[4]) {
+                if (more && k >= Sp) {
+                  add_row(carry_out + off, d, dq, k - Sp, carry_rows(W), col, y,
+                          false);
+                  return;
+                }
+#pragma unroll
+                for (int v = 0; v < 4; ++v)
+                  if (k < SKp && col[v] < dq)
+                    overlap_row(a.d_ctx, bc, c, C, S, W, d, s0 + k, off + col[v],
+                                y[v]);
+              });
+          __syncthreads();
+          clk.mark(kPhaseContext);
+        }
+      }
+      for (int k = tid; k < SKp; k += kThreads)
+        overlap_cw(a.ctx_w, s_cwtail, bc, c, S, W, s0 + k, s_cwy[k],
+                   i > 0 && k < 2 * W);
     }
   }
   block_losses(pos_acc, neg_acc, s_red, a.loss_part + (size_t)b * 2);
@@ -916,10 +1005,19 @@ cudaError_t launch_scatter_vec(void* emb, const int* idx, const void* vals,
   }
 }
 
+// the body a launch of this shape runs: tensor cores (bf16 compute) or
+// f32, and on the tensor cores a chunk of one center piece or of several
+template <typename T, bool CBOW>
+auto grad_core_kernel(bool tc, bool pieced) -> void (*)(GradArgs) {
+  if (!tc) return &grad_core_f32_kernel<T, CBOW>;
+  return pieced ? &grad_core_tc_kernel<T, CBOW, true>
+                : &grad_core_tc_kernel<T, CBOW, false>;
+}
+
 template <typename T, bool CBOW>
 cudaError_t launch_grad(const GradArgs& a, int B, size_t smem, bool tc,
-                        cudaStream_t st) {
-  auto kern = tc ? &grad_core_tc_kernel<T, CBOW> : &grad_core_f32_kernel<T, CBOW>;
+                        bool pieced, cudaStream_t st) {
+  auto kern = grad_core_kernel<T, CBOW>(tc, pieced);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -929,15 +1027,15 @@ cudaError_t launch_grad(const GradArgs& a, int B, size_t smem, bool tc,
 
 template <typename T>
 cudaError_t launch_grad_model(const GradArgs& a, int B, size_t smem, bool tc,
-                              cudaStream_t st, int is_cbow) {
-  return is_cbow ? launch_grad<T, true>(a, B, smem, tc, st)
-                 : launch_grad<T, false>(a, B, smem, tc, st);
+                              bool pieced, cudaStream_t st, int is_cbow) {
+  return is_cbow ? launch_grad<T, true>(a, B, smem, tc, pieced, st)
+                 : launch_grad<T, false>(a, B, smem, tc, pieced, st);
 }
 
 // resident blocks a SM of the body a launch at this shared memory runs
 template <typename T, bool CBOW>
-cudaError_t grad_occupancy(int* n, size_t smem, bool tc) {
-  auto kern = tc ? &grad_core_tc_kernel<T, CBOW> : &grad_core_f32_kernel<T, CBOW>;
+cudaError_t grad_occupancy(int* n, size_t smem, bool tc, bool pieced) {
+  auto kern = grad_core_kernel<T, CBOW>(tc, pieced);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -951,8 +1049,9 @@ extern "C" {
 // bf16 compute runs the tensor-core body, f32 compute the f32 one
 size_t w2v_grad_core_smem_bytes(int S, int SK, int KP, int d, int W,
                                 int cdt_bf16) {
-  return cdt_bf16 ? grad_tc_smem_bytes(S, SK, KP, d, W)
-                  : grad_smem_words(S, SK, KP, W) * sizeof(float);
+  (void)SK;  // S + 2W: a piece's slots follow from its centers
+  return cdt_bf16 ? grad_tc_smem_bytes(S, KP, d, W)
+                  : grad_smem_words(S, KP, W) * sizeof(float);
 }
 
 const char* w2v_error_string(int err) {
@@ -964,15 +1063,15 @@ const char* w2v_error_string(int err) {
 int w2v_grad_core_blocks_per_sm(int S, int SK, int KP, int d, int W,
                                 int table_bf16, int cdt_bf16, int is_cbow) {
   const size_t smem = w2v_grad_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0;
+  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
   int n = 0;
   cudaError_t err;
   if (table_bf16) {
-    err = is_cbow ? grad_occupancy<__nv_bfloat16, true>(&n, smem, tc)
-                  : grad_occupancy<__nv_bfloat16, false>(&n, smem, tc);
+    err = is_cbow ? grad_occupancy<__nv_bfloat16, true>(&n, smem, tc, pieced)
+                  : grad_occupancy<__nv_bfloat16, false>(&n, smem, tc, pieced);
   } else {
-    err = is_cbow ? grad_occupancy<float, true>(&n, smem, tc)
-                  : grad_occupancy<float, false>(&n, smem, tc);
+    err = is_cbow ? grad_occupancy<float, true>(&n, smem, tc, pieced)
+                  : grad_occupancy<float, false>(&n, smem, tc, pieced);
   }
   return err == cudaSuccess ? n : -(int)err;
 }
@@ -983,19 +1082,22 @@ int w2v_fused_grad_core(const void* emb, int table_bf16, const int* tok_c,
                         float* d_ctr, float* d_ctx, float* n_ctx,
                         float* ctx_w, float* d_neg, float* w_neg_sum,
                         float* loss_part, float* losses, float* h_ws,
-                        float* dh_ws, int B, int C, int S, int SK, int KP,
-                        int d, int W, int K, int L, int cdt_bf16, int is_cbow,
-                        int cbow_mean, long long* phase_rec, void* stream) {
+                        float* dh_ws, float* dneg_ws, float* ctx_ws, int B,
+                        int C, int S, int SK, int KP, int d, int W, int K,
+                        int L, int cdt_bf16, int is_cbow, int cbow_mean,
+                        long long* phase_rec, void* stream) {
   GradArgs a{emb,   tok_c,     tok_k,     keep_c, w_c,   negs,  alpha,
              d_ctr, d_ctx,     n_ctx,     ctx_w,  d_neg, w_neg_sum,
-             loss_part, h_ws,  dh_ws,     C,      S,     SK,    KP,
-             d,     W,         K,         L,      cbow_mean, phase_rec};
+             loss_part, h_ws,  dh_ws,     dneg_ws, ctx_ws, C,   S,
+             SK,    KP,        d,         W,      K,     L,     cbow_mean,
+             phase_rec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = w2v_grad_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0;
+  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
   const cudaError_t err =
-      table_bf16 ? launch_grad_model<__nv_bfloat16>(a, B, smem, tc, st, is_cbow)
-                 : launch_grad_model<float>(a, B, smem, tc, st, is_cbow);
+      table_bf16
+          ? launch_grad_model<__nv_bfloat16>(a, B, smem, tc, pieced, st, is_cbow)
+          : launch_grad_model<float>(a, B, smem, tc, pieced, st, is_cbow);
   if (err != cudaSuccess) return (int)err;
   loss_reduce_kernel<<<1, 32, 0, st>>>(loss_part, losses, B);
   return (int)cudaGetLastError();

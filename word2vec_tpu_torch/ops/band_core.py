@@ -39,8 +39,8 @@ import torch.nn.functional as F
 from .. import _build
 from .banded import band_dist
 from .launch import (
-    check, check_smem, core_smem_bytes, count, on_cuda, phase_record,
-    scalar_arg, stream,
+    check, check_smem, core_smem_bytes, core_workspaces, count, on_cuda,
+    phase_record, scalar_arg, stream,
 )
 
 CoreOutputs = Tuple[torch.Tensor, ...]
@@ -232,6 +232,9 @@ def band_core(
     ws_shape = (B, S, d) if is_cbow else (0,)
     h_ws = torch.empty(ws_shape, **f32)
     dh_ws = torch.empty(ws_shape, **f32)
+    # what a chunk past one center piece hands from piece to piece
+    dneg_ws, wsum_ws = core_workspaces(
+        "band_core", B, S, KP, d, W, cdt == torch.bfloat16, dev)
 
     lib = _build.library("band_core")
     with torch.cuda.device(dev):
@@ -244,6 +247,7 @@ def band_core(
             ctx_w.data_ptr(), dneg_row.data_ptr(), wsum_row.data_ptr(),
             d_neg.data_ptr(), w_neg_sum.data_ptr(), loss_part.data_ptr(),
             losses.data_ptr(), h_ws.data_ptr(), dh_ws.data_ptr(),
+            dneg_ws.data_ptr(), wsum_ws.data_ptr(),
             B, C, S, SK, KP, d, W, K, int(shared),
             int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean), rec,
             stream(dev),

@@ -30,8 +30,8 @@ import torch
 from .. import _build
 from .banded import _overlap_add, band_dist
 from .launch import (
-    check, check_smem, core_smem_bytes, count, on_cuda, phase_record,
-    scalar_arg, stream,
+    check, check_smem, core_smem_bytes, core_workspaces, count, on_cuda,
+    phase_record, scalar_arg, stream,
 )
 from .runs import check_runs, find_runs, ordered_add_plain
 
@@ -232,6 +232,9 @@ def fused_grad_core(
     ws_shape = (B, S, d) if is_cbow else (0,)
     h_ws = torch.empty(ws_shape, **f32)
     dh_ws = torch.empty(ws_shape, **f32)
+    # what a chunk past one center piece hands from piece to piece
+    dneg_ws, ctx_ws = core_workspaces(
+        "fused_grad_core", B, S, KP, d, W, cdt == torch.bfloat16, dev)
 
     lib = _build.library("fused_step")
     with torch.cuda.device(dev):
@@ -242,8 +245,8 @@ def fused_grad_core(
             d_ctr.data_ptr(), d_ctx.data_ptr(), n_ctx.data_ptr(),
             ctx_w.data_ptr(), d_neg.data_ptr(), w_neg_sum.data_ptr(),
             loss_part.data_ptr(), losses.data_ptr(),
-            h_ws.data_ptr(), dh_ws.data_ptr(),
-            B, C, S, SK, KP, d, W, K, L,
+            h_ws.data_ptr(), dh_ws.data_ptr(), dneg_ws.data_ptr(),
+            ctx_ws.data_ptr(), B, C, S, SK, KP, d, W, K, L,
             int(cdt == torch.bfloat16), int(is_cbow), int(cbow_mean), rec,
             stream(dev),
         )

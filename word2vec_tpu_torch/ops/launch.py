@@ -53,9 +53,11 @@ def phase_record(name: str, phase_cycles, rows: int, dev) -> int:
 SMEM_PER_BLOCK = 232_448
 #: warps of a band-core block (csrc/band_tiles.cuh kThreads / 32)
 _CORE_WARPS = 16
-#: the band cores' pieces (csrc/band_tiles.cuh kKPc, kDc): negative rows
-#: and columns the tiles hold at once; a wider pool or row is walked in
-#: pieces, so a block's shared memory stops growing with KP and d past them
+#: the band cores' pieces (csrc/band_tiles.cuh kSc, kKPc, kDc): centers,
+#: negative rows and columns the tiles hold at once; a longer chunk, a
+#: wider pool or row is walked in pieces, so a block's shared memory stops
+#: growing with S, KP and d past them
+CORE_S_PIECE = 128
 CORE_KP_PIECE = 64
 CORE_D_PIECE = 304
 
@@ -72,31 +74,45 @@ def core_smem_bytes(
     csrc/fused_step.cu) and w2v_band_core_smem_bytes ("band_core",
     csrc/band_core.cu), for bf16 compute (the tensor-core body: the bf16
     tiles of band_tiles.cuh's TileLayout, one piece wide, then f32 words)
-    or f32 compute. Past one piece it depends on S and W only. The card run
-    holds it equal to the library's (chip_smoke.py phase 12)."""
+    or f32 compute. SK = S + 2W (a center piece's slots follow from its
+    centers; both keep the argument for the libraries' signature). Past one
+    piece of each it depends on W alone (the band logits of a center
+    piece, kSc x (2W + 1) words). The card run holds it equal to the
+    library's (chip_smoke.py phase 12)."""
     NB = 2 * W + 1
+    Sc = min(S, CORE_S_PIECE)
+    SKc = Sc + 2 * W
     KPc = min(KP, CORE_KP_PIECE)
-    words = S * 4 + SK * 2 + KPc + S * NB + S + 2 * _CORE_WARPS
+    words = Sc * 4 + SKc * 2 + KPc + Sc * NB + Sc + 2 * _CORE_WARPS
     if kernel == "fused_grad_core":
         words += 2 * W  # ctx_w's right overhang, two buffers
     elif kernel != "band_core":
         raise ValueError(f"no band core named {kernel!r}")
     if not bf16:
-        return 4 * (words + S * KPc * 2)
-    SP, KPP = _round_up(S, 16), _round_up(KPc, 16)
+        return 4 * (words + Sc * KPc * 2)
+    SP, KPP = _round_up(Sc, 16), _round_up(KPc, 16)
     lda, ldg = _round_up(min(d, CORE_D_PIECE), 16) + 8, KPP + 8
     tiles = 2 * (SP * lda + KPP * lda + SP * ldg)
-    return tiles + 4 * (words + S * KPc)
+    return tiles + 4 * (words + Sc * KPc)
 
 
-def max_core_chunk(kernel: str, KP: int, d: int, W: int, bf16: bool) -> int:
-    """The largest chunk S whose band core fits one block's shared memory
-    (SMEM_PER_BLOCK) at this KP, d and W: past one piece of each, a bound
-    on S alone (ROADMAP Queue C, C8's residue)."""
-    S = 2 * W
-    while core_smem_bytes(kernel, S + 1, S + 1 + 2 * W, KP, d, W, bf16) <= SMEM_PER_BLOCK:
-        S += 1
-    return S
+def core_workspaces(
+    kernel: str, B: int, S: int, KP: int, d: int, W: int, bf16: bool, dev
+):
+    """The f32 device workspaces a band core's chunk of S centers hands
+    from one center piece to the next (csrc/band_tiles.cuh): none (empty
+    tensors) when the chunk is one piece. fused_grad_core: its d_neg so
+    far [B, KP, d] (the tensor-core body only: the f32 body carries d_neg
+    in its output) and the context sums of the slots two pieces share [B,
+    2, round_up(2W, 16), d] (two buffers, by piece parity); band_core: its
+    d_neg and w_neg_sum so far, [B, KP, d] and [B, KP]."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    if S <= CORE_S_PIECE:
+        return torch.empty((0,), **f32), torch.empty((0,), **f32)
+    fused = kernel == "fused_grad_core"
+    dneg = (B, KP, d) if bf16 or not fused else (0,)
+    second = (B, 2, _round_up(2 * W, 16), d) if fused else (B, KP)
+    return torch.empty(dneg, **f32), torch.empty(second, **f32)
 
 
 def check_smem(name: str, smem: int, dev: torch.device) -> None:
