@@ -395,22 +395,26 @@ Phases (any failure exits non-zero and prints no result line):
      at d 1000 and on pallas at batch scope with KP 256 (phase 5's corpus,
      V = 71,000): 6 graphed steps bitwise the eager run, 24 graphed steps
      whose loss falls, launches exact. One wide_phase JSON line.
- 18. long chunks: both band cores past one center piece
+ 18. long chunks and wide windows: both band cores past one center piece
      (csrc/band_tiles.cuh kSc = 128, the chunk walked in pieces with their
-     2W halo). (a) At each LONG_SHAPES entry (S 174 at L 348; S 333 and
-     500 at L 1000, the C word2vec's sentence cut; S 500 at W 10; S 500 at
-     d 1000 / KP 256; 3 rows): sg and cbow, f32 and bf16 tables, bf16 and
-     f32 compute, band_core in row and batch scope, within phase 3's
-     tolerance of the plain version and two calls bitwise equal; then each
-     shape at 256 rows beside the auto S of the same L, widths and window:
-     ms, plain ms, the bound, the shared memory a block (library == host
-     copy, the same at every S past one piece) and blocks a SM. (b) The
-     Trainer on pallas_fused/unified and pallas/split at max_sentence_len
-     1000 and band_chunk 500 over phase 5's vocabulary in rows of 1000
-     tokens: 6 graphed steps bitwise the eager run, 24 graphed steps whose
-     loss falls, launches exact. (c) probe_plan of that pallas_fused plan
-     from the card's grid: no error record, launches exact. One
-     long_phase JSON line.
+     2W halo) and past one slot piece (kKc = 160 slots a center piece's
+     band weights hold). (a) At each LONG_SHAPES entry (S 174 at L 348; S
+     333 and 500 at L 1000, the C word2vec's sentence cut; S 500 at W 10;
+     S 500 at d 1000 / KP 256; W 61, 64 and 95 at L 192; W 100 (S 200),
+     160 (S 320) and 499 (S 998) at L 1000; W 100 at d 1000 / KP 256; 3
+     rows): sg and cbow, f32 and bf16 tables, bf16 and f32 compute,
+     band_core in row and batch scope, within phase 3's tolerance of the
+     plain version and two calls bitwise equal; then each shape at 256
+     rows beside the auto S of the same L, widths and window (W 160 with
+     f32 compute, the rest bf16): ms, plain ms, the bound, the shared
+     memory a block (library == host copy, the same at every S past one
+     center piece and every W past one slot piece) and blocks a SM. (b)
+     The Trainer on pallas_fused/unified and pallas/split at
+     max_sentence_len 1000 and band_chunk 500, and at W 100 with the auto
+     S, over phase 5's vocabulary in rows of 1000 tokens: 6 graphed steps
+     bitwise the eager run, 24 graphed steps whose loss falls, launches
+     exact. (c) probe_plan of both pallas_fused plans from the card's
+     grid: no error record, launches exact. One long_phase JSON line.
 The line before the card line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4356,7 +4360,8 @@ def planner_shapes(dev, vocab, corpus):
             for kp in (16, 32, 64, 256):
                 for d in (D, 1000):
                     for bf in (1, 0):
-                        for w in (W, 10):
+                        # and windows past one slot piece (phase 18)
+                        for w in (W, 10, 61, 64, 100, 499):
                             host = launch.core_smem_bytes(kernel, S, S + 2 * w, kp,
                                                           d, w, bool(bf))
                             lib_b = get(S, S + 2 * w, kp, d, w, bf)
@@ -6056,8 +6061,10 @@ def mp_phase(dev, vocab, corpus, card, tmp):
 EL_PROCS = 3          # processes at launch, all on the one card
 EL_EVERY = 8          # dp_sync_every (the default 64 cut: >= 2 syncs a generation)
 EL_ROWS = 8 * B       # rows a shard: an epoch is 8 global steps, one chunk, one sync
-EL_ITERS = 8          # epochs: 64 global steps (legs a and b)
-EL_ITERS_C = 24       # leg c: 192, so generation 1 outlasts the evicted host's cold start
+EL_ITERS = 7          # epochs: 56 global steps (legs a and b; a rejoin admitted at
+                      # 32 or 40 still trains two syncs)
+EL_ITERS_C = 20       # leg c: 160, so generation 1 outlasts the evicted host's cold
+                      # start and generation 2 (at 128, or 144) trains two syncs
 EL_KILL = 16          # the peer_rejoin / rank0_dead boundary
 EL_CKPT = 16          # --checkpoint-every
 EL_DEADLINE = 10.0    # --sync-deadline
@@ -6911,7 +6918,11 @@ def phase_wide(dev, vocab, corpus, card):
 #: in center pieces), S 333 and 500 at L 1000, the C word2vec's sentence
 #: cut (the planner's L/3 and L/2; S 333 leaves a one-center last chunk),
 #: S 500 at W 10, and S 500 at d 1000 / KP 256, where the chunk, the pool
-#: and the width are all in pieces
+#: and the width are all in pieces; and past one slot piece (kKc = 160): W
+#: 61 (the first window a block refused with bf16 compute before the band
+#: was walked in slot pieces), 64 and 95 (the widest JAX takes) at L 192
+#: with their auto S = 2W; W 100, 160 (the first refused with f32 compute)
+#: and 499 (the widest at L 1000) with theirs, and W 100 at d 1000 / KP 256
 LONG_L = 1000
 LONG_SHAPES = {
     "s174-l348": (300, 64, 5, 174, 348),
@@ -6919,11 +6930,24 @@ LONG_SHAPES = {
     "s500-l1000": (300, 64, 5, 500, LONG_L),
     "w10-s500-l1000": (300, 64, 10, 500, LONG_L),
     "d1000-kp256-s500-l1000": (1000, 256, 5, 500, LONG_L),
+    "w61-l192": (300, 64, 61, 122, L),
+    "w64-l192": (300, 64, 64, 128, L),
+    "w95-l192": (300, 64, 95, 190, L),
+    "w100-l1000": (300, 64, 100, 200, LONG_L),
+    "w160-l1000": (300, 64, 160, 320, LONG_L),
+    "w499-l1000": (300, 64, 499, 998, LONG_L),
+    "d1000-kp256-w100-l1000": (1000, 256, 100, 200, LONG_L),
 }
-#: (b)'s trainer runs at max_sentence_len LONG_L, band_chunk L/2, over
-#: long_corpus's 8 batches an epoch (4 epochs hold WIDE_STEPS)
+#: the shapes timed with f32 compute (the rest with bf16)
+LONG_F32_TIMED = {"w160-l1000"}
+#: the window of (b)'s second pair of trainer runs and (c)'s second probe
+LONG_W = 100
+#: (b)'s trainer runs at max_sentence_len LONG_L, band_chunk L/2 and, at
+#: window LONG_W, the auto S, over long_corpus's 8 batches an epoch (4
+#: epochs hold WIDE_STEPS)
 LONG_TRAINERS = tuple(
-    (backend, layout, dict(max_sentence_len=LONG_L, band_chunk=LONG_L // 2, iters=4))
+    (backend, layout, dict(max_sentence_len=LONG_L, iters=4, **over))
+    for over in (dict(band_chunk=LONG_L // 2), dict(window=LONG_W, band_chunk=0))
     for backend, layout in (("pallas_fused", "unified"), ("pallas", "split")))
 
 
@@ -6932,11 +6956,12 @@ def long_cores(dev, card):
     sg / cbow, f32 / bf16 tables, bf16 / f32 compute, band_core in row and
     batch scope, each within phase 3's tolerance of its plain version and
     two calls bitwise equal; then each shape at the flagship's B rows (sg,
-    f32 tables, bf16 compute; band_core in row scope, and batch scope at KP
-    256) beside the auto S of the same L, widths and window: the kernel's
-    ms, the plain version's, the bound, the shared memory a block (library
-    == host copy, the same at every S past one center piece) and the
-    resident blocks a SM."""
+    f32 tables, bf16 compute, LONG_F32_TIMED f32; band_core in row scope,
+    and batch scope at KP 256) beside the auto S of the same L, widths and
+    window: the kernel's ms, the plain version's, the bound, the shared
+    memory a block (library == host copy, the same at every S past one
+    center piece and at every W past one slot piece) and the resident
+    blocks a SM."""
     from word2vec_tpu_torch import _build
     from word2vec_tpu_torch.ops import band_core as bc
     from word2vec_tpu_torch.ops import fused_step as fs
@@ -6948,23 +6973,25 @@ def long_cores(dev, card):
     n_checked = 0
     for shape, (d, kp, w, S, Ll) in LONG_SHAPES.items():
         geo = dict(V=4000, d=d, B=WIDE_ROWS, L=Ll, W=w, S=S, KP=kp)
-        for cdt in (torch.bfloat16, torch.float32):
-            for model in ("sg", "cbow"):
-                for table in (torch.float32, torch.bfloat16):
+        for model in ("sg", "cbow"):
+            for table in (torch.float32, torch.bfloat16):
+                # the inputs, made once for both compute types
+                inp = small_grad_inputs(table=table, **geo)
+                ins = [("fused_grad_core", fs.fused_grad_core,
+                        fs.fused_grad_core_plain,
+                        [inp[k].to(dev) for k in GRAD_ORDER], dict(L=Ll), GRAD_NAMES)]
+                for scope in ("row", "batch"):
+                    inp = small_core_inputs(table=table, scope=scope, model=model,
+                                            **geo)
+                    ins.append((f"band_core {scope}", bc.band_core, bc.band_core_plain,
+                                [inp[k].to(dev) for k in CORE_ORDER], {}, CORE_NAMES))
+                for cdt in (torch.bfloat16, torch.float32):
                     tag = (f"{shape} {model} {str(table)[6:]} tables "
                            f"cdt={str(cdt)[6:]}")
-                    inp = small_grad_inputs(table=table, **geo)
-                    args = [inp[k].to(dev) for k in GRAD_ORDER]
-                    kw = dict(W=w, K=K, L=Ll, cdt=cdt, is_cbow=model == "cbow")
-                    calls = [("fused_grad_core", fs.fused_grad_core,
-                              fs.fused_grad_core_plain, args, kw, GRAD_NAMES)]
-                    for scope in ("row", "batch"):
-                        inp = small_core_inputs(table=table, scope=scope,
-                                                model=model, **geo)
-                        cargs = [inp[k].to(dev) for k in CORE_ORDER]
-                        ckw = dict(W=w, K=K, cdt=cdt, is_cbow=model == "cbow")
-                        calls.append((f"band_core {scope}", bc.band_core,
-                                      bc.band_core_plain, cargs, ckw, CORE_NAMES))
+                    calls = [(name, call, plain, a,
+                              dict(W=w, K=K, cdt=cdt, is_cbow=model == "cbow", **more),
+                              names)
+                             for name, call, plain, a, more, names in ins]
                     for name, call, plain, a, k, names in calls:
                         got = call(*a, 0.03, **k)
                         again = call(*a, 0.03, **k)
@@ -6978,57 +7005,66 @@ def long_cores(dev, card):
             "rows): both cores, sg/cbow, f32/bf16 tables, bf16/f32 compute, "
             "row/batch: within tolerance, repeatable bitwise")
     rows = []
-    for group in sorted({v[:3] + v[4:] for v in LONG_SHAPES.values()}):
-        d, kp, w, Ll = group
+    groups = {}  # (d, KP, W, L, timed compute type) -> shapes
+    for shape, (d, kp, w, S, Ll) in LONG_SHAPES.items():
+        cdt = torch.float32 if shape in LONG_F32_TIMED else torch.bfloat16
+        groups.setdefault((d, kp, w, Ll, cdt), []).append((shape, S))
+    for (d, kp, w, Ll, cdt), shapes in groups.items():
         base = grad_inputs(dev, torch.float32, d=d, kp=kp, w=w, l=Ll)
         auto = resolve_chunk(Ll, w, 0)
-        runs = [(f"d{d}-kp{kp}-w{w}-l{Ll}-auto", auto)] + [
-            (shape, v[3]) for shape, v in LONG_SHAPES.items()
-            if v[:3] + v[4:] == group]
+        runs = [(shape, S) for shape, S in shapes]
+        if auto not in [S for _, S in runs]:
+            runs.insert(0, (f"d{d}-kp{kp}-w{w}-l{Ll}-auto", auto))
+        runs.sort(key=lambda r: r[1] != auto)  # the auto S first
+        bf = int(cdt == torch.bfloat16)
         auto_ms = {}
         for shape, S in runs:
             inp = rechunk(base, S)
             gargs = tuple(inp[k] for k in GRAD_ORDER) + (inp["alpha"],)
-            kw = dict(W=w, K=K, L=Ll, cdt=torch.bfloat16, is_cbow=False)
+            kw = dict(W=w, K=K, L=Ll, cdt=cdt, is_cbow=False)
             calls = [("fused_grad_core", "row",
                       lambda: fs.fused_grad_core(*gargs, **kw),
                       lambda: fs.fused_grad_core_plain(*gargs, **kw),
-                      grad_bound(inp, torch.bfloat16, False))]
+                      grad_bound(inp, cdt, False))]
             for scope in ("row", "batch") if kp > launch.CORE_KP_PIECE else ("row",):
                 cargs = core_inputs(inp, "sg", scope)
-                ckw = dict(W=w, K=K, cdt=torch.bfloat16, is_cbow=False)
+                ckw = dict(W=w, K=K, cdt=cdt, is_cbow=False)
                 calls.append(("band_core", scope,
                               lambda a=cargs, k=ckw: bc.band_core(*a, **k),
                               lambda a=cargs, k=ckw: bc.band_core_plain(*a, **k),
-                              core_bound(cargs, torch.bfloat16, False)))
+                              core_bound(cargs, cdt, False)))
             for name, scope, call, plain_call, (bms, by) in calls:
                 lib, short = libs[name]
                 smem = getattr(lib, f"w2v_{short}_core_smem_bytes")(S, S + 2 * w, kp,
-                                                                    d, w, 1)
-                host = launch.core_smem_bytes(name, S, S + 2 * w, kp, d, w, True)
-                piece = launch.core_smem_bytes(name, launch.CORE_S_PIECE,
-                                               launch.CORE_S_PIECE + 2 * w, kp, d, w,
-                                               True)
-                if smem != host or (S > launch.CORE_S_PIECE and host != piece):
+                                                                    d, w, bf)
+                host = launch.core_smem_bytes(name, S, S + 2 * w, kp, d, w, bool(bf))
+                # past one slot piece (bf16 compute: a pieced chunk), the
+                # size of any wider window
+                Kc = launch.CORE_K_PIECE
+                wider = launch.core_smem_bytes(name, S, S + 2 * Kc, kp, d, Kc, bool(bf))
+                slots = (launch.core_pieced(S, w) if bf
+                         else min(S, launch.CORE_S_PIECE) + 2 * w > Kc)
+                if smem != host or (slots and host != wider):
                     fail(f"{name} {shape}: shared memory library {smem}, host "
-                         f"{host}, one center piece {piece}")
+                         f"{host}, a wider window {wider}")
                 per_sm = getattr(lib, f"w2v_{short}_core_blocks_per_sm")(
-                    S, S + 2 * w, kp, d, w, 0, 1, 0)
+                    S, S + 2 * w, kp, d, w, 0, bf, 0)
                 if per_sm < 1:
                     fail(f"{name} {shape}: occupancy {per_sm}")
-                ms = cuda_ms(call, reps=10)
+                ms = cuda_ms(call, reps=10 if w < 100 else 5)
                 plain = cuda_ms(plain_call, reps=2, warmup=1)
                 ratio = ms / auto_ms.setdefault((name, scope), ms)
                 rows.append({"shape": shape, "d": d, "KP": kp, "W": w, "S": S,
-                             "L": Ll, "kernel": name, "scope": scope, "ms": ms,
-                             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                             "smem_bytes": smem, "blocks_per_sm": per_sm,
-                             "vs_auto_s": ratio})
-                log(f"  (a) {name} {shape} (S={S}) {scope}, B={B}, L={Ll}: "
-                    f"{ms:.4f} ms ({ratio:.3f}x the auto S), plain {plain:.4f} ms, "
-                    f"bound {bms:.4f} ms ({by}); {smem} B shared memory a block, "
-                    f"{per_sm} block(s) a SM ({card})")
+                             "L": Ll, "cdt": str(cdt)[6:], "kernel": name,
+                             "scope": scope, "ms": ms, "plain_ms": plain,
+                             "bound_ms": bms, "bound_by": by, "smem_bytes": smem,
+                             "blocks_per_sm": per_sm, "vs_auto_s": ratio})
+                log(f"  (a) {name} {shape} (S={S}) {scope}, B={B}, L={Ll}, "
+                    f"cdt={str(cdt)[6:]}: {ms:.4f} ms ({ratio:.3f}x the auto S), "
+                    f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); {smem} B "
+                    f"shared memory a block, {per_sm} block(s) a SM ({card})")
             del inp, gargs, calls
+            torch.cuda.empty_cache()
         del base
         torch.cuda.empty_cache()
     return {"checked": n_checked, "timed": rows}
@@ -7043,33 +7079,34 @@ def long_corpus(vocab):
         zipf_corpus_ids(vocab, 8 * B * LONG_L, seed=17, sentence_len=LONG_L), LONG_L)
 
 
-def long_probe(dev, vocab, corpus):
-    """(c): probe_plan (what --autotune probe times) of the card grid's
-    L/2 plan at max_sentence_len LONG_L on pallas_fused/unified: no error
-    record, launches exact (the capture's warm-up step + 3 dispatches of 2
-    steps)."""
+def long_probe(dev, vocab, corpus, **over):
+    """(c): probe_plan (what --autotune probe times) of a pallas_fused plan
+    of the card grid at max_sentence_len LONG_L (`over`: its band_chunk
+    and window) on pallas_fused/unified: no error record, launches exact
+    (the capture's warm-up step + 3 dispatches of 2 steps)."""
     from word2vec_tpu_torch.tune import planner
 
-    cfg = flagship_cfg("pallas_fused", "unified", max_sentence_len=LONG_L,
-                       band_chunk=LONG_L // 2)
+    cfg = flagship_cfg("pallas_fused", "unified", max_sentence_len=LONG_L, **over)
     plan = cfg.current_plan()
+    tag = f"L={LONG_L} W={cfg.window} S={cfg.band_chunk}"
     if plan not in planner.candidate_grid(cfg, V, {"platform": "gpu"}):
-        fail(f"the card's grid at L {LONG_L} does not offer {plan}")
+        fail(f"the card's grid at {tag} does not offer {plan}")
     rec = planner.probe_plan(cfg, plan, vocab, corpus, device=dev)
     planner.free_probe_residue(dev)
     want = expected_launches("pallas_fused", "unified", 1 + 3 * 2)
     if "error" in rec or rec["launches"] != want:
-        fail(f"probe pallas_fused L={LONG_L} S={LONG_L // 2}: {rec.get('error')} "
+        fail(f"probe pallas_fused {tag}: {rec.get('error')} "
              f"launches {rec.get('launches')} != {want}")
-    log(f"  (c) probe pallas_fused/unified L={LONG_L} S={LONG_L // 2}: "
+    log(f"  (c) probe pallas_fused/unified {tag}: "
         f"{rec['measured_step_ms']} ms/step, no error record, launches exact")
-    return {"plan": plan.to_json(), "measured_step_ms": rec["measured_step_ms"],
+    return {"plan": plan.to_json(), "window": cfg.window,
+            "measured_step_ms": rec["measured_step_ms"],
             "probe_words_per_sec": rec["probe_words_per_sec"]}
 
 
 def phase_long(dev, vocab, card):
-    """Both band cores past one center piece (phase 18 of the module
-    docstring); one `long_phase` line."""
+    """Both band cores past one center piece and past one slot piece
+    (phase 18 of the module docstring); one `long_phase` line."""
     import gc
 
     t_phase = time.perf_counter()
@@ -7078,7 +7115,8 @@ def phase_long(dev, vocab, card):
     torch.cuda.empty_cache()
     corpus = long_corpus(vocab)
     row["b"] = wide_trainers(dev, vocab, corpus, card, LONG_TRAINERS)
-    row["c"] = long_probe(dev, vocab, corpus)
+    row["c"] = [long_probe(dev, vocab, corpus, band_chunk=LONG_L // 2),
+                long_probe(dev, vocab, corpus, window=LONG_W, band_chunk=0)]
     row["seconds"] = time.perf_counter() - t_phase
     log(json.dumps({"long_phase": row}))
 

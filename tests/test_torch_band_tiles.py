@@ -80,8 +80,9 @@ def const(name: str) -> int:
 
 
 MMA_M, MMA_N, MMA_K = const("kMmaM"), const("kMmaN"), const("kMmaK")
-# the pieces the tiles hold: centers, negative rows and columns
-SC, KPC, DC = const("kSc"), const("kKPc"), const("kDc")
+# the pieces the tiles hold: centers, negative rows and columns, and the
+# slab slots of a center piece's band weights
+SC, KPC, DC, KC = const("kSc"), const("kKPc"), const("kDc"), const("kKc")
 F32, BF16 = torch.float32, torch.bfloat16
 
 
@@ -92,6 +93,12 @@ def up(x: int, m: int) -> int:
 def bf(x):
     """An operand rounded to bf16, held in f32 (the staged tiles)."""
     return x.to(BF16).to(F32)
+
+
+def rounding(cdt):
+    """The operand rounding of a compute type: bf16 (the tensor-core
+    bodies' staged operands), or none (the f32 bodies)."""
+    return bf if cdt == BF16 else (lambda x: x)
 
 
 def mma(a, b, kvalid=None, acc=None):
@@ -135,12 +142,16 @@ def ew(f, x):
 
 
 def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
-          cbow_mean, kvalid, kpc, dc, dneg0=None, wsum0=None, y0=None):
+          cbow_mean, kvalid, kpc, dc, kc=KC, cdt=BF16, dneg0=None, wsum0=None,
+          y0=None):
     """One center piece of one chunk of one row, walked piece by piece of
-    the pool and the width as the kernels walk it: ctr [S, d] the piece's
-    center rows (cbow: out plane), bk [SK, d] its context rows (zero at
-    invalid slots), en [KP, d] the row's negative rows; the tiles hold at
-    most kpc negative rows and dc columns. Returns the piece's outputs
+    the pool, the width and the slab slots as the kernels walk it: ctr [S,
+    d] the piece's center rows (cbow: out plane), bk [SK, d] its context
+    rows (zero at invalid slots), en [KP, d] the row's negative rows; the
+    tiles hold at most kpc negative rows and dc columns, the sg band
+    weights kc slots. cdt bf16: the operands rounded to bf16 (the
+    tensor-core bodies); f32: kept (the f32 bodies, the same walk). Returns
+    the piece's outputs
     before the cross-chunk sums: y and cwy over its S + 2W slots, dneg and
     wsum continuing dneg0 / wsum0 (the chunk's sums over the earlier
     pieces), y continuing y0 (the sums the previous piece carried over its
@@ -153,12 +164,16 @@ def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
     band product; d_neg and w_neg_sum sum the S positions inside one
     negative and width piece, the chunk's accumulator carried from one
     center piece to the next; so are the context sums of the slots two
-    center pieces share."""
+    center pieces share; the sg band logits, band product and context sums
+    walk the slot pieces (kc slots from slot k0), the band product's
+    accumulator carried from one to the next (through device memory in the
+    kernels, exact), each slot's context sum whole inside its slot piece."""
+    bf = rounding(cdt)
     S, d = ctr.shape
     SK = bk.shape[0]
     KP = negs.numel()
     SP = up(S, MMA_M)
-    dps, kps = pieces(d, dc), pieces(KP, kpc)
+    dps, kps, kcs = pieces(d, dc), pieces(KP, kpc), pieces(SK, kc)
     s = torch.arange(S)[:, None]
     k = torch.arange(SK)[None, :]
     dist = (s + W - k).abs()
@@ -201,16 +216,24 @@ def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
     else:
         src = ctr
 
-    # positive logits: the sg band over the width pieces, or the cbow center
+    def cols(k0, n):
+        """The columns (or rows) of a slot piece, padded to whole k-slices."""
+        return slice(k0, k0 + up(n, MMA_K))
+
+    # positive logits: the sg band over the width pieces, slot piece by
+    # slot piece, or the cbow center
     if not is_cbow:
-        acc = torch.zeros((SP, SKP))
-        for q in range(len(dps)):
-            acc = mma(tile(src, SP, q), tile(bk, SKP, q).T, acc=acc)
-        plog = acc[:S, :SK]
-        gp = torch.where(mask != 0, (1.0 - ew(torch.sigmoid, plog)) * mask * alpha,
-                         torch.zeros(()))
-        pos = torch.sum(torch.where(mask != 0, mask * ew(F.logsigmoid, plog),
-                                    torch.zeros(())))
+        gp = torch.zeros((S, SK))
+        pos = torch.zeros(())
+        for k0, n in kcs:
+            acc = torch.zeros((SP, up(n, MMA_K)))
+            for q in range(len(dps)):
+                acc = mma(tile(src, SP, q), tile(bk, SKP, q)[cols(k0, n)].T, acc=acc)
+            plog, m = acc[:S, :n], mask[:, k0:k0 + n]
+            gp[:, k0:k0 + n] = torch.where(
+                m != 0, (1.0 - ew(torch.sigmoid, plog)) * m * alpha, torch.zeros(()))
+            pos = pos + torch.sum(torch.where(m != 0, m * ew(F.logsigmoid, plog),
+                                              torch.zeros(())))
     else:
         plog_c = torch.sum(bf(h) * bf(ctr), dim=1)
         active = (nctx > 0).float()
@@ -247,8 +270,12 @@ def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
     band_t[:, :S] = bf(mask).T if is_cbow else bf(gp).T
     for q, (o, n) in enumerate(dps):
         if not is_cbow:
-            # the band product continues d_hid's accumulator
-            d_ctr[:, o:o + n] = mma(band(gp), tile(bk, SKP, q), acc=part[q])[:S, :n]
+            # the band product continues d_hid's accumulator, slot piece
+            # after slot piece
+            acc, bgp, tbk = part[q], band(gp), tile(bk, SKP, q)
+            for k0, kn in kcs:
+                acc = mma(bgp[:, cols(k0, kn)], tbk[cols(k0, kn)], acc=acc)
+            d_ctr[:, o:o + n] = acc[:S, :n]
             A = tile(src, SP, q)
         else:
             d_ctr[:, o:o + n] = gpc[:, None] * h[:, o:o + n]
@@ -260,7 +287,11 @@ def chunk(ctr, bk, en, tokc, tokk, keep, w, negs, alpha, *, W, K, is_cbow,
         acc = torch.zeros((SK, up(n, MMA_K)))
         if y0 is not None:
             acc[:y0.shape[0], :n] = y0[:, o:o + n]
-        y[:, o:o + n] = mma(band_t, A, acc=acc)[:, :n]
+        # each slot's sum over the piece's centers, a slot piece's rows at
+        # a time (cbow's mask weights need no slot pieces: one pass)
+        for k0, kn in (kcs if not is_cbow else [(0, SK)]):
+            rows = slice(k0, k0 + kn)
+            y[rows, o:o + n] = mma(band_t[rows], A, acc=acc[rows])[:, :n]
     return dict(nctx=nctx, cwy=cwy, d_ctr=d_ctr, y=y, dneg=dneg, wsum=wsum,
                 pos=pos, neg=neg)
 
@@ -298,9 +329,11 @@ def center_pieces(ctr, bk, tokc, tokk, keep, w, *, W, sc, kvalid, call):
 
 
 def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
-                      is_cbow, cbow_mean=True, sc=SC, kpc=KPC, dc=DC):
-    """csrc/fused_step.cu grad_core_tc_kernel, one row at a time, the tiles
-    sc centers, kpc negative rows and dc columns wide."""
+                      is_cbow, cbow_mean=True, sc=SC, kpc=KPC, dc=DC, kc=KC,
+                      cdt=BF16):
+    """csrc/fused_step.cu grad_core_tc_kernel (cdt bf16; f32: the walk of
+    grad_core_f32_kernel), one row at a time, the tiles sc centers, kpc
+    negative rows and dc columns wide, the band weights kc slots."""
     B, C, S = tok_c.shape
     d = emb.shape[-1]
     KP = negs.shape[1]
@@ -323,8 +356,8 @@ def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
             def piece(ctr, bk, tokc, tokk, keep, w, kvalid, dneg0, wsum0, y0):
                 return chunk(ctr, bk, en, tokc, tokk, keep, w, negs[b], alpha,
                              W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean,
-                             kvalid=kvalid, kpc=kpc, dc=dc, dneg0=dneg0,
-                             wsum0=wsum0, y0=y0)
+                             kvalid=kvalid, kpc=kpc, dc=dc, kc=kc, cdt=cdt,
+                             dneg0=dneg0, wsum0=wsum0, y0=y0)
 
             o = center_pieces(e32[tok_c[b, c].long(), ctr_p], bk, tok_c[b, c], tokk,
                               keep_c[b, c], w_c[b, c], W=W, sc=sc,
@@ -354,10 +387,12 @@ def emulate_grad_core(emb, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W, K, L,
 
 
 def emulate_band_core(a, bk, en, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W,
-                      K, is_cbow, cbow_mean=True, sc=SC, kpc=KPC, dc=DC):
-    """csrc/band_core.cu band_core_tc_kernel, one row at a time, the tiles
-    sc centers, kpc negative rows and dc columns wide; under batch scope
-    the per-row partials reduced in row order."""
+                      K, is_cbow, cbow_mean=True, sc=SC, kpc=KPC, dc=DC, kc=KC,
+                      cdt=BF16):
+    """csrc/band_core.cu band_core_tc_kernel (cdt bf16; f32: the walk of
+    band_core_f32_kernel), one row at a time, the tiles sc centers, kpc
+    negative rows and dc columns wide, the band weights kc slots; under
+    batch scope the per-row partials reduced in row order."""
     B, C, S, d = a.shape
     SK = bk.shape[2]
     NB, KP = negs.shape
@@ -374,7 +409,7 @@ def emulate_band_core(a, bk, en, tok_c, tok_k, keep_c, w_c, negs, alpha, *, W,
             return chunk(ctr, bk, en[nb].float(), tokc, tokk, keep, w, negs[nb],
                          alpha, W=W, K=K, is_cbow=is_cbow, cbow_mean=cbow_mean,
                          kvalid=up(ctr.shape[0], MMA_M), kpc=kpc, dc=dc,
-                         dneg0=dneg0, wsum0=wsum0, y0=y0)
+                         kc=kc, cdt=cdt, dneg0=dneg0, wsum0=wsum0, y0=y0)
 
         for c in range(C):
             o = center_pieces(a[b, c].float(), bk[b, c].float(), tok_c[b, c],
@@ -693,6 +728,111 @@ def test_band_core_center_pieces_match_jax_kernel():
     assert_close(CORE_NAMES, got, ref, TOL[BF16])
 
 
+# ------------------------------------------------------- slot pieces
+# windows past one slot piece (d, KP, W, S, L, B), walked in slot pieces of
+# 16 with every other piece 16 wide too (SLOT_PIECES): W 10 and W 20, whose
+# 2W exceeds a center piece (three and four center pieces share a slot);
+# W 10 at S 20, L 25, where chunk 1's slots 16-31 lie wholly past every row
+# (tok_k -1); and W 95 at L 192 (S 190, two chunks) in the header's pieces
+# (a center piece of 128 and one of 62, two slot pieces of 160 each)
+SLOT_PIECES = dict(kc=16, **CENTER_PIECES)
+SLOT_SHAPES = {
+    "w10-s30": ((24, 20, 10, 30, 70, 2), SLOT_PIECES),
+    "w20-s45": ((24, 20, 20, 45, 100, 2), SLOT_PIECES),
+    "w10-past-row": ((16, 8, 10, 20, 25, 3), SLOT_PIECES),
+    "w95-l192": ((16, 8, 95, 190, 192, 2), {}),
+}
+
+
+def unpieced(S, W, walk):
+    """The walk with the chunk in one center piece and one slot piece."""
+    return dict(walk, sc=up(S, MMA_M), kc=up(S + 2 * W, MMA_K))
+
+
+@pytest.mark.parametrize("cdt", [BF16, F32], ids=["bf16cdt", "f32cdt"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(SLOT_SHAPES))
+def test_grad_core_slot_pieces_match_plain(shape, model, cdt):
+    """The fused core with each center piece's band walked in slot pieces
+    holds the plain version at phase 3's tolerance of the compute type
+    (TOL: bf16 2e-2, f32 1e-5 of max|plain|, losses 1e-4, n_ctx / ctx_w
+    exact), and every output but the losses is bitwise the walk in one
+    center and one slot piece: the band product's and the context sums'
+    k-slices keep the unpieced order."""
+    (d, KP, W, S, L, B), walk = SLOT_SHAPES[shape]
+    table = BF16 if model == "cbow" else F32
+    inp = grad_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=table, seed=21)
+    args = [inp[k] for k in GRAD_ORDER]
+    kw = dict(W=W, K=5, L=L, is_cbow=model == "cbow")
+    got = emulate_grad_core(*args, 0.03, **kw, **walk, cdt=cdt)
+    ref = fs.fused_grad_core_plain(*args, 0.03, cdt=cdt, **kw)
+    assert_close(GRAD_NAMES, got, ref, TOL[cdt])
+    whole = emulate_grad_core(*args, 0.03, **kw, **unpieced(S, W, walk), cdt=cdt)
+    assert_unpieced_order(GRAD_NAMES, got, whole)
+
+
+@pytest.mark.parametrize("cdt", [BF16, F32], ids=["bf16cdt", "f32cdt"])
+@pytest.mark.parametrize("scope", ["row", "batch"])
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+@pytest.mark.parametrize("shape", list(SLOT_SHAPES))
+def test_band_core_slot_pieces_match_plain(shape, model, scope, cdt):
+    """band_core likewise: the slab-space context sums of each slot piece
+    continue the slots earlier center pieces reached in the output rows."""
+    (d, KP, W, S, L, B), walk = SLOT_SHAPES[shape]
+    inp = core_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope=scope, model=model, seed=22)
+    args = [inp[k] for k in CORE_ORDER]
+    kw = dict(W=W, K=5, is_cbow=model == "cbow")
+    got = emulate_band_core(*args, 0.03, **kw, **walk, cdt=cdt)
+    ref = bc.band_core_plain(*args, 0.03, cdt=cdt, **kw)
+    assert_close(CORE_NAMES, got, ref, TOL[cdt])
+    assert bool((got[1][inp["tok_k"] < 0] == 0).all())  # slab zeros
+    whole = emulate_band_core(*args, 0.03, **kw, **unpieced(S, W, walk), cdt=cdt)
+    assert_unpieced_order(CORE_NAMES, got, whole)
+
+
+def test_slot_shapes_reach_past_a_slot_piece():
+    """Each slot shape walks more than one slot piece a center piece, the
+    W 10 / W 20 ones share a slot among three and four center pieces, and
+    w10-past-row holds a slot piece with no slot inside any row."""
+    for (d, KP, W, S, L, B), walk in SLOT_SHAPES.values():
+        sc, kc = walk.get("sc", SC), walk.get("kc", KC)
+        assert min(S, sc) + 2 * W > kc
+    for name, share in (("w10-s30", 3), ("w20-s45", 4)):
+        (d, KP, W, S, L, B), walk = SLOT_SHAPES[name]
+        assert -(-2 * W // walk["sc"]) + 1 == share
+    (d, KP, W, S, L, B), walk = SLOT_SHAPES["w10-past-row"]
+    inp = grad_inputs(V=80, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32, seed=21)
+    tok_k = inp["tok_k"]
+    assert bool((tok_k[:, 1, 16:32] < 0).all())
+    assert SLOT_SHAPES["w95-l192"][0][3] == 190  # the auto S at W 95, L 192
+
+
+def test_grad_core_slot_pieces_match_jax_kernel():
+    (d, KP, W, S, L, B), walk = SLOT_SHAPES["w10-s30"]
+    inp = grad_inputs(V=60, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32, seed=23)
+    got = emulate_grad_core(*[inp[k] for k in GRAD_ORDER], 0.03, W=W, K=3, L=L,
+                            is_cbow=False, **walk)
+    jargs = [_jax(inp["emb"], jnp.float32)] + [
+        jnp.asarray(inp[k].numpy()) for k in GRAD_ORDER[1:]]
+    ref = j_grad_core(*jargs, jnp.float32(0.03), W=W, K=3, L=L, cdt=jnp.bfloat16,
+                      is_cbow=False, cbow_mean=True, interpret=True)
+    assert_close(GRAD_NAMES, got, ref, TOL[BF16])
+
+
+def test_band_core_slot_pieces_match_jax_kernel():
+    (d, KP, W, S, L, B), walk = SLOT_SHAPES["w20-s45"]
+    inp = core_inputs(V=60, d=d, B=B, L=L, W=W, S=S, KP=KP, table=F32,
+                      scope="row", model="cbow", seed=24)
+    got = emulate_band_core(*[inp[k] for k in CORE_ORDER], 0.03, W=W, K=3,
+                            is_cbow=True, **walk)
+    jargs = [_jax(inp[k], jnp.float32) for k in ("a", "bk", "en")] + [
+        jnp.asarray(inp[k].numpy()) for k in CORE_ORDER[3:]]
+    ref = j_band_core(*jargs, jnp.float32(0.03), W=W, K=3, cdt=jnp.bfloat16,
+                      is_cbow=True, cbow_mean=True, interpret=True)
+    assert_close(CORE_NAMES, got, ref, TOL[BF16])
+
+
 def test_pieces_match_the_host_copy():
     """The pieces the tiles hold are the header's constants, multiples of
     the mma tile, the flagship and every auto chunk (S <= 126,
@@ -700,9 +840,11 @@ def test_pieces_match_the_host_copy():
     host's shared-memory formula and workspaces read the same numbers."""
     from word2vec_tpu_torch.ops import launch
 
-    assert (launch.CORE_S_PIECE, launch.CORE_KP_PIECE, launch.CORE_D_PIECE) == (
-        SC, KPC, DC)
+    assert (launch.CORE_S_PIECE, launch.CORE_KP_PIECE, launch.CORE_D_PIECE,
+            launch.CORE_K_PIECE) == (SC, KPC, DC, KC)
     assert SC % MMA_M == 0 and KPC % (2 * MMA_N) == 0 and DC % MMA_K == 0
+    # a center piece of kSc is one slot piece up to W 16
+    assert KC % MMA_K == 0 and SC + 2 * 16 <= KC
     assert SC >= 126 and KPC >= 64 and DC >= up(300, MMA_K)
     assert launch._CORE_WARPS == const("kThreads") // 32
     assert "round_up(2 * W, kMmaM)" in HEADER  # carry_rows

@@ -661,7 +661,7 @@ def test_band_cores_take_wide_pools_and_rows(cuda, shape, cdt):
     the pool and the width all in pieces): both band cores hold their plain
     versions (phase 3's tolerances, two calls bitwise equal); the host copy
     of each core's shared memory equals the library's, and it is the same
-    past one piece of the pool, the width and the chunk."""
+    past one piece of the pool, the width, the chunk and the slots."""
     _hold_wide_cores(cuda, shape, cdt)
 
 
@@ -672,6 +672,21 @@ def test_f32_band_cores_carry_a_halo_slot_across_three_pieces(cuda):
     (the f32 bodies' reach past one piece, band_tiles.cuh); both band cores
     hold their plain versions as above."""
     _hold_wide_cores(cuda, (128, 64, 70, "row", 300, 600), torch.float32)
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(300, 64, 95, "row", 0, 192),
+                                   (300, 64, 499, "batch", 0, 1000)],
+                         ids=["w95-l192", "w499-l1000"])
+def test_band_cores_take_every_window(cuda, shape, cdt):
+    """Windows past one slot piece (csrc/band_tiles.cuh kKc): W 95 at the
+    flagship's L 192 (S 190, two center pieces of two slot
+    pieces) and W 499 at L 1000 (S 998, the widest window JAX takes there:
+    eight center pieces of seven or eight slot pieces, a slot shared by
+    all eight):
+    both band cores hold their plain versions as above, their shared
+    memory that of one slot piece."""
+    _hold_wide_cores(cuda, shape, cdt)
 
 
 def _hold_wide_cores(cuda, shape, cdt):
@@ -687,8 +702,16 @@ def _hold_wide_cores(cuda, shape, cdt):
         assert host == get(S, S + 2 * w, kp, d, w, bf)
         assert host == launch.core_smem_bytes(
             kernel, S, S + 2 * w, launch.CORE_KP_PIECE, launch.CORE_D_PIECE, w, bool(bf))
-        Sc = min(S, launch.CORE_S_PIECE)
-        assert host == launch.core_smem_bytes(kernel, Sc, Sc + 2 * w, kp, d, w, bool(bf))
+        if S > launch.CORE_S_PIECE:  # the same at every longer chunk
+            S1 = launch.CORE_S_PIECE + 1
+            assert host == launch.core_smem_bytes(kernel, S1, S1 + 2 * w, kp, d, w, bool(bf))
+        # past one slot piece (bf16 compute: a pieced chunk), the same at
+        # every wider window
+        Kc = launch.CORE_K_PIECE
+        if (launch.core_pieced(S, w) if bf
+                else min(S, launch.CORE_S_PIECE) + 2 * w > Kc):
+            assert host == launch.core_smem_bytes(kernel, S, S + 2 * Kc, kp, d, Kc,
+                                                  bool(bf))
     inp = small_grad_inputs(V=200, d=d, B=2, L=L_, W=w, S=S, KP=kp,
                             table=torch.float32)
     args = [inp[k].to(cuda) for k in GRAD_ORDER]

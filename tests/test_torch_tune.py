@@ -129,68 +129,87 @@ def test_card_grid_record_equals_jax():
 
 def test_band_core_shared_memory_pins_the_refusal():
     """The band cores' shared memory a block (the host copy of the
-    libraries' sizes) pins that no chunk is refused any more: past one
-    center piece (CORE_S_PIECE) it no longer grows with S, as past one piece
-    of the negative pool and of the width it no longer grows with KP or d;
-    it fits one block at every S up to 1000, every d up to 1024, the nine
-    KP and every W up to 10, in both compute types; and no band-core plan of
-    the card's grid at L 348 and L 1000 (the flagship, and d 200) exceeds a
-    block. What a block still bounds is the window: one center piece with
-    its 2W halo fits up to W 54 with bf16 compute, 154 / 156 with f32
-    (csrc/band_tiles.cuh)."""
+    libraries' sizes) pins that no chunk JAX takes is refused: past one
+    center piece (CORE_S_PIECE) it no longer grows with S, past one piece
+    of the negative pool and of the width with KP or d, and past one slot
+    piece (a center piece's S + 2W slots over CORE_K_PIECE) with W; no
+    (L <= 2048, W < L/2, S in {auto, 2W, L - 1}) at any KP and d up to 1024
+    exceeds a block, for both kernels and both compute types; and no
+    band-core plan of the card's grid at L 348 and L 1000 (the flagship, d
+    200, and W 100) exceeds a block."""
     from word2vec_tpu_torch.ops.banded import resolve_chunk
     from word2vec_tpu_torch.ops.launch import (
-        CORE_D_PIECE, CORE_KP_PIECE, CORE_S_PIECE, SMEM_PER_BLOCK)
+        CORE_D_PIECE, CORE_K_PIECE, CORE_KP_PIECE, CORE_S_PIECE, SMEM_PER_BLOCK,
+        core_pieced)
 
-    # the flagship tile budgets the two kernels' source notes document,
-    # and a chunk past one center piece at W 5
+    # the flagship tile budgets the two kernels' source notes document, a
+    # chunk past one center piece, and the pieced tensor-core body's room
     assert core_smem_bytes("fused_grad_core", 118, 128, 64, 300, 5, True) == 177_448
     assert core_smem_bytes("band_core", 118, 128, 64, 300, 5, True) == 177_408
-    assert core_smem_bytes("fused_grad_core", 500, 510, 64, 300, 5, True) == 180_728
-    assert core_smem_bytes("band_core", 500, 510, 64, 300, 5, True) == 180_688
-    kps = (1, 16, 17, 63, 64, 65, 100, 256, 1024)
-    widest = {}
     for kernel in ("fused_grad_core", "band_core"):
+        assert core_smem_bytes(kernel, 500, 510, 64, 300, 5, True) == 225_152
+        assert core_smem_bytes(kernel, 998, 1996, 1024, 1024, 499, True) == 225_152
+    kernels = ("fused_grad_core", "band_core")
+    # past one slot piece the size stops growing with W
+    for kernel in kernels:
         for bf16 in (True, False):
-            for W in range(1, 11):
-                piece = core_smem_bytes(kernel, CORE_S_PIECE, CORE_S_PIECE + 2 * W,
-                                        CORE_KP_PIECE, CORE_D_PIECE, W, bf16)
-                assert piece <= SMEM_PER_BLOCK, (kernel, bf16, W)
-                for S in range(CORE_S_PIECE, 1001):
-                    for d, kp in ((CORE_D_PIECE, CORE_KP_PIECE), (1024, 1024)):
+            for S in (1, 64, 118, CORE_S_PIECE, 500):
+                first = next(W for W in range(1, 2048)
+                             if min(S, CORE_S_PIECE) + 2 * W > CORE_K_PIECE)
+                assert core_pieced(S, first)
+                piece = core_smem_bytes(kernel, S, S + 2 * first, CORE_KP_PIECE,
+                                        CORE_D_PIECE, first, bf16)
+                for W in range(first, 1100):
+                    assert core_smem_bytes(kernel, S, S + 2 * W, CORE_KP_PIECE,
+                                           CORE_D_PIECE, W, bf16) == piece
+    # every chunk JAX takes at L <= 2048: the distinct (S, W) sizes (past one
+    # slot piece W no longer enters), each at the pool and width sizes that
+    # cross a piece, and at every d up to 1024 for the widest chunks
+    keys = set()
+    for L in range(2, 2049):
+        for W in range(1, (L + 1) // 2):
+            for S in {resolve_chunk(L, W, 0), 2 * W, L - 1}:
+                if 2 * W <= S < L:
+                    Sc = min(S, CORE_S_PIECE)
+                    keys.add((Sc, S > CORE_S_PIECE,
+                              W if Sc + 2 * W <= CORE_K_PIECE else None))
+    assert len(keys) > 1000
+    kps = (1, 16, 17, 63, 64, 65, 100, 256, 1024)
+    ds = (1, 7, 16, 17, 300, 304, 305, 512, 1000, 1024)
+    for Sc, longer, W in keys:
+        S = CORE_S_PIECE + 1 if longer else Sc
+        W = W if W is not None else max(1, (CORE_K_PIECE - Sc) // 2 + 1)
+        for kernel in kernels:
+            for bf16 in (True, False):
+                for kp in kps:
+                    for d in ds:
                         assert core_smem_bytes(kernel, S, S + 2 * W, kp, d, W,
-                                               bf16) == piece, (kernel, bf16, W, S)
-                for S in (2 * W, 118, CORE_S_PIECE, 1000):
-                    for d in range(1, 1025):
-                        for kp in kps:
-                            assert core_smem_bytes(kernel, S, S + 2 * W, kp, d, W,
-                                                   bf16) <= SMEM_PER_BLOCK
-            # the window bound (ROADMAP Queue C, C8w, an open refusal): the
-            # widest W whose center piece fits a block at any S, d and KP
-            W = 1
-            while core_smem_bytes(kernel, 1000, 1000 + 2 * (W + 1), 1024, 1024,
-                                  W + 1, bf16) <= SMEM_PER_BLOCK:
-                W += 1
-            widest[kernel, bf16] = W
-    assert widest == {("fused_grad_core", True): 54, ("fused_grad_core", False): 154,
-                      ("band_core", True): 54, ("band_core", False): 156}
+                                               bf16) <= SMEM_PER_BLOCK, (
+                            kernel, bf16, S, W, kp, d)
+    for kernel in kernels:
+        for bf16 in (True, False):
+            for S, W in ((118, 5), (CORE_S_PIECE, 1), (1000, 499), (2047, 1023)):
+                for d in range(1, 1025):
+                    assert core_smem_bytes(kernel, S, S + 2 * W, 1024, d, W,
+                                           bf16) <= SMEM_PER_BLOCK
     # the card's grid at the reference's sentence length (L 1000) and at
-    # L 348 (its L/2 chunk is 174): every pallas / pallas_fused plan fits
+    # L 348 (its L/2 chunk is 174), at W 100 too: every pallas /
+    # pallas_fused plan fits
     kernel_of = {"pallas": "band_core", "pallas_fused": "fused_grad_core"}
     chunks = set()
-    for L, d in ((348, 300), (1000, 300), (1000, 200)):
-        _, t = both("flagship-ns", max_sentence_len=L, word_dim=d)
+    for L, d, W in ((348, 300, 5), (1000, 300, 5), (1000, 200, 5), (1000, 300, 100)):
+        _, t = both("flagship-ns", max_sentence_len=L, word_dim=d, window=W)
         plans = [p for p in tplanner.candidate_grid(t, VOCAB, {"platform": "gpu"})
                  if p.band_backend in kernel_of]
         assert plans
         for p in plans:
             S = resolve_chunk(L, t.window, p.band_chunk)
-            chunks.add(S)
+            chunks.add((S, W))
             for bf16 in (True, False):
                 assert core_smem_bytes(kernel_of[p.band_backend], S, S + 2 * t.window,
                                        p.shared_negatives, d, t.window,
                                        bf16) <= SMEM_PER_BLOCK, (L, d, p)
-    assert {174, 333, 500} <= chunks
+    assert {(174, 5), (333, 5), (500, 5), (200, 100)} <= chunks
 
 
 # ------------------------------------------------------- the cost model

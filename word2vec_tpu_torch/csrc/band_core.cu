@@ -33,7 +33,8 @@
 //   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
 //   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KPc]
 //   (30,208 B), ...                         total at the flagship 177,408 B
-// and no more at any longer S (180,688 B at W 5), wider KP or d: the
+// and never more than 225,152 B, at any S, KP, d or W (past kKc = 160
+// slab slots a center piece, one slot piece of gp, bf16, at a time): the
 // flagship is one piece of each, and a longer chunk, a wider pool or row
 // is walked piece by piece (band_tiles.cuh states the order of every sum
 // that crosses pieces: that of one unpieced product; the slab slots two
@@ -61,12 +62,11 @@
 // With f32 compute the products stay exact f32 multiply-adds on the CUDA
 // cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
 // fit): band_core_f32_kernel keeps the first port's body (the negative rows
-// through L1/L2), the chunk in center pieces of kSc and the negative pool
-// in pieces of kKPc. Both bodies take an optional per-phase clock64()
-// record (PhaseClock). What a block's shared memory still bounds is the
-// window W (a piece's band logits, kSc x (2W + 1) words): W <= 54 with
-// bf16 compute, 156 with f32; a launch past it fails (the wrapper raises
-// first).
+// through L1/L2), the chunk in center pieces of kSc, the negative pool
+// in pieces of kKPc and a center piece's band weights in slot pieces of
+// kKc (at most 158,592 B a block). Both bodies take an optional per-phase
+// clock64() record (PhaseClock). The pieces bound a block's shared memory
+// at every shape the JAX kernels take; a wider window costs time.
 //
 // Plain C interface (bound with ctypes); every entry point returns the
 // cudaError_t of its launches.
@@ -107,16 +107,18 @@ struct BandArgs {
 
 // shared memory of the f32-compute body, in 4-byte words, in
 // band_core_f32_kernel's order: one center piece (at most kSc) and one
-// negative piece (at most kKPc rows) at a time, nothing that grows with
-// S, KP or d past them
+// negative piece (at most kKPc rows) at a time, and the band weights gp of
+// one slot piece, band-compressed [Sc x 2W+1] when a center piece's slots
+// fit one (Sc + 2W <= kKc), else [Sc x kKc]: nothing that grows with S,
+// KP, d or W past them
 inline size_t band_smem_words(int S, int KP, int W) {
-  const int NB = 2 * W + 1;
-  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
+  const int Sc = S < kSc ? S : kSc;
   const int KPc = KP < kKPc ? KP : kKPc;
+  const int gld = Sc + 2 * W <= kKc ? 2 * W + 1 : kKc;
   return (size_t)Sc * 4          // tok_c, keep, w, n_ctx
-         + (size_t)SKc * 2       // tok_k, cwy
+         + (size_t)kTokRoom      // the staged slab ids
          + (size_t)KPc           // the piece's negative ids
-         + (size_t)Sc * NB       // band-compressed gp (sg)
+         + (size_t)Sc * gld      // gp (sg) of the slot piece
          + (size_t)Sc            // gp per center (cbow)
          + (size_t)Sc * KPc * 2  // gn, w_neg of the piece
          + (size_t)2 * kWarps;   // loss block reduction
@@ -150,8 +152,10 @@ __device__ __forceinline__ void slab_cw(float* ctx_w, int k, float cw,
 
 // f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
 // would not fit), the design of the first port; the negative rows are read
-// through L1/L2, the chunk walked in center pieces of kSc and the negative
-// pool in pieces of kKPc
+// through L1/L2, the chunk walked in center pieces of kSc, the negative
+// pool in pieces of kKPc and a center piece's slots, for the sg band
+// weights, in slot pieces of kKc (one band-compressed piece when they fit:
+// Sc + 2W <= kKc), as grad_core_f32_kernel
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     band_core_f32_kernel(const BandArgs p) {
@@ -162,9 +166,12 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int C = p.C, S = p.S, SK = p.SK, KP = p.KP, d = p.d, W = p.W;
-  const int NB = 2 * W + 1;
+  const int W2 = 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc, nK = pieces(KP, kKPc);
-  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W, nS = pieces(S, kSc);
+  const int Sc = S < kSc ? S : kSc, nS = pieces(S, kSc);
+  // gp's row stride: band-compressed in one slot piece, else by slot
+  const bool slotted = Sc + W2 > kKc;
+  const int gld = slotted ? kKc : W2 + 1;
   const int nb = p.neg_shared ? 0 : b;
   const T* A = static_cast<const T*>(p.a);
   const T* BK = static_cast<const T*>(p.bk);
@@ -176,10 +183,9 @@ __global__ void __launch_bounds__(kThreads)
   float* s_w = s_keep + Sc;
   float* s_nctx = s_w + Sc;
   int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
+  int* s_negs = s_tokk + kTokRoom;
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_gpc = s_gpb + (size_t)Sc * gld;
   float* s_gn = s_gpc + Sc;
   float* s_wn = s_gn + (size_t)Sc * KPc;
   float* s_red = s_wn + (size_t)Sc * KPc;
@@ -201,7 +207,7 @@ __global__ void __launch_bounds__(kThreads)
     const size_t bc = (size_t)b * C + c;
     for (int i = 0; i < nS; ++i) {
       // center piece i: centers [s0, s0 + Sp) and their slots [s0, s0 + SKp)
-      const int s0 = i * kSc, Sp = piece_len(S, kSc, i), SKp = Sp + 2 * W;
+      const int s0 = i * kSc, Sp = piece_len(S, kSc, i), SKp = Sp + W2;
       const bool more = i + 1 < nS;
       const size_t cs = bc * S + s0, ck = bc * SK + s0;
       const T* a = A + cs * d;
@@ -223,31 +229,29 @@ __global__ void __launch_bounds__(kThreads)
         s_keep[s] = p.keep_c[cs + s];
         s_w[s] = p.w_c[cs + s];
       }
-      for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = p.tok_k[ck + k];
+      // the slab ids: staged while they fit kTokRoom, else in device memory
+      const int* tokk = p.tok_k + ck;
+      if (SKp <= kTokRoom) {
+        for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = tokk[k];
+        tokk = s_tokk;
+      }
       __syncthreads();
       clk.mark(kPhaseRows);
       // the band mask (pallas_band.py:113-122): keep_s & valid_k & 0 < dist <= w_s
-      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, p.K, KP};
+      const Band band{s_tokc, s_keep, s_w, s_nctx, tokk, s_negs, Sp, W, p.K, KP};
 
       // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
       // exact in any order
-      for (int s = tid; s < Sp; s += kThreads) {
-        const float n = band.row_sum(s);
-        s_nctx[s] = n;
-        p.n_ctx[cs + s] = n;
-      }
-      for (int k = tid; k < SKp; k += kThreads) {
-        const float cw = band.col_sum(k);
-        s_cwy[k] = cw;
-        slab_cw(p.ctx_w + ck, k, cw, i > 0 && k < 2 * W);
-      }
+      row_sums(band, s_nctx, p.n_ctx + cs);
+      for (int k = tid; k < SKp; k += kThreads)
+        slab_cw(p.ctx_w + ck, k, band.col_sum(k), i > 0 && k < W2);
       __syncthreads();
       if constexpr (CBOW) {
         // projection h = mask @ bk (divided by n_ctx under cbow_mean)
         for (int x = tid; x < Sp * d; x += kThreads) {
           const int s = x / d, e = x - s * d;
           float acc = 0.f;
-          for (int k = s; k <= s + 2 * W; ++k) {
+          for (int k = s; k <= s + W2; ++k) {
             const float m = band.mask(s, k);
             if (m != 0.f) acc += m * to_f(bk[(size_t)k * d + e]);
           }
@@ -258,27 +262,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       clk.mark(kPhaseMasks);
 
-      // ---- positive side
-      if constexpr (!CBOW) {
-        // band logits over the band only, one warp per (s, k)
-        for (int q = warp; q < Sp * NB; q += kWarps) {
-          const int s = q / NB, k = s + (q - s * NB);
-          const float m = band.mask(s, k);
-          if (m == 0.f) {
-            if (lane == 0) s_gpb[q] = 0.f;
-            continue;
-          }
-          float part = 0.f;
-          for (int e = lane; e < d; e += 32)
-            part += to_f(a[(size_t)s * d + e]) *
-                    to_f(bk[(size_t)k * d + e]);
-          const float plog = warp_sum(part);
-          if (lane == 0) {
-            s_gpb[q] = (1.f - sigmoid_stable(plog)) * m * alpha;
-            pos_acc += m * log_sigmoid(plog);
-          }
-        }
-      } else {
+      if constexpr (CBOW) {
         // center logit: f32 multiply and row sum of cdt-rounded h and a
         for (int s = warp; s < Sp; s += kWarps) {
           float part = 0.f;
@@ -306,10 +290,7 @@ __global__ void __launch_bounds__(kThreads)
         }
         // negative weights (collision masks, pallas_band.py:144-154):
         // center_hit compares the raw, -1-padded center ids
-        for (int x = tid; x < Sp * KPp; x += kThreads) {
-          const int s = x / KPp, j = x - s * KPp;
-          s_wn[x] = band.neg_weight<false, CBOW>(s, j);
-        }
+        neg_weights_mma<CBOW>(band, KPp, s_wn);
         __syncthreads();
         clk.mark(kPhaseMasks);
 
@@ -330,24 +311,17 @@ __global__ void __launch_bounds__(kThreads)
         clk.mark(kPhaseLogits);
 
         // center-side rows: d_hid = gn @ en over the pieces, each value's
-        // running sum kept in d_h (sg) or dh_ws (cbow) between pieces, then
-        // the band product (sg); the center's out-row update and the hidden
-        // grad (cbow)
+        // running sum kept in d_h (sg, where the band product then adds to
+        // it) or dh_ws (cbow); after the last piece the center's out-row
+        // update and the hidden grad (cbow)
         for (int x = tid; x < Sp * d; x += kThreads) {
           const int s = x / d, e = x - s * d;
           float* part = CBOW ? dhp + x : dh_out + x;
           float dh = q == 0 ? 0.f : *part;
           for (int j = 0; j < KPp; ++j)
             dh += s_gn[s * KPp + j] * to_f(en[(size_t)j * d + e]);
-          if (!last) {
+          if (!CBOW || !last) {
             *part = dh;
-          } else if constexpr (!CBOW) {
-            float dp = 0.f;
-            for (int t = 0; t < NB; ++t) {
-              const float g = s_gpb[s * NB + t];
-              if (g != 0.f) dp += g * to_f(bk[(size_t)(s + t) * d + e]);
-            }
-            dh_out[x] = dh + dp;
           } else {
             const float gp = s_gpc[s];
             dh_out[x] = gp * hp[x];
@@ -380,21 +354,73 @@ __global__ void __launch_bounds__(kThreads)
       // ---- slab-space context grads: slot k sums the centers s in
       // [k-2W, k] that see it, in order (zero at invalid slots: their mask
       // column is 0), continued from the previous piece's part in the
-      // output row
-      for (int x = tid; x < SKp * d; x += kThreads) {
-        const int k = x / d, e = x - k * d;
-        const int lo = max(0, k - 2 * W), hi = min(Sp - 1, k);
-        float y = (i > 0 && k < 2 * W) ? dctx[x] : 0.f;
-        for (int s = lo; s <= hi; ++s) {
-          if constexpr (!CBOW) {
-            const float g = s_gpb[s * NB + (k - s)];
-            if (g != 0.f) y += g * to_f(a[(size_t)s * d + e]);
-          } else {
+      // output row; sg slot piece by slot piece, after its band logits and
+      // band product
+      auto carried = [&](int k, int e) -> float {
+        return (i > 0 && k < W2) ? dctx[(size_t)k * d + e] : 0.f;
+      };
+      if constexpr (!CBOW) {
+        for (int j = 0; j < pieces(SKp, kKc); ++j) {
+          const int k0 = j * kKc, Kj = piece_len(SKp, kKc, j);
+          auto gp = [&](int s, int k) -> float {
+            return s_gpb[s * gld + (slotted ? k - k0 : k - s)];
+          };
+          // band logits, one warp per (s, slot) of the band
+          const int ncol = slotted ? Kj : W2 + 1;
+          for (int x = warp; x < Sp * ncol; x += kWarps) {
+            const int s = x / ncol, col = x - s * ncol;
+            const int k = slotted ? k0 + col : s + col;
+            if (k < s || k > s + W2) continue;
+            const float m = band.mask(s, k);
+            if (m == 0.f) {
+              if (lane == 0) s_gpb[s * gld + col] = 0.f;
+              continue;
+            }
+            float part = 0.f;
+            for (int e = lane; e < d; e += 32)
+              part += to_f(a[(size_t)s * d + e]) * to_f(bk[(size_t)k * d + e]);
+            const float plog = warp_sum(part);
+            if (lane == 0) {
+              s_gpb[s * gld + col] = (1.f - sigmoid_stable(plog)) * m * alpha;
+              pos_acc += m * log_sigmoid(plog);
+            }
+          }
+          __syncthreads();
+          // the band product of the slot piece, added to d_hid
+          for (int x = tid; x < Sp * d; x += kThreads) {
+            const int s = x / d, e = x - s * d;
+            const int k_hi = min(s + W2, k0 + Kj - 1);
+            float dp = 0.f;
+            for (int k = max(s, k0); k <= k_hi; ++k) {
+              const float g = gp(s, k);
+              if (g != 0.f) dp += g * to_f(bk[(size_t)k * d + e]);
+            }
+            dh_out[x] = dh_out[x] + dp;
+          }
+          // the context sums of the slot piece's slots
+          for (int x = tid; x < Kj * d; x += kThreads) {
+            const int k = k0 + x / d, e = x % d;
+            const int lo = max(0, k - W2), hi = min(Sp - 1, k);
+            float y = carried(k, e);
+            for (int s = lo; s <= hi; ++s) {
+              const float g = gp(s, k);
+              if (g != 0.f) y += g * to_f(a[(size_t)s * d + e]);
+            }
+            dctx[(size_t)k * d + e] = y;
+          }
+          __syncthreads();
+        }
+      } else {
+        for (int x = tid; x < SKp * d; x += kThreads) {
+          const int k = x / d, e = x - k * d;
+          const int lo = max(0, k - W2), hi = min(Sp - 1, k);
+          float y = carried(k, e);
+          for (int s = lo; s <= hi; ++s) {
             const float m = band.mask(s, k);
             if (m != 0.f) y += m * dhp[(size_t)s * d + e];
           }
+          dctx[(size_t)k * d + e] = y;
         }
-        dctx[x] = y;
       }
       __syncthreads();
       clk.mark(kPhaseContext);
@@ -404,10 +430,12 @@ __global__ void __launch_bounds__(kThreads)
   clk.mark(kPhaseTail);
 }
 
-// shared memory of the tensor-core body, in bytes: the bf16 tiles
-// (TileLayout, one piece) and then, in 4-byte words, in
-// band_core_tc_kernel's order; nothing grows with S, KP or d past one piece
+// shared memory of the tensor-core body, in bytes: a chunk of one piece,
+// the bf16 tiles (TileLayout) and then, in 4-byte words, in
+// band_core_tc_kernel's order; a pieced chunk (chunk_pieced), the layout
+// of band_tiles.cuh's pieced_tc_smem_bytes, which no W changes
 inline size_t band_tc_smem_bytes(int S, int KP, int d, int W) {
+  if (chunk_pieced(S, W)) return pieced_tc_smem_bytes(S, KP, d);
   const int NB = 2 * W + 1;
   const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc;
@@ -422,11 +450,18 @@ inline size_t band_tc_smem_bytes(int S, int KP, int d, int W) {
 }
 
 // bf16 compute: the three dense products on the tensor cores, the chunk
-// in center pieces of kSc, the negative pool in pieces of kKPc rows and
-// the width in pieces of kDc columns (band_tiles.cuh says how the sums
-// cross the pieces); PIECED: S > kSc. A chunk of one piece runs an
-// instantiation without the center pieces' carries: with them compiled
-// in, the one-piece shapes read 5-19% slower (PERF.md §6)
+// in center pieces of kSc, the negative pool in pieces of kKPc rows, the
+// width in pieces of kDc columns and a center piece's slots in slot pieces
+// of kKc (band_tiles.cuh says how the sums cross the pieces); PIECED:
+// chunk_pieced(S, W). A chunk of one piece runs an instantiation without
+// the pieces' carries: with them compiled in, the one-piece shapes read
+// 5-19% slower (PERF.md §6). The pieced one stages the slab ids in a fixed
+// room (past it, reads them from device memory), counts the collisions on
+// the tensor cores (neg_weights_mma),
+// and walks the sg band (its logits, the band product into d_hid, the
+// context sums) slot piece by slot piece: slot piece 0 where one piece
+// runs its band, the later ones after the negatives, each in the row
+// blocks whose band reaches it
 template <typename T, bool CBOW, bool PIECED>
 __global__ void __launch_bounds__(kThreads, 1)
     band_core_tc_kernel(const BandArgs p) {
@@ -450,16 +485,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sE = sA + tl.a_elems();
   __nv_bfloat16* sG = sE + tl.e_elems();
-  float* f = reinterpret_cast<float*>(sG + tl.g_elems());
+  // pieced: one slot piece of the sg band weights, bf16 [SP x kGpLd]
+  __nv_bfloat16* s_gps = sG + tl.g_elems();
+  float* f = reinterpret_cast<float*>(s_gps + (PIECED ? (size_t)tl.SP * kGpLd : 0));
   int* s_tokc = reinterpret_cast<int*>(f);
   float* s_keep = f + Sc;
   float* s_w = s_keep + Sc;
   float* s_nctx = s_w + Sc;
+  // one piece: the slab ids and column sums and the band-compressed gp in
+  // shared memory (pieced: the slab ids' fixed room, neither of the rest)
   int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + (PIECED ? kTokRoom : SKc));
+  int* s_negs = reinterpret_cast<int*>(s_cwy + (PIECED ? 0 : SKc));
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_gpc = s_gpb + (PIECED ? 0 : (size_t)Sc * NB);
   float* s_wn = s_gpc + Sc;
   float* s_red = s_wn + (size_t)Sc * KPc;
 
@@ -539,7 +578,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         s_keep[s] = p.keep_c[cs + s];
         s_w[s] = p.w_c[cs + s];
       }
-      for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = p.tok_k[ck + k];
+      // the slab ids (pieced: staged while they fit kTokRoom, else read
+      // from device memory)
+      const int* tokk = p.tok_k + ck;
+      if (!PIECED || SKp <= kTokRoom) {
+        for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = tokk[k];
+        tokk = s_tokk;
+      }
       // sg: A holds the center rows (the first width piece); cbow: zeros
       // that the projection fills
       stage_rows(sA, tl.lda, SPp, round_up(piece_len(d, kDc, 0), kMmaK),
@@ -547,29 +592,68 @@ __global__ void __launch_bounds__(kThreads, 1)
       a_at = CBOW ? -1 : 0;
       __syncthreads();
       clk.mark(kPhaseRows);
-      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, p.K, KP};
+      const Band band{s_tokc, s_keep, s_w, s_nctx, PIECED ? tokk : s_tokk,
+                      s_negs, Sp, W, p.K, KP};
 
       // ---- mask row sums (n_ctx) and slab column sums (ctx_w): 0/1 sums,
       // exact in any order
-      for (int s = tid; s < Sp; s += kThreads) {
-        const float n = band.row_sum(s);
-        s_nctx[s] = n;
-        p.n_ctx[cs + s] = n;
-      }
-      for (int k = tid; k < SKp; k += kThreads) {
-        const float cw = band.col_sum(k);
-        s_cwy[k] = cw;
-        slab_cw(p.ctx_w + ck, k, cw, i > 0 && k < 2 * W);
+      if constexpr (PIECED) {
+        row_sums(band, s_nctx, p.n_ctx + cs);
+        for (int k = tid; k < SKp; k += kThreads)
+          slab_cw(p.ctx_w + ck, k, band.col_sum(k), i > 0 && k < 2 * W);
+      } else {
+        for (int s = tid; s < Sp; s += kThreads) {
+          const float n = band.row_sum(s);
+          s_nctx[s] = n;
+          p.n_ctx[cs + s] = n;
+        }
+        for (int k = tid; k < SKp; k += kThreads) {
+          const float cw = band.col_sum(k);
+          s_cwy[k] = cw;
+          slab_cw(p.ctx_w + ck, k, cw, i > 0 && k < 2 * W);
+        }
       }
       __syncthreads();
       if constexpr (CBOW) {
-        projection(band, tp, d, p.cbow_mean != 0, hp, sA, bk_row);
+        projection<PIECED>(band, tp, d, p.cbow_mean != 0, hp, sA, bk_row);
         if (nD == 1) a_at = 0;
         __syncthreads();
       }
       clk.mark(kPhaseMasks);
 
+      // ---- slab-space context grads: slot k sums the centers s in
+      // [k-2W, k] that see it (zero at invalid slots: their mask column
+      // is 0); a slot the previous piece reached continues its
+      // accumulator from the output row; over slot rows [k_lo, k_hi),
+      // width piece q
+      auto context = [&](auto&& wv, int k_lo, int k_hi, int q) {
+        const int dq = piece_len(d, kDc, q), off = q * kDc;
+        context_tiles<PIECED>(
+            band, wv, sA, tl.lda, k_lo, k_hi, round_up(dq, kMmaK),
+            [&](float (&acc)[2][4], int m0, int n0) {
+              if (i > 0 && m0 < 2 * W)
+                load_block(acc, m0, n0, [&](int k, int e) -> float {
+                  return (s0 + k < SK && e < dq)
+                             ? dctx[(size_t)(s0 + k) * d + off + e]
+                             : 0.f;
+                });
+            },
+            [&](int k, const int (&col)[4], const float (&y)[4]) {
+#pragma unroll
+              for (int v = 0; v < 4; ++v)
+                if (s0 + k < SK && col[v] < dq)
+                  dctx[(size_t)(s0 + k) * d + off + col[v]] = y[v];
+            });
+      };
+
       float* dh_out = p.d_h + cs * d;
+      const int K0 = min(SKp, kKc);  // pieced: the end of slot piece 0
+      // pieced: gp of slot piece j (slots from k0), in the band of s
+      auto gp_at = [&](int k0) {
+        return [&, k0](int s, int k) -> float {
+          return __bfloat162float(s_gps[(size_t)s * kGpLd + (k - k0)]);
+        };
+      };
       for (int r = 0; r < nK; ++r) {
         const int KPp = piece_len(KP, kKPc, r), KPPp = round_up(KPp, 2 * kMmaN);
         const int j0 = r * kKPc;
@@ -581,21 +665,31 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         // ---- negative weights (collision masks, pallas_band.py:144-154):
         // center_hit compares the raw, -1-padded center ids
-        for (int x = tid; x < Sp * KPp; x += kThreads) {
-          const int s = x / KPp, j = x - s * KPp;
-          s_wn[x] = band.neg_weight<true, CBOW>(s, j);
+        if constexpr (PIECED) {
+          neg_weights_mma<CBOW>(band, KPp, s_wn);
+        } else {
+          for (int x = tid; x < Sp * KPp; x += kThreads) {
+            const int s = x / KPp, j = x - s * KPp;
+            s_wn[x] = band.neg_weight<true, CBOW>(s, j);
+          }
         }
         __syncthreads();
         clk.mark(kPhaseMasks);
 
-        // ---- positive logits: the sg band (tensor cores) or the cbow
-        // center, beside the first piece's negative logits (they overlap
-        // better there than beside the weights: 1.3% on the flagship, where
-        // grad_core measured the other way; PERF.md §6)
+        // ---- positive logits: the sg band (tensor cores; pieced: its slot
+        // piece 0, the later ones below) or the cbow center, beside the
+        // first piece's negative logits (they overlap better there than
+        // beside the weights: 1.3% on the flagship, where grad_core
+        // measured the other way; PERF.md §6)
         if (r == 0) {
           if constexpr (!CBOW) {
-            pos_acc += band_logits(band, tp, sA, d, alpha, s_gpb,
-                                   [&](int q) { load(-1, q); }, bk_row);
+            if constexpr (PIECED) {
+              pos_acc += band_logits_slots(band, tp, sA, d, alpha, s_gps, 0, K0,
+                                           [&](int q) { load(-1, q); }, bk_row);
+            } else {
+              pos_acc += band_logits(band, tp, sA, d, alpha, s_gpb,
+                                     [&](int q) { load(-1, q); }, bk_row);
+            }
           } else {
             pos_acc += center_logits(band, hp, d, alpha, s_gpc, a_row);
           }
@@ -644,14 +738,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
           // ---- center-side rows: d_hid = gn @ en (tensor cores), its
           // running sum over the pieces in d_h (sg) or dh_ws (cbow); after
-          // the last piece the band product (sg) or the center's out-row
-          // update and d_hid2 (cbow, into A)
+          // the last piece the band product (sg; pieced: its slot piece 0, the
+          // rest below) or the center's out-row update and d_hid2
+          // (cbow, into A)
           float* part = (CBOW ? dhp : dh_out) + off;
           auto partial = [&](int s, int e) -> float {
             return (s < Sp && e < dq) ? part[(size_t)s * d + e] : 0.f;
           };
           auto w = [&](int s, int k) -> float {
-            return (s < Sp && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+            if (s >= Sp || k - s < 0 || k - s >= NB) return 0.f;
+            return PIECED ? gp_at(0)(s, k) : s_gpb[s * NB + (k - s)];
           };
           block_pass(
               SPp, DPq,
@@ -659,9 +755,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                 if (r > 0) load_block(acc, m0, n0, partial);
                 warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
                                             KPPp, KPPp);
-                if (!CBOW && last)
-                  band_rows_mma(acc, m0, n0, 2 * W, SKp, dq, w,
-                                [&](int k) { return bk_row(k) + off; });
+                // the band product (pieced: its slot piece 0, the rest
+                // below, continuing this accumulator through d_h)
+                if (!CBOW && last && (!PIECED || rows_active(s_nctx, m0, Sp)))
+                  band_rows_mma(acc, m0, n0, m0,
+                                PIECED ? min(m0 + kMmaM + 2 * W, K0)
+                                       : m0 + kMmaM + 2 * W,
+                                SKp, dq, w, [&](int k) { return bk_row(k) + off; });
               },
               [&](int s, const int (&col)[4], const float (&v)[4]) {
                 if (s >= Sp) return;
@@ -680,28 +780,63 @@ __global__ void __launch_bounds__(kThreads, 1)
           clk.mark(kPhaseCenter);
           if (!last) continue;
 
-          // ---- slab-space context grads: slot k sums the centers s in
-          // [k-2W, k] that see it (zero at invalid slots: their mask column
-          // is 0); a slot the previous piece reached continues its
-          // accumulator from the output row
-          context_tiles<CBOW>(
-              band, s_gpb, sA, tl.lda, SKp, DPq,
-              [&](float (&acc)[2][4], int m0, int n0) {
-                if (i > 0 && m0 < 2 * W)
-                  load_block(acc, m0, n0, [&](int k, int e) -> float {
-                    return (s0 + k < SK && e < dq)
-                               ? dctx[(size_t)(s0 + k) * d + off + e]
-                               : 0.f;
-                  });
-              },
-              [&](int k, const int (&col)[4], const float (&y)[4]) {
-#pragma unroll
-                for (int v = 0; v < 4; ++v)
-                  if (s0 + k < SK && col[v] < dq)
-                    dctx[(size_t)(s0 + k) * d + off + col[v]] = y[v];
-              });
+          if constexpr (CBOW) {
+            context([&](int s, int k) { return band.mask(s, k); }, 0, SKp, q);
+          } else if constexpr (PIECED) {
+            context(gp_at(0), 0, K0, q);  // slot piece 0's slots
+          } else {
+            context([&](int s, int k) { return s_gpb[s * NB + (k - s)]; }, 0, SKp, q);
+          }
           __syncthreads();
           clk.mark(kPhaseContext);
+        }
+      }
+
+      if constexpr (PIECED && !CBOW) {
+        // ---- the sg band's later slot pieces (slot piece 0 ran beside
+        // the negatives): each one's logits, its k-slices of the band
+        // product continuing d_hid's accumulator (through d_h) in the
+        // row blocks whose band reaches it, its slots' context sums
+        for (int j = 1; j < pieces(SKp, kKc); ++j) {
+          const int k0 = j * kKc, Kj = piece_len(SKp, kKc, j);
+          __syncthreads();  // the previous slot piece is done with gp
+          pos_acc += band_logits_slots(band, tp, sA, d, alpha, s_gps, k0, Kj,
+                                       [&](int q) { load(-1, q); }, bk_row);
+          __syncthreads();
+          clk.mark(kPhaseLogits);
+          const auto gp = gp_at(k0);
+          auto w = [&](int s, int k) -> float {
+            return (s < Sp && k - s >= 0 && k - s <= 2 * W) ? gp(s, k) : 0.f;
+          };
+          // the row blocks m0 with [m0, m0 + 16 + 2W) reaching [k0, k0 + Kj)
+          const int m_lo = round_up(max(0, k0 - (kMmaM - 1) - 2 * W), kMmaM);
+          const int m_hi = min(SPp, round_up(k0 + Kj, kMmaM));
+          for (int q = 0; q < nD; ++q) {
+            const int dq = piece_len(d, kDc, q), off = q * kDc;
+            load(-1, q);
+            float* part = dh_out + off;
+            block_pass(
+                m_hi - m_lo, round_up(dq, kMmaK),
+                [&](float (&acc)[2][4], int m0, int n0) {
+                  load_block(acc, m0, n0, [&](int s, int e) -> float {
+                    return (s < Sp && e < dq) ? part[(size_t)s * d + e] : 0.f;
+                  });
+                  if (rows_active(s_nctx, m0, Sp))
+                    band_rows_mma(acc, m0, n0, max(m0, k0),
+                                  min(m0 + kMmaM + 2 * W, k0 + Kj), SKp, dq, w,
+                                  [&](int k) { return bk_row(k) + off; });
+                },
+                [&](int s, const int (&col)[4], const float (&v)[4]) {
+                  if (s >= Sp) return;
+#pragma unroll
+                  for (int u = 0; u < 4; ++u)
+                    if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
+                },
+                m_lo);
+            clk.mark(kPhaseCenter);
+            context(gp, k0, k0 + Kj, q);
+            clk.mark(kPhaseContext);
+          }
         }
       }
     }
@@ -784,7 +919,7 @@ const char* w2v_error_string(int err) {
 int w2v_band_core_blocks_per_sm(int S, int SK, int KP, int d, int W,
                                 int table_bf16, int cdt_bf16, int is_cbow) {
   const size_t smem = w2v_band_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
+  const bool tc = cdt_bf16 != 0, pieced = chunk_pieced(S, W);
   int n = 0;
   cudaError_t err;
   if (table_bf16) {
@@ -817,7 +952,7 @@ int w2v_band_core(const void* a, const void* bk, const void* en,
              d,        W,         K,      neg_shared, cbow_mean, phase_rec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = w2v_band_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
+  const bool tc = cdt_bf16 != 0, pieced = chunk_pieced(S, W);
   cudaError_t err =
       table_bf16
           ? launch_band_model<__nv_bfloat16>(p, B, smem, tc, pieced, st, is_cbow)

@@ -15,14 +15,20 @@
 //     to 16) plus kRowPad columns, so the eight row addresses of one
 //     ldmatrix fall on eight distinct bank groups;
 //   * the pieces: the tiles hold at most kSc centers, kKPc negative rows
-//     and kDc columns, so a block's shared memory stops growing with S,
-//     KP and d past one piece. A chunk of more centers is walked in
-//     center pieces i of Sp <= kSc centers (the first at center s0 =
-//     i kSc), each with the Sp + 2W slab slots its band reaches, the 2W
-//     slots shared with the next piece included; a wider pool or row is
-//     walked piece by piece (piece_pass, and the kernels' loops over p
-//     and q). The sums that cross pieces keep the order of one unpieced
-//     product:
+//     and kDc columns, and a center piece's band weights at most kKc slab
+//     slots, so a block's shared memory stops growing with S, KP, d and W
+//     past one piece. A chunk of more centers is walked in center pieces i
+//     of Sp <= kSc centers (the first at center s0 = i kSc), each with the
+//     Sp + 2W slab slots its band reaches, the 2W slots shared with the
+//     next pieces included; a wider pool or row is walked piece by piece
+//     (piece_pass, and the kernels' loops over p and q); a center piece
+//     whose Sp + 2W slots exceed kKc is walked in slot pieces j of at most
+//     kKc slots (from slot k0 = j kKc of the piece), its sg band weights gp
+//     an [Sp x kKc] block of one slot piece at a time (bf16 in the
+//     tensor-core bodies, which only read them rounded), its slab ids
+//     staged in a fixed room of kTokRoom while they fit and read from
+//     device memory (through L1) past it. The sums that cross pieces keep
+//     the order of one unpieced product:
 //       - the negative logits A E^T and the sg band logits A bk^T sum
 //         over the width pieces q = 0, 1, ... in one register accumulator
 //         per output block (piece_pass), k-slice after k-slice, exactly
@@ -53,6 +59,20 @@
 //         workspace) and piece i + 1 continues it (context_tiles' init)
 //         over its own depth blocks: the unpieced order again; ctx_w's
 //         0/1 column sums add piece after piece (exact in any order);
+//       - the sums over the slots of a center's band, in slot pieces:
+//         the sg band product gp bk continues d_hid's accumulator (slot
+//         piece 0 in the negatives' pass, as one piece adds its band),
+//         which goes to device memory (the output row) after each slot
+//         piece and is loaded again, by the thread that owns the value,
+//         before the next, whose k-slices of 16 slots follow in slot order
+//         (pieces are multiples of 16 slots): the unpieced order; cbow's
+//         projection mask bk needs no gp and reads the whole band in one
+//         accumulator; a slot's context sum over the centers of one
+//         center piece lies inside one slot piece; n_ctx,
+//         ctx_w and the collision counts ctx_hit sum 0/1 terms (exact in
+//         any order): warp sums, column sums read at the write, and a
+//         tensor-core product mask . hit_k (neg_weights_mma,
+//         pallas_band.py:151) over the whole band;
 //       - d_hid, n_ctx, the band and negative logits, cbow's projection
 //         are per center: a piece computes its own centers' whole sums;
 //       - the loss partials add piece after piece in each thread, then
@@ -61,7 +81,11 @@
 //         which term follows the piece's warp tasks, so the losses of one
 //         chunk in pieces of two lengths agree to rounding, not bitwise.
 //     No atomics anywhere: two calls are bitwise equal. A chunk of at
-//     most kSc centers is one center piece and runs no carry;
+//     most kSc centers whose S + 2W slots fit one slot piece runs no
+//     carry (its own instantiation in the tensor-core bodies); the
+//     pieced instantiation skips the products of 16 centers whose mask
+//     rows are all zero (n_ctx 0: past the row, or dropped), so its time
+//     follows the row's centers, not the chunk's;
 //   * the tensor-core tile products (ldmatrix + mma.sync.m16n8k16, bf16
 //     operands, f32 accumulate, one [16 x 16] output block per warp task,
 //     every output value owned by one thread):
@@ -104,18 +128,27 @@ constexpr int kRowPad = 8;
 // the pieces the tiles hold: centers a piece (a multiple of kMmaM: the
 // center pieces cut the depth of d_neg and of the context sums at whole
 // k-slices), negative rows a piece (a multiple of 16) and columns a piece
-// (a multiple of kMmaK); the flagship (S 118, KP 64, d 300) and every
-// auto chunk below W 64 (S <= 126) are one piece of each. Past one piece
-// of each a block's shared memory depends on W alone (a center piece's
-// band logits, kSc x (2W + 1) words, and its 2W halo): one piece with its
-// halo fits the 232,448 B a block may use up to W 54 with bf16 compute
-// (W 154 in fused_grad_core's f32 body, 156 in band_core's); a wider
-// window is refused before any launch. kSc >= 2W with bf16 compute, so a
-// slot of the tensor-core bodies is shared by two pieces at most; past W
-// 64 the f32 bodies hand a slot's context sum on through a middle piece
+// (a multiple of kMmaK), and slab slots a slot piece (a multiple of kMmaK:
+// the slot pieces cut the depth of the band product at whole k-slices);
+// the flagship (S 118, KP 64, d 300, S + 2W = 128) and every auto chunk
+// up to W 40 (S + 2W <= 160) are one piece of each, and a center piece of
+// 128 is one slot piece up to W 16. What bounds a block is these four
+// constants and kTokRoom alone: one piece of each fits the 232,448 B a
+// block may use (225,152 B, the most, in the pieced tensor-core body), at
+// every W, S, KP and d. A slot reaches back at most 2W centers, so it is
+// shared by up to ceil(2W / kSc) + 1 center pieces; its context sum is
+// handed on through the middle ones (carry_rows)
 constexpr int kSc = 128;
 constexpr int kKPc = 64;
 constexpr int kDc = 304;
+constexpr int kKc = 160;
+// bf16 columns of a row of the pieced bodies' band weights (one slot
+// piece plus kRowPad: the 8 rows a k-slice reads fall on distinct banks)
+constexpr int kGpLd = kKc + kRowPad;
+// slab ids the pieced bodies stage for a center piece (its Sp + 2W slots
+// while they fit: every W up to 960; a wider band's are read from device
+// memory, through L1)
+constexpr int kTokRoom = 2048;
 // [16 x 16] output blocks a warp holds at once across the width pieces
 constexpr int kSlots = 2;
 
@@ -203,18 +236,48 @@ struct Band {
   template <bool CB, bool CBOW>
   __device__ __forceinline__ float neg_weight(int s, int j) const {
     const int neg = negs[j];
-    const float center_hit = tokc[s] == neg ? 1.f : 0.f;
     float ctx_hit = 0.f;
     for (int k = s; k <= s + 2 * W; ++k) {
       const float m = mask(s, k);
       if (m != 0.f && tokk[k] == neg) ctx_hit += rc<CB>(m);
     }
+    return weight<CBOW>(s, j, ctx_hit);
+  }
+  // w_neg of (s, j) from its context collision count ctx_hit
+  template <bool CBOW>
+  __device__ __forceinline__ float weight(int s, int j, float ctx_hit) const {
+    const float center_hit = tokc[s] == negs[j] ? 1.f : 0.f;
     const float neg_ok = 1.f - fminf(fmaxf(center_hit + ctx_hit, 0.f), 1.f);
     const float n = nctx[s];
     const float k_i = CBOW ? (n > 0.f ? (float)K : 0.f) : n * (float)K;
     return (k_i / (float)KP) * neg_ok;
   }
 };
+
+// n_ctx of the piece's centers into s_nctx and out (device memory): one
+// warp a center, its band's mask summed lane by lane, then warp_sum (0/1
+// terms: exact in any order), so a wide band costs (2W + 1) / 32 reads a
+// lane
+__device__ __forceinline__ void row_sums(const Band& band, float* s_nctx,
+                                         float* out) {
+  const int lane = threadIdx.x & 31;
+  for (int s = threadIdx.x >> 5; s < band.S; s += kWarps) {
+    float n = 0.f;
+    for (int k = s + lane; k <= s + 2 * band.W; k += 32) n += band.mask(s, k);
+    n = warp_sum(n);
+    if (lane == 0) {
+      s_nctx[s] = n;
+      out[s] = n;
+    }
+  }
+}
+
+// true when some center of [s0, s0 + 16) has a mask row that is not all
+// zero (n_ctx > 0); a warp-wide answer, every lane must call it
+__device__ __forceinline__ bool rows_active(const float* nctx, int s0, int S) {
+  const int s = s0 + (threadIdx.x & 15);
+  return __any_sync(kFull, s < S && nctx[s] > 0.f);
+}
 
 // the length of piece i, and the count of pieces, of n cut in pieces of
 // `piece` (the last one ragged)
@@ -247,6 +310,27 @@ struct TileLayout {
 // rows of a carry between center pieces of the context sums: the next
 // piece's first 2W slots, rounded up to whole [16 x 16] output blocks
 __host__ __device__ inline int carry_rows(int W) { return round_up(2 * W, kMmaM); }
+
+// a chunk of S centers in more than one center or slot piece: the
+// tensor-core bodies' pieced instantiation
+__host__ __device__ inline bool chunk_pieced(int S, int W) {
+  return S > kSc || S + 2 * W > kKc;
+}
+
+// shared memory of the pieced tensor-core bodies (both kernels), in bytes:
+// the tiles, one slot piece of bf16 band weights [SP x kGpLd], then in
+// 4-byte words tok_c, keep, w, n_ctx, the staged slab ids, the negative
+// ids, gp per center (cbow), w_neg of the negative piece and the loss
+// reduction; no W
+__host__ __device__ inline size_t pieced_tc_smem_bytes(int S, int KP, int d) {
+  const TileLayout tl(S, KP, d);
+  const int Sc = S < kSc ? S : kSc;
+  const int KPc = KP < kKPc ? KP : kKPc;
+  const size_t words =
+      (size_t)Sc * 4 + kTokRoom + KPc + Sc + (size_t)Sc * KPc + 2 * kWarps;
+  return tl.bf16_bytes() + (size_t)tl.SP * kGpLd * sizeof(__nv_bfloat16) +
+         words * sizeof(float);
+}
 
 // ---------------------------------------------------------------- mma
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -336,14 +420,16 @@ __device__ __forceinline__ void for_each_row(const float (&acc)[2][4], int m0,
 }
 
 // one warp per [16 x 16] block of an [M x N] output (M, N multiples of
-// 16): fill(acc, m0, n0) forms the block's accumulators, then f(row, col,
-// val) as in for_each_row; every output value owned by one thread
+// 16; its rows from m_lo): fill(acc, m0, n0) forms the block's
+// accumulators, then f(row, col, val) as in for_each_row; every output
+// value owned by one thread
 template <typename Fill, typename F>
-__device__ __forceinline__ void block_pass(int M, int N, Fill&& fill, F&& f) {
+__device__ __forceinline__ void block_pass(int M, int N, Fill&& fill, F&& f,
+                                           int m_lo = 0) {
   const int nn = N / (2 * kMmaN);
   const int tasks = (M / kMmaM) * nn;
   for (int t = threadIdx.x >> 5; t < tasks; t += kWarps) {
-    const int m0 = t / nn * kMmaM, n0 = t % nn * (2 * kMmaN);
+    const int m0 = m_lo + t / nn * kMmaM, n0 = t % nn * (2 * kMmaN);
     float acc[2][4] = {};
     fill(acc, m0, n0);
     for_each_row(acc, m0, n0, f);
@@ -457,14 +543,17 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, int rows,
 }
 
 // acc += Wb[m0 : m0+16, k] x bk[k, n0 : n0+16] over the depth blocks
-// k in [m0, m0 + 16 + 2W) that the band of rows m0 .. m0+15 reaches
+// k in [k_lo, k_hi) (multiples of kMmaK apart): all of [m0, m0 + 16 + 2W)
+// that the band of rows m0 .. m0+15 reaches, or the part of it in one
+// slot piece
 template <typename WFn, typename RowFn>
 __device__ __forceinline__ void band_rows_mma(float (&acc)[2][4], int m0,
-                                              int n0, int W2, int SK, int d,
-                                              WFn w, RowFn bk_row) {
+                                              int n0, int k_lo, int k_hi,
+                                              int SK, int d, WFn w,
+                                              RowFn bk_row) {
   const int lane = threadIdx.x & 31, g = lane >> 2, kl = 2 * (lane & 3);
   const int s0 = m0 + g, s1 = s0 + 8;
-  for (int k0 = m0; k0 < m0 + kMmaM + W2; k0 += kMmaK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += kMmaK) {
     const int k = k0 + kl;
     const uint32_t a[4] = {pack_bf16(w(s0, k), w(s0, k + 1)),
                            pack_bf16(w(s1, k), w(s1, k + 1)),
@@ -584,12 +673,106 @@ __device__ __forceinline__ float band_logits(const Band& band,
   return pos_acc;
 }
 
+// band_logits for one slot piece, slots [k0, k0 + Kj) of the center
+// piece: for each row block of 16 centers m0, the [16 x 16] blocks of
+// slots from max(k0, m0) on that its band [m0, m0 + 16 + 2W) reaches (as
+// band_logits, at most as many as the slot piece holds), a block whose
+// centers' mask rows are all zero running no product; gp[s][k - k0] (row
+// stride kGpLd) = bf16((1 - sigmoid(plog)) m alpha) for the slots k in
+// the band of s, 0 where masked (the tensor-core products read gp rounded
+// to bf16 alone)
+template <typename Load, typename RowFn>
+__device__ __forceinline__ float band_logits_slots(
+    const Band& band, const TileLayout& tl, const __nv_bfloat16* sA, int d,
+    float alpha, __nv_bfloat16* gp, int k0, int Kj, Load&& load_a,
+    RowFn bk_row) {
+  const int W2 = 2 * band.W, SK = band.S + W2;
+  const int nb = min(round_up(kMmaM + W2, 2 * kMmaN), round_up(Kj, 2 * kMmaN));
+  auto first = [&](int m0) { return max(k0, m0); };  // a row block's first slot
+  float pos_acc = 0.f;
+  piece_pass(
+      tl.SP, nb, pieces(d, kDc), load_a,
+      [&](float (&acc)[2][4], int m0, int n0, int q) {
+        const int c0 = first(m0) + n0;  // the block's first slot
+        if (c0 >= min(k0 + Kj, m0 + kMmaM + W2)) return;
+        if (!rows_active(band.nctx, m0, band.S)) return;
+        const int dq = piece_len(d, kDc, q), off = q * kDc;
+        rows_bk_mma(acc, sA, tl.lda, m0, c0, round_up(dq, kMmaK), SK, dq,
+                    [&](int k) {
+                      const auto* r = bk_row(k);
+                      return r != nullptr ? r + off : r;
+                    });
+      },
+      [&](int s, const int (&col)[4], const float (&plog)[4]) {
+        const int base = first(s / kMmaM * kMmaM);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int k = base + col[v], t = k - s;
+          if (s >= band.S || k >= k0 + Kj || t < 0 || t > W2) continue;
+          const float m = band.mask(s, k);
+          float g = 0.f;
+          if (m != 0.f) {
+            g = (1.f - sigmoid_stable(plog[v])) * m * alpha;
+            pos_acc += m * log_sigmoid(plog[v]);
+          }
+          gp[(size_t)s * kGpLd + (k - k0)] = __float2bfloat16_rn(g);
+        }
+      });
+  return pos_acc;
+}
+
+// w_neg [S x KPp] of the negative piece in hand into s_wn, its collision
+// counts ctx_hit = mask . hit_k (hit_k[k][j] = tokk[k] == negs[j]) on the
+// tensor cores as pallas_band.py:151 forms them: 0/1 operands and f32
+// sums, so the count is exact and the weight equals Band::neg_weight's,
+// for (2W + 16) / 16 k-slices a block where neg_weight reads 2W + 1 slots
+// a (center, negative); rows of 16 centers with no mask skip the product
+// (their weight is 0 at any count)
+template <bool CBOW>
+__device__ __forceinline__ void neg_weights_mma(const Band& band, int KPp,
+                                                float* s_wn) {
+  const int W2 = 2 * band.W, SK = band.S + W2;
+  const int lane = threadIdx.x & 31, g = lane >> 2, kl = 2 * (lane & 3);
+  auto m = [&](int s, int k) -> float {
+    return (s < band.S && k - s >= 0 && k - s <= W2) ? band.mask(s, k) : 0.f;
+  };
+  auto hit = [&](int k, int j) -> float {
+    return (k < SK && j < KPp && band.tokk[k] == band.negs[j]) ? 1.f : 0.f;
+  };
+  block_pass(
+      round_up(band.S, kMmaM), round_up(KPp, 2 * kMmaN),
+      [&](float (&acc)[2][4], int m0, int n0) {
+        if (!rows_active(band.nctx, m0, band.S)) return;
+        const int s0 = m0 + g, s1 = s0 + 8;
+        for (int k0 = m0; k0 < m0 + kMmaM + W2; k0 += kMmaK) {
+          const int k = k0 + kl;
+          const uint32_t a[4] = {pack_bf16(m(s0, k), m(s0, k + 1)),
+                                 pack_bf16(m(s1, k), m(s1, k + 1)),
+                                 pack_bf16(m(s0, k + 8), m(s0, k + 9)),
+                                 pack_bf16(m(s1, k + 8), m(s1, k + 9))};
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const int j = n0 + 8 * t + g;
+            mma_bf16(acc[t], a, pack_bf16(hit(k, j), hit(k + 1, j)),
+                     pack_bf16(hit(k + 8, j), hit(k + 9, j)));
+          }
+        }
+      },
+      [&](int s, const int (&col)[4], const float (&cnt)[4]) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (s < band.S && col[v] < KPp)
+            s_wn[s * KPp + col[v]] = band.weight<CBOW>(s, col[v], cnt[v]);
+      });
+}
+
 // cbow projection h = mask @ bk on the tensor cores (divided by n_ctx
 // under cbow_mean), piece by piece of the width: f32 into h_ws [S x d]
 // (d_ctr = gp h reads it unrounded), and, when the row is one piece,
 // rounded once into A for the negative products (else the pieces are
-// staged from h_ws, rounded the same way)
-template <typename RowFn>
+// staged from h_ws, rounded the same way); SKIP: rows of 16 centers with
+// no mask (n_ctx 0) run no product (their h is 0)
+template <bool SKIP = false, typename RowFn>
 __device__ __forceinline__ void projection(const Band& band,
                                            const TileLayout& tl, int d,
                                            bool mean, float* h_ws,
@@ -604,7 +787,8 @@ __device__ __forceinline__ void projection(const Band& band,
     block_pass(
         tl.SP, round_up(dq, kMmaK),
         [&](float (&acc)[2][4], int m0, int n0) {
-          band_rows_mma(acc, m0, n0, W2, SK, dq, w, [&](int k) {
+          if (SKIP && !rows_active(band.nctx, m0, band.S)) return;
+          band_rows_mma(acc, m0, n0, m0, m0 + kMmaM + W2, SK, dq, w, [&](int k) {
             const auto* r = bk_row(k);
             return r != nullptr ? r + off : r;
           });
@@ -699,35 +883,38 @@ __device__ __forceinline__ void cbow_center_row(
 }
 
 // slab-space context gradients on the tensor cores: y[k][e] =
-// sum_s rc(w(s, k)) A[s][e] over the [SKP x DP] block, w the band weight of
-// slot k seen from center s (sg: gp, cbow: the mask), zero outside the
-// band; A (sg: the center rows, cbow: rc(d_hid2)) is the B operand, the
-// band matrix is built in the A-operand registers from the band weights,
-// and only the depth blocks of s that reach the row block are visited.
-// init(acc, m0, n0) starts each block's accumulator (zero, or what an
-// earlier center piece carried); f(k, col, val) as in for_each_row.
-template <bool CBOW, typename Init, typename F>
-__device__ __forceinline__ void context_tiles(const Band& band,
-                                              const float* s_gpb,
+// sum_s rc(w(s, k)) A[s][e] over the slot rows [k_lo, k_hi) (all of a
+// piece's slots, or one slot piece) and DP columns, w(s, k) = wv(s, k)
+// the band weight of slot k seen from center s (sg: gp, cbow: the mask)
+// inside the band and zero outside it; A (sg: the center rows, cbow:
+// rc(d_hid2)) is the B operand, the band matrix is built in the A-operand
+// registers from the band weights, and only the depth blocks of s that
+// reach the row block are visited (SKIP: and of those, only blocks of 16
+// centers with a mask, n_ctx > 0). init(acc, m0, n0) starts each block's
+// accumulator (zero, or what an earlier center piece carried); f(k, col,
+// val) as in for_each_row.
+template <bool SKIP, typename WV, typename Init, typename F>
+__device__ __forceinline__ void context_tiles(const Band& band, WV&& wv,
                                               const __nv_bfloat16* sA, int lda,
-                                              int SK, int DP, Init&& init,
-                                              F&& f) {
+                                              int k_lo, int k_hi, int DP,
+                                              Init&& init, F&& f) {
   const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-  const int S = band.S, W2 = 2 * band.W, NB = W2 + 1;
+  const int S = band.S, W2 = 2 * band.W;
   const int kl = 2 * (lane & 3);
   auto w = [&](int k, int s) -> float {
     if (s >= S || k - s < 0 || k - s > W2) return 0.f;
-    return CBOW ? band.mask(s, k) : s_gpb[s * NB + (k - s)];
+    return wv(s, k);
   };
   const int nn = DP / (2 * kMmaN);
-  const int tasks = round_up(SK, kMmaM) / kMmaM * nn;
+  const int tasks = round_up(k_hi - k_lo, kMmaM) / kMmaM * nn;
   for (int t = threadIdx.x >> 5; t < tasks; t += kWarps) {
-    const int m0 = t / nn * kMmaM, n0 = t % nn * (2 * kMmaN);
+    const int m0 = k_lo + t / nn * kMmaM, n0 = t % nn * (2 * kMmaN);
     const int k0 = m0 + (lane >> 2), k1 = k0 + 8;
     float acc[2][4] = {};
     init(acc, m0, n0);
     const int s_hi = min(S - 1, m0 + kMmaM - 1);
     for (int s0 = max(0, m0 - W2) / kMmaK * kMmaK; s0 <= s_hi; s0 += kMmaK) {
+      if (SKIP && !rows_active(band.nctx, s0, S)) continue;
       const int s = s0 + kl;
       const uint32_t a[4] = {pack_bf16(w(k0, s), w(k0, s + 1)),
                              pack_bf16(w(k1, s), w(k1, s + 1)),

@@ -31,10 +31,11 @@
 //   G [SP x ldg]   gn = -sigmoid(nlog) w_neg alpha    128 x 72 x 2 B  = 18,432 B
 //   f32: ids and gates, the band-compressed gp [S x 2W+1], w_neg [S x KPc]
 //   (30,208 B), ...                         total at the flagship 177,448 B
-// and no more at any longer S (180,728 B at W 5), wider KP or d: the
-// flagship is one piece of each, and a longer chunk, a wider pool or row
-// is walked piece by piece (band_tiles.cuh states the order of every sum
-// that crosses pieces: that of one unpieced product).
+// and never more than 225,152 B, at any S, KP, d or W: the flagship is one
+// piece of each, and a longer chunk, a wider pool or row, a wider band
+// (past kKc = 160 slab slots a center piece: one slot piece of gp, bf16,
+// at a time) is walked piece by piece (band_tiles.cuh states the order of
+// every sum that crosses pieces: that of one unpieced product).
 // The context rows bk (another 80 KB, over the 227 KB a block has) stay in
 // L1/L2. Every product runs on the tensor cores (mma.sync.m16n8k16, f32
 // accumulate): nlog = A E^T, d_neg = G^T A and d_hid = G E from the tiles;
@@ -63,11 +64,12 @@
 // cores (TF32 would be outside the 1e-5 tolerance, and f32 tiles do not
 // fit): grad_core_f32_kernel keeps the first port's body (table and
 // negative rows through L1/L2, warp-reduced dot products), the chunk in
-// center pieces of kSc and the negative pool in pieces of kKPc. Both
-// bodies take an optional per-phase clock64() record (PhaseClock). What a
-// block's shared memory still bounds is the window W (a piece's band
-// logits, kSc x (2W + 1) words): W <= 54 with bf16 compute, 154 with f32;
-// a launch past it fails (the wrapper raises first).
+// center pieces of kSc, the negative pool in pieces of kKPc and a center
+// piece's band weights in slot pieces of kKc (at most 158,592 B a block).
+// Both bodies take an optional per-phase clock64() record (PhaseClock).
+// The pieces bound a block's shared memory at every shape the JAX kernels
+// take; a wider window costs time and, past one center piece, the device
+// workspace that hands a slot's context sum on (carry_rows).
 //
 // The slab scatter is a segmented, ordered pass: each cell receives its
 // run's terms in sorted order and rounds to the table type after every
@@ -140,19 +142,20 @@ struct GradArgs {
 
 // shared memory of the f32-compute body, in 4-byte words (ints and
 // floats), in the order grad_core_f32_kernel lays it out: one center piece
-// (at most kSc) and one negative piece (at most kKPc rows) at a time,
-// nothing that grows with S, KP or d past them
+// (at most kSc) and one negative piece (at most kKPc rows) at a time, and
+// the band weights gp of one slot piece, band-compressed [Sc x 2W+1] when
+// a center piece's slots fit one (Sc + 2W <= kKc), else [Sc x kKc]: nothing
+// that grows with S, KP, d or W past them
 inline size_t grad_smem_words(int S, int KP, int W) {
-  const int NB = 2 * W + 1;
-  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
+  const int Sc = S < kSc ? S : kSc;
   const int KPc = KP < kKPc ? KP : kKPc;
+  const int gld = Sc + 2 * W <= kKc ? 2 * W + 1 : kKc;
   return (size_t)Sc * 4          // tok_c, keep, w, n_ctx
-         + (size_t)SKc * 2       // tok_k, cwy
+         + (size_t)kTokRoom      // the staged slab ids
          + (size_t)KPc           // the piece's negative ids
-         + (size_t)Sc * NB       // band-compressed gp (sg)
+         + (size_t)Sc * gld      // gp (sg) of the slot piece
          + (size_t)Sc            // gp per center (cbow)
          + (size_t)Sc * KPc * 2  // gn, w_neg of the piece
-         + (size_t)2 * W         // ctx_w right overhang, 2 buffers
          + (size_t)2 * kWarps;   // loss block reduction
 }
 
@@ -204,10 +207,33 @@ __device__ __forceinline__ void overlap_cw(float* ctx_w, float* s_cwtail,
   }
 }
 
+// overlap_cw with the right overhang waiting in ctx_w itself, in the first
+// W positions of chunk c + 1 (as d_ctx's does), not in shared memory: the
+// pieced bodies, whose window is not bounded by a block's room
+__device__ __forceinline__ void overlap_cw_dev(float* ctx_w, size_t bc, int c,
+                                               int C, int S, int W, int kg,
+                                               float y, bool cont) {
+  if (kg < W) {
+    if (c > 0) ctx_w[(bc - 1) * S + (S - W + kg)] += y;
+  } else if (kg < S + W) {
+    const int s = kg - W;
+    float* o = ctx_w + bc * S + s;
+    *o = (cont || (s < W && c > 0)) ? *o + y : y;
+  } else if (c + 1 < C) {
+    float* t = ctx_w + (bc + 1) * S + (kg - S - W);
+    *t = cont ? *t + y : y;
+  }
+}
+
 // f32 compute: exact f32 products on the CUDA cores (the staged f32 tiles
 // would not fit), the design of the first port; the negative rows are read
-// through L1/L2, the chunk walked in center pieces of kSc and the negative
-// pool in pieces of kKPc
+// through L1/L2, the chunk walked in center pieces of kSc, the negative
+// pool in pieces of kKPc and a center piece's slots, for the sg band
+// weights, in slot pieces of kKc (one band-compressed piece when they fit:
+// Sc + 2W <= kKc). The slab ids are staged while they fit kTokRoom; the
+// collision counts are the exact tensor-core product neg_weights_mma. The
+// sg band product adds each slot piece's sum over its slots, in slot
+// order, to d_hid (one piece: d_hid + the whole sum, as before)
 template <typename T, bool CBOW>
 __global__ void __launch_bounds__(kThreads)
     grad_core_f32_kernel(const GradArgs a) {
@@ -218,9 +244,13 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int C = a.C, S = a.S, SK = a.SK, KP = a.KP, d = a.d, W = a.W;
-  const int NB = 2 * W + 1;
+  const int W2 = 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc, nK = pieces(KP, kKPc);
-  const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W, nS = pieces(S, kSc);
+  const int Sc = S < kSc ? S : kSc, nS = pieces(S, kSc);
+  // gp's row stride: band-compressed (slot s + t at column t) in one slot
+  // piece, else by slot (slot k0 + c of slot piece j at column c)
+  const bool slotted = Sc + W2 > kKc;
+  const int gld = slotted ? kKc : W2 + 1;
   const size_t rs = (size_t)2 * d;  // slab row stride
   // sg scores emb_in centers against emb_out contexts; cbow swaps them;
   // negatives always live on the out plane (pallas_step.py:160-164)
@@ -234,23 +264,24 @@ __global__ void __launch_bounds__(kThreads)
   float* s_w = s_keep + Sc;
   float* s_nctx = s_w + Sc;
   int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
+  int* s_negs = s_tokk + kTokRoom;
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_gpc = s_gpb + (size_t)Sc * gld;
   float* s_gn = s_gpc + Sc;
   float* s_wn = s_gn + (size_t)Sc * KPc;
-  float* s_cwtail = s_wn + (size_t)Sc * KPc;
-  float* s_red = s_cwtail + 2 * W;
+  float* s_red = s_wn + (size_t)Sc * KPc;
 
   PhaseClock clk(a.phase_rec);
+  // the center piece's slab ids: staged while they fit kTokRoom, else read
+  // from device memory
+  const int* tokk = a.tok_k;
   // center-side row (plane ctr_plane) of piece position s
   auto a_row = [&](int s, int e) -> float {
     return to_f(emb[(size_t)s_tokc[s] * rs + (size_t)ctr_plane * d + e]);
   };
   // context-side slab row; callers only reach valid slots (mask != 0)
   auto bk_row = [&](int k, int e) -> float {
-    return to_f(emb[(size_t)s_tokk[k] * rs + (size_t)ctx_plane * d + e]);
+    return to_f(emb[(size_t)tokk[k] * rs + (size_t)ctx_plane * d + e]);
   };
   // negative row j of the staged piece (out plane)
   auto en_row = [&](int j, int e) -> float {
@@ -276,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
     const int s_end = min(S, a.L - c * S);  // the chunk's positions < L
     for (int i = 0; i < nS; ++i) {
       // center piece i: centers [s0, s0 + Sp) and their slots [s0, s0 + SKp)
-      const int s0 = i * kSc, Sp = piece_len(S, kSc, i), SKp = Sp + 2 * W;
+      const int s0 = i * kSc, Sp = piece_len(S, kSc, i), SKp = Sp + W2;
       const bool more = i + 1 < nS;
       const int e_end = min(Sp, max(0, s_end - s0));  // its positions < L
       const size_t cs = bc * S + s0;
@@ -292,12 +323,15 @@ __global__ void __launch_bounds__(kThreads)
         s_keep[s] = a.keep_c[cs + s];
         s_w[s] = a.w_c[cs + s];
       }
-      for (int k = tid; k < SKp; k += kThreads)
-        s_tokk[k] = a.tok_k[bc * SK + s0 + k];
+      tokk = a.tok_k + bc * SK + s0;
+      if (SKp <= kTokRoom) {
+        for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = tokk[k];
+        tokk = s_tokk;
+      }
       __syncthreads();
       clk.mark(kPhaseRows);
       // the band mask (banded.band_mask semantics, pallas_step.py:185-194)
-      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, a.K, KP};
+      const Band band{s_tokc, s_keep, s_w, s_nctx, tokk, s_negs, Sp, W, a.K, KP};
       auto h_val = [&](int s, int e) -> float {
         if constexpr (CBOW) {
           return hp[(size_t)s * d + e];
@@ -306,20 +340,15 @@ __global__ void __launch_bounds__(kThreads)
         }
       };
 
-      // ---- mask row sums (n_ctx) and slab column sums (cwy)
-      for (int s = tid; s < Sp; s += kThreads) {
-        const float n = band.row_sum(s);
-        s_nctx[s] = n;
-        a.n_ctx[cs + s] = n;
-      }
-      for (int k = tid; k < SKp; k += kThreads) s_cwy[k] = band.col_sum(k);
+      // ---- mask row sums (n_ctx)
+      row_sums(band, s_nctx, a.n_ctx + cs);
       __syncthreads();
       if constexpr (CBOW) {
         // projection h = mask @ bk_rows (divided by n_ctx under cbow_mean)
         for (int x = tid; x < Sp * d; x += kThreads) {
           const int s = x / d, e = x - s * d;
           float acc = 0.f;
-          for (int k = s; k <= s + 2 * W; ++k) {
+          for (int k = s; k <= s + W2; ++k) {
             const float m = band.mask(s, k);
             if (m != 0.f) acc += m * bk_row(k, e);
           }
@@ -330,26 +359,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       clk.mark(kPhaseMasks);
 
-      // ---- positive side
-      if constexpr (!CBOW) {
-        // band logits over the band only, one warp per (s, k)
-        for (int p = warp; p < Sp * NB; p += kWarps) {
-          const int s = p / NB, k = s + (p - s * NB);
-          const float m = band.mask(s, k);
-          if (m == 0.f) {
-            if (lane == 0) s_gpb[p] = 0.f;
-            continue;
-          }
-          float part = 0.f;
-          for (int e = lane; e < d; e += 32)
-            part += a_row(s, e) * bk_row(k, e);
-          const float plog = warp_sum(part);
-          if (lane == 0) {
-            s_gpb[p] = (1.f - sigmoid_stable(plog)) * m * alpha;
-            pos_acc += m * log_sigmoid(plog);
-          }
-        }
-      } else {
+      if constexpr (CBOW) {
         // center logit: row-dot of h and the center's out-plane row
         for (int s = warp; s < Sp; s += kWarps) {
           float part = 0.f;
@@ -375,10 +385,7 @@ __global__ void __launch_bounds__(kThreads)
           __syncthreads();
         }
         // negative weights (collision masks, pallas_step.py:213-223)
-        for (int x = tid; x < Sp * KPp; x += kThreads) {
-          const int s = x / KPp, j = x - s * KPp;
-          s_wn[x] = band.neg_weight<false, CBOW>(s, j);
-        }
+        neg_weights_mma<CBOW>(band, KPp, s_wn);
         __syncthreads();
         clk.mark(kPhaseMasks);
 
@@ -398,22 +405,16 @@ __global__ void __launch_bounds__(kThreads)
         clk.mark(kPhaseLogits);
 
         // center-side rows: d_hid = gn @ en over the pieces, each value's
-        // running sum kept in d_ctr (sg) or dh_ws (cbow) between pieces,
-        // then the band product (sg) or the center update and d_hid2 (cbow)
+        // running sum kept in d_ctr (sg, where the band product then adds
+        // to it) or dh_ws (cbow); after the last piece the center update
+        // and d_hid2 (cbow)
         for (int x = tid; x < Sp * d; x += kThreads) {
           const int s = x / d, e = x - s * d;
           float* part = CBOW ? dhp + x : dctr + x;
           float dh = p == 0 ? 0.f : *part;
           for (int j = 0; j < KPp; ++j) dh += s_gn[s * KPp + j] * en_row(j, e);
-          if (!last) {
+          if (!CBOW || !last) {
             *part = dh;
-          } else if constexpr (!CBOW) {
-            float dp = 0.f;
-            for (int t = 0; t < NB; ++t) {
-              const float g = s_gpb[s * NB + t];
-              if (g != 0.f) dp += g * bk_row(s + t, e);
-            }
-            dctr[x] = dh + dp;
           } else {
             const float gp = s_gpc[s];
             dctr[x] = gp * hp[x];
@@ -445,29 +446,82 @@ __global__ void __launch_bounds__(kThreads)
 
       // ---- slab-space context grads (each slot's sum over the centers
       // s in [k-2W, k], in order, continued from the previous piece's
-      // carry), overlap-added straight into token order once whole
-      for (int x = tid; x < SKp * d; x += kThreads) {
-        const int k = x / d, e = x - k * d;
-        const int lo = max(0, k - 2 * W), hi = min(Sp - 1, k);
-        float y = (i > 0 && k < 2 * W) ? carry_in[(size_t)k * d + e] : 0.f;
-        for (int s = lo; s <= hi; ++s) {
-          if constexpr (!CBOW) {
-            const float g = s_gpb[s * NB + (k - s)];
-            if (g != 0.f) y += g * a_row(s, e);
-          } else {
-            const float m = band.mask(s, k);
-            if (m != 0.f) y += m * dhp[(size_t)s * d + e];
-          }
-        }
+      // carry), overlap-added straight into token order once whole:
+      // sg slot piece by slot piece, after its band logits and band product
+      auto context_row = [&](int k, int e, float y) {
         if (more && k >= Sp) {
           carry_out[(size_t)(k - Sp) * d + e] = y;
         } else {
           overlap_row(a.d_ctx, bc, c, C, S, W, d, s0 + k, e, y);
         }
+      };
+      if constexpr (!CBOW) {
+        for (int j = 0; j < pieces(SKp, kKc); ++j) {
+          const int k0 = j * kKc, Kj = piece_len(SKp, kKc, j);
+          // gp of (s, slot k), k in the band of s and in this slot piece
+          auto gp = [&](int s, int k) -> float {
+            return s_gpb[s * gld + (slotted ? k - k0 : k - s)];
+          };
+          // band logits, one warp per (s, slot) of the band
+          const int ncol = slotted ? Kj : W2 + 1;
+          for (int x = warp; x < Sp * ncol; x += kWarps) {
+            const int s = x / ncol, col = x - s * ncol;
+            const int k = slotted ? k0 + col : s + col;
+            if (k < s || k > s + W2) continue;
+            const float m = band.mask(s, k);
+            if (m == 0.f) {
+              if (lane == 0) s_gpb[s * gld + col] = 0.f;
+              continue;
+            }
+            float part = 0.f;
+            for (int e = lane; e < d; e += 32) part += a_row(s, e) * bk_row(k, e);
+            const float plog = warp_sum(part);
+            if (lane == 0) {
+              s_gpb[s * gld + col] = (1.f - sigmoid_stable(plog)) * m * alpha;
+              pos_acc += m * log_sigmoid(plog);
+            }
+          }
+          __syncthreads();
+          // the band product of the slot piece, added to d_hid
+          for (int x = tid; x < Sp * d; x += kThreads) {
+            const int s = x / d, e = x - s * d;
+            const int k_hi = min(s + W2, k0 + Kj - 1);
+            float dp = 0.f;
+            for (int k = max(s, k0); k <= k_hi; ++k) {
+              const float g = gp(s, k);
+              if (g != 0.f) dp += g * bk_row(k, e);
+            }
+            dctr[x] = dctr[x] + dp;
+          }
+          // the context sums of the slot piece's slots
+          for (int x = tid; x < Kj * d; x += kThreads) {
+            const int k = k0 + x / d, e = x % d;
+            const int lo = max(0, k - W2), hi = min(Sp - 1, k);
+            float y = (i > 0 && k < W2) ? carry_in[(size_t)k * d + e] : 0.f;
+            for (int s = lo; s <= hi; ++s) {
+              const float g = gp(s, k);
+              if (g != 0.f) y += g * a_row(s, e);
+            }
+            context_row(k, e, y);
+          }
+          __syncthreads();
+        }
+      } else {
+        for (int x = tid; x < SKp * d; x += kThreads) {
+          const int k = x / d, e = x - k * d;
+          const int lo = max(0, k - W2), hi = min(Sp - 1, k);
+          float y = (i > 0 && k < W2) ? carry_in[(size_t)k * d + e] : 0.f;
+          for (int s = lo; s <= hi; ++s) {
+            const float m = band.mask(s, k);
+            if (m != 0.f) y += m * dhp[(size_t)s * d + e];
+          }
+          context_row(k, e, y);
+        }
       }
+      // ctx_w: the slots' mask column sums (0/1: exact in any order)
       for (int k = tid; k < SKp; k += kThreads)
-        overlap_cw(a.ctx_w, s_cwtail, bc, c, S, W, s0 + k, s_cwy[k],
-                   i > 0 && k < 2 * W);
+        overlap_cw_dev(a.ctx_w, bc, c, C, S, W, s0 + k, band.col_sum(k),
+                       i > 0 && k < W2);
       __syncthreads();
       clk.mark(kPhaseContext);
     }
@@ -476,10 +530,12 @@ __global__ void __launch_bounds__(kThreads)
   clk.mark(kPhaseTail);
 }
 
-// shared memory of the tensor-core body, in bytes: the bf16 tiles
-// (TileLayout, one piece) and then, in 4-byte words, in
-// grad_core_tc_kernel's order; nothing grows with S, KP or d past one piece
+// shared memory of the tensor-core body, in bytes: a chunk of one piece,
+// the bf16 tiles (TileLayout) and then, in 4-byte words, in
+// grad_core_tc_kernel's order; a pieced chunk (chunk_pieced), the layout
+// of band_tiles.cuh's pieced_tc_smem_bytes, which no W changes
 inline size_t grad_tc_smem_bytes(int S, int KP, int d, int W) {
+  if (chunk_pieced(S, W)) return pieced_tc_smem_bytes(S, KP, d);
   const int NB = 2 * W + 1;
   const int Sc = S < kSc ? S : kSc, SKc = Sc + 2 * W;
   const int KPc = KP < kKPc ? KP : kKPc;
@@ -495,11 +551,18 @@ inline size_t grad_tc_smem_bytes(int S, int KP, int d, int W) {
 }
 
 // bf16 compute: the three dense products on the tensor cores, the chunk
-// in center pieces of kSc, the negative pool in pieces of kKPc rows and
-// the width in pieces of kDc columns (band_tiles.cuh says how the sums
-// cross the pieces); PIECED: S > kSc. A chunk of one piece runs an
-// instantiation without the center pieces' carries: with them compiled
-// in, the one-piece shapes read 5-19% slower (PERF.md §6)
+// in center pieces of kSc, the negative pool in pieces of kKPc rows, the
+// width in pieces of kDc columns and a center piece's slots in slot pieces
+// of kKc (band_tiles.cuh says how the sums cross the pieces); PIECED:
+// chunk_pieced(S, W). A chunk of one piece runs an instantiation without
+// the pieces' carries: with them compiled in, the one-piece shapes read
+// 5-19% slower (PERF.md §6). The pieced one stages the slab ids in a fixed
+// room (past it, reads them from device memory), counts the collisions on
+// the tensor cores (neg_weights_mma),
+// and walks the sg band (its logits, the band product into d_hid, the
+// context sums) slot piece by slot piece: slot piece 0 where one piece
+// runs its band, the later ones after the negatives, each in the row
+// blocks whose band reaches it
 template <typename T, bool CBOW, bool PIECED>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_core_tc_kernel(const GradArgs a) {
@@ -524,28 +587,36 @@ __global__ void __launch_bounds__(kThreads, 1)
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sE = sA + tl.a_elems();
   __nv_bfloat16* sG = sE + tl.e_elems();
-  float* f = reinterpret_cast<float*>(sG + tl.g_elems());
+  // pieced: one slot piece of the sg band weights, bf16 [SP x kGpLd]
+  __nv_bfloat16* s_gps = sG + tl.g_elems();
+  float* f = reinterpret_cast<float*>(s_gps + (PIECED ? (size_t)tl.SP * kGpLd : 0));
   int* s_tokc = reinterpret_cast<int*>(f);
   float* s_keep = f + Sc;
   float* s_w = s_keep + Sc;
   float* s_nctx = s_w + Sc;
+  // one piece: the slab ids and column sums, the band-compressed gp and
+  // ctx_w's overhang in shared memory (pieced: the slab ids' fixed room,
+  // none of the rest)
   int* s_tokk = reinterpret_cast<int*>(s_nctx + Sc);
-  float* s_cwy = reinterpret_cast<float*>(s_tokk + SKc);
-  int* s_negs = reinterpret_cast<int*>(s_cwy + SKc);
+  float* s_cwy = reinterpret_cast<float*>(s_tokk + (PIECED ? kTokRoom : SKc));
+  int* s_negs = reinterpret_cast<int*>(s_cwy + (PIECED ? 0 : SKc));
   const int KPc = KP < kKPc ? KP : kKPc;
   float* s_gpb = reinterpret_cast<float*>(s_negs + KPc);
-  float* s_gpc = s_gpb + (size_t)Sc * NB;
+  float* s_gpc = s_gpb + (PIECED ? 0 : (size_t)Sc * NB);
   float* s_wn = s_gpc + Sc;
   float* s_cwtail = s_wn + (size_t)Sc * KPc;
-  float* s_red = s_cwtail + 2 * W;
+  float* s_red = s_cwtail + (PIECED ? 0 : 2 * W);
 
   PhaseClock clk(a.phase_rec);
+  // the slab ids of the center piece in hand (pieced: staged while they
+  // fit kTokRoom, else in device memory)
+  const int* tokk_g = a.tok_k;
   // table rows: center side (plane ctr_plane) of piece position s, context
   // side of piece slot k (null outside the row)
   auto a_row = [&](int s) { return emb + (size_t)s_tokc[s] * rs + (size_t)ctr_plane * d; };
   auto bk_row = [&](int k) -> const T* {
-    return s_tokk[k] >= 0 ? emb + (size_t)s_tokk[k] * rs + (size_t)ctx_plane * d
-                          : nullptr;
+    const int t = PIECED ? tokk_g[k] : s_tokk[k];
+    return t >= 0 ? emb + (size_t)t * rs + (size_t)ctx_plane * d : nullptr;
   };
   float* h_ws = a.h_ws + (size_t)b * S * d;
   float* dh_ws = a.dh_ws + (size_t)b * S * d;
@@ -623,8 +694,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         s_keep[s] = a.keep_c[cs + s];
         s_w[s] = a.w_c[cs + s];
       }
-      for (int k = tid; k < SKp; k += kThreads)
-        s_tokk[k] = a.tok_k[bc * SK + s0 + k];
+      tokk_g = a.tok_k + bc * SK + s0;
+      if (!PIECED || SKp <= kTokRoom) {
+        for (int k = tid; k < SKp; k += kThreads) s_tokk[k] = tokk_g[k];
+        tokk_g = s_tokk;
+      }
       // sg: A holds the center rows (the first width piece); cbow: zeros
       // that the projection fills
       stage_rows(sA, tl.lda, SPp, round_up(piece_len(d, kDc, 0), kMmaK),
@@ -634,34 +708,80 @@ __global__ void __launch_bounds__(kThreads, 1)
       a_at = CBOW ? -1 : 0;
       __syncthreads();
       clk.mark(kPhaseRows);
-      const Band band{s_tokc, s_keep, s_w, s_nctx, s_tokk, s_negs, Sp, W, a.K, KP};
+      const Band band{s_tokc, s_keep, s_w, s_nctx, PIECED ? tokk_g : s_tokk,
+                      s_negs, Sp, W, a.K, KP};
 
-      // ---- mask row sums (n_ctx) and slab column sums (cwy)
-      for (int s = tid; s < Sp; s += kThreads) {
-        const float n = band.row_sum(s);
-        s_nctx[s] = n;
-        a.n_ctx[cs + s] = n;
+      // ---- mask row sums (n_ctx) and, one piece, slab column sums (cwy)
+      if constexpr (PIECED) {
+        row_sums(band, s_nctx, a.n_ctx + cs);
+      } else {
+        for (int s = tid; s < Sp; s += kThreads) {
+          const float n = band.row_sum(s);
+          s_nctx[s] = n;
+          a.n_ctx[cs + s] = n;
+        }
+        for (int k = tid; k < SKp; k += kThreads) s_cwy[k] = band.col_sum(k);
       }
-      for (int k = tid; k < SKp; k += kThreads) s_cwy[k] = band.col_sum(k);
       __syncthreads();
       if constexpr (CBOW) {
-        projection(band, tp, d, a.cbow_mean != 0, hp, sA, bk_row);
+        projection<PIECED>(band, tp, d, a.cbow_mean != 0, hp, sA, bk_row);
         if (nD == 1) a_at = 0;
         __syncthreads();
       }
       clk.mark(kPhaseMasks);
 
-      // ---- positive logits: the sg band (tensor cores) or the cbow
-      // center, beside the first piece's negative weights (1.3% faster on
-      // the flagship than beside its negative logits, where band_core
-      // measured the other way; PERF.md §6)
+      // ---- positive logits: the sg band (tensor cores; pieced: its slot
+      // piece 0, the later ones below) or the cbow center, beside the
+      // first piece's negative weights (1.3% faster on the flagship than
+      // beside its negative logits, where band_core measured the other
+      // way; PERF.md §6)
+      const int K0 = min(SKp, kKc);  // pieced: the end of slot piece 0
       if constexpr (!CBOW) {
-        pos_acc += band_logits(band, tp, sA, d, alpha, s_gpb,
-                               [&](int q) { load(-1, q); }, bk_row);
+        if constexpr (PIECED) {
+          pos_acc += band_logits_slots(band, tp, sA, d, alpha, s_gps, 0, K0,
+                                       [&](int q) { load(-1, q); }, bk_row);
+        } else {
+          pos_acc += band_logits(band, tp, sA, d, alpha, s_gpb,
+                                 [&](int q) { load(-1, q); }, bk_row);
+        }
       } else {
         pos_acc += center_logits(band, hp, d, alpha, s_gpc, a_row);
       }
 
+      // ---- slab-space context grads: a slot the next piece reaches
+      // too leaves as its accumulator (carry_out) and the next piece
+      // continues it (carry_in); whole sums go straight into token
+      // order (overlap_row); over slot rows [k_lo, k_hi), width piece q
+      auto context = [&](auto&& wv, int k_lo, int k_hi, int q) {
+        const int dq = piece_len(d, kDc, q), off = q * kDc;
+        context_tiles<PIECED>(
+            band, wv, sA, tl.lda, k_lo, k_hi, round_up(dq, kMmaK),
+            [&](float (&acc)[2][4], int m0, int n0) {
+              if (i > 0 && m0 < 2 * W)
+                load_block(acc, m0, n0, [&](int k, int e) -> float {
+                  return e < dq ? carry_in[(size_t)k * d + off + e] : 0.f;
+                });
+            },
+            [&](int k, const int (&col)[4], const float (&y)[4]) {
+              if (more && k >= Sp) {
+                add_row(carry_out + off, d, dq, k - Sp, carry_rows(W), col, y,
+                        false);
+                return;
+              }
+#pragma unroll
+              for (int v = 0; v < 4; ++v)
+                if (k < SKp && col[v] < dq)
+                  overlap_row(a.d_ctx, bc, c, C, S, W, d, s0 + k, off + col[v],
+                              y[v]);
+            });
+      };
+
+      // pieced: gp of slot piece j (slots from k0), in the band of s
+      auto gp_at = [&](int k0) {
+        return [&, k0](int s, int k) -> float {
+          return __bfloat162float(s_gps[(size_t)s * kGpLd + (k - k0)]);
+        };
+      };
       for (int p = 0; p < nK; ++p) {
         const int KPp = piece_len(KP, kKPc, p), KPPp = round_up(KPp, 2 * kMmaN);
         const int j0 = p * kKPc;
@@ -672,9 +792,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           __syncthreads();
         }
         // ---- negative weights (collision masks, pallas_step.py:213-223)
-        for (int x = tid; x < Sp * KPp; x += kThreads) {
-          const int s = x / KPp, j = x - s * KPp;
-          s_wn[x] = band.neg_weight<true, CBOW>(s, j);
+        if constexpr (PIECED) {
+          neg_weights_mma<CBOW>(band, KPp, s_wn);
+        } else {
+          for (int x = tid; x < Sp * KPp; x += kThreads) {
+            const int s = x / KPp, j = x - s * KPp;
+            s_wn[x] = band.neg_weight<true, CBOW>(s, j);
+          }
         }
         __syncthreads();
         clk.mark(kPhaseMasks);
@@ -723,14 +847,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
           // ---- center-side rows: d_hid = gn @ en (tensor cores), its
           // running sum over the pieces in d_ctr (sg) or dh_ws (cbow); after
-          // the last piece the band product (sg) or the center update and
-          // d_hid2 (cbow, into A)
+          // the last piece the band product (sg; pieced: its slot piece 0, the
+          // rest below) or the center update and d_hid2 (cbow, into A)
           float* part = (CBOW ? dhp : dctr) + off;
           auto partial = [&](int s, int e) -> float {
             return (s < Sp && e < dq) ? part[(size_t)s * d + e] : 0.f;
           };
           auto w = [&](int s, int k) -> float {
-            return (s < Sp && k - s >= 0 && k - s < NB) ? s_gpb[s * NB + (k - s)] : 0.f;
+            if (s >= Sp || k - s < 0 || k - s >= NB) return 0.f;
+            return PIECED ? gp_at(0)(s, k) : s_gpb[s * NB + (k - s)];
           };
           block_pass(
               SPp, DPq,
@@ -738,11 +863,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                 if (p > 0) load_block(acc, m0, n0, partial);
                 warp_mma_16x16<false, true>(acc, sG, tl.ldg, m0, sE, tl.lda, n0,
                                             KPPp, KPPp);
-                if (!CBOW && last)
-                  band_rows_mma(acc, m0, n0, 2 * W, SKp, dq, w, [&](int k) {
-                    const T* r = bk_row(k);
-                    return r != nullptr ? r + off : r;
-                  });
+                // the band product (pieced: its slot piece 0, the rest
+                // below, continuing this accumulator through d_ctr)
+                if (!CBOW && last && (!PIECED || rows_active(s_nctx, m0, Sp)))
+                  band_rows_mma(acc, m0, n0, m0,
+                                PIECED ? min(m0 + kMmaM + 2 * W, K0)
+                                       : m0 + kMmaM + 2 * W,
+                                SKp, dq, w, [&](int k) {
+                                  const T* r = bk_row(k);
+                                  return r != nullptr ? r + off : r;
+                                });
               },
               [&](int s, const int (&col)[4], const float (&v)[4]) {
                 if (s >= Sp) return;
@@ -761,37 +891,79 @@ __global__ void __launch_bounds__(kThreads, 1)
           clk.mark(kPhaseCenter);
           if (!last) continue;
 
-          // ---- slab-space context grads: a slot the next piece reaches
-          // too leaves as its accumulator (carry_out) and the next piece
-          // continues it (carry_in); whole sums go straight into token
-          // order (overlap_row)
-          context_tiles<CBOW>(
-              band, s_gpb, sA, tl.lda, SKp, DPq,
-              [&](float (&acc)[2][4], int m0, int n0) {
-                if (i > 0 && m0 < 2 * W)
-                  load_block(acc, m0, n0, [&](int k, int e) -> float {
-                    return e < dq ? carry_in[(size_t)k * d + off + e] : 0.f;
-                  });
-              },
-              [&](int k, const int (&col)[4], const float (&y)[4]) {
-                if (more && k >= Sp) {
-                  add_row(carry_out + off, d, dq, k - Sp, carry_rows(W), col, y,
-                          false);
-                  return;
-                }
-#pragma unroll
-                for (int v = 0; v < 4; ++v)
-                  if (k < SKp && col[v] < dq)
-                    overlap_row(a.d_ctx, bc, c, C, S, W, d, s0 + k, off + col[v],
-                                y[v]);
-              });
+          if constexpr (CBOW) {
+            context([&](int s, int k) { return band.mask(s, k); }, 0, SKp, q);
+          } else if constexpr (PIECED) {
+            context(gp_at(0), 0, K0, q);  // slot piece 0's slots
+          } else {
+            context([&](int s, int k) { return s_gpb[s * NB + (k - s)]; }, 0, SKp, q);
+          }
           __syncthreads();
           clk.mark(kPhaseContext);
         }
       }
-      for (int k = tid; k < SKp; k += kThreads)
-        overlap_cw(a.ctx_w, s_cwtail, bc, c, S, W, s0 + k, s_cwy[k],
-                   i > 0 && k < 2 * W);
+
+      if constexpr (PIECED && !CBOW) {
+        // ---- the sg band's later slot pieces (slot piece 0 ran beside
+        // the negatives): each one's logits, its k-slices of the band
+        // product continuing d_hid's accumulator (through d_ctr) in the
+        // row blocks whose band reaches it, its slots' context sums
+        for (int j = 1; j < pieces(SKp, kKc); ++j) {
+          const int k0 = j * kKc, Kj = piece_len(SKp, kKc, j);
+          __syncthreads();  // the previous slot piece is done with gp
+          pos_acc += band_logits_slots(band, tp, sA, d, alpha, s_gps, k0, Kj,
+                                       [&](int q) { load(-1, q); }, bk_row);
+          __syncthreads();
+          clk.mark(kPhaseLogits);
+          const auto gp = gp_at(k0);
+          auto w = [&](int s, int k) -> float {
+            return (s < Sp && k - s >= 0 && k - s <= 2 * W) ? gp(s, k) : 0.f;
+          };
+          // the row blocks m0 with [m0, m0 + 16 + 2W) reaching [k0, k0 + Kj)
+          const int m_lo = round_up(max(0, k0 - (kMmaM - 1) - 2 * W), kMmaM);
+          const int m_hi = min(SPp, round_up(k0 + Kj, kMmaM));
+          for (int q = 0; q < nD; ++q) {
+            const int dq = piece_len(d, kDc, q), off = q * kDc;
+            load(-1, q);
+            float* part = dctr + off;
+            block_pass(
+                m_hi - m_lo, round_up(dq, kMmaK),
+                [&](float (&acc)[2][4], int m0, int n0) {
+                  load_block(acc, m0, n0, [&](int s, int e) -> float {
+                    return (s < Sp && e < dq) ? part[(size_t)s * d + e] : 0.f;
+                  });
+                  if (rows_active(s_nctx, m0, Sp))
+                    band_rows_mma(acc, m0, n0, max(m0, k0),
+                                  min(m0 + kMmaM + 2 * W, k0 + Kj), SKp, dq, w,
+                                  [&](int k) {
+                      const T* r = bk_row(k);
+                      return r != nullptr ? r + off : r;
+                    });
+                },
+                [&](int s, const int (&col)[4], const float (&v)[4]) {
+                  if (s >= Sp) return;
+#pragma unroll
+                  for (int u = 0; u < 4; ++u)
+                    if (col[u] < dq) part[(size_t)s * d + col[u]] = v[u];
+                },
+                m_lo);
+            clk.mark(kPhaseCenter);
+            context(gp, k0, k0 + Kj, q);
+            clk.mark(kPhaseContext);
+          }
+        }
+      }
+
+      if constexpr (PIECED) {
+        // ctx_w: the slots' mask column sums (0/1: exact in any order)
+        for (int k = tid; k < SKp; k += kThreads)
+          overlap_cw_dev(a.ctx_w, bc, c, C, S, W, s0 + k, band.col_sum(k),
+                         i > 0 && k < 2 * W);
+      } else {
+        for (int k = tid; k < SKp; k += kThreads)
+          overlap_cw(a.ctx_w, s_cwtail, bc, c, S, W, s0 + k, s_cwy[k],
+                     i > 0 && k < 2 * W);
+      }
     }
   }
   block_losses(pos_acc, neg_acc, s_red, a.loss_part + (size_t)b * 2);
@@ -1063,7 +1235,7 @@ const char* w2v_error_string(int err) {
 int w2v_grad_core_blocks_per_sm(int S, int SK, int KP, int d, int W,
                                 int table_bf16, int cdt_bf16, int is_cbow) {
   const size_t smem = w2v_grad_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
+  const bool tc = cdt_bf16 != 0, pieced = chunk_pieced(S, W);
   int n = 0;
   cudaError_t err;
   if (table_bf16) {
@@ -1093,7 +1265,7 @@ int w2v_fused_grad_core(const void* emb, int table_bf16, const int* tok_c,
              phase_rec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = w2v_grad_core_smem_bytes(S, SK, KP, d, W, cdt_bf16);
-  const bool tc = cdt_bf16 != 0, pieced = S > kSc;
+  const bool tc = cdt_bf16 != 0, pieced = chunk_pieced(S, W);
   const cudaError_t err =
       table_bf16
           ? launch_grad_model<__nv_bfloat16>(a, B, smem, tc, pieced, st, is_cbow)

@@ -53,17 +53,30 @@ def phase_record(name: str, phase_cycles, rows: int, dev) -> int:
 SMEM_PER_BLOCK = 232_448
 #: warps of a band-core block (csrc/band_tiles.cuh kThreads / 32)
 _CORE_WARPS = 16
-#: the band cores' pieces (csrc/band_tiles.cuh kSc, kKPc, kDc): centers,
-#: negative rows and columns the tiles hold at once; a longer chunk, a
-#: wider pool or row is walked in pieces, so a block's shared memory stops
-#: growing with S, KP and d past them
+#: the band cores' pieces (csrc/band_tiles.cuh kSc, kKPc, kDc, kKc):
+#: centers, negative rows and columns the tiles hold at once, and the slab
+#: slots of a center piece's band weights; a longer chunk, a wider pool or
+#: row, a wider window is walked in pieces, so a block's shared memory
+#: stops growing with S, KP, d and W past them: what bounds a block is
+#: these four numbers alone
 CORE_S_PIECE = 128
 CORE_KP_PIECE = 64
 CORE_D_PIECE = 304
+CORE_K_PIECE = 160
+#: bf16 columns of a row of the pieced bodies' band weights (kGpLd)
+_CORE_GP_LD = CORE_K_PIECE + 8
+#: slab ids the pieced and f32 bodies stage a center piece (kTokRoom)
+_CORE_TOK_ROOM = 2048
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def core_pieced(S: int, W: int) -> bool:
+    """A chunk of S centers past one center or slot piece: the tensor-core
+    bodies' pieced instantiation (csrc/band_tiles.cuh chunk_pieced)."""
+    return S > CORE_S_PIECE or S + 2 * W > CORE_K_PIECE
 
 
 def core_smem_bytes(
@@ -72,27 +85,34 @@ def core_smem_bytes(
     """Dynamic shared memory of a band core's launch, in bytes: the host
     copy of w2v_grad_core_smem_bytes (kernel "fused_grad_core",
     csrc/fused_step.cu) and w2v_band_core_smem_bytes ("band_core",
-    csrc/band_core.cu), for bf16 compute (the tensor-core body: the bf16
-    tiles of band_tiles.cuh's TileLayout, one piece wide, then f32 words)
-    or f32 compute. SK = S + 2W (a center piece's slots follow from its
-    centers; both keep the argument for the libraries' signature). Past one
-    piece of each it depends on W alone (the band logits of a center
-    piece, kSc x (2W + 1) words). The card run holds it equal to the
+    csrc/band_core.cu). bf16 compute, the tensor-core body: a chunk of one
+    piece, the bf16 tiles of band_tiles.cuh's TileLayout and f32 words
+    that grow with its S + 2W <= 160 slots; a pieced chunk (core_pieced),
+    the tiles, one slot piece of bf16 band weights and f32 words, the same
+    at every W. f32 compute: f32 words, the band weights of one slot piece
+    (band-compressed, 2W + 1 a center, while a center piece's slots fit
+    one). SK = S + 2W (a center piece's slots follow from its centers;
+    both keep the argument for the libraries' signature). Past one piece
+    of the centers, the pool, the width and the slots it is constant: it
+    never exceeds SMEM_PER_BLOCK. The card run holds it equal to the
     library's (chip_smoke.py phase 12)."""
-    NB = 2 * W + 1
-    Sc = min(S, CORE_S_PIECE)
-    SKc = Sc + 2 * W
-    KPc = min(KP, CORE_KP_PIECE)
-    words = Sc * 4 + SKc * 2 + KPc + Sc * NB + Sc + 2 * _CORE_WARPS
-    if kernel == "fused_grad_core":
-        words += 2 * W  # ctx_w's right overhang, two buffers
-    elif kernel != "band_core":
+    if kernel not in ("fused_grad_core", "band_core"):
         raise ValueError(f"no band core named {kernel!r}")
+    Sc = min(S, CORE_S_PIECE)
+    KPc = min(KP, CORE_KP_PIECE)
     if not bf16:
-        return 4 * (words + Sc * KPc * 2)
+        gld = 2 * W + 1 if Sc + 2 * W <= CORE_K_PIECE else CORE_K_PIECE
+        return 4 * (Sc * 4 + _CORE_TOK_ROOM + KPc + Sc * gld + Sc + Sc * KPc * 2
+                    + 2 * _CORE_WARPS)
     SP, KPP = _round_up(Sc, 16), _round_up(KPc, 16)
     lda, ldg = _round_up(min(d, CORE_D_PIECE), 16) + 8, KPP + 8
     tiles = 2 * (SP * lda + KPP * lda + SP * ldg)
+    if core_pieced(S, W):
+        return tiles + 2 * SP * _CORE_GP_LD + 4 * (
+            Sc * 4 + _CORE_TOK_ROOM + KPc + Sc + Sc * KPc + 2 * _CORE_WARPS)
+    words = Sc * 4 + (Sc + 2 * W) * 2 + KPc + Sc * (2 * W + 1) + Sc + 2 * _CORE_WARPS
+    if kernel == "fused_grad_core":
+        words += 2 * W  # ctx_w's right overhang, two buffers
     return tiles + 4 * (words + Sc * KPc)
 
 
@@ -101,11 +121,13 @@ def core_workspaces(
 ):
     """The f32 device workspaces a band core's chunk of S centers hands
     from one center piece to the next (csrc/band_tiles.cuh): none (empty
-    tensors) when the chunk is one piece. fused_grad_core: its d_neg so
-    far [B, KP, d] (the tensor-core body only: the f32 body carries d_neg
-    in its output) and the context sums of the slots two pieces share [B,
-    2, round_up(2W, 16), d] (two buffers, by piece parity); band_core: its
-    d_neg and w_neg_sum so far, [B, KP, d] and [B, KP]."""
+    tensors) when the chunk is one center piece (slot pieces need none).
+    fused_grad_core: its d_neg so far [B, KP, d] (the tensor-core body
+    only: the f32 body carries d_neg in its output) and the context sums
+    of the slots pieces share [B, 2, round_up(2W, 16), d] (two buffers, by
+    piece parity; a slot reaches back 2W centers, through the middle
+    pieces, so this grows with W: 0.62 GB at B 256, d 300, W 499);
+    band_core: its d_neg and w_neg_sum so far, [B, KP, d] and [B, KP]."""
     f32 = dict(dtype=torch.float32, device=dev)
     if S <= CORE_S_PIECE:
         return torch.empty((0,), **f32), torch.empty((0,), **f32)
@@ -117,7 +139,9 @@ def core_workspaces(
 
 def check_smem(name: str, smem: int, dev: torch.device) -> None:
     """Refuse, before any launch, a shape whose shared memory exceeds what
-    one block of `dev` may opt into (the kernel would fail to launch)."""
+    one block of `dev` may opt into (the kernel would fail to launch). The
+    pieces bound a band core's block at every shape the JAX routes take
+    (core_smem_bytes), so on an H100 this guards a smaller card only."""
     props = torch.cuda.get_device_properties(dev)
     limit = props.shared_memory_per_block_optin
     if smem > limit:
