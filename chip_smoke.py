@@ -3055,10 +3055,11 @@ TEL_PROBE = 12        # probe cadence: rows at steps 12, 24, 36
 TEL_WINDOW = 6
 TEL_SLO = "throughput_wps<0.5*baseline:for=3"
 #: the keys of the port CLI's manifest.json after a clean run with --slo:
-#: the JAX CLI's (pinned against it by tests/test_torch_telemetry_cli.py)
+#: the JAX CLI's but its cost harvest's (pinned against it by
+#: tests/test_torch_telemetry_cli.py)
 TEL_MANIFEST_KEYS = (
     "argv", "band_backend", "compile_cache", "config", "corpus_mode", "corpus_rows",
-    "corpus_tokens", "cost_calibrate", "cost_harvest", "created_utc",
+    "corpus_tokens", "cost_calibrate", "created_utc",
     "device", "device_memory", "elastic", "elastic_generation", "elastic_policy",
     "final_step", "fleet_health", "git_sha", "kernel", "kernel_decision",
     "mesh_size", "plan", "plan_source", "profiler", "recoveries",
@@ -3442,7 +3443,7 @@ RES_MEM_EVERY = 6
 SLAB_BYTES = V * 2 * D * 4   # the unified f32 slab, 170,400,000 bytes
 RES_PROM = ("w2v_mem_bytes_in_use", "w2v_mem_peak_bytes",
             "w2v_mem_bytes_limit", "w2v_mem_headroom_frac",
-            "w2v_mem_available", "w2v_cost_harvest_programs")
+            "w2v_mem_available")
 
 
 def res_wedge(vocab, corpus, dev, out_dir):

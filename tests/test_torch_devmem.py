@@ -1,6 +1,6 @@
-"""The port's device telemetry (word2vec_tpu_torch/obs/{devmem,profiler,
-harvest}.py, resilience/shutdown.install_usr2_profile) against the JAX
-package, on the CPU.
+"""The port's device telemetry (word2vec_tpu_torch/obs/{devmem,profiler}.py,
+resilience/shutdown.install_usr2_profile) against the JAX package, on the
+CPU.
 
 Pins:
   * under W2V_FAKE_MEMORY_STATS the memory ledger's rows, summary,
@@ -12,8 +12,6 @@ Pins:
     JAX gate, and a CPU ProfilerCapture window (requested, scheduled,
     finished mid-window) writes a manifest that passes it, with the trace
     file it names;
-  * the harvest rows name the same programs as the JAX harvest (per-step,
-    chunked, resident) with the JAX degrade row's keys;
   * a real SIGUSR2 requests a window and writes mem_usr2.json.
 """
 
@@ -30,7 +28,6 @@ jax = pytest.importorskip("jax")
 from word2vec_tpu.config import Word2VecConfig as JConfig  # noqa: E402
 from word2vec_tpu.data.batcher import PackedCorpus as JCorpus  # noqa: E402
 from word2vec_tpu.obs import devmem as jdevmem  # noqa: E402
-from word2vec_tpu.obs.harvest import CostHarvest as JHarvest  # noqa: E402
 from word2vec_tpu.obs.profiler import validate_capture_doc as j_validate  # noqa: E402
 from word2vec_tpu.train import Trainer as JTrainer  # noqa: E402
 from word2vec_tpu.utils.synthetic import (  # noqa: E402
@@ -41,7 +38,6 @@ from word2vec_tpu_torch import Word2VecConfig  # noqa: E402
 from word2vec_tpu_torch.data.batcher import PackedCorpus  # noqa: E402
 from word2vec_tpu_torch.obs import devmem  # noqa: E402
 from word2vec_tpu_torch.obs.export import MetricsHub, PrometheusTextfile  # noqa: E402
-from word2vec_tpu_torch.obs.harvest import CostHarvest  # noqa: E402
 from word2vec_tpu_torch.obs.profiler import (  # noqa: E402
     TRACE_FILE, ProfilerCapture, validate_capture_doc,
 )
@@ -125,35 +121,24 @@ def test_helpers_match_jax():
 
 
 @pytest.mark.parametrize("chunk_steps", [1, 4])
-def test_trainer_ledger_and_harvest_like_jax(monkeypatch, chunk_steps):
-    """The trainer's hooks: the same device_memory report (table_place at
-    entry, train_step on the cadence, the flight ring's memory rows) and
-    the same harvest programs as the JAX trainer; the port's rows carry
-    the JAX degrade row's keys."""
+def test_trainer_ledger_like_jax(monkeypatch, chunk_steps):
+    """The trainer's ledger hook: the same device_memory report as the JAX
+    trainer (table_place at entry, train_step on the cadence, the flight
+    ring's memory rows)."""
     monkeypatch.setenv(devmem.FAKE_STATS_ENV, FAKE)
     t, j = _both(chunk_steps=chunk_steps)
-    reps, harvests = [], []
-    for tr, mod, harvest in ((t, devmem, CostHarvest()), (j, jdevmem, JHarvest())):
+    reps = []
+    for tr, mod in ((t, devmem), (j, jdevmem)):
         tr.devmem = mod.MemoryLedger(sample_every=8, flight=tr.flight,
                                      row_bytes=mod.table_row_bytes(tr.config))
-        tr.harvest = harvest
         _, rep = tr.train(log_every=0)
         reps.append(rep.device_memory)
-        harvests.append(harvest.finalize())
         assert tr.flight.snapshot("test")["memory"]
     assert reps[0] == reps[1]
     dm = reps[0]
     assert dm["available"] is True and dm["peak_bytes"] == 400000
     assert dm["phases"]["table_place"]["samples"] == 1
     assert dm["growth_forecast"]["rows_remaining"] == 700000 // (2 * 16 * 4)
-    names = [[r["program"] for r in h["programs"]] for h in harvests]
-    assert names[0] == names[1] and len(names[0]) == 1
-    row = harvests[0]["programs"][0]
-    assert sorted(row) == ["error", "ok", "program"] and row["ok"] is False
-    assert harvests[0]["programs_failed"] == 1 and harvests[0]["totals"] == {}
-    assert t.harvest.gauge_record() == {
-        "event": "cost_harvest", "cost_harvest_programs": 1,
-        "cost_harvest_programs_ok": 0}
 
 
 def test_swap_table_samples_the_active_ledger(monkeypatch):

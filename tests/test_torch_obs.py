@@ -179,7 +179,9 @@ def test_prometheus_render_byte_equal(tmp_path, monkeypatch):
     assert (tmp_path / "t" / "m.prom").read_bytes() == (
         tmp_path / "j" / "m.prom").read_bytes()
     assert texport.EVENT_COUNTERS == jexport.EVENT_COUNTERS
-    assert texport.GAUGE_EVENTS == jexport.GAUGE_EVENTS
+    # the JAX cost harvest's rows aside: the port has no harvest
+    assert texport.GAUGE_EVENTS == tuple(
+        e for e in jexport.GAUGE_EVENTS if e != "cost_harvest")
 
 
 def test_hub_detaches_a_failing_sink():

@@ -46,8 +46,7 @@ times before exit 2; --faults injects the chaos plan (the hidden
 --inject-nan is nan@0); --step-deadline arms the watchdog, which writes
 stall.json, stall_stacks.txt and flight.json and exits 76 when no step
 boundary lands in time; the memory ledger (--mem-sample-every, w2v_mem_*
-gauges, the manifest's device_memory) and the program harvest are on with
-the signal plane; --profile-steps A:B and --profile-on-breach N write
+gauges, the manifest's device_memory) is on with the signal plane; --profile-steps A:B and --profile-on-breach N write
 bounded torch.profiler windows (capture_<n>.json + profile_<n>/) into
 --metrics-dir, where SIGUSR2 asks for one more window and writes
 mem_usr2.json (SIGUSR1: flight_usr1.json + stacks_usr1.txt); --profile DIR
@@ -1324,19 +1323,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                 f"from {warm_cache_dir}"
             )
 
-    # Device telemetry (obs/devmem.py, obs/harvest.py, obs/profiler.py), on
-    # for the runs the signal plane covers: the memory ledger (per-phase
-    # watermarks, w2v_mem_* gauges, the mem_headroom_frac signal, the
-    # growth forecast), the program harvest (banked into the manifest at
-    # run end) and the bounded profiler windows (--profile-steps, SLO
+    # Device telemetry (obs/devmem.py, obs/profiler.py), on for the runs
+    # the signal plane covers: the memory ledger (per-phase watermarks,
+    # w2v_mem_* gauges, the mem_headroom_frac signal, the growth forecast)
+    # and the bounded profiler windows (--profile-steps, SLO
     # breaches, SIGUSR2). The ledger is made before the manifest write so
     # its start block carries the init watermark; it is installed
     # process-wide for the run (swap_table and the SIGUSR2 handler find
     # it there).
-    mem_ledger = cost_harvest = prof_capture = None
+    mem_ledger = prof_capture = None
     if slo_rules or metrics_dir or args.prom_textfile:
         from .obs.devmem import MemoryLedger, table_row_bytes
-        from .obs.harvest import CostHarvest
 
         mem_ledger = MemoryLedger(
             sample_every=args.mem_sample_every or 50,
@@ -1350,7 +1347,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         trainer.devmem = mem_ledger
         mem_ledger.sample("init")
-        cost_harvest = trainer.harvest = CostHarvest()
     if metrics_dir:  # process 0's
         from .obs.profiler import ProfilerCapture
 
@@ -1558,7 +1554,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             idx = multihost.process_index()
             write_trace(
                 os.path.join(args.trace, f"trace_p{idx}.json"),
-                chrome_trace_doc(trainer.flight.ring.events(), process_index=idx),
+                chrome_trace_doc(
+                    trainer.flight.ring.events(), process_index=idx,
+                    origin_unix_s=trainer.flight.ring.wall0,
+                ),
             )
             if not is_primary:
                 return
@@ -2054,16 +2053,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             summary["mem_headroom_frac_min"] = report.device_memory.get(
                 "headroom_frac_min")
             summary["mem_peak_bytes"] = report.device_memory.get("peak_bytes")
+        if report.dispatch:
+            # the card's view of the loop: the dispatch timeline's totals
+            summary["dispatch"] = report.dispatch
         log_fn(summary)
-
-    # the program harvest, banked after the measured loop (obs/harvest.py)
-    harvest_report = None
-    if cost_harvest is not None:
-        harvest_report = cost_harvest.finalize()
-        if log_fn is not None:
-            hrec = cost_harvest.gauge_record()
-            if hrec:
-                log_fn(hrec)
 
     preempted = report.interrupted == "preempted"
     if manifest_path:
@@ -2077,11 +2070,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             # the full per-phase ledger replaces the start block's init
             # watermark (one manifest read answers "where did the memory go")
             end_fields["device_memory"] = report.device_memory
-        if harvest_report is not None:
-            end_fields["cost_harvest"] = harvest_report
         if prof_capture is not None:
             end_fields["profiler"] = prof_capture.summary()
-        if trainer.flight is not None and cost_harvest is not None:
+        if trainer.flight is not None and mem_ledger is not None:
             # the anchor-drift verdict (tune/cost_model.cost_calibrate): the
             # run's measured device step inverted against the cost model's
             # anchors, as the JAX CLI banks it (word2vec_tpu/cli.py:2160-2180)

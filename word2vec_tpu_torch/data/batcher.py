@@ -151,11 +151,13 @@ class BatchIterator:
         """Yield (tokens [B, L], words_in_batch) for one pass over the corpus,
         starting `skip` batches in.
 
+        The epoch starts here (its shuffle), when this is called; the
+        returned iterator only fills batches, so a caller can time the two
+        apart (the trainer's epoch_prep and batcher_wait spans).
+
         Batch assembly goes through the native fill (native.fill_batch)
         when the C++ layer is available; the numpy fill below is identical.
         """
-        from .. import native
-
         if epoch_index is None:
             epoch_index = self._epoch_counter
             self._epoch_counter += 1
@@ -163,6 +165,13 @@ class BatchIterator:
             order = epoch_order(self.seed, epoch_index, self.corpus.num_rows)
         else:
             order = np.arange(self.corpus.num_rows, dtype=np.int64)
+        return self._fill(order, skip)
+
+    def _fill(
+        self, order: np.ndarray, skip: int
+    ) -> Iterator[Tuple[np.ndarray, int]]:
+        from .. import native
+
         flat = self.corpus.flat
         starts = self.corpus.row_starts
         lens = self.corpus.row_lens

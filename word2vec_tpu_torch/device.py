@@ -7,6 +7,7 @@ rather than carrying on with the plain PyTorch versions on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -25,6 +26,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(dev: torch.device):
+    """Make `dev` the current CUDA device for a `with` block (a no-op on
+    the CPU): kernels, graph captures and new streams then land on it."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def torch_dtype(name: str) -> torch.dtype:

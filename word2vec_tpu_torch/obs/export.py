@@ -98,9 +98,8 @@ EVENT_COUNTERS = {
 #: device-memory watermarks: w2v_mem_bytes_in_use / w2v_mem_peak_bytes /
 #: w2v_mem_bytes_limit / w2v_mem_headroom_frac / w2v_mem_available —
 #: present from zero (a statless CPU backend emits zeroed rows rather
-#: than nothing). "cost_harvest" rows (obs/harvest.CostHarvest) carry the
-#: compiled-program totals: w2v_cost_harvest_flops / _bytes / _programs.
-GAUGE_EVENTS = ("mesh", "signals", "fleet", "stream", "mem", "cost_harvest")
+#: than nothing).
+GAUGE_EVENTS = ("mesh", "signals", "fleet", "stream", "mem")
 
 #: seconds one sink call may take before the hub detaches it as wedged —
 #: generous (a prom textfile rewrite is microseconds; a hung NFS mount or

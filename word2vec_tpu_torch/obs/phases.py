@@ -19,13 +19,18 @@ the same regions —
     device_wait  — the loop blocked fetching already-dispatched metrics
                    (the lagged drain): device-side backpressure
     checkpoint   — checkpoint callback wall time
+    epoch_prep   — an epoch's preparation, before its first batch is
+                   asked for (the port's trainer: the shuffle, the words
+                   of each step and the row order's upload on the resident
+                   path, the batcher's epoch start on the streaming one)
 
 — and aggregates into per-phase p50/p90 (shared percentile math with
 profiling.StepTimer) plus an input-bound-vs-compute-bound verdict. The
 verdict compares only the phases that STALL the training loop:
 batcher_wait (input side) against dispatch + device_wait (device side);
-h2d and checkpoint are reported but excluded, since overlapped producer
-time stalls nothing.
+h2d, checkpoint and epoch_prep are reported but excluded (overlapped
+producer time stalls nothing; the verdict's phases are the JAX
+package's).
 
 Recording one span is two perf_counter reads and a lock — cheap enough to
 leave on for every run.

@@ -27,8 +27,10 @@ that needs the TIMELINE, not the aggregate. This module is that timeline:
 
 Event vocabulary (all host-side wall clock, ts/dur in microseconds):
   'X' complete spans — the PhaseRecorder phases (batcher_wait / h2d /
-      dispatch / device_wait / checkpoint) plus the step/chunk/epoch parents
-      the trainers emit at boundaries (args carry the step index);
+      dispatch / device_wait / checkpoint / epoch_prep) plus the step/chunk/epoch parents
+      the trainers emit at boundaries (args carry the step index); on the
+      card, one `device` span a dispatch on a `device` track: the card's
+      own start and length of it (obs/flight.DispatchTimeline);
   'C' counter events — the health counters from the trainers' lagged
       metrics drain (loss, grad_norm, nonfinite counts);
   'i' instant events — one-off marks (multi-process heartbeat rows).
@@ -58,7 +60,9 @@ class TraceRing:
 
     Timestamps are `time.perf_counter()` microseconds relative to the ring's
     construction (`t0`), so they compose directly with the PhaseRecorder's
-    span clocks; `wall0` anchors the axis to wall time for humans. When the
+    span clocks; `wall0` anchors the axis to wall (Unix) time, for humans and
+for laying a torch.profiler trace over it (chrome_trace_doc's
+`origin_unix_s`). When the
     ring is full the oldest event is overwritten (`dropped` counts how many)
     — the flight recorder wants the LAST N steps, not the first.
     """
@@ -85,15 +89,18 @@ class TraceRing:
         t0: float,
         dur_s: float,
         args: Optional[Dict] = None,
+        tid=None,
     ) -> None:
         """One finished span ('X'): `t0` is a perf_counter read, `dur_s`
-        seconds. This is the PhaseRecorder's emission hook (obs/phases.py)."""
+        seconds. This is the PhaseRecorder's emission hook (obs/phases.py).
+        `tid` names a track of its own (a string: the trainer's `device`
+        track) in place of the calling thread's."""
         ev: Dict = {
             "name": name,
             "ph": "X",
             "ts": round(1e6 * (t0 - self.t0), 1),
             "dur": round(1e6 * dur_s, 1),
-            "tid": threading.get_ident(),
+            "tid": threading.get_ident() if tid is None else tid,
         }
         if args:
             ev["args"] = args
@@ -144,13 +151,19 @@ def chrome_trace_doc(
     process_index: int = 0,
     process_name: Optional[str] = None,
     metadata: Optional[Dict] = None,
+    origin_unix_s: Optional[float] = None,
 ) -> Dict:
     """Assemble ring events into one Chrome-trace/Perfetto JSON document.
 
     One process track (`pid` = the process index — the torch.distributed
     rank, which is what lets merge_traces name hosts);
     thread ids are renumbered to stable small ints in order of first
-    appearance, with 'M' metadata events naming the tracks.
+    appearance, with 'M' metadata events naming the tracks (a track given
+    by name, as the trainer's `device` track, keeps its name).
+    `origin_unix_s`, the Unix time of ts 0 (a ring's `wall0`), goes into
+    the metadata as `clock_origin_unix_us`: torch.profiler stamps its
+    events on the Unix clock, so a profiler trace of the same run lays
+    over this one by that offset.
     """
     pid = int(process_index)
     tid_map: Dict = {}
@@ -175,8 +188,12 @@ def chrome_trace_doc(
             "ph": "M",
             "pid": pid,
             "tid": tid,
-            "args": {"name": "main" if tid == 0 else f"thread-{tid}"},
+            "args": {"name": raw if isinstance(raw, str)
+                     else "main" if tid == 0 else f"thread-{tid}"},
         })
+    if origin_unix_s is not None:
+        metadata = {"clock_origin_unix_us": round(1e6 * origin_unix_s, 1),
+                    **(metadata or {})}
     return {
         "traceEvents": meta_events + out,
         "displayTimeUnit": "ms",

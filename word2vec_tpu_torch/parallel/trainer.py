@@ -90,7 +90,6 @@ loaded from the newest good checkpoint.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
@@ -99,7 +98,7 @@ import torch
 from ..config import Word2VecConfig
 from ..data.batcher import PAD, BatchIterator, PackedCorpus, chunk_batches, epoch_order
 from ..data.vocab import Vocab
-from ..device import DeviceLike
+from ..device import DeviceLike, on_device
 from ..models.params import Params, convert_params_layout, params_layout
 from ..ops import resident as res
 from ..ops.graphs import capture_env, shard_list
@@ -118,11 +117,6 @@ Gather = Callable[[List[torch.Tensor]], List[List[torch.Tensor]]]
 Replica = Union[Params, List[Params]]
 #: the replicas of a mesh, replica r = d*sp + s on Mesh.shard_devices(r)
 Replicas = List[Replica]
-
-
-def _on(dev: torch.device):
-    """Make `dev` the current CUDA device (a no-op on the CPU)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def split_params(params: Params, tp: int) -> List[Params]:
@@ -524,7 +518,7 @@ class ShardedTrainer(Trainer):
                 self._env = capture_env(dev)
             return self._env
         if dev not in self._envs:
-            with _on(dev):
+            with on_device(dev):
                 self._envs[dev] = capture_env(dev)
         return self._envs[dev]
 
@@ -652,7 +646,6 @@ class ShardedTrainer(Trainer):
             self._sync_base = base[0] if self.tp == 1 else base
 
     def _run_sync(self, params: Replicas) -> Replicas:
-        self._harvest_capture("replica_sync")
         if self.config.sync_mode == "delta":
             if self._sync_base is None:
                 self._reset_sync_base(params)
@@ -914,7 +907,7 @@ class ShardedTrainer(Trainer):
         for j, runner in enumerate(runners):
             dev = self._home(j)
             runner.draws_hook = hook
-            with _on(dev):
+            with on_device(dev):
                 if resident:
                     g = runner.resident_graph(
                         self._replicas[j], self._resident[dev], chunk_len,
@@ -967,11 +960,10 @@ class ShardedTrainer(Trainer):
                 words_list = [int(w) for w in step_words[t0:t0 + chunk_len]]
 
                 def dispatch(al, n, t0=t0):
-                    self._harvest_capture("resident_chunk")
                     ms = []
                     with self.phases.span("dispatch"):
                         for r, (runner, dev) in enumerate(zip(runners, devs)):
-                            with _on(dev):
+                            with on_device(dev):
                                 ms.append(runner(
                                     self._replicas[r], self._resident[dev],
                                     orders[dev], seed, state.step, t0, al, steps=n,
@@ -980,24 +972,22 @@ class ShardedTrainer(Trainer):
 
                 yield words_list, dispatch
             return
-        program = "train_step" if chunk_len == 1 else "train_chunk"
         for tokens, words_list in chunk_batches(
             self._global_batches(batcher, epoch, skip), chunk_len
         ):
 
             def dispatch(al, n, tokens=tokens):
-                self._harvest_capture(program)
                 gs = []
                 with self.phases.span("h2d"):
                     for r, (runner, dev) in enumerate(zip(runners, devs)):
-                        with _on(dev):
+                        with on_device(dev):
                             gs.append(runner.stage(
                                 self._replicas[r], self._replica_tokens(tokens, r)
                             ))
                 ms = []
                 with self.phases.span("dispatch"):
                     for r, (runner, dev) in enumerate(zip(runners, devs)):
-                        with _on(dev):
+                        with on_device(dev):
                             ms.append(runner.run(
                                 gs[r], self._replicas[r], al, seed, state.step, n
                             ))

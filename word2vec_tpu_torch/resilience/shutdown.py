@@ -132,7 +132,8 @@ def install_usr1_dump(metrics_dir: str, flight=None) -> Callable[[], None]:
     code (resilience/watchdog.dump_all_stacks: signal-safe formatting).
 
     `flight` defaults to the process-wide active recorder
-    (obs/flight.activate). Returns an uninstall callable; a no-op on
+    (obs/flight.activate), or, when no run is active, to the recorder the
+    last run left (obs/flight.last). Returns an uninstall callable; a no-op on
     platforms without SIGUSR1 or off the main thread (Python's signal
     rule), mirroring ShutdownHandler.install's degrade.
     """
@@ -147,7 +148,8 @@ def install_usr1_dump(metrics_dir: str, flight=None) -> Callable[[], None]:
 
             os.makedirs(metrics_dir, exist_ok=True)
             dump_all_stacks(os.path.join(metrics_dir, "stacks_usr1.txt"))
-            fl = flight if flight is not None else flight_mod.active()
+            fl = flight if flight is not None else (
+                flight_mod.active() or flight_mod.last())
             if fl is not None:
                 fl.dump(metrics_dir, reason="sigusr1",
                         filename="flight_usr1.json")

@@ -310,6 +310,7 @@ class EmbeddingServer:
             doc = chrome_trace_doc(
                 self.flight.ring.events(), process_name="serve",
                 metadata={"serve": True, "exit_reason": self.exit_reason},
+                origin_unix_s=self.flight.ring.wall0,
             )
             write_trace(os.path.join(self.cfg.trace_dir, "trace.json"), doc)
         if self.cfg.metrics_dir:

@@ -37,10 +37,21 @@ io/checkpoint.save_checkpoint plugs into, and the trainer's telemetry
 
   - the always-on flight recorder (obs/flight.FlightRecorder: a bounded
     ring of span events, counters and log records, activated process-wide
-    for the run) and the PhaseRecorder wired to its ring (obs/phases:
-    batcher_wait, h2d, dispatch, device_wait, checkpoint and
-    quality_probe spans; a step or chunk parent span per dispatch and an
-    epoch span; TrainReport.phases);
+    for the run, and left as obs/flight.last() when it returns) and the
+    PhaseRecorder wired to its ring (obs/phases: epoch_prep — an epoch's
+    shuffle, its words a step and the order's upload on the resident
+    path, the batcher's epoch start on the streaming one —, batcher_wait,
+    h2d, dispatch, device_wait, checkpoint and quality_probe spans; a step
+    or chunk parent span per dispatch and an epoch span;
+    TrainReport.phases);
+  - on the card, the dispatch timeline (obs/flight.DispatchTimeline): each
+    dispatch between two timing events on the trainer's stream, one
+    before its first device work and the one its metrics copy records,
+    with a non-blocking query of the previous dispatch's end just before
+    the start, read by the metrics drain after the wait it already makes:
+    one row a dispatch (the card's seconds on it, the idle seconds before
+    it, whether the host caused them) in the flight recorder, drawn on the
+    ring's `device` track, and the call's totals (TrainReport.dispatch);
   - the non-finite-loss count and, with config.health_metrics, the full
     health counters, computed inside the captured step (obs/health,
     extra rows of ops/graphs.StepGraph.out), observed through the lagged
@@ -64,10 +75,8 @@ io/checkpoint.save_checkpoint plugs into, and the trainer's telemetry
     graphs replay against), the memory ledger (`devmem`,
     obs/devmem.MemoryLedger; TrainReport.device_memory), bounded profiler
     windows (`profiler`, obs/profiler.ProfilerCapture; stopped on every
-    exit path) and the program harvest (`harvest`, obs/harvest.CostHarvest:
-    each dispatched program, captured once). The divergence
-    supervisor (resilience/supervisor.Supervisor) drives train() across
-    rollbacks and sets TrainReport.recoveries;
+    exit path). The divergence supervisor (resilience/supervisor.Supervisor)
+    drives train() across rollbacks and sets TrainReport.recoveries;
   - the streaming driver's hooks (stream/driver.StreamRun, one train()
     call a segment): `set_corpus` (the segment), `seed_offset` (the
     segment index: every seed site reads `run_seed`), and
@@ -108,10 +117,10 @@ import torch
 from .config import Word2VecConfig
 from .data.batcher import BatchIterator, PackedCorpus, chunk_batches, epoch_order
 from .data.vocab import Vocab
-from .device import DeviceLike, generator, resolve_device
+from .device import DeviceLike, generator, on_device, resolve_device
 from .models.params import Params, convert_params_layout, init_params, params_layout
 from .obs import flight as flight_mod
-from .obs.flight import FlightRecorder
+from .obs.flight import DispatchTimeline, FlightRecorder
 from .obs.health import HealthMonitor, health_record
 from .obs.phases import PhaseRecorder
 from .ops import resident as res
@@ -167,6 +176,11 @@ class TrainReport:
     # continuous-training summary (stream.StreamRun.train): segments
     # consumed, stream cursor, vocab generation, growth/swap counts
     stream: Optional[Dict] = None
+    # the dispatch timeline's totals on the card's clock
+    # (obs/flight.DISPATCH_TOTALS: dispatches, device seconds, idle
+    # seconds between dispatches split into starved and queued); None on
+    # the CPU or with trainer.flight = None
+    dispatch: Optional[Dict] = None
 
 
 class Trainer:
@@ -231,9 +245,6 @@ class Trainer:
     #: one. Non-sample boundaries are one integer compare; a sample reads
     #: the caching allocator's host-side counters.
     devmem = None
-    #: program harvest (obs/harvest.CostHarvest): None unless a caller
-    #: wires one; each dispatched program is captured once.
-    harvest = None
     #: bounded profiler windows (obs/profiler.ProfilerCapture): None unless
     #: a caller wires one. Idle boundaries are None-checks; a requested or
     #: scheduled window arms here, on the training thread.
@@ -641,20 +652,26 @@ class Trainer:
         for exactly this stretch and disarmed on every exit path (a
         supervisor's rollback load must not count against the step
         deadline: its retry re-arms), and a profiler window the run ends
-        inside is stopped on every exit path."""
+        inside is stopped on every exit path. The recorder stays readable
+        as obs/flight.last() after the call returns or raises. The
+        trainer's card is the current CUDA device for the call."""
         prev_flight = flight_mod.activate(self.flight)
         if self.watchdog is not None:
             self.watchdog.arm()
         try:
-            return self._train_impl(
-                state, log_every, max_steps, checkpoint_cb, checkpoint_every
-            )
+            # the trainer's card is the current one for the run: its kernels,
+            # captures and streams land there whichever card is current
+            with on_device(self.device):
+                return self._train_impl(
+                    state, log_every, max_steps, checkpoint_cb, checkpoint_every
+                )
         finally:
             if self.watchdog is not None:
                 self.watchdog.disarm()
             if self.profiler is not None:
                 self.profiler.finish(getattr(self.last_state, "step", None))
             flight_mod.activate(prev_flight)
+            flight_mod.set_last(self.flight)
 
     def _train_impl(
         self,
@@ -832,10 +849,13 @@ class Trainer:
         logging, the checkpoint hook, the signal beat, the quality probe
         and the cooperative stop run at dispatch boundaries, each of which
         closes a step (chunk_len 1) or chunk parent span on the flight
-        timeline."""
+        timeline. On the card each dispatch is also timed on the card's
+        clock (the dispatch timeline: begun before the dispatch, closed by
+        the drain of its metrics)."""
         cfg = self.config
         self._resident = self._setup_resident() if chunk_len > 1 else None
         runner = self._runner(chunk_len)
+        timeline = self._dispatch_timeline()
         loss_hist: List[float] = []
         pending: Optional[tuple] = None
 
@@ -847,6 +867,8 @@ class Trainer:
 
         skip = self._resume_skip(state, batcher)
         self._sync()
+        if timeline is not None:
+            timeline.open()
         t0 = time.perf_counter()
         t_bound = t0
         done = False
@@ -854,6 +876,7 @@ class Trainer:
         for epoch in range(state.epoch, cfg.iters):
             state.epoch = epoch
             t_epoch = time.perf_counter()
+            epoch_first = True
             for words_list, dispatch in self.phases.timed_iter(
                 self._chunk_dispatches(
                     state, batcher, runner, epoch, skip, chunk_len
@@ -871,8 +894,14 @@ class Trainer:
                 for i in range(n):
                     alphas[i] = self.alpha_at(wd)
                     wd += words_list[i]
+                mark = None if timeline is None else timeline.begin(epoch_first)
+                epoch_first = False
                 metrics = dispatch(alphas, n)
-                snap = self._snapshot(metrics)
+                if timeline is None:
+                    snap = self._snapshot(metrics)
+                else:
+                    snap = self._snapshot(metrics, timeline.end_event())
+                    mark = timeline.issued(mark, snap[2])
                 prev_step = state.step
                 state.step += n
                 state.words_done = wd
@@ -901,7 +930,7 @@ class Trainer:
                     log_every and state.step // log_every != prev_step // log_every
                 )
                 pending = (snap, state.step, epoch, float(alphas[n - 1]),
-                           state.words_done, do_log, n)
+                           state.words_done, do_log, n, mark)
                 if (
                     checkpoint_every
                     and checkpoint_cb
@@ -948,6 +977,9 @@ class Trainer:
             device_memory=(
                 self.devmem.summary() if self.devmem is not None else None
             ),
+            dispatch=(
+                self.flight.dispatch_totals() if timeline is not None else None
+            ),
         )
 
     def _run_checkpoint(self, checkpoint_cb, state: TrainState) -> None:
@@ -957,40 +989,61 @@ class Trainer:
             checkpoint_cb(state)
         self._health.checkpoint_hint = f"step {state.step}"
 
-    def _snapshot(self, metrics: Dict[str, torch.Tensor]):
+    def _dispatch_timeline(self) -> Optional[DispatchTimeline]:
+        """The call's dispatch timeline on the trainer's stream, or None:
+        on the CPU (no card clock) or with trainer.flight = None."""
+        if self.flight is None or self.device.type != "cuda":
+            return None
+        return DispatchTimeline(
+            self.flight, lambda: torch.cuda.Event(enable_timing=True),
+            self._stream(),
+        )
+
+    def _stream(self):
+        """The stream of the trainer's card that its dispatches and their
+        metrics copies run on (the trainer's card need not be the
+        process's current one)."""
+        return torch.cuda.current_stream(self.device)
+
+    def _snapshot(self, metrics: Dict[str, torch.Tensor], done=None):
         """(names, host [len(names), S] tensor, event): a dispatch's
         metrics copied to the host right behind it, so that fetching them
         waits for that dispatch alone and not for the ones issued since
         (the static outputs belong to the next dispatch). On the card the
-        copy lands in page-locked memory and the event marks it; on the
-        CPU there is nothing to wait for."""
+        copy lands in page-locked memory and the event marks it: `done`
+        (the dispatch timeline's end event) or a new one; on the CPU there
+        is nothing to wait for."""
         names = tuple(metrics)
         stacked = torch.stack([metrics[k] for k in names])
         if not stacked.is_cuda:
             return names, stacked, None
         host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
         host.copy_(stacked, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        if done is None:
+            done = torch.cuda.Event()
+        done.record(self._stream())
         return names, host, done
 
     def _note_metrics(
         self, snap, at_step: int, at_epoch: int, at_alpha: float,
-        at_words: int, do_log: bool, real_steps: int, t0: float,
+        at_words: int, do_log: bool, real_steps: int, mark, t0: float,
         loss_hist: List[float],
     ) -> None:
         """A dispatch's per-step metrics [len(names), S], fetched under the
         device_wait span (this waits only for that dispatch, already
-        issued one dispatch earlier): the loss, the flight recorder's
-        counter timeline, the divergence tripwire (every real step
-        observed; raises DivergenceError at the budget, after the counters
-        are recorded so a dump carries the poisoned observation), the
-        non-finite warning, and the log record at the log_every
-        boundaries."""
+        issued one dispatch earlier): its dispatch timeline row (`mark`,
+        read after that wait: elapsed times, no further wait), the loss,
+        the flight recorder's counter timeline, the divergence tripwire
+        (every real step observed; raises DivergenceError at the budget,
+        after the counters are recorded so a dump carries the poisoned
+        observation), the non-finite warning, and the log record at the
+        log_every boundaries."""
         names, host, done = snap
         with self.phases.span("device_wait"):
             if done is not None:
                 self._device_get(done.synchronize)
+        if mark is not None:
+            DispatchTimeline.close(mark, at_step, real_steps)
         vals = host.numpy()
         if vals.ndim == 3:
             # [names, replicas, S] (parallel/trainer.py): every process's
@@ -1085,12 +1138,6 @@ class Trainer:
         process's)."""
         return vals
 
-    def _harvest_capture(self, name: str) -> None:
-        """Record one dispatched program for the harvest (obs/harvest.py)
-        the first time it runs; one set lookup after."""
-        if self.harvest is not None and self.harvest.want(name):
-            self.harvest.capture(name)
-
     def _setup_resident(self):
         """The device corpus when the resident path is active for this
         run, else None (config.resident; ops/resident.py). Cached: repeated
@@ -1145,47 +1192,57 @@ class Trainer:
         skip: int,
         chunk_len: int,
     ) -> Iterator[Tuple[List[int], Callable]]:
-        """One epoch's dispatches: yields (words per optimizer step,
-        dispatch(alphas, steps) -> metrics).
+        """One epoch's dispatches: an iterator of (words per optimizer
+        step, dispatch(alphas, steps) -> metrics), the epoch's preparation
+        done first, under the epoch_prep span, so that the batcher_wait
+        span of each next() times the batches alone.
 
         Streaming: host-filled [S, B, L] chunks, staged through page-locked
         memory into the graph's static input (the h2d span), then the
-        replays (the dispatch span). Resident: the corpus lives on the
-        device, so only this epoch's [R] row order goes up (once), and each
-        dispatch carries scalars."""
+        replays (the dispatch span); the preparation is the batcher's epoch
+        start (its shuffle). Resident: the corpus lives on the device, so
+        only this epoch's [R] row order goes up (once, in the preparation,
+        with the shuffle and the words of each step), and each dispatch
+        carries scalars."""
         cfg = self.config
+        seed = self.run_seed
         if self._resident is not None:
-            seed = self.run_seed
-            order = epoch_order(seed, epoch, self.corpus.num_rows)
-            step_words = res.epoch_step_words(self.corpus, order, cfg.batch_rows)
-            order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
-            for t0 in range(skip, len(step_words), chunk_len):
-                words_list = [int(w) for w in step_words[t0:t0 + chunk_len]]
+            with self.phases.span("epoch_prep"):
+                order = epoch_order(seed, epoch, self.corpus.num_rows)
+                step_words = res.epoch_step_words(
+                    self.corpus, order, cfg.batch_rows)
+                order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
 
-                def dispatch(al, n, t0=t0):
-                    self._harvest_capture("resident_chunk")
+            def resident() -> Iterator[Tuple[List[int], Callable]]:
+                for t0 in range(skip, len(step_words), chunk_len):
+                    words_list = [int(w) for w in step_words[t0:t0 + chunk_len]]
+
+                    def dispatch(al, n, t0=t0):
+                        with self.phases.span("dispatch"):
+                            return runner(
+                                self._params, self._resident, order_dev, seed,
+                                state.step, t0, al, steps=n,
+                            )
+
+                    yield words_list, dispatch
+
+            return resident()
+        with self.phases.span("epoch_prep"):
+            batches = batcher.epoch(epoch, skip)
+
+        def streaming() -> Iterator[Tuple[List[int], Callable]]:
+            # filled on this thread: the fill of chunk i+1 runs while the
+            # card runs chunk i (a replay returns at once); a producer
+            # thread only fought this one for the GIL (slower in both arms,
+            # PERF.md)
+            for tokens, words_list in chunk_batches(batches, chunk_len):
+
+                def dispatch(al, n, tokens=tokens):
+                    with self.phases.span("h2d"):
+                        g = runner.stage(self._params, tokens)
                     with self.phases.span("dispatch"):
-                        return runner(
-                            self._params, self._resident, order_dev, seed,
-                            state.step, t0, al, steps=n,
-                        )
+                        return runner.run(g, self._params, al, seed, state.step, n)
 
                 yield words_list, dispatch
-            return
-        # filled on this thread: the fill of chunk i+1 runs while the card
-        # runs chunk i (a replay returns at once); a producer thread only
-        # fought this one for the GIL (slower in both arms, PERF.md)
-        program = "train_step" if chunk_len == 1 else "train_chunk"
-        seed = self.run_seed
-        for tokens, words_list in chunk_batches(
-            batcher.epoch(epoch, skip), chunk_len
-        ):
 
-            def dispatch(al, n, tokens=tokens):
-                self._harvest_capture(program)
-                with self.phases.span("h2d"):
-                    g = runner.stage(self._params, tokens)
-                with self.phases.span("dispatch"):
-                    return runner.run(g, self._params, al, seed, state.step, n)
-
-            yield words_list, dispatch
+        return streaming()
