@@ -513,17 +513,21 @@ def expected_launches(backend: str, layout: str, steps: int,
     positive and negative contributions) and scatter_mean=False (which
     would add three more); the tables take one ordered scatter each on
     split tables plus the negative tail, or one doubled-width scatter plus
-    the tail on the unified slab; each sorted id array gets its run list
-    once."""
+    the tail on the unified slab, all of them the gathered instantiation
+    (the update tail with SR and scatter_mean off); each sorted id array
+    gets its run list once."""
     from word2vec_tpu_torch.ops.launch import LAUNCHES
 
     per = {k: 0 for k in LAUNCHES}
     per["ordered_row_sum"] = 3
-    per["fused_slab_scatter"] = 2 if layout == "unified" else 3
+    per["gathered_slab_scatter"] = 2 if layout == "unified" else 3
     # one run list per distinct sorted id array: the token ids (both
     # token-order sides) and the negative ids; pallas scatters its context
     # side from slab space, a third array
     per["find_runs"] = 3 if backend == "pallas" else 2
+    # the gathered update tail (SR and scatter_mean off): the clip's squared
+    # norms, one kernel a contribution
+    per["row_sq_norms"] = 3
     kernel = {"pallas_fused": "fused_grad_core", "pallas_oa": "overlap_add_slabs",
               "pallas": "band_core"}.get(backend)
     if kernel:
@@ -800,6 +804,57 @@ def scatter_bound(idx, vals):
     return bound_ms(nbytes, live.numel() * width, PEAK_FLOPS[torch.float32])
 
 
+def tail_inputs(inp, grads, seed=12):
+    """The flagship band step's update-tail operands (ops/band_step
+    ._update_gathered on pallas_fused sg, unified) from one fused grad core
+    call on grad_inputs' batch `inp`: the token ids (padding on row 0)
+    stably sorted and each sorted position's row of the padded [B, C*S, d]
+    outputs (d_ctr and d_ctx, the two planes' sources), the negative ids
+    stably sorted and their rows of d_neg, and two planes' per-id clip
+    scales with about 30% of the rows under 1."""
+    d_ctr, d_ctx, _, _, d_neg = grads[:5]
+    dev = d_ctr.device
+    CS = d_ctr.numel() // (B * D)
+    tokens = inp["tokens"]
+    flat = torch.where(tokens >= 0, tokens, 0).reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    negs = inp["negs"].reshape(-1)
+    order_n = torch.argsort(negs, stable=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scales = tuple(
+        torch.where(torch.rand(V, device=dev, generator=g) < 0.3,
+                    torch.rand(V, device=dev, generator=g) * 0.99 + 0.01,
+                    torch.ones(V, device=dev))
+        for _ in range(2))
+    return dict(
+        idx=flat[order].to(torch.int32).contiguous(),
+        rows=(order + torch.div(order, L, rounding_mode="floor") * (CS - L)
+              ).to(torch.int32),
+        srcs=(d_ctr.reshape(-1, D), d_ctx.reshape(-1, D)),
+        padded=d_ctr.reshape(B, CS, D),
+        neg_idx=negs[order_n].to(torch.int32).contiguous(),
+        neg_rows=order_n.to(torch.int32),
+        neg_src=d_neg.reshape(-1, D),
+        scales=scales,
+    )
+
+
+def flagship_tail(dev):
+    """tail_inputs of a flagship sg grad core call (f32 tables, bf16
+    compute), and its run list of the token ids."""
+    from word2vec_tpu_torch.ops import fused_step as fs
+    from word2vec_tpu_torch.ops import runs as rl
+
+    inp = grad_inputs(dev, torch.float32)
+    grads = fs.fused_grad_core(
+        inp["emb"], inp["tok_c"], inp["tok_k"], inp["keep_c"], inp["w_c"],
+        inp["negs"], inp["alpha"], W=W, K=K, L=L, cdt=torch.bfloat16,
+        is_cbow=False, cbow_mean=True)
+    tail = tail_inputs(inp, grads)
+    tail["runs"] = rl.find_runs(tail["idx"])
+    return tail
+
+
 def row_sum_inputs(dev, seed=3):
     """A flagship batch's sorted token ids (the clip budget's in-table
     call) with per-update norms spanning eight decades, and an unsorted
@@ -900,6 +955,20 @@ def rel_err(k, p):
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+# the squared norms' bound on |kernel - plain| / |plain|, row by row: the
+# kernel sums each row's squares in its own order (float32 rounding)
+NORMS_RTOL = 1e-5
+
+
+def norms_rel_err(got, want) -> float:
+    """max |got - want| / |want| over the rows (0 where both are 0); inf
+    for another shape or a non-finite value."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        return float("inf")
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / w.abs().clamp_min(1e-300)).max()) if g.numel() else 0.0
+
+
 GRAD_NAMES = ("d_ctr", "d_ctx", "n_ctx", "ctx_w", "d_neg", "w_neg_sum", "losses")
 CORE_NAMES = ("d_h", "d_ctx", "d_neg", "n_ctx", "ctx_w", "w_neg_sum", "losses")
 
@@ -984,6 +1053,49 @@ def phase_kernels(dev):
             f"table_changed={moved}")
         if not (same and moved):
             fail(f"fused_slab_scatter {dt}: kernel != plain (bitwise)")
+    # the band step's gathered update tail at the flagship (pallas_fused
+    # sg, unified): the squared norms of the grad core's padded d_ctr and
+    # of d_neg against the plain sums, row by row; the gathered scatter,
+    # both planes through the sort order and scaled, then plane 1 for the
+    # negatives, bitwise its plain version, f32 and bf16 tables
+    tail = flagship_tail(dev)
+    n_neg = tail["neg_src"].shape[0]
+    worst = 0.0
+    for label, src, live in (
+            (f"padded {list(tail['padded'].shape)} d_ctr, {L} live", tail["padded"], L),
+            (f"d_neg [{n_neg}, {D}]", tail["neg_src"][None], n_neg)):
+        got = fs.row_sq_norms(src, live)
+        again = fs.row_sq_norms(src, live)
+        ref = fs.row_sq_norms_plain(src, live)
+        torch.cuda.synchronize()
+        rel = norms_rel_err(got, ref)
+        same = torch.equal(got, again)
+        log(f"  row_sq_norms {label}: max_rel_err={rel:.3e} (limit {NORMS_RTOL:g}) "
+            f"repeatable={same}")
+        if rel > NORMS_RTOL or not same:
+            fail(f"row_sq_norms {label}: kernel != plain or not repeatable")
+        worst = max(worst, float((got - ref).abs().max()))
+    errs[("row_sq_norms",)] = worst
+    for dt in (torch.float32, torch.bfloat16):
+        emb = scatter_inputs(dev, dt)["emb"]
+        scl = tail["scales"]
+        outs = []
+        for fn in (fs.gathered_slab_scatter, fs.gathered_slab_scatter,
+                   fs.gathered_slab_scatter_plain):
+            e = emb.clone()
+            fn(e, tail["idx"], tail["srcs"], tail["rows"], scl)
+            fn(e, tail["neg_idx"], (tail["neg_src"],), tail["neg_rows"], (scl[1],),
+               plane=1)
+            outs.append(e)
+        torch.cuda.synchronize()
+        same = torch.equal(bits(outs[0]), bits(outs[2]))
+        again = torch.equal(bits(outs[0]), bits(outs[1]))
+        moved = not torch.equal(outs[0], emb)
+        log(f"  gathered_slab_scatter {str(dt)[6:]} [N={tail['idx'].numel()}, "
+            f"2x{D} from padded sources, scaled; plane 1 N={n_neg}]: "
+            f"bitwise_equal={same} repeatable={again} table_changed={moved}")
+        if not (same and again and moved):
+            fail(f"gathered_slab_scatter {dt}: kernel != plain (bitwise)")
     # the overlap-add on a flagship slab-space gradient [256, 2, 128, 300]
     S = 118
     y = torch.randn((B, 2, S + 2 * W, D), device=dev,
@@ -1202,12 +1314,21 @@ def step_vs_cpu(dev, cfg, v, rows, rng, tag):
     err = max(float((p_gpu[k].cpu() - p_cpu[k]).abs().max()) for k in p_cpu)
     moved = max(float((p_cpu[k] - start[k]).abs().max()) for k in p_cpu)
     lerr = abs(float(m_gpu["loss_sum"]) - float(m_cpu["loss_sum"]))
+    clips = (float(m_gpu["clip_engaged"]), float(m_cpu["clip_engaged"]))
+    # the card's tail by the routing rule (the CPU keeps the sorted one)
+    tail = not (cfg.scatter_mean or cfg.stochastic_rounding)
     log(f"  {tag}: params max_abs_err={err:.3e} (update max {moved:.3e}), "
-        f"loss_sum err={lerr:.3e}")
+        f"loss_sum err={lerr:.3e}, clip engaged {clips[0]:g} / {clips[1]:g} rows, "
+        f"{'gathered' if step_gpu.gathered_tail else 'sorted'} tail")
     if not (err <= 1e-6 and moved > 1e-4):
         fail(f"{tag}: GPU step disagrees with the CPU step")
     if lerr > 1e-4 * abs(float(m_cpu["loss_sum"])):
         fail(f"{tag}: loss_sum disagrees")
+    if cfg.clip_row_update < 1.0 and clips[1] == 0:
+        fail(f"{tag}: the row clip did not engage")
+    if step_gpu.gathered_tail is not tail or step_cpu.gathered_tail is not False:
+        fail(f"{tag}: update tail card {step_gpu.gathered_tail} / CPU "
+             f"{step_cpu.gathered_tail}, want {tail} / False")
     return err
 
 
@@ -1217,26 +1338,35 @@ def phase_small_step(dev):
     from word2vec_tpu_torch.config import Word2VecConfig
 
     rng = np.random.default_rng(5)
+    # scatter_mean keeps the sorted update tail on the card; without it the
+    # card takes the gathered tail (the flagship's), each held against the
+    # CPU's sorted tail, the clip engaged in the last three
     cases = [
-        ("pallas_fused", "unified", "sg", "row"),
-        ("pallas_fused", "unified", "cbow", "row"),
-        ("xla", "split", "sg", "row"),
-        ("xla", "split", "cbow", "batch"),
-        ("pallas_oa", "split", "sg", "batch"),
-        ("pallas_oa", "split", "cbow", "row"),
-        ("pallas", "split", "sg", "row"),
-        ("pallas", "split", "cbow", "batch"),
-        ("xla", "unified", "sg", "row"),
+        ("pallas_fused", "unified", "sg", "row", True, 1.0),
+        ("pallas_fused", "unified", "cbow", "row", True, 1.0),
+        ("xla", "split", "sg", "row", True, 1.0),
+        ("xla", "split", "cbow", "batch", True, 1.0),
+        ("pallas_oa", "split", "sg", "batch", True, 1.0),
+        ("pallas_oa", "split", "cbow", "row", True, 1.0),
+        ("pallas", "split", "sg", "row", True, 1.0),
+        ("pallas", "split", "cbow", "batch", True, 1.0),
+        ("xla", "unified", "sg", "row", True, 1.0),
+        ("pallas_fused", "unified", "sg", "row", False, 1.0),
+        ("pallas", "split", "cbow", "batch", False, 1.0),
+        ("pallas_fused", "unified", "sg", "row", False, 1e-3),
+        ("pallas_oa", "split", "cbow", "row", False, 1e-3),
+        ("xla", "split", "sg", "batch", False, 1e-3),
     ]
-    for backend, layout, model, scope in cases:
+    for backend, layout, model, scope, mean, clip in cases:
         cfg = Word2VecConfig(
             model=model, negative=3, word_dim=64, window=3, min_count=1,
             compute_dtype="float32", shared_negatives=8, max_sentence_len=40,
             band_chunk=10, table_layout=layout, band_backend=backend,
-            negative_scope=scope, scatter_mean=True,
+            negative_scope=scope, scatter_mean=mean, clip_row_update=clip,
         )
         step_vs_cpu(dev, cfg, 500, 8, rng,
-                    f"small step {backend}/{layout} {model} {scope}")
+                    f"small step {backend}/{layout} {model} {scope}"
+                    f"{' scatter_mean' if mean else ''} clip {clip:g}")
 
 
 def flagship_corpus():
@@ -1490,8 +1620,48 @@ def phase_times(dev, errs, counts, tokens):
                else (u["chain_bound_ms"], "operations"))
     log(f"  (fused_slab_scatter entry: the unified doubled-width f32 call; "
         f"bound_by {by} = {'bytes' if by == 'bytes' else 'the longest run chain'})")
+    log("  (the contiguous instantiation: the hs and pair routes' scatters and "
+        "the band step's under SR or scatter_mean; the flagship band runs "
+        "launch the gathered one below)")
     entry("fused_slab_scatter", "fused_step.cu", "word2vec_tpu/ops/pallas_step.py:490",
           ("xla", "split"), 0.0, u["ms"], plain, bms, by, u["index_add_ms"])
+
+    # the gathered instantiation at the flagship step's unified call (both
+    # planes read from the grad core's padded outputs through the sort
+    # order, scaled at the add), beside the torch ops it replaces (gather,
+    # multiply, stack, then index_add_), and the squared norms of the
+    # padded d_ctr beside their plain sum
+    tail = flagship_tail(dev)
+    ti, scl, tr = tail["idx"], tail["scales"], tail["runs"]
+    ms = cuda_ms(lambda: fs.gathered_slab_scatter(emb, ti, tail["srcs"], tail["rows"],
+                                                  scl, runs=tr), reps=20)
+    plain = cuda_ms(lambda: fs.gathered_slab_scatter_plain(
+        emb, ti, tail["srcs"], tail["rows"], scl), reps=3, warmup=1)
+    flat_rows, li = emb.view(V, -1), ti.long()
+    lib = cuda_ms(lambda: flat_rows.index_add_(0, li, fs.gathered_values(
+        emb.dtype, ti, tail["srcs"], tail["rows"], scl).reshape(li.numel(), -1)),
+        reps=20)
+    b_bytes, _ = gathered_bound(ti, tail["srcs"], 2 * D, emb.element_size())
+    longest = longest_run(ti)
+    b_chain = longest * CHAIN_CYCLES[emb.dtype] / clock * 1e3
+    bms, by = (b_bytes, "bytes") if b_bytes >= b_chain else (b_chain, "operations")
+    log(f"  (gathered_slab_scatter entry: the flagship unified call, N={ti.numel()} "
+        f"sorted token ids, sources 2 x {list(tail['padded'].shape)} f32, "
+        f"longest run {longest}; library = gather, multiply, stack, index_add_)")
+    entry("gathered_slab_scatter", "fused_step.cu",
+          "word2vec_tpu/ops/pallas_step.py:490", ("pallas_fused", "unified"), 0.0,
+          ms, plain, bms, by, lib)
+    pad = tail["padded"]
+    ms = cuda_ms(lambda: fs.row_sq_norms(pad, L), reps=20)
+    plain = cuda_ms(lambda: fs.row_sq_norms_plain(pad, L), reps=20)
+    n_live = B * L
+    bms, by = bound_ms(4 * n_live * D + 4 * n_live, 2 * n_live * D,
+                       PEAK_FLOPS[torch.float32])
+    log(f"  (row_sq_norms entry: the padded {list(pad.shape)} f32 d_ctr, {L} live "
+        f"rows of each {pad.shape[1]}; one of the three calls a flagship step)")
+    entry("row_sq_norms", "fused_step.cu", "word2vec_tpu/ops/train_step.py:52",
+          ("pallas_fused", "unified"), errs[("row_sq_norms",)], ms, plain, bms, by,
+          None)
 
     # the run list of the unified call's ids; torch.unique_consecutive
     # computes the same runs (with a host sync)
@@ -2030,22 +2200,28 @@ def hs_launches(cfg, steps: int) -> dict:
 class CallRecorder:
     """Records the inputs and outputs of every ordered-sum kernel call the
     hs and pair steps make (the three wrappers as ops/train_step calls
-    them), so each is held against its plain version at its own shape."""
+    them), so each is held against its plain version at its own shape.
+    band=True: the band step's own calls too (it imports the wrappers),
+    its gathered update tail's squared norms and gathered scatters among
+    them (`names`)."""
 
     NAMES = ("find_runs", "ordered_row_sum", "fused_slab_scatter")
+    BAND_NAMES = ("row_sq_norms", "gathered_slab_scatter")
 
     def __init__(self, band=False):
         from word2vec_tpu_torch.ops import band_step as bs
         from word2vec_tpu_torch.ops import train_step as ts
 
         self.ts = ts
-        # band=True: the band step's own calls too (it imports the wrappers)
         self.mods = (ts, bs) if band else (ts,)
         self.real = {n: getattr(ts, n) for n in self.NAMES}
+        self.band, self.bs = band, bs
+        self.names = self.NAMES + (self.BAND_NAMES if band else ())
+        self.real_band = {n: getattr(bs, n) for n in self.BAND_NAMES}
         self.calls = []
 
     def __enter__(self):
-        real, calls = self.real, self.calls
+        real, calls, real_band = self.real, self.calls, self.real_band
 
         def runs(idx):
             r = real["find_runs"](idx)
@@ -2067,16 +2243,54 @@ class CallRecorder:
                           vals.clone(), r.clone(), runs, plane))
             return r
 
+        def norms(src, live):
+            r = real_band["row_sq_norms"](src, live)
+            calls.append(("row_sq_norms", src.clone(), live, r.clone()))
+            return r
+
+        def gathered(emb, sorted_idx, srcs, rows, scales=None, plane=None, runs=None):
+            before = emb.clone()
+            r = real_band["gathered_slab_scatter"](emb, sorted_idx, srcs, rows, scales,
+                                                   plane, runs=runs)
+            sc = (None,) * len(srcs) if scales is None else scales
+            calls.append(("gathered_slab_scatter", before, sorted_idx.clone(),
+                          tuple(x.clone() for x in srcs), rows.clone(),
+                          tuple(None if x is None else x.clone() for x in sc),
+                          r.clone(), runs, plane))
+            return r
+
         for n, f in (("find_runs", runs), ("ordered_row_sum", row_sum),
                      ("fused_slab_scatter", scatter)):
             for m in self.mods:
                 setattr(m, n, f)
+        if self.band:
+            self.bs.row_sq_norms = norms
+            self.bs.gathered_slab_scatter = gathered
         return self
 
     def __exit__(self, *exc):
         for n, f in self.real.items():
             for m in self.mods:
                 setattr(m, n, f)
+        if self.band:
+            for n, f in self.real_band.items():
+                setattr(self.bs, n, f)
+
+
+def scatter_width(call) -> int:
+    """The width a recorded scatter adds to (a plane's d)."""
+    return call[3][0].shape[-1] if call[0] == "gathered_slab_scatter" else call[3].shape[-1]
+
+
+def gathered_bound(idx, srcs, width, table_es):
+    """The bytes bound of a gathered scatter (ms, "bytes"): its f32 source
+    rows read once, the sorted ids and the row indices, and each touched
+    table row read and written once at `width` elements."""
+    live = idx[idx >= 0]
+    rows = torch.unique(live).numel()
+    nbytes = (4 * idx.numel() * sum(x.shape[-1] for x in srcs) + 8 * idx.numel()
+              + 2 * rows * width * table_es)
+    return bound_ms(nbytes, live.numel() * width, PEAK_FLOPS[torch.float32])
 
 
 def run_row(idx) -> int:
@@ -2144,27 +2358,48 @@ def check_hs_calls(name, calls, card, clock, timed=None):
                     f"{b_bytes:.4f} ms, chain bound "
                     f"{rows[-1]['chain_bound_ms']:.4f} ms (longest run "
                     f"{longest}) ({card})")
+        elif kind == "row_sq_norms":
+            _, src, live, got = c
+            rel = norms_rel_err(got, fs.row_sq_norms_plain(src, live))
+            if rel > NORMS_RTOL:
+                fail(f"hs {name}: row_sq_norms [{tuple(src.shape)}, {live} live] "
+                     f"rel err {rel:.3e} > {NORMS_RTOL:g}")
         else:
-            _, before, idx, vals, got, runs, plane = c
+            gathered = kind == "gathered_slab_scatter"
+            if gathered:
+                _, before, idx, srcs, src_rows, scales, got, runs, plane = c
+                vals = fs.gathered_values(before.dtype, idx, srcs, src_rows, scales)
+            else:
+                _, before, idx, vals, got, runs, plane = c
             t0 = time.perf_counter()
-            want = fs.fused_slab_scatter_plain(before.clone(), idx, vals, plane)
+            if gathered:
+                want = fs.gathered_slab_scatter_plain(before.clone(), idx, srcs,
+                                                      src_rows, scales, plane)
+            else:
+                want = fs.fused_slab_scatter_plain(before.clone(), idx, vals, plane)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
             if not torch.equal(bits(got), bits(want)):
-                fail(f"hs {name}: fused_slab_scatter [N={idx.numel()}] kernel != plain")
+                fail(f"hs {name}: {kind} [N={idx.numel()}] kernel != plain")
             if timed is not None and at not in timed:
                 continue
             tb = before.clone()
-            k_ms = cuda_ms(lambda: ts.fused_slab_scatter(tb, idx, vals, plane, runs=runs),
-                           reps=10)
+            if gathered:
+                k_ms = cuda_ms(lambda: fs.gathered_slab_scatter(
+                    tb, idx, srcs, src_rows, scales, plane, runs=runs), reps=10)
+                b_bytes, _ = gathered_bound(idx, srcs, vals[0].numel(),
+                                            before.element_size())
+            else:
+                k_ms = cuda_ms(lambda: ts.fused_slab_scatter(
+                    tb, idx, vals, plane, runs=runs), reps=10)
+                b_bytes, _ = scatter_bound(idx, vals)
             li = idx.long()
             dst = tb if plane is None else tb[:, plane]
             lib = cuda_ms(lambda: dst.index_add_(0, li, vals), reps=10)
-            b_bytes, _ = scatter_bound(idx, vals)
             longest = longest_run(idx)
             live = vals.reshape(vals.shape[0], -1).ne(0).any(dim=1)
             rows.append({
-                "call": "fused_slab_scatter", "width": vals.shape[-1],
+                "call": kind, "width": vals.shape[-1],
                 "layout": "unified" if before.dim() == 3 else "split", "plane": plane,
                 "n": idx.numel(), "table_rows": before.shape[0],
                 "dtype": str(before.dtype)[6:], "ms": k_ms, "index_add_ms": lib,
@@ -2175,7 +2410,8 @@ def check_hs_calls(name, calls, card, clock, timed=None):
                 "zero_terms": int((~live).sum()),
                 "longest_nonzero_run": longest_run(idx[live]), "plain_s": plain_s,
             })
-            log(f"  hs {name} scatter [N={idx.numel()} into {before.shape[0]} rows]: "
+            log(f"  hs {name} {'gathered ' if gathered else ''}scatter [N={idx.numel()} "
+                f"into {before.shape[0]} rows]: "
                 f"{k_ms:.4f} ms, index_add_ {lib:.4f} ms, bytes bound "
                 f"{b_bytes:.4f} ms, chain bound {rows[-1]['chain_bound_ms']:.4f} ms "
                 f"(longest run {longest} on row {rows[-1]['longest_run_row']}; "
@@ -3688,12 +3924,15 @@ def phase_resilience(vocab, corpus, card, tmp):
         names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
         window = RES_PROFILE[1] - RES_PROFILE[0]
         seen = {"fused_grad_core": sum("grad_core" in n for n in names),
-                "fused_slab_scatter": sum("slab_scatter" in n for n in names)}
+                "slab_scatter": sum("slab_scatter" in n for n in names)}
         per = expected_launches("pallas_fused", "unified", window)
-        if (doc["armed_step"], doc["stopped_step"]) != RES_PROFILE or any(
-                seen[k] != per[k] for k in seen):
+        # both instantiations of slab_scatter_kernel carry the name
+        want_k = {"fused_grad_core": per["fused_grad_core"],
+                  "slab_scatter": per["fused_slab_scatter"]
+                  + per["gathered_slab_scatter"]}
+        if (doc["armed_step"], doc["stopped_step"]) != RES_PROFILE or seen != want_k:
             fail(f"profile window {doc['armed_step']}:{doc['stopped_step']}: "
-                 f"kernels {seen} (want {dict((k, per[k]) for k in seen)})")
+                 f"kernels {seen} (want {want_k})")
         with open(os.path.join(usr2_d, "capture_1.json")) as f:
             udoc = json.load(f)
         validate_capture_doc(udoc)
@@ -5321,10 +5560,11 @@ def tp_steps_arms(dev, vocab, corpus, card, clock, row):
                 # (a) every call bitwise its plain version; shard 0's
                 # scatters (all issued before shard 1's: they follow the
                 # step's last psum) timed
-                sc = [i for i, c in enumerate(rec.calls) if c[0] == "fused_slab_scatter"]
+                kinds = ("fused_slab_scatter", "gathered_slab_scatter")
+                sc = [i for i, c in enumerate(rec.calls) if c[0] in kinds]
                 rows = check_hs_calls(f"tp_sp {tag}", rec.calls, card, clock,
                                       timed=set(sc[:len(sc) // tp]))
-                widths = {c[3].shape[-1] for c in rec.calls if c[0] == "fused_slab_scatter"}
+                widths = {scatter_width(c) for c in rec.calls if c[0] in kinds}
                 if widths != {D // tp}:
                     fail(f"tp_sp {tag}: scatter widths {widths}")
                 row["calls"][tag] = {"n_calls": len(rec.calls), "timed": rows}
@@ -5639,8 +5879,8 @@ def mp_record_step(tr, flat, card, clock):
     torch.cuda.synchronize()
     kinds = [c[0] for c in rec.calls]
     want = expected_launches(cfg.band_backend, cfg.table_layout, 1)
-    if {k: kinds.count(k) for k in CallRecorder.NAMES} != {
-            k: want[k] for k in CallRecorder.NAMES} or len(grads) != 1:
+    if {k: kinds.count(k) for k in rec.names} != {
+            k: want[k] for k in rec.names} or len(grads) != 1:
         fail(f"multiproc: recorded calls {kinds} + {len(grads)} grad cores != {want}")
     check_hs_calls("multiproc rank 0", rec.calls, card, clock, timed=set())
     a, kw, got = grads[0]

@@ -18,8 +18,12 @@ CSRC = Path(__file__).resolve().parent.parent / "word2vec_tpu_torch" / "csrc"
 
 
 def const(src: str, name: str) -> int:
-    """The value of `constexpr int <name> = <value>;` in csrc/<src>."""
-    m = re.search(rf"constexpr int {name} = (\d+);", (CSRC / src).read_text())
+    """The value of `constexpr int <name> = <value>;` in csrc/<src> or in a
+    csrc header it includes."""
+    text = (CSRC / src).read_text()
+    for hdr in re.findall(r'#include "(\w+\.cuh)"', text):
+        text += (CSRC / hdr).read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", text)
     assert m, f"{name} not found in csrc/{src}"
     return int(m.group(1))
 

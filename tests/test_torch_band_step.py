@@ -162,6 +162,7 @@ def _run(kw, steps):
         tm = tfn.apply(tp, torch.from_numpy(tokens),
                        _jax_draws(jcfg, key, jt, tokens), alpha)
     assert not torch.equal(tp[FUSED_KEY], start)  # the step moved the slab
+    _run.step = tfn  # the step of the last run (its update tail)
     return jp, jm, tp, tm
 
 
@@ -188,6 +189,163 @@ def test_one_step_matches_jax_fused_step(model, case, monkeypatch):
     assert float(tm["clip_engaged"]) == float(jm["clip_engaged"])
     if "clip_row_update" in case:
         assert float(jm["clip_engaged"]) > 0  # the trust region engaged
+
+
+_CARD_RULE = band_step.gathered_tail
+
+
+def _route_tail(monkeypatch, tail):
+    """Route the band step's update tail (ops/band_step.gathered_tail):
+    "card" applies the card's rule on the CPU too (the gathered tail
+    through the plain versions of its kernels), "sorted" keeps the sorted
+    tail everywhere."""
+    if tail == "card":
+        def rule(config, sr, device):
+            return _CARD_RULE(config, sr, torch.device("cuda"))
+    else:
+        def rule(config, sr, device):
+            return False
+    monkeypatch.setattr(band_step, "gathered_tail", rule)
+
+
+def _on_the_gathered_tail(monkeypatch):
+    """The gathered update tail (the card's rule) on the CPU too."""
+    _route_tail(monkeypatch, "card")
+
+
+@pytest.mark.parametrize(
+    "case,gathered",
+    [
+        (dict(), True),
+        (dict(clip_row_update=0.0002), True),
+        (dict(dtype="bfloat16", clip_row_update=0.0002), True),
+        (dict(scatter_mean=True, clip_row_update=0.0002), False),
+        (dict(dtype="bfloat16", scatter_mean=True, stochastic_rounding=True), False),
+    ],
+    ids=["f32", "f32-clip", "bf16-clip", "f32-mean-clip", "bf16-sr"],
+)
+@pytest.mark.parametrize("model", ["sg", "cbow"])
+def test_band_tail_routing_matches_jax_fused_step(model, case, gathered, monkeypatch):
+    """With the gathered tail allowed on the CPU, the step takes the tail
+    the routing rule says (the gathered one, but the sorted one under
+    scatter_mean or SR), as its engagement flag (what the trainer's
+    band_tail counter reads) shows, and still matches the JAX step at its
+    tolerance, the clip engaged."""
+    monkeypatch.setattr(band_step, "_cast_update", _jax_grid_cast)
+    _on_the_gathered_tail(monkeypatch)
+    kw = _kw(model=model, **case)
+    jp, jm, tp, tm = _run(kw, 1)
+    assert _run.step.gathered_tail is gathered
+    _assert_params_close(tp, jp, kw.get("dtype", "float32"))
+    np.testing.assert_allclose(float(tm["loss_sum"]), float(jm["loss_sum"]),
+                               rtol=1e-5)
+    assert float(tm["clip_engaged"]) == float(jm["clip_engaged"])
+    if "clip_row_update" in case:
+        assert float(jm["clip_engaged"]) > 0
+
+
+def test_the_cpu_keeps_the_sorted_tail():
+    """On the CPU the rule gives the sorted tail (the plain path as it was)."""
+    _run(_kw(), 1)
+    assert _run.step.gathered_tail is False
+
+
+_TAIL_ROUTES = {
+    "fused": dict(),
+    "fused-cbow-bf16": dict(model="cbow", dtype="bfloat16"),
+    "xla-split": dict(band_backend="xla", table_layout="split"),
+    "xla-unified-batch": dict(band_backend="xla", negative_scope="batch"),
+    "xla-slab-cbow": dict(band_backend="xla", table_layout="split",
+                          slab_scatter=True, model="cbow"),
+    "pallas-oa": dict(band_backend="pallas_oa", table_layout="split"),
+    "pallas": dict(band_backend="pallas", table_layout="split"),
+    "pallas-cbow-noclip": dict(band_backend="pallas", table_layout="split",
+                               model="cbow", clip_row_update=0.0),
+}
+
+
+@pytest.mark.parametrize("route", list(_TAIL_ROUTES))
+def test_gathered_tail_bitwise_the_sorted_tail(route, monkeypatch):
+    """Three steps of every band route, the gathered tail against the
+    sorted one on the CPU (their kernels' plain versions): bitwise-equal
+    tables and metrics, the row clip engaged (its squared norms read in
+    place, then gathered, sum each row in the same order on the CPU)."""
+    kw = _kw(**dict(dict(clip_row_update=0.0002), **_TAIL_ROUTES[route]))
+    cfg = Word2VecConfig(**kw)
+    _, tt = _tables()
+    tokens = torch.from_numpy(_tokens())
+    emb = torch.randn(V, 2, D, generator=torch.Generator().manual_seed(3)) * 0.3
+    out = {}
+    for name, tail in (("sorted", "sorted"), ("gathered", "card")):
+        _route_tail(monkeypatch, tail)
+        tdt = torch.bfloat16 if kw.get("dtype") == "bfloat16" else torch.float32
+        params = ({FUSED_KEY: emb.to(tdt, copy=True)} if cfg.table_layout == "unified"
+                  else {"emb_in": emb[:, 0].to(tdt, copy=True),
+                        "emb_out_ns": emb[:, 1].to(tdt, copy=True)})
+        step = BandStep(cfg, tt)
+        ms = [step(params, tokens, torch.Generator().manual_seed(10 + i), 0.05)
+              for i in range(3)]
+        assert step.gathered_tail is (name == "gathered")
+        out[name] = (params, ms)
+    (ps, ms), (pg, mg) = out["sorted"], out["gathered"]
+    for k in ps:
+        assert torch.equal(ps[k], pg[k]), k
+    for a, b in zip(ms, mg):
+        assert {k: float(v) for k, v in a.items()} == {k: float(v) for k, v in b.items()}
+    if cfg.clip_row_update > 0:
+        assert all(float(m["clip_engaged"]) > 0 for m in mg)
+
+
+def _planted(**over):
+    rng = np.random.default_rng(0)
+    sents = []
+    for _ in range(300):
+        w1 = rng.choice(["a", "b"])
+        w2 = rng.choice(["c", "d"])
+        sents.append(["x", w1, "y", "x", w1, "y"])
+        sents.append(["p", w2, "q", "p", w2, "q"])
+    kw = dict(
+        model="sg", train_method="ns", negative=5, word_dim=32, window=2,
+        min_count=1, subsample_threshold=0, iters=2, batch_rows=32,
+        max_sentence_len=16, init_alpha=0.05, scatter_mean=False,
+        kernel="band", band_chunk=8, shared_negatives=8,
+        table_layout="unified", band_backend="pallas_fused", clip_row_update=0.01,
+    )
+    kw.update(over)
+    cfg = Word2VecConfig(**kw)
+    vocab = Vocab.build(sents, min_count=1)
+    corpus = PackedCorpus.pack(vocab.encode_corpus(sents), cfg.max_sentence_len)
+    return cfg, vocab, corpus
+
+
+def _band_tail_rows(tr):
+    return [e["args"] for e in tr.flight.ring.events() if e["name"] == "band_tail"]
+
+
+@pytest.mark.parametrize("chunk_steps", [1, 4])
+def test_trainer_records_the_band_tail_a_dispatch(chunk_steps, monkeypatch):
+    """The trainer's engagement counter: one band_tail counter a dispatch
+    on the flight recorder's ring, its steps summing to the run's, reading
+    0 on the CPU's sorted tail and 1 on the gathered one (allowed on the
+    CPU here), whose run is bitwise the sorted run's; the hs step records
+    none."""
+    cfg, vocab, corpus = _planted(chunk_steps=chunk_steps)
+    runs = {}
+    for name, tail in (("sorted", "sorted"), ("gathered", "card")):
+        _route_tail(monkeypatch, tail)
+        tr = Trainer(cfg, vocab, corpus, device="cpu")
+        state, rep = tr.train(log_every=0)
+        rows = _band_tail_rows(tr)
+        assert sum(r["steps"] for r in rows) == rep.steps
+        assert len(rows) == -(-rep.steps // chunk_steps)
+        assert {r["gathered"] for r in rows} == {float(name == "gathered")}
+        runs[name] = state.params
+    assert all(torch.equal(runs["sorted"][k], runs["gathered"][k]) for k in runs["sorted"])
+    hs_cfg, vocab, corpus = _planted(train_method="hs", negative=0, band_backend="xla",
+                                     table_layout="split", chunk_steps=chunk_steps)
+    tr = Trainer(hs_cfg, vocab, corpus, device="cpu")
+    tr.train(log_every=0)
+    assert _band_tail_rows(tr) == []
 
 
 @pytest.mark.parametrize(

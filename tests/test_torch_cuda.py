@@ -298,17 +298,19 @@ def _small_corpus():
 # launches per step of each route's kernels, at clip_row_update=1.0 (on)
 # and scatter_mean=False (the defaults): the clip budget adds three ordered
 # row sums (one for the in table, two for the out table's positive and
-# negative contributions); one run list per distinct sorted id array (the
-# token-order sides share one; pallas scatters its context side from slab
-# space, a third array)
+# negative contributions) and, on the gathered update tail, three squared
+# norm passes; the tail's scatters are the gathered instantiation; one run
+# list per distinct sorted id array (the token-order sides share one;
+# pallas scatters its context side from slab space, a third array)
 ROUTE_LAUNCHES = {
-    ("pallas_fused", "unified"): dict(fused_grad_core=1, fused_slab_scatter=2,
-                                      find_runs=2),
-    ("xla", "split"): dict(fused_slab_scatter=3, find_runs=2),
-    ("xla", "unified"): dict(fused_slab_scatter=2, find_runs=2),
-    ("pallas_oa", "split"): dict(overlap_add_slabs=1, fused_slab_scatter=3,
-                                 find_runs=2),
-    ("pallas", "split"): dict(band_core=1, fused_slab_scatter=3, find_runs=3),
+    ("pallas_fused", "unified"): dict(fused_grad_core=1, gathered_slab_scatter=2,
+                                      find_runs=2, row_sq_norms=3),
+    ("xla", "split"): dict(gathered_slab_scatter=3, find_runs=2, row_sq_norms=3),
+    ("xla", "unified"): dict(gathered_slab_scatter=2, find_runs=2, row_sq_norms=3),
+    ("pallas_oa", "split"): dict(overlap_add_slabs=1, gathered_slab_scatter=3,
+                                 find_runs=2, row_sq_norms=3),
+    ("pallas", "split"): dict(band_core=1, gathered_slab_scatter=3, find_runs=3,
+                              row_sq_norms=3),
 }
 
 
@@ -1125,3 +1127,159 @@ def test_remesh_dp3_2_3_on_one_card(cuda, layout, tmp_path):
     assert held() == at_dp3
     del tr, state
     assert held() == base
+
+
+# ------------------------------------------------ the gathered update tail
+def _flagship_tail_inputs(dev, seed=0):
+    """The sgns flagship's tail operands: Zipf ids of 256 rows of 192 tokens
+    sorted stably (long runs on the hot ids), the fused grad core's padded
+    [256, 236, 300] f32 outputs as the two planes' sources, 16,384 negative
+    rows, per-id clip scales with some rows under 1."""
+    from chip_smoke import zipf_p
+
+    rng = np.random.default_rng(seed)
+    Vf, Bf, Lf, CS, d, n_neg = 71_000, 256, 192, 236, 300, 256 * 64
+    p = zipf_p()
+    flat = torch.from_numpy(rng.choice(Vf, size=Bf * Lf, p=p).astype(np.int32))
+    order = torch.argsort(flat, stable=True)
+    idx = flat[order].contiguous()
+    rows = (order + (order // Lf) * (CS - Lf)).to(torch.int32)
+    src = [torch.from_numpy(rng.normal(0, 0.05, size=(Bf * CS, d)).astype(np.float32))
+           for _ in range(2)]
+    negs = torch.from_numpy(rng.choice(Vf, size=n_neg, p=p).astype(np.int32))
+    order_n = torch.argsort(negs, stable=True)
+    neg_idx = negs[order_n].contiguous()
+    neg_src = torch.from_numpy(rng.normal(0, 0.05, size=(n_neg, d)).astype(np.float32))
+    scale = torch.from_numpy(np.where(rng.random(Vf) < 0.3,
+                                      rng.uniform(0.01, 1.0, Vf), 1.0).astype(np.float32))
+    emb = torch.from_numpy(rng.normal(0, 0.1, size=(Vf, 2, d)).astype(np.float32))
+    t = lambda x: x.to(dev)  # noqa: E731
+    return dict(idx=t(idx), rows=t(rows), src=[t(x) for x in src], neg_idx=t(neg_idx),
+                neg_rows=t(order_n.to(torch.int32)), neg_src=t(neg_src),
+                scale=t(scale), scale2=t(scale.flip(0).contiguous()), emb=emb)
+
+
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "unscaled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gathered_scatter_bitwise_the_sorted_sequence(cuda, dtype, scaled):
+    """At the flagship's shapes the gathered scatter, reading the padded
+    grad-core rows through the sort order and scaling at the add, equals
+    today's sequence bitwise: gather -> multiply -> cast -> stack ->
+    fused_slab_scatter (the contiguous kernel), both planes in one call,
+    then plane 1 alone for the negatives; and two runs agree."""
+    x = _flagship_tail_inputs(cuda)
+    emb = x["emb"].to(dtype).to(cuda)
+    sc, sc2 = (x["scale"], x["scale2"]) if scaled else (None, None)
+    ref = emb.clone()
+    vals = torch.stack([(s[x["rows"].long()] * c[x["idx"].long()][:, None]
+                         if c is not None else s[x["rows"].long()]).to(dtype)
+                        for s, c in zip(x["src"], (sc, sc2))], dim=1).contiguous()
+    fs.fused_slab_scatter(ref, x["idx"], vals)
+    nv = x["neg_src"][x["neg_rows"].long()]
+    if sc2 is not None:
+        nv = nv * sc2[x["neg_idx"].long()][:, None]
+    fs.fused_slab_scatter(ref, x["neg_idx"], nv.to(dtype).contiguous(), plane=1)
+    outs = []
+    for _ in range(2):
+        got = emb.clone()
+        before = launch.LAUNCHES["gathered_slab_scatter"]
+        fs.gathered_slab_scatter(got, x["idx"], tuple(x["src"]), x["rows"], (sc, sc2))
+        fs.gathered_slab_scatter(got, x["neg_idx"], (x["neg_src"],), x["neg_rows"],
+                                 (sc2,), plane=1)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["gathered_slab_scatter"] == before + 2
+        outs.append(got)
+    assert not torch.equal(ref, emb)
+    for got in outs:
+        assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 300), (torch.bfloat16, 300),
+                                     (torch.float32, 6), (torch.bfloat16, 7)])
+@pytest.mark.parametrize("name", ["long_edges", "trainer"])
+def test_gathered_scatter_split_tables_and_narrow_vectors(cuda, name, dtype, d):
+    """A [V, d] table (the split layout's scatters) at the flagship width
+    and at widths that allow 2- and 1-value vectors, on the work split's
+    edge cases: bitwise the plain version."""
+    rng = np.random.default_rng(9)
+    idx = torch.from_numpy(id_set(name, rng, nv=NVR))
+    n = idx.numel()
+    emb = torch.from_numpy(rng.normal(size=(NVR, d)).astype(np.float32)).to(dtype)
+    src = torch.from_numpy(rng.normal(size=(2 * n + 5, d)).astype(np.float32))
+    rows = torch.from_numpy(rng.permutation(2 * n + 5)[:n].astype(np.int32))
+    scale = torch.from_numpy(rng.uniform(0.1, 1.0, NVR).astype(np.float32))
+    ref = fs.gathered_slab_scatter_plain(emb.clone(), idx, (src,), rows, (scale,))
+    got = fs.gathered_slab_scatter(emb.clone().to(cuda), idx.to(cuda), (src.to(cuda),),
+                                   rows.to(cuda), (scale.to(cuda),))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got.cpu()), _bits(ref))
+
+
+@pytest.mark.parametrize("shape", [(256, 236, 192, 300), (1, 16384, 16384, 300),
+                                   (8, 40, 30, 7), (3, 10, 10, 150)],
+                         ids=["padded", "negatives", "narrow", "tp2"])
+def test_row_sq_norms_kernel_matches_plain(cuda, shape):
+    """The squared norms of the live rows, read in place (the padded rows
+    never: they hold NaN here), within float32 rounding of
+    torch.sum(v * v, -1), and bitwise from run to run."""
+    G, R, live, d = shape
+    rng = np.random.default_rng(3)
+    src = torch.from_numpy(rng.normal(0, 0.05, size=(G, R, d)).astype(np.float32))
+    src[:, live:] = float("nan")
+    want = fs.row_sq_norms_plain(src, live)
+    before = launch.LAUNCHES["row_sq_norms"]
+    got = [fs.row_sq_norms(src.to(cuda), live) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["row_sq_norms"] == before + 2
+    assert got[0].shape == (G * live,) and torch.equal(got[0], got[1])
+    torch.testing.assert_close(got[0].cpu(), want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize(
+    "over,gathered",
+    [(dict(), True), (dict(scatter_mean=True), False),
+     (dict(dtype="bfloat16", stochastic_rounding=True), False),
+     (dict(clip_row_update=1e-4), True)],
+    ids=["default", "scatter_mean", "bf16-sr", "clip-engaged"],
+)
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES), ids="-".join)
+def test_band_tail_route_and_counter_on_the_card(cuda, route, over, gathered, monkeypatch):
+    """The band step's update tail on the card: the gathered one unless SR
+    or scatter_mean keeps the sorted one, read from the flight recorder's
+    `band_tail` counter (one a dispatch, 1 on every gathered step); the
+    gathered run equals the sorted tail's run (the sorted tail forced on
+    the card) bitwise where no row's clip engages, and within float32
+    rounding of the clip's norms where it does."""
+    from word2vec_tpu_torch.ops import band_step as bs
+
+    runs = {}
+    for name in ("rule", "sorted"):
+        if name == "sorted":
+            monkeypatch.setattr(bs, "gathered_tail", lambda config, sr, device: False)
+        tr = _graph_trainer(cuda, route, chunk_steps=3, resident="on", **over)
+        state, rep = tr.train(log_every=0)
+        torch.cuda.synchronize()
+        tails = [e["args"] for e in tr.flight.ring.events() if e["name"] == "band_tail"]
+        assert tails and sum(t["steps"] for t in tails) == rep.steps
+        runs[name] = (state, [t["gathered"] for t in tails])
+    assert set(runs["rule"][1]) == {1.0 if gathered else 0.0}
+    assert set(runs["sorted"][1]) == {0.0}
+    a, b = runs["rule"][0].params, runs["sorted"][0].params
+    if "clip_row_update" not in over:
+        assert _same(a, b)
+    else:
+        for k in a:
+            torch.testing.assert_close(a[k].float(), b[k].float(), rtol=0, atol=1e-6)
+
+
+def test_band_tail_counter_absent_on_hs(cuda):
+    """The hs step updates through scatter_update: no band_tail counter."""
+    from word2vec_tpu_torch import Trainer, Word2VecConfig
+
+    vocab, corpus = _small_corpus()
+    cfg = Word2VecConfig(word_dim=32, window=3, min_count=1, batch_rows=8,
+                         max_sentence_len=30, train_method="hs", negative=0,
+                         band_backend="xla", table_layout="split")
+    tr = Trainer(cfg, vocab, corpus, device=cuda)
+    tr.train(log_every=0)
+    assert not [e for e in tr.flight.ring.events() if e["name"] == "band_tail"]

@@ -166,3 +166,54 @@ def test_slab_scatter_rejects_unsorted_and_bad_shapes():
     with pytest.raises(ValueError, match="plane"):
         fs.fused_slab_scatter(emb, torch.tensor([1], dtype=torch.int32),
                               torch.ones(1, 2, 4), plane=1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gathered_scatter_plain_matches_jax_after_the_gather(dtype):
+    """The gathered scatter's plain version: the rows of two f32 sources
+    through a sort order, scaled at their ids and cast, added in sorted
+    order; the same as JAX's unsorted `.at[ids].add` of those values made
+    in token order, both planes, then the plane-1 tail alone."""
+    rng = np.random.default_rng(5)
+    n, nv = 120, 12
+    ids = rng.integers(0, nv, size=n).astype(np.int32)
+    src = [rng.normal(size=(n + 7, 8)).astype(np.float32) for _ in range(2)]
+    rows = rng.permutation(n + 7)[:n].astype(np.int32)  # token i's source row
+    scale = [rng.uniform(0.2, 1.0, nv).astype(np.float32) for _ in range(2)]
+    emb = rng.normal(size=(nv, 2, 8)).astype(np.float32)
+    vals = np.stack([s[rows] * c[ids][:, None] for s, c in zip(src, scale)], axis=1)
+    jvals = jnp.asarray(vals).astype(JDT[dtype])
+    ref = jnp.asarray(emb).astype(JDT[dtype]).at[jnp.asarray(ids)].add(jvals)
+    ref = ref.at[jnp.asarray(ids), 1].add(jvals[:, 1])
+    t_ids = torch.from_numpy(ids)
+    order = torch.argsort(t_ids, stable=True)
+    sidx = t_ids[order].contiguous()
+    srows = torch.from_numpy(rows)[order].contiguous()
+    srcs = tuple(torch.from_numpy(s) for s in src)
+    scales = tuple(torch.from_numpy(c) for c in scale)
+    got = fs.gathered_slab_scatter(torch.from_numpy(emb).to(TDT[dtype]), sidx, srcs,
+                                   srows, scales)
+    got = fs.gathered_slab_scatter(got, sidx, srcs[1:], srows, scales[1:], plane=1)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+    assert all(v == 0 for v in LAUNCHES.values())  # the CPU never launches
+
+
+def test_gathered_scatter_refuses_sources_that_miss_a_plane():
+    emb = torch.zeros(5, 2, 4)
+    idx = torch.tensor([1, 3], dtype=torch.int32)
+    src = torch.ones(2, 4)
+    with pytest.raises(ValueError, match="plane"):
+        fs.gathered_slab_scatter(emb, idx, (src,), idx, (None,))
+    with pytest.raises(ValueError, match="plane"):
+        fs.gathered_slab_scatter(emb, idx, (src, src), idx, (None, None), plane=1)
+
+
+def test_row_sq_norms_plain_reads_the_live_rows_only():
+    """The live rows of each group, in order; the padded rows (NaN here)
+    never reach the result."""
+    rng = np.random.default_rng(6)
+    src = torch.from_numpy(rng.normal(size=(3, 7, 5)).astype(np.float32))
+    src[:, 4:] = float("nan")
+    got = fs.row_sq_norms(src, 4)
+    want = torch.stack([torch.sum(src[g, t] * src[g, t]) for g in range(3) for t in range(4)])
+    assert got.shape == (12,) and torch.equal(got, want)

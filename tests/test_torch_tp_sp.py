@@ -179,13 +179,16 @@ def replica_key(key, d, s, dp, sp):
 def port_step(tcfg, tt, jt, params, tokens, key, dp=1, sp=1, tp=1, alpha=ALPHA):
     """One global step of the port on [dp*B, L] tokens: one runner a
     (data, seq) replica, as ShardedTrainer builds them, each fed the JAX
-    step's draws of its replica. Returns (replicas, metrics {name: [R]})."""
+    step's draws of its replica. Returns (replicas, metrics {name: [R]});
+    the runners stay as port_step.runners."""
     B = tokens.shape[0] // dp
     W = tcfg.window
     ms = []
+    port_step.runners = []
     for r in range(dp * sp):
         d, s = divmod(r, sp)
         runner = make_chunk_runner(tcfg, tt, tp=tp, sp=sp)
+        port_step.runners.append(runner)
         runner.replica, runner.stride, runner.block = r, dp, d
         runner.fold = (d if dp > 1 else None, s if sp > 1 else None)
         rows = torch.from_numpy(tokens[d * B:(d + 1) * B])
@@ -280,6 +283,29 @@ def test_tensor_parallel_step_matches_jax(tp, model, tm):
     for s in shards:
         for v in s.values():
             assert v.shape[-1] == D // tp and v.is_contiguous()
+
+
+@pytest.mark.parametrize("over,gathered", [
+    (dict(), True),
+    (dict(table_layout="unified"), True),
+    (dict(scatter_mean=True), False),
+], ids=["split", "unified", "scatter_mean"])
+def test_tensor_parallel_band_tail_matches_jax(over, gathered, monkeypatch):
+    """tp 2 with the gathered update tail allowed on the CPU (the card's
+    rule): the shards' squared norms still meet at the row clip's psum
+    sites before the root, the step takes the tail the rule says (the
+    trainer's band_tail counter reads the runner's step) and matches JAX's
+    sharded step, the clip engaged."""
+    from word2vec_tpu_torch import Trainer
+    from word2vec_tpu_torch.ops import band_step
+
+    rule = band_step.gathered_tail
+    monkeypatch.setattr(band_step, "gathered_tail", lambda config, sr, device: rule(
+        config, sr, torch.device("cuda")))
+    kw = _cfg(clip_row_update=0.0001, **over)
+    *_, tm, jm = _compare_step(kw, 1, 1, 2, _tokens())
+    assert Trainer._band_tail(port_step.runners) is gathered
+    assert float(jm["clip_engaged"]) > 0
 
 
 def test_dp_times_tp_step_matches_jax():

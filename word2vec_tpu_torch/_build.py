@@ -46,6 +46,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         ),
         "w2v_slab_scatter": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "w2v_slab_scatter_gathered": (
+            _I,
+            [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        ),
+        "w2v_row_sq_norms": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
         "w2v_scatter_stage_terms": (_I, []),
         "w2v_grad_core_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),
         "w2v_grad_core_blocks_per_sm": (_I, [_I, _I, _I, _I, _I, _I, _I, _I]),

@@ -5,7 +5,8 @@
 //     -> grad_core_tc_kernel (bf16 compute) or grad_core_f32_kernel (f32
 //     compute), + loss_reduce_kernel below;
 //   * fused_slab_scatter / _scatter_kernel (pallas_step.py:441-506)
-//     -> slab_scatter_kernel below.
+//     -> slab_scatter_kernel below (and its gathered instantiation, with
+//     row_sq_norms_kernel, for the band step's update tail).
 //
 // What bounds grad_core on the H100. It reads the gathered table rows
 // (center rows, context slab rows, KP negative rows) and writes the
@@ -94,6 +95,19 @@
 //     600 B, not 16-byte multiples (no TMA), so the copies are 8-byte
 //     cp.async vectors there (plain loads for a lone bf16 value of an odd
 //     width), and ragged tiles are masked.
+// The band step's update tail runs the gathered instantiation (GATHER): a
+// term is not a row of a contiguous, table-dtype values array but a row
+// of the f32 gradient where its producer wrote it (the grad core's padded
+// [B, C*S, d] outputs, the negatives' [B*KP, d]), found through the sort
+// order (rows[q]) and multiplied by its id's row-clip scale, then cast,
+// at the add. That is the same f32 product and cast the step's torch ops
+// made before, so the values added are bitwise theirs, without the
+// copies, gathers, multiplies and the stack of both planes that made
+// them (~1.3 GB a flagship step). Its long runs stage the f32 rows (96 KB
+// of ring in both table dtypes); a short run's source rows are staged in
+// shared memory once, so no term's address waits on a load.
+// row_sq_norms_kernel gives the row clip its squared norms, one read of
+// each row where it lies.
 // Every term is added, zeros too (-0.0 + 0.0 = +0.0). No float atomics:
 // each cell belongs to one thread, so the result is bitwise deterministic
 // and equal to the sorted sequential scatter. Work items are assigned to
@@ -106,6 +120,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "band_tiles.cuh"
 #include "runs.cuh"
@@ -1001,6 +1018,50 @@ __device__ __forceinline__ void add_round(Vec<T, NV>& acc, const Vec<T, NV>& x) 
   for (int e = 0; e < NV; ++e) acc.v[e] = add_round(acc.v[e], x.v[e]);
 }
 
+template <typename T>
+__device__ __forceinline__ T to_table(float x);
+template <>
+__device__ __forceinline__ float to_table<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_table<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// a gathered term's value as the sorted tail hands it in: the f32 product
+// with the row's scale, rounded once (__fmul_rn is never contracted into
+// an FMA with the add that follows), then cast to the table dtype
+template <typename T>
+__device__ __forceinline__ T scaled(float x, float s) {
+  return to_table<T>(__fmul_rn(x, s));
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ void add_round_scaled(Vec<T, NV>& acc,
+                                                 const Vec<float, NV>& x,
+                                                 float s) {
+#pragma unroll
+  for (int e = 0; e < NV; ++e) acc.v[e] = add_round(acc.v[e], scaled<T>(x.v[e], s));
+}
+
+// The gathered terms of the scatter (its GATHER instantiations): term q is
+// not row q of a table-dtype vals but row rows[q] of an f32 source as its
+// producer wrote it, one source a d-wide plane of the columns [col0, col0 +
+// width) (two on the doubled-width unified call), multiplied by its id's
+// f32 factor (the row clip's scale; none where the plane's scale is null)
+// and cast to the table dtype just before the add: the values that
+// gather -> multiply -> cast -> stack would hand the contiguous
+// instantiation, bitwise, without the passes that make them.
+struct Gather {
+  const float* src0;
+  const float* src1;
+  const float* scale0;
+  const float* scale1;
+  const int* rows;
+  int d;  // columns of a source row; a multiple of NV
+};
+
 constexpr int kScThreads = 256;  // 8 warps
 // Columns per long-run work item: one adder lane each. A hot run is cut
 // into width / 32 items (10 at d = 300, 19 on the doubled-width unified
@@ -1031,17 +1092,22 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // emb rows [V, row_len]; columns [col0, col0 + width) of row idx[q] get
-// vals[q, :width] added, each cell's terms in sorted order, rounded to T
-// after every add. runs: the run list of idx (csrc/runs.cuh). NV values a
-// vector; width, col0 and row_len are multiples of NV.
-template <typename T, int NV>
+// vals[q, :width] added (GATHER: the gathered terms of `g`), each cell's
+// terms in sorted order, rounded to T after every add. runs: the run list
+// of idx (csrc/runs.cuh). NV values a vector; width, col0 and row_len
+// (GATHER: and g.d) are multiples of NV.
+template <typename T, int NV, bool GATHER>
 __global__ void __launch_bounds__(kScThreads, 2)
     slab_scatter_kernel(T* __restrict__ emb, const int* __restrict__ idx,
                         const T* __restrict__ vals, const int* __restrict__ runs,
-                        int n, int row_len, int col0, int width) {
+                        int n, int row_len, int col0, int width, Gather g) {
   using V = Vec<T, NV>;
+  using F = Vec<float, NV>;
+  // the staged type: the gathered terms are staged as their f32 sources
+  using ST = std::conditional_t<GATHER, float, T>;
+  using SV = Vec<ST, NV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [kRing][kStageTerms][kTileCols]
+  ST* buf = reinterpret_cast<ST*>(smem_raw);  // [kRing][kStageTerms][kTileCols]
   const int n_short = runs[0], n_long = runs[1];
   const int2* shorts = w2v_runs::short_runs(runs);
   const int2* longs = w2v_runs::long_runs(runs, n);
@@ -1055,30 +1121,71 @@ __global__ void __launch_bounds__(kScThreads, 2)
   for (int i = (gridDim.x - 1 - blockIdx.x) * kWarps + warp; i < n_short;
        i += gridDim.x * kWarps) {
     const int2 se = shorts[i];
-    const int r = idx[se.x];
-    V* cell = reinterpret_cast<V*>(emb + (size_t)r * row_len + col0);
-    const V* src = reinterpret_cast<const V*>(vals);
-    for (int v0 = lane; v0 < nvec; v0 += 4 * 32) {
-      V acc[4];
+    if constexpr (GATHER) {
+      static_assert(w2v_runs::kLongRun <= 32,
+                    "a short run's source rows are handed out one a lane");
+      // the run's source rows, one a lane (a short run has at most
+      // kLongRun terms), loaded beside its id and handed out by shuffles,
+      // so no term's address waits on a load of its own; a run is one id,
+      // so one scale a plane for all its terms
+      const int my_row = se.x + lane < se.y ? g.rows[se.x + lane] : 0;
+      const int r = idx[se.x];
+      V* cell = reinterpret_cast<V*>(emb + (size_t)r * row_len + col0);
+      const float s0 = g.scale0 ? g.scale0[r] : 1.f;
+      const float s1 = g.scale1 ? g.scale1[r] : 1.f;
+      // every lane walks every pass and term: the shuffles need them all
+      for (int b0 = 0; b0 < nvec; b0 += 4 * 32) {
+        V acc[4];
+        const float* base[4];
+        float su[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (v0 + 32 * u < nvec) acc[u] = cell[v0 + 32 * u];
+        for (int u = 0; u < 4; ++u) {
+          const int v = b0 + lane + 32 * u;
+          const int c = v * NV;
+          const bool p1 = c >= g.d;
+          base[u] = p1 ? g.src1 + (c - g.d) : g.src0 + c;
+          su[u] = p1 ? s1 : s0;
+          if (v < nvec) acc[u] = cell[v];
+        }
 #pragma unroll 2
-      for (int q = se.x; q < se.y; ++q) {
-        const V* row = src + (size_t)q * nvec;
+        for (int q = se.x; q < se.y; ++q) {
+          const size_t off = (size_t)__shfl_sync(0xffffffffu, my_row, q - se.x) * g.d;
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (b0 + lane + 32 * u < nvec)
+              add_round_scaled(acc[u], *reinterpret_cast<const F*>(base[u] + off), su[u]);
+        }
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          if (v0 + 32 * u < nvec) add_round(acc[u], row[v0 + 32 * u]);
+          if (b0 + lane + 32 * u < nvec) cell[b0 + lane + 32 * u] = acc[u];
       }
+    } else {
+      const int r = idx[se.x];
+      V* cell = reinterpret_cast<V*>(emb + (size_t)r * row_len + col0);
+      const V* src = reinterpret_cast<const V*>(vals);
+      for (int v0 = lane; v0 < nvec; v0 += 4 * 32) {
+        V acc[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (v0 + 32 * u < nvec) cell[v0 + 32 * u] = acc[u];
+        for (int u = 0; u < 4; ++u)
+          if (v0 + 32 * u < nvec) acc[u] = cell[v0 + 32 * u];
+#pragma unroll 2
+        for (int q = se.x; q < se.y; ++q) {
+          const V* row = src + (size_t)q * nvec;
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (v0 + 32 * u < nvec) add_round(acc[u], row[v0 + 32 * u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (v0 + 32 * u < nvec) cell[v0 + 32 * u] = acc[u];
+      }
     }
   }
 
   // ---- long runs: one block per (run, 32-column tile), staged blocks of
-  // kStageTerms terms through a ring of kRing: every thread issues the
-  // copies of the block kRing - 1 ahead, warp 0 adds the oldest, in order
+  // kStageTerms terms through a ring of kRing: every thread (GATHER: of
+  // warps 1..) issues the copies of the block kRing - 1 ahead, warp 0 adds
+  // the oldest, in order
   constexpr int kTileVecs = kTileCols / NV;
   const int tiles = (width + kTileCols - 1) / kTileCols;
   const int items = n_long * tiles;
@@ -1088,44 +1195,95 @@ __global__ void __launch_bounds__(kScThreads, 2)
     const int tv = min(kTileCols, width - c0) / NV;  // ragged last tile
     const int2 se = longs[run];
     const int blocks = (se.y - se.x + kStageTerms - 1) / kStageTerms;
+    // GATHER: warps 1.. stage (the adder, warp 0, never waits on a source
+    // row's index), each thread's source rows of a block loaded into rr one
+    // block before its copies are issued, so the loads overlap the adds
+    constexpr int kStagers = kScThreads - 32;
+    constexpr int kPer = (kStageTerms * kTileVecs + kStagers - 1) / kStagers;
+    int rr[GATHER ? kPer : 1];
+    auto load_rows = [&](int b) {
+      if constexpr (GATHER) {
+        const int q0 = se.x + b * kStageTerms;
+        const int cnt = min(kStageTerms, se.y - q0);
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int k = (tid - 32 + i * kStagers) / kTileVecs;
+          rr[i] = warp > 0 && k < cnt ? g.rows[q0 + k] : 0;
+        }
+      }
+    };
     // issue the copies of staged block b into ring slot b % kRing
     auto stage = [&](int b) {
       const int q0 = se.x + b * kStageTerms;
       const int cnt = min(kStageTerms, se.y - q0);
-      V* s = reinterpret_cast<V*>(buf + (size_t)(b % kRing) * kStageTerms * kTileCols);
-      const V* src = reinterpret_cast<const V*>(vals + c0) + (size_t)q0 * nvec;
-      for (int x = tid; x < cnt * kTileVecs; x += kScThreads) {
-        const int k = x / kTileVecs, j = x - k * kTileVecs;
-        if (j < tv) {
-          if constexpr (sizeof(V) >= 4) {
-            cp_async<sizeof(V)>(s + x, src + (size_t)k * nvec + j);
-          } else {  // a lone bf16 value: cp.async copies 4 bytes at least
-            s[x] = src[(size_t)k * nvec + j];
+      SV* s = reinterpret_cast<SV*>(buf + (size_t)(b % kRing) * kStageTerms * kTileCols);
+      if constexpr (GATHER) {
+        if (warp == 0) return;
+        const int t = tid - 32;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int x = t + i * kStagers;
+          const int k = x / kTileVecs, j = x - k * kTileVecs;
+          if (k < cnt && j < tv) {  // f32 vectors: 4 bytes at least
+            const int c = c0 + j * NV;
+            const bool p1 = c >= g.d;
+            const size_t row = (size_t)rr[i] * g.d;
+            cp_async<sizeof(SV)>(s + x, p1 ? g.src1 + (row + c - g.d) : g.src0 + (row + c));
+          }
+        }
+      } else {
+        const V* src = reinterpret_cast<const V*>(vals + c0) + (size_t)q0 * nvec;
+        for (int x = tid; x < cnt * kTileVecs; x += kScThreads) {
+          const int k = x / kTileVecs, j = x - k * kTileVecs;
+          if (j < tv) {
+            if constexpr (sizeof(V) >= 4) {
+              cp_async<sizeof(V)>(s + x, src + (size_t)k * nvec + j);
+            } else {  // a lone bf16 value: cp.async copies 4 bytes at least
+              s[x] = src[(size_t)k * nvec + j];
+            }
           }
         }
       }
     };
 #pragma unroll
     for (int b = 0; b < kRing - 1; ++b) {
-      if (b < blocks) stage(b);
+      if (b < blocks) {
+        load_rows(b);
+        stage(b);
+      }
       cp_async_commit();
     }
+    if (kRing - 1 < blocks) load_rows(kRing - 1);
     T* cell = emb + (size_t)idx[se.x] * row_len + col0 + c0 + lane;
     const bool adder = warp == 0 && lane < tv * NV;
     T acc{};
     if (adder) acc = *cell;
+    float sc = 1.f;  // GATHER: the adder's plane's scale of the run's id
+    if constexpr (GATHER) {
+      const float* sp = c0 + lane >= g.d ? g.scale1 : g.scale0;
+      if (adder && sp) sc = sp[idx[se.x]];
+    }
     for (int b = 0; b < blocks; ++b) {
       // slot (b - 1) % kRing was emptied before the last barrier
-      if (b + kRing - 1 < blocks) stage(b + kRing - 1);
+      if (b + kRing - 1 < blocks) {
+        stage(b + kRing - 1);
+        if (b + kRing < blocks) load_rows(b + kRing);
+      }
       cp_async_commit();
       cp_async_wait<kRing - 1>();  // this thread's copies of block b landed
       __syncthreads();             // everyone's did
       if (adder) {
-        const T* s = buf + (size_t)(b % kRing) * kStageTerms * kTileCols + lane;
+        const ST* s = buf + (size_t)(b % kRing) * kStageTerms * kTileCols + lane;
         const int cnt = min(kStageTerms, se.y - se.x - b * kStageTerms);
         // unrolled by 16: the shared-memory reads issue ahead of the chain
+        if constexpr (GATHER) {
 #pragma unroll 16
-        for (int k = 0; k < cnt; ++k) acc = add_round(acc, s[k * kTileCols]);
+          for (int k = 0; k < cnt; ++k)
+            acc = add_round(acc, scaled<T>(s[k * kTileCols], sc));
+        } else {
+#pragma unroll 16
+          for (int k = 0; k < cnt; ++k) acc = add_round(acc, s[k * kTileCols]);
+        }
       }
       __syncthreads();  // block b's slot may be refilled
     }
@@ -1135,12 +1293,13 @@ __global__ void __launch_bounds__(kScThreads, 2)
 
 int g_sms = 0;
 
-template <typename T, int NV>
+template <typename T, int NV, bool GATHER>
 cudaError_t launch_scatter(T* emb, const int* idx, const T* vals,
                            const int* runs, int n, int row_len, int col0,
-                           int width, cudaStream_t st) {
-  auto kern = slab_scatter_kernel<T, NV>;
-  const int smem = kRing * kStageTerms * kTileCols * (int)sizeof(T);
+                           int width, const Gather& g, cudaStream_t st) {
+  auto kern = slab_scatter_kernel<T, NV, GATHER>;
+  using ST = std::conditional_t<GATHER, float, T>;
+  const int smem = kRing * kStageTerms * kTileCols * (int)sizeof(ST);
   static int per_sm = 0;  // resident blocks a SM, one per instantiation
   if (per_sm == 0) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1155,25 +1314,78 @@ cudaError_t launch_scatter(T* emb, const int* idx, const T* vals,
   // ring's shared memory), fewer for small calls (8 short runs a block)
   const int blocks = max(1, min((n + 7) / 8, per_sm * g_sms));
   kern<<<blocks, kScThreads, smem, st>>>(emb, idx, vals, runs, n, row_len,
-                                         col0, width);
+                                         col0, width, g);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool GATHER>
 cudaError_t launch_scatter_vec(void* emb, const int* idx, const void* vals,
                                const int* runs, int n, int row_len, int col0,
-                               int width, int vec, cudaStream_t st) {
+                               int width, int vec, const Gather& g,
+                               cudaStream_t st) {
   T* e = static_cast<T*>(emb);
   const T* v = static_cast<const T*>(vals);
   switch (vec) {
     case 4:
-      return launch_scatter<T, 4>(e, idx, v, runs, n, row_len, col0, width, st);
+      return launch_scatter<T, 4, GATHER>(e, idx, v, runs, n, row_len, col0, width, g, st);
     case 2:
-      return launch_scatter<T, 2>(e, idx, v, runs, n, row_len, col0, width, st);
+      return launch_scatter<T, 2, GATHER>(e, idx, v, runs, n, row_len, col0, width, g, st);
     case 1:
-      return launch_scatter<T, 1>(e, idx, v, runs, n, row_len, col0, width, st);
+      return launch_scatter<T, 1, GATHER>(e, idx, v, runs, n, row_len, col0, width, g, st);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+template <bool GATHER>
+cudaError_t launch_scatter_table(void* emb, int table_bf16, const int* idx,
+                                 const void* vals, const int* runs, int n,
+                                 int row_len, int col0, int width, int vec,
+                                 const Gather& g, cudaStream_t st) {
+  if (g_sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  return table_bf16
+             ? launch_scatter_vec<__nv_bfloat16, GATHER>(emb, idx, vals, runs, n, row_len,
+                                                         col0, width, vec, g, st)
+             : launch_scatter_vec<float, GATHER>(emb, idx, vals, runs, n, row_len, col0,
+                                                 width, vec, g, st);
+}
+
+// out[i] = ||row i||^2 in f32 for the `live` first rows of each group of
+// `stride` rows of src [groups * stride, d] (i = group * live + t): one
+// warp a row, lanes across its NV-vectors, fused multiply-adds, then a
+// shuffle tree; a fixed order, so two runs agree bitwise. Each row is read
+// once, where its producer wrote it.
+constexpr int kNormThreads = 256;
+
+template <int NV>
+__global__ void __launch_bounds__(kNormThreads)
+    row_sq_norms_kernel(const float* __restrict__ src, float* __restrict__ out,
+                        int groups, int stride, int live, int d) {
+  using F = Vec<float, NV>;
+  constexpr int kWarps = kNormThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const long long rows = (long long)groups * live;
+  for (long long i = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       i < rows; i += (long long)gridDim.x * kWarps) {
+    const long long grp = i / live;
+    const F* row = reinterpret_cast<const F*>(
+        src + ((size_t)grp * stride + (size_t)(i - grp * live)) * d);
+    float acc = 0.f;
+    for (int j = lane; j < d / NV; j += 32) {
+      const F x = row[j];
+#pragma unroll
+      for (int e = 0; e < NV; ++e) acc = fmaf(x.v[e], x.v[e], acc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) out[i] = acc;
   }
 }
 
@@ -1283,20 +1495,44 @@ int w2v_slab_scatter(void* emb, int table_bf16, const int* idx,
                      const void* vals, const int* runs, int n, int row_len,
                      int col0, int width, int vec, void* stream) {
   if (n <= 0) return 0;
-  if (g_sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  return (int)launch_scatter_table<false>(emb, table_bf16, idx, vals, runs, n,
+                                          row_len, col0, width, vec, Gather{},
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// the gathered scatter: term q is row rows[q] of src0 (columns below d of
+// the call's width) or src1 (the rest: a doubled-width call), times
+// scale0 / scale1 [V] at its id (null: none), cast to the table dtype;
+// vec also divides d, and src0 / src1 are aligned to vec floats
+int w2v_slab_scatter_gathered(void* emb, int table_bf16, const int* idx,
+                              const float* src0, const float* src1,
+                              const float* scale0, const float* scale1,
+                              const int* rows, int d, const int* runs, int n,
+                              int row_len, int col0, int width, int vec,
+                              void* stream) {
+  if (n <= 0) return 0;
+  const Gather g{src0, src1, scale0, scale1, rows, d};
+  return (int)launch_scatter_table<true>(emb, table_bf16, idx, nullptr, runs, n,
+                                         row_len, col0, width, vec, g,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// out [groups * live] = the squared norms of the live rows of src (see
+// row_sq_norms_kernel); vec 4 needs d % 4 == 0 and src 16-byte aligned
+int w2v_row_sq_norms(const float* src, float* out, int groups, int stride,
+                     int live, int d, int vec, void* stream) {
+  const long long rows = (long long)groups * live;
+  if (rows <= 0) return 0;
+  constexpr int kWarps = kNormThreads / 32;
+  const int blocks = (int)std::min<long long>((rows + kWarps - 1) / kWarps, 8192);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      table_bf16 ? launch_scatter_vec<__nv_bfloat16>(emb, idx, vals, runs, n,
-                                                     row_len, col0, width, vec, st)
-                 : launch_scatter_vec<float>(emb, idx, vals, runs, n, row_len,
-                                             col0, width, vec, st);
-  return (int)err;
+  if (vec == 4)
+    row_sq_norms_kernel<4><<<blocks, kNormThreads, 0, st>>>(src, out, groups, stride, live, d);
+  else if (vec == 1)
+    row_sq_norms_kernel<1><<<blocks, kNormThreads, 0, st>>>(src, out, groups, stride, live, d);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -42,14 +42,7 @@
 
 namespace {
 
-// A run longer than this goes to the consumers' staged long-run path
-// (csrc/row_sum.cu: a block with the run in shared memory; slab scatter:
-// a block per 32-column tile). At or below it, one thread (row sum) or one
-// warp (scatter) adds the run straight from global memory with its loads
-// issued ahead of the add chain: 32 terms are a few loads per lane, and
-// the flagship's Zipf ids put ~130 rows above it, which hold ~45% of the
-// terms.
-constexpr int kLongRun = 32;
+using w2v_runs::kLongRun;  // csrc/runs.cuh
 constexpr int kThreads = 256;
 constexpr int kPer = 4;  // consecutive positions per thread
 constexpr int kTile = kThreads * kPer;

@@ -143,6 +143,17 @@ class FlightRecorder:
             "health", {k: v for k, v in row.items() if k != "step"}
         )
 
+    def note_band_tail(self, step: int, steps: int, gathered: bool) -> None:
+        """The update tail a dispatch's band steps took (each step of a
+        dispatch repeats one capture, so one tail): a `band_tail` counter,
+        `gathered` 1 for the gathered tail (ops/band_step.gathered_tail), 0
+        for the sorted one, and the dispatch's `steps`. The trainers call
+        this once a dispatch of the band ns step; other steps record none."""
+        self.ring.counter("band_tail", {
+            "gathered": 1.0 if gathered else 0.0, "steps": float(steps),
+            "at_step": float(step),
+        })
+
     def note_heartbeat(self, rows, step: int) -> None:
         """One multi-process heartbeat's (pid, stop, step, p50) rows —
         recorded so a peer-loss dump shows the fleet's last known state,

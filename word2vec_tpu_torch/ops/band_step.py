@@ -35,11 +35,21 @@ ids with its values, weights and SR uniforms permuted alike, which keeps
 each row's terms in the JAX order. So per-row order holds on the card as
 it does in the JAX package, and split and unified tables give bitwise the
 same trajectory.
+
+The tail comes in two forms (`gathered_tail` picks one): the sorted tail
+gathers every contribution into sorted order, scales and casts it in
+torch ops and hands the scatter contiguous rows (the CPU, and on the card
+stochastic rounding and scatter_mean); the gathered tail (the card's
+otherwise) hands the kernels the rows where the step wrote them, the sort
+order and the per-row clip scales, so the squared norms are one read of
+each row and the scatter gathers, scales and casts at the add. Both add
+the same values in the same order; only the clip norms' sums run in
+another order on the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,18 +59,57 @@ from ..device import torch_dtype
 from ..models.params import FUSED_KEY, Params
 from . import banded
 from .band_core import band_core
-from .fused_step import fused_grad_core, fused_slab_scatter
+from .fused_step import (
+    fused_grad_core, fused_slab_scatter, gathered_slab_scatter, row_sq_norms,
+)
 from .overlap import overlap_add_tokens
 from .runs import find_runs
 from .tables import DeviceTables
 from .shards import center_zone, solo
 from .train_step import (
     Draws, Metrics, _cast_update, _draw_negatives, _dup_mean_scale,
-    finish_metrics, gate, ordered_row_sum, row_clip_scale,
+    finish_metrics, gate, ordered_row_sum, row_clip_scale, sq_norms,
 )
 
-# (sorted ids [N] int32, values [N, d] f32, scatter_mean weights [N] f32)
-Side = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+class Side(NamedTuple):
+    """One contribution of the update tail: its ids sorted ascending [N]
+    int32, its f32 values where the step wrote them, and its scatter_mean
+    weights [N] in sorted order. `src` [G, R, d] holds the values in the
+    first `live` rows of each of its G groups of R rows (a kernel's padded
+    rows are never read); `order` [N] gives each sorted position's live
+    row, an index into the G * live live rows in their order."""
+
+    idx: torch.Tensor
+    src: torch.Tensor
+    live: int
+    order: torch.Tensor
+    w: torch.Tensor
+
+    def vals(self) -> torch.Tensor:
+        """[N, d]: the values gathered into sorted order."""
+        return self.src[:, :self.live].reshape(-1, self.src.shape[-1])[self.order]
+
+    def rows(self) -> torch.Tensor:
+        """[N] int32: each sorted position's row of src as [G * R, d]."""
+        R, o = self.src.shape[1], self.order
+        if R != self.live:
+            o = o + torch.div(o, self.live, rounding_mode="floor") * (R - self.live)
+        return o.to(torch.int32)
+
+    def sq_norms(self) -> torch.Tensor:
+        """[N]: the f32 squared norms of the values, in sorted order (each
+        row read once where it lies, then an [N] gather)."""
+        return row_sq_norms(self.src, self.live)[self.order]
+
+
+def gathered_tail(config: Word2VecConfig, sr, device: torch.device) -> bool:
+    """Whether a band step updates its tables through the gathered tail
+    (BandStep._update_gathered): on the card, unless stochastic rounding
+    (its cast reads each destination row before the add, the negatives'
+    rows after the positives have landed) or scatter_mean (its per-row
+    factor comes before the clip's) keeps the sorted tail."""
+    return device.type == "cuda" and sr is None and not config.scatter_mean
 
 
 def check_route(config: Word2VecConfig) -> None:
@@ -124,6 +173,9 @@ class BandStep:
         self.sp = sp
         #: the width of the tables this step updates (a tp shard's d/tp)
         self.dim = config.word_dim // tp
+        #: whether the step's last run (a capture, which its replays repeat)
+        #: took the gathered update tail (gathered_tail); None before any
+        self.gathered_tail: Optional[bool] = None
 
     # ---------------------------------------------------------------- draws
     def sr_rows(self, B: int, L: int) -> Tuple[int, int, int]:
@@ -348,15 +400,16 @@ class BandStep:
             slab_ok = slab_ids >= 0
             slab_flat = torch.where(slab_ok, slab_ids, 0).reshape(-1)
             slab_order = torch.argsort(slab_flat, stable=True)
-            slab_side = (
+            slab_side = Side(
                 slab_flat[slab_order].contiguous(),
-                torch.where(slab_ok[..., None], d_ctx_slab, 0.0)
-                .reshape(-1, d)[slab_order],
+                torch.where(slab_ok[..., None], d_ctx_slab, 0.0).reshape(1, -1, d),
+                slab_flat.numel(),
+                slab_order,
                 torch.where(slab_ok, ctx_w_slab, 0.0).reshape(-1)[slab_order],
             )
 
         def token_side(vals, weight):
-            return sorted_idx, vals.reshape(-1, d)[order], weight.reshape(-1)[order]
+            return Side(sorted_idx, vals, L, order, weight.reshape(-1)[order])
 
         in_side = token_side(d_in_pos, in_weight) if d_in_pos is not None else slab_side
         out_side = token_side(d_out_pos, out_weight) if d_out_pos is not None else slab_side
@@ -411,7 +464,6 @@ class BandStep:
             w_c.contiguous(), negs2.contiguous(), alpha,
             W=W, K=K, cdt=self.cdt, is_cbow=is_cbow, cbow_mean=cfg.cbow_mean,
         )
-        d_h = d_h4.reshape(B, C * S, d)[:, :L]
         n_ctx = nctx_c.reshape(B, C * S)[:, :L]
 
         # the sides: centers by token id, contexts in slab space; the
@@ -422,13 +474,13 @@ class BandStep:
         slab_flat = torch.where(slab_ok, tok_k, 0).reshape(-1)
         slab_order = torch.argsort(slab_flat, stable=True)
         active_flat = (n_ctx > 0).float().reshape(-1)
-        center_side = (
-            flat[order].contiguous(), d_h.reshape(-1, d)[order], active_flat[order]
+        center_side = Side(
+            flat[order].contiguous(), d_h4.reshape(B, C * S, d), L, order,
+            active_flat[order],
         )
-        slab_side = (
-            slab_flat[slab_order].contiguous(),
-            d_ctx_slab.reshape(-1, d)[slab_order],
-            ctx_w_slab.reshape(-1)[slab_order],
+        slab_side = Side(
+            slab_flat[slab_order].contiguous(), d_ctx_slab.reshape(1, -1, d),
+            slab_flat.numel(), slab_order, ctx_w_slab.reshape(-1)[slab_order],
         )
         if not is_cbow:
             in_side, out_side = center_side, slab_side
@@ -473,8 +525,10 @@ class BandStep:
             W=W, K=K, L=L, cdt=self.cdt, is_cbow=is_cbow,
             cbow_mean=cfg.cbow_mean,
         )
-        d_ctr = d_ctr.reshape(B, C * S, d)[:, :L]
-        d_ctx = d_ctx.reshape(B, C * S, d)[:, :L]
+        # the gradients stay as the kernel wrote them, [B, C*S, d] with
+        # each row's padded tail past L: the sides read their first L rows
+        d_ctr = d_ctr.reshape(B, C * S, d)
+        d_ctx = d_ctx.reshape(B, C * S, d)
         n_ctx = nctx_c.reshape(B, C * S)[:, :L]
         ctx_w = ctxw_c.reshape(B, C * S)[:, :L]
 
@@ -492,8 +546,8 @@ class BandStep:
         sorted_idx = flat[order].contiguous()
         clip_count = yield from self._update(
             params, (V, V),
-            (sorted_idx, d_in_pos.reshape(-1, d)[order], in_weight.reshape(-1)[order]),
-            (sorted_idx, d_out_pos.reshape(-1, d)[order], out_weight.reshape(-1)[order]),
+            Side(sorted_idx, d_in_pos, L, order, in_weight.reshape(-1)[order]),
+            Side(sorted_idx, d_out_pos, L, order, out_weight.reshape(-1)[order]),
             (negs.reshape(-1), d_neg.reshape(-1, d), wns.reshape(-1)), draws.sr,
         )
         return {
@@ -515,17 +569,16 @@ class BandStep:
         """scatter_mean, the row clip, the casts and the table updates
         (band_step.py:454-579), in place, as a step body (the row clip's
         psum sites). The sides carry their ids sorted; `neg` carries the
-        negative ids in draw order and is stably sorted here. Returns the
-        clip count."""
+        negative ids in draw order, their values [n, d] and weights, and
+        is stably sorted here. The gathered tail where gathered_tail says
+        so, else the sorted one (below). Returns the clip count."""
         cfg = self.config
         V_in, V_out = rows
-        in_idx, in_vals, in_w = in_side
-        out_idx, out_vals, out_w = out_side
-        flat_negs, neg_vals, neg_w = neg
+        in_idx, out_idx = in_side.idx, out_side.idx
+        flat_negs, neg_src, neg_w = neg
         order_n = torch.argsort(flat_negs, stable=True)
         neg_idx = flat_negs[order_n].to(torch.int32).contiguous()
-        neg_vals, neg_w = neg_vals[order_n], neg_w[order_n]
-        in_l, out_l, neg_l = in_idx.long(), out_idx.long(), neg_idx.long()
+        neg_side = Side(neg_idx, neg_src[None], neg_src.shape[0], order_n, neg_w[order_n])
         # the run list of each sorted id array, built once on the card and
         # shared by its row sums and its scatter (the token-order sides
         # share one array); the CPU's plain versions need none
@@ -534,6 +587,18 @@ class BandStep:
             in_runs = find_runs(in_idx)
             out_runs = in_runs if out_idx is in_idx else find_runs(out_idx)
             neg_runs = find_runs(neg_idx)
+        self.gathered_tail = gathered_tail(cfg, sr, in_idx.device)
+        if self.gathered_tail:
+            return (yield from self._update_gathered(
+                params, rows, in_side, out_side, neg_side,
+                (in_runs, out_runs, neg_runs),
+            ))
+
+        # the sorted tail: every contribution gathered into sorted order
+        in_vals, in_w = in_side.vals(), in_side.w
+        out_vals, out_w = out_side.vals(), out_side.w
+        neg_vals, neg_w = neg_side.vals(), neg_side.w
+        in_l, out_l, neg_l = in_idx.long(), out_idx.long(), neg_idx.long()
 
         if cfg.scatter_mean:
             # per-contribution counts; the out table's count is joint over
@@ -557,10 +622,12 @@ class BandStep:
             # so they share one budget
             tau = cfg.clip_row_update
             in_scale = yield from row_clip_scale(
-                V_in, tau, (in_idx, in_vals), presorted=True, runs=(in_runs,)
+                V_in, tau, (in_idx, sq_norms(in_vals)), presorted=True,
+                runs=(in_runs,),
             )
             out_scale = yield from row_clip_scale(
-                V_out, tau, (out_idx, out_vals), (neg_idx, neg_vals),
+                V_out, tau, (out_idx, sq_norms(out_vals)),
+                (neg_idx, sq_norms(neg_vals)),
                 presorted=True, runs=(out_runs, neg_runs),
             )
             clip_count = torch.sum((in_scale < 1.0).float()) + torch.sum(
@@ -599,4 +666,86 @@ class BandStep:
             fused_slab_scatter(emb_out, out_idx, vout.contiguous(), runs=out_runs)
             vneg = _cast_update(neg_vals, T, u_neg, emb_out[neg_l] if sr else None)
             fused_slab_scatter(emb_out, neg_idx, vneg.contiguous(), runs=neg_runs)
+        return clip_count
+
+    def _update_gathered(
+        self,
+        params: Params,
+        rows: Tuple[int, int],
+        in_side: Side,
+        out_side: Side,
+        neg_side: Side,
+        runs: Tuple[Optional[torch.Tensor], ...],
+    ):
+        """The tail without SR and scatter_mean, as a step body: the row
+        clip from each live row's squared norm (ops/fused_step.row_sq_norms:
+        one read of each row where the step wrote it; the psum sites as in
+        the sorted tail), then every table update one gathered scatter
+        that reads the rows through the sort order and multiplies each by
+        its row's clip scale at the add (ops/fused_step
+        .gathered_slab_scatter). No [N, d] tensor is gathered, scaled,
+        cast or stacked on the way: the values added are bitwise the sorted
+        tail's for equal scales, and the norms are summed in the kernel's
+        order. Returns the clip count."""
+        cfg = self.config
+        V_in, V_out = rows
+        in_runs, out_runs, neg_runs = runs
+        in_side, out_side, neg_side = (
+            s._replace(src=s.src.float().contiguous())
+            for s in (in_side, out_side, neg_side)
+        )
+        in_scale = out_scale = None
+        clip_count = torch.zeros((), dtype=torch.float32, device=in_side.idx.device)
+        if cfg.clip_row_update > 0.0:
+            tau = cfg.clip_row_update
+            in_scale = yield from row_clip_scale(
+                V_in, tau, (in_side.idx, in_side.sq_norms()),
+                presorted=True, runs=(in_runs,),
+            )
+            out_scale = yield from row_clip_scale(
+                V_out, tau, (out_side.idx, out_side.sq_norms()),
+                (neg_side.idx, neg_side.sq_norms()),
+                presorted=True, runs=(out_runs, neg_runs),
+            )
+            clip_count = torch.sum((in_scale < 1.0).float()) + torch.sum(
+                (out_scale < 1.0).float()
+            )
+
+        def src(side: Side) -> torch.Tensor:
+            return side.src.reshape(-1, side.src.shape[-1])
+
+        in_rows = in_side.rows()
+        shared = (out_side.idx is in_side.idx and out_side.order is in_side.order
+                  and out_side.src.shape == in_side.src.shape)
+        out_rows = in_rows if shared else out_side.rows()
+        neg_rows = neg_side.rows()
+        if self.unified:
+            if not shared:
+                raise ValueError(
+                    "the unified slab's two planes take one sorted id array"
+                )
+            emb = params[FUSED_KEY]
+            # one doubled-width scatter: both planes share the sorted ids
+            gathered_slab_scatter(
+                emb, in_side.idx, (src(in_side), src(out_side)), in_rows,
+                (in_scale, out_scale), runs=in_runs,
+            )
+            gathered_slab_scatter(
+                emb, neg_side.idx, (src(neg_side),), neg_rows, (out_scale,),
+                plane=1, runs=neg_runs,
+            )
+        else:
+            emb_in, emb_out = params["emb_in"], params["emb_out_ns"]
+            gathered_slab_scatter(
+                emb_in, in_side.idx, (src(in_side),), in_rows, (in_scale,),
+                runs=in_runs,
+            )
+            gathered_slab_scatter(
+                emb_out, out_side.idx, (src(out_side),), out_rows, (out_scale,),
+                runs=out_runs,
+            )
+            gathered_slab_scatter(
+                emb_out, neg_side.idx, (src(neg_side),), neg_rows, (out_scale,),
+                runs=neg_runs,
+            )
         return clip_count

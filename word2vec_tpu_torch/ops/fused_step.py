@@ -14,6 +14,12 @@ bounds them on the H100 and how the design answers it):
     after each add; ids of -1 are skipped. With `plane=` it updates one
     [d] plane (the negative-row tail scatter). Its work is handed out per
     run of equal ids, from the run list of ops/runs.py.
+    `gathered_slab_scatter` is the same kernel fed the f32 gradient rows
+    where their producer wrote them, through the sort order, each scaled
+    by its id's row-clip factor and cast at the add (the update tail of
+    ops/band_step).
+  * `row_sq_norms` — the f32 squared norm of each live gradient row, read
+    once where it lies (the row clip's norms, ops/train_step.row_clip_scale).
 
 Each wrapper takes the plain PyTorch version (below, same module) for
 tensors on the CPU and launches its kernel for tensors on a CUDA device,
@@ -350,3 +356,141 @@ def fused_slab_scatter(
     _build.check(lib, err, "fused_slab_scatter launch")
     count("fused_slab_scatter")
     return emb
+
+
+def gathered_values(
+    dtype: torch.dtype,
+    sorted_idx: torch.Tensor,
+    srcs: Tuple[torch.Tensor, ...],
+    rows: torch.Tensor,
+    scales: Tuple[Optional[torch.Tensor], ...],
+) -> torch.Tensor:
+    """The values gathered_slab_scatter adds, made in plain torch ops: each
+    plane's terms gathered into sorted order, multiplied by their ids'
+    scales, cast to the table dtype, the planes stacked ([N, d] for one
+    source, [N, P, d] for P)."""
+    rl, il = rows.long(), sorted_idx.long().clamp_min(0)
+    parts = []
+    for src, sc in zip(srcs, scales):
+        v = src[rl]
+        if sc is not None:
+            v = v * sc[il][:, None]
+        parts.append(v.to(dtype))
+    return parts[0] if len(parts) == 1 else torch.stack(parts, dim=1)
+
+
+def gathered_slab_scatter_plain(
+    emb: torch.Tensor,
+    sorted_idx: torch.Tensor,
+    srcs: Tuple[torch.Tensor, ...],
+    rows: torch.Tensor,
+    scales: Tuple[Optional[torch.Tensor], ...],
+    plane: Optional[int] = None,
+) -> torch.Tensor:
+    """The gathered scatter in plain torch ops: its values made
+    (gathered_values), then the sorted scatter."""
+    vals = gathered_values(emb.dtype, sorted_idx, srcs, rows, scales)
+    return fused_slab_scatter_plain(emb, sorted_idx, vals, plane)
+
+
+def gathered_slab_scatter(
+    emb: torch.Tensor,                     # [V, P, d] slab or [V, d] table
+    sorted_idx: torch.Tensor,              # [N] int32, ascending; -1 = skip
+    srcs: Tuple[torch.Tensor, ...],        # f32 [M, d] sources, one a plane
+    rows: torch.Tensor,                    # [N] int32: term q is row rows[q]
+    scales: Optional[Tuple[Optional[torch.Tensor], ...]] = None,  # f32 [V]
+    plane: Optional[int] = None,
+    runs: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """fused_slab_scatter of the values cast(src[rows] * scale[sorted_idx])
+    without making them: plane p of term q is row rows[q] of srcs[p], times
+    scales[p][sorted_idx[q]] (none where that scale is None), rounded to the
+    table dtype, then added in sorted order with the table-dtype rounding
+    after each add. One source for a [V, d] table or with plane=, one a
+    plane for a whole slab row (both planes in one launch). Bitwise the
+    gather -> multiply -> cast -> stack -> fused_slab_scatter sequence of
+    plain versions. Returns emb."""
+    scales = (None,) * len(srcs) if scales is None else tuple(scales)
+    planes = 1 if plane is not None or emb.dim() == 2 else emb.shape[1]
+    if len(srcs) != planes or len(scales) != planes or planes > 2:
+        raise ValueError(
+            f"gathered_slab_scatter: {len(srcs)} sources and {len(scales)} "
+            f"scales for {planes} plane(s) (at most 2)"
+        )
+    tensors = [emb, sorted_idx, rows, *srcs, *(x for x in scales if x is not None)]
+    if not on_cuda("gathered_slab_scatter", *tensors):
+        return gathered_slab_scatter_plain(emb, sorted_idx, srcs, rows, scales, plane)
+    if emb.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gathered_slab_scatter: table dtype {emb.dtype}")
+    if not emb.is_contiguous():
+        raise ValueError("gathered_slab_scatter: emb must be contiguous")
+    V, d = emb.shape[0], emb.shape[-1]
+    N = sorted_idx.shape[0]
+    check("sorted_idx", sorted_idx, (N,), torch.int32)
+    check("rows", rows, (N,), torch.int32)
+    for i, src in enumerate(srcs):
+        check(f"srcs[{i}]", src, (src.shape[0], d), torch.float32)
+    for i, sc in enumerate(scales):
+        if sc is not None:
+            check(f"scales[{i}]", sc, (V,), torch.float32)
+    row_len = emb[0].numel()
+    col0, width = (0, row_len) if plane is None else (plane * d, d)
+    if plane is not None and not (emb.dim() == 3 and 0 <= plane < emb.shape[1]):
+        raise ValueError(f"gathered_slab_scatter: no plane {plane}")
+    if runs is None:
+        runs = find_runs(sorted_idx)
+    check_runs(runs, N, sorted_idx.device)
+    es = emb.element_size()
+    vec = 1
+    for nv in (4, 2):
+        if (d % nv == 0 and col0 % nv == 0 and row_len % nv == 0
+                and emb.data_ptr() % (nv * es) == 0
+                and all(src.data_ptr() % (nv * 4) == 0 for src in srcs)):
+            vec = nv
+            break
+    ptr = [t.data_ptr() if t is not None else None for t in (*srcs, None)][:2]
+    sc = [t.data_ptr() if t is not None else None for t in (*scales, None)][:2]
+    lib = _build.library("fused_step")
+    dev = emb.device
+    with torch.cuda.device(dev):
+        err = lib.w2v_slab_scatter_gathered(
+            emb.data_ptr(), int(emb.dtype == torch.bfloat16),
+            sorted_idx.data_ptr(), ptr[0], ptr[1], sc[0], sc[1],
+            rows.data_ptr(), d, runs.data_ptr(), N, row_len, col0, width, vec,
+            stream(dev),
+        )
+    _build.check(lib, err, "gathered_slab_scatter launch")
+    count("gathered_slab_scatter")
+    return emb
+
+
+# --------------------------------------------------------------- row norms
+def row_sq_norms_plain(src: torch.Tensor, live: int) -> torch.Tensor:
+    """row_sq_norms in plain torch ops: v * v summed over the last axis."""
+    v = src[:, :live].float()
+    return torch.sum(v * v, dim=-1).reshape(-1)
+
+
+def row_sq_norms(src: torch.Tensor, live: int) -> torch.Tensor:
+    """The f32 squared norm of each live row of src [G, R, d] float32: the
+    first `live` rows of each of its G groups of R rows, in that order
+    ([G * live]; a padded kernel output is read in place, its pad rows
+    never). Each row is read once; the sum's order is the kernel's own, so
+    it agrees with the plain version to float32 rounding, not bitwise."""
+    if not on_cuda("row_sq_norms", src):
+        return row_sq_norms_plain(src, live)
+    G, R, d = src.shape
+    if not 0 <= live <= R:
+        raise ValueError(f"row_sq_norms: {live} live rows of {R}")
+    check("src", src, (G, R, d), torch.float32)
+    dev = src.device
+    out = torch.empty(G * live, dtype=torch.float32, device=dev)
+    vec = 4 if d % 4 == 0 and src.data_ptr() % 16 == 0 else 1
+    lib = _build.library("fused_step")
+    with torch.cuda.device(dev):
+        err = lib.w2v_row_sq_norms(
+            src.data_ptr(), out.data_ptr(), G, R, live, d, vec, stream(dev)
+        )
+    _build.check(lib, err, "row_sq_norms launch")
+    count("row_sq_norms")
+    return out

@@ -28,6 +28,8 @@ LAUNCHES: Dict[str, int] = {
     "band_core": 0,
     "ordered_row_sum": 0,
     "find_runs": 0,
+    "row_sq_norms": 0,
+    "gathered_slab_scatter": 0,
 }
 
 

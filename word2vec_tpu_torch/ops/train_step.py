@@ -148,15 +148,16 @@ def row_clip_scale(
     """Per-row trust-region scale for batched duplicate-summed updates, as
     a step body (ops/shards.py): scale_r = tau / max(S_r, tau), S_r =
     sum_j ||vals_j|| over the row's contributions, each contribution one
-    ordered_row_sum in turn (train_step.py:52-89). Under tensor
-    parallelism vals hold the shard's d/tp slice, so each contribution's
-    squared norms are a psum site, summed over the shards BEFORE the sqrt:
-    every shard then scales by the row's global norm. `runs` gives each
-    contribution's run list (presorted ids), built per call when absent."""
+    ordered_row_sum in turn (train_step.py:52-89). Each contribution is
+    its ids and its rows' f32 squared norms [N] (sq_norms, or ops/
+    fused_step.row_sq_norms). Under tensor parallelism the rows hold the
+    shard's d/tp slice, so each contribution's squared norms are a psum
+    site, summed over the shards BEFORE the sqrt: every shard then scales
+    by the row's global norm. `runs` gives each contribution's run list
+    (presorted ids), built per call when absent."""
     s = None
-    for j, (idx, vals) in enumerate(contribs):
-        v = vals.float()
-        sq = yield torch.sum(v * v, dim=-1)
+    for j, (idx, sq) in enumerate(contribs):
+        sq = yield sq
         s = ordered_row_sum(
             num_rows, idx, torch.sqrt(sq), s,
             presorted=presorted, runs=runs[j] if j < len(runs) else None,
@@ -164,9 +165,18 @@ def row_clip_scale(
     return tau / torch.clamp_min(s, tau)
 
 
+def sq_norms(vals: torch.Tensor) -> torch.Tensor:
+    """The f32 squared norm of each row of vals [N, d]: [N]."""
+    v = vals.float()
+    return torch.sum(v * v, dim=-1)
+
+
 def _row_clip_scale(num_rows: int, tau: float, *contribs, **kw) -> torch.Tensor:
-    """row_clip_scale on one device (no shards: each norm is its own)."""
-    return solo(row_clip_scale(num_rows, tau, *contribs, **kw))
+    """row_clip_scale on one device (no shards: each norm is its own), of
+    contributions (ids, values) as the JAX package's takes them."""
+    return solo(row_clip_scale(
+        num_rows, tau, *((idx, sq_norms(v)) for idx, v in contribs), **kw
+    ))
 
 
 def _cast_update(
@@ -299,7 +309,7 @@ def scatter_update(
     clip = torch.zeros((), dtype=torch.float32, device=vals.device)
     if clip_tau > 0.0:
         scale = yield from row_clip_scale(
-            rows, clip_tau, (sidx, vals), presorted=True, runs=(runs,)
+            rows, clip_tau, (sidx, sq_norms(vals)), presorted=True, runs=(runs,)
         )
         clip = torch.sum((scale < 1.0).float())
         vals = vals * scale[sl][:, None]

@@ -923,6 +923,9 @@ class Trainer:
                             steps=n, epoch=epoch,
                         )
                     t_bound = now
+                    tail = self._band_tail(runner)
+                    if tail is not None:
+                        self.flight.note_band_tail(state.step, n, tail)
                 drain()
                 # per-step contract: history/logs only at log_every
                 # boundaries (here: once per dispatch that crosses one)
@@ -981,6 +984,15 @@ class Trainer:
                 self.flight.dispatch_totals() if timeline is not None else None
             ),
         )
+
+    @staticmethod
+    def _band_tail(runner) -> Optional[bool]:
+        """Whether the runner's band steps took the gathered update tail
+        (ops/band_step.BandStep.gathered_tail: its last run, a capture its
+        replays repeat); None off the band ns step. A list of replica
+        runners reads its first."""
+        r = runner[0] if isinstance(runner, list) else runner
+        return getattr(r.step, "gathered_tail", None)
 
     def _run_checkpoint(self, checkpoint_cb, state: TrainState) -> None:
         """The checkpoint callback under its phase span; the landing step
